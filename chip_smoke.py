@@ -1,26 +1,37 @@
 """Smoke test of the PyTorch port on one NVIDIA H100: ``python3 chip_smoke.py``.
 
-Drives the port's serving path (greedy ``generate`` on a TinyLlama-1.1B-shaped
-Llama with unmerged Monarch adapters on all seven projections, random seeded
-weights) through the hand-written CUDA kernels, and checks it:
+Drives the port's two main paths on a TinyLlama-1.1B-shaped Llama with
+Monarch adapters on all seven projections (random seeded weights) through
+the hand-written CUDA kernels, and checks them:
 
   1. device: a CUDA card of compute capability 9.0, its name and power limit;
   2. build: the kernels are compiled from ``kernels/csrc/`` in this checkout;
-  3. kernels against their plain PyTorch versions at the slice's shapes, in
-     bfloat16 and float32, with times from CUDA events;
-  4. the slice in float32 against a copy with the adapters merged on the CPU
-     (no kernel in it): prefill logits and greedy tokens;
-  5. the slice in bfloat16, timed as ``bench.py`` times the JAX one, with the
-     launch counts that show the main path went through the kernels.
+  3. forward kernels K1, K2 against their plain PyTorch versions at the
+     slice's shapes, bfloat16 and float32, timed beside their bound and the
+     one PyTorch call that computes the same function;
+  4. backward kernels K3, K4 likewise at the training shapes, and the
+     autograd Functions of K1 and K2 (whose backward is K3);
+  5. serving, float32: prefill logits and greedy tokens against a copy with
+     the adapters merged on the CPU;
+  6. serving, bfloat16: greedy decode timed, unmerged (K2) and merged (K1);
+  7. training, float32, 2 layers: one optimizer step on the card against a
+     CPU copy on the plain path, merged training off (K2, K3) and on (K4);
+  8. training, bfloat16, all 22 layers, bs 4 x ga 8 x seq 512 through
+     ``Trainer``: merged training off, then on from the same state on the
+     same batches, timed and profiled.
 
-Any failed check exits non-zero.  The line before the last is one JSON object
-on the kernels; the last is ``{"ok": true, "device": {...}}``.  It imports
-nothing of JAX.
+Each main path (6, 8 off, 8 on) zeroes the launch counts just before it and
+reads them just after.  Any failed check exits non-zero.  The line before
+the last is one JSON object on the kernels; the last is
+``{"ok": true, "device": {...}}``.  Per-case records go to
+``chip_smoke_out/records.json``.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -54,9 +65,38 @@ F32_NEW = 32
 # f32 prefill logits, kernel path against the merged reference: 22 layers of
 # fp32 sums taken in another order (x W^T + monarch(x) against x (W + M)^T)
 F32_LOGIT_TOL = 1e-3
-SOURCE = "sparse_matrix_fine_tuning_torch/kernels/csrc/monarch_fwd.cu"
-REPLACES = {"monarch_kernel": "sparse_matrix_fine_tuning_tpu/kernels/monarch_pallas.py:157",
-            "monarch_add": "sparse_matrix_fine_tuning_tpu/kernels/monarch_pallas.py:164"}
+# Training (bench.py:389-418 with the 1.1B widths): rows of the backward
+# kernels' checks, one micro-batch being 4 x 512 = 2048 rows.
+BWD_ROWS = (65, 2047, 2048)
+TRAIN_BS, TRAIN_GA, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 512, 4  # 1 warm-up + 3 timed
+F32_TRAIN = dict(layers=2, bs=2, ga=2, seq=128)
+TRAIN_LR = 1e-4
+# f32 training step, card against the CPU copy (2 layers, fp32 sums in
+# another order, TF32 off): the loss within 1e-5 of itself; every factor's
+# (clipped) gradient within 1e-4 of its largest element; the updated factors
+# within 1e-2 * lr wherever the gradient is above 1e-3 of its largest (the
+# first AdamW step is lr * g / (|g| + eps), about lr * sign(g)), and within
+# 2 * lr elsewhere, where a gradient near zero may round to either sign.
+F32_TRAIN_LOSS_RTOL, F32_TRAIN_GRAD_TOL = 1e-5, 1e-4
+# bf16 training, merged against unmerged on the same batches: the merged
+# operand rounds W + M to bf16 once, the unmerged path rounds W x and adds
+# monarch(x) in fp32; after 4 AdamW steps the losses (about 10.4) may differ
+# by this much.
+BF16_MERGED_LOSS_ATOL = 2e-2
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published HBM3 rate
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16; fp32 off tensor cores
+KERNELS = {
+    "monarch_kernel": ("sparse_matrix_fine_tuning_torch/kernels/csrc/monarch_fwd.cu",
+                       "sparse_matrix_fine_tuning_tpu/kernels/monarch_pallas.py:157"),
+    "monarch_add": ("sparse_matrix_fine_tuning_torch/kernels/csrc/monarch_fwd.cu",
+                    "sparse_matrix_fine_tuning_tpu/kernels/monarch_pallas.py:164"),
+    "monarch_bwd": ("sparse_matrix_fine_tuning_torch/kernels/csrc/monarch_bwd.cu",
+                    "sparse_matrix_fine_tuning_tpu/kernels/monarch_pallas.py:173"),
+    "monarch_dw_fused": ("sparse_matrix_fine_tuning_torch/kernels/csrc/monarch_bwd.cu",
+                         "sparse_matrix_fine_tuning_tpu/kernels/monarch_pallas.py:364"),
+}
+OUT_DIR = "chip_smoke_out"  # per-case records; .gitignore lists it
+RECORDS: list[dict] = []  # one per kernel case, written to OUT_DIR
 
 
 class SmokeFailure(RuntimeError):
@@ -124,11 +164,28 @@ def time_ms(fn, reps: int = 50, rounds: int = 5) -> tuple[float, float]:
     return device_ms, call_ms
 
 
-def moved_bytes(n_in: int, n_out: int, m_rows: int, dtype: torch.dtype, add: bool) -> int:
-    """Bytes a kernel must move: x, out (and base), and both factors."""
-    nb, r = PEFT["nblocks"], PEFT["blk_r"]
-    elems = m_rows * (n_in + n_out * (2 if add else 1)) + nb * r * (n_in // nb + n_out // nb)
-    return elems * (2 if dtype == torch.bfloat16 else 4)
+def cost(name: str, m_rows: int, n_in: int, n_out: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(bytes, operations) the kernel's function needs: each input read once,
+    each output written once (dw in fp32); multiply-adds count two."""
+    r = PEFT["blk_r"]
+    item = 2 if dtype == torch.bfloat16 else 4
+    factors = r * (n_in + n_out)  # w1 (K, Q, P) has r * n_in elements, w2 r * n_out
+    rows = {"monarch_kernel": n_in + n_out, "monarch_add": n_in + 2 * n_out,
+            "monarch_bwd": 2 * n_in + n_out, "monarch_dw_fused": n_in + n_out}[name]
+    nbytes = (m_rows * rows + factors) * item
+    if name in ("monarch_bwd", "monarch_dw_fused"):
+        nbytes += factors * 4
+    macs = {"monarch_kernel": r * (n_in + n_out), "monarch_add": r * (n_in + n_out),
+            "monarch_bwd": r * (3 * n_in + 2 * n_out),
+            "monarch_dw_fused": r * (2 * n_in + 2 * n_out)}[name]
+    return nbytes, 2 * m_rows * macs + (m_rows * n_out if name == "monarch_add" else 0)
+
+
+def bound(name: str, m_rows: int, n_in: int, n_out: int, dtype: torch.dtype) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations")."""
+    nbytes, ops = cost(name, m_rows, n_in, n_out, dtype)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def tolerance(dtype: torch.dtype, ref: torch.Tensor) -> float:
@@ -139,15 +196,52 @@ def tolerance(dtype: torch.dtype, ref: torch.Tensor) -> float:
     return scale * (1e-5 if dtype == torch.float32 else 2.0 ** -6)
 
 
+def _record(name: str, proj: str, n_in: int, n_out: int, m_rows: int, dtype: torch.dtype,
+            err: float, share: float, ms: float, plain_ms: float, call: float, plain_call: float,
+            library_ms) -> dict:
+    """Print and keep one case: ``err`` is the largest absolute error over the
+    kernel's outputs, ``share`` the largest error / tolerance among them."""
+    bound_ms, bound_by = bound(name, m_rows, n_in, n_out, dtype)
+    gbs = cost(name, m_rows, n_in, n_out, dtype)[0] / ms / 1e6
+    lib = f"{library_ms:.5f}" if library_ms is not None else "none"
+    print(f"[kernels] {name:16s} {proj:5s} {n_in}->{n_out:<5d} {m_rows:5d} {str(dtype)[6:]:8s} "
+          f"{err:.3e}  {share:.3f}  {ms:.5f}  {plain_ms:.5f}  {lib:8s}  {bound_ms:.5f} "
+          f"({bound_by})  {call:.5f}  {plain_call:.5f}  {gbs:.1f}", flush=True)
+    rec = {"kernel": name, "proj": proj, "in": n_in, "out": n_out, "rows": m_rows,
+           "dtype": str(dtype)[6:], "max_abs_err": err, "share_of_tol": share, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "call_ms": call, "plain_call_ms": plain_call, "GB_per_s": gbs}
+    RECORDS.append(rec)
+    return rec
+
+
+_HEADER = ("[kernels] kernel           proj  in->out     M     dtype    max_abs_err  /tol   "
+           "dev_ms    plain_ms  library   bound_ms           call_ms  plain_call  GB/s")
+
+
+def _layer_sums(recs: list[dict]) -> dict:
+    """Per decoder layer: the seven projections' ms, plain, library and bound."""
+    out = {k: sum(r[k] for r in recs) for k in ("ms", "plain_ms", "bound_ms")}
+    libs = [r["library_ms"] for r in recs]
+    out["library_ms"] = None if None in libs else sum(libs)
+    by = {r["bound_by"] for r in recs}
+    out["bound_by"] = "bytes" if by == {"bytes"} else "operations" if by == {"operations"} \
+        else "bytes and operations"
+    return out
+
+
 def phase_kernels(card: str) -> dict:
-    """Both kernels against their plain versions at the slice's shapes."""
+    """K1 and K2 against their plain versions at the slice's shapes, with the
+    library call that computes the same function on a precomputed dense
+    matrix: ``F.linear(x, M)`` for K1, ``torch.addmm(base, x, M^T)`` for K2."""
+    from sparse_matrix_fine_tuning_torch.ops.monarch import monarch_dense_equivalent
+
     g = torch.Generator(device="cuda").manual_seed(SEED)
     nb, r = PEFT["nblocks"], PEFT["blk_r"]
     worst = {"monarch_kernel": 0.0, "monarch_add": 0.0}
-    layer_ms = {name: {"ms": 0.0, "plain_ms": 0.0} for name in worst}
+    decode = {name: [] for name in worst}
     print(f"[kernels] card: {card}", flush=True)
-    print("[kernels] kernel    proj  in->out     M     dtype    max_abs_err  tol        "
-          "dev_ms    plain_dev_ms  call_ms   plain_call_ms  GB/s", flush=True)
+    print(_HEADER, flush=True)
     with torch.inference_mode():
         for dtype in (torch.bfloat16, torch.float32):
             for m_rows in ROWS:
@@ -157,13 +251,16 @@ def phase_kernels(card: str) -> dict:
                     w1 = (torch.randn(nb, r, p, generator=g, device="cuda") / p ** 0.5).to(dtype)
                     w2 = (torch.randn(nb, s, r, generator=g, device="cuda") / r ** 0.5).to(dtype)
                     base = torch.randn(m_rows, n_out, generator=g, device="cuda").to(dtype)
+                    dense = monarch_dense_equivalent(w1.float(), w2.float()).to(dtype)
                     cases = {
                         "monarch_kernel": (lambda: monarch_cuda.monarch_kernel(x, w1, w2),
-                                           lambda: monarch_cuda.monarch_kernel_reference(x, w1, w2)),
+                                           lambda: monarch_cuda.monarch_kernel_reference(x, w1, w2),
+                                           lambda: torch.nn.functional.linear(x, dense)),
                         "monarch_add": (lambda: monarch_cuda.monarch_add(base, x, w1, w2),
-                                        lambda: monarch_cuda.monarch_add_reference(base, x, w1, w2)),
+                                        lambda: monarch_cuda.monarch_add_reference(base, x, w1, w2),
+                                        lambda: torch.addmm(base, x, dense.t())),
                     }
-                    for name, (kern, plain) in cases.items():
+                    for name, (kern, plain, library) in cases.items():
                         got, ref = kern(), plain()
                         torch.cuda.synchronize()
                         require(got.shape == ref.shape and got.dtype == ref.dtype,
@@ -172,21 +269,148 @@ def phase_kernels(card: str) -> dict:
                         err = float((got.float() - ref.float()).abs().max())
                         tol = tolerance(dtype, ref)
                         (ms, call), (plain_ms, plain_call) = time_ms(kern), time_ms(plain)
-                        gbs = moved_bytes(n_in, n_out, m_rows, dtype, name == "monarch_add") / ms / 1e6
-                        print(f"[kernels] {name:13s} {proj:5s} {n_in}->{n_out:<5d} {m_rows:5d} "
-                              f"{str(dtype)[6:]:8s} {err:.3e}  {tol:.3e}  {ms:.5f}  {plain_ms:.5f}"
-                              f"       {call:.5f}   {plain_call:.5f}        {gbs:.1f}", flush=True)
+                        rec = _record(name, proj, n_in, n_out, m_rows, dtype, err, err / tol, ms,
+                                      plain_ms, call, plain_call, time_ms(library)[0])
                         require(err <= tol and bool(torch.isfinite(got).all()),
                                 f"{name} {proj} M={m_rows} {dtype}: max_abs_err {err} > tol {tol}")
                         worst[name] = max(worst[name], err)
                         if dtype == torch.bfloat16 and m_rows == 4:
-                            layer_ms[name]["ms"] += ms
-                            layer_ms[name]["plain_ms"] += plain_ms
+                            decode[name].append(rec)
+    layer = {name: _layer_sums(recs) for name, recs in decode.items()}
     print(f"[kernels] {card}: device time per decoder layer at decode (M=4, bf16, "
           "7 projections): "
-          + ", ".join(f"{k} {v['ms']:.5f} ms (plain {v['plain_ms']:.5f} ms)"
-                      for k, v in layer_ms.items()), flush=True)
-    return {"worst": worst, "layer_ms": layer_ms}
+          + ", ".join(f"{k} {v['ms']:.5f} ms (plain {v['plain_ms']:.5f}, library "
+                      f"{v['library_ms']:.5f}, bound {v['bound_ms']:.5f} ms)"
+                      for k, v in layer.items()), flush=True)
+    return {"worst": worst, "layer": layer}
+
+
+def phase_kernels_bwd(card: str) -> dict:
+    """K3 and K4 against their plain versions at the training shapes: the
+    seven projections, rows M in BWD_ROWS (ragged and whole), bf16 and f32.
+    No single PyTorch call computes either function (dx and the two factor
+    gradients of the Monarch structure), so they have no library time.
+    Tolerances: dx as the forward's output; the fp32 factor gradients 1e-5
+    of their scale in f32, 2**-6 of it in bf16 (an intermediate one bf16 ulp
+    apart enters every row's product)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    nb, r = PEFT["nblocks"], PEFT["blk_r"]
+    worst = {"monarch_bwd": 0.0, "monarch_dw_fused": 0.0}
+    train = {name: [] for name in worst}
+    print(_HEADER, flush=True)
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            for m_rows in BWD_ROWS:
+                for proj, n_in, n_out in PROJECTIONS:
+                    p, s = n_in // nb, n_out // nb
+                    x = torch.randn(m_rows, n_in, generator=g, device="cuda").to(dtype)
+                    w1 = (torch.randn(nb, r, p, generator=g, device="cuda") / p ** 0.5).to(dtype)
+                    w2 = (torch.randn(nb, s, r, generator=g, device="cuda") / r ** 0.5).to(dtype)
+                    dout = torch.randn(m_rows, n_out, generator=g, device="cuda").to(dtype)
+                    cases = {
+                        "monarch_bwd": (lambda: monarch_cuda.monarch_bwd(x, w1, w2, dout),
+                                        lambda: monarch_cuda.monarch_bwd_reference(x, w1, w2, dout)),
+                        "monarch_dw_fused": (
+                            lambda: monarch_cuda.monarch_dw_fused(x, dout, w1, w2),
+                            lambda: monarch_cuda.monarch_dw_fused_reference(x, dout, w1, w2)),
+                    }
+                    for name, (kern, plain) in cases.items():
+                        got, ref = kern(), plain()
+                        torch.cuda.synchronize()
+                        err = share = 0.0
+                        for out, want in zip(got, ref):
+                            require(out.shape == want.shape and out.dtype == want.dtype,
+                                    f"{name} {proj} M={m_rows}: {out.shape}/{out.dtype} vs "
+                                    f"{want.shape}/{want.dtype}")
+                            require(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+                            e = float((out.float() - want.float()).abs().max())
+                            err, share = max(err, e), max(share, e / tolerance(dtype, want))
+                        (ms, call), (plain_ms, plain_call) = (time_ms(kern, 20, 3),
+                                                              time_ms(plain, 20, 3))
+                        rec = _record(name, proj, n_in, n_out, m_rows, dtype, err, share, ms,
+                                      plain_ms, call, plain_call, None)
+                        require(share <= 1.0, f"{name} {proj} M={m_rows} {dtype}: an output is "
+                                              f"over its tolerance ({share:.3f} of it)")
+                        worst[name] = max(worst[name], err)
+                        if dtype == torch.bfloat16 and m_rows == TRAIN_BS * TRAIN_SEQ:
+                            train[name].append(rec)
+    layer = {name: _layer_sums(recs) for name, recs in train.items()}
+    print(f"[kernels] {card}: device time per decoder layer at a training micro-batch "
+          f"(M={TRAIN_BS * TRAIN_SEQ}, bf16, 7 projections): "
+          + ", ".join(f"{k} {v['ms']:.5f} ms (plain {v['plain_ms']:.5f}, bound "
+                      f"{v['bound_ms']:.5f} ms)" for k, v in layer.items()), flush=True)
+    return {"worst": worst, "layer": layer}
+
+
+def phase_autograd(card: str) -> None:
+    """The autograd Functions of K1 and K2 (backward K3): torch.autograd.grad
+    of a fixed random cotangent against the plain Functions' gradients, for
+    x, w1, w2 and base, at every projection with M = 2047, bf16 and f32,
+    tolerances as ``tolerance``.  Then the adapter layer with dropout 0.1 in
+    training mode: its forward is K1, its gradient K3, against the same
+    layer's arithmetic on the plain path with the same dropout mask."""
+    import torch.nn.functional as F
+
+    from sparse_matrix_fine_tuning_torch.layers.monarch_linear import MonarchLinear
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    nb, r, m_rows = PEFT["nblocks"], PEFT["blk_r"], 2047
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for proj, n_in, n_out in PROJECTIONS:
+            p, s = n_in // nb, n_out // nb
+            x = torch.randn(m_rows, n_in, generator=g, device="cuda").to(dtype)
+            w1 = (torch.randn(nb, r, p, generator=g, device="cuda") / p ** 0.5).to(dtype)
+            w2 = (torch.randn(nb, s, r, generator=g, device="cuda") / r ** 0.5).to(dtype)
+            base = torch.randn(m_rows, n_out, generator=g, device="cuda").to(dtype)
+            cot = torch.randn(m_rows, n_out, generator=g, device="cuda").to(dtype)
+            for name, kern, plain, leaves in (
+                    ("monarch_kernel", monarch_cuda.monarch_kernel,
+                     monarch_cuda.monarch_kernel_reference, (x, w1, w2)),
+                    ("monarch_add", monarch_cuda.monarch_add,
+                     monarch_cuda.monarch_add_reference, (base, x, w1, w2))):
+                a = [t.clone().requires_grad_() for t in leaves]
+                b = [t.clone().requires_grad_() for t in leaves]
+                before = monarch_cuda.LAUNCHES["monarch_bwd"]
+                got = torch.autograd.grad(kern(*a), a, cot)
+                want = torch.autograd.grad(plain(*b), b, cot)
+                torch.cuda.synchronize()
+                require(monarch_cuda.LAUNCHES["monarch_bwd"] == before + 1,
+                        f"the backward of {name} did not launch K3")
+                for gt, wt in zip(got, want):
+                    e = float((gt.float() - wt.float()).abs().max())
+                    tol = tolerance(dtype, wt)
+                    require(gt.dtype == wt.dtype and e <= tol,
+                            f"grad of {name} {proj} {dtype}: {e} > {tol}")
+                    worst = max(worst, e / tol)
+    print(f"[autograd] {card}: gradients of K1 and K2 (backward K3) at M={m_rows}, all 7 "
+          f"projections, bf16 and f32: worst error {worst:.3f} of its tolerance", flush=True)
+
+    gw = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    layer = MonarchLinear(2048, 2048, peft_config={"dropout": 0.1},
+                          weights=torch.randn(2048, 2048, generator=gw, device="cuda") / 45,
+                          device="cuda").to(torch.bfloat16).train()
+    with torch.no_grad():
+        layer.blkdiag2.normal_(0.0, 0.1, generator=gw)
+    x = torch.randn(m_rows, 2048, generator=gw, device="cuda").to(torch.bfloat16)
+    cot = torch.randn(m_rows, 2048, generator=gw, device="cuda").to(torch.bfloat16)
+    before = dict(monarch_cuda.LAUNCHES)
+    torch.manual_seed(SEED)
+    got = torch.autograd.grad(layer(x), (layer.blkdiag1, layer.blkdiag2), cot)
+    torch.manual_seed(SEED)
+    w1, w2 = layer.blkdiag1.detach().requires_grad_(), layer.blkdiag2.detach().requires_grad_()
+    plain = F.linear(x, layer.dense) + F.dropout(
+        monarch_cuda.monarch_kernel_reference(x, w1, w2), 0.1, training=True)
+    want = torch.autograd.grad(plain, (w1, w2), cot)
+    torch.cuda.synchronize()
+    require(monarch_cuda.LAUNCHES["monarch_kernel"] == before["monarch_kernel"] + 1
+            and monarch_cuda.LAUNCHES["monarch_bwd"] == before["monarch_bwd"] + 1,
+            "the dropout adapter did not run K1 forward and K3 backward")
+    for gt, wt in zip(got, want):
+        e, tol = float((gt - wt).abs().max()), tolerance(torch.bfloat16, wt)
+        require(e <= tol, f"dropout adapter factor gradient: {e} > {tol}")
+    print(f"[autograd] dropout 0.1 adapter (q shape, bf16, M={m_rows}): K1 forward and K3 "
+          "backward, factor gradients within tolerance of the plain path", flush=True)
 
 
 def slice_config(dtype: str):
@@ -321,13 +545,41 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-@torch.inference_mode()
-def profile_decode(model, ids, mask, steps: int = 8) -> None:
-    """Device time by kernel over `steps` decode forwards after a prefill,
-    from torch.profiler, and the device's busy share of the window's wall
-    time (the profiler's own host cost is in that wall time)."""
+def device_busy_ms(fn, calls: int, label: str):
+    """Device time per call of ``fn`` from torch.profiler (None when the
+    profiler sees no device time), and the top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    busy_ms = sum(row[0] for row in rows) / calls
+    if busy_ms == 0:
+        print(f"[profile] {label}: device time not measured (the profiler saw no device time)",
+              flush=True)
+        return None
+    launches = sum(row[1] for row in rows) / calls
+    print(f"[profile] {calls} {label} under the profiler: wall {wall_ms / calls:.3f} ms each "
+          f"(profiler on), device busy {busy_ms:.3f} ms and {launches:.0f} kernels each",
+          flush=True)
+    for dev_ms, count, key in sorted(rows, reverse=True)[:12]:
+        print(f"[profile]   {dev_ms / calls:8.4f} ms  {count // calls:5d} launches  {key[:90]}",
+              flush=True)
+    return busy_ms
+
+
+@torch.inference_mode()
+def profile_decode(model, ids, mask, steps: int = 8):
+    """Device time per decode forward after a prefill, from torch.profiler."""
     from sparse_matrix_fine_tuning_torch.models.generate import _positions_from_mask
     from sparse_matrix_fine_tuning_torch.models.llama import init_caches
 
@@ -345,28 +597,7 @@ def profile_decode(model, ids, mask, steps: int = 8) -> None:
                      cache_index=t + i)
 
     step(0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(1, steps + 1):
-            step(i)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0) or 0
-        if dev_us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            rows.append((dev_us / 1e3, ev.count, ev.key))
-    busy_ms = sum(r[0] for r in rows) / steps
-    if busy_ms == 0:
-        print("[profile] device time: not measured (the profiler saw no device time)", flush=True)
-        return None
-    print(f"[profile] {steps} decode steps under the profiler: wall {wall_ms / steps:.3f} ms/step "
-          f"(profiler on), device busy {busy_ms:.3f} ms/step", flush=True)
-    for dev_ms, count, key in sorted(rows, reverse=True)[:12]:
-        print(f"[profile]   {dev_ms / steps:8.4f} ms/step  {count // steps:5d} launches/step  "
-              f"{key[:90]}", flush=True)
-    return busy_ms
+    return device_busy_ms(lambda i: step(i + 1), steps, "decode steps")
 
 
 def phase_bf16(f32: dict, card: str) -> dict:
@@ -458,17 +689,194 @@ def phase_bf16(f32: dict, card: str) -> dict:
     return {"launches": launches}
 
 
+def train_data(rows: int, seq: int, seed: int) -> dict:
+    """Seeded random token rows, every position a label (numpy, as Trainer
+    takes them)."""
+    import numpy as np
+
+    ids = np.random.default_rng(seed).integers(3, MODEL["vocab_size"], (rows, seq)).astype(np.int32)
+    return {"input_ids": ids, "attention_mask": np.ones_like(ids), "labels": ids.copy()}
+
+
+def train_model(dtype: str, layers: int):
+    """The training slice's model on the card: TinyLlama-1.1B widths,
+    ``layers`` decoder layers, adapters on all seven projections with the
+    random nonzero factors of ``randomize_adapters``."""
+    from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig
+    from sparse_matrix_fine_tuning_torch.models.llama import LlamaForCausalLM
+    from sparse_matrix_fine_tuning_torch.peft.surgery import init_monarch
+
+    cfg = LlamaConfig(**{**MODEL, "num_hidden_layers": layers}, param_dtype=dtype, dtype=dtype,
+                      max_position_embeddings=TRAIN_SEQ)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    model = LlamaForCausalLM(cfg, device="cuda", generator=g)
+    require(len(init_monarch(model, PEFT, generator=g)) == 7 * layers, "adapters missing")
+    randomize_adapters(model)
+    return model
+
+
+def train_args(merged: str, bs: int, ga: int, steps: int):
+    from sparse_matrix_fine_tuning_torch.training.trainer import TrainingArgs
+
+    return TrainingArgs(output_dir=os.path.join(OUT_DIR, "train"), learning_rate=TRAIN_LR,
+                        max_steps=steps, per_device_train_batch_size=bs,
+                        gradient_accumulation_steps=ga, warmup_ratio=0.0, logging_steps=0,
+                        log_param_steps=0, merged_training=merged)
+
+
+def phase_train_f32(card: str) -> None:
+    """One optimizer step (bs 2 x ga 2 x seq 128, full width, 2 layers, f32,
+    TF32 off) through Trainer on the card against a CPU copy on the plain
+    path: loss, every factor's gradient and the updated factors, with merged
+    training off (K2 forward, K3 backward) and on (K4)."""
+    import copy
+
+    from sparse_matrix_fine_tuning_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = F32_TRAIN
+    model = train_model("float32", c["layers"])
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    data = train_data(c["bs"] * c["ga"], c["seq"], SEED + 9)
+    n_adapted = 7 * c["layers"]
+    expect = {"off": {"monarch_add": n_adapted * c["ga"], "monarch_bwd": n_adapted * c["ga"]},
+              "on": {"monarch_dw_fused": n_adapted * c["ga"]}}
+    for merged in ("off", "on"):
+        model.load_state_dict(state)
+        out = {}
+        for dev, m in (("cuda", model), ("cpu", copy.deepcopy(model).cpu())):
+            tr = Trainer(m, train_args(merged, c["bs"], c["ga"], 1), train_data=data,
+                         extra_trainable_paths=(), device=dev)
+            batch, _ = next(tr._batches(data, c["bs"], shuffle=False, accum=c["ga"]))
+            monarch_cuda.reset_launch_counts()
+            loss = float(tr.train_step(batch))
+            launches = dict(monarch_cuda.LAUNCHES)
+            out[dev] = (loss, {n: (p.grad.detach().cpu(), p.detach().cpu())
+                               for n, p in m.named_parameters() if p.requires_grad}, launches)
+            tr.close()
+        (loss, got, launches), (want_loss, want, _) = out["cuda"], out["cpu"]
+        require(launches == {**dict.fromkeys(launches, 0), **expect[merged]},
+                f"merged {merged}: launches {launches}, expected {expect[merged]}")
+        require(abs(loss - want_loss) <= F32_TRAIN_LOSS_RTOL * abs(want_loss),
+                f"merged {merged}: loss {loss} on the card, {want_loss} on the CPU")
+        worst_g = worst_p = 0.0
+        require(sorted(got) == sorted(want) and len(got) == 2 * n_adapted, "trainable set")
+        for name, (grad, param) in got.items():
+            wgrad, wparam = want[name]
+            scale = float(wgrad.abs().max())
+            eg = float((grad - wgrad).abs().max())
+            require(eg <= F32_TRAIN_GRAD_TOL * scale, f"merged {merged}: grad of {name}: "
+                    f"{eg} > {F32_TRAIN_GRAD_TOL} x {scale}")
+            strong = wgrad.abs() >= 1e-3 * scale
+            dp = (param - wparam).abs()
+            require(float(dp[strong].max()) <= 1e-2 * TRAIN_LR
+                    and float(dp.max()) <= 2 * TRAIN_LR, f"merged {merged}: update of {name}")
+            worst_g, worst_p = max(worst_g, eg / scale), max(worst_p, float(dp.max()))
+        print(f"[train-f32] {card}: merged {merged}: loss {loss:.6f} card, {want_loss:.6f} CPU; "
+              f"worst factor gradient error {worst_g:.2e} of its scale; worst update difference "
+              f"{worst_p:.2e} (lr {TRAIN_LR}); launches {launches}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_train_bf16(card: str) -> dict:
+    """The training slice at full size: TinyLlama-1.1B widths, all 22
+    layers, bf16, bs 4 x ga 8 x seq 512, through Trainer; merged training
+    off and then on from the same factors on the same batches, 1 warm-up
+    and 3 timed optimizer steps each.  Each run zeroes the launch counts
+    just before its first step and reads them just after its last."""
+    from sparse_matrix_fine_tuning_torch.training.trainer import Trainer
+
+    model = train_model("bfloat16", MODEL["num_hidden_layers"])
+    factors = {n: p.detach().clone() for n, p in model.named_parameters() if "blkdiag" in n}
+    data = train_data(TRAIN_BS * TRAIN_GA * TRAIN_STEPS, TRAIN_SEQ, SEED + 10)
+    cfg = model.config
+    h, i, kv = cfg.hidden_size, cfg.intermediate_size, cfg.kv_heads * cfg.head_width
+    p_matmul = cfg.num_hidden_layers * (2 * h * h + 2 * h * kv + 3 * h * i) + h * cfg.vocab_size
+    # Model FLOPs per token with a frozen base: forward 2P and input
+    # gradient 2P for every matmul (no weight gradient), plus 12 L h T for
+    # the attention scores and values (causality not discounted); the
+    # adapters' own FLOPs are left out.  bench.py:460-465 counts 6P: its
+    # base is frozen too, but it counts the weight gradient.
+    flops_per_token = 4 * p_matmul + 12 * cfg.num_hidden_layers * h * TRAIN_SEQ
+    tokens = TRAIN_BS * TRAIN_GA * TRAIN_SEQ
+    runs = {}
+    for merged in ("off", "on"):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n in factors:
+                    p.copy_(factors[n])
+        tr = Trainer(model, train_args(merged, TRAIN_BS, TRAIN_GA, TRAIN_STEPS), train_data=data,
+                     extra_trainable_paths=(), device="cuda")
+        batches = [b for b, _ in tr._batches(data, TRAIN_BS, shuffle=False, accum=TRAIN_GA)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        monarch_cuda.reset_launch_counts()  # the counted main path starts here
+        losses, secs = [], []
+        for batch in batches:
+            loss, sec = timed(lambda: tr.train_step(batch))
+            losses.append(float(loss))
+            secs.append(sec)
+        launches = dict(monarch_cuda.LAUNCHES)  # the counted main path ends here
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        step_ms = statistics.median(secs[1:]) * 1e3
+        busy = device_busy_ms(lambda k: tr.train_step(batches[k]), 1,
+                              f"bf16 training step (merged {merged})")
+        tr.close()
+        del tr
+        require(all(map(math.isfinite, losses)), f"merged {merged}: losses {losses}")
+        want = N_ADAPTED * TRAIN_GA * TRAIN_STEPS
+        counted = ("monarch_add", "monarch_bwd") if merged == "off" else ("monarch_dw_fused",)
+        require(all(launches[k] == want for k in counted)
+                and all(v == 0 for k, v in launches.items() if k not in counted),
+                f"merged {merged}: launches {launches}; expected {want} of {counted}")
+        tps = tokens / (step_ms / 1e3)
+        mfu = flops_per_token * tps / PEAK_OPS[torch.bfloat16]
+        runs[merged] = {"losses": losses, "launches": launches, "step_ms": step_ms, "busy": busy}
+        idle = f"{1 - busy / step_ms:.3f}" if busy is not None else "not measured"
+        print(f"[train-bf16] {card}: merged {merged}: losses {[round(x, 5) for x in losses]}; "
+              f"step {step_ms:.2f} ms (median of {len(secs) - 1}; all "
+              f"{[round(x * 1e3, 2) for x in secs]}), {tps:.0f} tokens/s, MFU "
+              f"{100 * mfu:.2f}% of 989 TFLOP/s ({flops_per_token / 1e9:.3f} GFLOP/token: "
+              f"4 P_matmul + 12 L h T), peak memory {peak_gb:.2f} GB, device busy "
+              f"{busy if busy is None else round(busy, 2)} ms/step, idle share {idle}; "
+              f"launches {launches}", flush=True)
+    diff = max(abs(a - b) for a, b in zip(runs["off"]["losses"], runs["on"]["losses"]))
+    print(f"[train-bf16] merged against unmerged: largest loss difference {diff:.5f} "
+          f"(tol {BF16_MERGED_LOSS_ATOL})", flush=True)
+    require(diff <= BF16_MERGED_LOSS_ATOL, f"merged and unmerged losses differ by {diff}")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": {**runs["off"]["launches"],
+                         "monarch_dw_fused": runs["on"]["launches"]["monarch_dw_fused"]}}
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
-    kernels = phase_kernels(card)
+    fwd = phase_kernels(card)
+    bwd = phase_kernels_bwd(card)
+    phase_autograd(card)
     f32 = phase_f32()
-    bf16 = phase_bf16(f32, card)
-    lines = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-              "launches": bf16["launches"][name], "max_abs_err": kernels["worst"][name],
-              "ms": kernels["layer_ms"][name]["ms"],
-              "plain_ms": kernels["layer_ms"][name]["plain_ms"]}
-             for name in ("monarch_kernel", "monarch_add")]
+    serving = phase_bf16(f32, card)
+    phase_train_f32(card)
+    training = phase_train_bf16(card)
+    launches = {"monarch_kernel": serving["launches"]["monarch_kernel"],
+                "monarch_add": serving["launches"]["monarch_add"],
+                "monarch_bwd": training["launches"]["monarch_bwd"],
+                "monarch_dw_fused": training["launches"]["monarch_dw_fused"]}
+    measured = {**fwd["layer"], **bwd["layer"]}
+    worst = {**fwd["worst"], **bwd["worst"]}
+    lines = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
+              "launches": launches[name], "max_abs_err": worst[name],
+              "ms": measured[name]["ms"], "plain_ms": measured[name]["plain_ms"],
+              "bound_ms": measured[name]["bound_ms"], "bound_by": measured[name]["bound_by"],
+              "library_ms": measured[name]["library_ms"]}
+             for name, (src, replaces) in KERNELS.items()]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "records.json"), "w") as f:
+        json.dump({"card": card, "records": RECORDS, "kernels": lines}, f, indent=1)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,14 +16,20 @@ base.
   * Dispatch is by device alone.  A CUDA input takes the fused
     ``base + monarch(x)`` kernel (K2) when no branch transform (dropout,
     Scaler, multiplicative factor) and no padding is in the way, otherwise
-    the Monarch kernel (K1) on the padded input.  A CPU input takes the
-    plain functions, unfused, as the JAX package does off the TPU.
+    the Monarch kernel (K1) on the padded input.  Both are autograd
+    Functions whose backward is K3.  A CPU input takes the plain functions,
+    unfused, as the JAX package does off the TPU.
+  * Merged training (``enable_merged_training``, ``kernels/merged.py``): the
+    forward is one product with the merged operand, refreshed once per
+    optimizer step; the factor gradients are K4 on the card.
   * Dropout follows ``self.training`` (``nn.Module.train()/eval()``), or
     the ``deterministic`` argument where given.
+  * Built without ``weights``, the layer lives on ``device``, the card when
+    None (``utils/device.py``); with ``weights``, on the weights' device.
 
 Not ported yet, and refused with ``NotImplementedError``: SVD projection
-(``svd_init``, projection mode, ``reference_orientation``), the quantized
-base and merged training; each names its item of ROADMAP.md queue A.
+(``svd_init``, projection mode, ``reference_orientation``) and the quantized
+base; each names its item of ROADMAP.md queue A.
 """
 
 from __future__ import annotations
@@ -35,8 +41,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sparse_matrix_fine_tuning_torch.kernels.merged import build_merged_operands, merged_apply
 from sparse_matrix_fine_tuning_torch.kernels.monarch_cuda import monarch_add, monarch_mm
 from sparse_matrix_fine_tuning_torch.ops.blockdiag import blockdiag_multiply
+from sparse_matrix_fine_tuning_torch.utils.device import resolve_device, seeded_generator
 
 DEFAULT_PEFT_CONFIG: dict[str, Any] = {
     "nblocks": 4,
@@ -71,6 +79,7 @@ class Scaler(nn.Module):
     def __init__(self, out_features: int, scaler_type: str = "scaler", affine: bool = False,
                  *, dtype=None, param_dtype=torch.float32, device=None):
         super().__init__()
+        device = resolve_device(device)
         if scaler_type not in ("scaler", "diag"):
             raise ValueError(f"scaler_type must be 'scaler' or 'diag', got {scaler_type!r}")
         self.scaler_type = scaler_type
@@ -125,6 +134,8 @@ class MonarchLinear(nn.Module):
           use_bias: create a uniform-init frozen bias when ``bias`` is None.
           dtype: compute dtype; None computes in the input's dtype.
           param_dtype: dtype of the adapter factors.
+          device: where to build when ``weights`` is None; the card when
+            None.  With ``weights``, the weights' device.
           generator: ``torch.Generator`` on ``device`` for the random init;
             a fresh one seeded with 0 when None.
         """
@@ -134,8 +145,8 @@ class MonarchLinear(nn.Module):
             cfg.update({k: v for k, v in peft_config.items() if v is not None})
         if weights is not None and device is None:
             device = weights.device
-        if generator is None:
-            generator = torch.Generator(device=device or "cpu").manual_seed(0)
+        device = resolve_device(device)
+        generator = seeded_generator(device, generator)
         self.in_features = in_features
         self.out_features = out_features
         self.dtype = dtype
@@ -165,6 +176,10 @@ class MonarchLinear(nn.Module):
         use_scaler = cfg["scaler"] or self.use_mult_factor
         self.merged = False
         self.quant_bits = 0
+        # Merged-training operands (kernels/merged.py): never trained, never
+        # checkpointed, None until enable_merged_training().
+        self.register_buffer("wm_cache", None, persistent=False)
+        self.register_buffer("wm_t_cache", None, persistent=False)
 
         shape1 = (self.nblocks, self.blk_r, self.in_blksz)
         shape2 = (self.nblocks, self.out_blksz, self.blk_r)
@@ -272,6 +287,11 @@ class MonarchLinear(nn.Module):
             if self.dense is None:
                 raise ValueError("adapter mode requires frozen dense weights (pass `weights=`) "
                                  "or set as_adapter=False")
+            if self.wm_cache is not None and not self.merged:
+                out = self._merged_forward(x)
+                if self.bias is not None:
+                    out = out + self.bias.to(out.dtype)
+                return out
             out = self._dense_forward(x)
             if not self.merged and self._can_fuse_add(x):
                 out = monarch_add(out, x.to(out.dtype), self.blkdiag1.to(out.dtype),
@@ -315,6 +335,39 @@ class MonarchLinear(nn.Module):
         self.dense.sub_(self.adapter_dense_equivalent().to(self.dense.dtype))
         self.merged = False
 
+    # ------------------------------------------------------------------
+    # Merge during training (kernels/merged.py): the frozen dense and the
+    # adapter collapse into one operand, refreshed once per optimizer step.
+    def can_merge_train(self) -> bool:
+        """Plain additive adapter only: dropout, a Scaler or the
+        multiplicative factor wrap the Monarch branch and cannot fold into
+        the merged operand."""
+        return (self.as_adapter and self.dense is not None and self.dropout is None
+                and self.scaler is None and not self.use_mult_factor and not self.quant_bits)
+
+    def _build_merged(self):
+        dense = self.dense if self.dtype is None else self.dense.to(self.dtype)
+        return build_merged_operands(dense, self.blkdiag1.to(dense.dtype),
+                                     self.blkdiag2.to(dense.dtype))
+
     def enable_merged_training(self) -> None:
-        raise NotImplementedError(
-            "merged training: ROADMAP.md queue A, 'kernels/merged.py'")
+        if not self.can_merge_train():
+            raise ValueError("merged training needs a plain additive adapter on a float dense "
+                             "base (no dropout, Scaler or multiplicative factor)")
+        self.wm_cache, self.wm_t_cache = self._build_merged()
+
+    def refresh_merged(self) -> None:
+        """Rebuild the merged operands from the current factors; the trainer
+        calls this at the top of every optimizer step."""
+        if self.wm_cache is None:
+            return
+        self.wm_cache, self.wm_t_cache = self._build_merged()
+
+    def disable_merged_training(self) -> None:
+        self.wm_cache = None
+        self.wm_t_cache = None
+
+    def _merged_forward(self, x: torch.Tensor) -> torch.Tensor:
+        wm = self.wm_cache  # already in the compute dtype (_build_merged)
+        return merged_apply(x.to(wm.dtype), wm, self.wm_t_cache,
+                            self.blkdiag1.to(wm.dtype), self.blkdiag2.to(wm.dtype))

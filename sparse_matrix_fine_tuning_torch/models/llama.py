@@ -11,11 +11,18 @@ masked.  ``forward`` with ``caches`` writes this call's keys and values into
 the preallocated cache in place, at ``cache_index``, and attends over the
 whole cache.
 
+Training: ``loss`` is the shifted causal-LM cross-entropy over full logits
+and ``training_loss`` the forward plus that loss, chunked over tokens when
+``config.loss_chunk > 0`` (``ops/losses.py``), as the JAX model's
+(llama.py:371-405).
+
 Not ported yet: ``UnitOffsetRMSNorm`` (Gemma), layer hooks, ``segment_ids``
-packing, remat, the "dpa"/"splash" attention implementations and the loss
-(ROADMAP.md queue A: "The Llama model, training part", "Losses and
-activations", "Interventions", "Other model families"); a config asking
-for them is refused.
+packing, remat and the "dpa"/"splash" attention implementations (ROADMAP.md
+queue A: "The Llama model, training part", "Interventions", "Other model
+families"); a config or call asking for them is refused.
+
+The model is built on the card unless ``device="cpu"`` is passed
+(``utils/device.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from torch import nn
 
 from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig
 from sparse_matrix_fine_tuning_torch.ops.activations import geglu, swiglu
+from sparse_matrix_fine_tuning_torch.utils.device import resolve_device, seeded_generator
 
 
 class Linear(nn.Linear):
@@ -39,8 +47,10 @@ class Linear(nn.Linear):
     def __init__(self, in_features: int, out_features: int, bias: bool = False, *,
                  dtype: Optional[torch.dtype] = None, param_dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
+        device = resolve_device(device)
         super().__init__(in_features, out_features, bias=bias, device=device, dtype=param_dtype)
         self.compute_dtype = dtype
+        generator = seeded_generator(device, generator)
         with torch.no_grad():
             self.weight.normal_(0.0, 0.02, generator=generator)
             if self.bias is not None:
@@ -64,7 +74,8 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.ones(dim, dtype=param_dtype, device=device))
+        self.weight = nn.Parameter(torch.ones(dim, dtype=param_dtype,
+                                              device=resolve_device(device)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
@@ -172,6 +183,8 @@ class LlamaDecoderLayer(nn.Module):
 class LlamaModel(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device=None, generator=None):
         super().__init__()
+        device = resolve_device(device)
+        generator = seeded_generator(device, generator)
         self.config = cfg
         weight = torch.empty(cfg.vocab_size, cfg.hidden_size, dtype=cfg.params_dtype,
                              device=device)
@@ -230,8 +243,9 @@ class LlamaModel(nn.Module):
 
 class LlamaForCausalLM(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device=None, generator: Optional[torch.Generator] = None):
-        """generator: ``torch.Generator`` on ``device`` for the random init;
-        a fresh one seeded with 0 when None."""
+        """device: where to build; the card when None.  generator:
+        ``torch.Generator`` on ``device`` for the random init; a fresh one
+        seeded with 0 when None."""
         super().__init__()
         if cfg.rmsnorm_unit_offset:
             raise NotImplementedError(
@@ -243,8 +257,8 @@ class LlamaForCausalLM(nn.Module):
         if cfg.remat:
             raise NotImplementedError(
                 "remat: ROADMAP.md queue A, 'The Llama model, training part'")
-        if generator is None:
-            generator = torch.Generator(device=device or "cpu").manual_seed(0)
+        device = resolve_device(device)
+        generator = seeded_generator(device, generator)
         self.config = cfg
         self.model = LlamaModel(cfg, device=device, generator=generator)
         self.lm_head = (None if cfg.tie_word_embeddings
@@ -262,10 +276,40 @@ class LlamaForCausalLM(nn.Module):
         out = self.logits(hidden)
         return (out, new_caches) if caches is not None else out
 
+    def training_loss(self, input_ids, labels, attention_mask=None, positions=None,
+                      layer_hooks=None, segment_ids=None, weights=None,
+                      ignore_index: int = -100) -> torch.Tensor:
+        """Forward and shifted CE in one call; chunked over tokens, without
+        the full (B, T, V) logits, when ``config.loss_chunk > 0``."""
+        from sparse_matrix_fine_tuning_torch.ops.losses import model_training_loss
+
+        return model_training_loss(
+            self, input_ids, labels, attention_mask=attention_mask, positions=positions,
+            layer_hooks=layer_hooks, segment_ids=segment_ids, weights=weights,
+            ignore_index=ignore_index)
+
+    def loss(self, logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100,
+             weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Shifted causal-LM cross-entropy, fp32, mean over the positions
+        whose label is not ``ignore_index`` (and whose row has a nonzero
+        ``weights`` entry, for padded ragged-tail rows)."""
+        shift_logits = logits[:, :-1].float()
+        shift_labels = labels[:, 1:]
+        mask = shift_labels != ignore_index
+        if weights is not None:
+            mask = mask & (weights[:, None] != 0)
+        safe = torch.where(mask, shift_labels, torch.zeros_like(shift_labels))
+        logp = torch.log_softmax(shift_logits, dim=-1)
+        nll = -torch.gather(logp, -1, safe[..., None].long()).squeeze(-1)
+        maskf = mask.float()
+        return (nll * maskf).sum() / maskf.sum().clamp_min(1.0)
+
 
 def init_caches(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                 device=None) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """Empty KV caches: one (k, v) pair of (b, max_len, kv_heads, head_dim) per layer."""
+    """Empty KV caches: one (k, v) pair of (b, max_len, kv_heads, head_dim) per
+    layer, on ``device`` (the card when None)."""
+    device = resolve_device(device)
     shape = (batch, max_len, cfg.kv_heads, cfg.head_width)
     return [(torch.zeros(shape, dtype=dtype, device=device),
              torch.zeros(shape, dtype=dtype, device=device))

@@ -1,9 +1,10 @@
-"""Gated activations, forward only: SwiGLU (SiLU(a) * b) and GeGLU
-(tanh-GELU(a) * b).
+"""Gated activations: SwiGLU (SiLU(a) * b) and GeGLU (tanh-GELU(a) * b).
 
 Counterpart of ``sparse_matrix_fine_tuning_tpu/ops/activations.py``, with
-the same formulas in the same order; the recompute-in-backward comes with
-training.
+the same formulas in the same order.  The gradient is autograd's through
+these plain ops; it equals the JAX package's hand-written VJP, which
+recomputes the activation in the backward to save memory (a fused kernel
+that does the same is ROADMAP.md queue B's optional Triton pass).
 """
 
 from __future__ import annotations

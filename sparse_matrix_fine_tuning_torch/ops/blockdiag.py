@@ -1,4 +1,5 @@
-"""Single block-diagonal factor multiply, plain PyTorch (forward).
+"""Single block-diagonal factor multiply, plain PyTorch; its gradient is
+autograd's through these ops.
 
 Counterpart of ``sparse_matrix_fine_tuning_tpu/ops/blockdiag.py``: k
 independent (q, p) blocks applied to the k contiguous p-chunks of the input.

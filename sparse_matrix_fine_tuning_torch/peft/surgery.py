@@ -4,6 +4,12 @@ Counterpart of ``sparse_matrix_fine_tuning_tpu/peft/surgery.py`` (the
 Monarch part): ``init_monarch`` replaces every ``nn.Linear`` child whose
 attribute name is in ``peft_config["target_modules"]`` with a
 ``MonarchLinear`` built on its weights, which become the frozen base.
+
+Training: ``trainable_filter`` is the JAX filter as ``requires_grad``: the
+adapter parameters (a ``MonarchLinear``'s factors, multiplicative factor
+and Scaler) and every parameter under one of the extra paths train, and
+everything else is frozen.  ``enable_merged_training``, ``refresh_merged``
+and ``disable_merged_training`` act on every eligible adapter.
 """
 
 from __future__ import annotations
@@ -72,20 +78,38 @@ def init_monarch(model: nn.Module, peft_config: dict, *,
     return adapted
 
 
+# A MonarchLinear's frozen parameters; all its others are adapter parameters.
+_FROZEN_IN_ADAPTER = ("dense", "bias")
+
+
 def _trainable_names(model: nn.Module, extra_paths: Iterable[str]) -> set[str]:
-    """Adapter parameters (those that train inside a MonarchLinear) and every
-    parameter under one of ``extra_paths``; as the JAX ``trainable_filter``."""
+    """Adapter parameters and every parameter with one of ``extra_paths`` as
+    a component of its name (the JAX ``nnx.PathContains``); every parameter
+    for ``"__all__"``."""
+    extra = tuple(extra_paths)
+    if "__all__" in extra:
+        return {name for name, _ in model.named_parameters()}
     names = set()
     for prefix, module in model.named_modules():
         if isinstance(module, MonarchLinear):
-            for pname, p in module.named_parameters():
-                if p.requires_grad:
+            for pname, _ in module.named_parameters():
+                if pname not in _FROZEN_IN_ADAPTER:
                     names.add(f"{prefix}.{pname}" if prefix else pname)
-    extra = tuple(extra_paths)
     for name, _ in model.named_parameters():
-        if any(e in name for e in extra):
+        if any(e in name.split(".") for e in extra):
             names.add(name)
     return names
+
+
+def trainable_filter(model: nn.Module,
+                     extra_paths: Iterable[str] = DEFAULT_TRAINABLE_PATHS) -> list[str]:
+    """Set ``requires_grad`` on the trainable parameters (adapters and
+    ``extra_paths``) and clear it on every other; returns their names,
+    sorted."""
+    names = _trainable_names(model, extra_paths)
+    for name, p in model.named_parameters():
+        p.requires_grad_(name in names)
+    return sorted(names)
 
 
 def param_stats(model: nn.Module, *, training: bool = True,
@@ -132,3 +156,34 @@ def find_all_linear_names(model: nn.Module, exclude: tuple = ("lm_head",)) -> li
     ``target_modules`` to every linear."""
     names = {name for _, name, child in _iter_parents(model) if isinstance(child, nn.Linear)}
     return sorted(names - set(exclude))
+
+
+def enable_merged_training(model: nn.Module, min_dim: int = 0) -> int:
+    """Enable merge-during-training (``kernels/merged.py``) on every eligible
+    MonarchLinear with min(in, out) >= ``min_dim``; returns how many."""
+    count = 0
+    for module in model.modules():
+        if (isinstance(module, MonarchLinear) and module.can_merge_train()
+                and min(module.in_features, module.out_features) >= min_dim):
+            module.enable_merged_training()
+            count += 1
+    return count
+
+
+def refresh_merged(model: nn.Module) -> int:
+    """Rebuild every merged-training operand from the current factors."""
+    count = 0
+    for module in model.modules():
+        if isinstance(module, MonarchLinear) and module.wm_cache is not None:
+            module.refresh_merged()
+            count += 1
+    return count
+
+
+def disable_merged_training(model: nn.Module) -> int:
+    count = 0
+    for module in model.modules():
+        if isinstance(module, MonarchLinear) and module.wm_cache is not None:
+            module.disable_merged_training()
+            count += 1
+    return count

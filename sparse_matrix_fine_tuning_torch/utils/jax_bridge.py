@@ -14,7 +14,16 @@ differ:
 
 Every path must find a parameter of the matching shape, and every
 parameter of the port must be given, or it raises.  Values take the dtype
-of the port's parameter.  This module needs numpy only, never JAX.
+of the port's parameter.
+
+``write_jax_trainable`` and ``read_jax_trainable`` write and read a JAX
+``trainable.npz`` (``training/checkpoint.py`` of either package): the
+trainable parameters keyed by their JAX path joined with "/" plus
+``/value``, e.g. ``model/layers/0/mlp/down_proj/blkdiag1/value`` or
+``lm_head/kernel/value`` (transposed).  bfloat16 parameters are written as
+float32, which the JAX loader casts back exactly.
+
+This module needs numpy only, never JAX.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import torch
 from torch import nn
 
 _RENAMED = {"kernel": "weight", "embedding": "weight", "scale": "weight"}
+_VALUE = "/value"
 
 
 def _port_name(path: tuple) -> tuple[str, bool]:
@@ -55,3 +65,73 @@ def load_jax_state(model: nn.Module, flat: Mapping[tuple, np.ndarray]) -> None:
     missing = sorted(set(params) - seen)
     if missing:
         raise KeyError(f"port parameters not given by the JAX state: {missing}")
+
+
+def _as_float_array(arr: np.ndarray) -> np.ndarray:
+    """numpy array of a JAX parameter, with bfloat16 read as float32."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:  # bfloat16 bits, no ml_dtypes
+        bits = arr.view(np.uint16).astype(np.uint32) << 16
+        return bits.view(np.float32)
+    if arr.dtype.name == "bfloat16":
+        return arr.astype(np.float32)
+    return arr
+
+
+def _jax_key(model: nn.Module, name: str) -> tuple[str, bool]:
+    """(JAX trainable.npz key, whether to transpose) of a port parameter."""
+    *head, leaf = name.split(".")
+    owner = model.get_submodule(".".join(head)) if head else model
+    if leaf == "weight":
+        if isinstance(owner, nn.Linear):
+            leaf = "kernel"
+        elif isinstance(owner, nn.Embedding):
+            leaf = "embedding"
+        else:  # RMSNorm, LayerNorm
+            leaf = "scale"
+    return "/".join([*head, leaf]) + _VALUE, leaf == "kernel"
+
+
+def write_jax_trainable(path: str, model: nn.Module) -> list[str]:
+    """Write the parameters with ``requires_grad`` as a JAX ``trainable.npz``;
+    returns the keys written."""
+    arrays = {}
+    for name, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
+        key, transpose = _jax_key(model, name)
+        arr = p.detach().float().cpu().numpy() if p.dtype == torch.bfloat16 \
+            else p.detach().cpu().numpy()
+        arrays[key] = np.array(arr.T if transpose else arr, copy=True)
+    np.savez(path, **arrays)
+    return sorted(arrays)
+
+
+@torch.no_grad()
+def read_jax_trainable(path: str, model: nn.Module, *, strict: bool = True) -> list[str]:
+    """Copy a JAX ``trainable.npz`` into the port's parameters of the same
+    names.  Every key must find a parameter of the matching shape; with
+    ``strict``, every parameter with ``requires_grad`` must be given.
+    Returns the port names loaded."""
+    params = dict(model.named_parameters())
+    loaded = []
+    with np.load(path, allow_pickle=False) as data:
+        for key in data.files:
+            if not key.endswith(_VALUE):
+                raise KeyError(f"{path}: {key!r} is not a JAX parameter path")
+            name, transpose = _port_name(tuple(key[:-len(_VALUE)].split("/")))
+            if name not in params:
+                raise KeyError(f"{path}: {key!r} has no port parameter {name!r}")
+            arr = _as_float_array(np.array(data[key], copy=True))
+            if transpose:
+                arr = arr.T
+            param = params[name]
+            if tuple(arr.shape) != tuple(param.shape):
+                raise ValueError(f"{path}: {key!r} has shape {arr.shape}, "
+                                 f"{name} {tuple(param.shape)}")
+            param.copy_(torch.from_numpy(np.ascontiguousarray(arr)).to(param.dtype))
+            loaded.append(name)
+    if strict:
+        missing = sorted(n for n, p in params.items() if p.requires_grad and n not in loaded)
+        if missing:
+            raise KeyError(f"{path} is missing trainable parameters: {missing}")
+    return sorted(loaded)

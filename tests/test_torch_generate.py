@@ -36,7 +36,7 @@ def pair():
     for _, v in nnx.to_flat_state(nnx.state(jm, AdapterParam)):
         v.set_value(jnp.array(rng.normal(0.0, 0.1, v[...].shape).astype(np.float32)))
     jm.eval()
-    tm = LlamaForCausalLM(LlamaConfig.tiny())
+    tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     init_monarch(tm, PEFT)
     load_jax_state(tm, {tuple(getattr(p, "key", p) for p in path): np.array(v[...])
                         for path, v in nnx.to_flat_state(nnx.state(jm, nnx.Param))})

@@ -42,7 +42,7 @@ def jax_llama(seed=0, **cfg):
 
 
 def port_of(jax_model, **cfg):
-    model = LlamaForCausalLM(LlamaConfig.tiny(**cfg))
+    model = LlamaForCausalLM(LlamaConfig.tiny(**cfg), device="cpu")
     surgery.init_monarch(model, PEFT)
     flat = {tuple(getattr(p, "key", p) for p in path): np.array(v[...])
             for path, v in nnx.to_flat_state(nnx.state(jax_model, nnx.Param))}
@@ -96,7 +96,7 @@ def test_torch_llama_kv_cache_decode_step_matches_jax(pair):
     j2, jc = jm(jnp.array(step_ids), attention_mask=jnp.array(step_mask),
                positions=jnp.array(step_pos), caches=jc, cache_index=t)
 
-    tc = init_caches(tm.config, b, total, torch.float32)
+    tc = init_caches(tm.config, b, total, torch.float32, device="cpu")
     with torch.no_grad():
         t1, tc = tm(to_torch(ids, torch.long), attention_mask=to_torch(mask_full, torch.long),
                     positions=to_torch(pos, torch.long), caches=tc, cache_index=0)
@@ -138,7 +138,7 @@ def test_torch_llama_config_variants_match_jax(cfg):
                caches=jc, cache_index=0)
     j2, _ = jm(jnp.array(step), attention_mask=jnp.array(mask_full),
                positions=jnp.array(pos[:, -1:] + 1), caches=jc, cache_index=t)
-    tc = init_caches(tm.config, b, t + 1, torch.float32)
+    tc = init_caches(tm.config, b, t + 1, torch.float32, device="cpu")
     with torch.no_grad():
         _, tc = tm(to_torch(ids, torch.long), attention_mask=to_torch(mask_full, torch.long),
                    positions=to_torch(pos, torch.long), caches=tc, cache_index=0)
@@ -151,7 +151,7 @@ def test_torch_surgery_matches_jax():
     """init_monarch reports the same layers; param_stats, find_all_linear_names
     and merge/unmerge of all adapters agree with the JAX package."""
     jm = jmodels.LlamaForCausalLM(jmodels.LlamaConfig.tiny(), rngs=nnx.Rngs(0))
-    tm = LlamaForCausalLM(LlamaConfig.tiny())
+    tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     assert surgery.find_all_linear_names(tm) == jpeft.find_all_linear_names(jm)
     assert surgery.init_monarch(tm, PEFT) == jpeft.init_monarch(jm, PEFT, rngs=nnx.Rngs(1))
     assert (surgery.param_stats(tm, verbose=False)
@@ -196,14 +196,14 @@ def test_torch_llama_config_matches_jax():
                                 {"remat": True}])
 def test_torch_llama_refuses_unported_options(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LlamaForCausalLM(LlamaConfig.tiny(**kw))
+        LlamaForCausalLM(LlamaConfig.tiny(**kw), device="cpu")
 
 
 def test_torch_bridge_refuses_mismatch(pair):
     jm, _ = pair
     flat = {tuple(getattr(p, "key", p) for p in path): np.array(v[...])
             for path, v in nnx.to_flat_state(nnx.state(jm, nnx.Param))}
-    fresh = LlamaForCausalLM(LlamaConfig.tiny())
+    fresh = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     surgery.init_monarch(fresh, PEFT)
     missing = dict(flat)
     missing.pop(("lm_head", "kernel"))

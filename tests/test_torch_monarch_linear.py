@@ -51,7 +51,7 @@ def make_pair(name, seed=0):
                            bias=None if bias is None else jnp.array(bias), rngs=nnx.Rngs(0))
     randomize_adapters(jl, rng)
     tl = MonarchLinear(n_in, n_out, peft_config=peft, weights=to_torch(w),
-                       bias=None if bias is None else to_torch(bias))
+                       bias=None if bias is None else to_torch(bias), device="cpu")
     load_jax_state(tl, flat_params(jl))
     tl.eval()
     x = rng.standard_normal((3, 5, n_in)).astype(np.float32)
@@ -89,14 +89,14 @@ def test_torch_monarch_linear_merge_unmerge_matches_jax(name):
 def test_torch_monarch_linear_shapes_and_init():
     """Shape resolution and the init rules of the JAX layer."""
     w = torch.randn(40, 50, generator=torch.Generator().manual_seed(0))
-    plain = MonarchLinear(50, 40, weights=w)
+    plain = MonarchLinear(50, 40, weights=w, device="cpu")
     jl = jml.MonarchLinear(50, 40, weights=jnp.array(to_numpy(w)), rngs=nnx.Rngs(0))
     assert plain.blkdiag1.shape == jl.blkdiag1[...].shape
     assert plain.blkdiag2.shape == jl.blkdiag2[...].shape
     assert float(plain.blkdiag2.detach().abs().max()) == 0  # the adapter starts at zero
     bound = 1 / np.sqrt(plain.in_blksz)
     assert 0 < float(plain.blkdiag1.detach().abs().max()) <= bound
-    scaled = MonarchLinear(50, 40, weights=w, peft_config={"scaler": True})
+    scaled = MonarchLinear(50, 40, weights=w, peft_config={"scaler": True}, device="cpu")
     assert float(scaled.blkdiag2.detach().abs().max()) > 0
     trainable = {n for n, p in scaled.named_parameters() if p.requires_grad}
     assert trainable == {"blkdiag1", "blkdiag2", "scaler.scaler"}
@@ -107,7 +107,8 @@ def test_torch_monarch_linear_shapes_and_init():
                                      ({}, {"as_adapter": False})])
 def test_torch_monarch_linear_refuses_unported_modes(peft, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MonarchLinear(16, 16, weights=torch.zeros(16, 16), peft_config=peft, **kw)
+        MonarchLinear(16, 16, weights=torch.zeros(16, 16), peft_config=peft, device="cpu",
+                      **kw)
 
 
 class _FakeCudaInput:

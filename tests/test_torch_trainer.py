@@ -1,0 +1,263 @@
+"""The port's ``Trainer`` against the JAX one on the CPU: a tiny Llama
+(2 layers, hidden 64, GQA 4/2, Monarch adapters on all seven projections,
+random nonzero factors) trained 3 optimizer steps with gradient
+accumulation 2 by both packages from the same weights and data, with merged
+training off and on; and checkpoints that each package writes and the
+other loads.
+
+Tolerances: the per-step losses and the final trainable parameters within
+1e-4 (utils/testing.TOLERANCES["f32_logits"]): three AdamW steps of float32
+sums taken in another order.
+"""
+
+import dataclasses
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import nnx
+
+from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig
+from sparse_matrix_fine_tuning_torch.models.llama import LlamaForCausalLM
+from sparse_matrix_fine_tuning_torch.peft import surgery
+from sparse_matrix_fine_tuning_torch.training import checkpoint as tckpt
+from sparse_matrix_fine_tuning_torch.training.trainer import Trainer, TrainingArgs
+from sparse_matrix_fine_tuning_torch.utils.jax_bridge import (
+    load_jax_state,
+    read_jax_trainable,
+    write_jax_trainable,
+)
+from sparse_matrix_fine_tuning_torch.utils.testing import TOLERANCES, to_numpy
+from sparse_matrix_fine_tuning_tpu import models as jmodels
+from sparse_matrix_fine_tuning_tpu import peft as jpeft
+from sparse_matrix_fine_tuning_tpu.layers.monarch_linear import AdapterParam
+from sparse_matrix_fine_tuning_tpu.training import Trainer as JaxTrainer
+from sparse_matrix_fine_tuning_tpu.training import TrainingArgs as JaxTrainingArgs
+from sparse_matrix_fine_tuning_tpu.training import checkpoint as jckpt
+from sparse_matrix_fine_tuning_tpu.peft.surgery import trainable_filter as jax_trainable_filter
+
+MODEL = TOLERANCES["f32_logits"]
+PEFT = {"monarch": True, "nblocks": 4, "blk_r": 4, "adapter": True,
+        "target_modules": ["q_proj", "k_proj", "v_proj", "o_proj",
+                           "gate_proj", "up_proj", "down_proj"]}
+BS, GA, STEPS, T = 2, 2, 3, 12
+
+
+def _jax_model(seed=0):
+    jm = jmodels.LlamaForCausalLM(jmodels.LlamaConfig.tiny(), rngs=nnx.Rngs(seed))
+    jpeft.init_monarch(jm, PEFT, rngs=nnx.Rngs(seed + 1))
+    rng = np.random.default_rng(seed)
+    for _, v in nnx.to_flat_state(nnx.state(jm, AdapterParam)):
+        v.set_value(jnp.array(rng.normal(0.0, 0.1, v[...].shape).astype(np.float32)))
+    return jm
+
+
+def _port_of(jm):
+    tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    surgery.init_monarch(tm, PEFT)
+    load_jax_state(tm, {tuple(getattr(p, "key", p) for p in path): np.array(v[...])
+                        for path, v in nnx.to_flat_state(nnx.state(jm, nnx.Param))})
+    return tm
+
+
+def _data(seed=1, n=BS * GA * STEPS):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(3, 256, (n, T)).astype(np.int32)
+    mask = np.ones_like(ids)
+    for row in range(0, n, 3):
+        mask[row, T - 1 - row % 5:] = 0  # some right padding
+    labels = np.where(mask > 0, ids, -100).astype(np.int32)
+    return {"input_ids": ids, "attention_mask": mask, "labels": labels}
+
+
+def _args(cls, tmp_path, name, merged):
+    return cls(output_dir=str(tmp_path / name), learning_rate=1e-2, max_steps=STEPS,
+               per_device_train_batch_size=BS, gradient_accumulation_steps=GA,
+               logging_steps=1, log_param_steps=0, merged_training=merged, seed=7)
+
+
+def _trainable(jm):
+    return {".".join(str(getattr(p, "key", p)) for p in path): np.asarray(v[...])
+            for path, v in nnx.to_flat_state(nnx.state(jm, jax_trainable_filter()))}
+
+
+@pytest.mark.parametrize("merged", ["off", "on"])
+def test_torch_trainer_steps_match_jax(tmp_path, merged):
+    jm = _jax_model()
+    tm = _port_of(jm)
+    data = _data()
+    # merged on also evaluates and keeps the best model, as the JAX trainer
+    kw = {"load_best_model_at_end": True} if merged == "on" else {}
+    evals = {"eval_data": _data(seed=2, n=5)} if merged == "on" else {}
+    jtr = JaxTrainer(jm, dataclasses.replace(_args(JaxTrainingArgs, tmp_path, "jax", merged),
+                                             **kw), train_data=data, **evals)
+    ttr = Trainer(tm, dataclasses.replace(_args(TrainingArgs, tmp_path, "port", merged), **kw),
+                  train_data=data, device="cpu", **evals)
+    assert ttr._n_merged == jtr._n_merged == (14 if merged == "on" else 0)
+    want_metrics = jtr.train()
+    got_metrics = ttr.train()
+    assert set(got_metrics) == set(want_metrics)
+    if evals:
+        np.testing.assert_allclose(got_metrics["eval_loss"], want_metrics["eval_loss"], **MODEL)
+        assert ttr.best_ckpt == os.path.join(str(tmp_path / "port"), "checkpoint-best")
+    want = [r["loss"] for r in jtr.log_history if "loss" in r]
+    got = [r["loss"] for r in ttr.log_history if "loss" in r]
+    assert len(got) == len(want) == STEPS
+    np.testing.assert_allclose(got, want, **MODEL)
+    params = dict(tm.named_parameters())
+    jparams = _trainable(jm)
+    assert len(jparams) == 29  # 28 adapter factors and the LM head
+    for name, value in jparams.items():
+        port = params[name.replace("lm_head.kernel", "lm_head.weight")]
+        port = port.T if name == "lm_head.kernel" else port
+        assert port.requires_grad
+        np.testing.assert_allclose(to_numpy(port), value, **MODEL)
+    assert not tm.model.layers[0].mlp.down_proj.dense.requires_grad
+    # both wrote a final checkpoint and the completed marker
+    for run in ("jax", "port"):
+        assert os.path.exists(tmp_path / run / "completed")
+        assert os.path.exists(tmp_path / run / f"checkpoint-{STEPS}" / "trainable.npz")
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=["shuffled", "length_grouped"])
+def test_torch_trainer_batches_match_jax(tmp_path, grouped):
+    """The same batches in the same order for a seed, the ragged tail padded
+    and masked; with group_by_length, rows sorted by length within
+    megabatches and the time axis trimmed to a multiple of length_bucket."""
+    jm = _jax_model()
+    data = _data(n=BS * GA * 2 + 3)
+    lengths = np.random.default_rng(2).integers(2, T + 1, len(data["attention_mask"]))
+    data["attention_mask"] = (np.arange(T)[None, :] < lengths[:, None]).astype(np.int32)
+    kw = {"group_by_length": grouped, "length_bucket": 4}
+    jtr = JaxTrainer(jm, dataclasses.replace(_args(JaxTrainingArgs, tmp_path, "jax", "off"), **kw),
+                     train_data=data)
+    ttr = Trainer(_port_of(jm), dataclasses.replace(_args(TrainingArgs, tmp_path, "port", "off"),
+                                                    **kw), train_data=data, device="cpu")
+    want = list(jtr._batches(data, BS, shuffle=True, seed=11, accum=GA))
+    got = list(ttr._batches(data, BS, shuffle=True, seed=11, accum=GA))
+    assert len(got) == len(want) == 3
+    if grouped:  # some batch was trimmed
+        assert min(b["input_ids"].shape[-1] for b, _ in got) < T
+    for (gb, gn), (wb, wn) in zip(got, want):
+        assert gn == wn and set(gb) == set(wb)
+        for k in wb:
+            np.testing.assert_array_equal(gb[k].numpy(), np.asarray(wb[k]))
+
+
+def test_torch_trainable_npz_crosses_between_packages(tmp_path):
+    """trainable.npz written by each package and loaded by the other."""
+    jm = _jax_model(seed=3)
+    tm = _port_of(_jax_model(seed=4))  # other values, same structure
+    surgery.trainable_filter(tm)
+    jfile = str(tmp_path / "jax_trainable.npz")
+    jckpt._save_tree(jfile, nnx.state(jm, jax_trainable_filter()))
+    names = read_jax_trainable(jfile, tm)
+    assert len(names) == 29
+    params = dict(tm.named_parameters())
+    for name, value in _trainable(jm).items():
+        port = params[name.replace("lm_head.kernel", "lm_head.weight")]
+        port = port.T if name == "lm_head.kernel" else port
+        np.testing.assert_array_equal(to_numpy(port), value)
+
+    with torch.no_grad():
+        for name, p in tm.named_parameters():
+            if p.requires_grad:
+                p.mul_(-0.5)
+    tfile = str(tmp_path / "port_trainable.npz")
+    assert write_jax_trainable(tfile, tm) == sorted(np.load(jfile).files)
+    restored = jckpt._load_tree(tfile, nnx.state(jm, jax_trainable_filter()), strict=True)
+    nnx.update(jm, restored)
+    for name, value in _trainable(jm).items():
+        port = params[name.replace("lm_head.kernel", "lm_head.weight")]
+        port = port.T if name == "lm_head.kernel" else port
+        np.testing.assert_array_equal(to_numpy(port), value)
+
+
+def test_torch_trainer_checkpoint_round_trip(tmp_path):
+    """save_checkpoint then load_checkpoint restores the factors, the
+    optimizer's state, the step and the merged operands exactly; pruning
+    keeps the newest numbered checkpoints."""
+    tm = _port_of(_jax_model(seed=5))
+    args = dataclasses.replace(_args(TrainingArgs, tmp_path, "port", "on"), save_total_limit=2)
+    tr = Trainer(tm, args, train_data=_data(), device="cpu")
+    batch, _ = next(tr._batches(tr.train_data, BS, accum=GA))
+    tr.train_step(batch)
+    tr.step = 1
+    first = tr.save_checkpoint()
+    best = tr.save_checkpoint(tag="best")
+    saved = {n: p.detach().clone() for n, p in tm.named_parameters() if p.requires_grad}
+    opt = {k: v.clone() for k, v in tr.optimizer.state_arrays().items()}
+    for step in (2, 3):
+        tr.train_step(batch)
+        tr.step = step
+        tr.save_checkpoint()
+    assert not os.path.exists(first) and os.path.exists(best)
+    assert tckpt.get_last_checkpoint(args.output_dir) == (
+        os.path.join(args.output_dir, "checkpoint-3"), False)
+    tr.load_checkpoint(best)
+    assert tr.step == 1 and tr.optimizer.count == 1
+    for n, p in tm.named_parameters():
+        if p.requires_grad:
+            torch.testing.assert_close(p.detach(), saved[n], rtol=0, atol=0)
+    for k, v in tr.optimizer.state_arrays().items():
+        torch.testing.assert_close(v, opt[k], rtol=0, atol=0)
+    layer = tm.model.layers[0].self_attn.q_proj
+    torch.testing.assert_close(layer.wm_cache, layer._build_merged()[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kw,item", [({"merged_training": "sometimes"}, ValueError),
+                                     ({"state_split": False}, NotImplementedError),
+                                     ({"sequence_parallel": "on"}, NotImplementedError),
+                                     ({"optim": "adamw8bit"}, NotImplementedError)])
+def test_torch_trainer_refuses_unported_options(tmp_path, kw, item):
+    tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    surgery.init_monarch(tm, PEFT)
+    args = dataclasses.replace(_args(TrainingArgs, tmp_path, "port", "off"), **kw)
+    with pytest.raises(item):
+        Trainer(tm, args, train_data=_data(), device="cpu")
+
+
+def test_torch_trainer_refuses_resume(tmp_path):
+    tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    surgery.init_monarch(tm, PEFT)
+    tr = Trainer(tm, _args(TrainingArgs, tmp_path, "port", "off"), train_data=_data(),
+                 device="cpu")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        tr.train(resume=True)
+
+
+def test_torch_trainer_auto_merges_nothing(tmp_path):
+    """merged_training "auto" is "off" in the port; the JAX rule merges
+    nothing at this size either."""
+    jm = _jax_model()
+    args = dataclasses.replace(_args(TrainingArgs, tmp_path, "port", "auto"))
+    jtr = JaxTrainer(jm, _args(JaxTrainingArgs, tmp_path, "jax", "auto"), train_data=_data())
+    ttr = Trainer(_port_of(jm), args, train_data=_data(), device="cpu")
+    assert ttr._n_merged == jtr._n_merged == 0
+    assert {f.name: f.default for f in dataclasses.fields(TrainingArgs)} == {
+        f.name: f.default for f in dataclasses.fields(JaxTrainingArgs)}
+
+
+@pytest.mark.parametrize("stored", ["bfloat16", "raw_bits"])
+def test_torch_trainable_npz_reads_bf16(tmp_path, stored):
+    """A bf16 trainable.npz as numpy stores it with ml_dtypes ("bfloat16")
+    and as a machine without ml_dtypes reads it back (2-byte void)."""
+    tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    surgery.init_monarch(tm, PEFT)
+    surgery.trainable_filter(tm, ())
+    rng = np.random.default_rng(6)
+    want = {n: rng.standard_normal(tuple(p.shape)).astype(np.float32)
+            for n, p in tm.named_parameters() if p.requires_grad}
+    arrays = {}
+    for name, value in want.items():
+        bf16 = np.asarray(jnp.asarray(value, jnp.bfloat16))
+        want[name] = bf16.astype(np.float32)
+        arrays[name.replace(".", "/") + "/value"] = bf16 if stored == "bfloat16" else bf16.view("V2")
+    path = str(tmp_path / "trainable.npz")
+    np.savez(path, **arrays)
+    assert len(read_jax_trainable(path, tm)) == 28
+    for name, p in tm.named_parameters():
+        if p.requires_grad:
+            np.testing.assert_array_equal(to_numpy(p), want[name])
