@@ -1,8 +1,8 @@
 """Smoke test of the PyTorch port on one NVIDIA H100: ``python3 chip_smoke.py``.
 
-Drives the port's two main paths on a TinyLlama-1.1B-shaped Llama with
-Monarch adapters on all seven projections (random seeded weights) through
-the hand-written CUDA kernels, and checks them:
+Drives the port's main paths on a TinyLlama-1.1B-shaped Llama with Monarch
+adapters on all seven projections (random seeded weights) through the
+hand-written CUDA kernels, and checks them:
 
   1. device: a CUDA card of compute capability 9.0, its name and power limit;
   2. build: the kernels are compiled from ``kernels/csrc/`` in this checkout;
@@ -18,10 +18,22 @@ the hand-written CUDA kernels, and checks them:
      CPU copy on the plain path, merged training off (K2, K3) and on (K4);
   8. training, bfloat16, all 22 layers, bs 4 x ga 8 x seq 512 through
      ``Trainer``: merged training off, then on from the same state on the
-     same batches, timed and profiled.
+     same batches, timed and profiled;
+  9. the quantized base: K7/K5 (forward) and K8/K6 (dx) against their plain
+     versions at the slice's shapes, timed beside their bound and one
+     PyTorch call on the dequantized matrix, and their autograd Functions;
+ 10. quantized serving, float32, int8 and int4: prefill logits and greedy
+     tokens against a copy whose codes were dequantized and whose adapters
+     were merged on the CPU;
+ 11. quantized serving, bfloat16, timed: int8 unmerged (K7, K2), int8
+     requantize-merged with the w8a8 head (K7), int4 unmerged (K5, K2);
+ 12. quantized training: one float32 step (2 layers) on the card against a
+     CPU copy, int8 and int4; then 22-layer bfloat16 training over an int4
+     base (``run_alpaca --bits 4``), timed and profiled.
 
-Each main path (6, 8 off, 8 on) zeroes the launch counts just before it and
-reads them just after.  Any failed check exits non-zero.  The line before
+Each main path (6, 8 off, 8 on, each configuration of 11, each step of 12)
+zeroes the launch counts of every kernel just before it and reads them
+just after.  Any failed check exits non-zero.  The line before
 the last is one JSON object on the kernels; the last is
 ``{"ok": true, "device": {...}}``.  Per-case records go to
 ``chip_smoke_out/records.json``.  It imports nothing of JAX.
@@ -40,7 +52,8 @@ import time
 try:
     import torch
 
-    from sparse_matrix_fine_tuning_torch.kernels import monarch_cuda
+    from sparse_matrix_fine_tuning_torch import quant
+    from sparse_matrix_fine_tuning_torch.kernels import monarch_cuda, quant_cuda
     from sparse_matrix_fine_tuning_torch.kernels.build import build
 except ImportError as exc:  # run outside a checkout of the repository
     print(f"chip_smoke: cannot import the port ({exc}); run it from the repository root",
@@ -94,7 +107,30 @@ KERNELS = {
                     "sparse_matrix_fine_tuning_tpu/kernels/monarch_pallas.py:173"),
     "monarch_dw_fused": ("sparse_matrix_fine_tuning_torch/kernels/csrc/monarch_bwd.cu",
                          "sparse_matrix_fine_tuning_tpu/kernels/monarch_pallas.py:364"),
+    "int4_matmul": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_matmul.cu",
+                    "sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py:115"),
+    "int4_matmul_dx": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_matmul.cu",
+                       "sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py:141"),
+    "int8_matmul": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_matmul.cu",
+                    "sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py:305"),
+    "int8_matmul_dx": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_matmul.cu",
+                       "sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py:312"),
 }
+# The quantized base (quant/, run_alpaca.py --bits): (bits, whether dx).
+QUANT_KERNELS = {"int8_matmul": (8, False), "int8_matmul_dx": (8, True),
+                 "int4_matmul": (4, False), "int4_matmul_dx": (4, True)}
+QUANT_GROUP = 64  # quantize_frozen_base's default group
+# Prefill logits cosine, quantized bf16 model against the unquantized bf16
+# one, on this random 22-layer model, which passes the weights' rounding
+# noise on undamped.  int8 (per-column absmax, a step of 1/127 of the
+# column's largest weight, an rms error near 0.8% of the weights' rms):
+# >= 0.99.  int4 (group-64 absmax, a step of 1/7 of the group's largest
+# weight, an rms error near 10%: about 150 times int8's variance): 1 - cos
+# grows with that variance, and int8's measured 1 - cos of 0.0027 (H100,
+# this script) scaled by it gives about 0.4, so >= 0.6.  The requantize-
+# merged int8 model with the w8a8 head adds one more int8 rounding of
+# W + delta and of the head's activations: >= 0.99.
+QUANT_COS = {8: 0.99, 4: 0.6}
 OUT_DIR = "chip_smoke_out"  # per-case records; .gitignore lists it
 RECORDS: list[dict] = []  # one per kernel case, written to OUT_DIR
 
@@ -106,6 +142,17 @@ class SmokeFailure(RuntimeError):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def reset_counts() -> None:
+    """Zero the launch counts of every kernel (K1-K4 and K5-K8)."""
+    monarch_cuda.reset_launch_counts()
+    quant_cuda.reset_launch_counts()
+
+
+def counts() -> dict:
+    """The launch counts of every kernel since the last reset."""
+    return {**monarch_cuda.LAUNCHES, **quant_cuda.LAUNCHES}
 
 
 def card_line() -> str:
@@ -166,9 +213,17 @@ def time_ms(fn, reps: int = 50, rounds: int = 5) -> tuple[float, float]:
 
 def cost(name: str, m_rows: int, n_in: int, n_out: int, dtype: torch.dtype) -> tuple[int, int]:
     """(bytes, operations) the kernel's function needs: each input read once,
-    each output written once (dw in fp32); multiply-adds count two."""
+    each output written once (dw in fp32); multiply-adds count two.  K5-K8:
+    the codes, the f32 scales, the activations in and the result out;
+    2 * M * in * out operations."""
     r = PEFT["blk_r"]
     item = 2 if dtype == torch.bfloat16 else 4
+    if name in QUANT_KERNELS:
+        bits = QUANT_KERNELS[name][0]
+        codes = n_in * n_out // (2 if bits == 4 else 1)
+        scale_rows = n_in // QUANT_GROUP if bits == 4 else 1
+        return codes + 4 * scale_rows * n_out + m_rows * (n_in + n_out) * item, \
+            2 * m_rows * n_in * n_out
     factors = r * (n_in + n_out)  # w1 (K, Q, P) has r * n_in elements, w2 r * n_out
     rows = {"monarch_kernel": n_in + n_out, "monarch_add": n_in + 2 * n_out,
             "monarch_bwd": 2 * n_in + n_out, "monarch_dw_fused": n_in + n_out}[name]
@@ -220,13 +275,16 @@ _HEADER = ("[kernels] kernel           proj  in->out     M     dtype    max_abs_
 
 
 def _layer_sums(recs: list[dict]) -> dict:
-    """Per decoder layer: the seven projections' ms, plain, library and bound."""
+    """Per decoder layer: the seven projections' ms, plain, library and bound;
+    ``bound_by`` is the kind ("bytes" or "operations") that bounds the larger
+    part of the layer's bound."""
     out = {k: sum(r[k] for r in recs) for k in ("ms", "plain_ms", "bound_ms")}
     libs = [r["library_ms"] for r in recs]
     out["library_ms"] = None if None in libs else sum(libs)
-    by = {r["bound_by"] for r in recs}
-    out["bound_by"] = "bytes" if by == {"bytes"} else "operations" if by == {"operations"} \
-        else "bytes and operations"
+    by_kind = {"bytes": 0.0, "operations": 0.0}
+    for r in recs:
+        by_kind[r["bound_by"]] += r["bound_ms"]
+    out["bound_by"] = max(by_kind, key=by_kind.get)
     return out
 
 
@@ -478,11 +536,6 @@ def phase_f32() -> dict:
     adapters merged on the CPU by the plain functions, then moved to the card."""
     import copy
 
-    from sparse_matrix_fine_tuning_torch.models.generate import (
-        GenerationConfig,
-        _positions_from_mask,
-        generate,
-    )
     from sparse_matrix_fine_tuning_torch.peft.surgery import merge_all_adapters
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products in both
@@ -510,6 +563,24 @@ def phase_f32() -> dict:
     require(bool(torch.isfinite(got).all()), "non-finite f32 logits")
     require(err <= tol, f"f32 prefill logits differ: {err} > {tol}")
 
+    check_greedy(model, ref, ids, mask, tol, "f32")
+    # kept on the host, so that the peak memory of a later phase is its own
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model, ref
+    torch.cuda.empty_cache()
+    return {"logits": got.detach(), "mask": mask, "ids": ids, "state": state}
+
+
+def check_greedy(model, ref, ids, mask, tol: float, tag: str) -> None:
+    """Greedy F32_NEW tokens of ``model`` against ``ref``: identical, or the
+    first divergence of a row at a near-tie of the reference's logits (gap
+    within ``tol``)."""
+    from sparse_matrix_fine_tuning_torch.models.generate import (
+        GenerationConfig,
+        _positions_from_mask,
+        generate,
+    )
+
     gc = GenerationConfig(max_new_tokens=F32_NEW)
     toks = generate(model, ids, mask, gc)
     ref_toks = generate(ref, ids, mask, gc)
@@ -525,16 +596,12 @@ def phase_f32() -> dict:
         with torch.inference_mode():
             last = ref(seq, attention_mask=m, positions=_positions_from_mask(m))[0, -1]
         gap = float(last[ref_toks[row, at]] - last[toks[row, at]])
-        print(f"[f32] row {row} diverges at step {at - PROMPT}: logit gap {gap:.3e} "
+        print(f"[{tag}] row {row} diverges at step {at - PROMPT}: logit gap {gap:.3e} "
               f"(tol {tol:.3e})", flush=True)
-        require(gap <= tol, f"f32 tokens differ at row {row}, step {at - PROMPT}, gap {gap}")
+        require(gap <= tol, f"{tag} tokens differ at row {row}, step {at - PROMPT}, gap {gap}")
     same = int((toks == ref_toks).all(dim=-1).sum())
-    print(f"[f32] greedy {F32_NEW} tokens: {same}/{toks.shape[0]} rows identical to the "
-          "merged reference", flush=True)
-    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    del model, ref
-    torch.cuda.empty_cache()
-    return {"logits": got.detach(), "mask": mask, "ids": ids, "state": state}
+    print(f"[{tag}] greedy {F32_NEW} tokens: {same}/{toks.shape[0]} rows identical to the "
+          "reference", flush=True)
 
 
 def timed(fn):
@@ -608,7 +675,8 @@ def phase_bf16(f32: dict, card: str) -> dict:
     from sparse_matrix_fine_tuning_torch.models.generate import GenerationConfig, generate
     from sparse_matrix_fine_tuning_torch.peft.surgery import merge_all_adapters
 
-    model = build_model("bfloat16", f32.pop("state"))
+    model = build_model("bfloat16", f32["state"])
+    resident_gb = torch.cuda.memory_allocated() / 1e9
     with torch.inference_mode():
         logits = model(f32["ids"], attention_mask=f32["mask"])
     valid = f32["mask"].bool()
@@ -640,13 +708,13 @@ def phase_bf16(f32: dict, card: str) -> dict:
     with torch.inference_mode():
         unmerged_logits = model(probe, attention_mask=mask)
 
-    monarch_cuda.reset_launch_counts()  # the counted main path starts here
+    reset_counts()  # the counted main path starts here
     ids = fresh_ids()
     toks, main_s = timed(lambda: generate(model, ids, mask, gc))
     adds = monarch_cuda.LAUNCHES["monarch_add"]
     _, merge_s = timed(lambda: merge_all_adapters(model))
     merged_toks, merged_main_s = timed(lambda: generate(model, ids, mask, gc))
-    launches = dict(monarch_cuda.LAUNCHES)  # the counted main path ends here
+    launches = counts()  # the counted main path ends here
 
     require(tuple(toks.shape) == (BATCH, PROMPT + NEW), f"tokens {tuple(toks.shape)}")
     require(bool(((toks >= 0) & (toks < MODEL["vocab_size"])).all()), "token out of range")
@@ -657,6 +725,7 @@ def phase_bf16(f32: dict, card: str) -> dict:
     require(launches["monarch_kernel"] == N_ADAPTED,
             f"merge launched monarch_kernel {launches['monarch_kernel']} times, "
             f"expected {N_ADAPTED}")
+    require(all(launches[k] == 0 for k in QUANT_KERNELS), f"quantized kernels ran: {launches}")
 
     with torch.inference_mode():
         merged_logits = model(probe, attention_mask=mask)
@@ -675,8 +744,8 @@ def phase_bf16(f32: dict, card: str) -> dict:
     print(f"[bf16] {card}: batch {BATCH}, prompt {PROMPT}, {NEW} new tokens, unmerged adapters: "
           f"prefill {prefill_ms:.3f} ms (median of {len(prefill)}), decode {decode_ms:.4f} "
           f"ms/step, {BATCH * NEW / gen_med:.1f} tokens/s (generate median of "
-          f"{len(gens) + 1}: {gen_med:.4f} s; all {[round(x, 4) for x in gens + [main_s]]})",
-          flush=True)
+          f"{len(gens) + 1}: {gen_med:.4f} s; all {[round(x, 4) for x in gens + [main_s]]}); "
+          f"weights and buffers resident {resident_gb:.3f} GB", flush=True)
     if busy_ms is not None:
         print(f"[bf16] {card}: decode device busy {busy_ms:.3f} ms/step (profiled) of {decode_ms:.3f} "
               f"ms/step (unprofiled): idle share {1 - busy_ms / decode_ms:.3f}", flush=True)
@@ -724,72 +793,62 @@ def train_args(merged: str, bs: int, ga: int, steps: int):
                         log_param_steps=0, merged_training=merged)
 
 
-def phase_train_f32(card: str) -> None:
-    """One optimizer step (bs 2 x ga 2 x seq 128, full width, 2 layers, f32,
-    TF32 off) through Trainer on the card against a CPU copy on the plain
-    path: loss, every factor's gradient and the updated factors, with merged
-    training off (K2 forward, K3 backward) and on (K4)."""
+def check_step(model, data: dict, merged: str, expect: dict, tag: str) -> dict:
+    """One optimizer step (``F32_TRAIN``) through Trainer on the card and on
+    a CPU copy on the plain path.  The card's step launches exactly
+    ``expect``; the loss, every factor's gradient and the updated factors
+    agree within the F32_TRAIN_* tolerances.  ``tag`` opens the printed
+    line; returns the card's launch counts."""
     import copy
 
     from sparse_matrix_fine_tuning_torch.training.trainer import Trainer
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     c = F32_TRAIN
-    model = train_model("float32", c["layers"])
-    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    data = train_data(c["bs"] * c["ga"], c["seq"], SEED + 9)
-    n_adapted = 7 * c["layers"]
-    expect = {"off": {"monarch_add": n_adapted * c["ga"], "monarch_bwd": n_adapted * c["ga"]},
-              "on": {"monarch_dw_fused": n_adapted * c["ga"]}}
-    for merged in ("off", "on"):
-        model.load_state_dict(state)
-        out = {}
-        for dev, m in (("cuda", model), ("cpu", copy.deepcopy(model).cpu())):
-            tr = Trainer(m, train_args(merged, c["bs"], c["ga"], 1), train_data=data,
-                         extra_trainable_paths=(), device=dev)
-            batch, _ = next(tr._batches(data, c["bs"], shuffle=False, accum=c["ga"]))
-            monarch_cuda.reset_launch_counts()
-            loss = float(tr.train_step(batch))
-            launches = dict(monarch_cuda.LAUNCHES)
-            out[dev] = (loss, {n: (p.grad.detach().cpu(), p.detach().cpu())
-                               for n, p in m.named_parameters() if p.requires_grad}, launches)
-            tr.close()
-        (loss, got, launches), (want_loss, want, _) = out["cuda"], out["cpu"]
-        require(launches == {**dict.fromkeys(launches, 0), **expect[merged]},
-                f"merged {merged}: launches {launches}, expected {expect[merged]}")
-        require(abs(loss - want_loss) <= F32_TRAIN_LOSS_RTOL * abs(want_loss),
-                f"merged {merged}: loss {loss} on the card, {want_loss} on the CPU")
-        worst_g = worst_p = 0.0
-        require(sorted(got) == sorted(want) and len(got) == 2 * n_adapted, "trainable set")
-        for name, (grad, param) in got.items():
-            wgrad, wparam = want[name]
-            scale = float(wgrad.abs().max())
-            eg = float((grad - wgrad).abs().max())
-            require(eg <= F32_TRAIN_GRAD_TOL * scale, f"merged {merged}: grad of {name}: "
-                    f"{eg} > {F32_TRAIN_GRAD_TOL} x {scale}")
-            strong = wgrad.abs() >= 1e-3 * scale
-            dp = (param - wparam).abs()
-            require(float(dp[strong].max()) <= 1e-2 * TRAIN_LR
-                    and float(dp.max()) <= 2 * TRAIN_LR, f"merged {merged}: update of {name}")
-            worst_g, worst_p = max(worst_g, eg / scale), max(worst_p, float(dp.max()))
-        print(f"[train-f32] {card}: merged {merged}: loss {loss:.6f} card, {want_loss:.6f} CPU; "
-              f"worst factor gradient error {worst_g:.2e} of its scale; worst update difference "
-              f"{worst_p:.2e} (lr {TRAIN_LR}); launches {launches}", flush=True)
-    del model
-    torch.cuda.empty_cache()
+    out = {}
+    for dev, m in (("cuda", model), ("cpu", copy.deepcopy(model).cpu())):
+        tr = Trainer(m, train_args(merged, c["bs"], c["ga"], 1), train_data=data,
+                     extra_trainable_paths=(), device=dev)
+        batch, _ = next(tr._batches(data, c["bs"], shuffle=False, accum=c["ga"]))
+        reset_counts()
+        loss = float(tr.train_step(batch))
+        launches = counts()
+        out[dev] = (loss, {n: (p.grad.detach().cpu(), p.detach().cpu())
+                           for n, p in m.named_parameters() if p.requires_grad}, launches)
+        tr.close()
+    (loss, got, launches), (want_loss, want, _) = out["cuda"], out["cpu"]
+    require(launches == {**dict.fromkeys(launches, 0), **expect},
+            f"{tag}: launches {launches}, expected {expect}")
+    require(abs(loss - want_loss) <= F32_TRAIN_LOSS_RTOL * abs(want_loss),
+            f"{tag}: loss {loss} on the card, {want_loss} on the CPU")
+    require(sorted(got) == sorted(want) and len(got) == 2 * 7 * c["layers"],
+            f"{tag}: the trainable set is not the factors")
+    worst_g = worst_p = 0.0
+    for name, (grad, param) in got.items():
+        wgrad, wparam = want[name]
+        scale = float(wgrad.abs().max())
+        eg = float((grad - wgrad).abs().max())
+        require(eg <= F32_TRAIN_GRAD_TOL * scale,
+                f"{tag}: grad of {name}: {eg} > {F32_TRAIN_GRAD_TOL} x {scale}")
+        strong = wgrad.abs() >= 1e-3 * scale
+        dp = (param - wparam).abs()
+        require(float(dp[strong].max()) <= 1e-2 * TRAIN_LR
+                and float(dp.max()) <= 2 * TRAIN_LR, f"{tag}: update of {name}")
+        worst_g, worst_p = max(worst_g, eg / scale), max(worst_p, float(dp.max()))
+    print(f"{tag}: loss {loss:.6f} card, {want_loss:.6f} CPU; worst factor gradient error "
+          f"{worst_g:.2e} of its scale; worst update difference {worst_p:.2e} (lr {TRAIN_LR}); "
+          f"launches {expect}", flush=True)
+    return launches
 
 
-def phase_train_bf16(card: str) -> dict:
-    """The training slice at full size: TinyLlama-1.1B widths, all 22
-    layers, bf16, bs 4 x ga 8 x seq 512, through Trainer; merged training
-    off and then on from the same factors on the same batches, 1 warm-up
-    and 3 timed optimizer steps each.  Each run zeroes the launch counts
-    just before its first step and reads them just after its last."""
+def train_timed(model, merged: str, tag: str, extra: str = "") -> dict:
+    """bf16 training at full size through Trainer: bs 4 x ga 8 x seq 512, 1
+    warm-up and 3 timed optimizer steps, the launch counts zeroed just
+    before the first step and read just after the last, then one step
+    under the profiler.  Prints step ms, tokens/s, MFU, peak memory and the
+    idle share after ``tag`` (and ``extra``); returns the losses and the
+    launch counts."""
     from sparse_matrix_fine_tuning_torch.training.trainer import Trainer
 
-    model = train_model("bfloat16", MODEL["num_hidden_layers"])
-    factors = {n: p.detach().clone() for n, p in model.named_parameters() if "blkdiag" in n}
     data = train_data(TRAIN_BS * TRAIN_GA * TRAIN_STEPS, TRAIN_SEQ, SEED + 10)
     cfg = model.config
     h, i, kv = cfg.hidden_size, cfg.intermediate_size, cfg.kv_heads * cfg.head_width
@@ -800,48 +859,75 @@ def phase_train_bf16(card: str) -> dict:
     # adapters' own FLOPs are left out.  bench.py:460-465 counts 6P: its
     # base is frozen too, but it counts the weight gradient.
     flops_per_token = 4 * p_matmul + 12 * cfg.num_hidden_layers * h * TRAIN_SEQ
-    tokens = TRAIN_BS * TRAIN_GA * TRAIN_SEQ
+    tr = Trainer(model, train_args(merged, TRAIN_BS, TRAIN_GA, TRAIN_STEPS), train_data=data,
+                 extra_trainable_paths=(), device="cuda")
+    batches = [b for b, _ in tr._batches(data, TRAIN_BS, shuffle=False, accum=TRAIN_GA)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the counted main path starts here
+    losses, secs = [], []
+    for batch in batches:
+        loss, sec = timed(lambda: tr.train_step(batch))
+        losses.append(float(loss))
+        secs.append(sec)
+    launches = counts()  # the counted main path ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = statistics.median(secs[1:]) * 1e3
+    busy = device_busy_ms(lambda k: tr.train_step(batches[k]), 1,
+                          f"bf16 training step ({tag.split(': ', 1)[-1]})")
+    tr.close()
+    require(all(map(math.isfinite, losses)), f"{tag}: losses {losses}")
+    tps = TRAIN_BS * TRAIN_GA * TRAIN_SEQ / (step_ms / 1e3)
+    mfu = flops_per_token * tps / PEAK_OPS[torch.bfloat16]
+    idle = f"{1 - busy / step_ms:.3f}" if busy is not None else "not measured"
+    print(f"{tag}: losses {[round(x, 5) for x in losses]}; step {step_ms:.2f} ms (median of "
+          f"{len(secs) - 1}; all {[round(x * 1e3, 2) for x in secs]}), {tps:.0f} tokens/s, MFU "
+          f"{100 * mfu:.2f}% of 989 TFLOP/s ({flops_per_token / 1e9:.3f} GFLOP/token: 4 P_matmul "
+          f"+ 12 L h T), {extra}peak memory {peak_gb:.2f} GB, device busy "
+          f"{busy if busy is None else round(busy, 2)} ms/step, idle share {idle}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return {"losses": losses, "launches": launches}
+
+
+def phase_train_f32(card: str) -> None:
+    """One optimizer step (bs 2 x ga 2 x seq 128, full width, 2 layers, f32,
+    TF32 off) through Trainer on the card against a CPU copy on the plain
+    path (``check_step``), with merged training off (K2 forward, K3
+    backward) and on (K4)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = F32_TRAIN
+    model = train_model("float32", c["layers"])
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    data = train_data(c["bs"] * c["ga"], c["seq"], SEED + 9)
+    n = 7 * c["layers"] * c["ga"]
+    expect = {"off": {"monarch_add": n, "monarch_bwd": n}, "on": {"monarch_dw_fused": n}}
+    for merged in ("off", "on"):
+        model.load_state_dict(state)
+        check_step(model, data, merged, expect[merged], f"[train-f32] {card}: merged {merged}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_train_bf16(card: str) -> dict:
+    """The training slice at full size (``train_timed``): TinyLlama-1.1B
+    widths, all 22 layers, bf16; merged training off and then on from the
+    same factors on the same batches."""
+    model = train_model("bfloat16", MODEL["num_hidden_layers"])
+    factors = {n: p.detach().clone() for n, p in model.named_parameters() if "blkdiag" in n}
     runs = {}
     for merged in ("off", "on"):
         with torch.no_grad():
             for n, p in model.named_parameters():
                 if n in factors:
                     p.copy_(factors[n])
-        tr = Trainer(model, train_args(merged, TRAIN_BS, TRAIN_GA, TRAIN_STEPS), train_data=data,
-                     extra_trainable_paths=(), device="cuda")
-        batches = [b for b, _ in tr._batches(data, TRAIN_BS, shuffle=False, accum=TRAIN_GA)]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        monarch_cuda.reset_launch_counts()  # the counted main path starts here
-        losses, secs = [], []
-        for batch in batches:
-            loss, sec = timed(lambda: tr.train_step(batch))
-            losses.append(float(loss))
-            secs.append(sec)
-        launches = dict(monarch_cuda.LAUNCHES)  # the counted main path ends here
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        step_ms = statistics.median(secs[1:]) * 1e3
-        busy = device_busy_ms(lambda k: tr.train_step(batches[k]), 1,
-                              f"bf16 training step (merged {merged})")
-        tr.close()
-        del tr
-        require(all(map(math.isfinite, losses)), f"merged {merged}: losses {losses}")
+        runs[merged] = train_timed(model, merged, f"[train-bf16] {card}: merged {merged}")
+        launches = runs[merged]["launches"]
         want = N_ADAPTED * TRAIN_GA * TRAIN_STEPS
         counted = ("monarch_add", "monarch_bwd") if merged == "off" else ("monarch_dw_fused",)
         require(all(launches[k] == want for k in counted)
                 and all(v == 0 for k, v in launches.items() if k not in counted),
                 f"merged {merged}: launches {launches}; expected {want} of {counted}")
-        tps = tokens / (step_ms / 1e3)
-        mfu = flops_per_token * tps / PEAK_OPS[torch.bfloat16]
-        runs[merged] = {"losses": losses, "launches": launches, "step_ms": step_ms, "busy": busy}
-        idle = f"{1 - busy / step_ms:.3f}" if busy is not None else "not measured"
-        print(f"[train-bf16] {card}: merged {merged}: losses {[round(x, 5) for x in losses]}; "
-              f"step {step_ms:.2f} ms (median of {len(secs) - 1}; all "
-              f"{[round(x * 1e3, 2) for x in secs]}), {tps:.0f} tokens/s, MFU "
-              f"{100 * mfu:.2f}% of 989 TFLOP/s ({flops_per_token / 1e9:.3f} GFLOP/token: "
-              f"4 P_matmul + 12 L h T), peak memory {peak_gb:.2f} GB, device busy "
-              f"{busy if busy is None else round(busy, 2)} ms/step, idle share {idle}; "
-              f"launches {launches}", flush=True)
     diff = max(abs(a - b) for a, b in zip(runs["off"]["losses"], runs["on"]["losses"]))
     print(f"[train-bf16] merged against unmerged: largest loss difference {diff:.5f} "
           f"(tol {BF16_MERGED_LOSS_ATOL})", flush=True)
@@ -852,22 +938,384 @@ def phase_train_bf16(card: str) -> dict:
                          "monarch_dw_fused": runs["on"]["launches"]["monarch_dw_fused"]}}
 
 
+# -- the quantized base (K5-K8) ------------------------------------------------
+
+def _quant_weight(bits: int, n_in: int, n_out: int, g: torch.Generator):
+    """Codes and scales of a seeded random (n_out, n_in) weight, quantized on
+    the card as ``quantize_frozen_base`` does, and its dequantized matrix."""
+    w = torch.randn(n_out, n_in, generator=g, device="cuda") * 0.02
+    if bits == 8:
+        codes, scales = quant._quantize_int8_device(w)
+        dense = quant.dequantize_int8(codes, scales)
+    else:
+        codes, scales = quant._quantize_int4_device(w, QUANT_GROUP)
+        dense = quant.dequantize_int4(codes, scales, QUANT_GROUP)
+    return codes, scales, dense
+
+
+def _quant_calls(name: str, a, codes, scales, dense):
+    """(kernel, plain version, library call) of one K5-K8 case on operand a
+    (x for the forward, dy for dx); the library call is one PyTorch product
+    with the dequantized matrix, precomputed in a's dtype."""
+    bits, dx = QUANT_KERNELS[name]
+    g = QUANT_GROUP
+    if bits == 8:
+        kern = quant_cuda.int8_matmul_dx if dx else quant_cuda.int8_matmul
+        plain = quant_cuda.int8_matmul_dx_reference if dx else quant_cuda.int8_matmul_reference
+        args = (a, codes, scales)
+    else:
+        kern = quant_cuda.int4_matmul_dx if dx else quant_cuda.int4_matmul
+        plain = quant_cuda.int4_matmul_dx_reference if dx else quant_cuda.int4_matmul_reference
+        args = (a, codes, scales, g)
+    w = dense.to(a.dtype)
+    library = (lambda: torch.matmul(a, w)) if dx else (lambda: torch.nn.functional.linear(a, w))
+    return (lambda: kern(*args)), (lambda: plain(*args)), library
+
+
+def phase_quant_kernels(card: str) -> dict:
+    """K7/K5 at ROWS and K8/K6 at BWD_ROWS, the seven projections, bf16 and
+    f32, against their plain versions, timed beside their bound and the
+    library call on the dequantized matrix (``F.linear(x, W)`` forward,
+    ``torch.matmul(dy, W)`` for dx).  Tolerances as ``tolerance``, for the
+    output and for dx alike: both sides round each dequantized weight to the
+    working dtype once and sum in fp32, in another order."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    worst = dict.fromkeys(QUANT_KERNELS, 0.0)
+    per_layer = {(name, m): [] for name in QUANT_KERNELS for m in (4, TRAIN_BS * TRAIN_SEQ)}
+    print(_HEADER, flush=True)
+    with torch.inference_mode():
+        for name, (bits, dx) in QUANT_KERNELS.items():
+            for dtype in (torch.bfloat16, torch.float32):
+                for m_rows in (BWD_ROWS if dx else ROWS):
+                    for proj, n_in, n_out in PROJECTIONS:
+                        codes, scales, dense = _quant_weight(bits, n_in, n_out, g)
+                        a = torch.randn(m_rows, n_out if dx else n_in, generator=g,
+                                        device="cuda").to(dtype)
+                        kern, plain, library = _quant_calls(name, a, codes, scales, dense)
+                        got, ref = kern(), plain()
+                        torch.cuda.synchronize()
+                        require(got.shape == ref.shape and got.dtype == ref.dtype,
+                                f"{name} {proj} M={m_rows}: {got.shape}/{got.dtype} vs "
+                                f"{ref.shape}/{ref.dtype}")
+                        err = float((got.float() - ref.float()).abs().max())
+                        tol = tolerance(dtype, ref)
+                        (ms, call), (plain_ms, plain_call) = (time_ms(kern, 20, 3),
+                                                              time_ms(plain, 20, 3))
+                        rec = _record(name, proj, n_in, n_out, m_rows, dtype, err, err / tol, ms,
+                                      plain_ms, call, plain_call, time_ms(library, 20, 3)[0])
+                        require(err <= tol and bool(torch.isfinite(got).all()),
+                                f"{name} {proj} M={m_rows} {dtype}: max_abs_err {err} > tol {tol}")
+                        worst[name] = max(worst[name], err)
+                        if dtype == torch.bfloat16 and (name, m_rows) in per_layer:
+                            per_layer[(name, m_rows)].append(rec)
+    layer = {key: _layer_sums(recs) for key, recs in per_layer.items() if recs}
+    for (name, m_rows), v in layer.items():
+        print(f"[quant-kernels] {card}: {name} per decoder layer (M={m_rows}, bf16, 7 "
+              f"projections): {v['ms']:.5f} ms (plain {v['plain_ms']:.5f}, library "
+              f"{v['library_ms']:.5f}, bound {v['bound_ms']:.5f} ms, {v['bound_by']})", flush=True)
+    # the JSON line: the forward at decode (serving's shape), dx at a
+    # training micro-batch
+    main = {name: layer[(name, TRAIN_BS * TRAIN_SEQ if dx else 4)]
+            for name, (_, dx) in QUANT_KERNELS.items()}
+    return {"worst": worst, "layer": main}
+
+
+def phase_quant_autograd(card: str) -> None:
+    """The autograd Functions of K7 and K5: the gradient of x at M = 2047,
+    every projection, bf16 and f32, against the plain version's autograd;
+    each backward launches its dx kernel (K8, K6) exactly once."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    worst = 0.0
+    for bits, name in ((8, "int8_matmul"), (4, "int4_matmul")):
+        for dtype in (torch.bfloat16, torch.float32):
+            for proj, n_in, n_out in PROJECTIONS:
+                codes, scales, _ = _quant_weight(bits, n_in, n_out, g)
+                x = torch.randn(2047, n_in, generator=g, device="cuda").to(dtype)
+                cot = torch.randn(2047, n_out, generator=g, device="cuda").to(dtype)
+                extra = () if bits == 8 else (QUANT_GROUP,)
+                kern = quant_cuda.int8_matmul if bits == 8 else quant_cuda.int4_matmul
+                plain = (quant_cuda.int8_matmul_reference if bits == 8
+                         else quant_cuda.int4_matmul_reference)
+                a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+                before = quant_cuda.LAUNCHES[name + "_dx"]
+                (got,) = torch.autograd.grad(kern(a, codes, scales, *extra), a, cot)
+                (want,) = torch.autograd.grad(plain(b, codes, scales, *extra), b, cot)
+                torch.cuda.synchronize()
+                require(quant_cuda.LAUNCHES[name + "_dx"] == before + 1,
+                        f"the backward of {name} did not launch its dx kernel once")
+                e, tol = float((got.float() - want.float()).abs().max()), tolerance(dtype, want)
+                require(got.dtype == want.dtype and e <= tol,
+                        f"grad of {name} {proj} {dtype}: {e} > {tol}")
+                worst = max(worst, e / tol)
+    print(f"[quant-autograd] {card}: gradients of x through K7 and K5 (backward K8, K6) at "
+          f"M=2047, all 7 projections, bf16 and f32: worst error {worst:.3f} of its tolerance",
+          flush=True)
+
+
+def dequantized_copy(model):
+    """A CPU copy of a quantized model with no kernel in it: each layer's
+    codes dequantized into a float32 dense by the plain functions."""
+    import copy
+
+    from torch import nn
+
+    from sparse_matrix_fine_tuning_torch.layers.monarch_linear import MonarchLinear
+
+    ref = copy.deepcopy(model).cpu()
+    for m in ref.modules():
+        if isinstance(m, MonarchLinear) and m.quant_bits:
+            if m.quant_bits == 8:
+                w = quant.dequantize_int8(m.dense, m.dense_scales)
+            else:
+                w = quant.dequantize_int4(m.dense, m.dense_scales, m.quant_group)
+            m.dense = nn.Parameter(w, requires_grad=False)
+            m.dense_scales, m.quant_bits, m.quant_group = None, 0, 0
+    return ref
+
+
+def phase_quant_f32(f32: dict, card: str) -> None:
+    """Quantized serving in float32, int8 and int4: the 22-layer model with
+    the random adapters of ``randomize_adapters``, quantized on the card,
+    against a copy with no kernel in it (codes dequantized by the plain
+    functions and the adapters merged, on the CPU, then moved to the card).
+    Prefill launches K7 (or K5) and K2 once on each adapted linear."""
+    from sparse_matrix_fine_tuning_torch.peft.surgery import merge_all_adapters
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ids, mask = f32["ids"], f32["mask"]
+    for bits in (8, 4):
+        model = build_model("float32", f32["state"])
+        require(quant.quantize_frozen_base(model, bits=bits) == N_ADAPTED, "quantize missed layers")
+        ref = dequantized_copy(model)
+        require(merge_all_adapters(ref) == N_ADAPTED, "merge on the CPU missed adapters")
+        ref = ref.to("cuda")
+        name = f"int{bits}_matmul"
+        reset_counts()
+        with torch.inference_mode():
+            got = model(ids, attention_mask=mask)
+        launches = counts()
+        with torch.inference_mode():
+            want = ref(ids, attention_mask=mask)
+        torch.cuda.synchronize()
+        require(launches[name] == N_ADAPTED and launches["monarch_add"] == N_ADAPTED
+                and sum(launches.values()) == 2 * N_ADAPTED,
+                f"int{bits} prefill launched {launches}; expected {N_ADAPTED} of {name} and of "
+                "monarch_add")
+        valid = mask.bool()
+        err = float((got - want)[valid].abs().max())
+        scale = float(want[valid].abs().max())
+        tol = F32_LOGIT_TOL * scale
+        print(f"[quant-f32] {card}: int{bits} prefill logits {tuple(got.shape)}: max_abs_err "
+              f"{err:.3e}, tol {tol:.3e} ({F32_LOGIT_TOL:g} of max|logit| {scale:.3f}); "
+              f"launches {name} {launches[name]}, monarch_add {launches['monarch_add']}",
+              flush=True)
+        require(bool(torch.isfinite(got).all()), f"non-finite int{bits} f32 logits")
+        require(err <= tol, f"int{bits} f32 prefill logits differ: {err} > {tol}")
+        check_greedy(model, ref, ids, mask, tol, f"quant-f32 int{bits}")
+        del model, ref
+        torch.cuda.empty_cache()
+
+
+def phase_quant_bf16(f32: dict, card: str) -> dict:
+    """Quantized serving in bfloat16, timed as ``phase_bf16``: batch 4,
+    prompt 64, 128 new tokens, three configurations of the 22-layer model:
+    (a) int8 base, adapters unmerged (K7 and K2 on every adapted linear);
+    (b) int8 base with ``requantize_merge_adapters`` (its deltas through
+        K1) and the w8a8 ``Int8LMHead``, ``bench.py:141-145`` (K7 only);
+    (c) int4 base, adapters unmerged (K5 and K2).
+    Each generate is a counted main path; the prefill logits are held
+    against the unquantized bf16 model's (cosine, ``QUANT_COS``).  The host
+    clock drifts over minutes, so each configuration's timed generates
+    alternate with the unquantized bf16 model's, which is timed beside it;
+    the counted generate runs alone, last.  Resident and peak memory are the
+    configuration's own: measured from what was allocated before its model
+    was built."""
+    from sparse_matrix_fine_tuning_torch.models.generate import GenerationConfig, generate
+
+    base = build_model("bfloat16", f32["state"])
+    with torch.inference_mode():
+        base_logits = base(f32["ids"], attention_mask=f32["mask"])
+    valid = f32["mask"].bool()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    mask = torch.ones(BATCH, PROMPT, dtype=torch.long, device="cuda")
+
+    def fresh_ids():
+        return torch.randint(2, MODEL["vocab_size"], (BATCH, PROMPT), generator=g, device="cuda")
+
+    gc = GenerationConfig(max_new_tokens=NEW, eos_token_id=None)
+    gc1 = GenerationConfig(max_new_tokens=1, eos_token_id=None)
+    steps = NEW - 1
+    med = statistics.median
+    out = {}
+    for label, bits, merged in (("a: int8 unmerged", 8, False),
+                                ("b: int8 requantize-merged, w8a8 head", 8, True),
+                                ("c: int4 unmerged", 4, False)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        model = build_model("bfloat16", f32["state"])
+        require(quant.quantize_frozen_base(model, bits=bits) == N_ADAPTED, "quantize missed layers")
+        if merged:
+            reset_counts()
+            require(quant.requantize_merge_adapters(model) == N_ADAPTED, "requantize-merge")
+            require(monarch_cuda.LAUNCHES["monarch_kernel"] == N_ADAPTED,
+                    f"requantize-merge launched {counts()}; expected {N_ADAPTED} of K1")
+            require(quant.quantize_lm_head(model, impl="w8a8"), "lm_head not quantized")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident_gb = (torch.cuda.memory_allocated() - before) / 1e9
+        with torch.inference_mode():
+            logits = model(f32["ids"], attention_mask=f32["mask"])
+        require(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
+        cos = float(torch.nn.functional.cosine_similarity(
+            logits[valid].float().flatten(), base_logits[valid].float().flatten(), dim=0))
+        need = QUANT_COS[bits]
+        print(f"[quant-bf16] {label}: prefill logits cosine to the unquantized bf16 model "
+              f"{cos:.5f} (need >= {need})", flush=True)
+        require(cos >= need, f"{label}: logits cosine {cos} < {need}")
+
+        def gen_s(m, cfg):
+            ids = fresh_ids()
+            return timed(lambda: generate(m, ids, mask, cfg))[1]
+
+        def alternate(cfg, n):
+            """n timed generates of the quantized model and of the unquantized
+            one, alternating."""
+            pairs = [(gen_s(model, cfg), gen_s(base, cfg)) for _ in range(n)]
+            return [p[0] for p in pairs], [p[1] for p in pairs]
+
+        generate(model, fresh_ids(), mask, GenerationConfig(max_new_tokens=8, eos_token_id=None))
+        generate(base, fresh_ids(), mask, GenerationConfig(max_new_tokens=8, eos_token_id=None))
+        prefill, base_prefill = alternate(gc1, 3)
+        gens, base_gens = alternate(gc, 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()  # the counted main path starts here
+        ids = fresh_ids()
+        toks, main_s = timed(lambda: generate(model, ids, mask, gc))
+        launches = counts()  # the counted main path ends here
+        peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+        busy_ms = profile_decode(model, fresh_ids(), mask)
+        name = f"int{bits}_matmul"
+        want = N_ADAPTED * (1 + steps)
+        expect = {name: want, "monarch_add": 0 if merged else want}
+        require(tuple(toks.shape) == (BATCH, PROMPT + NEW), f"{label}: tokens {tuple(toks.shape)}")
+        require(launches == {**dict.fromkeys(launches, 0), **expect},
+                f"{label}: launches {launches}; expected {expect}")
+        prefill_ms = med(prefill) * 1e3
+        gen_med = med(gens + [main_s])
+        decode_ms = (gen_med * 1e3 - prefill_ms) / steps
+        base_prefill_ms = med(base_prefill) * 1e3
+        base_decode_ms = (med(base_gens) * 1e3 - base_prefill_ms) / steps
+        idle = f"{1 - busy_ms / decode_ms:.3f}" if busy_ms is not None else "not measured"
+        print(f"[quant-bf16] {card}: {label}: prefill {prefill_ms:.3f} ms (median of "
+              f"{len(prefill)}), decode {decode_ms:.4f} ms/step, {BATCH * NEW / gen_med:.1f} "
+              f"tokens/s (generate median of {len(gens) + 1}: {gen_med:.4f} s; all "
+              f"{[round(x, 4) for x in gens + [main_s]]}); device busy "
+              f"{busy_ms if busy_ms is None else round(busy_ms, 3)} ms/step, idle share {idle}; "
+              f"weights and buffers resident {resident_gb:.3f} GB, peak {peak_gb:.3f} GB; "
+              f"launches {expect}", flush=True)
+        print(f"[quant-bf16] {card}: {label}: the unquantized bf16 model, timed alternately "
+              f"with it: prefill {base_prefill_ms:.3f} ms, decode {base_decode_ms:.4f} ms/step "
+              f"(generates {[round(x, 4) for x in base_gens]} s against "
+              f"{[round(x, 4) for x in gens]})", flush=True)
+        out[label] = launches
+        del model
+        torch.cuda.empty_cache()
+    return {"launches": {
+        "int8_matmul": sum(v["int8_matmul"] for v in out.values()),
+        "int4_matmul": sum(v["int4_matmul"] for v in out.values())}}
+
+
+def phase_quant_train_f32(card: str) -> dict:
+    """One optimizer step (bs 2 x ga 2 x seq 128, full width, 2 layers, f32,
+    TF32 off, merged training off) over an int8 and an int4 base, through
+    Trainer on the card against a CPU copy on the plain path, with
+    ``phase_train_f32``'s tolerances.  Launches: K7/K5 and K2 in the forward
+    and K3 in the backward on every adapted linear each micro-batch; K8/K6
+    on all but layer 0's q, k and v, whose input (the frozen embedding,
+    normalised) needs no gradient."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = F32_TRAIN
+    n_adapted = 7 * c["layers"]
+    data = train_data(c["bs"] * c["ga"], c["seq"], SEED + 14)
+    out = {}
+    for bits in (8, 4):
+        model = train_model("float32", c["layers"])
+        require(quant.quantize_frozen_base(model, bits=bits) == n_adapted, "quantize missed layers")
+        name = f"int{bits}_matmul"
+        expect = {name: n_adapted * c["ga"], "monarch_add": n_adapted * c["ga"],
+                  "monarch_bwd": n_adapted * c["ga"], name + "_dx": (n_adapted - 3) * c["ga"]}
+        out[bits] = check_step(model, data, "off", expect, f"[quant-train-f32] {card}: int{bits}")
+        del model
+        torch.cuda.empty_cache()
+    return {"launches": {"int8_matmul_dx": out[8]["int8_matmul_dx"]}}
+
+
+def phase_quant_train_bf16(card: str) -> dict:
+    """QLoRA-style training at full size (``run_alpaca.py --bits 4``): the
+    22-layer bf16 model over an int4 base, bs 4 x ga 8 x seq 512, merged
+    training off, 1 warm-up and 3 timed optimizer steps through Trainer,
+    the launch counts zeroed just before the first step and read just after
+    the last (``train_timed``)."""
+    model = train_model("bfloat16", MODEL["num_hidden_layers"])
+    require(quant.quantize_frozen_base(model, bits=4) == N_ADAPTED, "quantize missed layers")
+    torch.cuda.empty_cache()
+    resident = f"weights and buffers resident {torch.cuda.memory_allocated() / 1e9:.3f} GB, "
+    launches = train_timed(model, "off", f"[quant-train-bf16] {card}: int4 base, merged off",
+                           resident)["launches"]
+    micro = TRAIN_GA * TRAIN_STEPS
+    expect = {"int4_matmul": N_ADAPTED * micro, "monarch_add": N_ADAPTED * micro,
+              "monarch_bwd": N_ADAPTED * micro, "int4_matmul_dx": (N_ADAPTED - 3) * micro}
+    require(launches == {**dict.fromkeys(launches, 0), **expect},
+            f"int4 training: launches {launches}; expected {expect}")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": {"int4_matmul": launches["int4_matmul"],
+                         "int4_matmul_dx": launches["int4_matmul_dx"]}}
+
+
 def main() -> None:
+    t0 = time.perf_counter()
+
+    def lap(tag: str) -> None:
+        print(f"[time] {tag} done at {time.perf_counter() - t0:.1f} s", flush=True)
+
     card = phase_device()
     phase_build()
     fwd = phase_kernels(card)
     bwd = phase_kernels_bwd(card)
+    qk = phase_quant_kernels(card)
+    lap("kernels")
     phase_autograd(card)
+    phase_quant_autograd(card)
     f32 = phase_f32()
+    phase_quant_f32(f32, card)
+    lap("f32 serving")
     serving = phase_bf16(f32, card)
+    qserving = phase_quant_bf16(f32, card)
+    del f32
+    lap("bf16 serving")
     phase_train_f32(card)
+    qtrain_f32 = phase_quant_train_f32(card)
+    lap("f32 training")
     training = phase_train_bf16(card)
+    qtraining = phase_quant_train_bf16(card)
+    lap("bf16 training")
     launches = {"monarch_kernel": serving["launches"]["monarch_kernel"],
                 "monarch_add": serving["launches"]["monarch_add"],
                 "monarch_bwd": training["launches"]["monarch_bwd"],
-                "monarch_dw_fused": training["launches"]["monarch_dw_fused"]}
-    measured = {**fwd["layer"], **bwd["layer"]}
-    worst = {**fwd["worst"], **bwd["worst"]}
+                "monarch_dw_fused": training["launches"]["monarch_dw_fused"],
+                "int8_matmul": qserving["launches"]["int8_matmul"],
+                "int8_matmul_dx": qtrain_f32["launches"]["int8_matmul_dx"],
+                "int4_matmul": qserving["launches"]["int4_matmul"]
+                + qtraining["launches"]["int4_matmul"],
+                "int4_matmul_dx": qtraining["launches"]["int4_matmul_dx"]}
+    measured = {**fwd["layer"], **bwd["layer"], **qk["layer"]}
+    worst = {**fwd["worst"], **bwd["worst"], **qk["worst"]}
+    require(all(launches[name] > 0 for name in KERNELS), f"a kernel never launched: {launches}")
     lines = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
               "launches": launches[name], "max_abs_err": worst[name],
               "ms": measured[name]["ms"], "plain_ms": measured[name]["plain_ms"],

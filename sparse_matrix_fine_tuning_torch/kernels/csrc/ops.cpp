@@ -1,13 +1,19 @@
-// PyTorch bindings of the Monarch kernels in monarch_fwd.cu and monarch_bwd.cu:
+// PyTorch bindings of the kernels in monarch_fwd.cu, monarch_bwd.cu and
+// quant_matmul.cu:
 //   torch.ops.smft.monarch_fwd(x, w1, w2)            -> out              (K1)
 //   torch.ops.smft.monarch_fwd_add(base, x, w1, w2)  -> base + out       (K2)
 //   torch.ops.smft.monarch_bwd(x, w1, w2, dout)      -> (dx, dw1, dw2)   (K3)
 //   torch.ops.smft.monarch_dw_fused(x, dout, w1, w2) -> (dw1, dw2)       (K4)
+//   torch.ops.smft.int4_mm(x, packed, scales, group)     -> y            (K5)
+//   torch.ops.smft.int4_mm_dx(dy, packed, scales, group) -> dx           (K6)
+//   torch.ops.smft.int8_mm(x, q, scales)                 -> y            (K7)
+//   torch.ops.smft.int8_mm_dx(dy, q, scales)             -> dx           (K8)
 // Only a CUDA implementation is registered, so a tensor on another device
 // is refused by the dispatcher.  The launch's error code is checked here
 // and raised; the kernels run on PyTorch's current stream and allocate
-// nothing: the outputs and the backward's fp32 scratch (row summaries and
-// per-group partial sums) are allocated here.
+// nothing: the outputs and the fp32 scratch (the backward's row summaries
+// and per-group partial sums, the decode split's partial sums) are
+// allocated here.
 
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
@@ -30,6 +36,11 @@ extern "C" int smft_monarch_bwd(int dtype, int device, const void* x, const void
                                 const void* w1, const void* w2, void* dx, float* work,
                                 float* dw1, float* dw2, int64_t M, int K, int Q, int P, int L,
                                 int S, int R, void* stream);
+extern "C" int64_t smft_quant_mm_workspace(int dtype, int device, int bits, int dx, int64_t M,
+                                           int64_t in_f, int64_t out_f);
+extern "C" int smft_quant_mm(int dtype, int device, int bits, int dx, const void* a,
+                             const void* codes, const float* scales, void* out, float* work,
+                             int64_t M, int64_t in_f, int64_t out_f, int group, void* stream);
 
 namespace {
 
@@ -146,6 +157,82 @@ at::Tensor monarch_fwd_add(const at::Tensor& base, const at::Tensor& x,
   return run(x, w1, w2, &base);
 }
 
+// K5-K8: a (M, in) for the forward or (M, out) for dx; codes int8 (in, out)
+// or packed uint8 (in/2, out); scales f32 (in/group, out).
+at::Tensor run_quant(const at::Tensor& a, const at::Tensor& codes, const at::Tensor& scales,
+                     int bits, bool dx, int64_t group) {
+  TORCH_CHECK(a.scalar_type() == at::kFloat || a.scalar_type() == at::kBFloat16,
+              "the quantized matmuls take float32 or bfloat16 activations, got ",
+              a.scalar_type());
+  TORCH_CHECK(a.dim() == 2 && codes.dim() == 2 && scales.dim() == 2,
+              "activations, codes and scales must be 2-D");
+  check_tensor(a, "activations", a);
+  TORCH_CHECK(codes.is_cuda() && scales.is_cuda() && codes.device() == a.device() &&
+                  scales.device() == a.device(),
+              "codes and scales must be CUDA tensors on the activations' device");
+  TORCH_CHECK(codes.scalar_type() == (bits == 8 ? at::kChar : at::kByte), "int", bits,
+              " codes must be ", bits == 8 ? "int8" : "uint8", ", got ", codes.scalar_type());
+  TORCH_CHECK(scales.scalar_type() == at::kFloat, "scales must be float32");
+  TORCH_CHECK(codes.is_contiguous() && scales.is_contiguous(),
+              "codes and scales must be contiguous");
+  const int64_t rows = codes.size(0), out_f = codes.size(1);
+  const int64_t in_f = bits == 8 ? rows : 2 * rows;
+  if (bits == 8) {
+    TORCH_CHECK(scales.size(0) == 1 && scales.size(1) == out_f, "int8 scales must be (1, ",
+                out_f, "), got ", scales.sizes());
+    group = in_f;
+  } else {
+    TORCH_CHECK(group >= 8 && rows % group == 0 && scales.size(0) == in_f / group &&
+                    scales.size(1) == out_f,
+                "int4 codes ", codes.sizes(), " with group ", group,
+                " need a group of at least 8, (in/2) % group == 0 and scales (in/group, ",
+                "out), got ", scales.sizes());
+  }
+  TORCH_CHECK(in_f % 8 == 0 && out_f % 16 == 0, "the kernels take in % 8 == 0 and ",
+              "out % 16 == 0, got in ", in_f, ", out ", out_f);
+  TORCH_CHECK(in_f < INT32_MAX && out_f < INT32_MAX, "in and out must fit in 32 bits");
+  const int64_t width = dx ? out_f : in_f;
+  TORCH_CHECK(a.size(1) == width, "activations must be (M, ", width, "), got ", a.sizes());
+  for (const at::Tensor* t : {&a, &codes, &scales}) {
+    TORCH_CHECK(reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
+                "the kernels load 16 bytes at a time: operands must start on 16 bytes");
+  }
+  const int64_t M = a.size(0);
+  at::Tensor out = at::empty({M, dx ? in_f : out_f}, a.options());
+  const int device = a.get_device();
+  const int dtype = a.scalar_type() == at::kFloat ? 0 : 1;
+  const int64_t work_floats =
+      smft_quant_mm_workspace(dtype, device, bits, dx ? 1 : 0, M, in_f, out_f);
+  TORCH_CHECK(work_floats >= 0, "quantized matmul: cannot read the device's SM count");
+  at::Tensor work = at::empty({work_floats}, a.options().dtype(at::kFloat));
+  const auto stream = c10::cuda::getCurrentCUDAStream(device);
+  const int err = smft_quant_mm(
+      dtype, device, bits, dx ? 1 : 0, a.data_ptr(),
+      codes.data_ptr(), scales.data_ptr<float>(), out.data_ptr(),
+      work_floats > 0 ? work.data_ptr<float>() : nullptr, M, in_f, out_f,
+      static_cast<int>(group), static_cast<void*>(stream.stream()));
+  C10_CUDA_CHECK(static_cast<cudaError_t>(err));
+  return out;
+}
+
+at::Tensor int8_mm(const at::Tensor& x, const at::Tensor& q, const at::Tensor& scales) {
+  return run_quant(x, q, scales, 8, false, 0);
+}
+
+at::Tensor int8_mm_dx(const at::Tensor& dy, const at::Tensor& q, const at::Tensor& scales) {
+  return run_quant(dy, q, scales, 8, true, 0);
+}
+
+at::Tensor int4_mm(const at::Tensor& x, const at::Tensor& packed, const at::Tensor& scales,
+                   int64_t group) {
+  return run_quant(x, packed, scales, 4, false, group);
+}
+
+at::Tensor int4_mm_dx(const at::Tensor& dy, const at::Tensor& packed, const at::Tensor& scales,
+                      int64_t group) {
+  return run_quant(dy, packed, scales, 4, true, group);
+}
+
 }  // namespace
 
 TORCH_LIBRARY(smft, m) {
@@ -153,6 +240,10 @@ TORCH_LIBRARY(smft, m) {
   m.def("monarch_fwd_add(Tensor base, Tensor x, Tensor w1, Tensor w2) -> Tensor");
   m.def("monarch_bwd(Tensor x, Tensor w1, Tensor w2, Tensor dout) -> (Tensor, Tensor, Tensor)");
   m.def("monarch_dw_fused(Tensor x, Tensor dout, Tensor w1, Tensor w2) -> (Tensor, Tensor)");
+  m.def("int8_mm(Tensor x, Tensor q, Tensor scales) -> Tensor");
+  m.def("int8_mm_dx(Tensor dy, Tensor q, Tensor scales) -> Tensor");
+  m.def("int4_mm(Tensor x, Tensor packed, Tensor scales, int group) -> Tensor");
+  m.def("int4_mm_dx(Tensor dy, Tensor packed, Tensor scales, int group) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(smft, CUDA, m) {
@@ -160,4 +251,8 @@ TORCH_LIBRARY_IMPL(smft, CUDA, m) {
   m.impl("monarch_fwd_add", &monarch_fwd_add);
   m.impl("monarch_bwd", &monarch_bwd);
   m.impl("monarch_dw_fused", &monarch_dw_fused);
+  m.impl("int8_mm", &int8_mm);
+  m.impl("int8_mm_dx", &int8_mm_dx);
+  m.impl("int4_mm", &int4_mm);
+  m.impl("int4_mm_dx", &int4_mm_dx);
 }

@@ -1,0 +1,914 @@
+// Dequantize-matmul kernels of the quantized frozen base for Hopper, sm_90a:
+//   K7  y  = x  @ W   for int8 codes       K8  dx = dy @ W^T  for int8 codes
+//   K5  y  = x  @ W   for packed int4      K6  dx = dy @ W^T  for packed int4
+//
+// Replace the Pallas TPU kernels of
+// sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py: `_fwd8_kernel` (K7),
+// `_bwd8_kernel` (K8), `_fwd_kernel` (K5) and `_bwd_kernel` (K6).  Written
+// from the math, not carried over block by block:
+//
+//   W (in, out), the dequantized weight, each cell rounded to T once:
+//     W[j, o] = round_T( code(j, o) * scales[(j / group) * out + o] )
+//   int8:  code = q_t[j * out + o] (int8), one scale row (group = in);
+//   int4:  byte = packed_t[(j mod h) * out + o], h = in / 2; code = the low
+//          nibble - 8 for j < h, the high nibble - 8 for j >= h.
+//   forward:  y[m, o]  = round_T( sum_j x[m, j]  * W[j, o] )   (fp32 sums)
+//   dx:       dx[m, j] = round_T( sum_o dy[m, o] * W[j, o] )   (fp32 sums, all of out)
+// T is the dtype of x (float or bf16).  No sum is ever kept in bf16.
+//
+// What bounds them on this card, and what the design does about it:
+//  * Decode (forward, M <= 16 rows): the bytes of the codes.  `qdecode`
+//    streams every code byte once from device memory, with 4-16 byte loads
+//    (a warp reads 4 rows x 32-128 contiguous bytes), keeps x's rows of the
+//    CTA's slice of `in` in shared memory and M x 4-16 fp32 sums in
+//    registers.  `in` is split over CTAs so that k_proj and v_proj (out 256)
+//    still give the card work; each CTA writes fp32 partial sums and
+//    `qsplit_sum` adds them in a fixed order (deterministic; no atomics).
+//    The TPU's sequential grid carried the sum from step to step: here the
+//    split and its second pass take that place.
+//  * Training and prefill (M > 16, and every dx): operations.
+//    `qgemm_pipe` multiplies with mma.sync m16n8k16 (bf16 in, fp32 sums),
+//    a 128 x 128 tile of the output per CTA, two CTAs an SM: x (or dy), the
+//    raw codes and their scale rows are copied to shared memory with
+//    cp.async two k steps ahead, and each step dequantizes its codes into a
+//    bf16 tile in shared memory, from which the warps load their fragments
+//    with ldmatrix.  f32 activations take `qgemm_f32`, a tile kernel with
+//    f32 FMA on the CUDA cores (no TF32).  The reduction runs inside the
+//    CTA, except where the output has fewer tiles than the card has SMs
+//    (k_proj and v_proj, prefill's few rows): there it is split over CTAs
+//    and `qsplit_sum` adds their fp32 partial sums in a fixed order.  Rows
+//    past M (M = 65, 2047) are never loaded.
+//  * The nibbles are unpacked with byte loads, shifts and byte permutes
+//    (a code becomes a float through its bits, with no conversion
+//    instruction).  The TPU kernel's int32-lane unpack, its f32-operand
+//    branch for small batches, its tile pickers and VMEM budgets are TPU
+//    workarounds and are not here.
+//
+// The C interface below takes raw pointers and returns a cudaError_t, so
+// this file needs no PyTorch header; ops.cpp binds it.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;
+constexpr int kDecodeRows = 16;  // forward row counts up to this take qdecode
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as JAX's astype
+}
+
+template <typename T>
+__device__ __forceinline__ float round_t(float v) { return to_f32(from_f32<T>(v)); }
+
+// The quantized weight: codes, scales and their geometry.
+struct QuantW {
+  const uint8_t* codes;  // int8 codes as bytes, or packed int4 bytes; rows of `out` bytes
+  const float* scales;   // (in / group, out)
+  int64_t in, out;       // W is (in, out)
+  int64_t h;             // rows of codes: in for int8, in / 2 for int4
+  int64_t group;         // input rows per scale row (in for int8)
+};
+
+// The code of one cell from its byte: `high` selects the int4 high nibble.
+template <int kBits>
+__device__ __forceinline__ float code_of(uint32_t byte, bool high) {
+  if constexpr (kBits == 8) {
+    return static_cast<float>(static_cast<int8_t>(byte));
+  } else {
+    return static_cast<float>(static_cast<int>(high ? (byte >> 4) : (byte & 15u)) - 8);
+  }
+}
+
+__device__ __forceinline__ int64_t code_row(const QuantW& w, int64_t j) {
+  return j < w.h ? j : j - w.h;
+}
+
+// The scale row of input row j, in 32-bit arithmetic (the binding keeps in
+// and out under 2^31; a 64-bit division is a long software routine).
+__device__ __forceinline__ int scale_row(const QuantW& w, int64_t j) {
+  return static_cast<int>(j) / static_cast<int>(w.group);
+}
+
+// -- decode: forward with few rows, streaming the codes once ---------------
+
+// Load CPT code bytes of one row (16, 8 or 4 bytes, aligned) into words.
+template <int CPT>
+__device__ __forceinline__ void load_codes(const uint8_t* p, uint32_t (&c)[CPT / 4]) {
+  if constexpr (CPT == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    c[0] = v.x; c[1] = v.y; c[2] = v.z; c[3] = v.w;
+  } else if constexpr (CPT == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    c[0] = v.x; c[1] = v.y;
+  } else {
+    c[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+
+template <int CPT>
+__device__ __forceinline__ void load_scales(const float* p, float (&s)[CPT]) {
+#pragma unroll
+  for (int i = 0; i < CPT / 4; ++i) {
+    const float4 v = *reinterpret_cast<const float4*>(p + 4 * i);
+    s[4 * i] = v.x; s[4 * i + 1] = v.y; s[4 * i + 2] = v.z; s[4 * i + 3] = v.w;
+  }
+}
+
+// One CTA: 8 warps; a warp is 8 column threads x 4 row groups, so the CTA
+// covers 8 * CPT output columns and 32 row groups over its slice of code
+// rows [r0, r0 + kchunk).  MR >= M: rows of x past M are zeros in shared
+// memory, so the inner loop has no guard.  MR * CPT = 64 sums a thread.
+template <typename T, int kBits, int MR, int CPT>
+__global__ void __launch_bounds__(kThreads)
+qdecode_kernel(const T* __restrict__ x, QuantW w, T* __restrict__ y, float* __restrict__ partial,
+               int64_t M, int kchunk, int ksplit) {
+  extern __shared__ float smem[];
+  constexpr int kHalves = kBits == 4 ? 2 : 1;
+  constexpr int kCols = 8 * CPT;
+  float* xs = smem;                              // [kHalves][MR][kchunk]
+  float* red = smem + kHalves * MR * kchunk;     // [8 warps][MR][kCols]
+  const int64_t rows_total = w.h;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * kchunk;
+  const int64_t left = rows_total - r0;
+  const int rows = left < kchunk ? static_cast<int>(left) : kchunk;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kCols;
+
+  for (int i = threadIdx.x; i < kHalves * MR * kchunk; i += kThreads) {
+    const int half = i / (MR * kchunk);
+    const int m = (i / kchunk) % MR;
+    const int r = i % kchunk;
+    float v = 0.f;
+    if (m < M && r < rows) v = to_f32(x[m * w.in + half * w.h + r0 + r]);
+    xs[i] = v;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int cg = lane % 8;
+  const int rg = warp * 4 + lane / 8;
+  const int64_t col = c0 + cg * CPT;
+  const int run = (rows + 31) / 32;
+  const int rbeg = rg * run;
+  const int rend = rbeg + run < rows ? rbeg + run : rows;
+
+  float acc[MR][CPT];
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[m][c] = 0.f;
+
+  if (col < w.out && rbeg < rend) {
+    float s_lo[CPT], s_hi[CPT];
+    int64_t srow_lo = -1, srow_hi = -1;
+    constexpr int kUnroll = 4;  // code loads of 4 rows in flight at once
+    for (int r4 = rbeg; r4 < rend; r4 += kUnroll) {
+      uint32_t rows_words[kUnroll][CPT / 4];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (r4 + u < rend) load_codes<CPT>(w.codes + (r0 + r4 + u) * w.out + col, rows_words[u]);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int r = r4 + u;
+        if (r >= rend) break;
+        const int64_t j = r0 + r;  // code row; for int4 also input column j + h
+        const int64_t g_lo = scale_row(w, j);
+        if (g_lo != srow_lo) {
+          load_scales<CPT>(w.scales + g_lo * w.out + col, s_lo);
+          srow_lo = g_lo;
+        }
+        if constexpr (kBits == 4) {
+          const int64_t g_hi = scale_row(w, j + w.h);
+          if (g_hi != srow_hi) {
+            load_scales<CPT>(w.scales + g_hi * w.out + col, s_hi);
+            srow_hi = g_hi;
+          }
+        }
+        const uint32_t (&words)[CPT / 4] = rows_words[u];
+        float xv[MR];
+#pragma unroll
+        for (int m = 0; m < MR; ++m) xv[m] = xs[m * kchunk + r];
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const uint32_t byte = (words[c / 4] >> (8 * (c % 4))) & 0xffu;
+          const float wl = round_t<T>(code_of<kBits>(byte, false) * s_lo[c]);
+#pragma unroll
+          for (int m = 0; m < MR; ++m) acc[m][c] += xv[m] * wl;
+        }
+        if constexpr (kBits == 4) {
+#pragma unroll
+          for (int m = 0; m < MR; ++m) xv[m] = xs[(MR + m) * kchunk + r];
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) {
+            const uint32_t byte = (words[c / 4] >> (8 * (c % 4))) & 0xffu;
+            const float wh = round_t<T>(code_of<kBits>(byte, true) * s_hi[c]);
+#pragma unroll
+            for (int m = 0; m < MR; ++m) acc[m][c] += xv[m] * wh;
+          }
+        }
+      }
+    }
+  }
+
+  // Sum the warp's 4 row groups (lane bits 3 and 4), then the 8 warps in
+  // order through shared memory.
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      float v = acc[m][c];
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      acc[m][c] = v;
+    }
+  if (lane < 8) {
+#pragma unroll
+    for (int m = 0; m < MR; ++m)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) red[(warp * MR + m) * kCols + cg * CPT + c] = acc[m][c];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < MR * kCols; i += kThreads) {
+    const int m = i / kCols;
+    const int64_t o = c0 + i % kCols;
+    if (m >= M || o >= w.out) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int wp = 0; wp < 8; ++wp) s += red[(wp * MR + m) * kCols + i % kCols];
+    if (ksplit == 1) {
+      y[m * w.out + o] = from_f32<T>(s);
+    } else {
+      partial[(static_cast<int64_t>(blockIdx.y) * M + m) * w.out + o] = s;
+    }
+  }
+}
+
+// y = round_T(sum over the splits, in order, of the fp32 partial sums).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+qsplit_sum_kernel(const float* __restrict__ partial, T* __restrict__ y, int64_t total,
+                  int ksplit) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= total) return;
+  float s = 0.f;
+  for (int k = 0; k < ksplit; ++k) s += partial[k * total + i];
+  y[i] = from_f32<T>(s);
+}
+
+// -- tiled product: C (M, N) = A (M, K) @ B (K, N), B dequantized per tile ---
+//
+// forward (kDx false): A = x (M, in), K = in, N = out, B(k, n) = W[k, n];
+// dx (kDx true):      A = dy (M, out), K = out, N = in, B(k, n) = W[n, k].
+// A group is 4 cells of B that lie in 4 contiguous code bytes: along n for
+// the forward, along k for dx.
+
+constexpr int kTile = 128;  // both tile kernels: a 128 x 128 output tile, 8 warps
+
+struct BGroup {
+  uint32_t code;
+  float4 s;
+  bool high;
+};
+
+template <int kBits, bool kDx, int BK, int BN>
+__device__ __forceinline__ BGroup load_group(const QuantW& w, int64_t k0, int64_t n0, int g) {
+  int64_t j, o;
+  if constexpr (kDx) {
+    const int n = g / (BK / 4), k = (g % (BK / 4)) * 4;
+    j = n0 + n;
+    o = k0 + k;
+  } else {
+    const int k = g / (BN / 4), n = (g % (BN / 4)) * 4;
+    j = k0 + k;
+    o = n0 + n;
+  }
+  BGroup b{0u, make_float4(0.f, 0.f, 0.f, 0.f), false};
+  if (j < w.in && o < w.out) {  // out % 16 == 0: the group is whole
+    b.code = *reinterpret_cast<const uint32_t*>(w.codes + code_row(w, j) * w.out + o);
+    b.s = *reinterpret_cast<const float4*>(w.scales + scale_row(w, j) * w.out + o);
+    b.high = kBits == 4 && j >= w.h;
+  }
+  return b;
+}
+
+// The 4 cells of a group times their scales, in f32.  Each code byte (int8
+// offset to 0..255, or an int4 nibble) is placed in the low bits of the
+// float 2^23 by a byte permute, and the offset subtracted: exact, with no
+// integer-to-float conversion instruction.
+template <int kBits>
+__device__ __forceinline__ void dequant_group(const BGroup& b, float (&v)[4]) {
+  const float s[4] = {b.s.x, b.s.y, b.s.z, b.s.w};
+  const uint32_t u = kBits == 8 ? b.code ^ 0x80808080u
+                                : (b.high ? b.code >> 4 : b.code) & 0x0F0F0F0Fu;
+  const float offset = kBits == 8 ? 8388608.f + 128.f : 8388608.f + 8.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    v[e] = (__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + e)) - offset) * s[e];
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, lane l addressing row l % 8
+// of matrix l / 8 (`trans`: each matrix transposed on the way).
+template <bool kTrans>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if constexpr (kTrans) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(s));
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(s));
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The B tile in shared memory, laid out so that a group of 4 cells is one
+// 8-byte (bf16) or 16-byte (f32) store and a warp's stores are contiguous:
+// forward Bs[k][n] (n contiguous), dx Bs[n][k] (k contiguous).  `pad`
+// keeps the fragment loads free of bank conflicts.
+template <typename T, bool kDx, int BK, int BN, int kPad>
+struct BTile {
+  static constexpr int kLd = kDx ? BK + kPad : BN + kPad;
+  static constexpr int kSize = kDx ? BN * kLd : BK * kLd;
+  T* p;
+  __device__ __forceinline__ T* at(int k, int n) const {
+    return kDx ? p + n * kLd + k : p + k * kLd + n;
+  }
+  // Group g's first cell: the forward's groups run along n, dx's along k.
+  __device__ __forceinline__ T* group(int g) const {
+    if constexpr (kDx) {
+      return at((g % (BK / 4)) * 4, g / (BK / 4));
+    } else {
+      return at(g / (BN / 4), (g % (BN / 4)) * 4);
+    }
+  }
+};
+
+// -- bf16: a pipelined tile kernel -------------------------------------------
+//
+// A 128 x 128 output tile, 8 warps as 2 x 4 of 64 x 32, a k step of BK: 64,
+// or 32 for the int4 dx, which spills at 64.  x (or dy), the raw code bytes
+// and the scale rows a k step needs are copied to shared memory with
+// cp.async, kPipe - 1 steps ahead, so the loads of later steps are in
+// flight while this one computes; each step then dequantizes its raw codes
+// into the bf16 tile Bs (one pass through shared memory), and each warp
+// loads its fragments with ldmatrix and runs BK / 16 x 16 mma.sync.  Two
+// CTAs fit an SM (128 registers and at most 114 KB of shared memory each).
+// A step's cells need at most BK / 8 + 2 scale rows along k (the forward)
+// or 128 / 8 + 2 along n (dx), as a group is at least 8 (quant._fit_group).
+//
+// blockIdx.z selects a slice [z * kchunk, (z + 1) * kchunk) of K, of whole
+// k steps.  With one slice the CTA writes C in bf16; with more it writes its
+// fp32 partial sums to `partial` (z, M, N), and qsplit_sum adds them.
+constexpr int kPipe = 3;
+
+template <int BK>
+struct PipeLayout {
+  static constexpr int kLdA = BK + 8;          // bf16 per row of a stage's A tile
+  static constexpr int kA = kTile * kLdA * 2;  // bytes of a stage's A tile
+  static constexpr int kCodes = BK * kTile;    // bytes of a stage's raw codes
+  static constexpr int kScales =               // floats of a stage's scale rows
+      (BK / 8 + 2) * kTile > 18 * BK ? (BK / 8 + 2) * kTile : 18 * BK;
+  static constexpr int kStage = kA + kCodes + kScales * 4;
+  static constexpr int kSmem = kPipe * kStage + kTile * (BK + 8) * 2;  // and Bs
+};
+
+constexpr int pipe_bk(int bits, bool dx) { return bits == 4 && dx ? 32 : 64; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <int kBits, bool kDx, int BK>
+__global__ void __launch_bounds__(kThreads, 2)
+qgemm_pipe_kernel(const bf16* __restrict__ A, QuantW w, bf16* __restrict__ C,
+                  float* __restrict__ partial, int64_t M, int64_t N, int64_t K, int64_t kchunk) {
+  using L = PipeLayout<BK>;
+  using Tile = BTile<bf16, kDx, BK, kTile, 8>;
+  extern __shared__ __align__(16) unsigned char pipe_smem[];
+  auto stage_a = [&](int s) { return reinterpret_cast<bf16*>(pipe_smem + s * L::kStage); };
+  auto stage_codes = [&](int s) { return pipe_smem + s * L::kStage + L::kA; };
+  auto stage_scales = [&](int s) {
+    return reinterpret_cast<float*>(pipe_smem + s * L::kStage + L::kA + L::kCodes);
+  };
+  const Tile Bs{reinterpret_cast<bf16*>(pipe_smem + kPipe * L::kStage)};
+  const int t = threadIdx.x;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * kTile;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int64_t srow0 = kDx ? scale_row(w, n0) : 0;  // dx: the tile's first scale row
+
+  auto issue = [&](int s, int64_t k0) {
+    bf16* as = stage_a(s);
+#pragma unroll
+    for (int i = 0; i < BK / 16; ++i) {  // A: 128 rows x BK / 8 chunks of 8 bf16
+      const int c = t + i * kThreads;
+      const int row = c / (BK / 8), kc = (c % (BK / 8)) * 8;
+      const bool ok = m0 + row < M && k0 + kc < K;
+      cp_async16(as + row * L::kLdA + kc, ok ? A + (m0 + row) * K + k0 + kc : A, ok);
+    }
+    uint8_t* raw = stage_codes(s);
+    float* sc = stage_scales(s);
+    if constexpr (kDx) {
+      // codes: 128 rows j x BK bytes o; scales: up to 18 rows x BK floats
+#pragma unroll
+      for (int i = 0; i < BK / 32; ++i) {
+        const int c = t + i * kThreads;
+        const int n = c / (BK / 16), kc = (c % (BK / 16)) * 16;
+        const int64_t j = n0 + n, o = k0 + kc;
+        const bool ok = j < w.in && o < w.out;
+        cp_async16(raw + n * BK + kc, ok ? w.codes + code_row(w, j) * w.out + o : w.codes, ok);
+      }
+      const int64_t last = scale_row(w, n0 + kTile - 1 < w.in ? n0 + kTile - 1 : w.in - 1);
+      for (int c = t; c < (last - srow0 + 1) * (BK / 4); c += kThreads) {
+        const int rr = c / (BK / 4), oc = (c % (BK / 4)) * 4;
+        const bool sok = k0 + oc < w.out;
+        cp_async16(sc + rr * BK + oc,
+                   sok ? w.scales + (srow0 + rr) * w.out + k0 + oc : w.scales, sok);
+      }
+    } else {
+      // codes: BK rows j x 128 bytes o; scales: the rows of this k step,
+      // at most BK / 8 + 2 of 128 floats
+#pragma unroll
+      for (int i = 0; i < BK / 32; ++i) {
+        const int c = t + i * kThreads;
+        const int r = c / 8, nc = (c % 8) * 16;
+        const int64_t j = k0 + r, o = n0 + nc;
+        const bool ok = j < w.in && o < w.out;
+        cp_async16(raw + r * kTile + nc, ok ? w.codes + code_row(w, j) * w.out + o : w.codes,
+                   ok);
+      }
+      const int64_t first = scale_row(w, k0 < w.in ? k0 : w.in - 1);
+      const int64_t last = scale_row(w, k0 + BK - 1 < w.in ? k0 + BK - 1 : w.in - 1);
+      for (int c = t; c < (last - first + 1) * (kTile / 4); c += kThreads) {
+        const int rr = c / (kTile / 4), oc = (c % (kTile / 4)) * 4;
+        const bool sok = n0 + oc < w.out;
+        cp_async16(sc + rr * kTile + oc,
+                   sok ? w.scales + (first + rr) * w.out + n0 + oc : w.scales, sok);
+      }
+    }
+  };
+
+  const int warp = t / 32, lane = t % 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int g = lane / 4, q = lane % 4;
+  const int mat = lane / 8, rim = lane % 8;  // the ldmatrix row this lane addresses
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  // dx: a thread's groups lie on the same BK / 8 rows n in every step; the
+  // offsets of their scale rows from srow0 (at most 17), a byte each
+  uint32_t dx_srow[BK / 32] = {};
+  if constexpr (kDx) {
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+      const int64_t j = n0 + (t + i * kThreads) / (BK / 4);
+      dx_srow[i / 4] |= static_cast<uint32_t>(scale_row(w, j < w.in ? j : w.in - 1) - srow0)
+                        << (8 * (i % 4));
+    }
+  }
+
+  const int64_t kbeg = static_cast<int64_t>(blockIdx.z) * kchunk;
+  const int64_t klen = K - kbeg < kchunk ? K - kbeg : kchunk;
+  const int64_t steps = (klen + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < kPipe - 1; ++s) {
+    if (s < steps) issue(s, kbeg + s * BK);
+    cp_async_commit();
+  }
+  for (int64_t kt = 0; kt < steps; ++kt) {
+    cp_async_wait<kPipe - 2>();
+    __syncthreads();  // step kt has landed; every warp is done with step kt - 1
+    if (kt + kPipe - 1 < steps) issue((kt + kPipe - 1) % kPipe, kbeg + (kt + kPipe - 1) * BK);
+    cp_async_commit();
+    const int s = static_cast<int>(kt % kPipe);
+    const int64_t k0 = kbeg + kt * BK;
+    const uint8_t* raw = stage_codes(s);
+    const float* sc = stage_scales(s);
+    const int group = static_cast<int>(w.group);
+    const int k0_in_group = kDx ? 0 : static_cast<int>(k0) % group;
+    // forward: a thread's groups share the columns n = (t % 32) * 4, and
+    // when the group is a multiple of BK the step's k share one scale row
+    const bool one_row = !kDx && group % BK == 0;
+    float4 s_step = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (one_row) s_step = *reinterpret_cast<const float4*>(sc + (t % 32) * 4);
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {  // dequantize: 32 * BK groups of 4 cells
+      const int grp = t + i * kThreads;
+      BGroup b;
+      int64_t j;
+      if constexpr (kDx) {
+        const int n = grp / (BK / 4), k = (grp % (BK / 4)) * 4;
+        j = n0 + n;
+        b.code = *reinterpret_cast<const uint32_t*>(raw + n * BK + k);
+        const uint32_t rr = (dx_srow[i / 4] >> (8 * (i % 4))) & 0xffu;
+        b.s = *reinterpret_cast<const float4*>(sc + rr * BK + k);
+      } else {
+        const int k = grp / 32, n = (grp % 32) * 4;
+        j = k0 + k;
+        b.code = *reinterpret_cast<const uint32_t*>(raw + k * kTile + n);
+        if (one_row) {
+          b.s = s_step;
+        } else {
+          // the scale row of j from the step's first, without a division:
+          // at most (BK - 1) / 8 + 1 subtractions; rows past `in` (A is 0
+          // there) read row 0, which is loaded and finite
+          int rr = 0;
+          if (j < w.in) {
+            for (int x = k0_in_group + k; x >= group; x -= group) ++rr;
+          }
+          b.s = *reinterpret_cast<const float4*>(sc + rr * kTile + n);
+        }
+      }
+      b.high = kBits == 4 && j >= w.h;
+      float v[4];
+      dequant_group<kBits>(b, v);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+      uint2 packed;
+      packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+      packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(Bs.group(grp)) = packed;
+    }
+    __syncthreads();
+    const bf16* as = stage_a(s);
+#pragma unroll
+    for (int ks = 0; ks < BK; ks += 16) {
+      // A: matrices (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
+      // of each 16 x 16 block; B: (k 0-7, k 8-15) of two 8-column blocks
+      uint32_t a[4][4], b[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldsm_x4<false>(a[mi], as + (wm * 64 + mi * 16 + (mat % 2) * 8 + rim) * L::kLdA + ks +
+                                  (mat / 2) * 8);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t r[4];
+        const int c = wn * 32 + (np * 2 + mat / 2) * 8;
+        if constexpr (kDx) {
+          ldsm_x4<false>(r, Bs.at(ks + (mat % 2) * 8, c + rim));  // Bs[n][k]: rows n
+        } else {
+          ldsm_x4<true>(r, Bs.at(ks + (mat % 2) * 8 + rim, c));  // Bs[k][n]: rows k
+        }
+        b[2 * np][0] = r[0];
+        b[2 * np][1] = r[1];
+        b[2 * np + 1][0] = r[2];
+        b[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int64_t col = n0 + wn * 32 + ni * 8 + 2 * q;  // even; N is even
+      if (col >= N) continue;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int64_t row = m0 + wm * 64 + mi * 16 + g + 8 * hr;
+        if (row >= M) continue;
+        const float v0 = acc[mi][ni][2 * hr], v1 = acc[mi][ni][2 * hr + 1];
+        if (gridDim.z == 1) {
+          *reinterpret_cast<__nv_bfloat162*>(C + row * N + col) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          *reinterpret_cast<float2*>(partial + (blockIdx.z * M + row) * N + col) =
+              make_float2(v0, v1);
+        }
+      }
+    }
+}
+
+// f32: 16 x 16 threads, each an 8 x 8 micro tile (rows ty + 16 i, columns
+// tx + 16 j).  A's shared rows are padded to 17 floats and dx's B rows too,
+// so that the 16 distinct rows a warp reads fall in 16 banks; the
+// forward's B rows (n contiguous) need no pad.  blockIdx.z selects a slice
+// of K as in qgemm_pipe.
+constexpr int kF32BK = 16;
+
+template <int kBits, bool kDx>
+__global__ void __launch_bounds__(kThreads)
+qgemm_f32_kernel(const float* __restrict__ A, QuantW w, float* __restrict__ C,
+                 float* __restrict__ partial, int64_t M, int64_t N, int64_t K, int64_t kchunk) {
+  constexpr int BK = kF32BK;
+  constexpr int kBM = kTile, kBN = kTile;
+  constexpr int LDA = BK + 1;
+  constexpr int kGroups = kBN * BK / 4 / kThreads;  // 2 B groups a thread
+  using Tile = BTile<float, kDx, BK, kBN, kDx ? 1 : 0>;
+  __shared__ float As[kBM][LDA];
+  __shared__ __align__(16) float Bsm[Tile::kSize];
+  const Tile Bs{Bsm};
+  const int t = threadIdx.x;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * kBM;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kBN;
+
+  float4 a_reg[2];
+  BGroup b_reg[kGroups];
+  auto load = [&](int64_t k0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = t + i * kThreads;
+      const int row = c / 4, kc = (c % 4) * 4;
+      a_reg[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (m0 + row < M && k0 + kc < K)
+        a_reg[i] = *reinterpret_cast<const float4*>(A + (m0 + row) * K + k0 + kc);
+    }
+#pragma unroll
+    for (int i = 0; i < kGroups; ++i)
+      b_reg[i] = load_group<kBits, kDx, BK, kBN>(w, k0, n0, t + i * kThreads);
+  };
+  auto store = [&]() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = t + i * kThreads;
+      const int row = c / 4, kc = (c % 4) * 4;
+      As[row][kc] = a_reg[i].x;
+      As[row][kc + 1] = a_reg[i].y;
+      As[row][kc + 2] = a_reg[i].z;
+      As[row][kc + 3] = a_reg[i].w;
+    }
+#pragma unroll
+    for (int i = 0; i < kGroups; ++i) {
+      float v[4];
+      dequant_group<kBits>(b_reg[i], v);
+      float* dst = Bs.group(t + i * kThreads);
+      if constexpr (kDx) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dst[e] = v[e];  // padded rows: no 16-byte store
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  };
+
+  const int ty = t / 16, tx = t % 16;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  const int64_t kbeg = static_cast<int64_t>(blockIdx.z) * kchunk;
+  const int64_t kend = K - kbeg < kchunk ? K : kbeg + kchunk;
+  load(kbeg);
+  for (int64_t k0 = kbeg; k0 < kend; k0 += BK) {
+    store();
+    __syncthreads();
+    if (k0 + BK < kend) load(k0 + BK);
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      float a[8], b[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = As[ty + 16 * i][k];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = *Bs.at(k, tx + 16 * j);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * b[j];
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int64_t row = m0 + ty + 16 * i;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int64_t col = n0 + tx + 16 * j;
+      if (col >= N) continue;
+      if (gridDim.z == 1) {
+        C[row * N + col] = acc[i][j];
+      } else {
+        partial[(blockIdx.z * M + row) * N + col] = acc[i][j];
+      }
+    }
+  }
+}
+
+// -- host side ------------------------------------------------------------
+
+struct DecodePlan {
+  int mr, cpt, kchunk, ksplit, col_ctas;
+  size_t smem;
+};
+
+int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+DecodePlan decode_plan(int bits, int64_t M, int64_t in_f, int64_t out_f, int num_sms) {
+  DecodePlan p{};
+  p.mr = M <= 4 ? 4 : M <= 8 ? 8 : 16;
+  p.cpt = 64 / p.mr;
+  const int64_t cols = 8 * p.cpt;
+  p.col_ctas = static_cast<int>(cdiv(out_f, cols));
+  const int halves = bits == 4 ? 2 : 1;
+  const int64_t rows = bits == 4 ? in_f / 2 : in_f;
+  // x's slice in shared memory stays within 32 KB; the partial sums (the
+  // split's second pass) cost ksplit * M * out fp32, so each CTA keeps at
+  // least 64 code rows.
+  const int64_t max_chunk = 8192 / (p.mr * halves);
+  int64_t ksplit = cdiv(2 * static_cast<int64_t>(num_sms), p.col_ctas);
+  const int64_t cap = rows / 64 > 1 ? rows / 64 : 1;
+  if (ksplit > cap) ksplit = cap;
+  if (ksplit < 1) ksplit = 1;
+  int64_t chunk = cdiv(cdiv(rows, ksplit), 32) * 32;
+  if (chunk > max_chunk) chunk = max_chunk;
+  p.kchunk = static_cast<int>(chunk);
+  p.ksplit = static_cast<int>(cdiv(rows, chunk));
+  p.smem = sizeof(float) * (halves * p.mr * chunk + 8 * p.mr * cols);
+  return p;
+}
+
+template <typename T, int kBits, int MR, int CPT>
+cudaError_t launch_decode(const void* x, const QuantW& w, void* y, float* work, int64_t M,
+                          const DecodePlan& p, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(p.col_ctas), static_cast<unsigned>(p.ksplit));
+  qdecode_kernel<T, kBits, MR, CPT><<<grid, kThreads, p.smem, stream>>>(
+      static_cast<const T*>(x), w, static_cast<T*>(y), work, M, p.kchunk, p.ksplit);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.ksplit == 1) return err;
+  const int64_t total = M * w.out;
+  qsplit_sum_kernel<T><<<static_cast<unsigned>(cdiv(total, kThreads)), kThreads, 0, stream>>>(
+      work, static_cast<T*>(y), total, p.ksplit);
+  return cudaGetLastError();
+}
+
+template <typename T, int kBits>
+cudaError_t dispatch_decode(const void* x, const QuantW& w, void* y, float* work, int64_t M,
+                            const DecodePlan& p, cudaStream_t stream) {
+  if (p.mr == 4) return launch_decode<T, kBits, 4, 16>(x, w, y, work, M, p, stream);
+  if (p.mr == 8) return launch_decode<T, kBits, 8, 8>(x, w, y, work, M, p, stream);
+  return launch_decode<T, kBits, 16, 4>(x, w, y, work, M, p, stream);
+}
+
+// The tile kernels' split of K: none where the output has at least as many
+// 128 x 128 tiles as the card has SMs; else slices of whole k steps, each at
+// least 256 long, for about two CTAs an SM.
+struct GemmSplit {
+  int64_t ksplit, kchunk;
+};
+
+GemmSplit gemm_split(int64_t M, int64_t N, int64_t K, int bk, int num_sms) {
+  const int64_t tiles = cdiv(M, kTile) * cdiv(N, kTile);
+  int64_t ks = 1;
+  if (tiles < num_sms) {
+    ks = cdiv(2 * static_cast<int64_t>(num_sms), tiles);
+    if (ks > K / 256) ks = K / 256;
+    if (ks < 1) ks = 1;
+  }
+  const int64_t chunk = cdiv(cdiv(K, ks), bk) * bk;
+  return {cdiv(K, chunk), chunk};
+}
+
+GemmSplit gemm_split_for(int dtype, int bits, int dx, int64_t M, int64_t in_f, int64_t out_f,
+                         int num_sms) {
+  const int bk = dtype == 0 ? kF32BK : pipe_bk(bits, dx);
+  return dx ? gemm_split(M, in_f, out_f, bk, num_sms) : gemm_split(M, out_f, in_f, bk, num_sms);
+}
+
+template <int kBits, bool kDx>
+cudaError_t launch_gemm(int dtype, const void* a, const QuantW& w, void* out, float* work,
+                        int64_t M, int num_sms, cudaStream_t stream) {
+  const int64_t K = kDx ? w.out : w.in;
+  const int64_t N = kDx ? w.in : w.out;
+  const int64_t row_tiles = cdiv(M, kTile);
+  if (row_tiles > 65535) return cudaErrorInvalidValue;
+  constexpr int BK = pipe_bk(kBits, kDx);
+  const GemmSplit sp = gemm_split(M, N, K, dtype == 0 ? kF32BK : BK, num_sms);
+  const dim3 grid(static_cast<unsigned>(cdiv(N, kTile)), static_cast<unsigned>(row_tiles),
+                  static_cast<unsigned>(sp.ksplit));
+  cudaError_t err;
+  if (dtype == 0) {
+    qgemm_f32_kernel<kBits, kDx><<<grid, kThreads, 0, stream>>>(
+        static_cast<const float*>(a), w, static_cast<float*>(out), work, M, N, K, sp.kchunk);
+  } else {
+    auto kernel = qgemm_pipe_kernel<kBits, kDx, BK>;
+    constexpr int smem = PipeLayout<BK>::kSmem;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(static_cast<const bf16*>(a), w,
+                                             static_cast<bf16*>(out), work, M, N, K, sp.kchunk);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || sp.ksplit == 1) return err;
+  const int64_t total = M * N;
+  const unsigned blocks = static_cast<unsigned>(cdiv(total, kThreads));
+  if (dtype == 0) {
+    qsplit_sum_kernel<float><<<blocks, kThreads, 0, stream>>>(work, static_cast<float*>(out),
+                                                             total, static_cast<int>(sp.ksplit));
+  } else {
+    qsplit_sum_kernel<bf16><<<blocks, kThreads, 0, stream>>>(work, static_cast<bf16*>(out),
+                                                            total, static_cast<int>(sp.ksplit));
+  }
+  return cudaGetLastError();
+}
+
+QuantW make_w(int bits, const void* codes, const float* scales, int64_t in_f, int64_t out_f,
+              int group) {
+  QuantW w;
+  w.codes = static_cast<const uint8_t*>(codes);
+  w.scales = scales;
+  w.in = in_f;
+  w.out = out_f;
+  w.h = bits == 4 ? in_f / 2 : in_f;
+  w.group = bits == 4 ? group : in_f;
+  return w;
+}
+
+bool use_decode(int dx, int64_t M) { return !dx && M <= kDecodeRows; }
+
+}  // namespace
+
+// fp32 scratch the call needs (the partial sums of a split reduction), in
+// floats; -1 when the device's SM count cannot be read.
+extern "C" int64_t smft_quant_mm_workspace(int dtype, int device, int bits, int dx, int64_t M,
+                                           int64_t in_f, int64_t out_f) {
+  if (M == 0) return 0;
+  int num_sms = 0;
+  if (cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return -1;
+  if (use_decode(dx, M)) {
+    const DecodePlan p = decode_plan(bits, M, in_f, out_f, num_sms);
+    return p.ksplit > 1 ? static_cast<int64_t>(p.ksplit) * M * out_f : 0;
+  }
+  const GemmSplit sp = gemm_split_for(dtype, bits, dx, M, in_f, out_f, num_sms);
+  return sp.ksplit > 1 ? sp.ksplit * M * (dx ? in_f : out_f) : 0;
+}
+
+// dtype: 0 = float32, 1 = bfloat16.  bits: 8 or 4.  dx: 0 for the forward
+// (a = x (M, in), out = y (M, out)), 1 for dx (a = dy (M, out), out = dx
+// (M, in)).  codes: int8 (in, out) or packed uint8 (in/2, out); scales f32
+// (in/group, out).  All contiguous on `device`, a and codes and scales
+// aligned to 16 bytes, in % 8 == 0, out % 16 == 0: the binding checks.
+// Returns the cudaError_t of the launches.
+extern "C" int smft_quant_mm(int dtype, int device, int bits, int dx, const void* a,
+                             const void* codes, const float* scales, void* out, float* work,
+                             int64_t M, int64_t in_f, int64_t out_f, int group, void* stream) {
+  // This library carries its own (static) CUDA runtime, whose current
+  // device is not PyTorch's: set it to the tensors' device.
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (M == 0) return cudaSuccess;
+  if ((dtype != 0 && dtype != 1) || (bits != 4 && bits != 8)) return cudaErrorInvalidValue;
+  const QuantW w = make_w(bits, codes, scales, in_f, out_f, group);
+  auto s = static_cast<cudaStream_t>(stream);
+  int num_sms = 0;
+  err = cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (use_decode(dx, M)) {
+    const DecodePlan p = decode_plan(bits, M, in_f, out_f, num_sms);
+    if (dtype == 0) {
+      return bits == 8 ? dispatch_decode<float, 8>(a, w, out, work, M, p, s)
+                       : dispatch_decode<float, 4>(a, w, out, work, M, p, s);
+    }
+    return bits == 8 ? dispatch_decode<bf16, 8>(a, w, out, work, M, p, s)
+                     : dispatch_decode<bf16, 4>(a, w, out, work, M, p, s);
+  }
+  if (bits == 8) {
+    return dx ? launch_gemm<8, true>(dtype, a, w, out, work, M, num_sms, s)
+              : launch_gemm<8, false>(dtype, a, w, out, work, M, num_sms, s);
+  }
+  return dx ? launch_gemm<4, true>(dtype, a, w, out, work, M, num_sms, s)
+            : launch_gemm<4, false>(dtype, a, w, out, work, M, num_sms, s);
+}

@@ -1,0 +1,221 @@
+"""Dequantize-matmul kernels of the quantized frozen base on the card
+(K5-K8), their autograd Functions, and their plain versions.
+
+``int8_matmul`` and ``int4_matmul`` launch the hand-written CUDA kernels of
+``csrc/quant_matmul.cu``: the forward (K7 for int8, K5 for int4) and, as
+the autograd backward, the input gradient (K8, K6).  They replace
+``int8_matmul`` and ``int4_matmul`` of
+``sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py`` and take CUDA
+tensors only: nothing here moves work to the plain path or to the CPU.
+``int8_mm`` and ``int4_mm`` dispatch by device alone: a CUDA tensor goes
+to the kernel, a CPU tensor to the plain version (the CPU tests' mode).
+
+Layouts (``quant/__init__.py``, in-major, bit for bit the JAX package's):
+  int8: ``q_t (in, out)`` int8, ``scales (1, out)`` f32;
+  int4: ``packed_t (in/2, out)`` uint8, byte (j, o) holding input column j
+        in the low nibble and j + in/2 in the high nibble, offset 8;
+        ``scales (in/group, out)`` f32, the scale of input column j being
+        row j // group (the high half's rows start at ns/2, as
+        (in/2) % group == 0).
+
+Semantics, for x of dtype T (float32 or bfloat16) and W the dequantized
+(in, out) matrix rounded to T once per cell, W[j, o] = round_T(q[j, o] *
+s[j // group, o]):
+  forward   y  = round_T( sum_j x[m, j] * W[j, o] )     (fp32 sums)
+  backward  dx = round_T( sum_o dy[m, o] * W[j, o] )    (fp32 sums over all of out)
+The codes and scales are frozen: their gradient is None, where the JAX
+package returns structural zeros.
+
+``LAUNCHES`` counts the launches of each kernel: a wrapper adds one where it
+launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sparse_matrix_fine_tuning_torch.kernels.monarch_cuda import load_ops
+
+LAUNCHES = {"int8_matmul": 0, "int8_matmul_dx": 0, "int4_matmul": 0, "int4_matmul_dx": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# -- dequantization, shared by the plain versions ----------------------------
+
+def dequant_int8_t(q_t: torch.Tensor, scales: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The dequantized (in, out) matrix, each cell rounded to ``dtype`` once."""
+    return (q_t.float() * scales.float()).to(dtype)
+
+
+def unpack_int4(packed_t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lo_t, hi_t) int8 codes, each (in/2, out): input columns [0, in/2)
+    and [in/2, in)."""
+    lo = (packed_t & 0xF).to(torch.int8) - 8
+    hi = ((packed_t >> 4) & 0xF).to(torch.int8) - 8
+    return lo, hi
+
+
+def dequant_int4_t(packed_t: torch.Tensor, scales: torch.Tensor, group: int,
+                   dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """(low half, high half), each (in/2, out) dequantized in ``dtype``: the
+    grouped scale row j // group broadcast along the leading axis."""
+    lo, hi = unpack_int4(packed_t)
+    ns = scales.shape[0]
+    s = scales.float()
+    s_lo = s[: ns // 2].repeat_interleave(group, dim=0)
+    s_hi = s[ns // 2:].repeat_interleave(group, dim=0)
+    return (lo.float() * s_lo).to(dtype), (hi.float() * s_hi).to(dtype)
+
+
+# -- plain versions ----------------------------------------------------------
+
+def int8_matmul_reference(x: torch.Tensor, q_t: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K7 (differentiable; its gradient of x is
+    K8's function).  x (..., in) -> (..., out) in x's dtype."""
+    w = dequant_int8_t(q_t, scales, x.dtype)
+    return (x.float() @ w.float()).to(x.dtype)
+
+
+def int8_matmul_dx_reference(dy: torch.Tensor, q_t: torch.Tensor,
+                             scales: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K8: dy (..., out) -> dx (..., in)."""
+    w = dequant_int8_t(q_t, scales, dy.dtype)
+    return (dy.float() @ w.float().T).to(dy.dtype)
+
+
+def int4_matmul_reference(x: torch.Tensor, packed_t: torch.Tensor, scales: torch.Tensor,
+                          group: int) -> torch.Tensor:
+    """Plain PyTorch version of K5: ``x_lo @ W_lo + x_hi @ W_hi`` in fp32,
+    one rounding (differentiable; its gradient of x is K6's function)."""
+    lo, hi = dequant_int4_t(packed_t, scales, group, x.dtype)
+    h = packed_t.shape[0]
+    xf = x.float()
+    return (xf[..., :h] @ lo.float() + xf[..., h:] @ hi.float()).to(x.dtype)
+
+
+def int4_matmul_dx_reference(dy: torch.Tensor, packed_t: torch.Tensor, scales: torch.Tensor,
+                             group: int) -> torch.Tensor:
+    """Plain PyTorch version of K6: dy (..., out) -> dx (..., in)."""
+    lo, hi = dequant_int4_t(packed_t, scales, group, dy.dtype)
+    dyf = dy.float()
+    return torch.cat([dyf @ lo.float().T, dyf @ hi.float().T], dim=-1).to(dy.dtype)
+
+
+# -- kernels -----------------------------------------------------------------
+
+def _check(*tensors: torch.Tensor) -> None:
+    """Raise unless every operand lies on the card.  The binding
+    (``csrc/ops.cpp``) checks dtypes, shapes, contiguity and alignment and
+    raises on anything the kernels do not take; the checks stay there, in
+    C++, because a decode step calls these wrappers 154 times."""
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"the quantized-matmul CUDA kernels take CUDA tensors, got one on "
+                             f"{t.device}")
+
+
+def _launch(name: str, a: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+            group: int = 0) -> torch.Tensor:
+    ops = load_ops()
+    *batch, width = a.shape
+    a2d = a.reshape(-1, width).contiguous()
+    if a2d.data_ptr() % 16:  # the kernels load 16 bytes a thread
+        a2d = a2d.clone()
+    if name == "int8_matmul":
+        out = ops.int8_mm(a2d, codes, scales)
+    elif name == "int8_matmul_dx":
+        out = ops.int8_mm_dx(a2d, codes, scales)
+    elif name == "int4_matmul":
+        out = ops.int4_mm(a2d, codes, scales, group)
+    else:
+        out = ops.int4_mm_dx(a2d, codes, scales, group)
+    LAUNCHES[name] += 1
+    return out.reshape(*batch, out.shape[-1])
+
+
+def int8_matmul_dx(dy: torch.Tensor, q_t: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """K8: dx (..., in) of ``x @ W`` from dy (..., out), in dy's dtype."""
+    _check(dy, q_t, scales)
+    return _launch("int8_matmul_dx", dy, q_t, scales)
+
+
+def int4_matmul_dx(dy: torch.Tensor, packed_t: torch.Tensor, scales: torch.Tensor,
+                   group: int) -> torch.Tensor:
+    """K6: dx (..., in) of ``x @ W`` from dy (..., out), in dy's dtype."""
+    _check(dy, packed_t, scales)
+    return _launch("int4_matmul_dx", dy, packed_t, scales, int(group))
+
+
+class _Int8MatmulFn(torch.autograd.Function):
+    """K7 forward, K8 backward; codes and scales get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, q_t, scales):
+        ctx.save_for_backward(q_t, scales)
+        ctx.x_dtype = x.dtype
+        return _launch("int8_matmul", x, q_t, scales)
+
+    @staticmethod
+    def backward(ctx, dy):
+        q_t, scales = ctx.saved_tensors
+        return int8_matmul_dx(dy.to(ctx.x_dtype), q_t, scales), None, None
+
+
+class _Int4MatmulFn(torch.autograd.Function):
+    """K5 forward, K6 backward; codes and scales get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, packed_t, scales, group):
+        ctx.save_for_backward(packed_t, scales)
+        ctx.x_dtype, ctx.group = x.dtype, group
+        return _launch("int4_matmul", x, packed_t, scales, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        packed_t, scales = ctx.saved_tensors
+        return int4_matmul_dx(dy.to(ctx.x_dtype), packed_t, scales, ctx.group), None, None, None
+
+
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def int8_matmul(x: torch.Tensor, q_t: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """K7: ``y = x @ dequant(q_t, scales)`` with the dequantization in the
+    kernel.  x (..., in) float32 or bfloat16; y (..., out) in x's dtype.
+    Differentiable in x: the gradient is K8 (without a graph to record, the
+    kernel is launched without the autograd Function)."""
+    _check(x, q_t, scales)
+    if _needs_grad(x):
+        return _Int8MatmulFn.apply(x, q_t, scales)
+    return _launch("int8_matmul", x, q_t, scales)
+
+
+def int4_matmul(x: torch.Tensor, packed_t: torch.Tensor, scales: torch.Tensor,
+                group: int) -> torch.Tensor:
+    """K5: ``y = x @ dequant(packed_t, scales)`` with the nibble unpack and
+    the dequantization in the kernel.  Differentiable in x: the gradient is
+    K6."""
+    _check(x, packed_t, scales)
+    if _needs_grad(x):
+        return _Int4MatmulFn.apply(x, packed_t, scales, int(group))
+    return _launch("int4_matmul", x, packed_t, scales, int(group))
+
+
+def int8_mm(x: torch.Tensor, q_t: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Device dispatch of K7: the kernel on CUDA, the plain version on the CPU."""
+    if x.is_cuda:
+        return int8_matmul(x, q_t, scales)
+    return int8_matmul_reference(x, q_t, scales)
+
+
+def int4_mm(x: torch.Tensor, packed_t: torch.Tensor, scales: torch.Tensor,
+            group: int) -> torch.Tensor:
+    """Device dispatch of K5: the kernel on CUDA, the plain version on the CPU."""
+    if x.is_cuda:
+        return int4_matmul(x, packed_t, scales, group)
+    return int4_matmul_reference(x, packed_t, scales, group)

@@ -26,10 +26,18 @@ base.
     the ``deterministic`` argument where given.
   * Built without ``weights``, the layer lives on ``device``, the card when
     None (``utils/device.py``); with ``weights``, on the weights' device.
+  * Quantized base (``quant.quantize_frozen_base``): ``dense`` holds int8
+    codes (in, out) or packed int4 codes (in/2, out), ``dense_scales`` their
+    f32 scales (a persistent buffer that ``.to(dtype)`` keeps float32), and
+    ``quant_bits``/``quant_group`` steer ``_dense_forward``: a CUDA input
+    takes the dequantize-matmul kernels K7/K5 (backward K8/K6), a CPU input
+    their plain versions, and the adapter is added as for a float base (K2
+    on the card).  ``serve_w8a8`` (int8, serving) takes per-token int8
+    activations and an int8 x int8 -> int32 product instead.
 
 Not ported yet, and refused with ``NotImplementedError``: SVD projection
-(``svd_init``, projection mode, ``reference_orientation``) and the quantized
-base; each names its item of ROADMAP.md queue A.
+(``svd_init``, projection mode, ``reference_orientation``); it names its
+item of ROADMAP.md queue A.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from torch import nn
 
 from sparse_matrix_fine_tuning_torch.kernels.merged import build_merged_operands, merged_apply
 from sparse_matrix_fine_tuning_torch.kernels.monarch_cuda import monarch_add, monarch_mm
+from sparse_matrix_fine_tuning_torch.kernels.quant_cuda import int4_mm, int8_mm
 from sparse_matrix_fine_tuning_torch.ops.blockdiag import blockdiag_multiply
 from sparse_matrix_fine_tuning_torch.utils.device import resolve_device, seeded_generator
 
@@ -71,6 +80,23 @@ def _kaiming_block_uniform(shape, dtype, device, generator) -> torch.Tensor:
     bound = 1.0 / math.sqrt(shape[-1])
     t = torch.empty(shape, dtype=dtype, device=device)
     return t.uniform_(-bound, bound, generator=generator)
+
+
+def keep_f32_buffers(module: nn.Module, names, fn, recurse: bool = True) -> nn.Module:
+    """``nn.Module._apply`` that leaves the float32 buffers ``names`` float32,
+    bit for bit: they pass through ``fn`` viewed as int32, so a device move
+    applies to them and a dtype cast (``.to(torch.bfloat16)``, ``.half()``)
+    does not."""
+    for name in names:
+        if module._buffers.get(name) is not None:
+            module._buffers[name] = module._buffers[name].view(torch.int32)
+    try:
+        nn.Module._apply(module, fn, recurse)
+    finally:
+        for name in names:
+            if module._buffers.get(name) is not None:
+                module._buffers[name] = module._buffers[name].view(torch.float32)
+    return module
 
 
 class Scaler(nn.Module):
@@ -175,7 +201,11 @@ class MonarchLinear(nn.Module):
         self.use_mult_factor = cfg["use_mult_factor"]
         use_scaler = cfg["scaler"] or self.use_mult_factor
         self.merged = False
+        # Quantized base (quant.quantize_frozen_base): 0 bits is a float base.
         self.quant_bits = 0
+        self.quant_group = 0
+        self.serve_w8a8 = False
+        self.register_buffer("dense_scales", None)
         # Merged-training operands (kernels/merged.py): never trained, never
         # checkpointed, None until enable_merged_training().
         self.register_buffer("wm_cache", None, persistent=False)
@@ -233,6 +263,9 @@ class MonarchLinear(nn.Module):
         else:
             self.scaler = None
 
+    def _apply(self, fn, recurse=True):
+        return keep_f32_buffers(self, ("dense_scales",), fn, recurse)
+
     # ------------------------------------------------------------------
     def _preprocess(self, x: torch.Tensor) -> torch.Tensor:
         """Zero-pad the features up to nblocks * in_blksz."""
@@ -267,7 +300,17 @@ class MonarchLinear(nn.Module):
 
     def _dense_forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quant_bits:
-            raise NotImplementedError("quantized base: ROADMAP.md queue A, 'quant/__init__.py'")
+            if self.serve_w8a8:
+                from sparse_matrix_fine_tuning_torch.quant import w8a8_matmul
+
+                return self._apply_mult(w8a8_matmul(x, self.dense, self.dense_scales))
+            # as the JAX layer: int8 answers in the compute dtype, int4 in x's
+            xq = x.to(self.dtype or x.dtype)
+            if self.quant_bits == 8:
+                out = int8_mm(xq, self.dense, self.dense_scales)
+            else:
+                out = int4_mm(xq, self.dense, self.dense_scales, self.quant_group).to(x.dtype)
+            return self._apply_mult(out)
         if self.dtype is not None:
             x = x.to(self.dtype)
         return self._apply_mult(F.linear(x, self.dense.to(x.dtype)))
@@ -313,7 +356,13 @@ class MonarchLinear(nn.Module):
 
     def _check_mergeable(self) -> None:
         if self.quant_bits:
-            raise ValueError("merge/unmerge on a quantized base would corrupt its codes")
+            raise ValueError(
+                "merge/unmerge on a quantized base: the dense holds packed "
+                f"int{self.quant_bits} codes -- adding a float adapter delta "
+                "into them would silently corrupt the weights.  Keep the "
+                "adapter unmerged (the quantized hot path already fuses it), "
+                "merge BEFORE quantize_frozen_base, or use the lossy "
+                "serving-only quant.requantize_merge_adapters.")
 
     @torch.no_grad()
     def merge_adapter(self) -> None:

@@ -14,7 +14,9 @@ whole cache.
 Training: ``loss`` is the shifted causal-LM cross-entropy over full logits
 and ``training_loss`` the forward plus that loss, chunked over tokens when
 ``config.loss_chunk > 0`` (``ops/losses.py``), as the JAX model's
-(llama.py:371-405).
+(llama.py:371-405).  ``lm_head`` may be replaced by a ``quant.Int8LMHead``
+(``quant.quantize_lm_head``, which refuses a tied head); the loss takes
+either as the head callable.
 
 Not ported yet: ``UnitOffsetRMSNorm`` (Gemma), layer hooks, ``segment_ids``
 packing, remat and the "dpa"/"splash" attention implementations (ROADMAP.md

@@ -9,7 +9,14 @@ Training: ``trainable_filter`` is the JAX filter as ``requires_grad``: the
 adapter parameters (a ``MonarchLinear``'s factors, multiplicative factor
 and Scaler) and every parameter under one of the extra paths train, and
 everything else is frozen.  ``enable_merged_training``, ``refresh_merged``
-and ``disable_merged_training`` act on every eligible adapter.
+and ``disable_merged_training`` act on every eligible adapter (quantized
+layers are not: their codes cannot absorb the adapter).
+
+A quantized base (``quant/``): the codes are integer parameters and never
+train, whatever the extra paths (the JAX package's ``"lm_head"`` path
+would take ``Int8LMHead``'s codes; here they are buffers); the scales are
+buffers.  ``param_stats`` counts the codes and the scales in the total, as
+the JAX package counts every variable of its state.
 """
 
 from __future__ import annotations
@@ -87,18 +94,19 @@ def _trainable_names(model: nn.Module, extra_paths: Iterable[str]) -> set[str]:
     a component of its name (the JAX ``nnx.PathContains``); every parameter
     for ``"__all__"``."""
     extra = tuple(extra_paths)
+    floats = {name for name, p in model.named_parameters() if p.is_floating_point()}
     if "__all__" in extra:
-        return {name for name, _ in model.named_parameters()}
+        return floats
     names = set()
     for prefix, module in model.named_modules():
         if isinstance(module, MonarchLinear):
             for pname, _ in module.named_parameters():
                 if pname not in _FROZEN_IN_ADAPTER:
                     names.add(f"{prefix}.{pname}" if prefix else pname)
-    for name, _ in model.named_parameters():
+    for name in floats:
         if any(e in name.split(".") for e in extra):
             names.add(name)
-    return names
+    return names & floats
 
 
 def trainable_filter(model: nn.Module,
@@ -115,12 +123,13 @@ def trainable_filter(model: nn.Module,
 def param_stats(model: nn.Module, *, training: bool = True,
                 extra_paths: Iterable[str] = DEFAULT_TRAINABLE_PATHS,
                 skip_cls: bool = True, verbose: bool = True) -> tuple[int, int]:
-    """(total, trainable) parameter counts; trainable > 0 is required when
-    ``training``."""
+    """(total, trainable) parameter counts, the total over the parameters
+    and the persistent buffers (a quantized base's scales); trainable > 0 is
+    required when ``training``."""
     trainable = _trainable_names(model, extra_paths)
-    n_total = n_train = 0
+    n_total = sum(t.numel() for t in model.state_dict().values())
+    n_train = 0
     for name, p in model.named_parameters():
-        n_total += p.numel()
         if name in trainable and not (skip_cls and "classifier" in name):
             n_train += p.numel()
     if verbose:
@@ -133,7 +142,9 @@ def param_stats(model: nn.Module, *, training: bool = True,
 
 
 def merge_all_adapters(model: nn.Module) -> int:
-    """Fold every MonarchLinear adapter into its dense weights (inference)."""
+    """Fold every MonarchLinear adapter into its dense weights (inference).
+    Raises on a quantized base (``MonarchLinear._check_mergeable``); its
+    serving merge is ``quant.requantize_merge_adapters``."""
     n = 0
     for module in model.modules():
         if isinstance(module, MonarchLinear) and module.as_adapter and not module.merged:

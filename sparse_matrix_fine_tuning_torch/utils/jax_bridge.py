@@ -12,9 +12,17 @@ differ:
   ``MonarchLinear`` ``dense`` (out, in), ``blkdiag1``, ``blkdiag2``, ``bias``,
   ``blkdiag_mult``, Scaler ``scaler``  -> the same names, as they are
 
-Every path must find a parameter of the matching shape, and every
-parameter of the port must be given, or it raises.  Values take the dtype
-of the port's parameter.
+A quantized base (``quant/``) loads into a port model quantized the same
+way first (``quantize_frozen_base`` with the same bits and group,
+``quantize_lm_head``): ``dense`` int8 (in, out) or uint8 (in/2, out) codes,
+``dense_scales`` f32, ``lm_head/kernel_q`` (in, vocab) int8 and
+``lm_head/scales`` (1, vocab) f32 are copied bit for bit, untransposed, into
+the parameter or persistent buffer of the same name.
+
+Every path must find a parameter or persistent buffer of the matching
+shape, and every one of the port's must be given, or it raises.  Float
+values take the dtype of the port's tensor; integer codes must have its
+dtype exactly.
 
 ``write_jax_trainable`` and ``read_jax_trainable`` write and read a JAX
 ``trainable.npz`` (``training/checkpoint.py`` of either package): the
@@ -46,7 +54,7 @@ def _port_name(path: tuple) -> tuple[str, bool]:
 
 @torch.no_grad()
 def load_jax_state(model: nn.Module, flat: Mapping[tuple, np.ndarray]) -> None:
-    params = dict(model.named_parameters())
+    params = model.state_dict(keep_vars=True)  # parameters and persistent buffers
     seen = set()
     for path, value in flat.items():
         name, transpose = _port_name(tuple(path))
@@ -60,11 +68,16 @@ def load_jax_state(model: nn.Module, flat: Mapping[tuple, np.ndarray]) -> None:
         param = params[name]
         if tuple(arr.shape) != tuple(param.shape):
             raise ValueError(f"{path}: shape {arr.shape} does not fit {name} {tuple(param.shape)}")
-        param.copy_(torch.from_numpy(np.ascontiguousarray(arr)).to(param.dtype))
+        value = torch.from_numpy(np.ascontiguousarray(arr))
+        if not (value.is_floating_point() and param.is_floating_point()) \
+                and value.dtype != param.dtype:
+            raise ValueError(f"{path}: {value.dtype} codes do not fit {name} ({param.dtype}); "
+                             "quantize the port model as the JAX one first")
+        param.copy_(value.to(param.dtype))
         seen.add(name)
     missing = sorted(set(params) - seen)
     if missing:
-        raise KeyError(f"port parameters not given by the JAX state: {missing}")
+        raise KeyError(f"port parameters or buffers not given by the JAX state: {missing}")
 
 
 def _as_float_array(arr: np.ndarray) -> np.ndarray:

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels K1-K4 and the autograd Functions of K1 and K2
-against their plain versions, on the card.  Marked ``cuda``: they skip where no card is visible, and run on the
+"""The port's CUDA kernels K1-K8 and their autograd Functions against their
+plain versions, on the card.  Marked ``cuda``: they skip where no card is visible, and run on the
 card with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 This file imports no JAX, so it also runs where JAX is not installed.
 
@@ -8,7 +8,9 @@ order); bfloat16 two ulps of the output's scale (the intermediate may round
 one ulp apart, and the output rounds once more).  The backward's fp32
 factor gradients sum over the rows in another order: float32 1e-5 of their
 scale; bfloat16 2**-6 of their scale, since an intermediate one ulp apart
-enters every row's product.
+enters every row's product.  K5-K8 (forward and dx of the quantized base):
+the same two tolerances; both sides round each dequantized weight to the
+working dtype once and sum in fp32 in another order.
 """
 
 import numpy as np
@@ -186,3 +188,149 @@ def test_torch_backward_kernels_take_unaligned_rows(cuda_device, dtype):
                 monarch_cuda.monarch_dw_fused(shifted, dout, w1, w2)):
         for g, w in zip(got, want[3 - len(got):]):
             assert float((g.float() - w.float()).abs().max()) <= _tol(w.to(dtype))
+
+
+# -- the quantized base: K5-K8 ----------------------------------------------
+# (in, out, group, rows): decode row counts (the three row tiles of the
+# streaming kernel), ragged and whole training row counts, k/v's out 256,
+# widths that are no multiple of the 128-wide tile (272, 1088), a k tail
+# (dx over out 272), int4 groups of 32 and 60, which are no multiple of the
+# forward's k step, and outputs of few tiles, whose reduction the bf16 tile
+# kernel splits over CTAs: the forward of (512, 256), (1088, 272) with a
+# ragged last slice and (960, 256), the dx of (256, 1024).
+QUANT_CASES = [(256, 256, 64, 4), (512, 384, 64, 16), (768, 128, 32, 8), (256, 256, 64, 96),
+               (512, 256, 64, 65), (2048, 256, 64, 5), (5632, 2048, 64, 4),
+               (2048, 5632, 64, 2047), (1024, 512, 64, 11), (1088, 272, 32, 200),
+               (960, 256, 60, 70), (256, 1024, 64, 70)]
+
+
+def _quant_operands(case, bits, dtype, device):
+    from sparse_matrix_fine_tuning_torch import quant
+
+    in_f, out_f, group, rows = case
+    rng = np.random.default_rng(sum(case) + bits)
+    w = (rng.standard_normal((out_f, in_f)) * 0.05).astype(np.float32)
+    codes, scales = quant.quantize_int4(w, group) if bits == 4 else quant.quantize_int8(w)
+    x = rng.standard_normal((rows, in_f)).astype(np.float32)
+    dy = rng.standard_normal((rows, out_f)).astype(np.float32)
+    return ([torch.tensor(a).to(device) for a in (codes, scales)]
+            + [torch.tensor(a).to(device=device, dtype=dtype) for a in (x, dy)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("case", QUANT_CASES)
+def test_torch_quant_kernels_match_plain_on_card(cuda_device, case, bits, dtype):
+    """K7/K5 and K8/K6 against their plain versions; dx twice gives the same
+    bits (no atomics, a fixed order of sums)."""
+    from sparse_matrix_fine_tuning_torch.kernels import quant_cuda as qc
+
+    codes, scales, x, dy = _quant_operands(case, bits, dtype, cuda_device)
+    group = case[2]
+    if bits == 8:
+        fwd, dx = (lambda: qc.int8_matmul(x, codes, scales)), (
+            lambda: qc.int8_matmul_dx(dy, codes, scales))
+        pairs = [(fwd, lambda: qc.int8_matmul_reference(x, codes, scales)),
+                 (dx, lambda: qc.int8_matmul_dx_reference(dy, codes, scales))]
+        names = ("int8_matmul", "int8_matmul_dx")
+    else:
+        fwd, dx = (lambda: qc.int4_matmul(x, codes, scales, group)), (
+            lambda: qc.int4_matmul_dx(dy, codes, scales, group))
+        pairs = [(fwd, lambda: qc.int4_matmul_reference(x, codes, scales, group)),
+                 (dx, lambda: qc.int4_matmul_dx_reference(dy, codes, scales, group))]
+        names = ("int4_matmul", "int4_matmul_dx")
+    before = dict(qc.LAUNCHES)
+    with torch.no_grad():
+        results = [(kern(), plain()) for kern, plain in pairs]
+        again = dx()
+    torch.cuda.synchronize()
+    assert qc.LAUNCHES[names[0]] == before[names[0]] + 1
+    assert qc.LAUNCHES[names[1]] == before[names[1]] + 2
+    for got, want in results:
+        assert got.shape == want.shape and got.dtype == want.dtype == dtype
+        assert bool(torch.isfinite(got).all())
+        assert float((got.float() - want.float()).abs().max()) <= _tol(want)
+    assert torch.equal(results[1][0], again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_torch_quant_autograd_on_card(cuda_device, bits):
+    """The gradient of x through int8_matmul / int4_matmul is one launch of
+    K8 / K6 and matches the plain version's autograd; codes and scales get
+    none, even when the scales ask for one."""
+    from sparse_matrix_fine_tuning_torch.kernels import quant_cuda as qc
+
+    codes, scales, x, dy = _quant_operands((512, 256, 64, 70), bits, torch.float32, cuda_device)
+    scales.requires_grad_()
+    kern = qc.int8_matmul if bits == 8 else (lambda a, c, s: qc.int4_matmul(a, c, s, 64))
+    plain = qc.int8_matmul_reference if bits == 8 else (
+        lambda a, c, s: qc.int4_matmul_reference(a, c, s, 64))
+    name = "int8_matmul_dx" if bits == 8 else "int4_matmul_dx"
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    out = kern(xa.reshape(2, 35, 512), codes, scales)
+    assert tuple(out.shape) == (2, 35, 256)
+    before = qc.LAUNCHES[name]
+    out.backward(dy.reshape(2, 35, 256))
+    assert qc.LAUNCHES[name] == before + 1 and scales.grad is None
+    (want,) = torch.autograd.grad(plain(xb, codes, scales.detach()), xb, dy)
+    assert float((xa.grad - want).abs().max()) <= _tol(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_torch_quantized_tiny_llama_on_card_matches_cpu(cuda_device, bits):
+    """A tiny Llama with adapters on all seven projections over a quantized
+    base and an int8 head (w8a8): logits on the card (K7/K5 and K2 on every
+    adapted linear, ``torch._int_mm`` for the head at 3 x 9 rows) against
+    the same model on the CPU (plain), float32, tolerance 1e-4; the
+    gradient of a factor through K8/K6 and K3 likewise."""
+    import copy
+
+    from sparse_matrix_fine_tuning_torch import quant
+    from sparse_matrix_fine_tuning_torch.kernels import quant_cuda as qc
+    from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig
+    from sparse_matrix_fine_tuning_torch.models.llama import LlamaForCausalLM
+    from sparse_matrix_fine_tuning_torch.peft.surgery import init_monarch
+
+    peft = {"nblocks": 4, "blk_r": 4, "target_modules": [
+        "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"]}
+    g = torch.Generator().manual_seed(3)
+    cpu = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu", generator=g)
+    init_monarch(cpu, peft, generator=g)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if "blkdiag" in name:
+                p.normal_(0.0, 0.1, generator=g)
+    assert quant.quantize_frozen_base(cpu, bits=bits, group_size=16) == 14
+    assert quant.quantize_lm_head(cpu, impl="w8a8")
+    card = copy.deepcopy(cpu).to(cuda_device)
+    ids = torch.randint(3, 256, (3, 9), generator=g)
+    name = "int8_matmul" if bits == 8 else "int4_matmul"
+    before = dict(qc.LAUNCHES)
+    got = card(ids.to(cuda_device))
+    want = cpu(ids)
+    assert qc.LAUNCHES[name] == before[name] + 14
+    torch.testing.assert_close(got.detach().cpu(), want.detach(), rtol=1e-4, atol=1e-4)
+    layer_card = card.model.layers[0].mlp.down_proj
+    layer_cpu = cpu.model.layers[0].mlp.down_proj
+    (gc,) = torch.autograd.grad(got.square().mean(), layer_card.blkdiag1)
+    (gw,) = torch.autograd.grad(want.square().mean(), layer_cpu.blkdiag1)
+    assert qc.LAUNCHES[name + "_dx"] > before[name + "_dx"]
+    torch.testing.assert_close(gc.cpu(), gw, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 4, 17, 24, 2048])
+def test_torch_int8_dot_on_card(cuda_device, rows):
+    """``torch._int_mm`` through ``quant.int8_dot``: exact int32 sums at
+    decode's row counts (padded to what cuBLAS takes) and at training's."""
+    from sparse_matrix_fine_tuning_torch import quant
+
+    gen = torch.Generator().manual_seed(rows)
+    xq = torch.randint(-127, 128, (rows, 2048), generator=gen, dtype=torch.int32).to(torch.int8)
+    q = torch.randint(-127, 128, (2048, 256), generator=gen, dtype=torch.int32).to(torch.int8)
+    got = quant.int8_dot(xq.to(cuda_device), q.to(cuda_device)).cpu()
+    assert got.dtype == torch.int32
+    assert torch.equal(got, (xq.long() @ q.long()).to(torch.int32))

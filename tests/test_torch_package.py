@@ -21,12 +21,14 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.ops.losses",
     "sparse_matrix_fine_tuning_torch.kernels.build",
     "sparse_matrix_fine_tuning_torch.kernels.monarch_cuda",
+    "sparse_matrix_fine_tuning_torch.kernels.quant_cuda",
     "sparse_matrix_fine_tuning_torch.kernels.merged",
     "sparse_matrix_fine_tuning_torch.layers.monarch_linear",
     "sparse_matrix_fine_tuning_torch.models.config",
     "sparse_matrix_fine_tuning_torch.models.llama",
     "sparse_matrix_fine_tuning_torch.models.generate",
     "sparse_matrix_fine_tuning_torch.peft.surgery",
+    "sparse_matrix_fine_tuning_torch.quant",
     "sparse_matrix_fine_tuning_torch.utils.testing",
     "sparse_matrix_fine_tuning_torch.utils.jax_bridge",
     "sparse_matrix_fine_tuning_torch.utils.device",
@@ -78,6 +80,30 @@ def test_torch_cuda_kernels_refuse_cpu_tensors():
     assert monarch_cuda.LAUNCHES == before and monarch_cuda._ops is None
 
 
+def test_torch_quant_kernels_refuse_cpu_tensors():
+    """K5-K8's wrappers raise on CPU tensors and launch nothing; the device
+    dispatch sends a CPU tensor to the plain version."""
+    from sparse_matrix_fine_tuning_torch import quant
+    from sparse_matrix_fine_tuning_torch.kernels import monarch_cuda, quant_cuda
+
+    w = torch.randn(32, 64)
+    q8, s8 = (torch.from_numpy(a) for a in quant.quantize_int8(w))
+    p4, s4 = (torch.from_numpy(a) for a in quant.quantize_int4(w, 16))
+    x, dy = torch.randn(4, 64), torch.randn(4, 32)
+    before = dict(quant_cuda.LAUNCHES)
+    for call in (lambda: quant_cuda.int8_matmul(x, q8, s8),
+                 lambda: quant_cuda.int8_matmul_dx(dy, q8, s8),
+                 lambda: quant_cuda.int4_matmul(x, p4, s4, 16),
+                 lambda: quant_cuda.int4_matmul_dx(dy, p4, s4, 16)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert quant_cuda.LAUNCHES == before and monarch_cuda._ops is None
+    torch.testing.assert_close(quant_cuda.int8_mm(x, q8, s8),
+                               quant_cuda.int8_matmul_reference(x, q8, s8), rtol=0, atol=0)
+    torch.testing.assert_close(quant_cuda.int4_mm(x, p4, s4, 16),
+                               quant_cuda.int4_matmul_reference(x, p4, s4, 16), rtol=0, atol=0)
+
+
 def test_torch_entry_points_default_to_the_card():
     """With no device the entry points build on ``cuda``; where there is no
     card that fails, and nothing falls back to the CPU."""
@@ -116,7 +142,7 @@ def test_torch_build_key_follows_sources(tmp_path, monkeypatch):
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
     assert build.build_key() == key
-    for name in ("monarch_fwd.cu", "monarch_bwd.cu"):
+    for name in ("monarch_fwd.cu", "monarch_bwd.cu", "quant_matmul.cu"):
         src = csrc / name
         src.write_text(src.read_text() + "\n// edited\n")
         edited = build.build_key()
