@@ -29,12 +29,19 @@ hand-written CUDA kernels, and checks them:
      requantize-merged with the w8a8 head (K7), int4 unmerged (K5, K2);
  12. quantized training: one float32 step (2 layers) on the card against a
      CPU copy, int8 and int4; then 22-layer bfloat16 training over an int4
-     base (``run_alpaca --bits 4``), timed and profiled.
+     base (``run_alpaca --bits 4``), timed and profiled;
+ 13. the fused dense + Monarch linear: K9 (forward), K10 (dx) and K11 (the
+     factor gradients, K4's kernel) against their plain versions at
+     ``bench_more_linear``'s three Llama-7B and micro-bench shapes (bf16)
+     and a ragged f32 case, timed beside their bound and one PyTorch call,
+     the autograd Function against the plain composition, then the port of
+     ``scripts/bench_more_linear.py`` (fused, hybrid and plain steps).
 
-Each main path (6, 8 off, 8 on, each configuration of 11, each step of 12)
-zeroes the launch counts of every kernel just before it and reads them
-just after.  Any failed check exits non-zero.  The line before
-the last is one JSON object on the kernels; the last is
+Each main path (6, 8 off, 8 on, each configuration of 11, each step of 12,
+the bench of 13) zeroes the launch counts of every kernel just before it
+and reads them just after.  Any failed check exits non-zero.  The line
+before the last is one JSON object on the kernels (K9-K11: ms, plain,
+library and bound summed over the bench's three shapes); the last is
 ``{"ok": true, "device": {...}}``.  Per-case records go to
 ``chip_smoke_out/records.json``.  It imports nothing of JAX.
 """
@@ -55,6 +62,7 @@ try:
     from sparse_matrix_fine_tuning_torch import quant
     from sparse_matrix_fine_tuning_torch.kernels import monarch_cuda, quant_cuda
     from sparse_matrix_fine_tuning_torch.kernels.build import build
+    from sparse_matrix_fine_tuning_torch.kernels.experimental import more_linear as ml
 except ImportError as exc:  # run outside a checkout of the repository
     print(f"chip_smoke: cannot import the port ({exc}); run it from the repository root",
           file=sys.stderr)
@@ -115,6 +123,12 @@ KERNELS = {
                     "sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py:305"),
     "int8_matmul_dx": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_matmul.cu",
                        "sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py:312"),
+    "more_linear_fwd": ("sparse_matrix_fine_tuning_torch/kernels/csrc/more_linear.cu",
+                        "sparse_matrix_fine_tuning_tpu/kernels/experimental/more_linear.py:52"),
+    "more_linear_dx": ("sparse_matrix_fine_tuning_torch/kernels/csrc/more_linear.cu",
+                       "sparse_matrix_fine_tuning_tpu/kernels/experimental/more_linear.py:80"),
+    "more_linear_dw": ("sparse_matrix_fine_tuning_torch/kernels/csrc/monarch_bwd.cu",
+                       "sparse_matrix_fine_tuning_tpu/kernels/experimental/more_linear.py:108"),
 }
 # The quantized base (quant/, run_alpaca.py --bits): (bits, whether dx).
 QUANT_KERNELS = {"int8_matmul": (8, False), "int8_matmul_dx": (8, True),
@@ -131,6 +145,15 @@ QUANT_GROUP = 64  # quantize_frozen_base's default group
 # merged int8 model with the w8a8 head adds one more int8 rounding of
 # W + delta and of the head's activations: >= 0.99.
 QUANT_COS = {8: 0.99, 4: 0.6}
+# The fused dense + Monarch linear (K9-K11): short labels of
+# bench_more_linear.SHAPES, and the ragged f32 check (tests/kernels/
+# test_more_linear.py:17): (label, rows, n, m, nblocks, blk_r).
+MORE_KERNELS = ("more_linear_fwd", "more_linear_dx", "more_linear_dw")
+MORE_LABELS = ("qkv", "micro", "gate")
+MORE_RAGGED = ("ragged", 200, 128, 96, 4, 8)
+# The bench's fused loss against its plain one: each bf16 y is within two
+# ulps (2**-7 relatively) of the plain path's, so each y**2 within 2**-6.
+MORE_LOSS_RTOL = 2.0 ** -6
 OUT_DIR = "chip_smoke_out"  # per-case records; .gitignore lists it
 RECORDS: list[dict] = []  # one per kernel case, written to OUT_DIR
 
@@ -145,14 +168,15 @@ def require(cond: bool, what: str) -> None:
 
 
 def reset_counts() -> None:
-    """Zero the launch counts of every kernel (K1-K4 and K5-K8)."""
+    """Zero the launch counts of every kernel (K1-K4, K5-K8 and K9-K11)."""
     monarch_cuda.reset_launch_counts()
     quant_cuda.reset_launch_counts()
+    ml.reset_launch_counts()
 
 
 def counts() -> dict:
     """The launch counts of every kernel since the last reset."""
-    return {**monarch_cuda.LAUNCHES, **quant_cuda.LAUNCHES}
+    return {**monarch_cuda.LAUNCHES, **quant_cuda.LAUNCHES, **ml.LAUNCHES}
 
 
 def card_line() -> str:
@@ -211,13 +235,22 @@ def time_ms(fn, reps: int = 50, rounds: int = 5) -> tuple[float, float]:
     return device_ms, call_ms
 
 
-def cost(name: str, m_rows: int, n_in: int, n_out: int, dtype: torch.dtype) -> tuple[int, int]:
+def cost(name: str, m_rows: int, n_in: int, n_out: int, dtype: torch.dtype,
+         r: int = PEFT["blk_r"]) -> tuple[int, int]:
     """(bytes, operations) the kernel's function needs: each input read once,
     each output written once (dw in fp32); multiply-adds count two.  K5-K8:
     the codes, the f32 scales, the activations in and the result out;
-    2 * M * in * out operations."""
-    r = PEFT["blk_r"]
+    2 * M * in * out operations.  K9/K10: x (or dout), the dense weight and
+    the factors in, the output out; the dense product and the two factors'
+    multiply-adds (r * (in + out) a row, the factors themselves, not the
+    TPU kernel's K-times-larger expansion).  K11 is K4's function."""
     item = 2 if dtype == torch.bfloat16 else 4
+    if name in ("more_linear_fwd", "more_linear_dx"):
+        factors = r * (n_in + n_out)
+        return (m_rows * (n_in + n_out) + n_in * n_out + factors) * item, \
+            2 * m_rows * (n_in * n_out + factors)
+    if name == "more_linear_dw":
+        name = "monarch_dw_fused"
     if name in QUANT_KERNELS:
         bits = QUANT_KERNELS[name][0]
         codes = n_in * n_out // (2 if bits == 4 else 1)
@@ -236,9 +269,10 @@ def cost(name: str, m_rows: int, n_in: int, n_out: int, dtype: torch.dtype) -> t
     return nbytes, 2 * m_rows * macs + (m_rows * n_out if name == "monarch_add" else 0)
 
 
-def bound(name: str, m_rows: int, n_in: int, n_out: int, dtype: torch.dtype) -> tuple[float, str]:
+def bound(name: str, m_rows: int, n_in: int, n_out: int, dtype: torch.dtype,
+          r: int = PEFT["blk_r"]) -> tuple[float, str]:
     """(least ms the card could take, "bytes" or "operations")."""
-    nbytes, ops = cost(name, m_rows, n_in, n_out, dtype)
+    nbytes, ops = cost(name, m_rows, n_in, n_out, dtype, r)
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
@@ -253,16 +287,17 @@ def tolerance(dtype: torch.dtype, ref: torch.Tensor) -> float:
 
 def _record(name: str, proj: str, n_in: int, n_out: int, m_rows: int, dtype: torch.dtype,
             err: float, share: float, ms: float, plain_ms: float, call: float, plain_call: float,
-            library_ms) -> dict:
+            library_ms, r: int = PEFT["blk_r"]) -> dict:
     """Print and keep one case: ``err`` is the largest absolute error over the
-    kernel's outputs, ``share`` the largest error / tolerance among them."""
-    bound_ms, bound_by = bound(name, m_rows, n_in, n_out, dtype)
-    gbs = cost(name, m_rows, n_in, n_out, dtype)[0] / ms / 1e6
+    kernel's outputs, ``share`` the largest error / tolerance among them;
+    ``r`` the adapters' blk_r."""
+    bound_ms, bound_by = bound(name, m_rows, n_in, n_out, dtype, r)
+    gbs = cost(name, m_rows, n_in, n_out, dtype, r)[0] / ms / 1e6
     lib = f"{library_ms:.5f}" if library_ms is not None else "none"
     print(f"[kernels] {name:16s} {proj:5s} {n_in}->{n_out:<5d} {m_rows:5d} {str(dtype)[6:]:8s} "
           f"{err:.3e}  {share:.3f}  {ms:.5f}  {plain_ms:.5f}  {lib:8s}  {bound_ms:.5f} "
           f"({bound_by})  {call:.5f}  {plain_call:.5f}  {gbs:.1f}", flush=True)
-    rec = {"kernel": name, "proj": proj, "in": n_in, "out": n_out, "rows": m_rows,
+    rec = {"kernel": name, "proj": proj, "in": n_in, "out": n_out, "rows": m_rows, "blk_r": r,
            "dtype": str(dtype)[6:], "max_abs_err": err, "share_of_tol": share, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "call_ms": call, "plain_call_ms": plain_call, "GB_per_s": gbs}
@@ -1052,6 +1087,129 @@ def phase_quant_autograd(card: str) -> None:
           flush=True)
 
 
+# -- the fused dense + Monarch linear (K9-K11) ---------------------------------
+
+def _outputs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def phase_more_linear(card: str) -> dict:
+    """The fused dense + Monarch linear, at ``bench_more_linear``'s three
+    shapes in bf16 and at one ragged f32 case:
+      * K9, K10 and K11 against their plain versions (``tolerance``; K11's
+        fp32 factor gradients to that of the inputs' dtype), timed beside
+        their bound, the plain version and one PyTorch call on the merged
+        dense matrix Wd + M (M the factors' dense equivalent):
+        ``F.linear(x, Wd + M)`` for K9, ``torch.matmul(dout, Wd + M)`` for
+        K10, none for K11 (no single call gives both factor gradients);
+      * one forward and backward of ``more_linear``: y and the gradients of
+        x, w1 and w2 against the plain composition's autograd, each kernel
+        launched exactly once.
+    Then the counted main path: ``bench_more_linear.run`` at the three shapes
+    (fused, hybrid and plain steps), the launch counts zeroed just before
+    and read just after."""
+    import torch.nn.functional as F
+
+    from sparse_matrix_fine_tuning_torch.ops.monarch import (
+        monarch_dense_equivalent,
+        monarch_forward_f32,
+    )
+    from sparse_matrix_fine_tuning_torch.scripts import bench_more_linear as bench
+
+    worst = dict.fromkeys(MORE_KERNELS, 0.0)
+    main = {name: [] for name in MORE_KERNELS}
+    cases = [((label, *shape[1:]), torch.bfloat16)
+             for label, shape in zip(MORE_LABELS, bench.SHAPES)]
+    cases.append((MORE_RAGGED, torch.float32))
+    print(_HEADER, flush=True)
+    for (label, rows, n, m, nb, r), dtype in cases:
+        x, wd, w1, w2 = bench.make_inputs(rows, n, m, nb, r, dtype, seed=SEED + 15)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 16)
+        dout = torch.randn(rows, m, generator=g, device="cuda").to(dtype)
+        merged = (wd.float() + monarch_dense_equivalent(w1.float(), w2.float())).to(dtype)
+        calls = {
+            "more_linear_fwd": (lambda: ml.more_linear_fwd(x, wd, w1, w2),
+                                lambda: ml.more_linear_fwd_reference(x, wd, w1, w2),
+                                lambda: F.linear(x, merged)),
+            "more_linear_dx": (lambda: ml.more_linear_dx(dout, wd, w1, w2),
+                               lambda: ml.more_linear_dx_reference(dout, wd, w1, w2),
+                               lambda: torch.matmul(dout, merged)),
+            "more_linear_dw": (lambda: ml.more_linear_dw(x, dout, w1, w2),
+                               lambda: ml.more_linear_dw_reference(x, dout, w1, w2), None),
+        }
+        with torch.no_grad():
+            for name, (kern, plain, library) in calls.items():
+                got, ref = _outputs(kern()), _outputs(plain())
+                torch.cuda.synchronize()
+                err = share = 0.0
+                for out, want in zip(got, ref):
+                    require(out.shape == want.shape and out.dtype == want.dtype,
+                            f"{name} {label}: {out.shape}/{out.dtype} vs {want.shape}/{want.dtype}")
+                    require(bool(torch.isfinite(out).all()), f"{name} {label}: non-finite output")
+                    e = float((out.float() - want.float()).abs().max())
+                    err, share = max(err, e), max(share, e / tolerance(dtype, want))
+                (ms, call), (plain_ms, plain_call) = time_ms(kern, 20, 3), time_ms(plain, 20, 3)
+                lib_ms = time_ms(library, 20, 3)[0] if library is not None else None
+                rec = _record(name, label, n, m, rows, dtype, err, share, ms, plain_ms, call,
+                              plain_call, lib_ms, r)
+                require(share <= 1.0, f"{name} {label} {dtype}: an output is over its tolerance "
+                                      f"({share:.3f} of it)")
+                worst[name] = max(worst[name], err)
+                if dtype == torch.bfloat16:
+                    main[name].append(rec)
+
+        # the autograd Function: one forward and backward
+        leaves = [t.clone().requires_grad_() for t in (x, w1, w2)]
+        plain_leaves = [t.clone().requires_grad_() for t in (x, w1, w2)]
+        before = dict(ml.LAUNCHES)
+        y = ml.more_linear(leaves[0], wd, *leaves[1:])
+        y.backward(dout)
+        torch.cuda.synchronize()
+        require(ml.LAUNCHES == {k: v + 1 for k, v in before.items()},
+                f"more_linear {label}: one forward and backward launched "
+                f"{ {k: ml.LAUNCHES[k] - v for k, v in before.items()} }, expected 1 of each")
+        xb, w1b, w2b = plain_leaves
+        comp = (xb.float() @ wd.float().T + monarch_forward_f32(xb, w1b, w2b)).to(dtype)
+        want = [comp.detach(), *torch.autograd.grad(comp, plain_leaves, dout)]
+        for what, g, w in zip(("y", "dx", "dw1", "dw2"), [y.detach()] + [t.grad for t in leaves],
+                              want):
+            e, tol = float((g.float() - w.float()).abs().max()), tolerance(dtype, w)
+            require(g.dtype == w.dtype and g.shape == w.shape and e <= tol,
+                    f"more_linear {label} {dtype}: {what} {e} > {tol}")
+        del x, wd, w1, w2, dout, merged, y, leaves, plain_leaves, comp, want
+        torch.cuda.empty_cache()
+    print(f"[more-linear] {card}: K9, K10, K11 and the autograd Function (y, dx, dw1, dw2) "
+          "within tolerance of the plain versions at the three bench shapes (bf16) and the "
+          "ragged case (f32); one launch of each a forward and backward", flush=True)
+
+    reset_counts()  # the counted main path starts here
+    runs = [bench.run(*shape) for shape in bench.SHAPES]
+    launches = counts()  # the counted main path ends here
+    steps = sum(run["steps"] for run in runs)
+    expect = {"more_linear_fwd": steps + len(runs), "more_linear_dx": steps,
+              "more_linear_dw": steps, "monarch_add": steps, "monarch_bwd": steps}
+    require(launches == {**dict.fromkeys(launches, 0), **expect},
+            f"bench_more_linear: launches {launches}; expected {expect}")
+    for label, run in zip(MORE_LABELS, runs):
+        require(run["rel_diff"] <= MORE_LOSS_RTOL,
+                f"bench_more_linear {label}: fused loss {run['rel_diff']} from the plain one")
+        print(f"[more-linear] {card}: bench {label}: fused {run['fused_us']:.1f}, hybrid "
+              f"{run['hybrid_us']:.1f}, plain {run['plain_us']:.1f} us a step; loss rel diff "
+              f"{run['rel_diff']:.2e}", flush=True)
+    RECORDS.append({"bench_more_linear": runs, "card": card})
+    # where a bench step's device time goes: one step of each path per
+    # shape under the profiler (not part of the counted main path)
+    for label, shape in zip(MORE_LABELS, bench.SHAPES):
+        x, wd, w1, w2 = bench.make_inputs(*shape[1:])
+        x, w1, w2 = (t.requires_grad_() for t in (x, w1, w2))
+        for name, loss_fn in bench.PATHS.items():
+            bench.value_and_grad(loss_fn, x, wd, w1, w2)
+            device_busy_ms(lambda i: bench.value_and_grad(loss_fn, x, wd, w1, w2), 2,
+                           f"bench {label} {name} steps")
+    return {"worst": worst, "layer": {name: _layer_sums(recs) for name, recs in main.items()},
+            "launches": {name: launches[name] for name in MORE_KERNELS}}
+
+
 def dequantized_copy(model):
     """A CPU copy of a quantized model with no kernel in it: each layer's
     codes dequantized into a float32 dense by the plain functions."""
@@ -1291,6 +1449,8 @@ def main() -> None:
     lap("kernels")
     phase_autograd(card)
     phase_quant_autograd(card)
+    more = phase_more_linear(card)
+    lap("fused dense+Monarch linear")
     f32 = phase_f32()
     phase_quant_f32(f32, card)
     lap("f32 serving")
@@ -1312,9 +1472,10 @@ def main() -> None:
                 "int8_matmul_dx": qtrain_f32["launches"]["int8_matmul_dx"],
                 "int4_matmul": qserving["launches"]["int4_matmul"]
                 + qtraining["launches"]["int4_matmul"],
-                "int4_matmul_dx": qtraining["launches"]["int4_matmul_dx"]}
-    measured = {**fwd["layer"], **bwd["layer"], **qk["layer"]}
-    worst = {**fwd["worst"], **bwd["worst"], **qk["worst"]}
+                "int4_matmul_dx": qtraining["launches"]["int4_matmul_dx"],
+                **more["launches"]}
+    measured = {**fwd["layer"], **bwd["layer"], **qk["layer"], **more["layer"]}
+    worst = {**fwd["worst"], **bwd["worst"], **qk["worst"], **more["worst"]}
     require(all(launches[name] > 0 for name in KERNELS), f"a kernel never launched: {launches}")
     lines = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
               "launches": launches[name], "max_abs_err": worst[name],

@@ -1,5 +1,5 @@
-// PyTorch bindings of the kernels in monarch_fwd.cu, monarch_bwd.cu and
-// quant_matmul.cu:
+// PyTorch bindings of the kernels in monarch_fwd.cu, monarch_bwd.cu,
+// quant_matmul.cu and more_linear.cu:
 //   torch.ops.smft.monarch_fwd(x, w1, w2)            -> out              (K1)
 //   torch.ops.smft.monarch_fwd_add(base, x, w1, w2)  -> base + out       (K2)
 //   torch.ops.smft.monarch_bwd(x, w1, w2, dout)      -> (dx, dw1, dw2)   (K3)
@@ -8,11 +8,14 @@
 //   torch.ops.smft.int4_mm_dx(dy, packed, scales, group) -> dx           (K6)
 //   torch.ops.smft.int8_mm(x, q, scales)                 -> y            (K7)
 //   torch.ops.smft.int8_mm_dx(dy, q, scales)             -> dx           (K8)
-// Only a CUDA implementation is registered, so a tensor on another device
-// is refused by the dispatcher.  The launch's error code is checked here
-// and raised; the kernels run on PyTorch's current stream and allocate
-// nothing: the outputs and the fp32 scratch (the backward's row summaries
-// and per-group partial sums, the decode split's partial sums) are
+//   torch.ops.smft.more_linear_fwd(x, dense_w, w1, w2)   -> y            (K9)
+//   torch.ops.smft.more_linear_dx(dout, dense_w, w1, w2) -> dx           (K10)
+// K11 is monarch_dw_fused (K4's kernel).  Only a CUDA implementation is
+// registered, so a tensor on another device is refused by the dispatcher.
+// The launch's error code is checked here and raised; the kernels run on
+// PyTorch's current stream and allocate nothing: the outputs and the fp32
+// scratch (the backward's row summaries and per-group partial sums, the
+// decode split's partial sums, the fused linear's row summaries) are
 // allocated here.
 
 #include <ATen/core/Tensor.h>
@@ -41,6 +44,10 @@ extern "C" int64_t smft_quant_mm_workspace(int dtype, int device, int bits, int 
 extern "C" int smft_quant_mm(int dtype, int device, int bits, int dx, const void* a,
                              const void* codes, const float* scales, void* out, float* work,
                              int64_t M, int64_t in_f, int64_t out_f, int group, void* stream);
+extern "C" int smft_more_linear(int dtype, int device, int dx, const void* a, const void* wd,
+                                const void* w1, const void* w2, void* out, float* work,
+                                int64_t M, int64_t n, int64_t m, int K, int Q, int P, int L,
+                                int S, int R, void* stream);
 
 namespace {
 
@@ -233,6 +240,60 @@ at::Tensor int4_mm_dx(const at::Tensor& dy, const at::Tensor& packed, const at::
   return run_quant(dy, packed, scales, 4, true, group);
 }
 
+// K9 (dx false: a = x (M, n) -> y (M, m)) and K10 (dx true: a = dout (M, m)
+// -> dx (M, n)); dense_w (m, n), w1 (K, Q, P), w2 (L, S, R).
+at::Tensor run_more_linear(const at::Tensor& a, const at::Tensor& wd, const at::Tensor& w1,
+                           const at::Tensor& w2, bool dx) {
+  TORCH_CHECK(a.scalar_type() == at::kFloat || a.scalar_type() == at::kBFloat16,
+              "the fused dense+Monarch kernels take float32 or bfloat16, got ", a.scalar_type());
+  TORCH_CHECK(a.dim() == 2 && wd.dim() == 2, "activations must be (M, width) and dense_w (m, n)");
+  TORCH_CHECK(w1.dim() == 3 && w2.dim() == 3, "w1 must be (K, Q, P) and w2 (L, S, R)");
+  check_tensor(a, "activations", a);
+  check_tensor(wd, "dense_w", a);
+  check_tensor(w1, "w1", a);
+  check_tensor(w2, "w2", a);
+  const int64_t m = wd.size(0), n = wd.size(1);
+  const int64_t K = w1.size(0), Q = w1.size(1), P = w1.size(2);
+  const int64_t L = w2.size(0), S = w2.size(1), R = w2.size(2);
+  TORCH_CHECK(K * P == n && S * L == m && L * R == K * Q, "w1 ", w1.sizes(), " and w2 ",
+              w2.sizes(), " do not fit dense_w ", wd.sizes(), ": need K*P == n, S*L == m and ",
+              "L*R == K*Q");
+  TORCH_CHECK(a.size(1) == (dx ? m : n), "activations must be (M, ", dx ? m : n, "), got ",
+              a.sizes());
+  TORCH_CHECK(K * Q <= 64, "the kernels take K*Q <= 64, got ", K * Q);
+  TORCH_CHECK(n % 8 == 0 && m % 8 == 0, "the kernels take widths that are multiples of 8, ",
+              "got n ", n, ", m ", m);
+  TORCH_CHECK(n < INT32_MAX && m < INT32_MAX, "widths must fit in 32 bits");
+  for (const at::Tensor* t : {&a, &wd}) {
+    TORCH_CHECK(reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
+                "the kernels load 16 bytes at a time: activations and dense_w must start on 16 "
+                "bytes");
+  }
+  const int64_t M = a.size(0);
+  at::Tensor out = at::empty({M, dx ? n : m}, a.options());
+  if (M == 0) return out;
+  at::Tensor work = at::empty({M * K * Q}, a.options().dtype(at::kFloat));
+  const int device = a.get_device();
+  const auto stream = c10::cuda::getCurrentCUDAStream(device);
+  const int err = smft_more_linear(
+      a.scalar_type() == at::kFloat ? 0 : 1, device, dx ? 1 : 0, a.data_ptr(), wd.data_ptr(),
+      w1.data_ptr(), w2.data_ptr(), out.data_ptr(), work.data_ptr<float>(), M, n, m,
+      static_cast<int>(K), static_cast<int>(Q), static_cast<int>(P), static_cast<int>(L),
+      static_cast<int>(S), static_cast<int>(R), static_cast<void*>(stream.stream()));
+  C10_CUDA_CHECK(static_cast<cudaError_t>(err));
+  return out;
+}
+
+at::Tensor more_linear_fwd(const at::Tensor& x, const at::Tensor& dense_w, const at::Tensor& w1,
+                           const at::Tensor& w2) {
+  return run_more_linear(x, dense_w, w1, w2, false);
+}
+
+at::Tensor more_linear_dx(const at::Tensor& dout, const at::Tensor& dense_w,
+                          const at::Tensor& w1, const at::Tensor& w2) {
+  return run_more_linear(dout, dense_w, w1, w2, true);
+}
+
 }  // namespace
 
 TORCH_LIBRARY(smft, m) {
@@ -244,6 +305,8 @@ TORCH_LIBRARY(smft, m) {
   m.def("int8_mm_dx(Tensor dy, Tensor q, Tensor scales) -> Tensor");
   m.def("int4_mm(Tensor x, Tensor packed, Tensor scales, int group) -> Tensor");
   m.def("int4_mm_dx(Tensor dy, Tensor packed, Tensor scales, int group) -> Tensor");
+  m.def("more_linear_fwd(Tensor x, Tensor dense_w, Tensor w1, Tensor w2) -> Tensor");
+  m.def("more_linear_dx(Tensor dout, Tensor dense_w, Tensor w1, Tensor w2) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(smft, CUDA, m) {
@@ -255,4 +318,6 @@ TORCH_LIBRARY_IMPL(smft, CUDA, m) {
   m.impl("int8_mm_dx", &int8_mm_dx);
   m.impl("int4_mm", &int4_mm);
   m.impl("int4_mm_dx", &int4_mm_dx);
+  m.impl("more_linear_fwd", &more_linear_fwd);
+  m.impl("more_linear_dx", &more_linear_dx);
 }

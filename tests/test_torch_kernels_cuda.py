@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K8 and their autograd Functions against their
+"""The port's CUDA kernels K1-K11 and their autograd Functions against their
 plain versions, on the card.  Marked ``cuda``: they skip where no card is visible, and run on the
 card with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 This file imports no JAX, so it also runs where JAX is not installed.
@@ -10,7 +10,9 @@ factor gradients sum over the rows in another order: float32 1e-5 of their
 scale; bfloat16 2**-6 of their scale, since an intermediate one ulp apart
 enters every row's product.  K5-K8 (forward and dx of the quantized base):
 the same two tolerances; both sides round each dequantized weight to the
-working dtype once and sum in fp32 in another order.
+working dtype once and sum in fp32 in another order.  K9-K11 (the fused
+dense + Monarch linear): the same two tolerances; the output rounds once on
+both sides, from intermediates that may round one ulp apart.
 """
 
 import numpy as np
@@ -334,3 +336,97 @@ def test_torch_int8_dot_on_card(cuda_device, rows):
     got = quant.int8_dot(xq.to(cuda_device), q.to(cuda_device)).cpu()
     assert got.dtype == torch.int32
     assert torch.equal(got, (xq.long() @ q.long()).to(torch.int32))
+
+
+# -- the fused dense + Monarch linear: K9, K10 and K11 ------------------------
+# (rows, n, m, K, Q, L), R = K*Q / L: aligned and ragged row counts, a width
+# no multiple of the 128-wide tile (96, 192, 24), L != K, and blk_r 16
+# (K*Q = 64, the most the kernels take).  The kernels take n and m that are
+# multiples of 8 and K*Q <= 64; the binding refuses the rest.
+MORE_CASES = [(256, 256, 384, 4, 4, 4), (200, 128, 96, 4, 8, 4), (65, 96, 192, 4, 4, 4),
+              (9, 64, 24, 4, 2, 2), (300, 1024, 1024, 4, 16, 4)]
+
+
+def _more_operands(case, dtype, device):
+    """x, dense_w, w1, w2 and dout (or a cotangent)."""
+    rows, n, m, K, Q, L = case
+    R = K * Q // L
+    rng = np.random.default_rng(sum(case))
+    arrays = (rng.standard_normal((rows, n)), rng.standard_normal((m, n)) / np.sqrt(n),
+              rng.standard_normal((K, Q, n // K)) / np.sqrt(n // K),
+              rng.standard_normal((L, m // L, R)) / np.sqrt(R), rng.standard_normal((rows, m)))
+    return [torch.tensor(a, dtype=torch.float32).to(device=device, dtype=dtype) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MORE_CASES)
+def test_torch_more_linear_kernels_match_plain_on_card(cuda_device, case, dtype):
+    """K9, K10 and K11 against their plain versions (the factor gradients in
+    fp32, held to the tolerance of the inputs' dtype); K11 counts under its
+    own key and leaves K4's count; K10 twice gives the same bits."""
+    from sparse_matrix_fine_tuning_torch.kernels.experimental import more_linear as ml
+
+    x, wd, w1, w2, dout = _more_operands(case, dtype, cuda_device)
+    before, k4 = dict(ml.LAUNCHES), monarch_cuda.LAUNCHES["monarch_dw_fused"]
+    with torch.no_grad():
+        pairs = [(ml.more_linear_fwd(x, wd, w1, w2), ml.more_linear_fwd_reference(x, wd, w1, w2)),
+                 (ml.more_linear_dx(dout, wd, w1, w2),
+                  ml.more_linear_dx_reference(dout, wd, w1, w2)),
+                 *zip(ml.more_linear_dw(x, dout, w1, w2),
+                      ml.more_linear_dw_reference(x, dout, w1, w2))]
+        again = ml.more_linear_dx(dout, wd, w1, w2)
+    torch.cuda.synchronize()
+    assert ml.LAUNCHES == {"more_linear_fwd": before["more_linear_fwd"] + 1,
+                           "more_linear_dx": before["more_linear_dx"] + 2,
+                           "more_linear_dw": before["more_linear_dw"] + 1}
+    assert monarch_cuda.LAUNCHES["monarch_dw_fused"] == k4
+    for got, want in pairs:
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert bool(torch.isfinite(got).all())
+        assert float((got.float() - want.float()).abs().max()) <= _tol(want.to(dtype))
+    assert torch.equal(pairs[1][0], again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_torch_more_linear_autograd_on_card(cuda_device, dtype):
+    """One forward and backward of ``more_linear`` on a 3-D input launches
+    K9, K10 and K11 once each and matches the plain composition's autograd
+    for x, w1 and w2; dense_w gets no gradient."""
+    from sparse_matrix_fine_tuning_torch.kernels.experimental import more_linear as ml
+    from sparse_matrix_fine_tuning_torch.ops.monarch import monarch_forward_f32
+
+    x, wd, w1, w2, cot = _more_operands(MORE_CASES[1], dtype, cuda_device)
+    got_leaves = [t.clone().requires_grad_() for t in (x, w1, w2)]
+    want_leaves = [t.clone().requires_grad_() for t in (x, w1, w2)]
+    wd.requires_grad_()
+    before = dict(ml.LAUNCHES)
+    y = ml.more_linear(got_leaves[0].reshape(2, 100, -1), wd, *got_leaves[1:])
+    y.backward(cot.reshape(2, 100, -1))
+    torch.cuda.synchronize()
+    assert ml.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert wd.grad is None
+    xb, w1b, w2b = want_leaves
+    plain = (xb.float() @ wd.detach().float().T + monarch_forward_f32(xb, w1b, w2b)).to(dtype)
+    want = [plain.detach()] + list(torch.autograd.grad(plain, want_leaves, cot))
+    for g, w in zip([y.detach().reshape(plain.shape)] + [t.grad for t in got_leaves], want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert float((g.float() - w.float()).abs().max()) <= _tol(w)
+
+
+@pytest.mark.cuda
+def test_torch_more_linear_kernels_refuse_shapes_they_do_not_take(cuda_device):
+    """A width that is no multiple of 8, and K*Q > 64, raise on the card and
+    launch nothing: no CUDA input reaches the plain versions."""
+    from sparse_matrix_fine_tuning_torch.kernels.experimental import more_linear as ml
+
+    for case in ((8, 36, 64, 4, 4, 4), (8, 256, 256, 4, 32, 4)):
+        x, wd, w1, w2, dout = _more_operands(case, torch.float32, cuda_device)
+        before = dict(ml.LAUNCHES)
+        for call in (lambda: ml.more_linear_fwd(x, wd, w1, w2),
+                     lambda: ml.more_linear_dx(dout, wd, w1, w2),
+                     lambda: ml.more_linear(x, wd, w1, w2)):
+            with pytest.raises(RuntimeError, match="the kernels take"):
+                call()
+        assert ml.LAUNCHES == before

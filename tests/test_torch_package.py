@@ -23,6 +23,10 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.kernels.monarch_cuda",
     "sparse_matrix_fine_tuning_torch.kernels.quant_cuda",
     "sparse_matrix_fine_tuning_torch.kernels.merged",
+    "sparse_matrix_fine_tuning_torch.kernels.experimental",
+    "sparse_matrix_fine_tuning_torch.kernels.experimental.more_linear",
+    "sparse_matrix_fine_tuning_torch.scripts",
+    "sparse_matrix_fine_tuning_torch.scripts.bench_more_linear",
     "sparse_matrix_fine_tuning_torch.layers.monarch_linear",
     "sparse_matrix_fine_tuning_torch.models.config",
     "sparse_matrix_fine_tuning_torch.models.llama",
@@ -66,9 +70,10 @@ def test_torch_package_imports_no_jax_and_builds_nothing():
 
 def test_torch_cuda_kernels_refuse_cpu_tensors():
     from sparse_matrix_fine_tuning_torch.kernels import monarch_cuda
+    from sparse_matrix_fine_tuning_torch.kernels.experimental import more_linear as ml
 
     x, w1, w2 = torch.randn(4, 16), torch.randn(4, 2, 4), torch.randn(2, 8, 4)
-    before = dict(monarch_cuda.LAUNCHES)
+    before, ml_before = dict(monarch_cuda.LAUNCHES), dict(ml.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
         monarch_cuda.monarch_kernel(x, w1, w2)
     with pytest.raises(ValueError, match="CUDA"):
@@ -77,7 +82,14 @@ def test_torch_cuda_kernels_refuse_cpu_tensors():
         monarch_cuda.monarch_bwd(x, w1, w2, torch.randn(4, 16))
     with pytest.raises(ValueError, match="CUDA"):
         monarch_cuda.monarch_dw_fused(x, torch.randn(4, 16), w1, w2)
-    assert monarch_cuda.LAUNCHES == before and monarch_cuda._ops is None
+    wd, dout = torch.randn(16, 16), torch.randn(4, 16)
+    for call in (lambda: ml.more_linear_fwd(x, wd, w1, w2),
+                 lambda: ml.more_linear_dx(dout, wd, w1, w2),
+                 lambda: ml.more_linear_dw(x, dout, w1, w2)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert monarch_cuda.LAUNCHES == before and ml.LAUNCHES == ml_before
+    assert monarch_cuda._ops is None
 
 
 def test_torch_quant_kernels_refuse_cpu_tensors():
@@ -142,7 +154,7 @@ def test_torch_build_key_follows_sources(tmp_path, monkeypatch):
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
     assert build.build_key() == key
-    for name in ("monarch_fwd.cu", "monarch_bwd.cu", "quant_matmul.cu"):
+    for name in ("monarch_fwd.cu", "monarch_bwd.cu", "quant_matmul.cu", "more_linear.cu"):
         src = csrc / name
         src.write_text(src.read_text() + "\n// edited\n")
         edited = build.build_key()
