@@ -35,15 +35,21 @@ hand-written CUDA kernels, and checks them:
      ``bench_more_linear``'s three Llama-7B and micro-bench shapes (bf16)
      and a ragged f32 case, timed beside their bound and one PyTorch call,
      the autograd Function against the plain composition, then the port of
-     ``scripts/bench_more_linear.py`` (fused, hybrid and plain steps).
+     ``scripts/bench_more_linear.py`` (fused, hybrid and plain steps);
+ 14. the forward-tile experiments: K15 (the wgmma + TMA tiled matmul) at
+     every tile and K12 (K1 at every row tile) against their plain versions
+     at a ragged shape, K15's SASS checked for HGMMA, then the ports of
+     ``scripts/exp_matmul_tiles.py`` and ``scripts/exp_fwd_tile.py`` at
+     2664 x 4096 -> 4096 (each variant checked, then timed).
 
 Each main path (6, 8 off, 8 on, each configuration of 11, each step of 12,
-the bench of 13) zeroes the launch counts of every kernel just before it
-and reads them just after.  Any failed check exits non-zero.  The line
-before the last is one JSON object on the kernels (K9-K11: ms, plain,
-library and bound summed over the bench's three shapes); the last is
-``{"ok": true, "device": {...}}``.  Per-case records go to
-``chip_smoke_out/records.json``.  It imports nothing of JAX.
+the bench of 13, each script of 14) zeroes the launch counts of every
+kernel just before it and reads them just after.  Any failed check exits
+non-zero.  The line before the last is one JSON object on the kernels
+(K9-K11: ms, plain, library and bound summed over the bench's three
+shapes; K15 and K12: the best tile's ms at the scripts' shape, the tile in
+``records.json``); the last is ``{"ok": true, "device": {...}}``.  Per-case
+records go to ``chip_smoke_out/records.json``.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -63,6 +69,9 @@ try:
     from sparse_matrix_fine_tuning_torch.kernels import monarch_cuda, quant_cuda
     from sparse_matrix_fine_tuning_torch.kernels.build import build
     from sparse_matrix_fine_tuning_torch.kernels.experimental import more_linear as ml
+    from sparse_matrix_fine_tuning_torch.kernels.experimental import tiled_matmul as tm
+    from sparse_matrix_fine_tuning_torch.utils import benchlib
+    from sparse_matrix_fine_tuning_torch.utils.benchlib import card_line, roofline_ms, time_ms
 except ImportError as exc:  # run outside a checkout of the repository
     print(f"chip_smoke: cannot import the port ({exc}); run it from the repository root",
           file=sys.stderr)
@@ -104,8 +113,6 @@ F32_TRAIN_LOSS_RTOL, F32_TRAIN_GRAD_TOL = 1e-5, 1e-4
 # monarch(x) in fp32; after 4 AdamW steps the losses (about 10.4) may differ
 # by this much.
 BF16_MERGED_LOSS_ATOL = 2e-2
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published HBM3 rate
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16; fp32 off tensor cores
 KERNELS = {
     "monarch_kernel": ("sparse_matrix_fine_tuning_torch/kernels/csrc/monarch_fwd.cu",
                        "sparse_matrix_fine_tuning_tpu/kernels/monarch_pallas.py:157"),
@@ -129,6 +136,10 @@ KERNELS = {
                        "sparse_matrix_fine_tuning_tpu/kernels/experimental/more_linear.py:80"),
     "more_linear_dw": ("sparse_matrix_fine_tuning_torch/kernels/csrc/monarch_bwd.cu",
                        "sparse_matrix_fine_tuning_tpu/kernels/experimental/more_linear.py:108"),
+    "tiled_matmul": ("sparse_matrix_fine_tuning_torch/kernels/csrc/tiled_matmul.cu",
+                     "scripts/exp_matmul_tiles.py:20"),
+    "monarch_fwd_tile": ("sparse_matrix_fine_tuning_torch/kernels/csrc/monarch_fwd.cu",
+                         "scripts/exp_fwd_tile.py:21"),
 }
 # The quantized base (quant/, run_alpaca.py --bits): (bits, whether dx).
 QUANT_KERNELS = {"int8_matmul": (8, False), "int8_matmul_dx": (8, True),
@@ -154,6 +165,11 @@ MORE_RAGGED = ("ragged", 200, 128, 96, 4, 8)
 # The bench's fused loss against its plain one: each bf16 y is within two
 # ulps (2**-7 relatively) of the plain path's, so each y**2 within 2**-6.
 MORE_LOSS_RTOL = 2.0 ** -6
+# The forward-tile experiments' ragged checks: K15 at (M, K, N) with M past
+# every BM, K past the k step of 64 and N past every BN (multiples of 8, as
+# TMA needs); K12 at (B, n, m, nblocks, rank) in f32, B past every row tile.
+TILES_RAGGED = (200, 200, 392)
+FWD_TILE_RAGGED = (37, 256, 384, 4, 4)
 OUT_DIR = "chip_smoke_out"  # per-case records; .gitignore lists it
 RECORDS: list[dict] = []  # one per kernel case, written to OUT_DIR
 
@@ -168,22 +184,17 @@ def require(cond: bool, what: str) -> None:
 
 
 def reset_counts() -> None:
-    """Zero the launch counts of every kernel (K1-K4, K5-K8 and K9-K11)."""
+    """Zero the launch counts of every kernel (K1-K4 and K12, K5-K8, K9-K11
+    and K15)."""
     monarch_cuda.reset_launch_counts()
     quant_cuda.reset_launch_counts()
     ml.reset_launch_counts()
+    tm.reset_launch_counts()
 
 
 def counts() -> dict:
     """The launch counts of every kernel since the last reset."""
-    return {**monarch_cuda.LAUNCHES, **quant_cuda.LAUNCHES, **ml.LAUNCHES}
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, stdout=subprocess.PIPE, text=True).stdout.strip()
-    return out.splitlines()[0]
+    return {**monarch_cuda.LAUNCHES, **quant_cuda.LAUNCHES, **ml.LAUNCHES, **tm.LAUNCHES}
 
 
 def phase_device() -> str:
@@ -197,42 +208,12 @@ def phase_device() -> str:
     return card
 
 
-def phase_build() -> None:
+def phase_build():
     t0 = time.perf_counter()
     lib = build(verbose=True)
     monarch_cuda.load_ops()
     print(f"[build] {time.perf_counter() - t0:.1f} s, {lib}", flush=True)
-
-
-def time_ms(fn, reps: int = 50, rounds: int = 5) -> tuple[float, float]:
-    """(device ms, call ms) per call: medians over rounds of `reps`
-    back-to-back calls between two CUDA events, after a warmup.
-
-    call ms: the queue is empty when the start event is recorded, so it
-    includes the host's cost of each call, as an eager decode step sees it.
-    device ms: a spin kernel (``torch.cuda._sleep``) holds the queue for
-    twice the host time of the calls, so the calls run back to back on the
-    card and the events see device time only."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-
-    def run(stall_cycles: int) -> float:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if stall_cycles:
-            torch.cuda._sleep(stall_cycles)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
-    call_ms = statistics.median(run(0) for _ in range(rounds))
-    stall = int(2 * call_ms * reps * 2.0e6)  # ms -> cycles at up to 2 GHz
-    device_ms = statistics.median(run(stall) for _ in range(rounds))
-    return device_ms, call_ms
+    return lib
 
 
 def cost(name: str, m_rows: int, n_in: int, n_out: int, dtype: torch.dtype,
@@ -272,9 +253,7 @@ def cost(name: str, m_rows: int, n_in: int, n_out: int, dtype: torch.dtype,
 def bound(name: str, m_rows: int, n_in: int, n_out: int, dtype: torch.dtype,
           r: int = PEFT["blk_r"]) -> tuple[float, str]:
     """(least ms the card could take, "bytes" or "operations")."""
-    nbytes, ops = cost(name, m_rows, n_in, n_out, dtype, r)
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    return roofline_ms(*cost(name, m_rows, n_in, n_out, dtype, r), dtype)
 
 
 def tolerance(dtype: torch.dtype, ref: torch.Tensor) -> float:
@@ -913,7 +892,7 @@ def train_timed(model, merged: str, tag: str, extra: str = "") -> dict:
     tr.close()
     require(all(map(math.isfinite, losses)), f"{tag}: losses {losses}")
     tps = TRAIN_BS * TRAIN_GA * TRAIN_SEQ / (step_ms / 1e3)
-    mfu = flops_per_token * tps / PEAK_OPS[torch.bfloat16]
+    mfu = flops_per_token * tps / benchlib.PEAK_OPS[torch.bfloat16]
     idle = f"{1 - busy / step_ms:.3f}" if busy is not None else "not measured"
     print(f"{tag}: losses {[round(x, 5) for x in losses]}; step {step_ms:.2f} ms (median of "
           f"{len(secs) - 1}; all {[round(x * 1e3, 2) for x in secs]}), {tps:.0f} tokens/s, MFU "
@@ -1193,9 +1172,10 @@ def phase_more_linear(card: str) -> dict:
     for label, run in zip(MORE_LABELS, runs):
         require(run["rel_diff"] <= MORE_LOSS_RTOL,
                 f"bench_more_linear {label}: fused loss {run['rel_diff']} from the plain one")
-        print(f"[more-linear] {card}: bench {label}: fused {run['fused_us']:.1f}, hybrid "
-              f"{run['hybrid_us']:.1f}, plain {run['plain_us']:.1f} us a step; loss rel diff "
-              f"{run['rel_diff']:.2e}", flush=True)
+        print(f"[more-linear] {card}: bench {label}: device us a step fused "
+              f"{run['fused_us']:.1f}, hybrid {run['hybrid_us']:.1f}, plain {run['plain_us']:.1f} "
+              f"(wall {run['fused_wall_us']:.1f}, {run['hybrid_wall_us']:.1f}, "
+              f"{run['plain_wall_us']:.1f}); loss rel diff {run['rel_diff']:.2e}", flush=True)
     RECORDS.append({"bench_more_linear": runs, "card": card})
     # where a bench step's device time goes: one step of each path per
     # shape under the profiler (not part of the counted main path)
@@ -1208,6 +1188,109 @@ def phase_more_linear(card: str) -> dict:
                            f"bench {label} {name} steps")
     return {"worst": worst, "layer": {name: _layer_sums(recs) for name, recs in main.items()},
             "launches": {name: launches[name] for name in MORE_KERNELS}}
+
+
+# -- the forward-tile experiments (K15, K12) ------------------------------------
+
+def check_hgmma(lib) -> int:
+    """Every K15 kernel in the built library holds the warpgroup MMA
+    (``HGMMA`` in its SASS, read with the toolkit's ``cuobjdump``), so that a
+    build that dropped wgmma cannot pass.  Returns how many were found."""
+    from sparse_matrix_fine_tuning_torch.kernels.build import _cuda_home
+
+    sass = subprocess.run([str(_cuda_home() / "bin" / "cuobjdump"), "-sass", str(lib)],
+                          check=True, stdout=subprocess.PIPE, text=True).stdout
+    kernels = [f for f in sass.split("Function : ")[1:] if "tiled_mm_kernel" in f.splitlines()[0]]
+    require(len(kernels) == len(tm.TILES),
+            f"cuobjdump found {len(kernels)} tiled_mm_kernel functions, expected {len(tm.TILES)}")
+    for f in kernels:
+        require("HGMMA" in f, f"no HGMMA in the SASS of {f.splitlines()[0].strip()}")
+    return len(kernels)
+
+
+def phase_tiles(card: str, lib) -> dict:
+    """K15 and K12, the kernels of the forward-tile experiments:
+      * at a ragged shape, outside the counted paths: K15 at every tile
+        against ``tiled_matmul_reference`` (bf16) and K12 at every row tile
+        against ``monarch_kernel_reference`` (f32; and bf16 at 8 rows bit
+        for bit against K1, whose instantiation it is);
+      * K15's SASS holds HGMMA (``check_hgmma``);
+      * the counted main paths: the ports of ``exp_matmul_tiles`` and
+        ``exp_fwd_tile`` at 2664 x 4096 -> 4096, each of which checks every
+        variant against its plain version before timing it, the launch
+        counts zeroed just before each and read just after."""
+    from sparse_matrix_fine_tuning_torch.scripts import exp_fwd_tile, exp_matmul_tiles
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    m, k, n = TILES_RAGGED
+    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn(k, n, generator=g, device="cuda").to(torch.bfloat16)
+    ref = tm.tiled_matmul_reference(x, w)
+    for tile in tm.TILES:
+        got = tm.tiled_matmul(x, w, tile)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        require(got.shape == ref.shape and err <= tolerance(torch.bfloat16, ref),
+                f"tiled_matmul {tile} at {TILES_RAGGED}: max abs err {err}")
+    b, n_in, n_out, nb, rank = FWD_TILE_RAGGED
+    x = torch.randn(b, n_in, generator=g, device="cuda")
+    w1 = torch.randn(nb, rank, n_in // nb, generator=g, device="cuda") / (n_in // nb) ** 0.5
+    w2 = torch.randn(nb, n_out // nb, rank, generator=g, device="cuda") / rank ** 0.5
+    ref = monarch_cuda.monarch_kernel_reference(x, w1, w2)
+    for rows in monarch_cuda.FWD_TILE_ROWS:
+        got = monarch_cuda.monarch_fwd_tile(x, w1, w2, rows)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        require(got.shape == ref.shape and err <= tolerance(torch.float32, ref),
+                f"monarch_fwd_tile rows {rows} at {FWD_TILE_RAGGED} f32: max abs err {err}")
+    xb, w1b, w2b = (t.to(torch.bfloat16) for t in (x, w1, w2))
+    with torch.no_grad():
+        require(torch.equal(monarch_cuda.monarch_fwd_tile(xb, w1b, w2b, 8),
+                            monarch_cuda.monarch_kernel(xb, w1b, w2b)),
+                "monarch_fwd_tile at 8 rows differs from K1")
+    hgmma = check_hgmma(lib)
+    print(f"[tiles] {card}: K15 at {len(tm.TILES)} tiles and K12 at "
+          f"{len(monarch_cuda.FWD_TILE_ROWS)} row tiles within tolerance at the ragged shapes; "
+          f"K12 at 8 rows equals K1; HGMMA in all {hgmma} K15 kernels", flush=True)
+
+    reset_counts()  # the counted main path starts here: exp_matmul_tiles
+    mm = exp_matmul_tiles.run()
+    launches = counts()  # ... and ends here
+    expect = {"tiled_matmul": mm["steps"]}
+    require(launches == {**dict.fromkeys(launches, 0), **expect},
+            f"exp_matmul_tiles: launches {launches}; expected {expect}")
+    mm_launches = launches["tiled_matmul"]
+    reset_counts()  # the counted main path starts here: exp_fwd_tile
+    fwd = [exp_fwd_tile.run(*shape) for shape in exp_fwd_tile.SHAPES]
+    launches = counts()  # ... and ends here
+    expect = {"monarch_fwd_tile": sum(run["steps"] for run in fwd)}
+    require(launches == {**dict.fromkeys(launches, 0), **expect},
+            f"exp_fwd_tile: launches {launches}; expected {expect}")
+    for t in mm["tiles"]:
+        require(t["max_abs_err"] <= mm["tolerance"], f"tiled_matmul {t['tile']}: {t}")
+    for run in fwd:
+        for t in run["tiles"]:
+            require(t["max_abs_err"] <= run["tolerance"], f"monarch_fwd_tile {run['tag']}: {t}")
+    best, script = mm["best"], fwd[0]
+    print(f"[tiles] {card}: exp_matmul_tiles best tile {tuple(best['tile'])} "
+          f"{best['ms']:.5f} ms ({best['tflops']:.1f} TFLOP/s), torch.matmul "
+          f"{mm['library_ms']:.5f}, bound {mm['bound_ms']:.5f} ms; exp_fwd_tile best row tile "
+          + "; ".join(f"{r['best']['rows']} {r['best']['ms']:.5f} ms (copy floor "
+                      f"{r['copy_ms']:.5f}, bound {r['bound_ms']:.5f})" for r in fwd), flush=True)
+    RECORDS.append({"exp_matmul_tiles": mm, "exp_fwd_tile": fwd, "card": card})
+    layer = {
+        "tiled_matmul": {"ms": best["ms"], "plain_ms": mm["plain_ms"],
+                         "bound_ms": mm["bound_ms"], "bound_by": mm["bound_by"],
+                         "library_ms": mm["library_ms"]},
+        "monarch_fwd_tile": {"ms": script["best"]["ms"], "plain_ms": script["plain_ms"],
+                             "bound_ms": script["bound_ms"], "bound_by": script["bound_by"],
+                             "library_ms": script["library_ms"]},
+    }
+    worst = {"tiled_matmul": max(t["max_abs_err"] for t in mm["tiles"]),
+             "monarch_fwd_tile": max(t["max_abs_err"] for r in fwd for t in r["tiles"])}
+    return {"layer": layer, "worst": worst,
+            "launches": {"tiled_matmul": mm_launches,
+                         "monarch_fwd_tile": expect["monarch_fwd_tile"]}}
 
 
 def dequantized_copy(model):
@@ -1442,7 +1525,7 @@ def main() -> None:
         print(f"[time] {tag} done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     card = phase_device()
-    phase_build()
+    lib = phase_build()
     fwd = phase_kernels(card)
     bwd = phase_kernels_bwd(card)
     qk = phase_quant_kernels(card)
@@ -1451,6 +1534,8 @@ def main() -> None:
     phase_quant_autograd(card)
     more = phase_more_linear(card)
     lap("fused dense+Monarch linear")
+    tiles = phase_tiles(card, lib)
+    lap("forward-tile experiments")
     f32 = phase_f32()
     phase_quant_f32(f32, card)
     lap("f32 serving")
@@ -1473,9 +1558,9 @@ def main() -> None:
                 "int4_matmul": qserving["launches"]["int4_matmul"]
                 + qtraining["launches"]["int4_matmul"],
                 "int4_matmul_dx": qtraining["launches"]["int4_matmul_dx"],
-                **more["launches"]}
-    measured = {**fwd["layer"], **bwd["layer"], **qk["layer"], **more["layer"]}
-    worst = {**fwd["worst"], **bwd["worst"], **qk["worst"], **more["worst"]}
+                **more["launches"], **tiles["launches"]}
+    measured = {**fwd["layer"], **bwd["layer"], **qk["layer"], **more["layer"], **tiles["layer"]}
+    worst = {**fwd["worst"], **bwd["worst"], **qk["worst"], **more["worst"], **tiles["worst"]}
     require(all(launches[name] > 0 for name in KERNELS), f"a kernel never launched: {launches}")
     lines = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
               "launches": launches[name], "max_abs_err": worst[name],

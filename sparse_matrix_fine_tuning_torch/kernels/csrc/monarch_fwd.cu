@@ -1,9 +1,11 @@
-// Monarch forward (K1) and Monarch forward with the residual add fused in
-// (K2) for Hopper, sm_90a.
+// Monarch forward (K1), Monarch forward with the residual add fused in
+// (K2), and K1 at a chosen row tile (K12) for Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernels `_fwd_kernel` and `_fwd_add_kernel` of
-// sparse_matrix_fine_tuning_tpu/kernels/monarch_pallas.py (:157-170).  It is
-// written from the math, not carried over block by block:
+// sparse_matrix_fine_tuning_tpu/kernels/monarch_pallas.py (:157-170), and
+// `fwd_call` of scripts/exp_fwd_tile.py:21 (pallas_call at :31), K1's
+// function with its row tile ts as a parameter, which took the expanded
+// W1bd/W2hat.  It is written from the math, not carried over block by block:
 //
 //   x (B, n), n = K*P;  w1 (K, Q, P);  w2 (L, S, R), L*R = K*Q = J
 //   out1[b, j]      = round_T( sum_p x[b, k*P + p] * w1[k, q, p] ),  j = k*Q + q
@@ -25,6 +27,9 @@
 //
 // Layout of the work:
 //   grid.x: tiles of kRows rows of x; grid.y: chunks of output columns.
+//   kRows is a template parameter: K1 and K2 launch at kDefaultRows = 8;
+//   K12 (`smft_monarch_fwd_tile`) at 8, 16, 32 or 64, for the row-tile
+//   sweep of exp_fwd_tile.  At 8 it is K1's instantiation, bit for bit.
 //   Stage 1: one warp per (row, j) dot product of length P, lanes along p
 //            (coalesced reads of x and w1), a warp-shuffle reduction, the
 //            result rounded to T and kept as fp32 in shared memory.
@@ -47,7 +52,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 8;
+constexpr int kDefaultRows = 8;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -61,7 +66,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as JAX's astype
 }
 
-template <typename T, bool kHasBase>
+template <typename T, bool kHasBase, int kRows>
 __global__ void __launch_bounds__(kThreads)
 monarch_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                    const T* __restrict__ w2, const T* __restrict__ base,
@@ -127,7 +132,7 @@ monarch_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   }
 }
 
-template <typename T, bool kHasBase>
+template <typename T, bool kHasBase, int kRows = kDefaultRows>
 cudaError_t launch(const void* x, const void* w1, const void* w2, const void* base,
                    void* out, int64_t B, int K, int Q, int P, int L, int S, int R,
                    int num_sms, cudaStream_t stream) {
@@ -143,7 +148,7 @@ cudaError_t launch(const void* x, const void* w1, const void* w2, const void* ba
   if (row_tiles > 0x7fffffff) return cudaErrorInvalidValue;
 
   const size_t smem = sizeof(float) * kRows * K * Q;
-  auto kernel = monarch_fwd_kernel<T, kHasBase>;
+  auto kernel = monarch_fwd_kernel<T, kHasBase, kRows>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -155,6 +160,24 @@ cudaError_t launch(const void* x, const void* w1, const void* w2, const void* ba
       static_cast<const T*>(base), static_cast<T*>(out), B, K, Q, P, L, S, R,
       cols_per_cta);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tile(int rows, const void* x, const void* w1, const void* w2, void* out,
+                        int64_t B, int K, int Q, int P, int L, int S, int R, int num_sms,
+                        cudaStream_t stream) {
+  switch (rows) {
+    case 8:
+      return launch<T, false, 8>(x, w1, w2, nullptr, out, B, K, Q, P, L, S, R, num_sms, stream);
+    case 16:
+      return launch<T, false, 16>(x, w1, w2, nullptr, out, B, K, Q, P, L, S, R, num_sms, stream);
+    case 32:
+      return launch<T, false, 32>(x, w1, w2, nullptr, out, B, K, Q, P, L, S, R, num_sms, stream);
+    case 64:
+      return launch<T, false, 64>(x, w1, w2, nullptr, out, B, K, Q, P, L, S, R, num_sms, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -183,6 +206,29 @@ extern "C" int smft_monarch_fwd(int dtype, int device, const void* x, const void
                                               num_sms, s)
                 : launch<__nv_bfloat16, false>(x, w1, w2, base, out, B, K, Q, P, L, S, R,
                                                num_sms, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// K12: K1 (no base) at the row tile `rows`, one of 8, 16, 32 and 64; the
+// other arguments as smft_monarch_fwd's.  Returns cudaErrorInvalidValue for
+// another row tile.
+extern "C" int smft_monarch_fwd_tile(int dtype, int device, const void* x, const void* w1,
+                                     const void* w2, void* out, int64_t B, int K, int Q, int P,
+                                     int L, int S, int R, int rows, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  int num_sms = 0;
+  err = cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (B == 0) return cudaSuccess;
+  if (dtype == 0) {
+    return launch_tile<float>(rows, x, w1, w2, out, B, K, Q, P, L, S, R, num_sms,
+                              static_cast<cudaStream_t>(stream));
+  }
+  if (dtype == 1) {
+    return launch_tile<__nv_bfloat16>(rows, x, w1, w2, out, B, K, Q, P, L, S, R, num_sms,
+                                      static_cast<cudaStream_t>(stream));
   }
   return cudaErrorInvalidValue;
 }

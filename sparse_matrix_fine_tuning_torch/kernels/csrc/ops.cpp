@@ -1,6 +1,7 @@
 // PyTorch bindings of the kernels in monarch_fwd.cu, monarch_bwd.cu,
-// quant_matmul.cu and more_linear.cu:
+// quant_matmul.cu, more_linear.cu and tiled_matmul.cu:
 //   torch.ops.smft.monarch_fwd(x, w1, w2)            -> out              (K1)
+//   torch.ops.smft.monarch_fwd_tile(x, w1, w2, rows) -> out              (K12)
 //   torch.ops.smft.monarch_fwd_add(base, x, w1, w2)  -> base + out       (K2)
 //   torch.ops.smft.monarch_bwd(x, w1, w2, dout)      -> (dx, dw1, dw2)   (K3)
 //   torch.ops.smft.monarch_dw_fused(x, dout, w1, w2) -> (dw1, dw2)       (K4)
@@ -10,6 +11,7 @@
 //   torch.ops.smft.int8_mm_dx(dy, q, scales)             -> dx           (K8)
 //   torch.ops.smft.more_linear_fwd(x, dense_w, w1, w2)   -> y            (K9)
 //   torch.ops.smft.more_linear_dx(dout, dense_w, w1, w2) -> dx           (K10)
+//   torch.ops.smft.tiled_matmul(x, w, bm, bn, stages)    -> y            (K15)
 // K11 is monarch_dw_fused (K4's kernel).  Only a CUDA implementation is
 // registered, so a tensor on another device is refused by the dispatcher.
 // The launch's error code is checked here and raised; the kernels run on
@@ -31,6 +33,12 @@
 extern "C" int smft_monarch_fwd(int dtype, int device, const void* x, const void* w1,
                                 const void* w2, const void* base, void* out, int64_t B,
                                 int K, int Q, int P, int L, int S, int R, void* stream);
+extern "C" int smft_monarch_fwd_tile(int dtype, int device, const void* x, const void* w1,
+                                     const void* w2, void* out, int64_t B, int K, int Q, int P,
+                                     int L, int S, int R, int rows, void* stream);
+extern "C" int smft_tiled_matmul(int device, const void* x, const void* w, void* y, int64_t M,
+                                 int64_t N, int64_t K, int bm, int bn, int stages,
+                                 void* stream);
 extern "C" int64_t smft_monarch_bwd_workspace(int dtype, int device, const void* x,
                                               const void* dout, const void* w1, const void* w2,
                                               const void* dx, int64_t M, int K, int Q, int P,
@@ -59,8 +67,10 @@ void check_tensor(const at::Tensor& t, const char* name, const at::Tensor& x) {
   TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
 }
 
+// K1 and K2 (rows == 0: the default row tile; `base` may be null) and K12
+// (rows > 0: that row tile; no base).
 at::Tensor run(const at::Tensor& x, const at::Tensor& w1, const at::Tensor& w2,
-               const at::Tensor* base) {
+               const at::Tensor* base, int64_t rows = 0) {
   TORCH_CHECK(x.scalar_type() == at::kFloat || x.scalar_type() == at::kBFloat16,
               "monarch_fwd takes float32 or bfloat16, got ", x.scalar_type());
   TORCH_CHECK(x.dim() == 2, "x must be (B, n)");
@@ -84,13 +94,25 @@ at::Tensor run(const at::Tensor& x, const at::Tensor& w1, const at::Tensor& w2,
   at::Tensor out = at::empty({B, S * L}, x.options());
   const int dtype = x.scalar_type() == at::kFloat ? 0 : 1;
   const auto stream = c10::cuda::getCurrentCUDAStream(x.get_device());
-  const int err = smft_monarch_fwd(
-      dtype, x.get_device(), x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-      base ? base->data_ptr() : nullptr, out.data_ptr(), B, static_cast<int>(K),
-      static_cast<int>(Q), static_cast<int>(P), static_cast<int>(L), static_cast<int>(S),
-      static_cast<int>(R), static_cast<void*>(stream.stream()));
+  const int k = static_cast<int>(K), q = static_cast<int>(Q), p = static_cast<int>(P);
+  const int l = static_cast<int>(L), s = static_cast<int>(S), r = static_cast<int>(R);
+  const int err =
+      rows > 0 ? smft_monarch_fwd_tile(dtype, x.get_device(), x.data_ptr(), w1.data_ptr(),
+                                       w2.data_ptr(), out.data_ptr(), B, k, q, p, l, s, r,
+                                       static_cast<int>(rows), static_cast<void*>(stream.stream()))
+               : smft_monarch_fwd(dtype, x.get_device(), x.data_ptr(), w1.data_ptr(),
+                                  w2.data_ptr(), base ? base->data_ptr() : nullptr,
+                                  out.data_ptr(), B, k, q, p, l, s, r,
+                                  static_cast<void*>(stream.stream()));
   C10_CUDA_CHECK(static_cast<cudaError_t>(err));
   return out;
+}
+
+at::Tensor monarch_fwd_tile(const at::Tensor& x, const at::Tensor& w1, const at::Tensor& w2,
+                            int64_t rows) {
+  TORCH_CHECK(rows == 8 || rows == 16 || rows == 32 || rows == 64,
+              "monarch_fwd_tile takes a row tile of 8, 16, 32 or 64, got ", rows);
+  return run(x, w1, w2, nullptr, rows);
 }
 
 at::Tensor monarch_fwd(const at::Tensor& x, const at::Tensor& w1, const at::Tensor& w2) {
@@ -294,11 +316,41 @@ at::Tensor more_linear_dx(const at::Tensor& dout, const at::Tensor& dense_w,
   return run_more_linear(dout, dense_w, w1, w2, true);
 }
 
+// K15: x (M, K) @ w (K, N) -> y (M, N), bf16, at the tile (bm, bn, stages).
+at::Tensor tiled_matmul(const at::Tensor& x, const at::Tensor& w, int64_t bm, int64_t bn,
+                        int64_t stages) {
+  TORCH_CHECK(x.scalar_type() == at::kBFloat16, "tiled_matmul takes bfloat16, got ",
+              x.scalar_type());
+  TORCH_CHECK(x.dim() == 2 && w.dim() == 2, "x must be (M, K) and w (K, N)");
+  check_tensor(x, "x", x);
+  check_tensor(w, "w", x);
+  const int64_t M = x.size(0), K = x.size(1), N = w.size(1);
+  TORCH_CHECK(w.size(0) == K, "w ", w.sizes(), " does not fit x ", x.sizes());
+  TORCH_CHECK(K % 8 == 0 && N % 8 == 0, "tiled_matmul takes K and N that are multiples of 8 ",
+              "(TMA needs 16-byte row strides), got K ", K, ", N ", N);
+  TORCH_CHECK(M < INT32_MAX && N < INT32_MAX && K < INT32_MAX, "M, N and K must fit in 32 bits");
+  for (const at::Tensor* t : {&x, &w}) {
+    TORCH_CHECK(reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
+                "TMA reads from 16-byte aligned addresses: x and w must start on 16 bytes");
+  }
+  if (M == 0 || N == 0 || K == 0) return at::zeros({M, N}, x.options());
+  at::Tensor y = at::empty({M, N}, x.options());
+  const auto stream = c10::cuda::getCurrentCUDAStream(x.get_device());
+  const int err = smft_tiled_matmul(x.get_device(), x.data_ptr(), w.data_ptr(), y.data_ptr(), M,
+                                    N, K, static_cast<int>(bm), static_cast<int>(bn),
+                                    static_cast<int>(stages), static_cast<void*>(stream.stream()));
+  TORCH_CHECK(err != cudaErrorInvalidValue, "tiled_matmul: the tile (", bm, ", ", bn, ", ",
+              stages, ") is not instantiated, or a tensor map was refused");
+  C10_CUDA_CHECK(static_cast<cudaError_t>(err));
+  return y;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(smft, m) {
   m.def("monarch_fwd(Tensor x, Tensor w1, Tensor w2) -> Tensor");
   m.def("monarch_fwd_add(Tensor base, Tensor x, Tensor w1, Tensor w2) -> Tensor");
+  m.def("monarch_fwd_tile(Tensor x, Tensor w1, Tensor w2, int rows) -> Tensor");
   m.def("monarch_bwd(Tensor x, Tensor w1, Tensor w2, Tensor dout) -> (Tensor, Tensor, Tensor)");
   m.def("monarch_dw_fused(Tensor x, Tensor dout, Tensor w1, Tensor w2) -> (Tensor, Tensor)");
   m.def("int8_mm(Tensor x, Tensor q, Tensor scales) -> Tensor");
@@ -307,11 +359,13 @@ TORCH_LIBRARY(smft, m) {
   m.def("int4_mm_dx(Tensor dy, Tensor packed, Tensor scales, int group) -> Tensor");
   m.def("more_linear_fwd(Tensor x, Tensor dense_w, Tensor w1, Tensor w2) -> Tensor");
   m.def("more_linear_dx(Tensor dout, Tensor dense_w, Tensor w1, Tensor w2) -> Tensor");
+  m.def("tiled_matmul(Tensor x, Tensor w, int bm, int bn, int stages) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(smft, CUDA, m) {
   m.impl("monarch_fwd", &monarch_fwd);
   m.impl("monarch_fwd_add", &monarch_fwd_add);
+  m.impl("monarch_fwd_tile", &monarch_fwd_tile);
   m.impl("monarch_bwd", &monarch_bwd);
   m.impl("monarch_dw_fused", &monarch_dw_fused);
   m.impl("int8_mm", &int8_mm);
@@ -320,4 +374,5 @@ TORCH_LIBRARY_IMPL(smft, CUDA, m) {
   m.impl("int4_mm_dx", &int4_mm_dx);
   m.impl("more_linear_fwd", &more_linear_fwd);
   m.impl("more_linear_dx", &more_linear_dx);
+  m.impl("tiled_matmul", &tiled_matmul);
 }

@@ -26,6 +26,11 @@ that save (x, w1, w2) only; their backward launches K3, which recomputes
 the intermediate from x as the TPU kernel does.  The gradient of
 ``monarch_add``'s base is dout itself.
 
+``monarch_fwd_tile(x, w1, w2, rows)`` launches K1's kernel at the row tile
+``rows`` (one of ``FWD_TILE_ROWS``): K12, the counterpart of ``fwd_call`` in
+``scripts/exp_fwd_tile.py``, which only ``scripts/exp_fwd_tile`` drives.  At
+8 rows it is K1's launch, bit for bit; it has no gradient.
+
 ``LAUNCHES`` counts the launches of each kernel: a wrapper adds one where it
 launches its kernel, and nowhere else.
 """
@@ -41,7 +46,9 @@ from sparse_matrix_fine_tuning_torch.ops.monarch import (
     monarch_forward_f32,
 )
 
-LAUNCHES = {"monarch_kernel": 0, "monarch_add": 0, "monarch_bwd": 0, "monarch_dw_fused": 0}
+LAUNCHES = {"monarch_kernel": 0, "monarch_add": 0, "monarch_bwd": 0, "monarch_dw_fused": 0,
+            "monarch_fwd_tile": 0}
+FWD_TILE_ROWS = (8, 16, 32, 64)  # the row tiles csrc/monarch_fwd.cu instantiates for K12
 
 _ops = None
 
@@ -178,6 +185,19 @@ def monarch_add(base: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
     out = _MonarchAddFn.apply(base.reshape(-1, base.shape[-1]).contiguous(),
                               x.reshape(-1, n).contiguous(), w1.contiguous(), w2.contiguous())
     return out.reshape(base.shape)
+
+
+def monarch_fwd_tile(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                     rows: int) -> torch.Tensor:
+    """K12: K1's function on x (B, n) with the kernel's row tile set to
+    ``rows``, one of ``FWD_TILE_ROWS``.  Its plain version is
+    ``monarch_kernel_reference``."""
+    _check(x, w1, w2)
+    if rows not in FWD_TILE_ROWS:
+        raise ValueError(f"monarch_fwd_tile: rows {rows} is not one of {FWD_TILE_ROWS}")
+    out = load_ops().monarch_fwd_tile(x.contiguous(), w1.contiguous(), w2.contiguous(), rows)
+    LAUNCHES["monarch_fwd_tile"] += 1
+    return out
 
 
 def monarch_mm(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:

@@ -12,15 +12,16 @@ with respect to x, w1 and w2 of ``sum(y.float() ** 2)`` (dense_w frozen):
           backward is K3); the dense part's dx is cuBLAS
   plain   ``F.linear`` plus the plain Monarch multiply (PyTorch ops)
 
-It prints the fused loss against the plain one, then microseconds a step
-(CUDA events around back-to-back steps after a warmup, the median of
-several rounds) and the speedups.  It needs a CUDA card and fails without
-one.
+It prints the card's name and power limit, the fused loss against the plain
+one, then for each path the device microseconds a step and the wall
+microseconds a step (``utils/benchlib.time_ms``: CUDA events around ITERS
+back-to-back steps, the median of ROUNDS rounds, the device time with the
+queue held by a spin kernel so that the host's cost of each step drops
+out), and the speedups and the ranking by device time.  It needs a CUDA
+card and fails without one.
 """
 
 from __future__ import annotations
-
-import statistics
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 from sparse_matrix_fine_tuning_torch.kernels import monarch_cuda
 from sparse_matrix_fine_tuning_torch.kernels.experimental.more_linear import more_linear
 from sparse_matrix_fine_tuning_torch.ops.monarch import blockdiag_butterfly_multiply
+from sparse_matrix_fine_tuning_torch.utils import benchlib
 
 # (tag, rows, n, m, nblocks, blk_r): scripts/bench_more_linear.py:73-78
 SHAPES = [
@@ -35,7 +37,9 @@ SHAPES = [
     ("reference micro-bench (1024 x 1024, nblocks4 blk_r16)", 1024, 1024, 1024, 4, 16),
     ("llama-7B gate-shape (2664 x 4096 -> 11264pad, nblocks4 blk_r8)", 2664, 4096, 11264, 4, 8),
 ]
-WARMUP, ROUNDS, ITERS = 3, 5, 20  # steps before timing; timed rounds of ITERS steps
+# timed rounds of ITERS steps: a step launches tens of kernels, and a timed
+# window stays under a few hundred launches (utils/benchlib)
+ROUNDS, ITERS = 5, 5
 
 
 def make_inputs(rows: int, n: int, m: int, nblocks: int, r: int, dtype=torch.bfloat16,
@@ -72,49 +76,38 @@ def value_and_grad(loss_fn, x, wd, w1, w2):
     return (loss, *torch.autograd.grad(loss, (x, w1, w2)))
 
 
-def time_us(fn) -> float:
-    """Microseconds a call: the median over ROUNDS of CUDA events around
-    ITERS back-to-back calls, after WARMUP calls."""
-    for _ in range(WARMUP):
-        fn()
-    torch.cuda.synchronize()
-    per_call = []
-    for _ in range(ROUNDS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(ITERS):
-            fn()
-        end.record()
-        end.synchronize()
-        per_call.append(start.elapsed_time(end) * 1e3 / ITERS)
-    return statistics.median(per_call)
+def time_us(fn) -> tuple[float, float]:
+    """(device us, wall us) a call, from ``benchlib.time_ms``."""
+    device_ms, call_ms = benchlib.time_ms(fn, ITERS, ROUNDS)
+    return device_ms * 1e3, call_ms * 1e3
 
 
 def run(tag: str, rows: int, n: int, m: int, nblocks: int, r: int) -> dict:
     """The cross-check and the three paths' times at one shape.  Each path
-    runs ``WARMUP + ROUNDS * ITERS`` steps (``"steps"``); the cross-check runs
-    each forward once more, without a gradient."""
+    runs ``benchlib.calls_per_timing(ITERS, ROUNDS)`` steps (``"steps"``); the
+    cross-check runs each forward once more, without a gradient."""
     x, wd, w1, w2 = make_inputs(rows, n, m, nblocks, r)
     with torch.no_grad():
         fused, plain = float(loss_fused(x, wd, w1, w2)), float(loss_plain(x, wd, w1, w2))
     rel = abs(fused - plain) / max(abs(plain), 1e-9)
     print(f"{tag}: loss rel diff fused-vs-plain = {rel:.2e}", flush=True)
     x, w1, w2 = (t.requires_grad_() for t in (x, w1, w2))
-    out = {"tag": tag, "rel_diff": rel, "steps": WARMUP + ROUNDS * ITERS}
+    out = {"tag": tag, "rel_diff": rel, "steps": benchlib.calls_per_timing(ITERS, ROUNDS)}
     for name, loss_fn in PATHS.items():
-        us = time_us(lambda: value_and_grad(loss_fn, x, wd, w1, w2))
-        print(f"  {name:8s}: {us:9.1f} us/iter", flush=True)
-        out[f"{name}_us"] = us
-    print(f"  speedup fused vs plain: {out['plain_us'] / out['fused_us']:.3f}x ; vs hybrid: "
-          f"{out['hybrid_us'] / out['fused_us']:.3f}x", flush=True)
+        us, wall_us = time_us(lambda: value_and_grad(loss_fn, x, wd, w1, w2))
+        print(f"  {name:8s}: {us:9.1f} device us/step  {wall_us:9.1f} wall us/step", flush=True)
+        out[f"{name}_us"], out[f"{name}_wall_us"] = us, wall_us
+    ranking = sorted(PATHS, key=lambda name: out[f"{name}_us"])
+    print(f"  device speedup fused vs plain: {out['plain_us'] / out['fused_us']:.3f}x ; vs "
+          f"hybrid: {out['hybrid_us'] / out['fused_us']:.3f}x ; fastest first: "
+          f"{', '.join(ranking)}", flush=True)
+    out["ranking"] = ranking
     return out
 
 
 def main() -> list[dict]:
-    if not torch.cuda.is_available():
-        raise SystemExit("bench_more_linear needs a CUDA card")
-    print(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}", flush=True)
+    benchlib.require_card("bench_more_linear")
+    print(f"device: {benchlib.card_line()}, torch {torch.__version__}", flush=True)
     return [run(*shape) for shape in SHAPES]
 
 

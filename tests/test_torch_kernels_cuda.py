@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K11 and their autograd Functions against their
+"""The port's CUDA kernels K1-K12 and K15 and their autograd Functions against their
 plain versions, on the card.  Marked ``cuda``: they skip where no card is visible, and run on the
 card with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 This file imports no JAX, so it also runs where JAX is not installed.
@@ -12,7 +12,9 @@ enters every row's product.  K5-K8 (forward and dx of the quantized base):
 the same two tolerances; both sides round each dequantized weight to the
 working dtype once and sum in fp32 in another order.  K9-K11 (the fused
 dense + Monarch linear): the same two tolerances; the output rounds once on
-both sides, from intermediates that may round one ulp apart.
+both sides, from intermediates that may round one ulp apart.  K12 (K1 at a
+row tile) as K1; K15 (the tiled bf16 matmul) two bf16 ulps: both sides
+round once from fp32 sums taken in another order.
 """
 
 import numpy as np
@@ -430,3 +432,86 @@ def test_torch_more_linear_kernels_refuse_shapes_they_do_not_take(cuda_device):
             with pytest.raises(RuntimeError, match="the kernels take"):
                 call()
         assert ml.LAUNCHES == before
+
+
+# -- the forward-tile experiments: K15 (tiled matmul) and K12 (row tiles) -----
+# K15: (M, K, N) at the bench shape and ragged in every dimension (M past
+# every BM, K past the k step of 64, N past every BN; K, N multiples of 8).
+TILED_SHAPES = [(2664, 4096, 4096), (200, 200, 392), (64, 64, 128)]
+# K12: (batch, K, Q, P, L, S, R) at the bench shapes (the JAX script's rank
+# r*K = 16 and the adapters' rank 4) and a ragged batch
+FWD_TILE_CASES = [(2664, 4, 16, 1024, 4, 1024, 16), (2664, 4, 4, 1024, 4, 1024, 4),
+                  (65, 4, 8, 16, 4, 24, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TILED_SHAPES)
+def test_torch_tiled_matmul_matches_plain_on_card(cuda_device, shape):
+    """K15 at every tile against ``tiled_matmul_reference`` (bf16: both round
+    once from fp32 sums taken in another order); one launch a call."""
+    from sparse_matrix_fine_tuning_torch.kernels.experimental import tiled_matmul as tm
+
+    m, k, n = shape
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=g, device=cuda_device) * 0.02).to(torch.bfloat16)
+    want = tm.tiled_matmul_reference(x, w)
+    before = tm.LAUNCHES["tiled_matmul"]
+    for tile in tm.TILES:
+        got = tm.tiled_matmul(x, w, tile)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        assert bool(torch.isfinite(got).all())
+        assert float((got.float() - want.float()).abs().max()) <= _tol(want), tile
+    assert tm.LAUNCHES["tiled_matmul"] == before + len(tm.TILES)
+
+
+@pytest.mark.cuda
+def test_torch_tiled_matmul_refuses_what_it_does_not_take(cuda_device):
+    """float32, K or N no multiple of 8, and a tile that is not instantiated
+    raise on the card and launch nothing."""
+    from sparse_matrix_fine_tuning_torch.kernels.experimental import tiled_matmul as tm
+
+    before = dict(tm.LAUNCHES)
+    x = torch.randn(64, 64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="bfloat16"):
+        tm.tiled_matmul(x, x)
+    with pytest.raises(RuntimeError, match="not instantiated"):
+        tm.tiled_matmul(x.bfloat16(), x.bfloat16(), (256, 256, 2))
+    for k, n in ((60, 64), (64, 60)):
+        with pytest.raises(RuntimeError, match="multiples of 8"):
+            tm.tiled_matmul(torch.randn(64, k, device=cuda_device).bfloat16(),
+                            torch.randn(k, n, device=cuda_device).bfloat16())
+    assert tm.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FWD_TILE_CASES)
+def test_torch_fwd_tile_matches_plain_on_card(cuda_device, case, dtype):
+    """K12 at every row tile against ``monarch_kernel_reference``; at 8 rows
+    it is K1's launch, bit for bit."""
+    x, w1, w2, _ = _inputs(case, dtype, cuda_device)
+    before = monarch_cuda.LAUNCHES["monarch_fwd_tile"]
+    with torch.no_grad():
+        want = monarch_cuda.monarch_kernel_reference(x, w1, w2)
+        k1 = monarch_cuda.monarch_kernel(x, w1, w2)
+        for rows in monarch_cuda.FWD_TILE_ROWS:
+            got = monarch_cuda.monarch_fwd_tile(x, w1, w2, rows)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape and got.dtype == want.dtype
+            assert float((got.float() - want.float()).abs().max()) <= _tol(want), rows
+            if rows == 8:
+                assert torch.equal(got, k1)
+    assert monarch_cuda.LAUNCHES["monarch_fwd_tile"] == before + len(monarch_cuda.FWD_TILE_ROWS)
+
+
+@pytest.mark.cuda
+def test_torch_benchlib_time_ms_on_card(cuda_device):
+    """A small op is host-bound: its device time is no larger than its call
+    time, and both are positive."""
+    from sparse_matrix_fine_tuning_torch.utils import benchlib
+
+    x = torch.ones(16, device=cuda_device)
+    device_ms, call_ms = benchlib.time_ms(lambda: x * 2, reps=20, rounds=3)
+    assert 0 < device_ms <= call_ms

@@ -25,8 +25,11 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.kernels.merged",
     "sparse_matrix_fine_tuning_torch.kernels.experimental",
     "sparse_matrix_fine_tuning_torch.kernels.experimental.more_linear",
+    "sparse_matrix_fine_tuning_torch.kernels.experimental.tiled_matmul",
     "sparse_matrix_fine_tuning_torch.scripts",
     "sparse_matrix_fine_tuning_torch.scripts.bench_more_linear",
+    "sparse_matrix_fine_tuning_torch.scripts.exp_matmul_tiles",
+    "sparse_matrix_fine_tuning_torch.scripts.exp_fwd_tile",
     "sparse_matrix_fine_tuning_torch.layers.monarch_linear",
     "sparse_matrix_fine_tuning_torch.models.config",
     "sparse_matrix_fine_tuning_torch.models.llama",
@@ -36,6 +39,7 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.utils.testing",
     "sparse_matrix_fine_tuning_torch.utils.jax_bridge",
     "sparse_matrix_fine_tuning_torch.utils.device",
+    "sparse_matrix_fine_tuning_torch.utils.benchlib",
     "sparse_matrix_fine_tuning_torch.training.optim",
     "sparse_matrix_fine_tuning_torch.training.checkpoint",
     "sparse_matrix_fine_tuning_torch.training.trainer",
@@ -71,9 +75,15 @@ def test_torch_package_imports_no_jax_and_builds_nothing():
 def test_torch_cuda_kernels_refuse_cpu_tensors():
     from sparse_matrix_fine_tuning_torch.kernels import monarch_cuda
     from sparse_matrix_fine_tuning_torch.kernels.experimental import more_linear as ml
+    from sparse_matrix_fine_tuning_torch.kernels.experimental import tiled_matmul as tm
 
     x, w1, w2 = torch.randn(4, 16), torch.randn(4, 2, 4), torch.randn(2, 8, 4)
     before, ml_before = dict(monarch_cuda.LAUNCHES), dict(ml.LAUNCHES)
+    tm_before = dict(tm.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        monarch_cuda.monarch_fwd_tile(x, w1, w2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tm.tiled_matmul(torch.randn(4, 16).bfloat16(), torch.randn(16, 8).bfloat16())
     with pytest.raises(ValueError, match="CUDA"):
         monarch_cuda.monarch_kernel(x, w1, w2)
     with pytest.raises(ValueError, match="CUDA"):
@@ -89,7 +99,7 @@ def test_torch_cuda_kernels_refuse_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert monarch_cuda.LAUNCHES == before and ml.LAUNCHES == ml_before
-    assert monarch_cuda._ops is None
+    assert tm.LAUNCHES == tm_before and monarch_cuda._ops is None
 
 
 def test_torch_quant_kernels_refuse_cpu_tensors():
@@ -154,7 +164,8 @@ def test_torch_build_key_follows_sources(tmp_path, monkeypatch):
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
     assert build.build_key() == key
-    for name in ("monarch_fwd.cu", "monarch_bwd.cu", "quant_matmul.cu", "more_linear.cu"):
+    for name in ("monarch_fwd.cu", "monarch_bwd.cu", "quant_matmul.cu", "more_linear.cu",
+                 "tiled_matmul.cu"):
         src = csrc / name
         src.write_text(src.read_text() + "\n// edited\n")
         edited = build.build_key()
