@@ -40,16 +40,24 @@ hand-written CUDA kernels, and checks them:
      every tile and K12 (K1 at every row tile) against their plain versions
      at a ragged shape, K15's SASS checked for HGMMA, then the ports of
      ``scripts/exp_matmul_tiles.py`` and ``scripts/exp_fwd_tile.py`` at
-     2664 x 4096 -> 4096 (each variant checked, then timed).
+     2664 x 4096 -> 4096 (each variant checked, then timed);
+ 15. the dw experiments: K13 (K4's kernel at a row group) and K14 (K13 at
+     256 rows) and K3/K4 through the fast path at blk_r 8 and 16 and through
+     the generic kernel against their plain versions at a ragged shape,
+     the plans at the experiments' and the bench's shapes, K13 and K14 bit
+     for bit, then the ports of ``scripts/exp_dw_kernel.py`` and
+     ``scripts/exp_merged_v3.py`` at 2664 x 4096 -> 4096 (each variant
+     checked, then timed).
 
 Each main path (6, 8 off, 8 on, each configuration of 11, each step of 12,
-the bench of 13, each script of 14) zeroes the launch counts of every
-kernel just before it and reads them just after.  Any failed check exits
-non-zero.  The line before the last is one JSON object on the kernels
-(K9-K11: ms, plain, library and bound summed over the bench's three
-shapes; K15 and K12: the best tile's ms at the scripts' shape, the tile in
-``records.json``); the last is ``{"ok": true, "device": {...}}``.  Per-case
-records go to ``chip_smoke_out/records.json``.  It imports nothing of JAX.
+the bench of 13, each script of 14 and 15) zeroes the launch counts of
+every kernel just before it and reads them just after.  Any failed check
+exits non-zero.  The line before the last is one JSON object on the
+kernels (K9-K11: ms, plain, library and bound summed over the bench's three
+shapes; K15, K12 and K13: the best tile's ms at the scripts' shape, the
+tile in ``records.json``; K14 at that shape); the last is ``{"ok": true,
+"device": {...}}``.  Per-case records go to ``chip_smoke_out/records.json``.
+It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -140,6 +148,10 @@ KERNELS = {
                      "scripts/exp_matmul_tiles.py:20"),
     "monarch_fwd_tile": ("sparse_matrix_fine_tuning_torch/kernels/csrc/monarch_fwd.cu",
                          "scripts/exp_fwd_tile.py:21"),
+    "monarch_dw_tile": ("sparse_matrix_fine_tuning_torch/kernels/csrc/monarch_bwd.cu",
+                        "scripts/exp_dw_kernel.py:24"),
+    "monarch_dw_merged": ("sparse_matrix_fine_tuning_torch/kernels/csrc/monarch_bwd.cu",
+                          "scripts/exp_merged_v3.py:23"),
 }
 # The quantized base (quant/, run_alpaca.py --bits): (bits, whether dx).
 QUANT_KERNELS = {"int8_matmul": (8, False), "int8_matmul_dx": (8, True),
@@ -170,6 +182,12 @@ MORE_LOSS_RTOL = 2.0 ** -6
 # TMA needs); K12 at (B, n, m, nblocks, rank) in f32, B past every row tile.
 TILES_RAGGED = (200, 200, 392)
 FWD_TILE_RAGGED = (37, 256, 384, 4, 4)
+# The dw experiments' ragged checks, (M, K, Q, P, L, S, R): the fast path at
+# blk_r 8 and 16, and the generic kernel (P % 8 != 0), M past every row
+# group; K13's row groups there: the 16-row tile and the sweep's.
+DW_RAGGED = ((200, 4, 8, 64, 4, 48, 8, True), (200, 4, 16, 64, 4, 48, 16, True),
+             (200, 4, 16, 60, 4, 48, 16, False))
+DW_RAGGED_ROWS = (16, *monarch_cuda.DW_TILE_ROWS)
 OUT_DIR = "chip_smoke_out"  # per-case records; .gitignore lists it
 RECORDS: list[dict] = []  # one per kernel case, written to OUT_DIR
 
@@ -1293,6 +1311,131 @@ def phase_tiles(card: str, lib) -> dict:
                          "monarch_fwd_tile": expect["monarch_fwd_tile"]}}
 
 
+# -- the dw experiments (K13, K14) -------------------------------------------
+
+def phase_dw(card: str) -> dict:
+    """K13 and K14, the kernels of the dw experiments, and K3/K4 through the
+    fast path at blk_r 8 and 16:
+      * outside the counted paths, at the ragged shapes of ``DW_RAGGED`` in
+        f32 and bf16: K3 and K4 against their plain versions, on the path
+        ``monarch_bwd_plan`` names; K13 at 16 rows and at every
+        ``DW_TILE_ROWS`` against K4's plain version;
+      * ``monarch_bwd_plan`` reports the fast path at the bench's three
+        shapes and the dw script's two;
+      * at the dw script's shape (bf16): two K13 launches at 256 rows equal
+        bit for bit, K14 equals K13 at 256 rows bit for bit, and K14 timed
+        against the plain version on rotating input sets;
+      * the counted main paths: the ports of ``exp_dw_kernel`` and
+        ``exp_merged_v3`` at 2664 x 4096 -> 4096, each of which checks every
+        variant before timing it, the launch counts zeroed just before each
+        and read just after."""
+    from sparse_matrix_fine_tuning_torch.scripts import bench_more_linear as bench
+    from sparse_matrix_fine_tuning_torch.scripts import exp_dw_kernel, exp_merged_v3
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    with torch.no_grad():
+        for m_rows, k, q, p, l, s, r, fast in DW_RAGGED:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(m_rows, k * p, generator=g, device="cuda").to(dtype)
+                w1 = (torch.randn(k, q, p, generator=g, device="cuda") / p ** 0.5).to(dtype)
+                w2 = (torch.randn(l, s, r, generator=g, device="cuda") / r ** 0.5).to(dtype)
+                dout = torch.randn(m_rows, s * l, generator=g, device="cuda").to(dtype)
+                tag = f"M={m_rows} (K, Q, P)=({k}, {q}, {p}) (L, S, R)=({l}, {s}, {r}) {dtype}"
+                for with_dx in (True, False):
+                    plan = monarch_cuda.monarch_bwd_plan(m_rows, w1.shape, w2.shape,
+                                                         with_dx=with_dx, dtype=dtype)
+                    require(plan[0] == fast, f"monarch_bwd_plan {tag}: {plan}, fast {fast}")
+                ref_bwd = monarch_cuda.monarch_bwd_reference(x, w1, w2, dout)
+                ref_dw = ref_bwd[1:]
+                cases = [("K3", monarch_cuda.monarch_bwd(x, w1, w2, dout), ref_bwd),
+                         ("K4", monarch_cuda.monarch_dw_fused(x, dout, w1, w2), ref_dw)]
+                cases += [(f"K13 rows {rows}", monarch_cuda.monarch_dw_tile(x, dout, w1, w2, rows),
+                           ref_dw) for rows in DW_RAGGED_ROWS]
+                torch.cuda.synchronize()
+                for name, got, want in cases:
+                    for out, ref in zip(got, want):
+                        err = float((out.float() - ref.float()).abs().max())
+                        require(out.shape == ref.shape and out.dtype == ref.dtype
+                                and bool(torch.isfinite(out).all())
+                                and err <= tolerance(dtype, ref),
+                                f"{name} {tag}: max abs err {err} > {tolerance(dtype, ref)}")
+    plans = {}
+    for label, (_, rows, n, m, nb, r) in zip(MORE_LABELS, bench.SHAPES):
+        plans[f"bench {label}"] = monarch_cuda.monarch_bwd_plan(
+            rows, (nb, r, n // nb), (nb, m // nb, r), with_dx=True)
+    for tag, b, n, m, nb, r in exp_dw_kernel.SHAPES:
+        plans[f"exp_dw_kernel rank {r}"] = monarch_cuda.monarch_bwd_plan(
+            b, (nb, r, n // nb), (nb, m // nb, r))
+    require(all(fast for fast, _ in plans.values()), f"not the fast path: {plans}")
+
+    _, b, n, m, nb, r = exp_dw_kernel.SHAPES[0]
+    pairs, w1, w2 = exp_dw_kernel.make_inputs(b, n, m, nb, r)
+    x, dout = pairs[0]
+    rows = monarch_cuda.MERGED_DW_ROWS
+    with torch.no_grad():
+        first = monarch_cuda.monarch_dw_tile(x, dout, w1, w2, rows)
+        second = monarch_cuda.monarch_dw_tile(x, dout, w1, w2, rows)
+        merged = monarch_cuda.monarch_dw_merged(x, dout, w1, w2)
+        ref = monarch_cuda.monarch_dw_fused_reference(x, dout, w1, w2)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, c) for a, c in zip(first, second)),
+                "two K13 launches at blk_r 16 differ")
+        require(all(torch.equal(a, c) for a, c in zip(first, merged)),
+                f"K14 differs from K13 at {rows} rows")
+        merged_err = exp_dw_kernel.check("K14", merged, ref)
+        merged_ms = time_ms(exp_dw_kernel.rotating(
+            lambda xx, dd: monarch_cuda.monarch_dw_merged(xx, dd, w1, w2), pairs),
+            exp_dw_kernel.REPS, exp_dw_kernel.ROUNDS)[0]
+    del pairs, x, dout, first, second, merged, ref
+    torch.cuda.empty_cache()
+    print(f"[dw] {card}: K3, K4 and K13 at {len(DW_RAGGED_ROWS)} row groups within tolerance "
+          f"at {len(DW_RAGGED)} ragged shapes (f32, bf16); fast path at "
+          + ", ".join(f"{k} {v}" for k, v in plans.items())
+          + f"; K13 repeats bit for bit, K14 equals K13 at {rows} rows; K14 {merged_ms:.5f} ms",
+          flush=True)
+
+    reset_counts()  # the counted main path starts here: exp_dw_kernel
+    dw = [exp_dw_kernel.run(*shape) for shape in exp_dw_kernel.SHAPES]
+    launches = counts()  # ... and ends here
+    expect = {"monarch_dw_tile": sum(len(run["tiles"]) * run["steps"] for run in dw),
+              "more_linear_dw": sum(run["steps"] for run in dw)}
+    require(launches == {**dict.fromkeys(launches, 0), **expect},
+            f"exp_dw_kernel: launches {launches}; expected {expect}")
+    tile_launches = expect["monarch_dw_tile"]
+    reset_counts()  # the counted main path starts here: exp_merged_v3
+    mv3 = [exp_merged_v3.run(*shape) for shape in exp_merged_v3.SHAPES]
+    launches = counts()  # ... and ends here
+    steps = sum(run["steps"] for run in mv3)
+    expect = {"monarch_add": steps, "monarch_bwd": steps, "monarch_dw_fused": steps,
+              "monarch_dw_merged": steps}
+    require(launches == {**dict.fromkeys(launches, 0), **expect},
+            f"exp_merged_v3: launches {launches}; expected {expect}")
+    script = dw[0]
+    print(f"[dw] {card}: exp_dw_kernel "
+          + "; ".join(f"rank {run['shape'][4]}: best row group {run['best']['rows']} "
+                      f"{run['best']['ms']:.5f} ms, K11 {run['k11']['ms']:.5f}, plain "
+                      f"{run['plain_ms']:.5f}, read floor {run['floor_ms']:.5f}, bound "
+                      f"{run['bound_ms']:.5f}" for run in dw)
+          + "; exp_merged_v3 device us a micro-batch "
+          + "; ".join(f"rank {run['shape'][4]}: " + ", ".join(
+              f"{k} {v['us']:.1f}" for k, v in run["variants"].items()) for run in mv3),
+          flush=True)
+    RECORDS.append({"exp_dw_kernel": dw, "exp_merged_v3": mv3, "plans": plans,
+                    "monarch_dw_merged_ms": merged_ms, "card": card})
+    layer = {
+        "monarch_dw_tile": {"ms": script["best"]["ms"], "plain_ms": script["plain_ms"],
+                            "bound_ms": script["bound_ms"], "bound_by": script["bound_by"],
+                            "library_ms": None},
+        "monarch_dw_merged": {"ms": merged_ms, "plain_ms": script["plain_ms"],
+                              "bound_ms": script["bound_ms"], "bound_by": script["bound_by"],
+                              "library_ms": None},
+    }
+    worst = {"monarch_dw_tile": max(t["max_abs_err"] for run in dw for t in run["tiles"]),
+             "monarch_dw_merged": merged_err}
+    return {"layer": layer, "worst": worst,
+            "launches": {"monarch_dw_tile": tile_launches, "monarch_dw_merged": steps}}
+
+
 def dequantized_copy(model):
     """A CPU copy of a quantized model with no kernel in it: each layer's
     codes dequantized into a float32 dense by the plain functions."""
@@ -1536,6 +1679,8 @@ def main() -> None:
     lap("fused dense+Monarch linear")
     tiles = phase_tiles(card, lib)
     lap("forward-tile experiments")
+    dws = phase_dw(card)
+    lap("dw experiments")
     f32 = phase_f32()
     phase_quant_f32(f32, card)
     lap("f32 serving")
@@ -1558,9 +1703,11 @@ def main() -> None:
                 "int4_matmul": qserving["launches"]["int4_matmul"]
                 + qtraining["launches"]["int4_matmul"],
                 "int4_matmul_dx": qtraining["launches"]["int4_matmul_dx"],
-                **more["launches"], **tiles["launches"]}
-    measured = {**fwd["layer"], **bwd["layer"], **qk["layer"], **more["layer"], **tiles["layer"]}
-    worst = {**fwd["worst"], **bwd["worst"], **qk["worst"], **more["worst"], **tiles["worst"]}
+                **more["launches"], **tiles["launches"], **dws["launches"]}
+    measured = {**fwd["layer"], **bwd["layer"], **qk["layer"], **more["layer"], **tiles["layer"],
+                **dws["layer"]}
+    worst = {**fwd["worst"], **bwd["worst"], **qk["worst"], **more["worst"], **tiles["worst"],
+             **dws["worst"]}
     require(all(launches[name] > 0 for name in KERNELS), f"a kernel never launched: {launches}")
     lines = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
               "launches": launches[name], "max_abs_err": worst[name],

@@ -5,6 +5,9 @@
 //   torch.ops.smft.monarch_fwd_add(base, x, w1, w2)  -> base + out       (K2)
 //   torch.ops.smft.monarch_bwd(x, w1, w2, dout)      -> (dx, dw1, dw2)   (K3)
 //   torch.ops.smft.monarch_dw_fused(x, dout, w1, w2) -> (dw1, dw2)       (K4)
+//   torch.ops.smft.monarch_dw_tile(x, dout, w1, w2, rows) -> (dw1, dw2)  (K13, K14)
+//   torch.ops.smft.monarch_bwd_plan(M, K, Q, P, L, S, R, rows, with_dx, itemsize)
+//       -> (fast, groups): the plan K3, K4 and K13 launch with
 //   torch.ops.smft.int4_mm(x, packed, scales, group)     -> y            (K5)
 //   torch.ops.smft.int4_mm_dx(dy, packed, scales, group) -> dx           (K6)
 //   torch.ops.smft.int8_mm(x, q, scales)                 -> y            (K7)
@@ -12,8 +15,10 @@
 //   torch.ops.smft.more_linear_fwd(x, dense_w, w1, w2)   -> y            (K9)
 //   torch.ops.smft.more_linear_dx(dout, dense_w, w1, w2) -> dx           (K10)
 //   torch.ops.smft.tiled_matmul(x, w, bm, bn, stages)    -> y            (K15)
-// K11 is monarch_dw_fused (K4's kernel).  Only a CUDA implementation is
-// registered, so a tensor on another device is refused by the dispatcher.
+// K11 is monarch_dw_fused (K4's kernel); K13 is K4's kernel at a row group
+// of `rows`, and K14 K13 at 256 rows.  Only a CUDA implementation of the
+// tensor ops is registered, so a tensor on another device is refused by the
+// dispatcher; monarch_bwd_plan takes no tensor and reads the current device.
 // The launch's error code is checked here and raised; the kernels run on
 // PyTorch's current stream and allocate nothing: the outputs and the fp32
 // scratch (the backward's row summaries and per-group partial sums, the
@@ -24,6 +29,7 @@
 #include <ATen/ops/empty.h>
 #include <ATen/ops/zeros.h>
 #include <c10/cuda/CUDAException.h>
+#include <c10/cuda/CUDAFunctions.h>
 #include <c10/cuda/CUDAStream.h>
 #include <torch/library.h>
 
@@ -42,11 +48,14 @@ extern "C" int smft_tiled_matmul(int device, const void* x, const void* w, void*
 extern "C" int64_t smft_monarch_bwd_workspace(int dtype, int device, const void* x,
                                               const void* dout, const void* w1, const void* w2,
                                               const void* dx, int64_t M, int K, int Q, int P,
-                                              int L, int S, int R);
+                                              int L, int S, int R, int64_t rows_per_group);
 extern "C" int smft_monarch_bwd(int dtype, int device, const void* x, const void* dout,
                                 const void* w1, const void* w2, void* dx, float* work,
                                 float* dw1, float* dw2, int64_t M, int K, int Q, int P, int L,
-                                int S, int R, void* stream);
+                                int S, int R, int64_t rows_per_group, void* stream);
+extern "C" int smft_monarch_bwd_plan(int itemsize, int device, int64_t M, int K, int Q, int P,
+                                     int L, int S, int R, int64_t rows_per_group, int with_dx,
+                                     int* fast, int* groups);
 extern "C" int64_t smft_quant_mm_workspace(int dtype, int device, int bits, int dx, int64_t M,
                                            int64_t in_f, int64_t out_f);
 extern "C" int smft_quant_mm(int dtype, int device, int bits, int dx, const void* a,
@@ -119,11 +128,20 @@ at::Tensor monarch_fwd(const at::Tensor& x, const at::Tensor& w1, const at::Tens
   return run(x, w1, w2, nullptr);
 }
 
+// K13's row group: a positive multiple of the generic kernel's 16-row tile
+// (which the fast path's 4-row unroll divides).
+void check_rows(int64_t rows) {
+  TORCH_CHECK(rows > 0 && rows % 16 == 0,
+              "the row group must be a positive multiple of 16 rows, got ", rows);
+}
+
 // K3 (with_dx) and K4: returns (dx or an empty tensor, dw1, dw2), dw in fp32.
+// rows: K13's rows a group, 0 for the plan's own.
 std::tuple<at::Tensor, at::Tensor, at::Tensor> run_bwd(const at::Tensor& x,
                                                        const at::Tensor& dout,
                                                        const at::Tensor& w1,
-                                                       const at::Tensor& w2, bool with_dx) {
+                                                       const at::Tensor& w2, bool with_dx,
+                                                       int64_t rows = 0) {
   TORCH_CHECK(x.scalar_type() == at::kFloat || x.scalar_type() == at::kBFloat16,
               "monarch_bwd takes float32 or bfloat16, got ", x.scalar_type());
   TORCH_CHECK(x.dim() == 2 && dout.dim() == 2, "x must be (M, n) and dout (M, m)");
@@ -156,14 +174,17 @@ std::tuple<at::Tensor, at::Tensor, at::Tensor> run_bwd(const at::Tensor& x,
   const int l = static_cast<int>(L), s = static_cast<int>(S), r = static_cast<int>(R);
   const int64_t work_floats = smft_monarch_bwd_workspace(
       dtype, device, x.data_ptr(), dout.data_ptr(), w1.data_ptr(), w2.data_ptr(), dx_ptr, M, k,
-      q, p, l, s, r);
+      q, p, l, s, r, rows);
   TORCH_CHECK(work_floats >= 0, "monarch_bwd: cannot read the device's SM count");
   at::Tensor work = at::empty({work_floats}, f32);
   const auto stream = c10::cuda::getCurrentCUDAStream(device);
   const int err = smft_monarch_bwd(
       dtype, device, x.data_ptr(), dout.data_ptr(), w1.data_ptr(), w2.data_ptr(), dx_ptr,
       work_floats > 0 ? work.data_ptr<float>() : nullptr, dw1.data_ptr<float>(),
-      dw2.data_ptr<float>(), M, k, q, p, l, s, r, static_cast<void*>(stream.stream()));
+      dw2.data_ptr<float>(), M, k, q, p, l, s, r, rows, static_cast<void*>(stream.stream()));
+  TORCH_CHECK(rows == 0 || err != cudaErrorInvalidValue, "monarch_dw_tile: ",
+              (M + rows - 1) / (rows ? rows : 1), " row groups of ", rows,
+              " rows exceed the launch's grid of 65535");
   C10_CUDA_CHECK(static_cast<cudaError_t>(err));
   return {dx, dw1, dw2};
 }
@@ -179,6 +200,32 @@ std::tuple<at::Tensor, at::Tensor> monarch_dw_fused(const at::Tensor& x, const a
                                                     const at::Tensor& w1, const at::Tensor& w2) {
   auto out = run_bwd(x, dout, w1, w2, false);
   return {std::get<1>(out), std::get<2>(out)};
+}
+
+std::tuple<at::Tensor, at::Tensor> monarch_dw_tile(const at::Tensor& x, const at::Tensor& dout,
+                                                   const at::Tensor& w1, const at::Tensor& w2,
+                                                   int64_t rows) {
+  check_rows(rows);
+  auto out = run_bwd(x, dout, w1, w2, false, rows);
+  return {std::get<1>(out), std::get<2>(out)};
+}
+
+std::tuple<bool, int64_t> monarch_bwd_plan(int64_t M, int64_t K, int64_t Q, int64_t P, int64_t L,
+                                           int64_t S, int64_t R, int64_t rows, bool with_dx,
+                                           int64_t itemsize) {
+  if (rows != 0) check_rows(rows);
+  TORCH_CHECK(M > 0, "monarch_bwd_plan needs M > 0, got ", M);
+  TORCH_CHECK(itemsize == 2 || itemsize == 4, "itemsize must be 2 (bfloat16) or 4 (float32)");
+  const int64_t lim = INT32_MAX;
+  TORCH_CHECK(K <= lim && Q <= lim && P <= lim && L <= lim && S <= lim && R <= lim,
+              "factor dims must fit in 32 bits");
+  int fast = 0, groups = 0;
+  const int err = smft_monarch_bwd_plan(
+      static_cast<int>(itemsize), c10::cuda::current_device(), M, static_cast<int>(K),
+      static_cast<int>(Q), static_cast<int>(P), static_cast<int>(L), static_cast<int>(S),
+      static_cast<int>(R), rows, with_dx ? 1 : 0, &fast, &groups);
+  C10_CUDA_CHECK(static_cast<cudaError_t>(err));
+  return {fast != 0, groups};
 }
 
 at::Tensor monarch_fwd_add(const at::Tensor& base, const at::Tensor& x,
@@ -353,6 +400,11 @@ TORCH_LIBRARY(smft, m) {
   m.def("monarch_fwd_tile(Tensor x, Tensor w1, Tensor w2, int rows) -> Tensor");
   m.def("monarch_bwd(Tensor x, Tensor w1, Tensor w2, Tensor dout) -> (Tensor, Tensor, Tensor)");
   m.def("monarch_dw_fused(Tensor x, Tensor dout, Tensor w1, Tensor w2) -> (Tensor, Tensor)");
+  m.def("monarch_dw_tile(Tensor x, Tensor dout, Tensor w1, Tensor w2, int rows) -> "
+        "(Tensor, Tensor)");
+  m.def("monarch_bwd_plan(int M, int K, int Q, int P, int L, int S, int R, int rows, "
+        "bool with_dx, int itemsize=2) -> (bool, int)",
+        &monarch_bwd_plan);
   m.def("int8_mm(Tensor x, Tensor q, Tensor scales) -> Tensor");
   m.def("int8_mm_dx(Tensor dy, Tensor q, Tensor scales) -> Tensor");
   m.def("int4_mm(Tensor x, Tensor packed, Tensor scales, int group) -> Tensor");
@@ -368,6 +420,7 @@ TORCH_LIBRARY_IMPL(smft, CUDA, m) {
   m.impl("monarch_fwd_tile", &monarch_fwd_tile);
   m.impl("monarch_bwd", &monarch_bwd);
   m.impl("monarch_dw_fused", &monarch_dw_fused);
+  m.impl("monarch_dw_tile", &monarch_dw_tile);
   m.impl("int8_mm", &int8_mm);
   m.impl("int8_mm_dx", &int8_mm_dx);
   m.impl("int4_mm", &int4_mm);

@@ -50,8 +50,9 @@ def build_merged_operands(dense: torch.Tensor, w1: torch.Tensor, w2: torch.Tenso
 
 class _MergedApply(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, wm, wm_t, w1, w2):
+    def forward(ctx, x, wm, wm_t, w1, w2, dw):
         ctx.save_for_backward(x, wm_t, w1, w2)
+        ctx.dw = dw
         return F.linear(x, wm_t)
 
     @staticmethod
@@ -70,20 +71,22 @@ class _MergedApply(torch.autograd.Function):
             x2 = F.pad(x2, (0, k * p - n))
         if s * l > m:
             d2 = F.pad(d2, (0, s * l - m))
-        dw1, dw2 = monarch_dw_any(x2, d2, w1, w2)
-        return dx, None, None, dw1.to(w1.dtype), dw2.to(w2.dtype)
+        dw1, dw2 = ctx.dw(x2, d2, w1, w2)
+        return dx, None, None, dw1.to(w1.dtype), dw2.to(w2.dtype), None
 
 
 def merged_apply(x: torch.Tensor, wm: torch.Tensor, wm_t: torch.Tensor, w1: torch.Tensor,
-                 w2: torch.Tensor) -> torch.Tensor:
+                 w2: torch.Tensor, dw=monarch_dw_any) -> torch.Tensor:
     """``x @ wm`` with factor-structured gradients.
 
     ``(wm, wm_t)`` must be ``build_merged_operands(dense, w1, w2)`` for the
     same (w1, w2); the trainer refreshes them at the top of every optimizer
     step.  Gradients: dx through ``wm_t`` (one dense product); (dw1, dw2)
-    from (x, dout) through K4 on the card, the plain ``monarch_dw`` on the
-    CPU; ``wm`` and ``wm_t`` get none (the dense is frozen).
+    from (x, dout) through ``dw(x2d, dout2d, w1, w2)`` -> fp32 (dw1, dw2):
+    by default K4 on the card, the plain ``monarch_dw`` on the CPU (the
+    merged-design experiment passes its other dw passes); ``wm`` and
+    ``wm_t`` get none (the dense is frozen).
     """
     if wm.shape != wm_t.t().shape:
         raise ValueError(f"wm {tuple(wm.shape)} and wm_t {tuple(wm_t.shape)} do not match")
-    return _MergedApply.apply(x, wm, wm_t, w1, w2)
+    return _MergedApply.apply(x, wm, wm_t, w1, w2, dw)

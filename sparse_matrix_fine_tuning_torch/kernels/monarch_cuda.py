@@ -31,6 +31,19 @@ the intermediate from x as the TPU kernel does.  The gradient of
 ``scripts/exp_fwd_tile.py``, which only ``scripts/exp_fwd_tile`` drives.  At
 8 rows it is K1's launch, bit for bit; it has no gradient.
 
+``monarch_dw_tile(x, dout, w1, w2, rows)`` launches K4's kernel with its row
+group set to ``rows`` (a positive multiple of 16; the sweep is
+``DW_TILE_ROWS``): K13, the counterpart of ``dw_kernel_v2`` in
+``scripts/exp_dw_kernel.py``, whose sequence tile ts sets how many row
+groups sum their partial gradients (11, 6 and 3 at 2664 rows).
+``monarch_dw_merged`` is K13 at ``MERGED_DW_ROWS``: K14, the counterpart of
+``dw_call_v2`` in ``scripts/exp_merged_v3.py``.  Only the ports of those
+scripts drive them.  Their plain version is ``monarch_dw_fused_reference``:
+the function does not depend on the row group.  Unlike the two TPU kernels
+they mask the rows past M.  ``monarch_bwd_plan`` reports the plan a launch
+of K3, K4 or K13 takes: the fast path (nblocks 4, blk_r in ``FAST_BLK_R``)
+or the generic kernel, and its row groups.
+
 ``LAUNCHES`` counts the launches of each kernel: a wrapper adds one where it
 launches its kernel, and nowhere else.
 """
@@ -47,8 +60,12 @@ from sparse_matrix_fine_tuning_torch.ops.monarch import (
 )
 
 LAUNCHES = {"monarch_kernel": 0, "monarch_add": 0, "monarch_bwd": 0, "monarch_dw_fused": 0,
-            "monarch_fwd_tile": 0}
+            "monarch_fwd_tile": 0, "monarch_dw_tile": 0, "monarch_dw_merged": 0}
 FWD_TILE_ROWS = (8, 16, 32, 64)  # the row tiles csrc/monarch_fwd.cu instantiates for K12
+DW_TILE_ROWS = (256, 512, 1024)  # K13's sweep: scripts/exp_dw_kernel.py:107
+MERGED_DW_ROWS = 256  # K14: dw_call_v2's ts, scripts/exp_merged_v3.py:23
+DW_ROW_STEP = 16  # a row group is a multiple of the generic kernel's row tile
+FAST_BLK_R = (4, 8, 16)  # blk_r (Q = R, nblocks 4) of csrc/monarch_bwd.cu's fast path
 
 _ops = None
 
@@ -133,6 +150,51 @@ def monarch_dw_fused(x: torch.Tensor, dout: torch.Tensor, w1: torch.Tensor, w2: 
                                            w1.contiguous(), w2.contiguous())
     LAUNCHES["monarch_dw_fused"] += 1
     return dw1, dw2
+
+
+def _check_rows(rows: int) -> None:
+    if not (isinstance(rows, int) and rows > 0 and rows % DW_ROW_STEP == 0):
+        raise ValueError(f"monarch_dw_tile: the row group must be a positive multiple of "
+                         f"{DW_ROW_STEP} rows, got {rows!r}")
+
+
+def _dw_tile(x, dout, w1, w2, rows: int):
+    return load_ops().monarch_dw_tile(x.contiguous(), dout.to(x.dtype).contiguous(),
+                                      w1.contiguous(), w2.contiguous(), rows)
+
+
+def monarch_dw_tile(x: torch.Tensor, dout: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                    rows: int):
+    """K13: K4's function, ``(dw1, dw2)`` in fp32 from x (M, n) and dout
+    (M, m), with the kernel's row group set to ``rows``, a positive multiple
+    of 16 (``DW_TILE_ROWS`` is the sweep).  Its plain version is
+    ``monarch_dw_fused_reference``."""
+    _check_rows(rows)
+    _check(x, dout, w1, w2)
+    dw1, dw2 = _dw_tile(x, dout, w1, w2, rows)
+    LAUNCHES["monarch_dw_tile"] += 1
+    return dw1, dw2
+
+
+def monarch_dw_merged(x: torch.Tensor, dout: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
+    """K14: the merged design's factor gradients, K13 at ``MERGED_DW_ROWS``
+    rows a group.  Its plain version is ``monarch_dw_fused_reference``."""
+    _check(x, dout, w1, w2)
+    dw1, dw2 = _dw_tile(x, dout, w1, w2, MERGED_DW_ROWS)
+    LAUNCHES["monarch_dw_merged"] += 1
+    return dw1, dw2
+
+
+def monarch_bwd_plan(rows_m: int, w1_shape, w2_shape, rows: int = 0, with_dx: bool = False,
+                     dtype: torch.dtype = torch.bfloat16) -> tuple[bool, int]:
+    """``(fast, groups)``: whether a launch of K3 (``with_dx``), K4 or K13
+    (``rows`` > 0) on ``rows_m`` rows of 16-byte aligned tensors takes the
+    fast path, and how many row groups it sums.  Reads the current card."""
+    if rows:
+        _check_rows(rows)
+    fast, groups = load_ops().monarch_bwd_plan(rows_m, *w1_shape, *w2_shape, rows, with_dx,
+                                               dtype.itemsize)
+    return bool(fast), int(groups)
 
 
 class _MonarchKernelFn(torch.autograd.Function):

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K12 and K15 and their autograd Functions against their
+"""The port's CUDA kernels K1-K15 and their autograd Functions against their
 plain versions, on the card.  Marked ``cuda``: they skip where no card is visible, and run on the
 card with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 This file imports no JAX, so it also runs where JAX is not installed.
@@ -14,7 +14,8 @@ working dtype once and sum in fp32 in another order.  K9-K11 (the fused
 dense + Monarch linear): the same two tolerances; the output rounds once on
 both sides, from intermediates that may round one ulp apart.  K12 (K1 at a
 row tile) as K1; K15 (the tiled bf16 matmul) two bf16 ulps: both sides
-round once from fp32 sums taken in another order.
+round once from fp32 sums taken in another order.  K13 and K14 (K4 at a row
+group) as K4.
 """
 
 import numpy as np
@@ -515,3 +516,74 @@ def test_torch_benchlib_time_ms_on_card(cuda_device):
     x = torch.ones(16, device=cuda_device)
     device_ms, call_ms = benchlib.time_ms(lambda: x * 2, reps=20, rounds=3)
     assert 0 < device_ms <= call_ms
+
+
+# -- the dw experiments: K13 (K4 at a row group), K14, the fast path at blk_r 8, 16
+# (batch, K, Q, P, L, S, R): the fast path at blk_r 8 and 16, ragged rows,
+# P = 1024 as at the experiments' widths; and the dw script's shape
+DW_CASES = [(600, 4, 8, 64, 4, 48, 8), (601, 4, 16, 1024, 4, 256, 16),
+            (2664, 4, 16, 1024, 4, 1024, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DW_CASES[:2])
+def test_torch_backward_fast_path_at_blk_r_8_and_16_on_card(cuda_device, case, dtype):
+    """K3 and K4 at blk_r 8 and 16 take the fast path (``monarch_bwd_plan``)
+    and agree with their plain versions; at blk_r 4 the plan keeps the fast
+    path too."""
+    batch, k, q, p, l, s, r = case
+    x, w1, w2, dout = _inputs(case, dtype, cuda_device)
+    for with_dx in (True, False):
+        assert monarch_cuda.monarch_bwd_plan(batch, w1.shape, w2.shape, with_dx=with_dx,
+                                             dtype=dtype)[0]
+    assert monarch_cuda.monarch_bwd_plan(batch, (k, 4, p), (l, s, 4))[0]
+    with torch.no_grad():
+        got = monarch_cuda.monarch_bwd(x, w1, w2, dout) + \
+            monarch_cuda.monarch_dw_fused(x, dout, w1, w2)
+        want = monarch_cuda.monarch_bwd_reference(x, w1, w2, dout) + \
+            monarch_cuda.monarch_dw_fused_reference(x, dout, w1, w2)
+        torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and bool(torch.isfinite(g).all())
+        assert float((g.float() - w.float()).abs().max()) <= _tol(w.to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DW_CASES)
+def test_torch_dw_tile_matches_plain_on_card(cuda_device, case, dtype):
+    """K13 at 16 rows and at every ``DW_TILE_ROWS`` (the rows ragged against
+    each) and K14 against K4's plain version; K13 repeats bit for bit, and
+    K14 is K13 at ``MERGED_DW_ROWS``, bit for bit; one launch a call."""
+    batch = case[0]
+    x, w1, w2, dout = _inputs(case, dtype, cuda_device)
+    before = dict(monarch_cuda.LAUNCHES)
+    rows_list = (16, *monarch_cuda.DW_TILE_ROWS)
+    with torch.no_grad():
+        want = monarch_cuda.monarch_dw_fused_reference(x, dout, w1, w2)
+        for rows in rows_list:
+            assert monarch_cuda.monarch_bwd_plan(batch, w1.shape, w2.shape, rows, dtype=dtype) \
+                == (True, -(-batch // rows))
+            got = monarch_cuda.monarch_dw_tile(x, dout, w1, w2, rows)
+            again = monarch_cuda.monarch_dw_tile(x, dout, w1, w2, rows)
+            torch.cuda.synchronize()
+            for g, a, w in zip(got, again, want):
+                assert g.shape == w.shape and g.dtype == torch.float32
+                assert float((g - w).abs().max()) <= _tol(w.to(dtype)), rows
+                assert torch.equal(g, a)
+            if rows == monarch_cuda.MERGED_DW_ROWS:
+                merged = monarch_cuda.monarch_dw_merged(x, dout, w1, w2)
+                assert all(torch.equal(a, b) for a, b in zip(merged, got))
+    assert monarch_cuda.LAUNCHES["monarch_dw_tile"] == before["monarch_dw_tile"] + 2 * len(rows_list)
+    assert monarch_cuda.LAUNCHES["monarch_dw_merged"] == before["monarch_dw_merged"] + 1
+
+
+@pytest.mark.cuda
+def test_torch_dw_tile_refuses_row_groups_it_does_not_take(cuda_device):
+    """The binding refuses a row group that is no positive multiple of 16."""
+    x, w1, w2, dout = _inputs(DW_CASES[0], torch.float32, cuda_device)
+    ops = monarch_cuda.load_ops()
+    for rows in (0, 24, -16):
+        with pytest.raises(RuntimeError, match="multiple of 16"):
+            ops.monarch_dw_tile(x, dout, w1, w2, rows)

@@ -30,6 +30,8 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.scripts.bench_more_linear",
     "sparse_matrix_fine_tuning_torch.scripts.exp_matmul_tiles",
     "sparse_matrix_fine_tuning_torch.scripts.exp_fwd_tile",
+    "sparse_matrix_fine_tuning_torch.scripts.exp_dw_kernel",
+    "sparse_matrix_fine_tuning_torch.scripts.exp_merged_v3",
     "sparse_matrix_fine_tuning_torch.layers.monarch_linear",
     "sparse_matrix_fine_tuning_torch.models.config",
     "sparse_matrix_fine_tuning_torch.models.llama",
@@ -92,6 +94,10 @@ def test_torch_cuda_kernels_refuse_cpu_tensors():
         monarch_cuda.monarch_bwd(x, w1, w2, torch.randn(4, 16))
     with pytest.raises(ValueError, match="CUDA"):
         monarch_cuda.monarch_dw_fused(x, torch.randn(4, 16), w1, w2)
+    with pytest.raises(ValueError, match="CUDA"):
+        monarch_cuda.monarch_dw_tile(x, torch.randn(4, 16), w1, w2, 256)
+    with pytest.raises(ValueError, match="CUDA"):
+        monarch_cuda.monarch_dw_merged(x, torch.randn(4, 16), w1, w2)
     wd, dout = torch.randn(16, 16), torch.randn(4, 16)
     for call in (lambda: ml.more_linear_fwd(x, wd, w1, w2),
                  lambda: ml.more_linear_dx(dout, wd, w1, w2),
