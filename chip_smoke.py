@@ -47,16 +47,23 @@ hand-written CUDA kernels, and checks them:
      the plans at the experiments' and the bench's shapes, K13 and K14 bit
      for bit, then the ports of ``scripts/exp_dw_kernel.py`` and
      ``scripts/exp_merged_v3.py`` at 2664 x 4096 -> 4096 (each variant
-     checked, then timed).
+     checked, then timed);
+ 16. the int4 dequant-arithmetic variants: K16 (K5's decode kernel with
+     its per-cell arithmetic a parameter) in all seven variants against
+     their plain versions at ragged shapes, f32mul bit for bit K5 at
+     decode rows, then the port of ``scripts/exp_int4_dequant_variants.py``
+     at its four shapes (each variant checked against its plain version
+     and the JAX script's oracle bound, then timed).
 
 Each main path (6, 8 off, 8 on, each configuration of 11, each step of 12,
-the bench of 13, each script of 14 and 15) zeroes the launch counts of
+the bench of 13, each script of 14, 15 and 16) zeroes the launch counts of
 every kernel just before it and reads them just after.  Any failed check
 exits non-zero.  The line before the last is one JSON object on the
 kernels (K9-K11: ms, plain, library and bound summed over the bench's three
 shapes; K15, K12 and K13: the best tile's ms at the scripts' shape, the
-tile in ``records.json``; K14 at that shape); the last is ``{"ok": true,
-"device": {...}}``.  Per-case records go to ``chip_smoke_out/records.json``.
+tile in ``records.json``; K14 at that shape; K16 the best variant at
+(4, 2048, 5632)); the last is ``{"ok": true, "device": {...}}``.
+Per-case records go to ``chip_smoke_out/records.json``.
 It imports nothing of JAX.
 """
 
@@ -152,6 +159,8 @@ KERNELS = {
                         "scripts/exp_dw_kernel.py:24"),
     "monarch_dw_merged": ("sparse_matrix_fine_tuning_torch/kernels/csrc/monarch_bwd.cu",
                           "scripts/exp_merged_v3.py:23"),
+    "int4_variant": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_matmul.cu",
+                     "scripts/exp_int4_dequant_variants.py:108"),
 }
 # The quantized base (quant/, run_alpaca.py --bits): (bits, whether dx).
 QUANT_KERNELS = {"int8_matmul": (8, False), "int8_matmul_dx": (8, True),
@@ -188,6 +197,13 @@ FWD_TILE_RAGGED = (37, 256, 384, 4, 4)
 DW_RAGGED = ((200, 4, 8, 64, 4, 48, 8, True), (200, 4, 16, 64, 4, 48, 16, True),
              (200, 4, 16, 60, 4, 48, 16, False))
 DW_RAGGED_ROWS = (16, *monarch_cuda.DW_TILE_ROWS)
+# K16's ragged checks: rows 3, 13 (one block of 16) and 40 (three blocks;
+# five of 8 for ugdot and u2dot) at in 1536 -> out 272 (17 column tiles of
+# 16), group 64.
+INT4_VARIANT_ROWS = (3, 13, 40)
+INT4_VARIANT_RAGGED = (1536, 272, 64)
+# K16's JSON line: the best variant at this shape of the script
+INT4_VARIANT_SHAPE = (4, 2048, 5632)
 OUT_DIR = "chip_smoke_out"  # per-case records; .gitignore lists it
 RECORDS: list[dict] = []  # one per kernel case, written to OUT_DIR
 
@@ -202,8 +218,8 @@ def require(cond: bool, what: str) -> None:
 
 
 def reset_counts() -> None:
-    """Zero the launch counts of every kernel (K1-K4 and K12, K5-K8, K9-K11
-    and K15)."""
+    """Zero the launch counts of every kernel (K1-K4, K12-K14, K5-K8, K16,
+    K9-K11 and K15)."""
     monarch_cuda.reset_launch_counts()
     quant_cuda.reset_launch_counts()
     ml.reset_launch_counts()
@@ -1436,6 +1452,67 @@ def phase_dw(card: str) -> dict:
             "launches": {"monarch_dw_tile": tile_launches, "monarch_dw_merged": steps}}
 
 
+def phase_int4_variants(card: str) -> dict:
+    """K16, the int4 dequant-arithmetic variants:
+      * outside the counted path, at ``INT4_VARIANT_RAGGED`` and each of
+        ``INT4_VARIANT_ROWS``: every variant's raw output against its plain
+        version (two bf16 ulps of its scale), and f32mul equal to K5 bit
+        for bit where K5 takes the decode kernel (M <= 16);
+      * the counted main path: the port of ``exp_int4_dequant_variants`` at
+        its four shapes, which checks every variant against its plain
+        version and the JAX script's oracle bound before timing it, the
+        launch counts zeroed just before and read just after."""
+    from sparse_matrix_fine_tuning_torch.scripts import exp_int4_dequant_variants as script
+
+    n_in, n_out, group = INT4_VARIANT_RAGGED
+    g = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    worst = 0.0
+    with torch.no_grad():
+        packed, scales = quant._quantize_int4_device(
+            torch.randn(n_out, n_in, generator=g, device="cuda") * 0.05, group)
+        for m_rows in INT4_VARIANT_ROWS:
+            x = torch.randn(m_rows, n_in, generator=g, device="cuda").to(torch.bfloat16)
+            k5 = quant_cuda.int4_matmul(x, packed, scales, group)
+            for name in quant_cuda.INT4_VARIANTS:
+                got = quant_cuda.int4_variant_matmul(x, packed, scales, group, name)
+                ref = quant_cuda.int4_variant_reference(x, packed, scales, group, name)
+                torch.cuda.synchronize()
+                err = float((got.float() - ref.float()).abs().max())
+                require(got.shape == ref.shape and got.dtype == ref.dtype
+                        and bool(torch.isfinite(got).all()) and err <= tolerance(ref.dtype, ref),
+                        f"K16 {name} M={m_rows} {n_in}->{n_out}: max abs err {err} > "
+                        f"{tolerance(ref.dtype, ref)}")
+                worst = max(worst, err)
+                if name == "f32mul" and m_rows <= 16:
+                    require(torch.equal(got, k5), f"K16 f32mul differs from K5 at M={m_rows}")
+    print(f"[int4-variants] {card}: K16's {len(quant_cuda.INT4_VARIANTS)} variants within "
+          f"tolerance at M {INT4_VARIANT_ROWS}, {n_in}->{n_out}; f32mul equals K5 at decode rows",
+          flush=True)
+
+    reset_counts()  # the counted main path starts here: exp_int4_dequant_variants
+    runs = [script.run(*shape) for shape in script.SHAPES]
+    launches = counts()  # ... and ends here
+    expect = {k: sum(run["launches"][k] for run in runs) for k in ("int4_variant", "int4_matmul")}
+    require(launches == {**dict.fromkeys(launches, 0), **expect},
+            f"exp_int4_dequant_variants: launches {launches}; expected {expect}")
+    for run in runs:
+        best = run["variants"][run["best"]]
+        print(f"[int4-variants] {card}: B={run['shape'][0]} {run['shape'][1]}->{run['shape'][2]}: "
+              + ", ".join(f"{k} {v['ms']:.5f}" for k, v in run["variants"].items())
+              + f" ms; best {run['best']} ({best['share_of_bound']:.1%} of the bound "
+              f"{run['bound_ms']:.5f}, {run['bound_by']}); K5 {run['k5_ms']:.5f}, F.linear "
+              f"{run['library_ms']:.5f}, read floor {run['floor_ms']:.5f}", flush=True)
+    RECORDS.append({"exp_int4_dequant_variants": runs, "card": card})
+    main = next(run for run in runs if tuple(run["shape"]) == INT4_VARIANT_SHAPE)
+    best = main["variants"][main["best"]]
+    worst = max([worst] + [v["max_abs_err"] for run in runs for v in run["variants"].values()])
+    layer = {"int4_variant": {"ms": best["ms"], "plain_ms": best["plain_ms"],
+                              "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                              "library_ms": main["library_ms"]}}
+    return {"layer": layer, "worst": {"int4_variant": worst},
+            "launches": {"int4_variant": expect["int4_variant"]}}
+
+
 def dequantized_copy(model):
     """A CPU copy of a quantized model with no kernel in it: each layer's
     codes dequantized into a float32 dense by the plain functions."""
@@ -1681,6 +1758,8 @@ def main() -> None:
     lap("forward-tile experiments")
     dws = phase_dw(card)
     lap("dw experiments")
+    variants = phase_int4_variants(card)
+    lap("int4 dequant variants")
     f32 = phase_f32()
     phase_quant_f32(f32, card)
     lap("f32 serving")
@@ -1703,11 +1782,12 @@ def main() -> None:
                 "int4_matmul": qserving["launches"]["int4_matmul"]
                 + qtraining["launches"]["int4_matmul"],
                 "int4_matmul_dx": qtraining["launches"]["int4_matmul_dx"],
-                **more["launches"], **tiles["launches"], **dws["launches"]}
+                **more["launches"], **tiles["launches"], **dws["launches"],
+                **variants["launches"]}
     measured = {**fwd["layer"], **bwd["layer"], **qk["layer"], **more["layer"], **tiles["layer"],
-                **dws["layer"]}
+                **dws["layer"], **variants["layer"]}
     worst = {**fwd["worst"], **bwd["worst"], **qk["worst"], **more["worst"], **tiles["worst"],
-             **dws["worst"]}
+             **dws["worst"], **variants["worst"]}
     require(all(launches[name] > 0 for name in KERNELS), f"a kernel never launched: {launches}")
     lines = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
               "launches": launches[name], "max_abs_err": worst[name],

@@ -12,6 +12,9 @@
 //   torch.ops.smft.int4_mm_dx(dy, packed, scales, group) -> dx           (K6)
 //   torch.ops.smft.int8_mm(x, q, scales)                 -> y            (K7)
 //   torch.ops.smft.int8_mm_dx(dy, q, scales)             -> dx           (K8)
+//   torch.ops.smft.int4_variant_mm(x, packed, scales, group, arith) -> y  (K16)
+//   torch.ops.smft.int4_variant_plan(M, in, out, arith)
+//       -> (mr, cpt, kchunk, ksplit, col_ctas, row_blocks): K16's plan
 //   torch.ops.smft.more_linear_fwd(x, dense_w, w1, w2)   -> y            (K9)
 //   torch.ops.smft.more_linear_dx(dout, dense_w, w1, w2) -> dx           (K10)
 //   torch.ops.smft.tiled_matmul(x, w, bm, bn, stages)    -> y            (K15)
@@ -35,6 +38,7 @@
 
 #include <cstdint>
 #include <tuple>
+#include <vector>
 
 extern "C" int smft_monarch_fwd(int dtype, int device, const void* x, const void* w1,
                                 const void* w2, const void* base, void* out, int64_t B,
@@ -61,6 +65,13 @@ extern "C" int64_t smft_quant_mm_workspace(int dtype, int device, int bits, int 
 extern "C" int smft_quant_mm(int dtype, int device, int bits, int dx, const void* a,
                              const void* codes, const float* scales, void* out, float* work,
                              int64_t M, int64_t in_f, int64_t out_f, int group, void* stream);
+extern "C" int64_t smft_int4_variant_mm_workspace(int device, int arith, int64_t M,
+                                                  int64_t in_f, int64_t out_f);
+extern "C" int smft_int4_variant_mm(int device, int arith, const void* x, const void* codes,
+                                    const float* scales, void* y, float* work, int64_t M,
+                                    int64_t in_f, int64_t out_f, int group, void* stream);
+extern "C" int smft_int4_variant_plan(int device, int arith, int64_t M, int64_t in_f,
+                                      int64_t out_f, int64_t* plan);
 extern "C" int smft_more_linear(int dtype, int device, int dx, const void* a, const void* wd,
                                 const void* w1, const void* w2, void* out, float* work,
                                 int64_t M, int64_t n, int64_t m, int K, int Q, int P, int L,
@@ -233,13 +244,12 @@ at::Tensor monarch_fwd_add(const at::Tensor& base, const at::Tensor& x,
   return run(x, w1, w2, &base);
 }
 
-// K5-K8: a (M, in) for the forward or (M, out) for dx; codes int8 (in, out)
-// or packed uint8 (in/2, out); scales f32 (in/group, out).
-at::Tensor run_quant(const at::Tensor& a, const at::Tensor& codes, const at::Tensor& scales,
-                     int bits, bool dx, int64_t group) {
-  TORCH_CHECK(a.scalar_type() == at::kFloat || a.scalar_type() == at::kBFloat16,
-              "the quantized matmuls take float32 or bfloat16 activations, got ",
-              a.scalar_type());
+// K5-K8 and K16: a (M, in) for the forward or (M, out) for dx; codes int8
+// (in, out) or packed uint8 (in/2, out); scales f32 (in/group, out).
+// Returns (in, out, group).
+std::tuple<int64_t, int64_t, int64_t> check_quant(const at::Tensor& a, const at::Tensor& codes,
+                                                  const at::Tensor& scales, int bits, bool dx,
+                                                  int64_t group) {
   TORCH_CHECK(a.dim() == 2 && codes.dim() == 2 && scales.dim() == 2,
               "activations, codes and scales must be 2-D");
   check_tensor(a, "activations", a);
@@ -273,6 +283,16 @@ at::Tensor run_quant(const at::Tensor& a, const at::Tensor& codes, const at::Ten
     TORCH_CHECK(reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
                 "the kernels load 16 bytes at a time: operands must start on 16 bytes");
   }
+  return {in_f, out_f, group};
+}
+
+at::Tensor run_quant(const at::Tensor& a, const at::Tensor& codes, const at::Tensor& scales,
+                     int bits, bool dx, int64_t group) {
+  TORCH_CHECK(a.scalar_type() == at::kFloat || a.scalar_type() == at::kBFloat16,
+              "the quantized matmuls take float32 or bfloat16 activations, got ",
+              a.scalar_type());
+  int64_t in_f, out_f;
+  std::tie(in_f, out_f, group) = check_quant(a, codes, scales, bits, dx, group);
   const int64_t M = a.size(0);
   at::Tensor out = at::empty({M, dx ? in_f : out_f}, a.options());
   const int device = a.get_device();
@@ -307,6 +327,46 @@ at::Tensor int4_mm(const at::Tensor& x, const at::Tensor& packed, const at::Tens
 at::Tensor int4_mm_dx(const at::Tensor& dy, const at::Tensor& packed, const at::Tensor& scales,
                       int64_t group) {
   return run_quant(dy, packed, scales, 4, true, group);
+}
+
+// K16: the six arithmetic variants of the int4 decode product (arith 0-5:
+// f32mul, bf16mul, ucorr, ugdot, f32dot, u2dot), raw output; x bfloat16.
+void check_arith(int64_t arith) {
+  TORCH_CHECK(arith >= 0 && arith <= 5, "int4_variant_mm: arith must be 0-5 (f32mul, bf16mul, ",
+              "ucorr, ugdot, f32dot, u2dot), got ", arith);
+}
+
+at::Tensor int4_variant_mm(const at::Tensor& x, const at::Tensor& packed, const at::Tensor& scales,
+                           int64_t group, int64_t arith) {
+  check_arith(arith);
+  TORCH_CHECK(x.scalar_type() == at::kBFloat16, "int4_variant_mm takes bfloat16 x, got ",
+              x.scalar_type());
+  int64_t in_f, out_f;
+  std::tie(in_f, out_f, group) = check_quant(x, packed, scales, 4, false, group);
+  const int64_t M = x.size(0);
+  at::Tensor y = at::empty({M, out_f}, x.options());
+  const int device = x.get_device();
+  const int64_t work_floats =
+      smft_int4_variant_mm_workspace(device, static_cast<int>(arith), M, in_f, out_f);
+  TORCH_CHECK(work_floats >= 0, "int4_variant_mm: cannot read the device's SM count");
+  at::Tensor work = at::empty({work_floats}, x.options().dtype(at::kFloat));
+  const auto stream = c10::cuda::getCurrentCUDAStream(device);
+  const int err = smft_int4_variant_mm(
+      device, static_cast<int>(arith), x.data_ptr(), packed.data_ptr(),
+      scales.data_ptr<float>(), y.data_ptr(), work_floats > 0 ? work.data_ptr<float>() : nullptr,
+      M, in_f, out_f, static_cast<int>(group), static_cast<void*>(stream.stream()));
+  C10_CUDA_CHECK(static_cast<cudaError_t>(err));
+  return y;
+}
+
+std::vector<int64_t> int4_variant_plan(int64_t M, int64_t in_f, int64_t out_f, int64_t arith) {
+  check_arith(arith);
+  TORCH_CHECK(M > 0 && in_f > 0 && out_f > 0, "int4_variant_plan: sizes must be positive");
+  std::vector<int64_t> plan(6);
+  const int err = smft_int4_variant_plan(c10::cuda::current_device(), static_cast<int>(arith), M,
+                                         in_f, out_f, plan.data());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(err));
+  return plan;
 }
 
 // K9 (dx false: a = x (M, n) -> y (M, m)) and K10 (dx true: a = dout (M, m)
@@ -409,6 +469,8 @@ TORCH_LIBRARY(smft, m) {
   m.def("int8_mm_dx(Tensor dy, Tensor q, Tensor scales) -> Tensor");
   m.def("int4_mm(Tensor x, Tensor packed, Tensor scales, int group) -> Tensor");
   m.def("int4_mm_dx(Tensor dy, Tensor packed, Tensor scales, int group) -> Tensor");
+  m.def("int4_variant_mm(Tensor x, Tensor packed, Tensor scales, int group, int arith) -> Tensor");
+  m.def("int4_variant_plan(int M, int in_f, int out_f, int arith) -> int[]", &int4_variant_plan);
   m.def("more_linear_fwd(Tensor x, Tensor dense_w, Tensor w1, Tensor w2) -> Tensor");
   m.def("more_linear_dx(Tensor dout, Tensor dense_w, Tensor w1, Tensor w2) -> Tensor");
   m.def("tiled_matmul(Tensor x, Tensor w, int bm, int bn, int stages) -> Tensor");
@@ -425,6 +487,7 @@ TORCH_LIBRARY_IMPL(smft, CUDA, m) {
   m.impl("int8_mm_dx", &int8_mm_dx);
   m.impl("int4_mm", &int4_mm);
   m.impl("int4_mm_dx", &int4_mm_dx);
+  m.impl("int4_variant_mm", &int4_variant_mm);
   m.impl("more_linear_fwd", &more_linear_fwd);
   m.impl("more_linear_dx", &more_linear_dx);
   m.impl("tiled_matmul", &tiled_matmul);

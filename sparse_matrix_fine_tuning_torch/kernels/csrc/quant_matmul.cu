@@ -44,6 +44,43 @@
 //    branch for small batches, its tile pickers and VMEM budgets are TPU
 //    workarounds and are not here.
 //
+// K16, the int4 dequantize-arithmetic variants, runs through `qdecode`
+// with its per-cell arithmetic as a template parameter (`Arith`).  It
+// replaces the Pallas kernels of scripts/exp_int4_dequant_variants.py:
+// `_fwd_kernel` via `make_call` (:108, the f32mul, bf16mul, mul3d and
+// ucorr unpacks), `_gdot_kernel` via `gdot_call` (:123) and
+// `_ukern_kernel` via `make_ukern_call` (:142).  x is bf16; W's cells and
+// the raw output y = round_bf16(fp32 sums) of each (u = the nibble, q =
+// u - 8, s = the f32 scale, bf() = round to bf16):
+//   f32mul   sum x * bf(q * s)             K5's arithmetic, bit for bit K5
+//   bf16mul  sum x * bf(q * bf(s))         (mul3d: the same function)
+//   ucorr    sum x * bf(u * bf(s))         (the caller subtracts 8 * gsum(x) @ s)
+//   ugdot    sum_groups s * (sum x * u)    (the caller subtracts the same)
+//   f32dot   sum x * (q * s)               (f32 cells: the JAX int4 kernel at b <= 64)
+//   u2dot    sum x * (u * s) - 8 * sum x * s
+// What bounds it here: at M <= 16 the bytes of the codes and the f32
+// scales (the decode streams them once); at M = 256 the operations, which
+// run on the CUDA cores (2 M in out / 67 TFLOP/s, no tensor cores): each
+// block of 16 rows (8 for ugdot and u2dot) streams the codes again, from
+// L2 after the first.  What each variant changes in the per-cell work
+// (the MR fp32 FMAs a cell are common to all):
+//   f32mul   extract, int->f32 convert (the "- 8" on the integer), FMUL,
+//            round to bf16 and widen back: 5-6 instructions a cell;
+//   bf16mul  two cells a 32-bit lane: a LOP3 puts two nibbles under the
+//            bf16 exponent of 128 (bf(128 + u)), HSUB2 subtracts 136, HMUL2
+//            scales: with the widening, 2.5-3 a cell;
+//   ucorr    HFMA2 (128 + u) * s - 128 * s replaces HSUB2 + HMUL2, exact
+//            before its one rounding: 2-2.5 a cell;
+//   ugdot    HSUB2 128 and no scale: about 2 a cell, plus MR FMAs a column
+//            at each group's end; a second and third set of sums (the
+//            group partials of each half);
+//   f32dot   extract, convert, FMUL, no rounding: 3-4 a cell;
+//   u2dot    extract, convert, FMUL, and MR more FMAs (x * s) a cell; a
+//            second set of sums.
+// ugdot and u2dot keep 32 sums a set and take at most 8 rows a block
+// (the single-set variants 64 and 16, as K5), so that the sets stay in
+// registers.
+//
 // The C interface below takes raw pointers and returns a cudaError_t, so
 // this file needs no PyTorch header; ops.cpp binds it.
 
@@ -128,17 +165,139 @@ __device__ __forceinline__ void load_scales(const float* p, float (&s)[CPT]) {
   }
 }
 
+// The per-cell arithmetic of the decode kernel (K5 is kF32Mul; K16 all six).
+enum Arith : int { kF32Mul = 0, kBf16Mul = 1, kUCorr = 2, kUGdot = 3, kF32Dot = 4, kU2Dot = 5 };
+
+__host__ __device__ constexpr bool packed_arith(int a) {
+  return a == kBf16Mul || a == kUCorr || a == kUGdot;
+}
+__host__ __device__ constexpr int arith_sums(int a) { return a == kUGdot || a == kU2Dot ? 32 : 64; }
+
+// bf16 pairs in 32-bit lanes: element 0 in the low 16 bits.
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ __nv_bfloat162 bf2_of(uint32_t v) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&v);
+}
+__device__ __forceinline__ uint32_t bf2_pack(float lo, float hi) {
+  return bf2_bits(__floats2bfloat162_rn(lo, hi));
+}
+// Round to nearest even: sub and mul of two bf16 values, fma of three with
+// one rounding.
+__device__ __forceinline__ uint32_t bf2_sub(uint32_t a, uint32_t b) {
+  return bf2_bits(__hsub2(bf2_of(a), bf2_of(b)));
+}
+__device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t b) {
+  return bf2_bits(__hmul2(bf2_of(a), bf2_of(b)));
+}
+__device__ __forceinline__ uint32_t bf2_fma(uint32_t a, uint32_t b, uint32_t c) {
+  return bf2_bits(__hfma2(bf2_of(a), bf2_of(b), bf2_of(c)));
+}
+
+// The packed variants' scales of CPT columns as bf16 pairs: pair 2k + e
+// holds columns 4k + e and 4k + e + 2, as `variant_cells` pairs the nibbles
+// of a code word.  `neg` (ucorr): -128 * bf(s), exact in bf16.
+template <bool kNeg, int CPT, int NP, int NN>
+__device__ __forceinline__ void pack_scales(const float (&s)[CPT], uint32_t (&sp)[NP],
+                                            uint32_t (&neg)[NN]) {
+#pragma unroll
+  for (int k = 0; k < CPT / 4; ++k)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float a = s[4 * k + e], b = s[4 * k + e + 2];
+      sp[2 * k + e] = bf2_pack(a, b);
+      if constexpr (kNeg)
+        neg[2 * k + e] = bf2_pack(-128.f * round_t<bf16>(a), -128.f * round_t<bf16>(b));
+    }
+}
+
+template <int MR, int CPT>
+__device__ __forceinline__ void fma_cell(float (&sums)[MR][CPT], const float (&xv)[MR], int c,
+                                         float wv) {
+#pragma unroll
+  for (int m = 0; m < MR; ++m) sums[m][c] += xv[m] * wv;
+}
+
+// One half (`kHigh`: the high nibbles) of one code row for K16's variants
+// other than f32mul: `words` the row's CPT code bytes, xv the MR inputs of
+// that half, s its f32 scales (sp, neg their bf16 pairs).  The sums go to
+// `acc`, ugdot's to `aux` (the group's partials); u2dot's x * s to `aux`.
+template <int MR, int CPT, int kArith, bool kHigh, int NP, int NN>
+__device__ __forceinline__ void variant_cells(const uint32_t (&words)[CPT / 4],
+                                              const float (&xv)[MR], const float (&s)[CPT],
+                                              const uint32_t (&sp)[NP], const uint32_t (&neg)[NN],
+                                              float (&acc)[MR][CPT], float (&aux)[MR][CPT]) {
+  if constexpr (kArith == kF32Dot || kArith == kU2Dot) {
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const uint32_t byte = (words[c / 4] >> (8 * (c % 4))) & 0xffu;
+      if constexpr (kArith == kF32Dot) {
+        fma_cell<MR, CPT>(acc, xv, c, code_of<4>(byte, kHigh) * s[c]);
+      } else {
+        const float u = static_cast<float>(static_cast<int>(kHigh ? byte >> 4 : byte & 15u));
+        fma_cell<MR, CPT>(acc, xv, c, u * s[c]);
+        fma_cell<MR, CPT>(aux, xv, c, s[c]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < CPT / 4; ++k) {
+      const uint32_t v = kHigh ? words[k] >> 4 : words[k];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // bf(128 + u) of the nibbles of bytes e and e + 2: u under the
+        // exponent of 128, whose bf16 ulp is 1
+        const uint32_t b = ((v >> (8 * e)) & 0x000F000Fu) | 0x43004300u;
+        uint32_t wv;
+        if constexpr (kArith == kBf16Mul) {
+          wv = bf2_mul(bf2_sub(b, 0x43084308u), sp[2 * k + e]);  // q = (128 + u) - 136, exact
+        } else if constexpr (kArith == kUCorr) {
+          wv = bf2_fma(b, sp[2 * k + e], neg[2 * k + e]);
+        } else {
+          wv = bf2_sub(b, 0x43004300u);  // u, exact
+        }
+        const float w0 = __uint_as_float(wv << 16), w1 = __uint_as_float(wv & 0xffff0000u);
+        if constexpr (kArith == kUGdot) {
+          fma_cell<MR, CPT>(aux, xv, 4 * k + e, w0);
+          fma_cell<MR, CPT>(aux, xv, 4 * k + e + 2, w1);
+        } else {
+          fma_cell<MR, CPT>(acc, xv, 4 * k + e, w0);
+          fma_cell<MR, CPT>(acc, xv, 4 * k + e + 2, w1);
+        }
+      }
+    }
+  }
+}
+
+// ugdot at the end of a scale group: acc += t * s; t = 0.
+template <int MR, int CPT>
+__device__ __forceinline__ void flush_group(float (&acc)[MR][CPT], float (&t)[MR][CPT],
+                                            const float (&s)[CPT]) {
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      acc[m][c] += t[m][c] * s[c];
+      t[m][c] = 0.f;
+    }
+}
+
 // One CTA: 8 warps; a warp is 8 column threads x 4 row groups, so the CTA
 // covers 8 * CPT output columns and 32 row groups over its slice of code
-// rows [r0, r0 + kchunk).  MR >= M: rows of x past M are zeros in shared
-// memory, so the inner loop has no guard.  MR * CPT = 64 sums a thread.
-template <typename T, int kBits, int MR, int CPT>
+// rows [r0, r0 + kchunk), for the rows [m0, m0 + MR) of x (blockIdx.z; K5
+// has M <= MR, one block).  Rows of x past M are zeros in shared memory,
+// so the inner loop has no guard.  MR * CPT = 64 sums a thread (32 a set
+// for ugdot and u2dot).
+template <typename T, int kBits, int MR, int CPT, int kArith = kF32Mul>
 __global__ void __launch_bounds__(kThreads)
 qdecode_kernel(const T* __restrict__ x, QuantW w, T* __restrict__ y, float* __restrict__ partial,
                int64_t M, int kchunk, int ksplit) {
+  static_assert(kArith == kF32Mul || (kBits == 4 && sizeof(T) == 2), "K16 takes int4 and bf16");
   extern __shared__ float smem[];
   constexpr int kHalves = kBits == 4 ? 2 : 1;
   constexpr int kCols = 8 * CPT;
+  constexpr bool kPacked = packed_arith(kArith);
   float* xs = smem;                              // [kHalves][MR][kchunk]
   float* red = smem + kHalves * MR * kchunk;     // [8 warps][MR][kCols]
   const int64_t rows_total = w.h;
@@ -146,13 +305,15 @@ qdecode_kernel(const T* __restrict__ x, QuantW w, T* __restrict__ y, float* __re
   const int64_t left = rows_total - r0;
   const int rows = left < kchunk ? static_cast<int>(left) : kchunk;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kCols;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.z) * MR;
+  const int64_t mrows = M - m0 < MR ? M - m0 : MR;  // rows of x in this block
 
   for (int i = threadIdx.x; i < kHalves * MR * kchunk; i += kThreads) {
     const int half = i / (MR * kchunk);
     const int m = (i / kchunk) % MR;
     const int r = i % kchunk;
     float v = 0.f;
-    if (m < M && r < rows) v = to_f32(x[m * w.in + half * w.h + r0 + r]);
+    if (m < mrows && r < rows) v = to_f32(x[(m0 + m) * w.in + half * w.h + r0 + r]);
     xs[i] = v;
   }
   __syncthreads();
@@ -167,13 +328,22 @@ qdecode_kernel(const T* __restrict__ x, QuantW w, T* __restrict__ y, float* __re
   const int rend = rbeg + run < rows ? rbeg + run : rows;
 
   float acc[MR][CPT];
+  // ugdot: the current group's partial sums of the low (t_lo) and high
+  // (t_hi) half; u2dot: sum x * s (t_lo)
+  float t_lo[MR][CPT], t_hi[MR][CPT];
 #pragma unroll
   for (int m = 0; m < MR; ++m)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[m][c] = 0.f;
+    for (int c = 0; c < CPT; ++c) {
+      acc[m][c] = 0.f;
+      if constexpr (kArith == kUGdot || kArith == kU2Dot) t_lo[m][c] = 0.f;
+      if constexpr (kArith == kUGdot) t_hi[m][c] = 0.f;
+    }
 
   if (col < w.out && rbeg < rend) {
     float s_lo[CPT], s_hi[CPT];
+    uint32_t p_lo[kPacked ? CPT / 2 : 1], p_hi[kPacked ? CPT / 2 : 1];  // bf16 pairs of s
+    uint32_t n_lo[kArith == kUCorr ? CPT / 2 : 1], n_hi[kArith == kUCorr ? CPT / 2 : 1];
     int64_t srow_lo = -1, srow_hi = -1;
     constexpr int kUnroll = 4;  // code loads of 4 rows in flight at once
     for (int r4 = rbeg; r4 < rend; r4 += kUnroll) {
@@ -188,13 +358,21 @@ qdecode_kernel(const T* __restrict__ x, QuantW w, T* __restrict__ y, float* __re
         const int64_t j = r0 + r;  // code row; for int4 also input column j + h
         const int64_t g_lo = scale_row(w, j);
         if (g_lo != srow_lo) {
+          if constexpr (kArith == kUGdot) {
+            if (srow_lo >= 0) flush_group<MR, CPT>(acc, t_lo, s_lo);
+          }
           load_scales<CPT>(w.scales + g_lo * w.out + col, s_lo);
+          if constexpr (kPacked) pack_scales<kArith == kUCorr>(s_lo, p_lo, n_lo);
           srow_lo = g_lo;
         }
         if constexpr (kBits == 4) {
           const int64_t g_hi = scale_row(w, j + w.h);
           if (g_hi != srow_hi) {
+            if constexpr (kArith == kUGdot) {
+              if (srow_hi >= 0) flush_group<MR, CPT>(acc, t_hi, s_hi);
+            }
             load_scales<CPT>(w.scales + g_hi * w.out + col, s_hi);
+            if constexpr (kPacked) pack_scales<kArith == kUCorr>(s_hi, p_hi, n_hi);
             srow_hi = g_hi;
           }
         }
@@ -202,26 +380,47 @@ qdecode_kernel(const T* __restrict__ x, QuantW w, T* __restrict__ y, float* __re
         float xv[MR];
 #pragma unroll
         for (int m = 0; m < MR; ++m) xv[m] = xs[m * kchunk + r];
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const uint32_t byte = (words[c / 4] >> (8 * (c % 4))) & 0xffu;
-          const float wl = round_t<T>(code_of<kBits>(byte, false) * s_lo[c]);
-#pragma unroll
-          for (int m = 0; m < MR; ++m) acc[m][c] += xv[m] * wl;
-        }
-        if constexpr (kBits == 4) {
-#pragma unroll
-          for (int m = 0; m < MR; ++m) xv[m] = xs[(MR + m) * kchunk + r];
+        if constexpr (kArith == kF32Mul) {
 #pragma unroll
           for (int c = 0; c < CPT; ++c) {
             const uint32_t byte = (words[c / 4] >> (8 * (c % 4))) & 0xffu;
-            const float wh = round_t<T>(code_of<kBits>(byte, true) * s_hi[c]);
+            const float wl = round_t<T>(code_of<kBits>(byte, false) * s_lo[c]);
 #pragma unroll
-            for (int m = 0; m < MR; ++m) acc[m][c] += xv[m] * wh;
+            for (int m = 0; m < MR; ++m) acc[m][c] += xv[m] * wl;
+          }
+          if constexpr (kBits == 4) {
+#pragma unroll
+            for (int m = 0; m < MR; ++m) xv[m] = xs[(MR + m) * kchunk + r];
+#pragma unroll
+            for (int c = 0; c < CPT; ++c) {
+              const uint32_t byte = (words[c / 4] >> (8 * (c % 4))) & 0xffu;
+              const float wh = round_t<T>(code_of<kBits>(byte, true) * s_hi[c]);
+#pragma unroll
+              for (int m = 0; m < MR; ++m) acc[m][c] += xv[m] * wh;
+            }
+          }
+        } else {
+          variant_cells<MR, CPT, kArith, false>(words, xv, s_lo, p_lo, n_lo, acc, t_lo);
+#pragma unroll
+          for (int m = 0; m < MR; ++m) xv[m] = xs[(MR + m) * kchunk + r];
+          if constexpr (kArith == kUGdot) {
+            variant_cells<MR, CPT, kArith, true>(words, xv, s_hi, p_hi, n_hi, acc, t_hi);
+          } else {
+            variant_cells<MR, CPT, kArith, true>(words, xv, s_hi, p_hi, n_hi, acc, t_lo);
           }
         }
       }
     }
+    if constexpr (kArith == kUGdot) {  // the last group of the thread's rows
+      flush_group<MR, CPT>(acc, t_lo, s_lo);
+      flush_group<MR, CPT>(acc, t_hi, s_hi);
+    }
+  }
+  if constexpr (kArith == kU2Dot) {
+#pragma unroll
+    for (int m = 0; m < MR; ++m)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[m][c] -= 8.f * t_lo[m][c];
   }
 
   // Sum the warp's 4 row groups (lane bits 3 and 4), then the 8 warps in
@@ -245,14 +444,14 @@ qdecode_kernel(const T* __restrict__ x, QuantW w, T* __restrict__ y, float* __re
   for (int i = threadIdx.x; i < MR * kCols; i += kThreads) {
     const int m = i / kCols;
     const int64_t o = c0 + i % kCols;
-    if (m >= M || o >= w.out) continue;
+    if (m >= mrows || o >= w.out) continue;
     float s = 0.f;
 #pragma unroll
     for (int wp = 0; wp < 8; ++wp) s += red[(wp * MR + m) * kCols + i % kCols];
     if (ksplit == 1) {
-      y[m * w.out + o] = from_f32<T>(s);
+      y[(m0 + m) * w.out + o] = from_f32<T>(s);
     } else {
-      partial[(static_cast<int64_t>(blockIdx.y) * M + m) * w.out + o] = s;
+      partial[(static_cast<int64_t>(blockIdx.y) * M + m0 + m) * w.out + o] = s;
     }
   }
 }
@@ -736,10 +935,12 @@ struct DecodePlan {
 
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-DecodePlan decode_plan(int bits, int64_t M, int64_t in_f, int64_t out_f, int num_sms) {
+// `sums`: the sums a thread keeps a set (64 for K5; K16 passes arith_sums).
+DecodePlan decode_plan(int bits, int64_t M, int64_t in_f, int64_t out_f, int num_sms,
+                       int sums = 64) {
   DecodePlan p{};
   p.mr = M <= 4 ? 4 : M <= 8 ? 8 : 16;
-  p.cpt = 64 / p.mr;
+  p.cpt = sums / p.mr;
   const int64_t cols = 8 * p.cpt;
   p.col_ctas = static_cast<int>(cdiv(out_f, cols));
   const int halves = bits == 4 ? 2 : 1;
@@ -760,11 +961,15 @@ DecodePlan decode_plan(int bits, int64_t M, int64_t in_f, int64_t out_f, int num
   return p;
 }
 
-template <typename T, int kBits, int MR, int CPT>
+// grid.z: the blocks of MR rows of x (one for K5, whose M <= MR).
+template <typename T, int kBits, int MR, int CPT, int kArith = kF32Mul>
 cudaError_t launch_decode(const void* x, const QuantW& w, void* y, float* work, int64_t M,
                           const DecodePlan& p, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(p.col_ctas), static_cast<unsigned>(p.ksplit));
-  qdecode_kernel<T, kBits, MR, CPT><<<grid, kThreads, p.smem, stream>>>(
+  const int64_t row_blocks = cdiv(M, MR);
+  if (row_blocks > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(p.col_ctas), static_cast<unsigned>(p.ksplit),
+                  static_cast<unsigned>(row_blocks));
+  qdecode_kernel<T, kBits, MR, CPT, kArith><<<grid, kThreads, p.smem, stream>>>(
       static_cast<const T*>(x), w, static_cast<T*>(y), work, M, p.kchunk, p.ksplit);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.ksplit == 1) return err;
@@ -858,6 +1063,28 @@ QuantW make_w(int bits, const void* codes, const float* scales, int64_t in_f, in
 
 bool use_decode(int dx, int64_t M) { return !dx && M <= kDecodeRows; }
 
+// K16: the decode plan of one block of rows (at most 16, 8 for ugdot and
+// u2dot), as K5 plans the same rows, with the variant's sums a set.
+bool known_arith(int a) { return a >= kF32Mul && a <= kU2Dot; }
+
+DecodePlan variant_plan(int arith, int64_t M, int64_t in_f, int64_t out_f, int num_sms) {
+  const int sums = arith_sums(arith);
+  const int64_t block_rows = sums == 64 ? kDecodeRows : 8;
+  return decode_plan(4, M < block_rows ? M : block_rows, in_f, out_f, num_sms, sums);
+}
+
+template <int kArith>
+cudaError_t launch_variant(const void* x, const QuantW& w, void* y, float* work, int64_t M,
+                           const DecodePlan& p, cudaStream_t stream) {
+  constexpr int kSums = arith_sums(kArith);
+  if (p.mr == 4) return launch_decode<bf16, 4, 4, kSums / 4, kArith>(x, w, y, work, M, p, stream);
+  if (p.mr == 8) return launch_decode<bf16, 4, 8, kSums / 8, kArith>(x, w, y, work, M, p, stream);
+  if constexpr (kSums == 64) {
+    return launch_decode<bf16, 4, 16, 4, kArith>(x, w, y, work, M, p, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // fp32 scratch the call needs (the partial sums of a split reduction), in
@@ -911,4 +1138,58 @@ extern "C" int smft_quant_mm(int dtype, int device, int bits, int dx, const void
   }
   return dx ? launch_gemm<4, true>(dtype, a, w, out, work, M, num_sms, s)
             : launch_gemm<4, false>(dtype, a, w, out, work, M, num_sms, s);
+}
+
+// K16.  The plan of a call (mr, cpt, kchunk, ksplit, col_ctas, row blocks)
+// into `plan[6]`; returns a cudaError_t.
+extern "C" int smft_int4_variant_plan(int device, int arith, int64_t M, int64_t in_f,
+                                      int64_t out_f, int64_t* plan) {
+  if (!known_arith(arith) || M <= 0) return cudaErrorInvalidValue;
+  int num_sms = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const DecodePlan p = variant_plan(arith, M, in_f, out_f, num_sms);
+  const int64_t out[6] = {p.mr, p.cpt, p.kchunk, p.ksplit, p.col_ctas, cdiv(M, p.mr)};
+  for (int i = 0; i < 6; ++i) plan[i] = out[i];
+  return cudaSuccess;
+}
+
+// fp32 scratch of a K16 call (the split's partial sums), in floats; -1 when
+// the device's SM count cannot be read.
+extern "C" int64_t smft_int4_variant_mm_workspace(int device, int arith, int64_t M, int64_t in_f,
+                                                  int64_t out_f) {
+  if (M == 0 || !known_arith(arith)) return 0;
+  int num_sms = 0;
+  if (cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return -1;
+  const DecodePlan p = variant_plan(arith, M, in_f, out_f, num_sms);
+  return p.ksplit > 1 ? static_cast<int64_t>(p.ksplit) * M * out_f : 0;
+}
+
+// K16: y (M, out) bf16, the raw output of variant `arith` (an Arith) of
+// x (M, in) bf16 and the packed int4 codes (in/2, out) with f32 scales
+// (in/group, out); contiguous on `device`, aligned to 16 bytes,
+// (in/2) % group == 0, out % 16 == 0: the binding checks.  Returns the
+// cudaError_t of the launches.
+extern "C" int smft_int4_variant_mm(int device, int arith, const void* x, const void* codes,
+                                    const float* scales, void* y, float* work, int64_t M,
+                                    int64_t in_f, int64_t out_f, int group, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (!known_arith(arith)) return cudaErrorInvalidValue;
+  if (M == 0) return cudaSuccess;
+  const QuantW w = make_w(4, codes, scales, in_f, out_f, group);
+  auto s = static_cast<cudaStream_t>(stream);
+  int num_sms = 0;
+  err = cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const DecodePlan p = variant_plan(arith, M, in_f, out_f, num_sms);
+  switch (arith) {
+    case kF32Mul: return launch_variant<kF32Mul>(x, w, y, work, M, p, s);
+    case kBf16Mul: return launch_variant<kBf16Mul>(x, w, y, work, M, p, s);
+    case kUCorr: return launch_variant<kUCorr>(x, w, y, work, M, p, s);
+    case kUGdot: return launch_variant<kUGdot>(x, w, y, work, M, p, s);
+    case kF32Dot: return launch_variant<kF32Dot>(x, w, y, work, M, p, s);
+    default: return launch_variant<kU2Dot>(x, w, y, work, M, p, s);
+  }
 }

@@ -26,6 +26,22 @@ s[j // group, o]):
 The codes and scales are frozen: their gradient is None, where the JAX
 package returns structural zeros.
 
+K16 (``int4_variant_matmul``, ``csrc/quant_matmul.cu``'s decode kernel
+with its per-cell arithmetic a template parameter) replaces the Pallas
+kernels of ``scripts/exp_int4_dequant_variants.py``: seven arithmetic
+variants (``INT4_VARIANTS``) of the int4 product for bf16 x, with u = the
+nibble, q = u - 8, s = the f32 scale and bf() a rounding to bf16, each
+summed in fp32 and rounded to bf16 once (the raw output):
+  f32mul   x @ bf(q * s)                K5's arithmetic
+  bf16mul  x @ bf(q * bf(s))            (mul3d: the same function)
+  ucorr    x @ bf(u * bf(s))
+  ugdot    sum over groups of s * (x_group @ u_group)
+  f32dot   x @ (q * s)                  (f32 cells, the JAX int4 kernel at b <= 64)
+  u2dot    x @ (u * s) - 8 * x @ s
+``int4_variant`` finishes a variant as the script does: ucorr and ugdot
+subtract ``unsigned_correction`` (torch ops, outside the kernel, as in
+JAX) from the bf16 raw output and round to bf16 again.
+
 ``LAUNCHES`` counts the launches of each kernel: a wrapper adds one where it
 launches its kernel, and nowhere else.
 """
@@ -36,7 +52,13 @@ import torch
 
 from sparse_matrix_fine_tuning_torch.kernels.monarch_cuda import load_ops
 
-LAUNCHES = {"int8_matmul": 0, "int8_matmul_dx": 0, "int4_matmul": 0, "int4_matmul_dx": 0}
+LAUNCHES = {"int8_matmul": 0, "int8_matmul_dx": 0, "int4_matmul": 0, "int4_matmul_dx": 0,
+            "int4_variant": 0}
+
+INT4_VARIANTS = ("f32mul", "bf16mul", "mul3d", "ucorr", "ugdot", "f32dot", "u2dot")
+# the kernel's arithmetic (csrc/quant_matmul.cu `Arith`) of each variant
+_ARITH = {"f32mul": 0, "bf16mul": 1, "mul3d": 1, "ucorr": 2, "ugdot": 3, "f32dot": 4, "u2dot": 5}
+UNSIGNED_VARIANTS = ("ucorr", "ugdot")  # finished by subtracting unsigned_correction
 
 
 def reset_launch_counts() -> None:
@@ -105,6 +127,83 @@ def int4_matmul_dx_reference(dy: torch.Tensor, packed_t: torch.Tensor, scales: t
     return torch.cat([dyf @ lo.float().T, dyf @ hi.float().T], dim=-1).to(dy.dtype)
 
 
+def _arith(variant: str) -> int:
+    if variant not in _ARITH:
+        raise ValueError(f"unknown int4 variant {variant!r}; expected one of {INT4_VARIANTS}")
+    return _ARITH[variant]
+
+
+def _variant_cells(packed_t: torch.Tensor, scales: torch.Tensor, group: int,
+                   variant: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(low half, high half) of the weight cells a variant multiplies x by,
+    each (in/2, out) f32 (holding bf16 values where the variant rounds)."""
+    if variant == "f32mul":
+        return tuple(w.float() for w in dequant_int4_t(packed_t, scales, group, torch.bfloat16))
+    signed = variant in ("bf16mul", "mul3d", "f32dot")
+    codes = unpack_int4(packed_t) if signed else (packed_t & 0xF, (packed_t >> 4) & 0xF)
+    ns = scales.shape[0]
+    halves = (scales[: ns // 2], scales[ns // 2:])
+    out = []
+    for q, s in zip(codes, halves):
+        if variant in ("f32dot", "u2dot"):
+            out.append(q.float() * s.float().repeat_interleave(group, dim=0))
+        else:  # bf16 product of bf16 operands (exact in f32, then rounded once)
+            sb = s.to(torch.bfloat16).repeat_interleave(group, dim=0)
+            out.append((q.to(torch.bfloat16) * sb).float())
+    return out[0], out[1]
+
+
+def int4_variant_reference(x: torch.Tensor, packed_t: torch.Tensor, scales: torch.Tensor,
+                           group: int, variant: str) -> torch.Tensor:
+    """Plain PyTorch version of K16: the raw output of ``variant`` (one of
+    ``INT4_VARIANTS``) for x (..., in), op for op the arithmetic in the
+    module's docstring, in x's dtype."""
+    _arith(variant)
+    *batch, in_f = x.shape
+    h, out_f = packed_t.shape
+    xf = x.reshape(-1, in_f).float()
+    x_lo, x_hi = xf[:, :h], xf[:, h:]
+    if variant == "ugdot":
+        ns = scales.shape[0]
+        y = 0
+        for xh, u, s in ((x_lo, packed_t & 0xF, scales[: ns // 2]),
+                         (x_hi, (packed_t >> 4) & 0xF, scales[ns // 2:])):
+            ns2 = s.shape[0]
+            x3 = xh.reshape(-1, ns2, group).transpose(0, 1)        # (ns2, b, g)
+            t = torch.bmm(x3, u.float().reshape(ns2, group, out_f))  # (ns2, b, out)
+            y = y + (t * s.float()[:, None, :]).sum(0)
+    elif variant == "u2dot":
+        w_lo, w_hi = _variant_cells(packed_t, scales, group, variant)
+        sb = scales.float().repeat_interleave(group, dim=0)  # (in, out): low rows, then high
+        y = (x_lo @ w_lo - 8.0 * (x_lo @ sb[:h])) + (x_hi @ w_hi - 8.0 * (x_hi @ sb[h:]))
+    else:
+        w_lo, w_hi = _variant_cells(packed_t, scales, group, variant)
+        y = x_lo @ w_lo + x_hi @ w_hi
+    return y.to(x.dtype).reshape(*batch, out_f)
+
+
+def unsigned_correction(x: torch.Tensor, scales: torch.Tensor, group: int) -> torch.Tensor:
+    """``8 * (group_sums(x) @ s)`` over both halves, f32 (b, out): the term
+    that turns the unsigned nibbles of ucorr and ugdot back into the
+    offset-8 codes (``scripts/exp_int4_dequant_variants.py:244``)."""
+    *batch, in_f = x.shape
+    ns = scales.shape[0]
+    xs = x.reshape(-1, ns, group).sum(-1, dtype=torch.float32)  # (b, ns): low groups, then high
+    s = scales.float()
+    y = xs[:, : ns // 2] @ s[: ns // 2] + xs[:, ns // 2:] @ s[ns // 2:]
+    return (8.0 * y).reshape(*batch, scales.shape[1])
+
+
+def finish_int4_variant(raw: torch.Tensor, x: torch.Tensor, scales: torch.Tensor, group: int,
+                        variant: str) -> torch.Tensor:
+    """A variant's result from its raw output: ucorr and ugdot subtract
+    ``unsigned_correction`` from the bf16 raw output in f32 and round once
+    more; the others are their raw output."""
+    if variant not in UNSIGNED_VARIANTS:
+        return raw
+    return (raw.float() - unsigned_correction(x, scales, group)).to(x.dtype)
+
+
 # -- kernels -----------------------------------------------------------------
 
 def _check(*tensors: torch.Tensor) -> None:
@@ -119,7 +218,7 @@ def _check(*tensors: torch.Tensor) -> None:
 
 
 def _launch(name: str, a: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
-            group: int = 0) -> torch.Tensor:
+            group: int = 0, arith: int = 0) -> torch.Tensor:
     ops = load_ops()
     *batch, width = a.shape
     a2d = a.reshape(-1, width).contiguous()
@@ -131,6 +230,8 @@ def _launch(name: str, a: torch.Tensor, codes: torch.Tensor, scales: torch.Tenso
         out = ops.int8_mm_dx(a2d, codes, scales)
     elif name == "int4_matmul":
         out = ops.int4_mm(a2d, codes, scales, group)
+    elif name == "int4_variant":
+        out = ops.int4_variant_mm(a2d, codes, scales, group, arith)
     else:
         out = ops.int4_mm_dx(a2d, codes, scales, group)
     LAUNCHES[name] += 1
@@ -219,3 +320,34 @@ def int4_mm(x: torch.Tensor, packed_t: torch.Tensor, scales: torch.Tensor,
     if x.is_cuda:
         return int4_matmul(x, packed_t, scales, group)
     return int4_matmul_reference(x, packed_t, scales, group)
+
+def int4_variant_matmul(x: torch.Tensor, packed_t: torch.Tensor, scales: torch.Tensor,
+                        group: int, variant: str) -> torch.Tensor:
+    """K16: the raw output of ``variant`` for bf16 x (..., in) on the card.
+    Refuses an unknown variant, x not bfloat16 and CPU tensors before any
+    build; the binding checks the rest."""
+    arith = _arith(variant)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"the int4 variants take bfloat16 x, got {x.dtype}")
+    _check(x, packed_t, scales)
+    return _launch("int4_variant", x, packed_t, scales, int(group), arith)
+
+
+def int4_variant_plan(m_rows: int, in_f: int, out_f: int, variant: str) -> dict:
+    """K16's launch plan on the current card: rows and columns a thread,
+    code rows a CTA (``kchunk``), the split of those rows over CTAs and its
+    second pass (``ksplit``), column CTAs and blocks of rows."""
+    plan = load_ops().int4_variant_plan(int(m_rows), int(in_f), int(out_f), _arith(variant))
+    return dict(zip(("rows", "cols", "kchunk", "ksplit", "col_ctas", "row_blocks"), plan))
+
+
+def int4_variant(x: torch.Tensor, packed_t: torch.Tensor, scales: torch.Tensor, group: int,
+                 variant: str) -> torch.Tensor:
+    """The whole variant, as the script calls it: the raw output (K16 on
+    CUDA, the plain version on the CPU), finished by
+    ``finish_int4_variant``."""
+    if x.is_cuda:
+        raw = int4_variant_matmul(x, packed_t, scales, group, variant)
+    else:
+        raw = int4_variant_reference(x, packed_t, scales, group, variant)
+    return finish_int4_variant(raw, x, scales, group, variant)

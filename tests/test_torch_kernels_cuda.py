@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K15 and their autograd Functions against their
+"""The port's CUDA kernels K1-K16 and their autograd Functions against their
 plain versions, on the card.  Marked ``cuda``: they skip where no card is visible, and run on the
 card with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 This file imports no JAX, so it also runs where JAX is not installed.
@@ -15,7 +15,9 @@ dense + Monarch linear): the same two tolerances; the output rounds once on
 both sides, from intermediates that may round one ulp apart.  K12 (K1 at a
 row tile) as K1; K15 (the tiled bf16 matmul) two bf16 ulps: both sides
 round once from fp32 sums taken in another order.  K13 and K14 (K4 at a row
-group) as K4.
+group) as K4.  K16 (K5's decode kernel in the seven int4 arithmetic
+variants): two bf16 ulps of the raw output's scale, as K5; its f32mul
+variant equals K5 bit for bit at the decode rows.
 """
 
 import numpy as np
@@ -587,3 +589,90 @@ def test_torch_dw_tile_refuses_row_groups_it_does_not_take(cuda_device):
     for rows in (0, 24, -16):
         with pytest.raises(RuntimeError, match="multiple of 16"):
             ops.monarch_dw_tile(x, dout, w1, w2, rows)
+
+
+# -- the int4 dequant-arithmetic variants: K16 --------------------------------
+# (in, out, group): out 272 is 17 column tiles of 16; rows 3 and 13 take one
+# block of rows, 40 three of 16 (five of 8 for ugdot and u2dot), its last
+# block ragged.
+INT4_VARIANT_SHAPE = (1536, 272, 64)
+
+
+def _variant_operands(rows, device):
+    from sparse_matrix_fine_tuning_torch import quant
+
+    in_f, out_f, group = INT4_VARIANT_SHAPE
+    rng = np.random.default_rng(rows)
+    w = (rng.standard_normal((out_f, in_f)) * 0.05).astype(np.float32)
+    codes, scales = quant.quantize_int4(w, group)
+    x = torch.tensor(rng.standard_normal((rows, in_f)), dtype=torch.float32)
+    return (torch.tensor(codes).to(device), torch.tensor(scales).to(device),
+            x.to(device=device, dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [3, 13, 40])
+@pytest.mark.parametrize("variant", ["f32mul", "bf16mul", "mul3d", "ucorr", "ugdot", "f32dot",
+                                     "u2dot"])
+def test_torch_int4_variant_matches_plain_on_card(cuda_device, variant, rows):
+    """K16's raw output of each variant against its plain version, two bf16
+    ulps of its scale (both sides sum in fp32 in another order and round
+    once); the finished variant against the plain one finished; one launch
+    each."""
+    from sparse_matrix_fine_tuning_torch.kernels import quant_cuda as qc
+
+    codes, scales, x = _variant_operands(rows, cuda_device)
+    group = INT4_VARIANT_SHAPE[2]
+    before = qc.LAUNCHES["int4_variant"]
+    with torch.no_grad():
+        got = qc.int4_variant_matmul(x, codes, scales, group, variant)
+        want = qc.int4_variant_reference(x, codes, scales, group, variant)
+        fin = qc.int4_variant(x, codes, scales, group, variant)
+        fin_want = qc.finish_int4_variant(want, x, scales, group, variant)
+    torch.cuda.synchronize()
+    assert qc.LAUNCHES["int4_variant"] == before + 2
+    assert got.shape == want.shape == (rows, INT4_VARIANT_SHAPE[1])
+    assert got.dtype == want.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    assert float((got.float() - want.float()).abs().max()) <= _tol(want)
+    assert float((fin.float() - fin_want.float()).abs().max()) <= _tol(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 3, 4, 8, 13, 16])
+def test_torch_int4_variant_f32mul_is_k5_on_card(cuda_device, rows):
+    """At the decode rows (M <= 16) the f32mul variant is K5's kernel at
+    K5's plan: the same bits."""
+    from sparse_matrix_fine_tuning_torch.kernels import quant_cuda as qc
+
+    codes, scales, x = _variant_operands(rows, cuda_device)
+    group = INT4_VARIANT_SHAPE[2]
+    with torch.no_grad():
+        got = qc.int4_variant_matmul(x, codes, scales, group, "f32mul")
+        k5 = qc.int4_matmul(x, codes, scales, group)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k5)
+
+
+@pytest.mark.cuda
+def test_torch_int4_variant_refuses_what_it_does_not_take(cuda_device):
+    """The wrapper refuses x that is not bf16 and unknown variants; the
+    binding refuses them too, and a group or width the kernel does not take."""
+    from sparse_matrix_fine_tuning_torch.kernels import quant_cuda as qc
+
+    codes, scales, x = _variant_operands(4, cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        qc.int4_variant_matmul(x.float(), codes, scales, 64, "f32mul")
+    with pytest.raises(ValueError, match="unknown int4 variant"):
+        qc.int4_variant_matmul(x, codes, scales, 64, "lut")
+    ops = qc.load_ops()
+    with pytest.raises(RuntimeError, match="bfloat16"):
+        ops.int4_variant_mm(x.float(), codes, scales, 64, 0)
+    with pytest.raises(RuntimeError, match="arith"):
+        ops.int4_variant_mm(x, codes, scales, 64, 6)
+    with pytest.raises(RuntimeError, match="group"):
+        ops.int4_variant_mm(x, codes, scales, 40, 0)
+    with pytest.raises(RuntimeError, match="out % 16"):
+        ops.int4_variant_mm(x, codes[:, :264].contiguous(), scales[:, :264].contiguous(), 64, 0)
+    plan = qc.int4_variant_plan(40, 1536, 272, "ugdot")
+    assert plan["rows"] == 8 and plan["row_blocks"] == 5
+    assert qc.int4_variant_plan(40, 1536, 272, "f32mul")["row_blocks"] == 3

@@ -32,6 +32,7 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.scripts.exp_fwd_tile",
     "sparse_matrix_fine_tuning_torch.scripts.exp_dw_kernel",
     "sparse_matrix_fine_tuning_torch.scripts.exp_merged_v3",
+    "sparse_matrix_fine_tuning_torch.scripts.exp_int4_dequant_variants",
     "sparse_matrix_fine_tuning_torch.layers.monarch_linear",
     "sparse_matrix_fine_tuning_torch.models.config",
     "sparse_matrix_fine_tuning_torch.models.llama",
@@ -109,8 +110,9 @@ def test_torch_cuda_kernels_refuse_cpu_tensors():
 
 
 def test_torch_quant_kernels_refuse_cpu_tensors():
-    """K5-K8's wrappers raise on CPU tensors and launch nothing; the device
-    dispatch sends a CPU tensor to the plain version."""
+    """K5-K8's and K16's wrappers raise on CPU tensors and launch nothing
+    (K16's also on x that is not bf16 and on an unknown variant, before any
+    build); the device dispatch sends a CPU tensor to the plain version."""
     from sparse_matrix_fine_tuning_torch import quant
     from sparse_matrix_fine_tuning_torch.kernels import monarch_cuda, quant_cuda
 
@@ -122,14 +124,24 @@ def test_torch_quant_kernels_refuse_cpu_tensors():
     for call in (lambda: quant_cuda.int8_matmul(x, q8, s8),
                  lambda: quant_cuda.int8_matmul_dx(dy, q8, s8),
                  lambda: quant_cuda.int4_matmul(x, p4, s4, 16),
-                 lambda: quant_cuda.int4_matmul_dx(dy, p4, s4, 16)):
+                 lambda: quant_cuda.int4_matmul_dx(dy, p4, s4, 16),
+                 lambda: quant_cuda.int4_variant_matmul(x.bfloat16(), p4, s4, 16, "ugdot")):
         with pytest.raises(ValueError, match="CUDA"):
             call()
+    with pytest.raises(ValueError, match="bfloat16"):
+        quant_cuda.int4_variant_matmul(x, p4, s4, 16, "f32mul")
+    for variant in ("lut", "F32MUL", ""):
+        with pytest.raises(ValueError, match="unknown int4 variant"):
+            quant_cuda.int4_variant_matmul(x.bfloat16(), p4, s4, 16, variant)
     assert quant_cuda.LAUNCHES == before and monarch_cuda._ops is None
     torch.testing.assert_close(quant_cuda.int8_mm(x, q8, s8),
                                quant_cuda.int8_matmul_reference(x, q8, s8), rtol=0, atol=0)
     torch.testing.assert_close(quant_cuda.int4_mm(x, p4, s4, 16),
                                quant_cuda.int4_matmul_reference(x, p4, s4, 16), rtol=0, atol=0)
+    xb = x.bfloat16()
+    torch.testing.assert_close(quant_cuda.int4_variant(xb, p4, s4, 16, "bf16mul"),
+                               quant_cuda.int4_variant_reference(xb, p4, s4, 16, "bf16mul"),
+                               rtol=0, atol=0)
 
 
 def test_torch_entry_points_default_to_the_card():
