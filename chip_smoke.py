@@ -22,6 +22,8 @@ hand-written CUDA kernels, and checks them:
   9. the quantized base: K7/K5 (forward) and K8/K6 (dx) against their plain
      versions at the slice's shapes, timed beside their bound and one
      PyTorch call on the dequantized matrix, and their autograd Functions;
+     K5 above 16 rows and K6 in bf16 run the int4 wgmma kernel
+     (``csrc/quant_wgmma.cu``), whose SASS must hold HGMMA;
  10. quantized serving, float32, int8 and int4: prefill logits and greedy
      tokens against a copy whose codes were dequantized and whose adapters
      were merged on the CPU;
@@ -59,9 +61,10 @@ Each main path (6, 8 off, 8 on, each configuration of 11, each step of 12,
 the bench of 13, each script of 14, 15 and 16) zeroes the launch counts of
 every kernel just before it and reads them just after.  Any failed check
 exits non-zero.  The line before the last is one JSON object on the
-kernels (K9-K11: ms, plain, library and bound summed over the bench's three
-shapes; K15, K12 and K13: the best tile's ms at the scripts' shape, the
-tile in ``records.json``; K14 at that shape; K16 the best variant at
+kernels (K5 at decode and, as ``int4_matmul_tile``, at a training
+micro-batch; K9-K11: ms, plain, library and bound summed over the bench's
+three shapes; K15, K12 and K13: the best tile's ms at the scripts' shape,
+the tile in ``records.json``; K14 at that shape; K16 the best variant at
 (4, 2048, 5632)); the last is ``{"ok": true, "device": {...}}``.
 Per-case records go to ``chip_smoke_out/records.json``.
 It imports nothing of JAX.
@@ -137,9 +140,13 @@ KERNELS = {
                     "sparse_matrix_fine_tuning_tpu/kernels/monarch_pallas.py:173"),
     "monarch_dw_fused": ("sparse_matrix_fine_tuning_torch/kernels/csrc/monarch_bwd.cu",
                          "sparse_matrix_fine_tuning_tpu/kernels/monarch_pallas.py:364"),
+    # K5 at decode rows (M <= 16: quant_matmul.cu's decode kernel) and at a
+    # training micro-batch (bf16, M > 16: the wgmma kernel); K6 in bf16
     "int4_matmul": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_matmul.cu",
                     "sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py:115"),
-    "int4_matmul_dx": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_matmul.cu",
+    "int4_matmul_tile": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_wgmma.cu",
+                         "sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py:115"),
+    "int4_matmul_dx": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_wgmma.cu",
                        "sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py:141"),
     "int8_matmul": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_matmul.cu",
                     "sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py:305"),
@@ -1020,15 +1027,17 @@ def _quant_calls(name: str, a, codes, scales, dense):
     return (lambda: kern(*args)), (lambda: plain(*args)), library
 
 
-def phase_quant_kernels(card: str) -> dict:
+def phase_quant_kernels(card: str, lib) -> dict:
     """K7/K5 at ROWS and K8/K6 at BWD_ROWS, the seven projections, bf16 and
     f32, against their plain versions, timed beside their bound and the
     library call on the dequantized matrix (``F.linear(x, W)`` forward,
     ``torch.matmul(dy, W)`` for dx).  Tolerances as ``tolerance``, for the
     output and for dx alike: both sides round each dequantized weight to the
-    working dtype once and sum in fp32, in another order."""
+    working dtype once and sum in fp32, in another order.  K5 in bf16 above
+    16 rows (``int4_matmul_tile`` in the JSON line) and K6 in bf16 run the
+    int4 wgmma kernel, whose SASS must hold HGMMA (``check_hgmma``)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
-    worst = dict.fromkeys(QUANT_KERNELS, 0.0)
+    worst = dict.fromkeys((*QUANT_KERNELS, "int4_matmul_tile"), 0.0)
     per_layer = {(name, m): [] for name in QUANT_KERNELS for m in (4, TRAIN_BS * TRAIN_SEQ)}
     print(_HEADER, flush=True)
     with torch.inference_mode():
@@ -1053,7 +1062,9 @@ def phase_quant_kernels(card: str) -> dict:
                                       plain_ms, call, plain_call, time_ms(library, 20, 3)[0])
                         require(err <= tol and bool(torch.isfinite(got).all()),
                                 f"{name} {proj} M={m_rows} {dtype}: max_abs_err {err} > tol {tol}")
-                        worst[name] = max(worst[name], err)
+                        tile = name == "int4_matmul" and dtype == torch.bfloat16 and m_rows > 16
+                        key = "int4_matmul_tile" if tile else name
+                        worst[key] = max(worst[key], err)
                         if dtype == torch.bfloat16 and (name, m_rows) in per_layer:
                             per_layer[(name, m_rows)].append(rec)
     layer = {key: _layer_sums(recs) for key, recs in per_layer.items() if recs}
@@ -1061,10 +1072,13 @@ def phase_quant_kernels(card: str) -> dict:
         print(f"[quant-kernels] {card}: {name} per decoder layer (M={m_rows}, bf16, 7 "
               f"projections): {v['ms']:.5f} ms (plain {v['plain_ms']:.5f}, library "
               f"{v['library_ms']:.5f}, bound {v['bound_ms']:.5f} ms, {v['bound_by']})", flush=True)
-    # the JSON line: the forward at decode (serving's shape), dx at a
-    # training micro-batch
+    hgmma = check_hgmma(lib, "qwgmma_kernel", 2)
+    print(f"[quant-kernels] {card}: HGMMA in both int4 wgmma kernels ({hgmma})", flush=True)
+    # the JSON line: the forward at decode (serving's shape) and, for K5, at
+    # a training micro-batch; dx at a training micro-batch
     main = {name: layer[(name, TRAIN_BS * TRAIN_SEQ if dx else 4)]
             for name, (_, dx) in QUANT_KERNELS.items()}
+    main["int4_matmul_tile"] = layer[("int4_matmul", TRAIN_BS * TRAIN_SEQ)]
     return {"worst": worst, "layer": main}
 
 
@@ -1226,17 +1240,18 @@ def phase_more_linear(card: str) -> dict:
 
 # -- the forward-tile experiments (K15, K12) ------------------------------------
 
-def check_hgmma(lib) -> int:
-    """Every K15 kernel in the built library holds the warpgroup MMA
-    (``HGMMA`` in its SASS, read with the toolkit's ``cuobjdump``), so that a
-    build that dropped wgmma cannot pass.  Returns how many were found."""
+def check_hgmma(lib, prefix: str, count: int) -> int:
+    """Each of the ``count`` kernels whose name holds ``prefix`` in the built
+    library holds the warpgroup MMA (``HGMMA`` in its SASS, read with the
+    toolkit's ``cuobjdump``), so that a build that dropped wgmma cannot pass.
+    Returns how many were found."""
     from sparse_matrix_fine_tuning_torch.kernels.build import _cuda_home
 
     sass = subprocess.run([str(_cuda_home() / "bin" / "cuobjdump"), "-sass", str(lib)],
                           check=True, stdout=subprocess.PIPE, text=True).stdout
-    kernels = [f for f in sass.split("Function : ")[1:] if "tiled_mm_kernel" in f.splitlines()[0]]
-    require(len(kernels) == len(tm.TILES),
-            f"cuobjdump found {len(kernels)} tiled_mm_kernel functions, expected {len(tm.TILES)}")
+    kernels = [f for f in sass.split("Function : ")[1:] if prefix in f.splitlines()[0]]
+    require(len(kernels) == count,
+            f"cuobjdump found {len(kernels)} {prefix} functions, expected {count}")
     for f in kernels:
         require("HGMMA" in f, f"no HGMMA in the SASS of {f.splitlines()[0].strip()}")
     return len(kernels)
@@ -1248,7 +1263,7 @@ def phase_tiles(card: str, lib) -> dict:
         against ``tiled_matmul_reference`` (bf16) and K12 at every row tile
         against ``monarch_kernel_reference`` (f32; and bf16 at 8 rows bit
         for bit against K1, whose instantiation it is);
-      * K15's SASS holds HGMMA (``check_hgmma``);
+      * every K15 kernel's SASS holds HGMMA (``check_hgmma``);
       * the counted main paths: the ports of ``exp_matmul_tiles`` and
         ``exp_fwd_tile`` at 2664 x 4096 -> 4096, each of which checks every
         variant against its plain version before timing it, the launch
@@ -1282,7 +1297,7 @@ def phase_tiles(card: str, lib) -> dict:
         require(torch.equal(monarch_cuda.monarch_fwd_tile(xb, w1b, w2b, 8),
                             monarch_cuda.monarch_kernel(xb, w1b, w2b)),
                 "monarch_fwd_tile at 8 rows differs from K1")
-    hgmma = check_hgmma(lib)
+    hgmma = check_hgmma(lib, "tiled_mm_kernel", len(tm.TILES))
     print(f"[tiles] {card}: K15 at {len(tm.TILES)} tiles and K12 at "
           f"{len(monarch_cuda.FWD_TILE_ROWS)} row tiles within tolerance at the ragged shapes; "
           f"K12 at 8 rows equals K1; HGMMA in all {hgmma} K15 kernels", flush=True)
@@ -1748,7 +1763,7 @@ def main() -> None:
     lib = phase_build()
     fwd = phase_kernels(card)
     bwd = phase_kernels_bwd(card)
-    qk = phase_quant_kernels(card)
+    qk = phase_quant_kernels(card, lib)
     lap("kernels")
     phase_autograd(card)
     phase_quant_autograd(card)
@@ -1781,6 +1796,8 @@ def main() -> None:
                 "int8_matmul_dx": qtrain_f32["launches"]["int8_matmul_dx"],
                 "int4_matmul": qserving["launches"]["int4_matmul"]
                 + qtraining["launches"]["int4_matmul"],
+                # the int4 training step's forwards: all at 2048 rows, bf16
+                "int4_matmul_tile": qtraining["launches"]["int4_matmul"],
                 "int4_matmul_dx": qtraining["launches"]["int4_matmul_dx"],
                 **more["launches"], **tiles["launches"], **dws["launches"],
                 **variants["launches"]}

@@ -26,7 +26,10 @@
 //    `qsplit_sum` adds them in a fixed order (deterministic; no atomics).
 //    The TPU's sequential grid carried the sum from step to step: here the
 //    split and its second pass take that place.
-//  * Training and prefill (M > 16, and every dx): operations.
+//  * Training and prefill (M > 16, and every dx): operations.  Packed int4
+//    with bf16 activations (K5's tile path and K6) runs in quant_wgmma.cu,
+//    a warp-specialised wgmma + TMA kernel that unpacks each code byte once
+//    for both halves; smft_quant_mm dispatches there.  int8 (K7, K8):
 //    `qgemm_pipe` multiplies with mma.sync m16n8k16 (bf16 in, fp32 sums),
 //    a 128 x 128 tile of the output per CTA, two CTAs an SM: x (or dy), the
 //    raw codes and their scale rows are copied to shared memory with
@@ -568,8 +571,9 @@ struct BTile {
 
 // -- bf16: a pipelined tile kernel -------------------------------------------
 //
-// A 128 x 128 output tile, 8 warps as 2 x 4 of 64 x 32, a k step of BK: 64,
-// or 32 for the int4 dx, which spills at 64.  x (or dy), the raw code bytes
+// int8 only (int4 with bf16 activations runs in quant_wgmma.cu).  A
+// 128 x 128 output tile, 8 warps as 2 x 4 of 64 x 32, a k step of BK = 64.
+// x (or dy), the raw code bytes
 // and the scale rows a k step needs are copied to shared memory with
 // cp.async, kPipe - 1 steps ahead, so the loads of later steps are in
 // flight while this one computes; each step then dequantizes its raw codes
@@ -584,8 +588,10 @@ struct BTile {
 // fp32 partial sums to `partial` (z, M, N), and qsplit_sum adds them.
 constexpr int kPipe = 3;
 
-template <int BK>
+constexpr int kPipeBK = 64;
+
 struct PipeLayout {
+  static constexpr int BK = kPipeBK;
   static constexpr int kLdA = BK + 8;          // bf16 per row of a stage's A tile
   static constexpr int kA = kTile * kLdA * 2;  // bytes of a stage's A tile
   static constexpr int kCodes = BK * kTile;    // bytes of a stage's raw codes
@@ -594,8 +600,6 @@ struct PipeLayout {
   static constexpr int kStage = kA + kCodes + kScales * 4;
   static constexpr int kSmem = kPipe * kStage + kTile * (BK + 8) * 2;  // and Bs
 };
-
-constexpr int pipe_bk(int bits, bool dx) { return bits == 4 && dx ? 32 : 64; }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -609,11 +613,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <int kBits, bool kDx, int BK>
+template <bool kDx>
 __global__ void __launch_bounds__(kThreads, 2)
 qgemm_pipe_kernel(const bf16* __restrict__ A, QuantW w, bf16* __restrict__ C,
                   float* __restrict__ partial, int64_t M, int64_t N, int64_t K, int64_t kchunk) {
-  using L = PipeLayout<BK>;
+  using L = PipeLayout;
+  constexpr int BK = L::BK;
   using Tile = BTile<bf16, kDx, BK, kTile, 8>;
   extern __shared__ __align__(16) unsigned char pipe_smem[];
   auto stage_a = [&](int s) { return reinterpret_cast<bf16*>(pipe_smem + s * L::kStage); };
@@ -729,7 +734,7 @@ qgemm_pipe_kernel(const bf16* __restrict__ A, QuantW w, bf16* __restrict__ C,
 #pragma unroll
     for (int i = 0; i < BK / 8; ++i) {  // dequantize: 32 * BK groups of 4 cells
       const int grp = t + i * kThreads;
-      BGroup b;
+      BGroup b{};
       int64_t j;
       if constexpr (kDx) {
         const int n = grp / (BK / 4), k = (grp % (BK / 4)) * 4;
@@ -754,9 +759,8 @@ qgemm_pipe_kernel(const bf16* __restrict__ A, QuantW w, bf16* __restrict__ C,
           b.s = *reinterpret_cast<const float4*>(sc + rr * kTile + n);
         }
       }
-      b.high = kBits == 4 && j >= w.h;
       float v[4];
-      dequant_group<kBits>(b, v);
+      dequant_group<8>(b, v);
       const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
       const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
       uint2 packed;
@@ -1006,9 +1010,9 @@ GemmSplit gemm_split(int64_t M, int64_t N, int64_t K, int bk, int num_sms) {
   return {cdiv(K, chunk), chunk};
 }
 
-GemmSplit gemm_split_for(int dtype, int bits, int dx, int64_t M, int64_t in_f, int64_t out_f,
+GemmSplit gemm_split_for(int dtype, int dx, int64_t M, int64_t in_f, int64_t out_f,
                          int num_sms) {
-  const int bk = dtype == 0 ? kF32BK : pipe_bk(bits, dx);
+  const int bk = dtype == 0 ? kF32BK : kPipeBK;
   return dx ? gemm_split(M, in_f, out_f, bk, num_sms) : gemm_split(M, out_f, in_f, bk, num_sms);
 }
 
@@ -1019,21 +1023,22 @@ cudaError_t launch_gemm(int dtype, const void* a, const QuantW& w, void* out, fl
   const int64_t N = kDx ? w.in : w.out;
   const int64_t row_tiles = cdiv(M, kTile);
   if (row_tiles > 65535) return cudaErrorInvalidValue;
-  constexpr int BK = pipe_bk(kBits, kDx);
-  const GemmSplit sp = gemm_split(M, N, K, dtype == 0 ? kF32BK : BK, num_sms);
+  const GemmSplit sp = gemm_split(M, N, K, dtype == 0 ? kF32BK : kPipeBK, num_sms);
   const dim3 grid(static_cast<unsigned>(cdiv(N, kTile)), static_cast<unsigned>(row_tiles),
                   static_cast<unsigned>(sp.ksplit));
   cudaError_t err;
   if (dtype == 0) {
     qgemm_f32_kernel<kBits, kDx><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(a), w, static_cast<float*>(out), work, M, N, K, sp.kchunk);
-  } else {
-    auto kernel = qgemm_pipe_kernel<kBits, kDx, BK>;
-    constexpr int smem = PipeLayout<BK>::kSmem;
+  } else if constexpr (kBits == 8) {
+    auto kernel = qgemm_pipe_kernel<kDx>;
+    constexpr int smem = PipeLayout::kSmem;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kThreads, smem, stream>>>(static_cast<const bf16*>(a), w,
                                              static_cast<bf16*>(out), work, M, N, K, sp.kchunk);
+  } else {
+    return cudaErrorInvalidValue;  // int4 with bf16 activations: quant_wgmma.cu
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || sp.ksplit == 1) return err;
@@ -1087,6 +1092,24 @@ cudaError_t launch_variant(const void* x, const QuantW& w, void* y, float* work,
 
 }  // namespace
 
+// The split reduction's second pass for bf16 outputs, for quant_wgmma.cu:
+// y (total) = round_bf16(sum over the slices, in order, of the fp32
+// partial sums (slices, total)).  Returns the launch's cudaError_t.
+extern "C" int smft_split_sum_bf16(const float* partial, void* y, int64_t total, int slices,
+                                   void* stream) {
+  qsplit_sum_kernel<bf16><<<static_cast<unsigned>(cdiv(total, kThreads)), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(partial, static_cast<bf16*>(y),
+                                                                 total, slices);
+  return cudaGetLastError();
+}
+
+// quant_wgmma.cu: K5's tile path and K6 (int4, bf16 activations).
+extern "C" int64_t smft_int4_wgmma_workspace(int device, int dx, int64_t M, int64_t in_f,
+                                             int64_t out_f);
+extern "C" int smft_int4_wgmma(int device, int dx, const void* a, const void* codes,
+                               const float* scales, void* out, float* work, int64_t M,
+                               int64_t in_f, int64_t out_f, int group, void* stream);
+
 // fp32 scratch the call needs (the partial sums of a split reduction), in
 // floats; -1 when the device's SM count cannot be read.
 extern "C" int64_t smft_quant_mm_workspace(int dtype, int device, int bits, int dx, int64_t M,
@@ -1099,7 +1122,8 @@ extern "C" int64_t smft_quant_mm_workspace(int dtype, int device, int bits, int 
     const DecodePlan p = decode_plan(bits, M, in_f, out_f, num_sms);
     return p.ksplit > 1 ? static_cast<int64_t>(p.ksplit) * M * out_f : 0;
   }
-  const GemmSplit sp = gemm_split_for(dtype, bits, dx, M, in_f, out_f, num_sms);
+  if (bits == 4 && dtype == 1) return smft_int4_wgmma_workspace(device, dx, M, in_f, out_f);
+  const GemmSplit sp = gemm_split_for(dtype, dx, M, in_f, out_f, num_sms);
   return sp.ksplit > 1 ? sp.ksplit * M * (dx ? in_f : out_f) : 0;
 }
 
@@ -1131,6 +1155,10 @@ extern "C" int smft_quant_mm(int dtype, int device, int bits, int dx, const void
     }
     return bits == 8 ? dispatch_decode<bf16, 8>(a, w, out, work, M, p, s)
                      : dispatch_decode<bf16, 4>(a, w, out, work, M, p, s);
+  }
+  if (bits == 4 && dtype == 1) {
+    return smft_int4_wgmma(device, dx, a, codes, scales, out, work, M, in_f, out_f, group,
+                           stream);
   }
   if (bits == 8) {
     return dx ? launch_gemm<8, true>(dtype, a, w, out, work, M, num_sms, s)

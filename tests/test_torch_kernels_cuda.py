@@ -203,12 +203,16 @@ def test_torch_backward_kernels_take_unaligned_rows(cuda_device, dtype):
 # widths that are no multiple of the 128-wide tile (272, 1088), a k tail
 # (dx over out 272), int4 groups of 32 and 60, which are no multiple of the
 # forward's k step, and outputs of few tiles, whose reduction the bf16 tile
-# kernel splits over CTAs: the forward of (512, 256), (1088, 272) with a
-# ragged last slice and (960, 256), the dx of (256, 1024).
+# kernels split over CTAs: the forward of (512, 256), (1088, 272) with a
+# ragged last slice and (960, 256), the dx of (256, 1024).  For the int4
+# wgmma kernel (quant_wgmma.cu): M = 17, its first forward row count; group
+# 8, whose 64-row stages span 8 scale rows; TinyLlama's down_proj at a
+# training micro-batch (h = 2816), both directions.
 QUANT_CASES = [(256, 256, 64, 4), (512, 384, 64, 16), (768, 128, 32, 8), (256, 256, 64, 96),
                (512, 256, 64, 65), (2048, 256, 64, 5), (5632, 2048, 64, 4),
                (2048, 5632, 64, 2047), (1024, 512, 64, 11), (1088, 272, 32, 200),
-               (960, 256, 60, 70), (256, 1024, 64, 70)]
+               (960, 256, 60, 70), (256, 1024, 64, 70), (1024, 384, 64, 17),
+               (768, 272, 8, 33), (5632, 2048, 64, 2048)]
 
 
 def _quant_operands(case, bits, dtype, device):

@@ -183,7 +183,7 @@ def test_torch_build_key_follows_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "CSRC", csrc)
     assert build.build_key() == key
     for name in ("monarch_fwd.cu", "monarch_bwd.cu", "quant_matmul.cu", "more_linear.cu",
-                 "tiled_matmul.cu"):
+                 "tiled_matmul.cu", "quant_wgmma.cu", "hopper.cuh"):
         src = csrc / name
         src.write_text(src.read_text() + "\n// edited\n")
         edited = build.build_key()

@@ -80,11 +80,15 @@ def test_torch_tiled_matmul_tiles_fit_shared_memory():
 
 
 def test_torch_tiled_matmul_source_instantiates_tiles():
-    src = (ROOT / "sparse_matrix_fine_tuning_torch" / "kernels" / "csrc" /
-           "tiled_matmul.cu").read_text()
+    csrc = ROOT / "sparse_matrix_fine_tuning_torch" / "kernels" / "csrc"
+    src = (csrc / "tiled_matmul.cu").read_text()
     found = [tuple(map(int, t)) for t in re.findall(r"launch<(\d+), (\d+), (\d+)>", src)]
     assert sorted(found) == sorted(tm.TILES)
-    assert "wgmma.mma_async" in src and "cp.async.bulk.tensor.2d" in src
+    # the TMA loads and the wgmma MMAs, through the shared Hopper helpers
+    helpers = (csrc / "hopper.cuh").read_text()
+    assert '#include "hopper.cuh"' in src
+    assert "tma_load_2d(" in src and "wgmma_m64n128k16<1>(" in src and "wgmma_m64n256k16<1>(" in src
+    assert "wgmma.mma_async" in helpers and "cp.async.bulk.tensor.2d" in helpers
 
 
 def test_torch_exp_matmul_tiles_bound():
