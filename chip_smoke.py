@@ -22,16 +22,18 @@ hand-written CUDA kernels, and checks them:
   9. the quantized base: K7/K5 (forward) and K8/K6 (dx) against their plain
      versions at the slice's shapes, timed beside their bound and one
      PyTorch call on the dequantized matrix, and their autograd Functions;
-     K5 above 16 rows and K6 in bf16 run the int4 wgmma kernel
-     (``csrc/quant_wgmma.cu``), whose SASS must hold HGMMA;
+     K5/K7 above 16 rows and K6/K8 in bf16 run the wgmma kernels of
+     ``csrc/quant_wgmma.cu`` (int4 dequantized into B in shared memory,
+     int8 into A in registers), whose four functions' SASS must hold HGMMA;
  10. quantized serving, float32, int8 and int4: prefill logits and greedy
      tokens against a copy whose codes were dequantized and whose adapters
      were merged on the CPU;
  11. quantized serving, bfloat16, timed: int8 unmerged (K7, K2), int8
      requantize-merged with the w8a8 head (K7), int4 unmerged (K5, K2);
  12. quantized training: one float32 step (2 layers) on the card against a
-     CPU copy, int8 and int4; then 22-layer bfloat16 training over an int4
-     base (``run_alpaca --bits 4``), timed and profiled;
+     CPU copy, int8 and int4; then 22-layer bfloat16 training over an int8
+     base (``run_alpaca --bits 8``: K7 and K8 at training rows) and over an
+     int4 base (``--bits 4``), each timed and profiled;
  13. the fused dense + Monarch linear: K9 (forward), K10 (dx) and K11 (the
      factor gradients, K4's kernel) against their plain versions at
      ``bench_more_linear``'s three Llama-7B and micro-bench shapes (bf16)
@@ -61,8 +63,11 @@ Each main path (6, 8 off, 8 on, each configuration of 11, each step of 12,
 the bench of 13, each script of 14, 15 and 16) zeroes the launch counts of
 every kernel just before it and reads them just after.  Any failed check
 exits non-zero.  The line before the last is one JSON object on the
-kernels (K5 at decode and, as ``int4_matmul_tile``, at a training
-micro-batch; K9-K11: ms, plain, library and bound summed over the bench's
+kernels (K5 and K7 at decode and, as ``int4_matmul_tile`` and
+``int8_matmul_tile``, at a training micro-batch, each entry's launches
+those of its own source: the decode entries serving's decode steps, the
+``_tile`` entries serving's prefills and the bf16 training phases'
+forwards; K9-K11: ms, plain, library and bound summed over the bench's
 three shapes; K15, K12 and K13: the best tile's ms at the scripts' shape,
 the tile in ``records.json``; K14 at that shape; K16 the best variant at
 (4, 2048, 5632)); the last is ``{"ok": true, "device": {...}}``.
@@ -140,8 +145,9 @@ KERNELS = {
                     "sparse_matrix_fine_tuning_tpu/kernels/monarch_pallas.py:173"),
     "monarch_dw_fused": ("sparse_matrix_fine_tuning_torch/kernels/csrc/monarch_bwd.cu",
                          "sparse_matrix_fine_tuning_tpu/kernels/monarch_pallas.py:364"),
-    # K5 at decode rows (M <= 16: quant_matmul.cu's decode kernel) and at a
-    # training micro-batch (bf16, M > 16: the wgmma kernel); K6 in bf16
+    # K5 and K7 at decode rows (M <= 16: quant_matmul.cu's decode kernel) and
+    # at a training micro-batch (bf16, M > 16: the wgmma kernel); K6 and K8
+    # in bf16
     "int4_matmul": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_matmul.cu",
                     "sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py:115"),
     "int4_matmul_tile": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_wgmma.cu",
@@ -150,7 +156,9 @@ KERNELS = {
                        "sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py:141"),
     "int8_matmul": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_matmul.cu",
                     "sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py:305"),
-    "int8_matmul_dx": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_matmul.cu",
+    "int8_matmul_tile": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_wgmma.cu",
+                         "sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py:305"),
+    "int8_matmul_dx": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_wgmma.cu",
                        "sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py:312"),
     "more_linear_fwd": ("sparse_matrix_fine_tuning_torch/kernels/csrc/more_linear.cu",
                         "sparse_matrix_fine_tuning_tpu/kernels/experimental/more_linear.py:52"),
@@ -1033,11 +1041,13 @@ def phase_quant_kernels(card: str, lib) -> dict:
     library call on the dequantized matrix (``F.linear(x, W)`` forward,
     ``torch.matmul(dy, W)`` for dx).  Tolerances as ``tolerance``, for the
     output and for dx alike: both sides round each dequantized weight to the
-    working dtype once and sum in fp32, in another order.  K5 in bf16 above
-    16 rows (``int4_matmul_tile`` in the JSON line) and K6 in bf16 run the
-    int4 wgmma kernel, whose SASS must hold HGMMA (``check_hgmma``)."""
+    working dtype once and sum in fp32, in another order.  K5 and K7 in bf16
+    above 16 rows (``int4_matmul_tile`` and ``int8_matmul_tile`` in the JSON
+    line) and K6 and K8 in bf16 run the wgmma kernels, whose four functions
+    (``qwgmma_kernel`` for int4, ``qwgmma_rs_kernel`` for int8, forward and
+    dx) must hold HGMMA in their SASS (``check_hgmma``)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
-    worst = dict.fromkeys((*QUANT_KERNELS, "int4_matmul_tile"), 0.0)
+    worst = dict.fromkeys((*QUANT_KERNELS, "int4_matmul_tile", "int8_matmul_tile"), 0.0)
     per_layer = {(name, m): [] for name in QUANT_KERNELS for m in (4, TRAIN_BS * TRAIN_SEQ)}
     print(_HEADER, flush=True)
     with torch.inference_mode():
@@ -1062,8 +1072,8 @@ def phase_quant_kernels(card: str, lib) -> dict:
                                       plain_ms, call, plain_call, time_ms(library, 20, 3)[0])
                         require(err <= tol and bool(torch.isfinite(got).all()),
                                 f"{name} {proj} M={m_rows} {dtype}: max_abs_err {err} > tol {tol}")
-                        tile = name == "int4_matmul" and dtype == torch.bfloat16 and m_rows > 16
-                        key = "int4_matmul_tile" if tile else name
+                        tile = not dx and dtype == torch.bfloat16 and m_rows > 16
+                        key = name + "_tile" if tile else name
                         worst[key] = max(worst[key], err)
                         if dtype == torch.bfloat16 and (name, m_rows) in per_layer:
                             per_layer[(name, m_rows)].append(rec)
@@ -1072,13 +1082,15 @@ def phase_quant_kernels(card: str, lib) -> dict:
         print(f"[quant-kernels] {card}: {name} per decoder layer (M={m_rows}, bf16, 7 "
               f"projections): {v['ms']:.5f} ms (plain {v['plain_ms']:.5f}, library "
               f"{v['library_ms']:.5f}, bound {v['bound_ms']:.5f} ms, {v['bound_by']})", flush=True)
-    hgmma = check_hgmma(lib, "qwgmma_kernel", 2)
-    print(f"[quant-kernels] {card}: HGMMA in both int4 wgmma kernels ({hgmma})", flush=True)
-    # the JSON line: the forward at decode (serving's shape) and, for K5, at
-    # a training micro-batch; dx at a training micro-batch
+    hgmma = check_hgmma(lib, "qwgmma", 4)
+    print(f"[quant-kernels] {card}: HGMMA in all {hgmma} wgmma kernels (int4 and int8, "
+          f"forward and dx)", flush=True)
+    # the JSON line: the forward at decode (serving's shape) and at a
+    # training micro-batch (``_tile``); dx at a training micro-batch
     main = {name: layer[(name, TRAIN_BS * TRAIN_SEQ if dx else 4)]
             for name, (_, dx) in QUANT_KERNELS.items()}
-    main["int4_matmul_tile"] = layer[("int4_matmul", TRAIN_BS * TRAIN_SEQ)]
+    for name in ("int4_matmul", "int8_matmul"):
+        main[name + "_tile"] = layer[(name, TRAIN_BS * TRAIN_SEQ)]
     return {"worst": worst, "layer": main}
 
 
@@ -1606,7 +1618,10 @@ def phase_quant_bf16(f32: dict, card: str) -> dict:
     alternate with the unquantized bf16 model's, which is timed beside it;
     the counted generate runs alone, last.  Resident and peak memory are the
     configuration's own: measured from what was allocated before its model
-    was built."""
+    was built.  A counted generate launches the forward once an adapted
+    linear for its prefill (BATCH x PROMPT = 256 rows: the wgmma kernel)
+    and once a decode step (BATCH rows: the decode kernel); the returned
+    launches split them so (``int8_matmul_tile``, ``int8_matmul``)."""
     from sparse_matrix_fine_tuning_torch.models.generate import GenerationConfig, generate
 
     base = build_model("bfloat16", f32["state"])
@@ -1699,12 +1714,17 @@ def phase_quant_bf16(f32: dict, card: str) -> dict:
         out[label] = launches
         del model
         torch.cuda.empty_cache()
-    return {"launches": {
-        "int8_matmul": sum(v["int8_matmul"] for v in out.values()),
-        "int4_matmul": sum(v["int4_matmul"] for v in out.values())}}
+    # each counted generate's launches were required exact above: one
+    # prefill (N_ADAPTED) and `steps` decode steps of N_ADAPTED each
+    launches = {}
+    for name in ("int8_matmul", "int4_matmul"):
+        total = sum(v[name] for v in out.values())
+        prefills = N_ADAPTED * sum(1 for v in out.values() if v[name])
+        launches.update({name: total - prefills, name + "_tile": prefills})
+    return {"launches": launches}
 
 
-def phase_quant_train_f32(card: str) -> dict:
+def phase_quant_train_f32(card: str) -> None:
     """One optimizer step (bs 2 x ga 2 x seq 128, full width, 2 layers, f32,
     TF32 off, merged training off) over an int8 and an int4 base, through
     Trainer on the card against a CPU copy on the plain path, with
@@ -1717,40 +1737,41 @@ def phase_quant_train_f32(card: str) -> dict:
     c = F32_TRAIN
     n_adapted = 7 * c["layers"]
     data = train_data(c["bs"] * c["ga"], c["seq"], SEED + 14)
-    out = {}
     for bits in (8, 4):
         model = train_model("float32", c["layers"])
         require(quant.quantize_frozen_base(model, bits=bits) == n_adapted, "quantize missed layers")
         name = f"int{bits}_matmul"
         expect = {name: n_adapted * c["ga"], "monarch_add": n_adapted * c["ga"],
                   "monarch_bwd": n_adapted * c["ga"], name + "_dx": (n_adapted - 3) * c["ga"]}
-        out[bits] = check_step(model, data, "off", expect, f"[quant-train-f32] {card}: int{bits}")
+        check_step(model, data, "off", expect, f"[quant-train-f32] {card}: int{bits}")
         del model
         torch.cuda.empty_cache()
-    return {"launches": {"int8_matmul_dx": out[8]["int8_matmul_dx"]}}
 
 
-def phase_quant_train_bf16(card: str) -> dict:
-    """QLoRA-style training at full size (``run_alpaca.py --bits 4``): the
-    22-layer bf16 model over an int4 base, bs 4 x ga 8 x seq 512, merged
-    training off, 1 warm-up and 3 timed optimizer steps through Trainer,
-    the launch counts zeroed just before the first step and read just after
-    the last (``train_timed``)."""
+def phase_quant_train_bf16(card: str, bits: int) -> dict:
+    """QLoRA-style training at full size (``run_alpaca.py --bits 8`` or
+    ``--bits 4``): the 22-layer bf16 model over an int8 or int4 base, bs 4 x
+    ga 8 x seq 512, merged training off, 1 warm-up and 3 timed optimizer
+    steps through Trainer, the launch counts zeroed just before the first
+    step and read just after the last (``train_timed``).  Launches, exact:
+    the base's forward (K7, K5) and K2 and K3 on every adapted linear each
+    micro-batch, its dx (K8, K6) on all but layer 0's q, k and v, whose
+    input needs no gradient; nothing else."""
     model = train_model("bfloat16", MODEL["num_hidden_layers"])
-    require(quant.quantize_frozen_base(model, bits=4) == N_ADAPTED, "quantize missed layers")
+    require(quant.quantize_frozen_base(model, bits=bits) == N_ADAPTED, "quantize missed layers")
     torch.cuda.empty_cache()
     resident = f"weights and buffers resident {torch.cuda.memory_allocated() / 1e9:.3f} GB, "
-    launches = train_timed(model, "off", f"[quant-train-bf16] {card}: int4 base, merged off",
+    launches = train_timed(model, "off", f"[quant-train-bf16] {card}: int{bits} base, merged off",
                            resident)["launches"]
     micro = TRAIN_GA * TRAIN_STEPS
-    expect = {"int4_matmul": N_ADAPTED * micro, "monarch_add": N_ADAPTED * micro,
-              "monarch_bwd": N_ADAPTED * micro, "int4_matmul_dx": (N_ADAPTED - 3) * micro}
+    name = f"int{bits}_matmul"
+    expect = {name: N_ADAPTED * micro, "monarch_add": N_ADAPTED * micro,
+              "monarch_bwd": N_ADAPTED * micro, name + "_dx": (N_ADAPTED - 3) * micro}
     require(launches == {**dict.fromkeys(launches, 0), **expect},
-            f"int4 training: launches {launches}; expected {expect}")
+            f"int{bits} training: launches {launches}; expected {expect}")
     del model
     torch.cuda.empty_cache()
-    return {"launches": {"int4_matmul": launches["int4_matmul"],
-                         "int4_matmul_dx": launches["int4_matmul_dx"]}}
+    return {"launches": {name: launches[name], name + "_dx": launches[name + "_dx"]}}
 
 
 def main() -> None:
@@ -1783,22 +1804,27 @@ def main() -> None:
     del f32
     lap("bf16 serving")
     phase_train_f32(card)
-    qtrain_f32 = phase_quant_train_f32(card)
+    phase_quant_train_f32(card)
     lap("f32 training")
     training = phase_train_bf16(card)
-    qtraining = phase_quant_train_bf16(card)
+    q8training = phase_quant_train_bf16(card, 8)
+    q4training = phase_quant_train_bf16(card, 4)
     lap("bf16 training")
     launches = {"monarch_kernel": serving["launches"]["monarch_kernel"],
                 "monarch_add": serving["launches"]["monarch_add"],
                 "monarch_bwd": training["launches"]["monarch_bwd"],
                 "monarch_dw_fused": training["launches"]["monarch_dw_fused"],
+                # the forwards by the kernel that ran them: serving's decode
+                # steps (the decode kernel), serving's prefills and the
+                # quantized training steps' micro-batches (the wgmma kernel)
                 "int8_matmul": qserving["launches"]["int8_matmul"],
-                "int8_matmul_dx": qtrain_f32["launches"]["int8_matmul_dx"],
-                "int4_matmul": qserving["launches"]["int4_matmul"]
-                + qtraining["launches"]["int4_matmul"],
-                # the int4 training step's forwards: all at 2048 rows, bf16
-                "int4_matmul_tile": qtraining["launches"]["int4_matmul"],
-                "int4_matmul_dx": qtraining["launches"]["int4_matmul_dx"],
+                "int8_matmul_tile": qserving["launches"]["int8_matmul_tile"]
+                + q8training["launches"]["int8_matmul"],
+                "int8_matmul_dx": q8training["launches"]["int8_matmul_dx"],
+                "int4_matmul": qserving["launches"]["int4_matmul"],
+                "int4_matmul_tile": qserving["launches"]["int4_matmul_tile"]
+                + q4training["launches"]["int4_matmul"],
+                "int4_matmul_dx": q4training["launches"]["int4_matmul_dx"],
                 **more["launches"], **tiles["launches"], **dws["launches"],
                 **variants["launches"]}
     measured = {**fwd["layer"], **bwd["layer"], **qk["layer"], **more["layer"], **tiles["layer"],

@@ -1,6 +1,6 @@
 // PyTorch bindings of the kernels in monarch_fwd.cu, monarch_bwd.cu,
-// quant_matmul.cu (with quant_wgmma.cu, K5's tile path and K6, behind its
-// smft_quant_mm), more_linear.cu and tiled_matmul.cu:
+// quant_matmul.cu (with quant_wgmma.cu, the bf16 tile path of K5-K8, behind
+// its smft_quant_mm), more_linear.cu and tiled_matmul.cu:
 //   torch.ops.smft.monarch_fwd(x, w1, w2)            -> out              (K1)
 //   torch.ops.smft.monarch_fwd_tile(x, w1, w2, rows) -> out              (K12)
 //   torch.ops.smft.monarch_fwd_add(base, x, w1, w2)  -> base + out       (K2)

@@ -16,36 +16,35 @@
 //   dx:       dx[m, j] = round_T( sum_o dy[m, o] * W[j, o] )   (fp32 sums, all of out)
 // T is the dtype of x (float or bf16).  No sum is ever kept in bf16.
 //
-// What bounds them on this card, and what the design does about it:
-//  * Decode (forward, M <= 16 rows): the bytes of the codes.  `qdecode`
-//    streams every code byte once from device memory, with 4-16 byte loads
-//    (a warp reads 4 rows x 32-128 contiguous bytes), keeps x's rows of the
-//    CTA's slice of `in` in shared memory and M x 4-16 fp32 sums in
-//    registers.  `in` is split over CTAs so that k_proj and v_proj (out 256)
-//    still give the card work; each CTA writes fp32 partial sums and
-//    `qsplit_sum` adds them in a fixed order (deterministic; no atomics).
-//    The TPU's sequential grid carried the sum from step to step: here the
-//    split and its second pass take that place.
-//  * Training and prefill (M > 16, and every dx): operations.  Packed int4
-//    with bf16 activations (K5's tile path and K6) runs in quant_wgmma.cu,
-//    a warp-specialised wgmma + TMA kernel that unpacks each code byte once
-//    for both halves; smft_quant_mm dispatches there.  int8 (K7, K8):
-//    `qgemm_pipe` multiplies with mma.sync m16n8k16 (bf16 in, fp32 sums),
-//    a 128 x 128 tile of the output per CTA, two CTAs an SM: x (or dy), the
-//    raw codes and their scale rows are copied to shared memory with
-//    cp.async two k steps ahead, and each step dequantizes its codes into a
-//    bf16 tile in shared memory, from which the warps load their fragments
-//    with ldmatrix.  f32 activations take `qgemm_f32`, a tile kernel with
-//    f32 FMA on the CUDA cores (no TF32).  The reduction runs inside the
-//    CTA, except where the output has fewer tiles than the card has SMs
-//    (k_proj and v_proj, prefill's few rows): there it is split over CTAs
-//    and `qsplit_sum` adds their fp32 partial sums in a fixed order.  Rows
-//    past M (M = 65, 2047) are never loaded.
-//  * The nibbles are unpacked with byte loads, shifts and byte permutes
-//    (a code becomes a float through its bits, with no conversion
-//    instruction).  The TPU kernel's int32-lane unpack, its f32-operand
-//    branch for small batches, its tile pickers and VMEM budgets are TPU
-//    workarounds and are not here.
+// Where each path runs, what bounds it on this card, and what the design
+// does about it (smft_quant_mm dispatches):
+//  * Decode (forward, M <= 16 rows, either dtype, either format): the
+//    bytes of the codes.  `qdecode` here streams every code byte once from
+//    device memory, with 4-16 byte loads (a warp reads 4 rows x 32-128
+//    contiguous bytes), keeps x's rows of the CTA's slice of `in` in shared
+//    memory and M x 4-16 fp32 sums in registers.  `in` is split over CTAs
+//    so that k_proj and v_proj (out 256) still give the card work; each CTA
+//    writes fp32 partial sums and `qsplit_sum` adds them in a fixed order
+//    (deterministic; no atomics).  The TPU's sequential grid carried the
+//    sum from step to step: here the split and its second pass take that
+//    place.
+//  * Training and prefill with bf16 activations (the forward above 16
+//    rows, and every dx; int8 and int4): operations.  quant_wgmma.cu's
+//    warp-specialised wgmma + TMA kernels: int4's dequant warpgroups unpack
+//    each code byte once for both halves into the bf16 B tile beside the
+//    MMAs; int8's consumers build the dequantized weight as wgmma's A
+//    operand in registers (the transposed product, m64n256k16).  Their
+//    split reduction's second pass is smft_split_sum_bf16 here.
+//  * f32 activations (the forward above 16 rows, and every dx): `qgemm_f32`
+//    here, a tile kernel with f32 FMA on the CUDA cores (no TF32), its
+//    reduction split over CTAs where the output has fewer tiles than the
+//    card has SMs (k_proj and v_proj, prefill's few rows) and the fp32
+//    partial sums added by `qsplit_sum` in a fixed order.
+//  * The codes become floats through their bits: the byte or nibble is
+//    placed in 2^23 by a byte permute and the offset subtracted, with no
+//    conversion instruction.  The TPU kernel's int32-lane unpack, its
+//    f32-operand branch for small batches, its tile pickers and VMEM
+//    budgets are TPU workarounds and are not here.
 //
 // K16, the int4 dequantize-arithmetic variants, runs through `qdecode`
 // with its per-cell arithmetic as a template parameter (`Arith`).  It
@@ -471,14 +470,14 @@ qsplit_sum_kernel(const float* __restrict__ partial, T* __restrict__ y, int64_t 
   y[i] = from_f32<T>(s);
 }
 
-// -- tiled product: C (M, N) = A (M, K) @ B (K, N), B dequantized per tile ---
+// -- f32 tiled product: C (M, N) = A (M, K) @ B (K, N), B dequantized per tile
 //
 // forward (kDx false): A = x (M, in), K = in, N = out, B(k, n) = W[k, n];
 // dx (kDx true):      A = dy (M, out), K = out, N = in, B(k, n) = W[n, k].
 // A group is 4 cells of B that lie in 4 contiguous code bytes: along n for
 // the forward, along k for dx.
 
-constexpr int kTile = 128;  // both tile kernels: a 128 x 128 output tile, 8 warps
+constexpr int kTile = 128;  // a 128 x 128 output tile, 8 warps
 
 struct BGroup {
   uint32_t code;
@@ -522,35 +521,9 @@ __device__ __forceinline__ void dequant_group(const BGroup& b, float (&v)[4]) {
     v[e] = (__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + e)) - offset) * s[e];
 }
 
-// Four 8 x 8 bf16 matrices from shared memory, lane l addressing row l % 8
-// of matrix l / 8 (`trans`: each matrix transposed on the way).
-template <bool kTrans>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  if constexpr (kTrans) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(s));
-  } else {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(s));
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The B tile in shared memory, laid out so that a group of 4 cells is one
-// 8-byte (bf16) or 16-byte (f32) store and a warp's stores are contiguous:
-// forward Bs[k][n] (n contiguous), dx Bs[n][k] (k contiguous).  `pad`
-// keeps the fragment loads free of bank conflicts.
+// The B tile in shared memory, laid out so that a warp's stores of its
+// groups of 4 cells are contiguous: forward Bs[k][n] (n contiguous), dx
+// Bs[n][k] (k contiguous).  `pad` keeps the loads free of bank conflicts.
 template <typename T, bool kDx, int BK, int BN, int kPad>
 struct BTile {
   static constexpr int kLd = kDx ? BK + kPad : BN + kPad;
@@ -569,264 +542,13 @@ struct BTile {
   }
 };
 
-// -- bf16: a pipelined tile kernel -------------------------------------------
-//
-// int8 only (int4 with bf16 activations runs in quant_wgmma.cu).  A
-// 128 x 128 output tile, 8 warps as 2 x 4 of 64 x 32, a k step of BK = 64.
-// x (or dy), the raw code bytes
-// and the scale rows a k step needs are copied to shared memory with
-// cp.async, kPipe - 1 steps ahead, so the loads of later steps are in
-// flight while this one computes; each step then dequantizes its raw codes
-// into the bf16 tile Bs (one pass through shared memory), and each warp
-// loads its fragments with ldmatrix and runs BK / 16 x 16 mma.sync.  Two
-// CTAs fit an SM (128 registers and at most 114 KB of shared memory each).
-// A step's cells need at most BK / 8 + 2 scale rows along k (the forward)
-// or 128 / 8 + 2 along n (dx), as a group is at least 8 (quant._fit_group).
-//
-// blockIdx.z selects a slice [z * kchunk, (z + 1) * kchunk) of K, of whole
-// k steps.  With one slice the CTA writes C in bf16; with more it writes its
-// fp32 partial sums to `partial` (z, M, N), and qsplit_sum adds them.
-constexpr int kPipe = 3;
-
-constexpr int kPipeBK = 64;
-
-struct PipeLayout {
-  static constexpr int BK = kPipeBK;
-  static constexpr int kLdA = BK + 8;          // bf16 per row of a stage's A tile
-  static constexpr int kA = kTile * kLdA * 2;  // bytes of a stage's A tile
-  static constexpr int kCodes = BK * kTile;    // bytes of a stage's raw codes
-  static constexpr int kScales =               // floats of a stage's scale rows
-      (BK / 8 + 2) * kTile > 18 * BK ? (BK / 8 + 2) * kTile : 18 * BK;
-  static constexpr int kStage = kA + kCodes + kScales * 4;
-  static constexpr int kSmem = kPipe * kStage + kTile * (BK + 8) * 2;  // and Bs
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <bool kDx>
-__global__ void __launch_bounds__(kThreads, 2)
-qgemm_pipe_kernel(const bf16* __restrict__ A, QuantW w, bf16* __restrict__ C,
-                  float* __restrict__ partial, int64_t M, int64_t N, int64_t K, int64_t kchunk) {
-  using L = PipeLayout;
-  constexpr int BK = L::BK;
-  using Tile = BTile<bf16, kDx, BK, kTile, 8>;
-  extern __shared__ __align__(16) unsigned char pipe_smem[];
-  auto stage_a = [&](int s) { return reinterpret_cast<bf16*>(pipe_smem + s * L::kStage); };
-  auto stage_codes = [&](int s) { return pipe_smem + s * L::kStage + L::kA; };
-  auto stage_scales = [&](int s) {
-    return reinterpret_cast<float*>(pipe_smem + s * L::kStage + L::kA + L::kCodes);
-  };
-  const Tile Bs{reinterpret_cast<bf16*>(pipe_smem + kPipe * L::kStage)};
-  const int t = threadIdx.x;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * kTile;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kTile;
-  const int64_t srow0 = kDx ? scale_row(w, n0) : 0;  // dx: the tile's first scale row
-
-  auto issue = [&](int s, int64_t k0) {
-    bf16* as = stage_a(s);
-#pragma unroll
-    for (int i = 0; i < BK / 16; ++i) {  // A: 128 rows x BK / 8 chunks of 8 bf16
-      const int c = t + i * kThreads;
-      const int row = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const bool ok = m0 + row < M && k0 + kc < K;
-      cp_async16(as + row * L::kLdA + kc, ok ? A + (m0 + row) * K + k0 + kc : A, ok);
-    }
-    uint8_t* raw = stage_codes(s);
-    float* sc = stage_scales(s);
-    if constexpr (kDx) {
-      // codes: 128 rows j x BK bytes o; scales: up to 18 rows x BK floats
-#pragma unroll
-      for (int i = 0; i < BK / 32; ++i) {
-        const int c = t + i * kThreads;
-        const int n = c / (BK / 16), kc = (c % (BK / 16)) * 16;
-        const int64_t j = n0 + n, o = k0 + kc;
-        const bool ok = j < w.in && o < w.out;
-        cp_async16(raw + n * BK + kc, ok ? w.codes + code_row(w, j) * w.out + o : w.codes, ok);
-      }
-      const int64_t last = scale_row(w, n0 + kTile - 1 < w.in ? n0 + kTile - 1 : w.in - 1);
-      for (int c = t; c < (last - srow0 + 1) * (BK / 4); c += kThreads) {
-        const int rr = c / (BK / 4), oc = (c % (BK / 4)) * 4;
-        const bool sok = k0 + oc < w.out;
-        cp_async16(sc + rr * BK + oc,
-                   sok ? w.scales + (srow0 + rr) * w.out + k0 + oc : w.scales, sok);
-      }
-    } else {
-      // codes: BK rows j x 128 bytes o; scales: the rows of this k step,
-      // at most BK / 8 + 2 of 128 floats
-#pragma unroll
-      for (int i = 0; i < BK / 32; ++i) {
-        const int c = t + i * kThreads;
-        const int r = c / 8, nc = (c % 8) * 16;
-        const int64_t j = k0 + r, o = n0 + nc;
-        const bool ok = j < w.in && o < w.out;
-        cp_async16(raw + r * kTile + nc, ok ? w.codes + code_row(w, j) * w.out + o : w.codes,
-                   ok);
-      }
-      const int64_t first = scale_row(w, k0 < w.in ? k0 : w.in - 1);
-      const int64_t last = scale_row(w, k0 + BK - 1 < w.in ? k0 + BK - 1 : w.in - 1);
-      for (int c = t; c < (last - first + 1) * (kTile / 4); c += kThreads) {
-        const int rr = c / (kTile / 4), oc = (c % (kTile / 4)) * 4;
-        const bool sok = n0 + oc < w.out;
-        cp_async16(sc + rr * kTile + oc,
-                   sok ? w.scales + (first + rr) * w.out + n0 + oc : w.scales, sok);
-      }
-    }
-  };
-
-  const int warp = t / 32, lane = t % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int g = lane / 4, q = lane % 4;
-  const int mat = lane / 8, rim = lane % 8;  // the ldmatrix row this lane addresses
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  // dx: a thread's groups lie on the same BK / 8 rows n in every step; the
-  // offsets of their scale rows from srow0 (at most 17), a byte each
-  uint32_t dx_srow[BK / 32] = {};
-  if constexpr (kDx) {
-#pragma unroll
-    for (int i = 0; i < BK / 8; ++i) {
-      const int64_t j = n0 + (t + i * kThreads) / (BK / 4);
-      dx_srow[i / 4] |= static_cast<uint32_t>(scale_row(w, j < w.in ? j : w.in - 1) - srow0)
-                        << (8 * (i % 4));
-    }
-  }
-
-  const int64_t kbeg = static_cast<int64_t>(blockIdx.z) * kchunk;
-  const int64_t klen = K - kbeg < kchunk ? K - kbeg : kchunk;
-  const int64_t steps = (klen + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < kPipe - 1; ++s) {
-    if (s < steps) issue(s, kbeg + s * BK);
-    cp_async_commit();
-  }
-  for (int64_t kt = 0; kt < steps; ++kt) {
-    cp_async_wait<kPipe - 2>();
-    __syncthreads();  // step kt has landed; every warp is done with step kt - 1
-    if (kt + kPipe - 1 < steps) issue((kt + kPipe - 1) % kPipe, kbeg + (kt + kPipe - 1) * BK);
-    cp_async_commit();
-    const int s = static_cast<int>(kt % kPipe);
-    const int64_t k0 = kbeg + kt * BK;
-    const uint8_t* raw = stage_codes(s);
-    const float* sc = stage_scales(s);
-    const int group = static_cast<int>(w.group);
-    const int k0_in_group = kDx ? 0 : static_cast<int>(k0) % group;
-    // forward: a thread's groups share the columns n = (t % 32) * 4, and
-    // when the group is a multiple of BK the step's k share one scale row
-    const bool one_row = !kDx && group % BK == 0;
-    float4 s_step = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (one_row) s_step = *reinterpret_cast<const float4*>(sc + (t % 32) * 4);
-#pragma unroll
-    for (int i = 0; i < BK / 8; ++i) {  // dequantize: 32 * BK groups of 4 cells
-      const int grp = t + i * kThreads;
-      BGroup b{};
-      int64_t j;
-      if constexpr (kDx) {
-        const int n = grp / (BK / 4), k = (grp % (BK / 4)) * 4;
-        j = n0 + n;
-        b.code = *reinterpret_cast<const uint32_t*>(raw + n * BK + k);
-        const uint32_t rr = (dx_srow[i / 4] >> (8 * (i % 4))) & 0xffu;
-        b.s = *reinterpret_cast<const float4*>(sc + rr * BK + k);
-      } else {
-        const int k = grp / 32, n = (grp % 32) * 4;
-        j = k0 + k;
-        b.code = *reinterpret_cast<const uint32_t*>(raw + k * kTile + n);
-        if (one_row) {
-          b.s = s_step;
-        } else {
-          // the scale row of j from the step's first, without a division:
-          // at most (BK - 1) / 8 + 1 subtractions; rows past `in` (A is 0
-          // there) read row 0, which is loaded and finite
-          int rr = 0;
-          if (j < w.in) {
-            for (int x = k0_in_group + k; x >= group; x -= group) ++rr;
-          }
-          b.s = *reinterpret_cast<const float4*>(sc + rr * kTile + n);
-        }
-      }
-      float v[4];
-      dequant_group<8>(b, v);
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-      uint2 packed;
-      packed.x = *reinterpret_cast<const uint32_t*>(&lo);
-      packed.y = *reinterpret_cast<const uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(Bs.group(grp)) = packed;
-    }
-    __syncthreads();
-    const bf16* as = stage_a(s);
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      // A: matrices (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
-      // of each 16 x 16 block; B: (k 0-7, k 8-15) of two 8-column blocks
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldsm_x4<false>(a[mi], as + (wm * 64 + mi * 16 + (mat % 2) * 8 + rim) * L::kLdA + ks +
-                                  (mat / 2) * 8);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r[4];
-        const int c = wn * 32 + (np * 2 + mat / 2) * 8;
-        if constexpr (kDx) {
-          ldsm_x4<false>(r, Bs.at(ks + (mat % 2) * 8, c + rim));  // Bs[n][k]: rows n
-        } else {
-          ldsm_x4<true>(r, Bs.at(ks + (mat % 2) * 8 + rim, c));  // Bs[k][n]: rows k
-        }
-        b[2 * np][0] = r[0];
-        b[2 * np][1] = r[1];
-        b[2 * np + 1][0] = r[2];
-        b[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int64_t col = n0 + wn * 32 + ni * 8 + 2 * q;  // even; N is even
-      if (col >= N) continue;
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int64_t row = m0 + wm * 64 + mi * 16 + g + 8 * hr;
-        if (row >= M) continue;
-        const float v0 = acc[mi][ni][2 * hr], v1 = acc[mi][ni][2 * hr + 1];
-        if (gridDim.z == 1) {
-          *reinterpret_cast<__nv_bfloat162*>(C + row * N + col) = __floats2bfloat162_rn(v0, v1);
-        } else {
-          *reinterpret_cast<float2*>(partial + (blockIdx.z * M + row) * N + col) =
-              make_float2(v0, v1);
-        }
-      }
-    }
-}
-
 // f32: 16 x 16 threads, each an 8 x 8 micro tile (rows ty + 16 i, columns
 // tx + 16 j).  A's shared rows are padded to 17 floats and dx's B rows too,
 // so that the 16 distinct rows a warp reads fall in 16 banks; the
 // forward's B rows (n contiguous) need no pad.  blockIdx.z selects a slice
-// of K as in qgemm_pipe.
+// [z * kchunk, (z + 1) * kchunk) of K, of whole k steps: with one slice the
+// CTA writes C, with more its fp32 partial sums to `partial` (z, M, N),
+// which qsplit_sum adds.
 constexpr int kF32BK = 16;
 
 template <int kBits, bool kDx>
@@ -991,14 +713,15 @@ cudaError_t dispatch_decode(const void* x, const QuantW& w, void* y, float* work
   return launch_decode<T, kBits, 16, 4>(x, w, y, work, M, p, stream);
 }
 
-// The tile kernels' split of K: none where the output has at least as many
-// 128 x 128 tiles as the card has SMs; else slices of whole k steps, each at
-// least 256 long, for about two CTAs an SM.
+// The f32 tile kernel's split of K: none where the output has at least as
+// many 128 x 128 tiles as the card has SMs; else slices of whole k steps,
+// each at least 256 long, for about two CTAs an SM.
 struct GemmSplit {
   int64_t ksplit, kchunk;
 };
 
-GemmSplit gemm_split(int64_t M, int64_t N, int64_t K, int bk, int num_sms) {
+GemmSplit gemm_split(int dx, int64_t M, int64_t in_f, int64_t out_f, int num_sms) {
+  const int64_t K = dx ? out_f : in_f, N = dx ? in_f : out_f;
   const int64_t tiles = cdiv(M, kTile) * cdiv(N, kTile);
   int64_t ks = 1;
   if (tiles < num_sms) {
@@ -1006,51 +729,27 @@ GemmSplit gemm_split(int64_t M, int64_t N, int64_t K, int bk, int num_sms) {
     if (ks > K / 256) ks = K / 256;
     if (ks < 1) ks = 1;
   }
-  const int64_t chunk = cdiv(cdiv(K, ks), bk) * bk;
+  const int64_t chunk = cdiv(cdiv(K, ks), kF32BK) * kF32BK;
   return {cdiv(K, chunk), chunk};
 }
 
-GemmSplit gemm_split_for(int dtype, int dx, int64_t M, int64_t in_f, int64_t out_f,
-                         int num_sms) {
-  const int bk = dtype == 0 ? kF32BK : kPipeBK;
-  return dx ? gemm_split(M, in_f, out_f, bk, num_sms) : gemm_split(M, out_f, in_f, bk, num_sms);
-}
-
 template <int kBits, bool kDx>
-cudaError_t launch_gemm(int dtype, const void* a, const QuantW& w, void* out, float* work,
-                        int64_t M, int num_sms, cudaStream_t stream) {
+cudaError_t launch_gemm_f32(const void* a, const QuantW& w, void* out, float* work, int64_t M,
+                            int num_sms, cudaStream_t stream) {
   const int64_t K = kDx ? w.out : w.in;
   const int64_t N = kDx ? w.in : w.out;
   const int64_t row_tiles = cdiv(M, kTile);
   if (row_tiles > 65535) return cudaErrorInvalidValue;
-  const GemmSplit sp = gemm_split(M, N, K, dtype == 0 ? kF32BK : kPipeBK, num_sms);
+  const GemmSplit sp = gemm_split(kDx, M, w.in, w.out, num_sms);
   const dim3 grid(static_cast<unsigned>(cdiv(N, kTile)), static_cast<unsigned>(row_tiles),
                   static_cast<unsigned>(sp.ksplit));
-  cudaError_t err;
-  if (dtype == 0) {
-    qgemm_f32_kernel<kBits, kDx><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(a), w, static_cast<float*>(out), work, M, N, K, sp.kchunk);
-  } else if constexpr (kBits == 8) {
-    auto kernel = qgemm_pipe_kernel<kDx>;
-    constexpr int smem = PipeLayout::kSmem;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, stream>>>(static_cast<const bf16*>(a), w,
-                                             static_cast<bf16*>(out), work, M, N, K, sp.kchunk);
-  } else {
-    return cudaErrorInvalidValue;  // int4 with bf16 activations: quant_wgmma.cu
-  }
-  err = cudaGetLastError();
+  qgemm_f32_kernel<kBits, kDx><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(a), w, static_cast<float*>(out), work, M, N, K, sp.kchunk);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || sp.ksplit == 1) return err;
   const int64_t total = M * N;
-  const unsigned blocks = static_cast<unsigned>(cdiv(total, kThreads));
-  if (dtype == 0) {
-    qsplit_sum_kernel<float><<<blocks, kThreads, 0, stream>>>(work, static_cast<float*>(out),
-                                                             total, static_cast<int>(sp.ksplit));
-  } else {
-    qsplit_sum_kernel<bf16><<<blocks, kThreads, 0, stream>>>(work, static_cast<bf16*>(out),
-                                                            total, static_cast<int>(sp.ksplit));
-  }
+  qsplit_sum_kernel<float><<<static_cast<unsigned>(cdiv(total, kThreads)), kThreads, 0, stream>>>(
+      work, static_cast<float*>(out), total, static_cast<int>(sp.ksplit));
   return cudaGetLastError();
 }
 
@@ -1103,12 +802,12 @@ extern "C" int smft_split_sum_bf16(const float* partial, void* y, int64_t total,
   return cudaGetLastError();
 }
 
-// quant_wgmma.cu: K5's tile path and K6 (int4, bf16 activations).
-extern "C" int64_t smft_int4_wgmma_workspace(int device, int dx, int64_t M, int64_t in_f,
-                                             int64_t out_f);
-extern "C" int smft_int4_wgmma(int device, int dx, const void* a, const void* codes,
-                               const float* scales, void* out, float* work, int64_t M,
-                               int64_t in_f, int64_t out_f, int group, void* stream);
+// quant_wgmma.cu: the bf16 tile path, K5 and K7 above 16 rows, K6 and K8.
+extern "C" int64_t smft_quant_wgmma_workspace(int bits, int device, int dx, int64_t M,
+                                              int64_t in_f, int64_t out_f);
+extern "C" int smft_quant_wgmma(int bits, int device, int dx, const void* a, const void* codes,
+                                const float* scales, void* out, float* work, int64_t M,
+                                int64_t in_f, int64_t out_f, int group, void* stream);
 
 // fp32 scratch the call needs (the partial sums of a split reduction), in
 // floats; -1 when the device's SM count cannot be read.
@@ -1122,8 +821,8 @@ extern "C" int64_t smft_quant_mm_workspace(int dtype, int device, int bits, int 
     const DecodePlan p = decode_plan(bits, M, in_f, out_f, num_sms);
     return p.ksplit > 1 ? static_cast<int64_t>(p.ksplit) * M * out_f : 0;
   }
-  if (bits == 4 && dtype == 1) return smft_int4_wgmma_workspace(device, dx, M, in_f, out_f);
-  const GemmSplit sp = gemm_split_for(dtype, dx, M, in_f, out_f, num_sms);
+  if (dtype == 1) return smft_quant_wgmma_workspace(bits, device, dx, M, in_f, out_f);
+  const GemmSplit sp = gemm_split(dx, M, in_f, out_f, num_sms);
   return sp.ksplit > 1 ? sp.ksplit * M * (dx ? in_f : out_f) : 0;
 }
 
@@ -1156,16 +855,16 @@ extern "C" int smft_quant_mm(int dtype, int device, int bits, int dx, const void
     return bits == 8 ? dispatch_decode<bf16, 8>(a, w, out, work, M, p, s)
                      : dispatch_decode<bf16, 4>(a, w, out, work, M, p, s);
   }
-  if (bits == 4 && dtype == 1) {
-    return smft_int4_wgmma(device, dx, a, codes, scales, out, work, M, in_f, out_f, group,
-                           stream);
+  if (dtype == 1) {
+    return smft_quant_wgmma(bits, device, dx, a, codes, scales, out, work, M, in_f, out_f,
+                            w.group, stream);
   }
   if (bits == 8) {
-    return dx ? launch_gemm<8, true>(dtype, a, w, out, work, M, num_sms, s)
-              : launch_gemm<8, false>(dtype, a, w, out, work, M, num_sms, s);
+    return dx ? launch_gemm_f32<8, true>(a, w, out, work, M, num_sms, s)
+              : launch_gemm_f32<8, false>(a, w, out, work, M, num_sms, s);
   }
-  return dx ? launch_gemm<4, true>(dtype, a, w, out, work, M, num_sms, s)
-            : launch_gemm<4, false>(dtype, a, w, out, work, M, num_sms, s);
+  return dx ? launch_gemm_f32<4, true>(a, w, out, work, M, num_sms, s)
+            : launch_gemm_f32<4, false>(a, w, out, work, M, num_sms, s);
 }
 
 // K16.  The plan of a call (mr, cpt, kchunk, ksplit, col_ctas, row blocks)

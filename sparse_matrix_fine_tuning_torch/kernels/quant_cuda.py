@@ -4,9 +4,10 @@
 ``int8_matmul`` and ``int4_matmul`` launch the hand-written CUDA kernels of
 ``csrc/quant_matmul.cu``: the forward (K7 for int8, K5 for int4) and, as
 the autograd backward, the input gradient (K8, K6).  With bfloat16
-activations, K6 and K5 above 16 rows run in ``csrc/quant_wgmma.cu`` (a
-warp-specialised wgmma + TMA kernel that unpacks each code byte once for
-both halves); K5's decode rows, float32 activations and int8 stay in
+activations, the dx kernels and the forwards above 16 rows run in
+``csrc/quant_wgmma.cu``'s warp-specialised wgmma + TMA kernels (int4
+unpacked once for both halves into B in shared memory, int8 into wgmma's A
+operand in registers); the decode rows and float32 activations stay in
 ``quant_matmul.cu``.  They replace
 ``int8_matmul`` and ``int4_matmul`` of
 ``sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py`` and take CUDA

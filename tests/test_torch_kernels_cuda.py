@@ -207,12 +207,20 @@ def test_torch_backward_kernels_take_unaligned_rows(cuda_device, dtype):
 # ragged last slice and (960, 256), the dx of (256, 1024).  For the int4
 # wgmma kernel (quant_wgmma.cu): M = 17, its first forward row count; group
 # 8, whose 64-row stages span 8 scale rows; TinyLlama's down_proj at a
-# training micro-batch (h = 2816), both directions.
+# training micro-batch (h = 2816), both directions.  For its int8 format:
+# in 1088, no multiple of the 128-code-row stage, at M = 17 and 129 (one
+# row past a row tile); k_proj's out 256 at a training micro-batch (the
+# forward's split reduction).
 QUANT_CASES = [(256, 256, 64, 4), (512, 384, 64, 16), (768, 128, 32, 8), (256, 256, 64, 96),
                (512, 256, 64, 65), (2048, 256, 64, 5), (5632, 2048, 64, 4),
                (2048, 5632, 64, 2047), (1024, 512, 64, 11), (1088, 272, 32, 200),
                (960, 256, 60, 70), (256, 1024, 64, 70), (1024, 384, 64, 17),
-               (768, 272, 8, 33), (5632, 2048, 64, 2048)]
+               (768, 272, 8, 33), (5632, 2048, 64, 2048), (1088, 384, 32, 17),
+               (1088, 272, 32, 129), (2048, 256, 64, 2048)]
+# W seen whole through x = I and dy = I: (in, out, group); in 1088 is no
+# multiple of int8's 128-code-row stage nor int4's 64, out 272 of the
+# 128-column tile
+IDENTITY_CASE = (1088, 272, 32)
 
 
 def _quant_operands(case, bits, dtype, device):
@@ -226,6 +234,34 @@ def _quant_operands(case, bits, dtype, device):
     dy = rng.standard_normal((rows, out_f)).astype(np.float32)
     return ([torch.tensor(a).to(device) for a in (codes, scales)]
             + [torch.tensor(a).to(device=device, dtype=dtype) for a in (x, dy)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_torch_quant_kernels_show_w_whole_on_card(cuda_device, bits):
+    """Before any random case: with x = I the bf16 forward is W itself, and
+    with dy = I dx is W^T, bit for bit (one product a sum, exact in fp32),
+    so a wrong layout, descriptor or mask in the wgmma kernel shows as a
+    wrong cell rather than as a larger error."""
+    from sparse_matrix_fine_tuning_torch.kernels import quant_cuda as qc
+
+    n_in, n_out, group = IDENTITY_CASE
+    codes, scales, _, _ = _quant_operands((n_in, n_out, group, 1), bits, torch.bfloat16,
+                                          cuda_device)
+    if bits == 8:
+        w = qc.dequant_int8_t(codes, scales, torch.bfloat16)
+        fwd, dx = qc.int8_matmul, qc.int8_matmul_dx
+        extra = ()
+    else:
+        w = torch.cat(qc.dequant_int4_t(codes, scales, group, torch.bfloat16))
+        fwd, dx = qc.int4_matmul, qc.int4_matmul_dx
+        extra = (group,)
+    with torch.no_grad():
+        y = fwd(torch.eye(n_in, device=cuda_device, dtype=torch.bfloat16), codes, scales, *extra)
+        g = dx(torch.eye(n_out, device=cuda_device, dtype=torch.bfloat16), codes, scales, *extra)
+    torch.cuda.synchronize()
+    assert torch.equal(y, w)
+    assert torch.equal(g, w.T)
 
 
 @pytest.mark.cuda

@@ -45,3 +45,59 @@ def test_torch_probe_int4_wgmma_trace_medians():
     assert probe.trace_medians(t, ctas, steps) == {
         "period": 1000, "mma": 250, "dequant work": 450, "dequant waits codes": 500,
         "dequant waits B": 50, "consumers wait x": 250, "consumers wait B": 500}
+
+
+RS_STAMPS = [f"TR({e}, kt)" for e in (0, 1, 2, 3, 5)] + [
+    "TR(4, done / 4 - 1)", "TR(10, 0)", "TR(11, 0)"]
+
+
+@pytest.mark.parametrize("variant", probe.INT8_VARIANTS)
+def test_torch_probe_int4_wgmma_int8_patches_apply(variant):
+    src = probe.patched_source(variant, bits=8)
+    assert (probe._RS_BUILD in src) == (variant not in ("no_build", "loads_only"))
+    assert (probe._RS_MMA in src) == (variant not in ("no_mma", "loads_only"))
+    assert (probe._RS_LOAD_AHEAD in src) == (variant != "scales_late")
+    assert (probe._RS_LOAD_LATE in src) == (variant == "scales_late")
+    if variant == "trace":
+        assert all(src.count(stamp) == 1 for stamp in RS_STAMPS)
+        assert src.count("TR(") == len(RS_STAMPS) + 1  # and the macro's definition
+    else:
+        assert "TR(" not in src
+    group, bufs = probe.SCHEDULES.get(variant, (None, None))
+    forward = src[src.index("struct RsSchedule<false>"):src.index("struct RsSchedule<true>")]
+    dx = src[src.index("struct RsSchedule<true>"):src.index("struct RsParams")]
+    assert (f"kGroup = {group or 1}, kBufs = {bufs or 4}") in forward
+    assert (f"kGroup = {group or 4}, kBufs = {bufs or 1}") in dx
+    if variant == "base":
+        assert src == probe.SOURCE.read_text()
+
+
+def test_torch_probe_int4_wgmma_refuses_a_variant_of_the_other_mode():
+    with pytest.raises(ValueError):
+        probe.patched_source("no_build")  # int8 only
+    with pytest.raises(ValueError):
+        probe.patched_source("no_dequant", bits=8)  # int4 only
+
+
+def test_torch_probe_int4_wgmma_rs_trace_medians():
+    # every stage k of every CTA: the producer waits for a slot from 1000 k
+    # to + 30 and has issued it at + 40; the consumers wait for it from
+    # + 100 to + 160 and release it at + 900
+    ctas, steps = 3, 6
+    t = np.zeros((4, probe.TRACE_EVENTS, probe.TRACE_STAGES), dtype=np.uint64)
+    for ev, off in ((0, 0), (5, 30), (1, 40), (2, 100), (3, 160), (4, 900)):
+        t[:ctas, ev, :steps] = 1000 * np.arange(steps, dtype=np.uint64) + off
+    assert probe.rs_trace_medians(t, ctas, steps) == {
+        "period": 1000, "consumers wait stage": 60, "producer waits slot": 30,
+        "issue to use": 120}
+
+
+def test_torch_probe_int4_wgmma_stage_counts():
+    # int4: gate_proj's forward 16 stages of 64 code rows over 44 x 16
+    # tiles, dx 44 stages of 128 columns of out over 16 x 16; int8: k = 64 a
+    # stage over 256-token tiles, gate dx's 88 stages cut to the trace's 64
+    assert probe.stage_counts(4, 0, 2048, 5632) == (16, 44 * 16)
+    assert probe.stage_counts(4, 1, 2048, 5632) == (44, 16 * 16)
+    assert probe.stage_counts(8, 0, 2048, 5632) == (32, 44 * 8)
+    assert probe.stage_counts(8, 1, 2048, 5632) == (64, 16 * 8)
+    assert probe.stage_counts(8, 0, 5632, 2048) == (64, 16 * 8)
