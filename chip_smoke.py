@@ -25,11 +25,17 @@ hand-written CUDA kernels, and checks them:
      K5/K7 above 16 rows and K6/K8 in bf16 run the wgmma kernels of
      ``csrc/quant_wgmma.cu`` (int4 dequantized into B in shared memory,
      int8 into A in registers), whose four functions' SASS must hold HGMMA;
+     K5/K7 at decode rows (``csrc/quant_matmul.cu``'s ``qgemv_kernel``, one
+     launch a call) also timed cold, over weight sets past L2, beside
+     ``F.linear`` cold and the launch floor, with each projection's plan and
+     the registers of each instantiation (no local memory, two CTAs an SM);
  10. quantized serving, float32, int8 and int4: prefill logits and greedy
      tokens against a copy whose codes were dequantized and whose adapters
      were merged on the CPU;
  11. quantized serving, bfloat16, timed: int8 unmerged (K7, K2), int8
      requantize-merged with the w8a8 head (K7), int4 unmerged (K5, K2);
+     each decode step's profile launches ``qgemv_kernel`` once an adapted
+     linear and ``qsplit_sum`` never;
  12. quantized training: one float32 step (2 layers) on the card against a
      CPU copy, int8 and int4; then 22-layer bfloat16 training over an int8
      base (``run_alpaca --bits 8``: K7 and K8 at training rows) and over an
@@ -52,8 +58,9 @@ hand-written CUDA kernels, and checks them:
      for bit, then the ports of ``scripts/exp_dw_kernel.py`` and
      ``scripts/exp_merged_v3.py`` at 2664 x 4096 -> 4096 (each variant
      checked, then timed);
- 16. the int4 dequant-arithmetic variants: K16 (K5's decode kernel with
-     its per-cell arithmetic a parameter) in all seven variants against
+ 16. the int4 dequant-arithmetic variants: K16 (K5's decode kernel
+     ``qgemv_kernel`` with its per-cell arithmetic a parameter) in all
+     seven variants against
      their plain versions at ragged shapes, f32mul bit for bit K5 at
      decode rows, then the port of ``scripts/exp_int4_dequant_variants.py``
      at its four shapes (each variant checked against its plain version
@@ -181,6 +188,9 @@ KERNELS = {
 QUANT_KERNELS = {"int8_matmul": (8, False), "int8_matmul_dx": (8, True),
                  "int4_matmul": (4, False), "int4_matmul_dx": (4, True)}
 QUANT_GROUP = 64  # quantize_frozen_base's default group
+# K5/K7 at decode rows timed cold: each projection's calls rotate over
+# weight sets of more than this many bytes, twice the 50 MB L2
+DECODE_ROTATE_BYTES = 100e6
 # Prefill logits cosine, quantized bf16 model against the unquantized bf16
 # one, on this random 22-layer model, which passes the weights' rounding
 # noise on undamped.  int8 (per-column absmax, a step of 1/127 of the
@@ -675,9 +685,11 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def device_busy_ms(fn, calls: int, label: str):
+def device_busy_ms(fn, calls: int, label: str, kernels: dict | None = None):
     """Device time per call of ``fn`` from torch.profiler (None when the
-    profiler sees no device time), and the top kernels by device time."""
+    profiler sees no device time), and the top kernels by device time;
+    ``kernels``, where given, receives each device kernel's launches a call
+    by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -692,6 +704,9 @@ def device_busy_ms(fn, calls: int, label: str):
         dev_us = getattr(ev, "self_device_time_total", 0) or 0
         if dev_us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
             rows.append((dev_us / 1e3, ev.count, ev.key))
+    if kernels is not None:
+        for _, count, key in rows:
+            kernels[key] = kernels.get(key, 0) + count / calls
     busy_ms = sum(row[0] for row in rows) / calls
     if busy_ms == 0:
         print(f"[profile] {label}: device time not measured (the profiler saw no device time)",
@@ -708,8 +723,9 @@ def device_busy_ms(fn, calls: int, label: str):
 
 
 @torch.inference_mode()
-def profile_decode(model, ids, mask, steps: int = 8):
-    """Device time per decode forward after a prefill, from torch.profiler."""
+def profile_decode(model, ids, mask, steps: int = 8, kernels: dict | None = None):
+    """Device time per decode forward after a prefill, from torch.profiler;
+    ``kernels`` as ``device_busy_ms``'s."""
     from sparse_matrix_fine_tuning_torch.models.generate import _positions_from_mask
     from sparse_matrix_fine_tuning_torch.models.llama import init_caches
 
@@ -727,7 +743,7 @@ def profile_decode(model, ids, mask, steps: int = 8):
                      cache_index=t + i)
 
     step(0)
-    return device_busy_ms(lambda i: step(i + 1), steps, "decode steps")
+    return device_busy_ms(lambda i: step(i + 1), steps, "decode steps", kernels)
 
 
 def phase_bf16(f32: dict, card: str) -> dict:
@@ -1082,6 +1098,7 @@ def phase_quant_kernels(card: str, lib) -> dict:
         print(f"[quant-kernels] {card}: {name} per decoder layer (M={m_rows}, bf16, 7 "
               f"projections): {v['ms']:.5f} ms (plain {v['plain_ms']:.5f}, library "
               f"{v['library_ms']:.5f}, bound {v['bound_ms']:.5f} ms, {v['bound_by']})", flush=True)
+    decode_rows(card, layer)
     hgmma = check_hgmma(lib, "qwgmma", 4)
     print(f"[quant-kernels] {card}: HGMMA in all {hgmma} wgmma kernels (int4 and int8, "
           f"forward and dx)", flush=True)
@@ -1092,6 +1109,69 @@ def phase_quant_kernels(card: str, lib) -> dict:
     for name in ("int4_matmul", "int8_matmul"):
         main[name + "_tile"] = layer[(name, TRAIN_BS * TRAIN_SEQ)]
     return {"worst": worst, "layer": main}
+
+
+def decode_rows(card: str, layer: dict) -> None:
+    """K5 and K7 at M = 4 as a decode step finds them: each projection's
+    timed calls rotate over weight sets of more than ``DECODE_ROTATE_BYTES``
+    (L2 holds none of them, as a step reads each layer's weights once),
+    beside ``F.linear`` on rotating dequantized bf16 weights and the launch
+    floor (an empty kernel at the decode kernel's grid, cluster and shared
+    memory), summed over the seven projections and printed beside the warm
+    numbers of ``layer`` (one weight set); then the plan of each projection
+    and the registers of each K5/K7 instantiation of the decode kernel."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    for bits in (4, 8):
+        name = f"int{bits}_matmul"
+        cold = {"ms": 0.0, "library_ms": 0.0, "floor_ms": 0.0}
+        with torch.inference_mode():
+            for proj, n_in, n_out in PROJECTIONS:
+                codes, scales, _ = _quant_weight(bits, n_in, n_out, g)
+                nbytes = codes.numel() + 4 * scales.numel()
+                sets = [(codes, scales)] + [_quant_weight(bits, n_in, n_out, g)[:2]
+                                            for _ in range(math.ceil(DECODE_ROTATE_BYTES / nbytes))]
+                n_dense = min(len(sets), math.ceil(DECODE_ROTATE_BYTES / (2 * n_in * n_out)) + 1)
+                denses = [(quant.dequantize_int8(c, s) if bits == 8 else
+                           quant.dequantize_int4(c, s, QUANT_GROUP)).to(torch.bfloat16)
+                          for c, s in sets[:n_dense]]
+                x = torch.randn(4, n_in, generator=g, device="cuda").to(torch.bfloat16)
+                kern = (lambda c, s: quant_cuda.int8_matmul(x, c, s)) if bits == 8 else (
+                    lambda c, s: quant_cuda.int4_matmul(x, c, s, QUANT_GROUP))
+                state = {"i": 0}
+
+                def nxt(items):
+                    state["i"] += 1
+                    return items[state["i"] % len(items)]
+
+                ms = time_ms(lambda: kern(*nxt(sets)), 20, 3)[0]
+                lib_ms = time_ms(lambda: torch.nn.functional.linear(x, nxt(denses)), 20, 3)[0]
+                floor_ms = time_ms(lambda: quant_cuda.decode_empty(
+                    bits, torch.bfloat16, 4, n_in, n_out, QUANT_GROUP), 20, 3)[0]
+                plan = quant_cuda.decode_plan(bits, torch.bfloat16, 4, n_in, n_out, QUANT_GROUP)
+                print(f"[decode-rows] {name} {proj:5s} {n_in}->{n_out}: cold {ms:.5f} ms "
+                      f"({len(sets)} weight sets), F.linear cold {lib_ms:.5f} ({len(denses)}), "
+                      f"launch floor {floor_ms:.5f}; plan {plan}", flush=True)
+                RECORDS.append({"kernel": name, "proj": proj, "in": n_in, "out": n_out, "rows": 4,
+                                "cold_ms": ms, "cold_library_ms": lib_ms, "floor_ms": floor_ms,
+                                "weight_sets": len(sets), "plan": plan})
+                cold["ms"] += ms
+                cold["library_ms"] += lib_ms
+                cold["floor_ms"] += floor_ms
+                del sets, denses
+        warm = layer[(name, 4)]
+        print(f"[decode-rows] {card}: {name} per decoder layer (M=4, bf16): warm {warm['ms']:.5f} "
+              f"ms, cold {cold['ms']:.5f}; F.linear warm {warm['library_ms']:.5f}, cold "
+              f"{cold['library_ms']:.5f}; launch floor {cold['floor_ms']:.5f}; bound "
+              f"{warm['bound_ms']:.5f}", flush=True)
+        RECORDS.append({"kernel": name, "layer_rows": 4, "warm": warm, "cold": cold, "card": card})
+    for a in quant_cuda.decode_attrs():
+        if a["arith"] == 0:
+            print(f"[decode-rows] qgemv_kernel int{a['bits']} "
+                  f"{'bf16 (mma)' if a['bf16'] else 'f32 (FMA)'}, {a['rows']} rows a block: "
+                  f"{a['registers']} registers, {a['local_bytes']} bytes local, "
+                  f"{a['ctas_per_sm']} CTAs an SM", flush=True)
+        require(a["local_bytes"] == 0 and a["ctas_per_sm"] >= 2,
+                f"a decode-kernel instantiation spills or runs one CTA an SM: {a}")
 
 
 def phase_quant_autograd(card: str) -> None:
@@ -1687,8 +1767,18 @@ def phase_quant_bf16(f32: dict, card: str) -> dict:
         toks, main_s = timed(lambda: generate(model, ids, mask, gc))
         launches = counts()  # the counted main path ends here
         peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
-        busy_ms = profile_decode(model, fresh_ids(), mask)
+        kernels = {}
+        busy_ms = profile_decode(model, fresh_ids(), mask, kernels=kernels)
         name = f"int{bits}_matmul"
+        if busy_ms is not None:
+            # the decode kernel once an adapted linear a step, one launch a call
+            gemv = sum(n for key, n in kernels.items() if "qgemv_kernel" in key)
+            split = sum(n for key, n in kernels.items() if "qsplit_sum" in key)
+            print(f"[quant-bf16] {label}: a decode step launches qgemv_kernel {gemv:g} times, "
+                  f"qsplit_sum {split:g} times", flush=True)
+            require(gemv == N_ADAPTED and split == 0,
+                    f"{label}: a decode step launched qgemv_kernel {gemv} and qsplit_sum "
+                    f"{split} times; expected {N_ADAPTED} and 0")
         want = N_ADAPTED * (1 + steps)
         expect = {name: want, "monarch_add": 0 if merged else want}
         require(tuple(toks.shape) == (BATCH, PROMPT + NEW), f"{label}: tokens {tuple(toks.shape)}")

@@ -14,8 +14,15 @@
 //   torch.ops.smft.int8_mm(x, q, scales)                 -> y            (K7)
 //   torch.ops.smft.int8_mm_dx(dy, q, scales)             -> dx           (K8)
 //   torch.ops.smft.int4_variant_mm(x, packed, scales, group, arith) -> y  (K16)
-//   torch.ops.smft.int4_variant_plan(M, in, out, arith)
-//       -> (mr, cpt, kchunk, ksplit, col_ctas, row_blocks): K16's plan
+//   torch.ops.smft.quant_decode_plan(bits, bf16, M, in, out, group=64, arith=0) -> int[]
+//       the decode kernel's plan of K5/K7 (arith 0) at M <= 16 rows or K16:
+//       (col_tile, slices, ctas, stages, ctas_per_sm, row_blocks, rows,
+//        slice_rows, chunk_rows, smem, mma)
+//   torch.ops.smft.quant_decode_attrs() -> int[]: 8 values a decode-kernel
+//       instantiation (bits, bf16, arith, rows, registers, local bytes,
+//       CTAs an SM, threads)
+//   torch.ops.smft.quant_decode_empty(bits, bf16, M, in, out, group): the
+//       decode call's launch floor, an empty kernel at its grid
 //   torch.ops.smft.more_linear_fwd(x, dense_w, w1, w2)   -> y            (K9)
 //   torch.ops.smft.more_linear_dx(dout, dense_w, w1, w2) -> dx           (K10)
 //   torch.ops.smft.tiled_matmul(x, w, bm, bn, stages)    -> y            (K15)
@@ -26,7 +33,7 @@
 // The launch's error code is checked here and raised; the kernels run on
 // PyTorch's current stream and allocate nothing: the outputs and the fp32
 // scratch (the backward's row summaries and per-group partial sums, the
-// decode split's partial sums, the fused linear's row summaries) are
+// tile paths' split partial sums, the fused linear's row summaries) are
 // allocated here.
 
 #include <ATen/core/Tensor.h>
@@ -66,13 +73,14 @@ extern "C" int64_t smft_quant_mm_workspace(int dtype, int device, int bits, int 
 extern "C" int smft_quant_mm(int dtype, int device, int bits, int dx, const void* a,
                              const void* codes, const float* scales, void* out, float* work,
                              int64_t M, int64_t in_f, int64_t out_f, int group, void* stream);
-extern "C" int64_t smft_int4_variant_mm_workspace(int device, int arith, int64_t M,
-                                                  int64_t in_f, int64_t out_f);
 extern "C" int smft_int4_variant_mm(int device, int arith, const void* x, const void* codes,
-                                    const float* scales, void* y, float* work, int64_t M,
-                                    int64_t in_f, int64_t out_f, int group, void* stream);
-extern "C" int smft_int4_variant_plan(int device, int arith, int64_t M, int64_t in_f,
-                                      int64_t out_f, int64_t* plan);
+                                    const float* scales, void* y, int64_t M, int64_t in_f,
+                                    int64_t out_f, int group, void* stream);
+extern "C" int smft_quant_decode_plan(int device, int bits, int dtype, int arith, int64_t M,
+                                      int64_t in_f, int64_t out_f, int group, int64_t* plan);
+extern "C" int smft_quant_decode_attrs(int device, int64_t* out, int capacity, int* count);
+extern "C" int smft_quant_decode_empty(int device, int bits, int dtype, int64_t M, int64_t in_f,
+                                       int64_t out_f, int group, void* stream);
 extern "C" int smft_more_linear(int dtype, int device, int dx, const void* a, const void* wd,
                                 const void* w1, const void* w2, void* out, float* work,
                                 int64_t M, int64_t n, int64_t m, int K, int Q, int P, int L,
@@ -301,7 +309,9 @@ at::Tensor run_quant(const at::Tensor& a, const at::Tensor& codes, const at::Ten
   const int64_t work_floats =
       smft_quant_mm_workspace(dtype, device, bits, dx ? 1 : 0, M, in_f, out_f);
   TORCH_CHECK(work_floats >= 0, "quantized matmul: cannot read the device's SM count");
-  at::Tensor work = at::empty({work_floats}, a.options().dtype(at::kFloat));
+  // the decode rows need no scratch: allocate none (a decode step makes 154 calls)
+  at::Tensor work;
+  if (work_floats > 0) work = at::empty({work_floats}, a.options().dtype(at::kFloat));
   const auto stream = c10::cuda::getCurrentCUDAStream(device);
   const int err = smft_quant_mm(
       dtype, device, bits, dx ? 1 : 0, a.data_ptr(),
@@ -347,27 +357,60 @@ at::Tensor int4_variant_mm(const at::Tensor& x, const at::Tensor& packed, const 
   const int64_t M = x.size(0);
   at::Tensor y = at::empty({M, out_f}, x.options());
   const int device = x.get_device();
-  const int64_t work_floats =
-      smft_int4_variant_mm_workspace(device, static_cast<int>(arith), M, in_f, out_f);
-  TORCH_CHECK(work_floats >= 0, "int4_variant_mm: cannot read the device's SM count");
-  at::Tensor work = at::empty({work_floats}, x.options().dtype(at::kFloat));
   const auto stream = c10::cuda::getCurrentCUDAStream(device);
-  const int err = smft_int4_variant_mm(
-      device, static_cast<int>(arith), x.data_ptr(), packed.data_ptr(),
-      scales.data_ptr<float>(), y.data_ptr(), work_floats > 0 ? work.data_ptr<float>() : nullptr,
-      M, in_f, out_f, static_cast<int>(group), static_cast<void*>(stream.stream()));
+  const int err = smft_int4_variant_mm(device, static_cast<int>(arith), x.data_ptr(),
+                                       packed.data_ptr(), scales.data_ptr<float>(), y.data_ptr(),
+                                       M, in_f, out_f, static_cast<int>(group),
+                                       static_cast<void*>(stream.stream()));
   C10_CUDA_CHECK(static_cast<cudaError_t>(err));
   return y;
 }
 
-std::vector<int64_t> int4_variant_plan(int64_t M, int64_t in_f, int64_t out_f, int64_t arith) {
+// The decode kernel's shapes: bits 8 or 4, in % 8 == 0, out % 16 == 0,
+// int4's (in / 2) % group == 0 with group >= 8, as check_quant takes them.
+void check_decode_shape(const char* what, int64_t bits, int64_t M, int64_t in_f, int64_t out_f,
+                        int64_t group) {
+  TORCH_CHECK(bits == 4 || bits == 8, what, ": bits must be 4 or 8, got ", bits);
+  TORCH_CHECK(M > 0 && in_f > 0 && out_f > 0 && in_f % 8 == 0 && out_f % 16 == 0 &&
+                  in_f < INT32_MAX && out_f < INT32_MAX,
+              what, ": needs M > 0, in % 8 == 0 and out % 16 == 0, got M ", M, ", in ", in_f,
+              ", out ", out_f);
+  TORCH_CHECK(bits == 8 || (group >= 8 && (in_f / 2) % group == 0), what,
+              ": int4 needs a group of at least 8 with (in/2) % group == 0, got ", group);
+}
+
+std::vector<int64_t> quant_decode_plan(int64_t bits, bool bf16, int64_t M, int64_t in_f,
+                                       int64_t out_f, int64_t group, int64_t arith) {
   check_arith(arith);
-  TORCH_CHECK(M > 0 && in_f > 0 && out_f > 0, "int4_variant_plan: sizes must be positive");
-  std::vector<int64_t> plan(6);
-  const int err = smft_int4_variant_plan(c10::cuda::current_device(), static_cast<int>(arith), M,
-                                         in_f, out_f, plan.data());
+  check_decode_shape("quant_decode_plan", bits, M, in_f, out_f, group);
+  TORCH_CHECK(arith == 0 || (bits == 4 && bf16), "the int4 variants take int4 and bfloat16");
+  std::vector<int64_t> plan(11);
+  const int err = smft_quant_decode_plan(c10::cuda::current_device(), static_cast<int>(bits),
+                                         bf16 ? 1 : 0, static_cast<int>(arith), M, in_f, out_f,
+                                         static_cast<int>(group), plan.data());
   C10_CUDA_CHECK(static_cast<cudaError_t>(err));
   return plan;
+}
+
+std::vector<int64_t> quant_decode_attrs() {
+  std::vector<int64_t> out(8 * 32);
+  int count = 0;
+  const int err = smft_quant_decode_attrs(c10::cuda::current_device(), out.data(), 32, &count);
+  C10_CUDA_CHECK(static_cast<cudaError_t>(err));
+  TORCH_CHECK(count <= 32, "quant_decode_attrs: more instantiations than room");
+  out.resize(8 * count);
+  return out;
+}
+
+void quant_decode_empty(int64_t bits, bool bf16, int64_t M, int64_t in_f, int64_t out_f,
+                        int64_t group) {
+  check_decode_shape("quant_decode_empty", bits, M, in_f, out_f, group);
+  const int device = c10::cuda::current_device();
+  const auto stream = c10::cuda::getCurrentCUDAStream(device);
+  const int err = smft_quant_decode_empty(device, static_cast<int>(bits), bf16 ? 1 : 0, M, in_f,
+                                          out_f, static_cast<int>(group),
+                                          static_cast<void*>(stream.stream()));
+  C10_CUDA_CHECK(static_cast<cudaError_t>(err));
 }
 
 // K9 (dx false: a = x (M, n) -> y (M, m)) and K10 (dx true: a = dout (M, m)
@@ -471,7 +514,12 @@ TORCH_LIBRARY(smft, m) {
   m.def("int4_mm(Tensor x, Tensor packed, Tensor scales, int group) -> Tensor");
   m.def("int4_mm_dx(Tensor dy, Tensor packed, Tensor scales, int group) -> Tensor");
   m.def("int4_variant_mm(Tensor x, Tensor packed, Tensor scales, int group, int arith) -> Tensor");
-  m.def("int4_variant_plan(int M, int in_f, int out_f, int arith) -> int[]", &int4_variant_plan);
+  m.def("quant_decode_plan(int bits, bool bf16, int M, int in_f, int out_f, int group=64, "
+        "int arith=0) -> int[]",
+        &quant_decode_plan);
+  m.def("quant_decode_attrs() -> int[]", &quant_decode_attrs);
+  m.def("quant_decode_empty(int bits, bool bf16, int M, int in_f, int out_f, int group) -> ()",
+        &quant_decode_empty);
   m.def("more_linear_fwd(Tensor x, Tensor dense_w, Tensor w1, Tensor w2) -> Tensor");
   m.def("more_linear_dx(Tensor dout, Tensor dense_w, Tensor w1, Tensor w2) -> Tensor");
   m.def("tiled_matmul(Tensor x, Tensor w, int bm, int bn, int stages) -> Tensor");

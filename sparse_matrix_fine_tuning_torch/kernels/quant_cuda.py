@@ -7,8 +7,10 @@ the autograd backward, the input gradient (K8, K6).  With bfloat16
 activations, the dx kernels and the forwards above 16 rows run in
 ``csrc/quant_wgmma.cu``'s warp-specialised wgmma + TMA kernels (int4
 unpacked once for both halves into B in shared memory, int8 into wgmma's A
-operand in registers); the decode rows and float32 activations stay in
-``quant_matmul.cu``.  They replace
+operand in registers); the decode rows (M <= 16, one launch of
+``quant_matmul.cu``'s ``qgemv_kernel``: mma.sync on bf16 x, f32 FMA on f32
+x, the split over code rows reduced across a thread block cluster) and
+float32 activations stay in ``quant_matmul.cu``.  They replace
 ``int8_matmul`` and ``int4_matmul`` of
 ``sparse_matrix_fine_tuning_tpu/kernels/quant_matmul.py`` and take CUDA
 tensors only: nothing here moves work to the plain path or to the CPU.
@@ -32,7 +34,7 @@ The codes and scales are frozen: their gradient is None, where the JAX
 package returns structural zeros.
 
 K16 (``int4_variant_matmul``, ``csrc/quant_matmul.cu``'s decode kernel
-with its per-cell arithmetic a template parameter) replaces the Pallas
+``qgemv_kernel`` with its per-cell arithmetic a template parameter) replaces the Pallas
 kernels of ``scripts/exp_int4_dequant_variants.py``: seven arithmetic
 variants (``INT4_VARIANTS``) of the int4 product for bf16 x, with u = the
 nibble, q = u - 8, s = the f32 scale and bf() a rounding to bf16, each
@@ -338,12 +340,51 @@ def int4_variant_matmul(x: torch.Tensor, packed_t: torch.Tensor, scales: torch.T
     return _launch("int4_variant", x, packed_t, scales, int(group), arith)
 
 
+# The decode kernel's plan (csrc/quant_matmul.cu ``smft_quant_decode_plan``):
+# output columns a CTA, slices of the code rows (the CTAs of a cluster),
+# CTAs of the launch, ring slots a warp, CTAs an SM (the occupancy at the
+# plan's shared memory), blocks of rows of x and rows a block, code rows a
+# slice and a chunk of it, shared memory bytes a CTA, and whether the
+# product runs on mma.sync (1) or f32 FMA (0).
+PLAN_FIELDS = ("col_tile", "slices", "ctas", "stages", "ctas_per_sm", "row_blocks", "rows",
+               "slice_rows", "chunk_rows", "smem", "mma")
+# One row of ``decode_attrs`` a decode-kernel instantiation.
+ATTR_FIELDS = ("bits", "bf16", "arith", "rows", "registers", "local_bytes", "ctas_per_sm",
+               "threads")
+
+
+def decode_plan(bits: int, dtype: torch.dtype, m_rows: int, in_f: int, out_f: int,
+                group: int = 64) -> dict:
+    """The launch plan of K5 (``bits`` 4) or K7 (8) at ``m_rows`` <= 16 rows
+    of x in ``dtype`` on the current card (``PLAN_FIELDS``)."""
+    plan = load_ops().quant_decode_plan(int(bits), dtype == torch.bfloat16, int(m_rows),
+                                        int(in_f), int(out_f), int(group), 0)
+    return dict(zip(PLAN_FIELDS, plan))
+
+
+def decode_attrs() -> list[dict]:
+    """Registers, local memory and CTAs an SM (at the most shared memory a
+    CTA takes) of every instantiation of the decode kernel (``ATTR_FIELDS``)."""
+    flat = load_ops().quant_decode_attrs()
+    n = len(ATTR_FIELDS)
+    return [dict(zip(ATTR_FIELDS, flat[i:i + n])) for i in range(0, len(flat), n)]
+
+
+def decode_empty(bits: int, dtype: torch.dtype, m_rows: int, in_f: int, out_f: int,
+                 group: int = 64) -> None:
+    """Launch the decode call's floor: an empty kernel at the grid, cluster,
+    threads and shared memory ``decode_plan`` gives.  Not a kernel of the
+    path: it is not counted in ``LAUNCHES``."""
+    load_ops().quant_decode_empty(int(bits), dtype == torch.bfloat16, int(m_rows), int(in_f),
+                                  int(out_f), int(group))
+
+
 def int4_variant_plan(m_rows: int, in_f: int, out_f: int, variant: str) -> dict:
-    """K16's launch plan on the current card: rows and columns a thread,
-    code rows a CTA (``kchunk``), the split of those rows over CTAs and its
-    second pass (``ksplit``), column CTAs and blocks of rows."""
-    plan = load_ops().int4_variant_plan(int(m_rows), int(in_f), int(out_f), _arith(variant))
-    return dict(zip(("rows", "cols", "kchunk", "ksplit", "col_ctas", "row_blocks"), plan))
+    """K16's launch plan on the current card at group 64 (``PLAN_FIELDS``):
+    the decode kernel's, blocks of ``rows`` rows of x past 16 rows."""
+    plan = load_ops().quant_decode_plan(4, True, int(m_rows), int(in_f), int(out_f), 64,
+                                        _arith(variant))
+    return dict(zip(PLAN_FIELDS, plan))
 
 
 def int4_variant(x: torch.Tensor, packed_t: torch.Tensor, scales: torch.Tensor, group: int,

@@ -4,8 +4,8 @@ the card: ``python -m sparse_matrix_fine_tuning_torch.scripts.exp_int4_dequant_v
 Counterpart of ``scripts/exp_int4_dequant_variants.py``, which asked why
 the TPU's int4 decode kernel (K5) ran far from its roofline by timing
 seven arithmetic variants of its per-cell dequantization.  This one runs
-the same seven (``quant_cuda.INT4_VARIANTS``) through K16, K5's streaming
-decode kernel with its per-cell arithmetic a template parameter, at the
+the same seven (``quant_cuda.INT4_VARIANTS``) through K16, K5's decode kernel
+(``qgemv_kernel``) with its per-cell arithmetic a template parameter, at the
 JAX script's four shapes (``SHAPES``), group ``G``, seed and weight scale.
 For each shape and variant, in order:
 
@@ -22,11 +22,11 @@ the script.  Beside each variant it prints, in device microseconds
 (``utils/benchlib.time_ms``, call microseconds beside them): its share of
 the bound, the raw kernel alone (ucorr and ugdot), the plain version,
 K16's plan; once a shape: K5 (``quant_cuda.int4_matmul``, the production
-path at that M: the decode kernel at M <= 16, the mma.sync tile kernel
+path at that M: the decode kernel at M <= 16, the wgmma tile kernel
 above), ``F.linear(x, W)`` on the dequantized bf16 weight as the library
 line, a read floor of the codes and scales (a float sum of each), and the
-device time of f32mul's (K5's) two kernels, the decode pass and the
-split's second pass, from torch.profiler.
+device time of f32mul's (K5's) kernel from torch.profiler: one launch a
+call, ``qgemv_kernel``, with any other kernel it launched beside it.
 
 The weights of set 0 are the JAX script's (numpy ``default_rng(0)``, normal
 times 0.02, quantized by the port's ``quant.quantize_int4``, which is bit
@@ -61,7 +61,7 @@ WEIGHT_SCALE = 0.02
 ROTATE_BYTES = 100e6  # codes and scales the timed calls rotate over
 ORACLE_RTOL = 0.02  # the JAX script's bound: 0.02 * max(scale, 1)
 REPS, ROUNDS = 20, 5  # calls a timed round; rounds (utils/benchlib.time_ms)
-PROFILED_CALLS = 20  # f32mul calls under the profiler, for K5's split of the time
+PROFILED_CALLS = 20  # f32mul calls under the profiler, for K5's kernel time
 
 
 def weight_bytes(n_in: int, n_out: int, group: int = G) -> int:
@@ -134,12 +134,11 @@ def check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float
     return err
 
 
-def kernel_split(fn, calls: int = PROFILED_CALLS, tries: int = 3) -> tuple[dict, int]:
-    """(device us a call of each kernel ``fn`` launches: the decode pass
-    ``qdecode`` and the split's second pass ``qsplit_sum``, from
-    torch.profiler; the calls made).  A window in which the profiler saw no
-    ``qdecode`` is run again, up to ``tries`` windows; the dict stays empty
-    where none saw one."""
+def kernel_times(fn, calls: int = PROFILED_CALLS, tries: int = 3) -> tuple[dict, int]:
+    """(device us a call of each kernel ``fn`` launches, by name: the decode
+    kernel ``qgemv`` and any other, from torch.profiler; the calls made).  A
+    window in which the profiler saw no ``qgemv`` is run again, up to
+    ``tries`` windows; the dict stays empty where none saw one."""
     from torch.profiler import ProfilerActivity, profile
 
     made = 0
@@ -155,9 +154,9 @@ def kernel_split(fn, calls: int = PROFILED_CALLS, tries: int = 3) -> tuple[dict,
         for ev in prof.key_averages():
             us = getattr(ev, "self_device_time_total", 0) or 0
             if us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
-                name = next((k for k in ("qdecode", "qsplit_sum") if k in ev.key), ev.key[:40])
+                name = "qgemv" if "qgemv" in ev.key else ev.key[:40]
                 out[name] = out.get(name, 0.0) + us / calls
-        if "qdecode" in out:
+        if "qgemv" in out:
             return out, made
     return {}, made
 
@@ -235,12 +234,12 @@ def run(b: int, n_in: int, n_out: int) -> dict:
             plain_ms = timed(
                 lambda p, s: quant_cuda.finish_int4_variant(
                     quant_cuda.int4_variant_reference(x, p, s, G, name), x, s, G, name))[0]
-            if name == "f32mul":  # K5's kernel: the decode pass against the split's sum
-                out["k5_split_us"], made = kernel_split(rotating(
+            if name == "f32mul":  # K5's kernel under the profiler
+                out["k5_kernel_us"], made = kernel_times(rotating(
                     lambda p, s: quant_cuda.int4_variant_matmul(x, p, s, G, name), weights))
                 launches["int4_variant"] += made
                 print("  K5's kernel under the profiler, device us a call: " + (", ".join(
-                    f"{k} {v:.2f}" for k, v in out["k5_split_us"].items()) or "not measured"),
+                    f"{k} {v:.2f}" for k, v in out["k5_kernel_us"].items()) or "not measured"),
                     flush=True)
             out["variants"][name] = {
                 "ms": ms, "call_ms": call, "kernel_ms": kernel_ms, "plain_ms": plain_ms,

@@ -180,8 +180,7 @@ def test_torch_int4_variant_kernel_source_has_every_arithmetic():
     enum = re.search(r"enum Arith : int \{([^}]*)\}", src).group(1)
     values = dict((k.strip(), int(v)) for k, v in re.findall(r"(k\w+) = (\d+)", enum))
     assert sorted(values.values()) == sorted(set(qc._ARITH.values())) == list(range(6))
-    for entry in ("smft_int4_variant_mm", "smft_int4_variant_mm_workspace",
-                  "smft_int4_variant_plan"):
+    for entry in ("smft_int4_variant_mm", "smft_quant_decode_plan"):
         assert f'extern "C" int' in src and entry + "(" in src
     ops = (SOURCE.parent / "ops.cpp").read_text()
     assert "int4_variant_mm(Tensor x, Tensor packed, Tensor scales, int group, int arith)" in ops

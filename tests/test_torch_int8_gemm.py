@@ -1,12 +1,14 @@
 """The plain versions of K7 and K8 (``int8_matmul_reference``,
-``int8_matmul_dx_reference``), which the card holds the int8 format of the
-wgmma kernel (``kernels/csrc/quant_wgmma.cu``) against, held against the
-JAX package on the CPU at that kernel's edge shapes.
+``int8_matmul_dx_reference``), which the card holds the int8 wgmma kernel
+(``kernels/csrc/quant_wgmma.cu`` ``qwgmma_rs_kernel``) against, held
+against the JAX package on the CPU at that kernel's edge shapes.
 
 Shapes: rows 17 (the first forward row count on the wgmma kernel), 65 and
-200; in 960 and 1088, no multiple of the kernel's 128-code-row stage; out
-272, no multiple of its 128-column tile, and 256 (two tiles: the forward's
-split reduction); float32 and bfloat16; forward and dx.
+200; in 960 and 1088, which its k stage of 64 divides (1000 and 1096,
+which it does not, are ``tests/test_torch_kernels_cuda.py``'s card cases
+and ``tests/test_torch_quant_decode.py``'s); out 272, no multiple of its
+128-column tile, and 256 (two tiles: the forward's split reduction);
+float32 and bfloat16; forward and dx.
 
 Reference: the JAX Pallas kernel in interpret mode
 (``int8_matmul(..., interpret=True)`` and ``jax.grad`` of it) where

@@ -198,8 +198,8 @@ def test_torch_backward_kernels_take_unaligned_rows(cuda_device, dtype):
 
 
 # -- the quantized base: K5-K8 ----------------------------------------------
-# (in, out, group, rows): decode row counts (the three row tiles of the
-# streaming kernel), ragged and whole training row counts, k/v's out 256,
+# (in, out, group, rows): decode row counts (the decode kernel's n8 tiles:
+# rows 1 to 8 one, 9 to 16 two), ragged and whole training row counts, k/v's out 256,
 # widths that are no multiple of the 128-wide tile (272, 1088), a k tail
 # (dx over out 272), int4 groups of 32 and 60, which are no multiple of the
 # forward's k step, and outputs of few tiles, whose reduction the bf16 tile
@@ -208,19 +208,30 @@ def test_torch_backward_kernels_take_unaligned_rows(cuda_device, dtype):
 # wgmma kernel (quant_wgmma.cu): M = 17, its first forward row count; group
 # 8, whose 64-row stages span 8 scale rows; TinyLlama's down_proj at a
 # training micro-batch (h = 2816), both directions.  For its int8 format:
-# in 1088, no multiple of the 128-code-row stage, at M = 17 and 129 (one
-# row past a row tile); k_proj's out 256 at a training micro-batch (the
-# forward's split reduction).
+# in 1088 at M = 17 and 129 (one row past a row tile); k_proj's out 256 at
+# a training micro-batch (the forward's split reduction).  For the decode
+# kernel (M <= 16; 64 output columns and k16 steps of code rows): rows 1
+# and 9, in 1000 (int8: a k16 tail of 8 rows; int4: h = 500, a tail of 4,
+# group 20) and 1040 (int4: h = 520, a tail of 8, group 8), out 272 and 336
+# ragged against the 64-column tile, group 32 at 16 rows.
 QUANT_CASES = [(256, 256, 64, 4), (512, 384, 64, 16), (768, 128, 32, 8), (256, 256, 64, 96),
                (512, 256, 64, 65), (2048, 256, 64, 5), (5632, 2048, 64, 4),
                (2048, 5632, 64, 2047), (1024, 512, 64, 11), (1088, 272, 32, 200),
                (960, 256, 60, 70), (256, 1024, 64, 70), (1024, 384, 64, 17),
                (768, 272, 8, 33), (5632, 2048, 64, 2048), (1088, 384, 32, 17),
-               (1088, 272, 32, 129), (2048, 256, 64, 2048)]
+               (1088, 272, 32, 129), (2048, 256, 64, 2048),
+               (1000, 272, 20, 1), (1040, 336, 8, 9), (1088, 272, 32, 16), (1040, 272, 8, 1)]
+# int8 alone (qwgmma_rs_kernel, k stages of 64): in 1000 and 1096, no
+# multiple of the stage, so that the forward's last stage reads TMA's
+# zeros past in, at M = 17 and 129.  (int4 at these widths, h % 8 != 0,
+# is ROADMAP C's open fault of the int4 tile forward.)
+INT8_QUANT_CASES = [(1000, 272, 20, 17), (1000, 272, 20, 129), (1096, 384, 548, 17),
+                    (1096, 384, 548, 129)]
 # W seen whole through x = I and dy = I: (in, out, group); in 1088 is no
-# multiple of int8's 128-code-row stage nor int4's 64, out 272 of the
-# 128-column tile
+# multiple of int4's 64-code-row stage, out 272 of the 128-column tile
 IDENTITY_CASE = (1088, 272, 32)
+# int8's: in 1096 is no multiple of its k stage of 64 (nor of a k16 step)
+INT8_IDENTITY_CASE = (1096, 272, 548)
 
 
 def _quant_operands(case, bits, dtype, device):
@@ -237,15 +248,16 @@ def _quant_operands(case, bits, dtype, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits", [8, 4])
-def test_torch_quant_kernels_show_w_whole_on_card(cuda_device, bits):
+@pytest.mark.parametrize("bits,case", [(8, IDENTITY_CASE), (8, INT8_IDENTITY_CASE),
+                                       (4, IDENTITY_CASE)])
+def test_torch_quant_kernels_show_w_whole_on_card(cuda_device, bits, case):
     """Before any random case: with x = I the bf16 forward is W itself, and
     with dy = I dx is W^T, bit for bit (one product a sum, exact in fp32),
     so a wrong layout, descriptor or mask in the wgmma kernel shows as a
     wrong cell rather than as a larger error."""
     from sparse_matrix_fine_tuning_torch.kernels import quant_cuda as qc
 
-    n_in, n_out, group = IDENTITY_CASE
+    n_in, n_out, group = case
     codes, scales, _, _ = _quant_operands((n_in, n_out, group, 1), bits, torch.bfloat16,
                                           cuda_device)
     if bits == 8:
@@ -266,8 +278,8 @@ def test_torch_quant_kernels_show_w_whole_on_card(cuda_device, bits):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("case", QUANT_CASES)
+@pytest.mark.parametrize("case,bits", [(c, b) for c in QUANT_CASES for b in (8, 4)]
+                         + [(c, 8) for c in INT8_QUANT_CASES])
 def test_torch_quant_kernels_match_plain_on_card(cuda_device, case, bits, dtype):
     """K7/K5 and K8/K6 against their plain versions; dx twice gives the same
     bits (no atomics, a fixed order of sums)."""
@@ -299,6 +311,113 @@ def test_torch_quant_kernels_match_plain_on_card(cuda_device, case, bits, dtype)
         assert bool(torch.isfinite(got).all())
         assert float((got.float() - want.float()).abs().max()) <= _tol(want)
     assert torch.equal(results[1][0], again)
+
+
+# The decode kernel's identity cases: (bits, (in, out, group)); int4 at
+# group 32 and at group 8 (a scale row every 8 code rows, h = 520 with a
+# k16 tail of 8)
+DECODE_IDENTITY_CASES = [(8, INT8_IDENTITY_CASE), (4, IDENTITY_CASE), (4, (1040, 336, 8))]
+# The 1.1B model's seven projections (in, out), as the decode step runs them
+DECODE_PROJECTIONS = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048)]
+
+
+def _quant_dense(bits, codes, scales, group, dtype):
+    from sparse_matrix_fine_tuning_torch.kernels import quant_cuda as qc
+
+    if bits == 8:
+        return qc.dequant_int8_t(codes, scales, dtype)
+    return torch.cat(qc.dequant_int4_t(codes, scales, group, dtype))
+
+
+def _quant_forward(bits, x, codes, scales, group):
+    from sparse_matrix_fine_tuning_torch.kernels import quant_cuda as qc
+
+    if bits == 8:
+        return qc.int8_matmul(x, codes, scales)
+    return qc.int4_matmul(x, codes, scales, group)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits,case", DECODE_IDENTITY_CASES)
+def test_torch_quant_decode_shows_w_rows_on_card(cuda_device, bits, case, dtype, rows):
+    """The decode kernel (K5/K7 at M <= 16) on one-hot rows of x gives rows
+    of W bit for bit (one product a sum, exact in fp32), at the start of
+    `in`, across int4's two halves and at its end, so that a wrong A
+    fragment, scale row or mask shows as a wrong cell; the same call twice
+    gives the same bits."""
+    n_in, n_out, group = case
+    codes, scales, _, _ = _quant_operands((n_in, n_out, group, 1), bits, dtype, cuda_device)
+    w = _quant_dense(bits, codes, scales, group, dtype)
+    with torch.no_grad():
+        for start in (0, n_in // 2 - rows // 2, n_in - rows):
+            x = torch.zeros(rows, n_in, device=cuda_device, dtype=dtype)
+            x[torch.arange(rows), start + torch.arange(rows)] = 1
+            y = _quant_forward(bits, x, codes, scales, group)
+            again = _quant_forward(bits, x, codes, scales, group)
+            torch.cuda.synchronize()
+            assert torch.equal(y, w[start:start + rows]), (start, rows)
+            assert torch.equal(y, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_torch_quant_decode_repeats_bit_for_bit_on_card(cuda_device, bits, dtype):
+    """At the decode step's shapes the forward is one launch a call, and
+    twice the same call gives the same bits: the slices of a column tile
+    are summed in rank order across the cluster, with no atomics."""
+    from sparse_matrix_fine_tuning_torch.kernels import quant_cuda as qc
+
+    name = f"int{bits}_matmul"
+    for n_in, n_out in DECODE_PROJECTIONS:
+        for rows in (4, 16):
+            codes, scales, x, _ = _quant_operands((n_in, n_out, 64, rows), bits, dtype,
+                                                  cuda_device)
+            before = qc.LAUNCHES[name]
+            with torch.no_grad():
+                first = _quant_forward(bits, x, codes, scales, 64)
+                second = _quant_forward(bits, x, codes, scales, 64)
+            torch.cuda.synchronize()
+            assert qc.LAUNCHES[name] == before + 2
+            assert torch.equal(first, second), (n_in, n_out, rows)
+
+
+@pytest.mark.cuda
+def test_torch_quant_decode_plan_fits_one_wave_on_card(cuda_device):
+    """The decode kernel's plan in bf16 (serving's) keeps its CTAs within
+    one wave (the SMs times the CTAs an SM the occupancy gives at the
+    plan's shared memory, at least two) with one block of rows at M <= 16;
+    in f32 (the checks' path, blocks of 4 rows) it splits the code rows
+    only where the blocks of rows and column tiles leave CTAs of that wave
+    free; every plan has at most 8 slices (a cluster) and one chunk a
+    slice.  Every instantiation runs with no local memory (no spill), at
+    most 128 registers and two 256-thread CTAs an SM at the most shared
+    memory a CTA takes."""
+    from sparse_matrix_fine_tuning_torch.kernels import quant_cuda as qc
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for bits in (8, 4):
+        for dtype in (torch.bfloat16, torch.float32):
+            for n_in, n_out in DECODE_PROJECTIONS + [(1000, 272), (1040, 336)]:
+                group = 8 if n_in == 1040 else 20 if n_in == 1000 else 64
+                for rows in (1, 4, 9, 16):
+                    plan = qc.decode_plan(bits, dtype, rows, n_in, n_out, group)
+                    assert plan["ctas_per_sm"] >= 2, plan
+                    wave = sms * plan["ctas_per_sm"]
+                    if dtype == torch.bfloat16 or plan["slices"] > 1:
+                        assert plan["ctas"] <= wave, plan
+                    assert 1 <= plan["slices"] <= 8 and plan["col_tile"] == 64, plan
+                    assert plan["chunk_rows"] == plan["slice_rows"], plan
+                    assert plan["mma"] == (dtype == torch.bfloat16), plan
+                    if dtype == torch.bfloat16:
+                        assert plan["row_blocks"] == 1 and plan["rows"] == (8 if rows <= 8 else 16)
+    attrs = qc.decode_attrs()
+    assert len(attrs) == 13
+    for a in attrs:
+        assert a["local_bytes"] == 0 and a["registers"] <= 128, a
+        assert a["ctas_per_sm"] >= 2 and a["threads"] >= 256, a
 
 
 @pytest.mark.cuda
@@ -714,5 +833,6 @@ def test_torch_int4_variant_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(RuntimeError, match="out % 16"):
         ops.int4_variant_mm(x, codes[:, :264].contiguous(), scales[:, :264].contiguous(), 64, 0)
     plan = qc.int4_variant_plan(40, 1536, 272, "ugdot")
-    assert plan["rows"] == 8 and plan["row_blocks"] == 5
-    assert qc.int4_variant_plan(40, 1536, 272, "f32mul")["row_blocks"] == 3
+    assert plan["rows"] == 2 and plan["row_blocks"] == 20 and plan["mma"] == 0
+    plan = qc.int4_variant_plan(40, 1536, 272, "f32mul")
+    assert plan["rows"] == 16 and plan["row_blocks"] == 3 and plan["mma"] == 1
