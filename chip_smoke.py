@@ -8,7 +8,10 @@ hand-written CUDA kernels, and checks them:
   2. build: the kernels are compiled from ``kernels/csrc/`` in this checkout;
   3. forward kernels K1, K2 against their plain PyTorch versions at the
      slice's shapes, bfloat16 and float32, timed beside their bound and the
-     one PyTorch call that computes the same function;
+     one PyTorch call that computes the same function, summed a decoder
+     layer at every row count of ROWS, each call's plan printed; then at
+     ragged shapes (P and m no multiple of 8, L != K, Q != R) with x and
+     base off 16 bytes;
   4. backward kernels K3, K4 likewise at the training shapes, and the
      autograd Functions of K1 and K2 (whose backward is K3);
   5. serving, float32: prefill logits and greedy tokens against a copy with
@@ -29,6 +32,8 @@ hand-written CUDA kernels, and checks them:
      launch a call) also timed cold, over weight sets past L2, beside
      ``F.linear`` cold and the launch floor, with each projection's plan and
      the registers of each instantiation (no local memory, two CTAs an SM);
+     K5's and K7's tile forward and K6/K8 at in 1000, 1032 and 1096 (int4's
+     h = in / 2 no multiple of 8) against their plain versions;
  10. quantized serving, float32, int8 and int4: prefill logits and greedy
      tokens against a copy whose codes were dequantized and whose adapters
      were merged on the CPU;
@@ -48,7 +53,8 @@ hand-written CUDA kernels, and checks them:
      ``scripts/bench_more_linear.py`` (fused, hybrid and plain steps);
  14. the forward-tile experiments: K15 (the wgmma + TMA tiled matmul) at
      every tile and K12 (K1 at every row tile) against their plain versions
-     at a ragged shape, K15's SASS checked for HGMMA, then the ports of
+     at a ragged shape, K12 at every row tile equal to K1 at its own plan bit
+     for bit, K15's SASS checked for HGMMA, then the ports of
      ``scripts/exp_matmul_tiles.py`` and ``scripts/exp_fwd_tile.py`` at
      2664 x 4096 -> 4096 (each variant checked, then timed);
  15. the dw experiments: K13 (K4's kernel at a row group) and K14 (K13 at
@@ -222,6 +228,20 @@ FWD_TILE_RAGGED = (37, 256, 384, 4, 4)
 DW_RAGGED = ((200, 4, 8, 64, 4, 48, 8, True), (200, 4, 16, 64, 4, 48, 16, True),
              (200, 4, 16, 60, 4, 48, 16, False))
 DW_RAGGED_ROWS = (16, *monarch_cuda.DW_TILE_ROWS)
+# K1/K2's ragged checks, (B, K, Q, P, L, S, R, offset of x and base in
+# elements): P and S * L no multiple of 8, K != L and Q != R, rows past the
+# decode bound and past a row tile, P past 64 chunks (3 chunks a lane), a
+# training micro-batch at down_proj's P, R = 16 (K12's rank), and a wide J
+# (512: the plan's shared memory past 48 KB, K1 then K2; 2048: past 227 KB
+# at one tile of 16 rows, so the plan halves the tile).
+FWD_RAGGED = ((5, 4, 4, 13, 4, 7, 4, 1), (17, 2, 8, 36, 4, 9, 4, 1), (3, 3, 5, 9, 5, 3, 3, 1),
+              (65, 4, 4, 1100, 4, 36, 4, 0), (2048, 4, 4, 1408, 4, 65, 4, 1),
+              (33, 2, 32, 20, 4, 13, 16, 1), (16, 4, 128, 520, 8, 40, 64, 0),
+              (16, 8, 256, 64, 8, 24, 256, 1))
+# K5-K8 where int4's h = in / 2 is no multiple of 8 (ROADMAP C.8): (in, out,
+# group), at M 17 and 129 (the tile path), bf16
+QUANT_RAGGED_IN = ((1000, 272, 20), (1032, 272, 43), (1096, 384, 137))
+QUANT_RAGGED_ROWS = (17, 129)
 # K16's ragged checks: rows 3, 13 (one block of 16) and 40 (three blocks;
 # five of 8 for ugdot and u2dot) at in 1536 -> out 272 (17 column tiles of
 # 16), group 64.
@@ -361,17 +381,60 @@ def _layer_sums(recs: list[dict]) -> dict:
     return out
 
 
+def _offset(t: torch.Tensor, off: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` starting ``off`` elements into its buffer
+    (off 16 bytes for off > 0), as a sliced view would."""
+    buf = torch.empty(t.numel() + off, device=t.device, dtype=t.dtype)
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def phase_kernels_ragged(g: torch.Generator) -> float:
+    """K1 and K2 at ``FWD_RAGGED``, f32 and bf16, against their plain
+    versions (``tolerance``); x and base sliced views where the case says
+    so.  Returns the largest error over the tolerance."""
+    share = 0.0
+    with torch.inference_mode():
+        for b, K, Q, P, L, S, R, off in FWD_RAGGED:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = _offset(torch.randn(b, K * P, generator=g, device="cuda").to(dtype), off)
+                w1 = (torch.randn(K, Q, P, generator=g, device="cuda") / P ** 0.5).to(dtype)
+                w2 = (torch.randn(L, S, R, generator=g, device="cuda") / R ** 0.5).to(dtype)
+                base = _offset(torch.randn(b, S * L, generator=g, device="cuda").to(dtype), off)
+                for got, ref in ((monarch_cuda.monarch_kernel(x, w1, w2),
+                                  monarch_cuda.monarch_kernel_reference(x, w1, w2)),
+                                 (monarch_cuda.monarch_add(base, x, w1, w2),
+                                  monarch_cuda.monarch_add_reference(base, x, w1, w2))):
+                    torch.cuda.synchronize()
+                    err = float((got.float() - ref.float()).abs().max())
+                    tol = tolerance(dtype, ref)
+                    require(got.shape == ref.shape and err <= tol
+                            and bool(torch.isfinite(got).all()),
+                            f"K1/K2 at {(b, K, Q, P, L, S, R)} off {off} {dtype}: max abs err "
+                            f"{err} > {tol}")
+                    share = max(share, err / tol)
+    return share
+
+
 def phase_kernels(card: str) -> dict:
     """K1 and K2 against their plain versions at the slice's shapes, with the
     library call that computes the same function on a precomputed dense
-    matrix: ``F.linear(x, M)`` for K1, ``torch.addmm(base, x, M^T)`` for K2."""
+    matrix: ``F.linear(x, M)`` for K1, ``torch.addmm(base, x, M^T)`` for K2;
+    the sums a decoder layer (bf16) at every row count, each call's plan;
+    then the ragged cases (``phase_kernels_ragged``)."""
     from sparse_matrix_fine_tuning_torch.ops.monarch import monarch_dense_equivalent
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     nb, r = PEFT["nblocks"], PEFT["blk_r"]
     worst = {"monarch_kernel": 0.0, "monarch_add": 0.0}
-    decode = {name: [] for name in worst}
+    per_layer = {(name, m_rows): [] for name in worst for m_rows in ROWS}
     print(f"[kernels] card: {card}", flush=True)
+    for m_rows in ROWS:
+        for proj, n_in, n_out in PROJECTIONS:
+            plan = monarch_cuda.monarch_fwd_plan(m_rows, (nb, r, n_in // nb),
+                                                 (nb, n_out // nb, r))
+            print(f"[kernels] K1/K2 plan, bf16, M={m_rows} {proj}: {plan}", flush=True)
     print(_HEADER, flush=True)
     with torch.inference_mode():
         for dtype in (torch.bfloat16, torch.float32):
@@ -405,14 +468,24 @@ def phase_kernels(card: str) -> dict:
                         require(err <= tol and bool(torch.isfinite(got).all()),
                                 f"{name} {proj} M={m_rows} {dtype}: max_abs_err {err} > tol {tol}")
                         worst[name] = max(worst[name], err)
-                        if dtype == torch.bfloat16 and m_rows == 4:
-                            decode[name].append(rec)
-    layer = {name: _layer_sums(recs) for name, recs in decode.items()}
-    print(f"[kernels] {card}: device time per decoder layer at decode (M=4, bf16, "
-          "7 projections): "
-          + ", ".join(f"{k} {v['ms']:.5f} ms (plain {v['plain_ms']:.5f}, library "
-                      f"{v['library_ms']:.5f}, bound {v['bound_ms']:.5f} ms)"
-                      for k, v in layer.items()), flush=True)
+                        if dtype == torch.bfloat16:
+                            per_layer[(name, m_rows)].append(rec)
+    sums = {key: _layer_sums(recs) for key, recs in per_layer.items()}
+    for m_rows in ROWS:
+        print(f"[kernels] {card}: device time per decoder layer at M={m_rows} (bf16, "
+              "7 projections): "
+              + ", ".join(f"{k} {sums[(k, m_rows)]['ms']:.5f} ms (plain "
+                          f"{sums[(k, m_rows)]['plain_ms']:.5f}, library "
+                          f"{sums[(k, m_rows)]['library_ms']:.5f}, bound "
+                          f"{sums[(k, m_rows)]['bound_ms']:.5f} ms)" for k in worst), flush=True)
+    RECORDS.append({"monarch_fwd_per_layer": [{"kernel": k, "rows": m, **v}
+                                              for (k, m), v in sums.items()], "card": card})
+    share = phase_kernels_ragged(g)
+    print(f"[kernels] {card}: K1/K2 at {len(FWD_RAGGED)} ragged shapes (f32, bf16; x and "
+          f"base off 16 bytes where marked) within tolerance, worst {share:.3f} of it",
+          flush=True)
+    # the JSON line: decode's shape (M = 4), where the unmerged serving path runs K2
+    layer = {name: sums[(name, 4)] for name in worst}
     return {"worst": worst, "layer": layer}
 
 
@@ -1099,6 +1172,7 @@ def phase_quant_kernels(card: str, lib) -> dict:
               f"projections): {v['ms']:.5f} ms (plain {v['plain_ms']:.5f}, library "
               f"{v['library_ms']:.5f}, bound {v['bound_ms']:.5f} ms, {v['bound_by']})", flush=True)
     decode_rows(card, layer)
+    quant_ragged_in(card, g)
     hgmma = check_hgmma(lib, "qwgmma", 4)
     print(f"[quant-kernels] {card}: HGMMA in all {hgmma} wgmma kernels (int4 and int8, "
           f"forward and dx)", flush=True)
@@ -1109,6 +1183,45 @@ def phase_quant_kernels(card: str, lib) -> dict:
     for name in ("int4_matmul", "int8_matmul"):
         main[name + "_tile"] = layer[(name, TRAIN_BS * TRAIN_SEQ)]
     return {"worst": worst, "layer": main}
+
+
+def quant_ragged_in(card: str, g: torch.Generator) -> None:
+    """K5-K8 in bf16 at ``QUANT_RAGGED_IN`` x ``QUANT_RAGGED_ROWS``, forward
+    (the wgmma tile path) and dx, against their plain versions: int4's h =
+    in / 2 is no multiple of 8 there, where the tile forward reads an
+    aligned copy of x (ROADMAP C.8; it trapped before)."""
+    with torch.inference_mode():
+        for n_in, n_out, group in QUANT_RAGGED_IN:
+            w = torch.randn(n_out, n_in, generator=g, device="cuda") * 0.02
+            for bits in (4, 8):
+                if bits == 4:
+                    codes, scales = quant._quantize_int4_device(w, group)
+                    pairs = lambda x, dy: (  # noqa: E731
+                        (quant_cuda.int4_matmul(x, codes, scales, group),
+                         quant_cuda.int4_matmul_reference(x, codes, scales, group)),
+                        (quant_cuda.int4_matmul_dx(dy, codes, scales, group),
+                         quant_cuda.int4_matmul_dx_reference(dy, codes, scales, group)))
+                else:
+                    codes, scales = quant._quantize_int8_device(w)
+                    pairs = lambda x, dy: (  # noqa: E731
+                        (quant_cuda.int8_matmul(x, codes, scales),
+                         quant_cuda.int8_matmul_reference(x, codes, scales)),
+                        (quant_cuda.int8_matmul_dx(dy, codes, scales),
+                         quant_cuda.int8_matmul_dx_reference(dy, codes, scales)))
+                for m_rows in QUANT_RAGGED_ROWS:
+                    x = torch.randn(m_rows, n_in, generator=g, device="cuda").bfloat16()
+                    dy = torch.randn(m_rows, n_out, generator=g, device="cuda").bfloat16()
+                    for what, (got, ref) in zip(("forward", "dx"), pairs(x, dy)):
+                        torch.cuda.synchronize()
+                        err = float((got.float() - ref.float()).abs().max())
+                        tol = tolerance(torch.bfloat16, ref)
+                        require(got.shape == ref.shape and err <= tol
+                                and bool(torch.isfinite(got).all()),
+                                f"int{bits} {what} at in {n_in} (group {group}) M={m_rows}: "
+                                f"max abs err {err} > {tol}")
+    print(f"[quant-kernels] {card}: int4 and int8, forward and dx, bf16, at in "
+          f"{', '.join(str(c[0]) for c in QUANT_RAGGED_IN)} (int4's h % 8 != 0), M "
+          f"{' and '.join(map(str, QUANT_RAGGED_ROWS))}: within tolerance", flush=True)
 
 
 def decode_rows(card: str, layer: dict) -> None:
@@ -1385,14 +1498,18 @@ def phase_tiles(card: str, lib) -> dict:
         require(got.shape == ref.shape and err <= tolerance(torch.float32, ref),
                 f"monarch_fwd_tile rows {rows} at {FWD_TILE_RAGGED} f32: max abs err {err}")
     xb, w1b, w2b = (t.to(torch.bfloat16) for t in (x, w1, w2))
+    k1_rows = monarch_cuda.monarch_fwd_plan(b, w1b.shape, w2b.shape)["rows"]
     with torch.no_grad():
-        require(torch.equal(monarch_cuda.monarch_fwd_tile(xb, w1b, w2b, 8),
-                            monarch_cuda.monarch_kernel(xb, w1b, w2b)),
-                "monarch_fwd_tile at 8 rows differs from K1")
+        k1 = monarch_cuda.monarch_kernel(xb, w1b, w2b)
+        for rows in monarch_cuda.FWD_TILE_ROWS:
+            require(torch.equal(monarch_cuda.monarch_fwd_tile(xb, w1b, w2b, rows), k1),
+                    f"monarch_fwd_tile at {rows} rows differs from K1 at its own row tile "
+                    f"({k1_rows})")
     hgmma = check_hgmma(lib, "tiled_mm_kernel", len(tm.TILES))
     print(f"[tiles] {card}: K15 at {len(tm.TILES)} tiles and K12 at "
           f"{len(monarch_cuda.FWD_TILE_ROWS)} row tiles within tolerance at the ragged shapes; "
-          f"K12 at 8 rows equals K1; HGMMA in all {hgmma} K15 kernels", flush=True)
+          f"K12 at every row tile equals K1 at its own ({k1_rows} rows); HGMMA in all "
+          f"{hgmma} K15 kernels", flush=True)
 
     reset_counts()  # the counted main path starts here: exp_matmul_tiles
     mm = exp_matmul_tiles.run()

@@ -4,6 +4,10 @@
 //   torch.ops.smft.monarch_fwd(x, w1, w2)            -> out              (K1)
 //   torch.ops.smft.monarch_fwd_tile(x, w1, w2, rows) -> out              (K12)
 //   torch.ops.smft.monarch_fwd_add(base, x, w1, w2)  -> base + out       (K2)
+//   torch.ops.smft.monarch_fwd_plan(B, K, Q, P, L, S, R, itemsize, rows=0) -> int[]
+//       the plan K1/K2 (rows 0) or K12 (its row tile) launch with: (row
+//       tile, row tiles, column ranges, output chunks a CTA, chunks a lane,
+//       segments a block, shared memory bytes)
 //   torch.ops.smft.monarch_bwd(x, w1, w2, dout)      -> (dx, dw1, dw2)   (K3)
 //   torch.ops.smft.monarch_dw_fused(x, dout, w1, w2) -> (dw1, dw2)       (K4)
 //   torch.ops.smft.monarch_dw_tile(x, dout, w1, w2, rows) -> (dw1, dw2)  (K13, K14)
@@ -29,7 +33,8 @@
 // K11 is monarch_dw_fused (K4's kernel); K13 is K4's kernel at a row group
 // of `rows`, and K14 K13 at 256 rows.  Only a CUDA implementation of the
 // tensor ops is registered, so a tensor on another device is refused by the
-// dispatcher; monarch_bwd_plan takes no tensor and reads the current device.
+// dispatcher; monarch_bwd_plan and monarch_fwd_plan take no tensor (the
+// first reads the current device, the second depends on the shapes alone).
 // The launch's error code is checked here and raised; the kernels run on
 // PyTorch's current stream and allocate nothing: the outputs and the fp32
 // scratch (the backward's row summaries and per-group partial sums, the
@@ -54,6 +59,8 @@ extern "C" int smft_monarch_fwd(int dtype, int device, const void* x, const void
 extern "C" int smft_monarch_fwd_tile(int dtype, int device, const void* x, const void* w1,
                                      const void* w2, void* out, int64_t B, int K, int Q, int P,
                                      int L, int S, int R, int rows, void* stream);
+extern "C" int smft_monarch_fwd_plan(int itemsize, int64_t B, int K, int Q, int P, int L, int S,
+                                     int R, int rows, int64_t chunks, int64_t* plan);
 extern "C" int smft_tiled_matmul(int device, const void* x, const void* w, void* y, int64_t M,
                                  int64_t N, int64_t K, int bm, int bn, int stages,
                                  void* stream);
@@ -146,6 +153,23 @@ at::Tensor monarch_fwd_tile(const at::Tensor& x, const at::Tensor& w1, const at:
 
 at::Tensor monarch_fwd(const at::Tensor& x, const at::Tensor& w1, const at::Tensor& w2) {
   return run(x, w1, w2, nullptr);
+}
+
+std::vector<int64_t> monarch_fwd_plan(int64_t B, int64_t K, int64_t Q, int64_t P, int64_t L,
+                                      int64_t S, int64_t R, int64_t itemsize, int64_t rows) {
+  TORCH_CHECK(B >= 0 && (itemsize == 2 || itemsize == 4) && rows >= 0,
+              "monarch_fwd_plan takes B >= 0, an itemsize of 2 or 4 and rows >= 0");
+  const int64_t lim = INT32_MAX;
+  TORCH_CHECK(K <= lim && Q <= lim && P <= lim && L <= lim && S <= lim && R <= lim &&
+                  rows <= lim,
+              "factor dims must fit in 32 bits");
+  std::vector<int64_t> plan(7);
+  const int err = smft_monarch_fwd_plan(
+      static_cast<int>(itemsize), B, static_cast<int>(K), static_cast<int>(Q),
+      static_cast<int>(P), static_cast<int>(L), static_cast<int>(S), static_cast<int>(R),
+      static_cast<int>(rows), 0, plan.data());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(err));
+  return plan;
 }
 
 // K13's row group: a positive multiple of the generic kernel's 16-row tile
@@ -502,6 +526,9 @@ TORCH_LIBRARY(smft, m) {
   m.def("monarch_fwd(Tensor x, Tensor w1, Tensor w2) -> Tensor");
   m.def("monarch_fwd_add(Tensor base, Tensor x, Tensor w1, Tensor w2) -> Tensor");
   m.def("monarch_fwd_tile(Tensor x, Tensor w1, Tensor w2, int rows) -> Tensor");
+  m.def("monarch_fwd_plan(int B, int K, int Q, int P, int L, int S, int R, int itemsize=2, "
+        "int rows=0) -> int[]",
+        &monarch_fwd_plan);
   m.def("monarch_bwd(Tensor x, Tensor w1, Tensor w2, Tensor dout) -> (Tensor, Tensor, Tensor)");
   m.def("monarch_dw_fused(Tensor x, Tensor dout, Tensor w1, Tensor w2) -> (Tensor, Tensor)");
   m.def("monarch_dw_tile(Tensor x, Tensor dout, Tensor w1, Tensor w2, int rows) -> "

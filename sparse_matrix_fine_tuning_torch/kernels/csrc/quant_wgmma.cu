@@ -85,7 +85,12 @@
 // zero weights: the dequant warpgroups write 0 for every code row past h
 // and every column past out, and read no scale there.  x columns past h in
 // a lo tile are real x values, which the zeroed B rows cancel; rows past M
-// and columns past in or out come in as zeros.
+// and columns past in or out come in as zeros.  x's high half starts at
+// column h, where a TMA box must start on 16 bytes: where h % 8 != 0 the
+// forward reads an aligned copy of x instead, (M, 2 h8) with h8 = h rounded
+// up to 8, its low half at column 0, its high half at h8 and zeros between
+// (one pass over x into the call's scratch, at widths no model of the
+// repository has; the zeros meet zeroed B rows).
 //
 // Few output tiles (k_proj and v_proj, out 256; small M): the reduction is
 // split over CTAs (blockIdx.z, slices of whole stages), each writing fp32
@@ -135,6 +140,7 @@ struct Params {
   const float* scales;  // (in / group, out) f32
   int64_t M;
   int h;            // code rows, in / 2
+  int x_hi;         // forward: the column of the activations' high half (h, or h8)
   int out;          // columns of the codes
   int group;
   int steps;        // stages of the whole reduction
@@ -252,7 +258,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int k0 = kDx ? col0 : row0;
         const uint32_t dst = a_smem + s * kABytes;
         tma_load_2d(dst, &map_a, full, k0, m0);
-        tma_load_2d(dst + kBox, &map_a, full, kDx ? k0 + 64 : p.h + k0, m0);
+        tma_load_2d(dst + kBox, &map_a, full, kDx ? k0 + 64 : p.x_hi + k0, m0);
       } else {
         mbar_expect_tx(full, kCBytes);
         tma_load_2d(c_smem + s * kCBytes, &map_codes, full, col0, row0);
@@ -699,6 +705,31 @@ void slice(Plan& p, bool split, int num_sms) {
   p.slices = cdiv(p.steps, p.per_slice);
 }
 
+// int4's forward at h % 8 != 0 reads an aligned copy of x, (M, 2 h8) bf16,
+// from the start of the scratch: its size in floats, 0 where none is made.
+int64_t x_copy_floats(int bits, bool dx, int64_t M, int64_t in_f) {
+  const int64_t h = in_f / 2;
+  return bits == 4 && !dx && h % 8 != 0 ? M * cdiv(h, 8) * 8 : 0;
+}
+
+// The aligned copy: x's low half to columns [0, h), its high half to [h8,
+// h8 + h), zeros in [h, h8) and [h8 + h, 2 h8); on `stream`.
+cudaError_t copy_x(const void* x, void* copy, int64_t M, int64_t h, cudaStream_t stream) {
+  const int64_t h8 = cdiv(h, 8) * 8;
+  const size_t pitch = static_cast<size_t>(2 * h8) * 2, src_pitch = static_cast<size_t>(2 * h) * 2;
+  const size_t half = static_cast<size_t>(h) * 2, pad = static_cast<size_t>(h8 - h) * 2;
+  char* dst = static_cast<char*>(copy);
+  const char* src = static_cast<const char*>(x);
+  cudaError_t err = cudaMemset2DAsync(dst + half, pitch, 0, pad, M, stream);
+  if (err == cudaSuccess) err = cudaMemset2DAsync(dst + h8 * 2 + half, pitch, 0, pad, M, stream);
+  if (err == cudaSuccess)
+    err = cudaMemcpy2DAsync(dst, pitch, src, src_pitch, half, M, cudaMemcpyDeviceToDevice, stream);
+  if (err == cudaSuccess)
+    err = cudaMemcpy2DAsync(dst + h8 * 2, pitch, src + half, src_pitch, half, M,
+                            cudaMemcpyDeviceToDevice, stream);
+  return err;
+}
+
 Plan make_plan(bool dx, int64_t M, int64_t in_f, int64_t out_f, int num_sms) {
   Plan p{};
   const int64_t h = in_f / 2;
@@ -720,17 +751,27 @@ cudaError_t launch(const void* a, const void* codes, const float* scales, void* 
   if (pl.col_tiles > 65535 || pl.slices > 65535 || pl.row_tiles > 0x7fffffff)
     return cudaErrorInvalidValue;
   const int64_t h = in_f / 2;
+  // The activations: x, or its aligned copy at the start of the scratch
+  // (x_copy_floats), whose high half starts at column h8.
+  const int64_t copy = x_copy_floats(4, kDx, M, in_f);
+  const int64_t x_hi = copy ? cdiv(h, 8) * 8 : h;
+  if (copy) {
+    err = copy_x(a, work, M, h, stream);
+    if (err != cudaSuccess) return err;
+  }
   CUtensorMap map_a, map_codes;
-  const bool ok = make_map(encode, &map_a, a, M, kDx ? out_f : in_f, kBM, 64) &&
+  const bool ok = make_map(encode, &map_a, copy ? work : a, M,
+                           kDx ? out_f : copy ? 2 * x_hi : in_f, kBM, 64) &&
                   make_map(encode, &map_codes, codes, h, out_f, kRows, kCols,
                            CU_TENSOR_MAP_DATA_TYPE_UINT8, 1);
   if (!ok) return cudaErrorInvalidValue;
   Params p;
   p.y = static_cast<bf16*>(out);
-  p.partial = work;
+  p.partial = work + copy;
   p.scales = scales;
   p.M = M;
   p.h = static_cast<int>(h);
+  p.x_hi = static_cast<int>(x_hi);
   p.out = static_cast<int>(out_f);
   p.group = group;
   p.steps = static_cast<int>(pl.steps);
@@ -743,7 +784,7 @@ cudaError_t launch(const void* a, const void* codes, const float* scales, void* 
   kernel<<<grid, kThreads, kSmem, stream>>>(map_a, map_codes, p);
   err = cudaGetLastError();
   if (err != cudaSuccess || pl.slices == 1) return err;
-  return static_cast<cudaError_t>(smft_split_sum_bf16(work, out, M * (kDx ? in_f : out_f),
+  return static_cast<cudaError_t>(smft_split_sum_bf16(p.partial, out, M * (kDx ? in_f : out_f),
                                                      static_cast<int>(pl.slices), stream));
 }
 
@@ -801,8 +842,9 @@ cudaError_t launch_rs(const void* a, const void* codes, const float* scales, voi
 
 }  // namespace
 
-// fp32 scratch of a call (the split reduction's partial sums), in floats;
-// -1 when the device's SM count cannot be read.
+// fp32 scratch of a call, in floats: the split reduction's partial sums,
+// after int4's aligned copy of x (M x h8 floats, M x 2 h8 bf16) where the
+// forward's h % 8 != 0; -1 when the device's SM count cannot be read.
 extern "C" int64_t smft_quant_wgmma_workspace(int bits, int device, int dx, int64_t M,
                                               int64_t in_f, int64_t out_f) {
   if (M == 0) return 0;
@@ -811,7 +853,8 @@ extern "C" int64_t smft_quant_wgmma_workspace(int bits, int device, int dx, int6
     return -1;
   const Plan pl = bits == 8 ? make_rs_plan(dx != 0, M, in_f, out_f, num_sms)
                             : make_plan(dx != 0, M, in_f, out_f, num_sms);
-  return pl.slices > 1 ? pl.slices * M * (dx ? in_f : out_f) : 0;
+  return x_copy_floats(bits, dx != 0, M, in_f) +
+         (pl.slices > 1 ? pl.slices * M * (dx ? in_f : out_f) : 0);
 }
 
 // bits 4 (K5's tile path, K6) or 8 (K7's tile path, K8); dx 0: a = x (M,

@@ -28,8 +28,11 @@ the intermediate from x as the TPU kernel does.  The gradient of
 
 ``monarch_fwd_tile(x, w1, w2, rows)`` launches K1's kernel at the row tile
 ``rows`` (one of ``FWD_TILE_ROWS``): K12, the counterpart of ``fwd_call`` in
-``scripts/exp_fwd_tile.py``, which only ``scripts/exp_fwd_tile`` drives.  At
-8 rows it is K1's launch, bit for bit; it has no gradient.
+``scripts/exp_fwd_tile.py``, which only ``scripts/exp_fwd_tile`` drives.  The
+kernel's order of sums does not depend on its row tile, so K12 equals K1
+bit for bit at every row tile; it has no gradient.  ``monarch_fwd_plan``
+reports the plan a launch of K1/K2 (or K12 at ``rows``) takes: its row tile
+and column ranges, which the plan picks from the row count.
 
 ``monarch_dw_tile(x, dout, w1, w2, rows)`` launches K4's kernel with its row
 group set to ``rows`` (a positive multiple of 16; the sweep is
@@ -61,7 +64,8 @@ from sparse_matrix_fine_tuning_torch.ops.monarch import (
 
 LAUNCHES = {"monarch_kernel": 0, "monarch_add": 0, "monarch_bwd": 0, "monarch_dw_fused": 0,
             "monarch_fwd_tile": 0, "monarch_dw_tile": 0, "monarch_dw_merged": 0}
-FWD_TILE_ROWS = (8, 16, 32, 64)  # the row tiles csrc/monarch_fwd.cu instantiates for K12
+FWD_TILE_ROWS = (8, 16, 32, 64)  # K12's row tiles: csrc/monarch_fwd.cu's kFwdTileRows
+FWD_PLAN_KEYS = ("rows", "row_tiles", "ranges", "chunks", "cpl", "ns", "smem")
 DW_TILE_ROWS = (256, 512, 1024)  # K13's sweep: scripts/exp_dw_kernel.py:107
 MERGED_DW_ROWS = 256  # K14: dw_call_v2's ts, scripts/exp_merged_v3.py:23
 DW_ROW_STEP = 16  # a row group is a multiple of the generic kernel's row tile
@@ -260,6 +264,17 @@ def monarch_fwd_tile(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     out = load_ops().monarch_fwd_tile(x.contiguous(), w1.contiguous(), w2.contiguous(), rows)
     LAUNCHES["monarch_fwd_tile"] += 1
     return out
+
+
+def monarch_fwd_plan(rows_m: int, w1_shape, w2_shape, dtype: torch.dtype = torch.bfloat16,
+                     rows: int = 0) -> dict:
+    """The plan of a K1/K2 launch on ``rows_m`` rows (K12's at row tile
+    ``rows`` > 0), as ``FWD_PLAN_KEYS``: the row tile, row tiles, column
+    ranges, output chunks of 16 bytes a CTA, chunks a lane and segments a
+    block of stage 1, and shared memory bytes.  The plan
+    depends on the shapes alone; the library is loaded (built) first."""
+    plan = load_ops().monarch_fwd_plan(rows_m, *w1_shape, *w2_shape, dtype.itemsize, rows)
+    return dict(zip(FWD_PLAN_KEYS, (int(v) for v in plan)))
 
 
 def monarch_mm(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:

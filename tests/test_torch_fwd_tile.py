@@ -10,8 +10,9 @@ version has no row tile, so every ts must agree with the one plain result.
 Tolerances (``utils/testing``): float32 ``f32_op`` (sums in another
 order); bfloat16 ``bf16_atol``, two bf16 ulps at the output's scale (the
 intermediate may round one ulp apart, and the output rounds once more).
-The pure-Python parts: the source instantiates exactly ``FWD_TILE_ROWS``,
-the bound at the bench shapes, and the wrapper refusing CPU tensors.
+The pure-Python parts: the source offers exactly ``FWD_TILE_ROWS`` as K12's
+row tiles and holds one kernel, whose plan K1, K2 and K12 share; the bound
+at the bench shapes, and the wrapper refusing CPU tensors.
 """
 
 import importlib.util
@@ -77,11 +78,19 @@ def test_torch_fwd_tile_plain_matches_jax_kernel(case, ts, dtype):
 
 
 def test_torch_fwd_tile_source_instantiates_rows():
+    """K12's row tiles are a runtime parameter of K1's one kernel: the
+    source offers exactly ``FWD_TILE_ROWS`` (and refuses others), and K1,
+    K2 and K12 all launch ``monarch_fwd_kernel`` through one plan."""
     src = (ROOT / "sparse_matrix_fine_tuning_torch" / "kernels" / "csrc" /
            "monarch_fwd.cu").read_text()
-    found = sorted(int(r) for r in re.findall(r"launch<T, false, (\d+)>", src))
-    assert tuple(found) == monarch_cuda.FWD_TILE_ROWS
-    assert "constexpr int kDefaultRows = 8;" in src  # K1 and K2 keep their row tile
+    offered = re.search(r"constexpr int kFwdTileRows\[\] = \{([\d, ]+)\};", src)
+    assert offered is not None
+    found = tuple(sorted(int(r) for r in offered.group(1).split(",")))
+    assert found == monarch_cuda.FWD_TILE_ROWS
+    # one kernel design (and the empty kernel that times its launch floor)
+    assert re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))? (\w+)", src) == [
+        "monarch_fwd_kernel", "monarch_fwd_empty_kernel"]
+    assert src.count("make_plan(itemsize, B, K, Q, P, L, S, R, rows, chunks, &pl)") == 2
 
 
 def test_torch_exp_fwd_tile_bounds():

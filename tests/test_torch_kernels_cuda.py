@@ -13,11 +13,12 @@ the same two tolerances; both sides round each dequantized weight to the
 working dtype once and sum in fp32 in another order.  K9-K11 (the fused
 dense + Monarch linear): the same two tolerances; the output rounds once on
 both sides, from intermediates that may round one ulp apart.  K12 (K1 at a
-row tile) as K1; K15 (the tiled bf16 matmul) two bf16 ulps: both sides
-round once from fp32 sums taken in another order.  K13 and K14 (K4 at a row
-group) as K4.  K16 (K5's decode kernel in the seven int4 arithmetic
-variants): two bf16 ulps of the raw output's scale, as K5; its f32mul
-variant equals K5 bit for bit at the decode rows.
+row tile) as K1, and equal to K1 bit for bit at every row tile (the order of
+the kernel's sums does not depend on its plan); K15 (the tiled bf16 matmul)
+two bf16 ulps: both sides round once from fp32 sums taken in another order.
+K13 and K14 (K4 at a row group) as K4.  K16 (K5's decode kernel in the
+seven int4 arithmetic variants): two bf16 ulps of the raw output's scale, as
+K5; its f32mul variant equals K5 bit for bit at the decode rows.
 """
 
 import numpy as np
@@ -69,6 +70,90 @@ def test_torch_kernels_match_plain_on_card(cuda_device, case, dtype):
     for got, want in pairs:
         assert got.shape == want.shape and got.dtype == want.dtype
         assert float((got.float() - want.float()).abs().max()) <= _tol(want)
+
+
+# K1/K2's ragged cases, (batch, K, Q, P, L, S, R, offset of x and base in
+# elements, 1: off 16 bytes): every row count the plan treats apart (0; 1,
+# 4 and 16, one decode tile; 17, 65 and 2048, ragged against the 8-row
+# tile and stage 1's 4-row batches); P and S*L no multiple of 8 (partial
+# 16-byte chunks); K != L and Q != R; Q = 6 ragged against stage 1's
+# 4-q groups; P of 65 and 176 chunks (two and three chunks a lane, the
+# second segment ragged); m ragged against the decode range of 32 chunks;
+# L = 4 with R = 16 (w2 in registers) ragged and off 16 bytes; a training
+# tile of 8 rows whose threads take a chunk each and prefetch base 4 rows at
+# a time (two passes), ragged against the tile; a wide J whose plan needs
+# more than 48 KB of shared memory (J 512, 96 KB: K1's function raises its
+# limit, then K2's must too), and one past 227 KB at a tile of 16 rows (J
+# 2048: the plan halves the tile to 8 rows).
+FWD_RAGGED_CASES = [(0, 4, 4, 32, 4, 8, 4, 0), (1, 4, 4, 13, 4, 7, 4, 1),
+                    (4, 2, 8, 36, 4, 9, 4, 1), (16, 3, 5, 9, 5, 3, 3, 1),
+                    (17, 4, 6, 520, 8, 33, 3, 0), (65, 4, 4, 1100, 4, 36, 4, 1),
+                    (4, 4, 4, 512, 4, 1100, 4, 1), (2048, 4, 4, 1408, 4, 65, 4, 1),
+                    (33, 2, 32, 20, 4, 13, 16, 1), (1030, 4, 4, 512, 4, 520, 4, 0),
+                    (16, 4, 128, 520, 8, 40, 64, 0), (16, 8, 256, 64, 8, 24, 256, 1)]
+
+
+def _offset(t: torch.Tensor, off: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` ``off`` elements into its buffer, as a
+    sliced view would be."""
+    buf = torch.empty(t.numel() + off, device=t.device, dtype=t.dtype)
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FWD_RAGGED_CASES)
+def test_torch_forward_kernels_take_ragged_unaligned_shapes(cuda_device, case, dtype):
+    """K1 and K2 against their plain versions at the ragged cases, x and
+    base sliced views where the case says so; one launch each."""
+    *shape, off = case
+    x, w1, w2, base = _inputs(tuple(shape), dtype, cuda_device)
+    x, base = _offset(x, off), _offset(base, off)
+    before = dict(monarch_cuda.LAUNCHES)
+    with torch.no_grad():
+        pairs = [(monarch_cuda.monarch_kernel(x, w1, w2),
+                  monarch_cuda.monarch_kernel_reference(x, w1, w2)),
+                 (monarch_cuda.monarch_add(base, x, w1, w2),
+                  monarch_cuda.monarch_add_reference(base, x, w1, w2))]
+    torch.cuda.synchronize()
+    assert monarch_cuda.LAUNCHES["monarch_kernel"] == before["monarch_kernel"] + 1
+    assert monarch_cuda.LAUNCHES["monarch_add"] == before["monarch_add"] + 1
+    for got, want in pairs:
+        assert got.shape == want.shape and got.dtype == want.dtype
+        if want.numel():
+            assert bool(torch.isfinite(got).all())
+            assert float((got.float() - want.float()).abs().max()) <= _tol(want)
+
+
+@pytest.mark.cuda
+def test_torch_forward_plan_covers_the_call_on_card(cuda_device):
+    """K1/K2's plan at the 1.1B model's projections and every row count of
+    the main paths: one row tile at decode, its tiles and column ranges
+    cover every row and output chunk, its shared memory fits, and K12's
+    plan takes the row tile it is given.  At a J whose tile of 16 rows would
+    not fit in shared memory the plan halves its row tile; K12's forced
+    tile is refused there."""
+    nb, r = 4, 4
+    for m_rows in (1, 4, 16, 17, 65, 256, 2048):
+        for n_in, n_out in ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048)):
+            for dtype, vec in ((torch.bfloat16, 8), (torch.float32, 4)):
+                plan = monarch_cuda.monarch_fwd_plan(m_rows, (nb, r, n_in // nb),
+                                                     (nb, n_out // nb, r), dtype)
+                assert plan["rows"] * plan["row_tiles"] >= m_rows
+                assert plan["row_tiles"] == (1 if m_rows <= 16 else -(-m_rows // plan["rows"]))
+                assert plan["ranges"] * plan["chunks"] * vec >= n_out
+                assert plan["ranges"] == -(-(-(-n_out // vec)) // plan["chunks"])
+                assert 0 < plan["smem"] <= 232448
+    for rows in monarch_cuda.FWD_TILE_ROWS:
+        assert monarch_cuda.monarch_fwd_plan(2664, (4, 16, 1024), (4, 1024, 16),
+                                             rows=rows)["rows"] == rows
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = monarch_cuda.monarch_fwd_plan(16, (8, 256, 64), (8, 24, 256), dtype)
+        assert (plan["rows"], plan["row_tiles"], plan["smem"]) == (8, 2, 8 * 4096 * 4)
+        with pytest.raises(RuntimeError):
+            monarch_cuda.monarch_fwd_plan(16, (8, 256, 64), (8, 24, 256), dtype, rows=16)
 
 
 @pytest.mark.cuda
@@ -221,12 +306,13 @@ QUANT_CASES = [(256, 256, 64, 4), (512, 384, 64, 16), (768, 128, 32, 8), (256, 2
                (768, 272, 8, 33), (5632, 2048, 64, 2048), (1088, 384, 32, 17),
                (1088, 272, 32, 129), (2048, 256, 64, 2048),
                (1000, 272, 20, 1), (1040, 336, 8, 9), (1088, 272, 32, 16), (1040, 272, 8, 1)]
-# int8 alone (qwgmma_rs_kernel, k stages of 64): in 1000 and 1096, no
-# multiple of the stage, so that the forward's last stage reads TMA's
-# zeros past in, at M = 17 and 129.  (int4 at these widths, h % 8 != 0,
-# is ROADMAP C's open fault of the int4 tile forward.)
-INT8_QUANT_CASES = [(1000, 272, 20, 17), (1000, 272, 20, 129), (1096, 384, 548, 17),
-                    (1096, 384, 548, 129)]
+# Ragged `in` at M = 17 and 129 (the tile paths), both formats: in 1000,
+# 1032 and 1096, no multiple of int8's k stage of 64, so that its forward's
+# last stage reads TMA's zeros past in; int4's h = in / 2 (500, 516, 548)
+# no multiple of 8, where its tile forward reads an aligned copy of x (the
+# high half's TMA box would start off 16 bytes; ROADMAP C.8).
+RAGGED_IN_QUANT_CASES = [(1000, 272, 20, 17), (1000, 272, 20, 129), (1032, 272, 43, 17),
+                         (1032, 272, 43, 129), (1096, 384, 548, 17), (1096, 384, 548, 129)]
 # W seen whole through x = I and dy = I: (in, out, group); in 1088 is no
 # multiple of int4's 64-code-row stage, out 272 of the 128-column tile
 IDENTITY_CASE = (1088, 272, 32)
@@ -279,7 +365,7 @@ def test_torch_quant_kernels_show_w_whole_on_card(cuda_device, bits, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case,bits", [(c, b) for c in QUANT_CASES for b in (8, 4)]
-                         + [(c, 8) for c in INT8_QUANT_CASES])
+                         + [(c, b) for c in RAGGED_IN_QUANT_CASES for b in (8, 4)])
 def test_torch_quant_kernels_match_plain_on_card(cuda_device, case, bits, dtype):
     """K7/K5 and K8/K6 against their plain versions; dx twice gives the same
     bits (no atomics, a fixed order of sums)."""
@@ -651,8 +737,8 @@ def test_torch_tiled_matmul_refuses_what_it_does_not_take(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FWD_TILE_CASES)
 def test_torch_fwd_tile_matches_plain_on_card(cuda_device, case, dtype):
-    """K12 at every row tile against ``monarch_kernel_reference``; at 8 rows
-    it is K1's launch, bit for bit."""
+    """K12 at every row tile against ``monarch_kernel_reference``, and equal
+    bit for bit to K1 at the row tile K1's own plan picks."""
     x, w1, w2, _ = _inputs(case, dtype, cuda_device)
     before = monarch_cuda.LAUNCHES["monarch_fwd_tile"]
     with torch.no_grad():
@@ -663,8 +749,7 @@ def test_torch_fwd_tile_matches_plain_on_card(cuda_device, case, dtype):
             torch.cuda.synchronize()
             assert got.shape == want.shape and got.dtype == want.dtype
             assert float((got.float() - want.float()).abs().max()) <= _tol(want), rows
-            if rows == 8:
-                assert torch.equal(got, k1)
+            assert torch.equal(got, k1), rows
     assert monarch_cuda.LAUNCHES["monarch_fwd_tile"] == before + len(monarch_cuda.FWD_TILE_ROWS)
 
 

@@ -31,12 +31,19 @@ from sparse_matrix_fine_tuning_tpu.ops import monarch as jm
 F32 = TOLERANCES["f32_op"]
 
 # (batch, K, Q, P, L, S, R): the CASES of the JAX kernel test (L=K, R=Q),
-# and one with L != K, where a swapped interleave index would show.
+# and one with L != K, where a swapped interleave index would show; then the
+# ragged shapes the card holds K1/K2 to (tests/test_torch_kernels_cuda.py
+# FWD_RAGGED_CASES, at fewer rows): P and S*L no multiple of 8, K != L and
+# Q != R, L = 4 with R = 16.
 CASES = [
     (16, 4, 4, 32, 4, 32, 4),
     (65, 4, 8, 16, 4, 24, 8),
     (8, 2, 16, 64, 2, 64, 16),
     (9, 4, 2, 16, 2, 12, 4),
+    (1, 4, 4, 13, 4, 7, 4),
+    (4, 2, 8, 36, 4, 9, 4),
+    (17, 4, 6, 52, 8, 33, 3),
+    (5, 2, 32, 20, 4, 13, 16),
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
