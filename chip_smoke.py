@@ -12,7 +12,9 @@ hand-written CUDA kernels, and checks them:
      layer at every row count of ROWS, each call's plan printed; then at
      ragged shapes (P and m no multiple of 8, L != K, Q != R) with x and
      base off 16 bytes;
-  4. backward kernels K3, K4 likewise at the training shapes, and the
+  4. backward kernels K3, K4 likewise at the training shapes, on the
+     cluster kernel of ``csrc/monarch_bwd.cu`` (its plan and launches a
+     call, ptxas's registers and spills), and the
      autograd Functions of K1 and K2 (whose backward is K3);
   5. serving, float32: prefill logits and greedy tokens against a copy with
      the adapters merged on the CPU;
@@ -40,7 +42,8 @@ hand-written CUDA kernels, and checks them:
  11. quantized serving, bfloat16, timed: int8 unmerged (K7, K2), int8
      requantize-merged with the w8a8 head (K7), int4 unmerged (K5, K2);
      each decode step's profile launches ``qgemv_kernel`` once an adapted
-     linear and ``qsplit_sum`` never;
+     linear and ``qsplit_sum`` never, printed beside the wrappers' count of
+     the same steps;
  12. quantized training: one float32 step (2 layers) on the card against a
      CPU copy, int8 and int4; then 22-layer bfloat16 training over an int8
      base (``run_alpaca --bits 8``: K7 and K8 at training rows) and over an
@@ -489,9 +492,28 @@ def phase_kernels(card: str) -> dict:
     return {"worst": worst, "layer": layer}
 
 
-def phase_kernels_bwd(card: str) -> dict:
+def bwd_ptxas(lib) -> None:
+    """ptxas's registers and spills of each instantiation of the cluster
+    kernel (K3, K4, K11, K13, K14), from the build's log; none may spill."""
+    from sparse_matrix_fine_tuning_torch.kernels.build import LOG_NAME
+    from sparse_matrix_fine_tuning_torch.scripts.compare_monarch_bwd import ptxas_lines
+
+    lines = [ln for ln in ptxas_lines((lib.parent / LOG_NAME).read_text())
+             if "bwd_cluster_kernel" in ln]
+    require(len(lines) == 12, f"ptxas: {len(lines)} cluster kernel instantiations, expected 12")
+    for line in lines:
+        name, rest = line.split(": ", 1)
+        args = name[name.index("bwd_cluster_kernel") + len("bwd_cluster_kernel"):]
+        print(f"[kernels] ptxas bwd_cluster_kernel{args[:24]}: {rest}", flush=True)
+        require(" 0 bytes spill stores" in rest, f"ptxas: {line} spills")
+
+
+def phase_kernels_bwd(card: str, lib) -> dict:
     """K3 and K4 against their plain versions at the training shapes: the
-    seven projections, rows M in BWD_ROWS (ragged and whole), bf16 and f32.
+    seven projections, rows M in BWD_ROWS (ragged and whole), bf16 and f32,
+    each on the cluster kernel (``monarch_bwd_plan_fields``, printed with its
+    launches a call at a training micro-batch), after ptxas's registers and
+    spills of its 12 instantiations (``bwd_ptxas``).
     No single PyTorch call computes either function (dx and the two factor
     gradients of the Monarch structure), so they have no library time.
     Tolerances: dx as the forward's output; the fp32 factor gradients 1e-5
@@ -501,6 +523,24 @@ def phase_kernels_bwd(card: str) -> dict:
     nb, r = PEFT["nblocks"], PEFT["blk_r"]
     worst = {"monarch_bwd": 0.0, "monarch_dw_fused": 0.0}
     train = {name: [] for name in worst}
+    bwd_ptxas(lib)
+    for dtype in (torch.bfloat16, torch.float32):
+        for m_rows in BWD_ROWS:
+            for proj, n_in, n_out in PROJECTIONS:
+                for with_dx in (True, False):
+                    plan = monarch_cuda.monarch_bwd_plan_fields(
+                        m_rows, (nb, r, n_in // nb), (nb, n_out // nb, r), with_dx=with_dx,
+                        dtype=dtype)
+                    require(plan["fast"] == 1, f"K3/K4 {proj} M={m_rows}: not the cluster "
+                                               f"kernel: {plan}")
+                    if dtype == torch.bfloat16 and m_rows == TRAIN_BS * TRAIN_SEQ:
+                        # the cluster kernel, and the clusters' sum where there
+                        # is more than one cluster (compare_monarch_bwd.py
+                        # counts them with the profiler; a profile here made
+                        # the later decode profiles lose records, ROADMAP C.10)
+                        print(f"[kernels] {'K3' if with_dx else 'K4'} plan, bf16, M={m_rows} "
+                              f"{proj}: {plan}; {1 + (plan['clusters'] > 1)} launches a call",
+                              flush=True)
     print(_HEADER, flush=True)
     with torch.no_grad():
         for dtype in (torch.bfloat16, torch.float32):
@@ -796,9 +836,11 @@ def device_busy_ms(fn, calls: int, label: str, kernels: dict | None = None):
 
 
 @torch.inference_mode()
-def profile_decode(model, ids, mask, steps: int = 8, kernels: dict | None = None):
+def profile_decode(model, ids, mask, steps: int = 8, kernels: dict | None = None,
+                   wrappers: dict | None = None):
     """Device time per decode forward after a prefill, from torch.profiler;
-    ``kernels`` as ``device_busy_ms``'s."""
+    ``kernels`` as ``device_busy_ms``'s; ``wrappers``, where given, receives
+    the wrappers' launch counts a profiled step (``counts``)."""
     from sparse_matrix_fine_tuning_torch.models.generate import _positions_from_mask
     from sparse_matrix_fine_tuning_torch.models.llama import init_caches
 
@@ -816,7 +858,12 @@ def profile_decode(model, ids, mask, steps: int = 8, kernels: dict | None = None
                      cache_index=t + i)
 
     step(0)
-    return device_busy_ms(lambda i: step(i + 1), steps, "decode steps", kernels)
+    before = counts()
+    busy_ms = device_busy_ms(lambda i: step(i + 1), steps, "decode steps", kernels)
+    if wrappers is not None:
+        after = counts()
+        wrappers.update({k: (after[k] - before[k]) / steps for k in after})
+    return busy_ms
 
 
 def phase_bf16(f32: dict, card: str) -> dict:
@@ -1884,14 +1931,17 @@ def phase_quant_bf16(f32: dict, card: str) -> dict:
         toks, main_s = timed(lambda: generate(model, ids, mask, gc))
         launches = counts()  # the counted main path ends here
         peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
-        kernels = {}
-        busy_ms = profile_decode(model, fresh_ids(), mask, kernels=kernels)
+        kernels, wrappers = {}, {}
+        busy_ms = profile_decode(model, fresh_ids(), mask, kernels=kernels, wrappers=wrappers)
         name = f"int{bits}_matmul"
         if busy_ms is not None:
-            # the decode kernel once an adapted linear a step, one launch a call
+            # the decode kernel once an adapted linear a step, one launch a
+            # call; beside the profiler's count, the wrappers' count of the
+            # same steps (ROADMAP C.10)
             gemv = sum(n for key, n in kernels.items() if "qgemv_kernel" in key)
             split = sum(n for key, n in kernels.items() if "qsplit_sum" in key)
-            print(f"[quant-bf16] {label}: a decode step launches qgemv_kernel {gemv:g} times, "
+            print(f"[quant-bf16] {label}: a decode step launches qgemv_kernel {gemv:g} times "
+                  f"by the profiler, {wrappers[name]:g} by the wrappers' count ({name}), "
                   f"qsplit_sum {split:g} times", flush=True)
             require(gemv == N_ADAPTED and split == 0,
                     f"{label}: a decode step launched qgemv_kernel {gemv} and qsplit_sum "
@@ -1990,7 +2040,7 @@ def main() -> None:
     card = phase_device()
     lib = phase_build()
     fwd = phase_kernels(card)
-    bwd = phase_kernels_bwd(card)
+    bwd = phase_kernels_bwd(card, lib)
     qk = phase_quant_kernels(card, lib)
     lap("kernels")
     phase_autograd(card)

@@ -11,7 +11,8 @@ package imports on machines with no CUDA toolkit.  It takes one route:
     ``torch.ops.load_library`` loads.
 
 The library goes into ``kernels/_build/<key>/``, which ``.gitignore``
-lists.  The key hashes the sources, the compile commands, the PyTorch and
+lists, with the compilers' output beside it (``build.log``: ptxas's
+registers and spills of every kernel).  The key hashes the sources, the compile commands, the PyTorch and
 CUDA versions and the arch, so a stale library is never reused.  A failed
 build raises with the compiler's output.
 """
@@ -32,6 +33,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 GENCODE = "-gencode=arch=compute_90a,code=sm_90a"
 LIB_NAME = "libsmft_kernels.so"
+LOG_NAME = "build.log"  # the compilers' output (ptxas's registers and spills), beside the library
 
 
 def _cuda_home() -> Path:
@@ -131,6 +133,7 @@ def build(verbose: bool = False) -> Path:
                                    f"{' '.join(cmd)}\n{out}")
             logs.append(out)
         logs.append(_run(link))
+        (tmp / LOG_NAME).write_text("".join(logs))
         if verbose:
             print(f"built {LIB_NAME} in {time.perf_counter() - t0:.1f} s", flush=True)
             print("".join(logs), flush=True)

@@ -24,26 +24,60 @@
 //
 // What bounds it: device memory.  Per element of x and dout the kernel does
 // 2-3 multiply-adds per unit of blk_r, far under the card's ~295 operations
-// per byte, so the design reads x and dout from device memory once each
-// and keeps the two J-wide row summaries (out1, dout1) out of it.
+// per byte, so a design reads x and dout from device memory once each and
+// keeps the two J-wide row summaries (out1, dout1) out of it.
 //
-// The reduction over rows.  The TPU summed dW in VMEM across a grid that
-// runs in order; Hopper's CTAs run in parallel and in no order.  Here each
-// CTA owns a contiguous group of rows and sums its rows' contributions in
-// shared memory (each thread owns its columns, so no atomics), then writes
-// one fp32 partial per group; a second pass sums the partials in group
-// order.  The result is the same bit for bit from run to run (fp32 atomics
-// would not be).  The caller may set the rows of a group (K13); otherwise
-// the host picks the number of groups so that the partials'
+// Two designs, chosen by shape alone (fast_shape):
+//
+// The cluster kernel (bwd_cluster_kernel), K = L = 4 (nblocks 4, every
+// configuration of the repository), Q = R in {4, 8, 16}, P % 8 == 0, S
+// even, 16-byte aligned tensors, and a plan that fits in shared memory.  A
+// thread block cluster of kC = 4 CTAs owns a row group; CTA c keeps x's
+// block k = c (P columns) and a slice of dout's columns (all l for Sc
+// values of s).  A persistent grid (as many clusters as can be resident,
+// cudaOccupancyMaxActiveClusters) walks the row groups; each cluster walks
+// its groups' row tiles.  Per tile of `tile` rows:
+//   copy:      warp 0 stages the tile's rows of x's block and of dout's
+//              slice into shared memory with one cp.async.bulk a row each,
+//              in a ring of `stages` stages on mbarriers, `stages` tiles
+//              ahead: x and dout are read from device memory once.
+//   summaries: CTA c computes out1 of block c (Q values a row, complete)
+//              and its slice's partial sums of dout1 (all J values a row);
+//              in bf16 on the tensor cores (mma.sync m16n8k16: out1 with
+//              the rows as M, q as N (padded to 8) and p as K, the A
+//              operand by ldmatrix; dout1 per l with s as K, the A operand
+//              taken out of the interleave by byte permutes), the warps
+//              splitting K and their partials added in warp order.
+//   exchange:  each CTA stores its out1 into every CTA of the cluster and
+//              each partial of dout1 into the CTA of its block, through
+//              distributed shared memory; one cluster barrier; each CTA then
+//              holds the cluster's out1 (all J values) and the four
+//              partials of its block's dout1, which it adds in rank order
+//              and rounds to T.  The receive buffers are double-buffered,
+//              so one cluster barrier a tile is enough.
+//   products:  from the staged tile, no second read of memory: dw1 of
+//              block c (dw1^T = x^T dout1, p as M, the rows as K, ldmatrix
+//              .trans), dw2 of the slice (per l, s as M, the rows as K),
+//              each sum kept in shared memory in the mma fragments' own
+//              order across the cluster's tiles; then dx of block c (K3:
+//              m16n8k8, q as K) into the x tile's rows, and out in 16-byte
+//              stores.  float32 takes the FMA pipe for every product, over
+//              the same staged tiles and buffers.
+// Each cluster writes one fp32 partial (its CTAs' blocks and slices); a
+// second launch sums the clusters' partials in cluster order (with one
+// cluster the kernel writes dw1 and dw2 itself).  Every sum's order depends
+// on the shapes and the plan alone, so every run gives the same bits.
+//
+// The generic kernel (monarch_bwd_kernel), every other shape: each CTA owns
+// a contiguous group of rows and sums its rows' contributions in shared
+// memory (each thread owns its columns, so no atomics), then writes one
+// fp32 partial per group; the same second pass sums the partials in group
+// order.  The host picks the number of groups so that the partials'
 // traffic stays under 1/4 of the main traffic, and splits the columns over
 // up to 4 CTAs per group (each recomputing its rows' summaries, rereading
 // them from L2) where the groups alone would leave SMs idle, and over more
-// where the shared memory would not fit.
-//
-// Ragged rows: a tile's rows past M are never loaded; their x and dout
-// values enter the sums as zeros.
-//
-// Layout of one CTA (group g, column chunk c), per tile of kTileRows rows:
+// where the shared memory would not fit.  Its layout of one CTA (group g,
+// column chunk c), per tile of kTileRows rows:
 //   A: out1 of the tile, one warp per (row, j) dot of length P (lanes along
 //      p, coalesced), a shuffle reduction, rounded to T, kept in shared memory;
 //   B: dout1 of the tile, one warp per (row, j) dot of length S, likewise;
@@ -53,6 +87,9 @@
 //   D: one thread per output column of the chunk: the tile's dout column in
 //      registers; for each r, the dw2 contribution into shared memory.
 //
+// Ragged rows: a tile's rows past M (or past its row group) are never
+// loaded; their x and dout values enter the sums as zeros.
+//
 // The C interface takes raw pointers and returns a cudaError_t, so this
 // file needs no PyTorch header; ops.cpp binds it.
 
@@ -60,9 +97,12 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
+#include <type_traits>
 
 namespace {
 
+// The generic kernel's block, row tile and shared-memory budget.
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileRows = 16;
@@ -216,486 +256,664 @@ monarch_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dout,
 }
 
 // ---------------------------------------------------------------------------
-// Fast path: K = L = 4 (nblocks 4, every configuration of the repository),
-// Q = R in {4, 8, 16} (blk_r 4, the adapters', and 8 and 16, the fused
-// linear's bench and the dw experiments'), P % 8 == 0, S even, 16-byte
-// aligned rows.  Three launches, each reading its rows with 8- or 16-byte
-// loads:
-//   summaries: out1 (from x) and dout1 (from dout), J = 4*Q values a row,
-//     into fp32 scratch, rounded to T; fixed-order warp reductions.
-//   columns:   one thread per C columns of x (dx and dw1) or of dout (dw2),
-//     its factor entries and its fp32 sums in registers, looping over the
-//     rows of its row group; it rereads x and dout (from L2 where they are
-//     still there) but needs no block-wide reduction.
-//   sum:       the groups' partial dw1 and dw2 summed in group order.
-// Bytes: x and dout are read twice where the generic kernel reads them
-// once, but every read is a coalesced vector load and no CTA waits on a
-// long dependent chain.
-//
-// At Q = 4 (the training path) a warp sums one row and a columns thread
-// owns 8 columns, reading its rows' summaries from L2 row by row.  At Q = 8
-// and 16 each row costs 2*Q multiply-adds an element of x and of dout in
-// each pass, and the summaries read all of w1 or w2 (128 KB at Q = 16) for
-// every row.  So there: the dout1 lanes step through w2[l] 16 bytes apart,
-// so that every factor load is coalesced; a warp may sum sum_rows(Q) rows
-// at once, each factor vector serving all of them; a columns CTA stages
-// kChunk rows of summaries in shared memory with one coalesced load and
-// loads its kChunk rows of x or dout before it uses them, so that it waits
-// on memory once a chunk and not once a row; and a thread owns 4 columns,
-// so that its Q*4 sums (and, for K3, its Q*4 factor entries) stay in
-// registers.  What bounds them on the H100 is latency and the factors'
-// rereads from L1/L2, not device memory (PERF.md §6); the tensor cores,
-// which would take the summaries' and the columns' products, are a later
-// design.
-//
-// The row group.  rows_per_group > 0 sets it (K13, the JAX experiment's
-// sequence tile ts); 0 lets the plan choose.  It sets the number of groups,
-// hence both the columns launch's CTAs (groups x column CTAs) and the
-// partials' traffic (groups x J x (P + S) fp32 written and read once).
+// The cluster kernel (see the head of the file).
 
-constexpr int kFast = 4;           // K = L (and Q = R on the blk_r 4 kernels)
-constexpr int kSumWarps = 8;       // summaries: warps per CTA
-constexpr int kColThreads = 128;   // columns: threads per CTA
-constexpr int kUnroll = 4;         // columns at Q = 4: rows loaded before they are used
-constexpr int kChunk = 16;         // columns at Q = 8, 16: rows staged at a time
-constexpr int kMaxGridY = 65535;
+constexpr int kC = 4;                 // CTAs a cluster: one a block of x (K = L = 4)
+// Threads a CTA at blk_r q: 12 warps (ptxas fits them in the 168 registers
+// that leaves, no spill), 8 at blk_r 16, whose dw sums and partials fill
+// the shared memory at the 7B widths.
+__host__ __device__ constexpr int fast_threads(int q) { return q == 16 ? 256 : 384; }
+constexpr int kMaxTile = 32;          // rows a tile at most: one a lane of the copying warp
+constexpr int kMaxStages = 3;
+constexpr int64_t kSmemMax = 232448;  // 227 KB, the most a CTA may take on the H100
 
-// Columns a thread of the columns launch owns, at Q = R.
-constexpr int fast_cols(int q) { return q == 4 ? 8 : 4; }
-// Summaries at Q = 8, 16: rows a warp sums at once, and the unroll of its
-// loop over the factors.  More rows a warp save factor reads but cost
-// registers, hence warps an SM; the H100 ran Q = 16 fastest at one row and
-// no unroll, Q = 8 at two rows and an unroll of 4 (PERF.md §6).
-__host__ __device__ constexpr int sum_rows(int q) { return q == 8 ? 2 : 1; }
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+// -- the device's primitives: shared-memory addresses, mbarriers, bulk
+// copies, the cluster's barrier and shared memory, ldmatrix and mma.sync
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
+
+__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool bar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// One contiguous copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global to this CTA's shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Orders this thread's earlier shared-memory accesses before the bulk
+// copies it issues next.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The address of `p` (this CTA's shared memory) in CTA `rank` of the
+// cluster, a generic pointer that plain stores write (before the cluster
+// barrier, whose "memory" clobber keeps them ahead of it).
+template <typename E>
+__device__ __forceinline__ E* peer(E* p, uint32_t rank) {
+  uint64_t out = 0;
+  asm("mapa.u64 %0, %1, %2;" : "=l"(out) : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<E*>(out);
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a b: m16n8k16, bf16 in, fp32 sums.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b: m16n8k8, bf16 in, fp32 sums.
+__device__ __forceinline__ void mma1688(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+// Wait for the phase of parity `parity`; a pipeline fault traps instead of
+// hanging the card.
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t polls = 0; !bar_test(bar, parity); ++polls)
+    if (polls == (1u << 22)) __trap();
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(unsigned short lo, unsigned short hi) {
+  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  return pack_bf16(__bfloat16_as_ushort(__float2bfloat16(lo)),
+                   __bfloat16_as_ushort(__float2bfloat16(hi)));
+}
+
+// The bf16 pair of value l (0..3) of two interleaved rows: u and v each hold
+// one s's four l values (l0 l1 | l2 l3); the result holds u's value of l
+// low and v's high.
+__device__ __forceinline__ uint32_t pick_l(uint2 u, uint2 v, int l) {
+  const uint32_t a = l < 2 ? u.x : u.y, b = l < 2 ? v.x : v.y;
+  return __byte_perm(a, b, (l & 1) ? 0x7632 : 0x5410);
+}
+
+// Where the sums of a (rows x cols) product live in shared memory: in the
+// mma fragments' own order, tile by tile (16 rows x 8 columns), lane by
+// lane, four values a lane (rows g, g + 8 and columns 2t, 2t + 1 of the
+// tile, lane = 4g + t).  At Q = 4 the columns 4-7 of a tile are padding, so
+// only the lanes with t < 2 keep theirs (kLanes = 16).
+template <int Q>
+struct Frag {
+  static constexpr int kQp = Q < 8 ? 8 : Q;  // columns, padded to an mma tile
+  static constexpr int kNt = kQp / 8;        // column tiles
+  static constexpr int kLanes = Q == 4 ? 16 : 32;
+  __host__ __device__ static int lane_slot(int g, int t) { return kLanes == 16 ? 2 * g + t : 4 * g + t; }
+  // The slot of the four values of lane (g, t) in row tile mt, column tile nt.
+  __device__ static int slot(int mt, int nt, int g, int t) {
+    return ((mt * kNt + nt) * kLanes + lane_slot(g, t)) * 4;
   }
-}
-__device__ __forceinline__ void store8(float* p, const float v[8]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
+  // The element (row, col) of the sums.
+  __device__ static int index(int row, int col) {
+    const int rr = row & 15, cc = col & 7;
+    return slot(row >> 4, col >> 3, rr & 7, cc >> 1) + ((rr >> 3) << 1) + (cc & 1);
+  }
+  // Floats of a product of `rows` rows (a multiple of 16).
+  __host__ __device__ static int64_t floats(int64_t rows) { return rows / 16 * kNt * kLanes * 4; }
+  __device__ static bool keeps(int t) { return kLanes == 32 || t < 2; }
+};
 
-// Q = 4: s1[b, j] = out1[b, j], s2[b, j] = dout1[b, j] (16 per row, rounded
-// to T); one warp a row.  grid (ceil(M / kSumWarps), 2): y = 0 reads x,
-// y = 1 reads dout.
-template <typename T>
-__global__ void __launch_bounds__(kSumWarps * 32)
-summaries_kernel(const T* __restrict__ x, const T* __restrict__ dout,
-                 const T* __restrict__ w1, const T* __restrict__ w2, float* __restrict__ s1,
-                 float* __restrict__ s2, int64_t M, int P, int S) {
-  const int lane = threadIdx.x % 32;
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kSumWarps + threadIdx.x / 32;
-  if (b >= M) return;  // a whole warp at once; no block barrier below
-  if (blockIdx.y == 0) {
-    const T* xr = x + b * kFast * P;
-    const int vecs = P / 8;  // per block k
-#pragma unroll
-    for (int k = 0; k < kFast; ++k) {
-      float a[kFast] = {0.f, 0.f, 0.f, 0.f};
-      for (int v = lane; v < vecs; v += 32) {
-        float xv[8];
-        load8(xr + static_cast<int64_t>(k) * P + 8 * v, xv);
-#pragma unroll
-        for (int q = 0; q < kFast; ++q) {
-          float wv[8];
-          load8(w1 + static_cast<int64_t>(k * kFast + q) * P + 8 * v, wv);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) a[q] += xv[e] * wv[e];
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kFast; ++q) {
-        const float total = warp_sum(a[q]);
-        if (lane == 0) s1[b * 16 + k * kFast + q] = to_f32(from_f32<T>(total));
-      }
-    }
-  } else {
-    const T* dr = dout + b * kFast * S;
-    float a[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) a[j] = 0.f;
-    for (int v = lane; v < S / 2; v += 32) {  // 8 columns: s = 2v, 2v+1; l = 0..3
-      float dv[8];
-      load8(dr + 8 * static_cast<int64_t>(v), dv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int l = e & 3, s = 2 * v + (e >> 2);
-        float w[kFast];
-        load4(w2 + (static_cast<int64_t>(l) * S + s) * kFast, w);  // w2[l, s, :]
-#pragma unroll
-        for (int r = 0; r < kFast; ++r) a[r * kFast + l] += dv[e] * w[r];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float total = warp_sum(a[j]);
-      if (lane == 0) s2[b * 16 + j] = to_f32(from_f32<T>(total));
+struct FastParams {
+  const void* x;
+  const void* dout;
+  const void* w1;
+  const void* w2;
+  void* dx;
+  float* part1;  // (clusters, K, Q, P): each cluster's dw1 (dw1 itself with one cluster)
+  float* part2;  // (clusters, L, S, R): likewise dw2
+  int64_t M, rows_per_group;
+  int P, S;
+  int Sc;        // values of s a CTA's slice holds (the last slice may hold fewer)
+  int tile, stages, groups, clusters;
+  int xs, ds;    // bytes a staged row of x's block and of dout's slice takes
+  int stage_bytes;
+  int off_acc1, off_acc2, off_recv, off_work;  // byte offsets in shared memory
+  int dw2_global;  // 1: dw2's sums live in part2 itself (too wide for shared memory)
+};
+
+// The row tiles cluster `cl` walks: its groups cl, cl + clusters, ... in
+// order, each in tiles of `tile` rows; at(i) gives tile i's first row and
+// rows (the last tile of a group, or of M, holds fewer).
+struct TileWalk {
+  int64_t M, rows_per_group;
+  int tile, clusters, per_group;
+  int cl;
+  __device__ void at(int i, int64_t& t0, int& rows) const {
+    const int64_t g = cl + static_cast<int64_t>(i / per_group) * clusters;
+    const int64_t g0 = g * rows_per_group;
+    const int64_t g1 = g0 + rows_per_group < M ? g0 + rows_per_group : M;
+    t0 = g0 + static_cast<int64_t>(i % per_group) * tile;
+    rows = g1 - t0 < tile ? static_cast<int>(g1 - t0) : tile;
+  }
+};
+
+template <typename T, int Q, bool kDx>
+__global__ void __launch_bounds__(fast_threads(Q), 1) bwd_cluster_kernel(const FastParams prm) {
+  constexpr bool kMma = std::is_same<T, bf16>::value;
+  constexpr int kFastThreads = fast_threads(Q), kFastWarps = kFastThreads / 32;
+  constexpr int J = 4 * Q;
+  using F = Frag<Q>;
+  constexpr int kQp = F::kQp, kNt = F::kNt;
+  constexpr int kKs = kFastWarps / kNt;  // chunks the summaries split K into
+  extern __shared__ __align__(128) unsigned char cluster_smem[];
+  unsigned char* smem = cluster_smem;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int c = blockIdx.x % kC;   // the CTA's rank: block c of x, slice c of dout
+  const int cl = blockIdx.x / kC;  // the cluster
+  const int P = prm.P, S = prm.S, TR = prm.tile;
+  const int64_t n = 4 * static_cast<int64_t>(P), m = 4 * static_cast<int64_t>(S);
+  const int s0 = c * prm.Sc < S ? c * prm.Sc : S;
+  const int sl = (s0 + prm.Sc < S ? s0 + prm.Sc : S) - s0;  // s in [s0, s0 + sl)
+  const T* x = static_cast<const T*>(prm.x);
+  const T* dout = static_cast<const T*>(prm.dout);
+  const T* w1c = static_cast<const T*>(prm.w1) + static_cast<int64_t>(c) * Q * P;  // w1[c]
+  const T* w2 = static_cast<const T*>(prm.w2);
+  T* dx = static_cast<T*>(prm.dx);
+
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* acc1 = reinterpret_cast<float*>(smem + prm.off_acc1);  // dw1^T of block c (P x Q)
+  float* acc2 = reinterpret_cast<float*>(smem + prm.off_acc2);  // dw2 of the slice, per l (s x r)
+  const int acc2_l = static_cast<int>(F::floats((prm.Sc + 15) / 16 * 16));  // floats an l
+  // The cluster's dw2 (L, S, R); with dw2_global its slice holds the sums
+  // across the tiles in place of acc2, each entry read and written by one
+  // thread only.
+  float* p2 = prm.part2 + static_cast<int64_t>(cl) * 4 * S * Q;
+  const bool dw2_global = prm.dw2_global != 0;
+  // What the cluster sends this CTA a tile, double-buffered: each rank's
+  // partial dout1 of block c, [2][kC][tile][Q] in fp32, and out1 of every
+  // block, [2][tile][J], already rounded to T.
+  float* recv_d = reinterpret_cast<float*>(smem + prm.off_recv);
+  T* recv_o = reinterpret_cast<T*>(recv_d + 2 * kC * TR * Q);
+  unsigned char* work = smem + prm.off_work;
+  // After the exchange: out1 (l, r, row), dout1 of block c (q, row) and (row, q).
+  T* o1 = reinterpret_cast<T*>(work);
+  T* d1c = o1 + 4 * kQp * TR;
+  T* d1r = d1c + kQp * TR;
+  // Before it (bf16): the warps' partial summaries, in fragment order.
+  float* part_o = reinterpret_cast<float*>(work);
+  float* part_d = part_o + TR / 16 * kFastWarps * 32 * 4;
+
+  TileWalk walk{prm.M, prm.rows_per_group, TR, prm.clusters,
+                static_cast<int>((prm.rows_per_group + TR - 1) / TR), cl};
+  const int my_groups = (prm.groups - cl + prm.clusters - 1) / prm.clusters;
+  int ntiles = 0;
+  {
+    const int64_t last = (cl + static_cast<int64_t>(my_groups - 1) * prm.clusters) *
+                         prm.rows_per_group;
+    const int64_t last_rows = prm.M - last < prm.rows_per_group ? prm.M - last
+                                                                : prm.rows_per_group;
+    ntiles = (my_groups - 1) * walk.per_group + static_cast<int>((last_rows + TR - 1) / TR);
+  }
+
+  const uint32_t xbytes = static_cast<uint32_t>(P) * sizeof(T);
+  const uint32_t dbytes = static_cast<uint32_t>(sl) * 4 * sizeof(T);
+  // Zero the sums, and the columns of the staged rows that the products
+  // read past the copies' data (P up to a multiple of 16, the slice up to
+  // Sc rounded to 16): they stay zero, as the copies write the data only.
+  {
+    float4* z = reinterpret_cast<float4*>(smem + prm.off_acc1);
+    for (int i = tid; i < (prm.off_recv - prm.off_acc1) / 16; i += kFastThreads)
+      z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (dw2_global)
+      for (int k = tid; k < 4 * sl * Q; k += kFastThreads)
+        p2[(static_cast<int64_t>(k / (sl * Q)) * S + s0 + k / Q % sl) * Q + k % Q] = 0.f;
+    const int xpad = (prm.xs / 16) - static_cast<int>(xbytes / 16);
+    const int dpad = (prm.ds / 16) - static_cast<int>(dbytes / 16);
+    for (int i = tid; i < prm.stages * TR * (xpad + dpad); i += kFastThreads) {
+      const int row = i / (xpad + dpad), w = i % (xpad + dpad);
+      unsigned char* xt = smem + 128 + (row / TR) * prm.stage_bytes + (row % TR) * prm.xs;
+      float4* at = w < xpad ? reinterpret_cast<float4*>(xt + xbytes) + w
+                            : reinterpret_cast<float4*>(xt + (TR - row % TR) * prm.xs +
+                                                        (row % TR) * prm.ds + dbytes) +
+                                  (w - xpad);
+      *at = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
-}
-
-// Q = 4: grid (x_ctas + d_ctas, groups): CTAs below x_ctas own 8 columns of x per
-// thread (dx, dw1), the others 8 columns of dout (dw2); blockIdx.y is the
-// row group.  part1/part2 receive the group's sums in the factors' layouts.
-template <typename T, bool kDx>
-__global__ void __launch_bounds__(kColThreads)
-columns_kernel(const T* __restrict__ x, const T* __restrict__ dout, const T* __restrict__ w1,
-               const T* __restrict__ w2, const float* __restrict__ s1,
-               const float* __restrict__ s2, T* __restrict__ dx, float* __restrict__ part1,
-               float* __restrict__ part2, int64_t M, int P, int S, int64_t rows_per_group,
-               int x_ctas) {
-  const int64_t g0 = static_cast<int64_t>(blockIdx.y) * rows_per_group;
-  const int64_t g1 = g0 + rows_per_group < M ? g0 + rows_per_group : M;
-  if (static_cast<int>(blockIdx.x) < x_ctas) {
-    const int64_t n = static_cast<int64_t>(kFast) * P;
-    const int v = blockIdx.x * kColThreads + threadIdx.x;
-    if (v >= n / 8) return;
-    const int c0 = 8 * v, k = c0 / P, p0 = c0 % P;  // P % 8 == 0: one block k
-    float w[kFast][8], acc[kFast][8];
-#pragma unroll
-    for (int q = 0; q < kFast; ++q) {
-      load8(w1 + static_cast<int64_t>(k * kFast + q) * P + p0, w[q]);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[q][e] = 0.f;
-    }
-    for (int64_t b0 = g0; b0 < g1; b0 += kUnroll) {
-      float xv[kUnroll][8];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (b0 + u < g1) {
-          load8(x + (b0 + u) * n + c0, xv[u]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) xv[u][e] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (b0 + u >= g1) break;
-        float d[kFast];
-        load4(s2 + (b0 + u) * 16 + k * kFast, d);  // dout1[b, k*Q + q]
-        if constexpr (kDx) {
-          float o[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            o[e] = d[0] * w[0][e] + d[1] * w[1][e] + d[2] * w[2][e] + d[3] * w[3][e];
-          store8(dx + (b0 + u) * n + c0, o);
-        }
-#pragma unroll
-        for (int q = 0; q < kFast; ++q)
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[q][e] += d[q] * xv[u][e];
-      }
-    }
-    float* out = part1 + static_cast<int64_t>(blockIdx.y) * 16 * P;
-#pragma unroll
-    for (int q = 0; q < kFast; ++q) store8(out + static_cast<int64_t>(k * kFast + q) * P + p0, acc[q]);
-  } else {
-    const int64_t m = static_cast<int64_t>(kFast) * S;
-    const int v = (blockIdx.x - x_ctas) * kColThreads + threadIdx.x;
-    if (v >= m / 8) return;
-    float acc[8][kFast];
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-#pragma unroll
-      for (int r = 0; r < kFast; ++r) acc[e][r] = 0.f;
-    for (int64_t b0 = g0; b0 < g1; b0 += kUnroll) {
-      float dv[kUnroll][8];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (b0 + u < g1) {
-          load8(dout + (b0 + u) * m + 8 * static_cast<int64_t>(v), dv[u]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) dv[u][e] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (b0 + u >= g1) break;
-        float o1[16];  // out1[b, r*L + l]
-#pragma unroll
-        for (int i = 0; i < 4; ++i) load4(s1 + (b0 + u) * 16 + 4 * i, o1 + 4 * i);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-#pragma unroll
-          for (int r = 0; r < kFast; ++r) acc[e][r] += o1[r * kFast + (e & 3)] * dv[u][e];
-      }
-    }
-    float* out = part2 + static_cast<int64_t>(blockIdx.y) * 16 * S;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int l = e & 3, s = 2 * v + (e >> 2);
-      *reinterpret_cast<float4*>(out + (static_cast<int64_t>(l) * S + s) * kFast) =
-          make_float4(acc[e][0], acc[e][1], acc[e][2], acc[e][3]);
-    }
+  if (tid == 0) {
+    for (int s = 0; s < prm.stages; ++s) bar_init(smem_addr(bars + s), 1);
+    bar_fence_init();
   }
-}
+  fence_async_smem();  // the zeros before the copies into the same stages
+  // Every CTA of the cluster runs before any writes into another's buffers.
+  cluster_arrive();
+  cluster_wait();
 
+  // Warp 0 stages tile i: lane i copies row i of x's block and of the slice.
+  auto issue = [&](int i) {
+    int64_t t0;
+    int rows;
+    walk.at(i, t0, rows);
+    const int st = i % prm.stages;
+    const uint32_t bar = smem_addr(bars + st);
+    unsigned char* xt = smem + 128 + st * prm.stage_bytes;
+    unsigned char* dt = xt + TR * prm.xs;
+    if (lane == 0) bar_expect(bar, static_cast<uint32_t>(rows) * (xbytes + dbytes));
+    __syncwarp();
+    if (lane < rows) {
+      const int64_t b = t0 + lane;
+      bulk_copy(smem_addr(xt + lane * prm.xs), x + b * n + static_cast<int64_t>(c) * P, xbytes,
+                bar);
+      if (dbytes)
+        bulk_copy(smem_addr(dt + lane * prm.ds), dout + b * m + 4 * static_cast<int64_t>(s0),
+                  dbytes, bar);
+    }
+  };
+  if (warp == 0)
+    for (int i = 0; i < prm.stages && i < ntiles; ++i) issue(i);
 
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  uint2 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-  h[0] = __floats2bfloat162_rn(v[0], v[1]);
-  h[1] = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = u;
-}
+  for (int i = 0; i < ntiles; ++i) {
+    int64_t t0;
+    int rows;
+    walk.at(i, t0, rows);
+    const int st = i % prm.stages;
+    unsigned char* xt = smem + 128 + st * prm.stage_bytes;
+    unsigned char* dt = xt + TR * prm.xs;
+    T* to_o = recv_o + (i & 1) * TR * J;  // this tile's buffers, here and in the peers
+    float* to_d = recv_d + (i & 1) * kC * TR * Q;
+    bar_wait(smem_addr(bars + st), (i / prm.stages) & 1);
+    if (rows < TR) {  // rows past the group enter as zeros
+      const int xw = prm.xs / 16, dw = prm.ds / 16;
+      for (int k = tid; k < (TR - rows) * (xw + dw); k += kFastThreads) {
+        const int r = rows + k / (xw + dw), w = k % (xw + dw);
+        float4* row = w < xw ? reinterpret_cast<float4*>(xt + r * prm.xs) + w
+                             : reinterpret_cast<float4*>(dt + r * prm.ds) + (w - xw);
+        *row = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      __syncthreads();
+    }
 
-// Q = R in {8, 16}: s1, s2 as above, J = 4*Q per row; one warp sums
-// sum_rows(Q) rows.  grid (ceil(M / (kSumWarps * sum_rows(Q))), 2): y = 0
-// reads x, y = 1 reads dout.
-template <typename T, int Q>
-__global__ void __launch_bounds__(kSumWarps * 32)
-summaries_rows_kernel(const T* __restrict__ x, const T* __restrict__ dout,
-                      const T* __restrict__ w1, const T* __restrict__ w2,
-                      float* __restrict__ s1, float* __restrict__ s2, int64_t M, int P, int S) {
-  constexpr int J = kFast * Q;
-  constexpr int kSumRows = sum_rows(Q);
-  const int lane = threadIdx.x % 32;
-  const int64_t b0 =
-      (static_cast<int64_t>(blockIdx.x) * kSumWarps + threadIdx.x / 32) * kSumRows;
-  if (b0 >= M) return;  // a whole warp at once; no block barrier below
-  const int rows = M - b0 < kSumRows ? static_cast<int>(M - b0) : kSumRows;
-  if (blockIdx.y == 0) {
-    const int64_t n = static_cast<int64_t>(kFast) * P;
+    // -- summaries: out1 of block c, to every CTA of the cluster, and the
+    // slice's partials of dout1, each to the CTA of its block
+    auto send_out1 = [&](int b, int q, float v) {
+      const T vt = from_f32<T>(v);
 #pragma unroll
-    for (int k = 0; k < kFast; ++k) {
-      float a[kSumRows][Q];
+      for (int rank = 0; rank < kC; ++rank) peer(to_o, rank)[b * J + c * Q + q] = vt;
+    };
+    auto send_dout1 = [&](int b, int j, float v) {  // j = r*4 + l = k*Q + q
+      peer(to_d, j / Q)[(c * TR + b) * Q + j % Q] = v;
+    };
+    if constexpr (kMma) {
+      // Warp w takes column tile w / kKs and chunk w % kKs of K (kKs chunks
+      // of the K steps, the same at every row tile), for each 16-row tile
+      // of the tile; the chunks' partials are added in chunk order, so the
+      // sums do not depend on the tile's rows.
+      const int nt = warp / kKs, ch = warp % kKs, mts = TR / 16;
+      {  // out1 = x w1[c]^T: rows as M, q as N, p as K
+        const int nks = (P + 15) / 16, k0 = ch * nks / kKs, k1 = (ch + 1) * nks / kKs;
+        const int q = nt * 8 + g;
+        const uint32_t* wq = reinterpret_cast<const uint32_t*>(w1c + static_cast<int64_t>(q) * P);
+        const uint32_t a_row = smem_addr(xt + ((lane & 7) + 8 * ((lane >> 3) & 1)) * prm.xs) +
+                               16 * (lane >> 4);
+        float d[kMaxTile / 16][4] = {};
+        for (int ks = k0; ks < k1; ++ks) {
+          const int p = ks * 16 + 2 * t;
+          const uint32_t b0 = q < Q && p < P ? __ldg(wq + p / 2) : 0u;
+          const uint32_t b1 = q < Q && p + 8 < P ? __ldg(wq + p / 2 + 4) : 0u;
 #pragma unroll
-      for (int i = 0; i < kSumRows; ++i)
-#pragma unroll
-        for (int q = 0; q < Q; ++q) a[i][q] = 0.f;
-#pragma unroll (Q == 8 ? 4 : 1)
-      for (int v = lane; v < P / 8; v += 32) {
-        const int64_t c = static_cast<int64_t>(k) * P + 8 * v;
-        float xv[kSumRows][8];
-#pragma unroll
-        for (int i = 0; i < kSumRows; ++i) {
-          if (i < rows) {
-            load8(x + (b0 + i) * n + c, xv[i]);
-          } else {
-#pragma unroll
-            for (int e = 0; e < 8; ++e) xv[i][e] = 0.f;
+          for (int mt = 0; mt < kMaxTile / 16; ++mt) {
+            if (mt < mts) {
+              uint32_t a[4];
+              ldsm4(a, a_row + 16 * mt * prm.xs + 32 * ks);
+              mma16816(d[mt], a, b0, b1);
+            }
           }
         }
 #pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          float wv[8];
-          load8(w1 + static_cast<int64_t>(k * Q + q) * P + 8 * v, wv);
-#pragma unroll
-          for (int i = 0; i < kSumRows; ++i)
-#pragma unroll
-            for (int e = 0; e < 8; ++e) a[i][q] += xv[i][e] * wv[e];
-        }
+        for (int mt = 0; mt < kMaxTile / 16; ++mt)
+          if (mt < mts)
+            *reinterpret_cast<float4*>(part_o + ((mt * kFastWarps + warp) * 32 + lane) * 4) =
+                make_float4(d[mt][0], d[mt][1], d[mt][2], d[mt][3]);
       }
+      {  // the slice's dout1 per l: rows as M, r as N, s as K
+        const int nks = (sl + 15) / 16, k0 = ch * nks / kKs, k1 = (ch + 1) * nks / kKs;
+        const int r = nt * 8 + g;
+        const unsigned short* w2s = reinterpret_cast<const unsigned short*>(w2);
+        float d[kMaxTile / 16][4][4] = {};
+        for (int ks = k0; ks < k1; ++ks) {
+          const int sr = ks * 16 + 2 * t;  // s (in the slice) of the pair a[0] holds
+          uint32_t b[4][2] = {};
+          if (r < Q) {
 #pragma unroll
-      for (int i = 0; i < kSumRows; ++i)
+            for (int l = 0; l < 4; ++l) {
+              const int64_t w = (static_cast<int64_t>(l) * S + s0 + sr) * Q + r;
+              if (sr < sl) b[l][0] = pack_bf16(__ldg(w2s + w), __ldg(w2s + w + Q));
+              if (sr + 8 < sl) b[l][1] = pack_bf16(__ldg(w2s + w + 8 * Q), __ldg(w2s + w + 9 * Q));
+            }
+          }
 #pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          const float total = warp_sum(a[i][q]);
-          if (lane == 0 && i < rows) s1[(b0 + i) * J + k * Q + q] = to_f32(from_f32<T>(total));
+          for (int mt = 0; mt < kMaxTile / 16; ++mt) {
+            if (mt < mts) {
+              const unsigned char* row0 = dt + (mt * 16 + g) * prm.ds + 8 * sr;
+              const unsigned char* row8 = row0 + 8 * prm.ds;
+              const uint4 v0 = *reinterpret_cast<const uint4*>(row0);
+              const uint4 v8 = *reinterpret_cast<const uint4*>(row8);
+              const uint4 h0 = *reinterpret_cast<const uint4*>(row0 + 64);
+              const uint4 h8 = *reinterpret_cast<const uint4*>(row8 + 64);
+#pragma unroll
+              for (int l = 0; l < 4; ++l) {
+                const uint32_t a[4] = {
+                    pick_l(make_uint2(v0.x, v0.y), make_uint2(v0.z, v0.w), l),
+                    pick_l(make_uint2(v8.x, v8.y), make_uint2(v8.z, v8.w), l),
+                    pick_l(make_uint2(h0.x, h0.y), make_uint2(h0.z, h0.w), l),
+                    pick_l(make_uint2(h8.x, h8.y), make_uint2(h8.z, h8.w), l)};
+                mma16816(d[mt][l], a, b[l][0], b[l][1]);
+              }
+            }
+          }
         }
+#pragma unroll
+        for (int mt = 0; mt < kMaxTile / 16; ++mt)
+          if (mt < mts)
+#pragma unroll
+            for (int l = 0; l < 4; ++l)
+              *reinterpret_cast<float4*>(
+                  part_d + (((mt * kFastWarps + warp) * 4 + l) * 32 + lane) * 4) =
+                  make_float4(d[mt][l][0], d[mt][l][1], d[mt][l][2], d[mt][l][3]);
+      }
+      __syncthreads();
+      // The chunks' partials in chunk order: out1 rounded to T, dout1's
+      // partials as they are.
+      const int units = mts * kNt;
+      for (int k = tid; k < units * 128; k += kFastThreads) {
+        const int mt = k / 128 / kNt, nu = k / 128 % kNt, ln = (k / 4) % 32, e = k % 4;
+        float v = 0.f;
+        for (int s = 0; s < kKs; ++s)
+          v += part_o[((mt * kFastWarps + nu * kKs + s) * 32 + ln) * 4 + e];
+        const int b = mt * 16 + ln / 4 + 8 * (e >> 1);
+        const int q = nu * 8 + 2 * (ln % 4) + (e & 1);
+        if (q < Q) send_out1(b, q, v);
+      }
+      for (int k = tid; k < units * 4 * 128; k += kFastThreads) {
+        const int mt = k / 512 / kNt, nu = k / 512 % kNt, l = (k / 128) % 4;
+        const int ln = (k / 4) % 32, e = k % 4;
+        float v = 0.f;
+        for (int s = 0; s < kKs; ++s)
+          v += part_d[(((mt * kFastWarps + nu * kKs + s) * 4 + l) * 32 + ln) * 4 + e];
+        const int b = mt * 16 + ln / 4 + 8 * (e >> 1);
+        const int r = nu * 8 + 2 * (ln % 4) + (e & 1);
+        if (r < Q) send_dout1(b, r * 4 + l, v);
+      }
+    } else {
+      for (int k = tid; k < TR * Q; k += kFastThreads) {
+        const int b = k / Q, q = k % Q;
+        const T* xr = reinterpret_cast<const T*>(xt + b * prm.xs);
+        const T* wr = w1c + static_cast<int64_t>(q) * P;
+        float a = 0.f;
+        for (int p = 0; p < P; ++p) a += to_f32(xr[p]) * to_f32(wr[p]);
+        send_out1(b, q, a);
+      }
+      for (int k = tid; k < TR * J; k += kFastThreads) {
+        const int b = k / J, j = k % J, r = j / 4, l = j % 4;
+        const T* dr = reinterpret_cast<const T*>(dt + b * prm.ds);
+        const T* wr = w2 + (static_cast<int64_t>(l) * S + s0) * Q + r;
+        float a = 0.f;
+        for (int s = 0; s < sl; ++s) a += to_f32(dr[4 * s + l]) * to_f32(wr[static_cast<int64_t>(s) * Q]);
+        send_dout1(b, j, a);
+      }
     }
-  } else {
-    // A row s of w2[l] holds R = Q values, kVecs 16-byte vectors; the lanes
-    // step through w2[l] 16 bytes apart (contiguous, so every load is
-    // coalesced), lane j on row s0 + j / kVecs and values r0 .. r0 + 7,
-    // r0 = 8 * (j % kVecs); the lanes with the same r0 sum their partials.
-    constexpr int kVecs = Q / 8;
-    constexpr int kStep = 32 / kVecs;  // rows s a warp covers a step
-    const int r0 = 8 * (lane % kVecs);
-    const int64_t m = static_cast<int64_t>(kFast) * S;
-    float a[kSumRows][kFast][8];  // a[i][l][e]: dout1[b0 + i, (r0 + e)*L + l]
-#pragma unroll
-    for (int i = 0; i < kSumRows; ++i)
-#pragma unroll
-      for (int l = 0; l < kFast; ++l)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) a[i][l][e] = 0.f;
-#pragma unroll (Q == 8 ? 4 : 1)
-    for (int s = lane / kVecs; s < S; s += kStep) {
-      float d[kSumRows][kFast];  // dout[b0 + i, s*L + l], l = 0..3
-#pragma unroll
-      for (int i = 0; i < kSumRows; ++i) {
-        if (i < rows) {
-          load4(dout + (b0 + i) * m + kFast * static_cast<int64_t>(s), d[i]);
-        } else {
-#pragma unroll
-          for (int l = 0; l < kFast; ++l) d[i][l] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int l = 0; l < kFast; ++l) {
-        float w[8];
-        load8(w2 + (static_cast<int64_t>(l) * S + s) * Q + r0, w);  // w2[l, s, r0:r0+8]
-#pragma unroll
-        for (int i = 0; i < kSumRows; ++i)
-#pragma unroll
-          for (int e = 0; e < 8; ++e) a[i][l][e] += d[i][l] * w[e];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kSumRows; ++i)
-#pragma unroll
-      for (int l = 0; l < kFast; ++l)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float v = a[i][l][e];
-#pragma unroll
-          for (int off = kVecs; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-          if (lane < kVecs && i < rows)
-            s2[(b0 + i) * J + (r0 + e) * kFast + l] = to_f32(from_f32<T>(v));
-        }
-  }
-}
 
-// Q = R in {8, 16}: grid (x_ctas + d_ctas, groups) as columns_kernel, 4
-// columns a thread.  Per chunk of kChunk rows, a CTA stages the rows' J
-// summaries (s2 for x's columns, s1 for dout's) in shared memory, zero past
-// the group, while each thread loads its columns of the chunk's rows.
-template <typename T, int Q, bool kDx>
-__global__ void __launch_bounds__(kColThreads)
-columns_rows_kernel(const T* __restrict__ x, const T* __restrict__ dout, const T* __restrict__ w1,
-                    const float* __restrict__ s1, const float* __restrict__ s2,
-                    T* __restrict__ dx, float* __restrict__ part1, float* __restrict__ part2,
-                    int64_t M, int P, int S, int64_t rows_per_group, int x_ctas) {
-  constexpr int J = kFast * Q;
-  constexpr int C = 4;
-  __shared__ __align__(16) float sm[kChunk * J];
-  const int64_t g0 = static_cast<int64_t>(blockIdx.y) * rows_per_group;
-  const int64_t g1 = g0 + rows_per_group < M ? g0 + rows_per_group : M;
-  const bool xside = static_cast<int>(blockIdx.x) < x_ctas;
-  const int64_t width = static_cast<int64_t>(kFast) * (xside ? P : S);  // n or m
-  const int v = (xside ? blockIdx.x : blockIdx.x - x_ctas) * kColThreads + threadIdx.x;
-  const bool active = v < width / C;  // every thread takes the block barriers
-  const int c0 = active ? C * v : 0;
-  const T* in = xside ? x : dout;
-  const float* src = xside ? s2 : s1;
-  const int k = c0 / P, p0 = c0 % P;  // x side: P % 8 == 0, one block k
-  float w[kDx ? Q : 1][C], acc[Q][C];  // acc[q][e] (x side) or acc[r][e] (dout side)
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    if constexpr (kDx) {
-      if (xside && active) {
-        load4(w1 + static_cast<int64_t>(k * Q + q) * P + p0, w[q]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < C; ++e) w[q][e] = 0.f;
-      }
+    // -- the exchange: after the barrier this CTA holds the cluster's out1
+    // and the four partials of block c's dout1, added in rank order and
+    // rounded to T, into o1, d1c and d1r
+    cluster_arrive();
+    cluster_wait();
+    for (int k = tid; k < 4 * kQp * TR; k += kFastThreads) {  // o1[l][r][b] = out1[b, r*4 + l]
+      const int l = k / (kQp * TR), r = k / TR % kQp, b = k % TR;
+      o1[k] = r < Q ? to_o[b * J + r * 4 + l] : from_f32<T>(0.f);
     }
+    for (int k = tid; k < kQp * TR; k += kFastThreads) {  // d1c[q][b], d1r[b][q]
+      const int q = k / TR, b = k % TR;
+      float v = 0.f;
+      if (q < Q) {
 #pragma unroll
-    for (int e = 0; e < C; ++e) acc[q][e] = 0.f;
-  }
-  for (int64_t b0 = g0; b0 < g1; b0 += kChunk) {
-    const int rows = g1 - b0 < kChunk ? static_cast<int>(g1 - b0) : kChunk;
-    float xv[kChunk][C];
-#pragma unroll
-    for (int u = 0; u < kChunk; ++u) {
-      if (active && u < rows) {
-        load4(in + (b0 + u) * width + c0, xv[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < C; ++e) xv[u][e] = 0.f;
+        for (int rank = 0; rank < kC; ++rank) v += to_d[(rank * TR + b) * Q + q];
       }
-    }
-    __syncthreads();  // the previous chunk's readers are done with sm
-    for (int i = 4 * threadIdx.x; i < kChunk * J; i += 4 * kColThreads) {
-      *reinterpret_cast<float4*>(sm + i) =
-          i < rows * J ? *reinterpret_cast<const float4*>(src + b0 * J + i)
-                       : make_float4(0.f, 0.f, 0.f, 0.f);
+      const T vt = from_f32<T>(v);
+      d1c[k] = vt;
+      d1r[b * kQp + q] = vt;
     }
     __syncthreads();
-    if (xside) {
+
+    // -- the products from the staged tile
+    if constexpr (kMma) {
+      const int mts = TR / 16;
+      // dw1^T[p][q] += sum_b x[b][p] dout1[b][q]: p as M, q as N, rows as K
+      for (int mt = warp; mt < (P + 15) / 16; mt += kFastWarps) {
+        float d[kNt][4];
 #pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        const float* d1 = sm + u * J + k * Q;  // dout1[b, k*Q + q]
-        float o[C];
+        for (int nt = 0; nt < kNt; ++nt) {
+          const float4 v = F::keeps(t) ? *reinterpret_cast<const float4*>(acc1 + F::slot(mt, nt, g, t))
+                                       : make_float4(0.f, 0.f, 0.f, 0.f);
+          d[nt][0] = v.x; d[nt][1] = v.y; d[nt][2] = v.z; d[nt][3] = v.w;
+        }
+        const uint32_t a_col = smem_addr(xt + (lane & 7) * prm.xs + 8 * (lane >> 4) * prm.xs) +
+                               2 * (mt * 16 + 8 * ((lane >> 3) & 1));
+        for (int ks = 0; ks < mts; ++ks) {
+          uint32_t a[4];
+          ldsm4_t(a, a_col + 16 * ks * prm.xs);
 #pragma unroll
-        for (int e = 0; e < C; ++e) o[e] = 0.f;
-#pragma unroll
-        for (int q0 = 0; q0 < Q; q0 += 4) {
-          const float4 d4 = *reinterpret_cast<const float4*>(d1 + q0);
-          const float d[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            if constexpr (kDx) {
-#pragma unroll
-              for (int e = 0; e < C; ++e) o[e] += d[i] * w[q0 + i][e];
-            }
-#pragma unroll
-            for (int e = 0; e < C; ++e) acc[q0 + i][e] += d[i] * xv[u][e];
+          for (int nt = 0; nt < kNt; ++nt) {
+            const T* bq = d1c + (nt * 8 + g) * TR + ks * 16 + 2 * t;
+            mma16816(d[nt], a, *reinterpret_cast<const uint32_t*>(bq),
+                     *reinterpret_cast<const uint32_t*>(bq + 8));
           }
         }
-        if constexpr (kDx) {
-          if (active && u < rows) store4(dx + (b0 + u) * width + c0, o);
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt)
+          if (F::keeps(t))
+            *reinterpret_cast<float4*>(acc1 + F::slot(mt, nt, g, t)) =
+                make_float4(d[nt][0], d[nt][1], d[nt][2], d[nt][3]);
+      }
+      // dw2[l][s][r] += sum_b dout[b][s*4 + l] out1[b][r*4 + l], per l: s as
+      // M, r as N, rows as K
+      for (int mt = warp; mt < (sl + 15) / 16; mt += kFastWarps) {
+        float d[4][kNt][4];
+        const int s = mt * 16 + g;  // the lane's rows s and s + 8 of the row tile
+#pragma unroll
+        for (int l = 0; l < 4; ++l)
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt) {
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (F::keeps(t) && !dw2_global) {
+              v = *reinterpret_cast<const float4*>(acc2 + l * acc2_l + F::slot(mt, nt, g, t));
+            } else if (F::keeps(t)) {  // columns r, r + 1 of rows s, s + 8 of dw2[l]
+              const float* at = p2 + (static_cast<int64_t>(l) * S + s0 + s) * Q + nt * 8 + 2 * t;
+              if (s < sl) {
+                const float2 a = *reinterpret_cast<const float2*>(at);
+                v.x = a.x;
+                v.y = a.y;
+              }
+              if (s + 8 < sl) {
+                const float2 a = *reinterpret_cast<const float2*>(at + 8 * Q);
+                v.z = a.x;
+                v.w = a.y;
+              }
+            }
+            d[l][nt][0] = v.x; d[l][nt][1] = v.y; d[l][nt][2] = v.z; d[l][nt][3] = v.w;
+          }
+        for (int ks = 0; ks < mts; ++ks) {
+          // rows 2t, 2t + 1 (and + 8) of the tile, s = g (and g + 8) of the row tile
+          const unsigned char* r0 = dt + (ks * 16 + 2 * t) * prm.ds + 8 * (mt * 16 + g);
+          const unsigned char* r8 = r0 + 8 * prm.ds;
+          const uint2 u00 = *reinterpret_cast<const uint2*>(r0);
+          const uint2 u10 = *reinterpret_cast<const uint2*>(r0 + prm.ds);
+          const uint2 u01 = *reinterpret_cast<const uint2*>(r0 + 64);
+          const uint2 u11 = *reinterpret_cast<const uint2*>(r0 + prm.ds + 64);
+          const uint2 v00 = *reinterpret_cast<const uint2*>(r8);
+          const uint2 v10 = *reinterpret_cast<const uint2*>(r8 + prm.ds);
+          const uint2 v01 = *reinterpret_cast<const uint2*>(r8 + 64);
+          const uint2 v11 = *reinterpret_cast<const uint2*>(r8 + prm.ds + 64);
+#pragma unroll
+          for (int l = 0; l < 4; ++l) {
+            const uint32_t a[4] = {pick_l(u00, u10, l), pick_l(u01, u11, l), pick_l(v00, v10, l),
+                                   pick_l(v01, v11, l)};
+#pragma unroll
+            for (int nt = 0; nt < kNt; ++nt) {
+              const T* bq = o1 + (l * kQp + nt * 8 + g) * TR + ks * 16 + 2 * t;
+              mma16816(d[l][nt], a, *reinterpret_cast<const uint32_t*>(bq),
+                       *reinterpret_cast<const uint32_t*>(bq + 8));
+            }
+          }
+        }
+#pragma unroll
+        for (int l = 0; l < 4; ++l)
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt) {
+            if (F::keeps(t) && !dw2_global) {
+              *reinterpret_cast<float4*>(acc2 + l * acc2_l + F::slot(mt, nt, g, t)) =
+                  make_float4(d[l][nt][0], d[l][nt][1], d[l][nt][2], d[l][nt][3]);
+            } else if (F::keeps(t)) {
+              float* at = p2 + (static_cast<int64_t>(l) * S + s0 + s) * Q + nt * 8 + 2 * t;
+              if (s < sl) *reinterpret_cast<float2*>(at) = make_float2(d[l][nt][0], d[l][nt][1]);
+              if (s + 8 < sl)
+                *reinterpret_cast<float2*>(at + 8 * Q) = make_float2(d[l][nt][2], d[l][nt][3]);
+            }
+          }
+      }
+      if constexpr (kDx) {
+        // dx[b][p] = sum_q dout1[b][q] w1[c][q][p]: rows as M, p as N, q as
+        // K, into the x tile's rows (dw1 has read them), then out in
+        // coalesced 16-byte stores
+        __syncthreads();
+        const unsigned short* w1s = reinterpret_cast<const unsigned short*>(w1c);
+        for (int nb = warp; nb < P / 8; nb += kFastWarps) {
+          const int p = nb * 8 + g;
+          uint32_t bq[kQp / 8];
+#pragma unroll
+          for (int kk = 0; kk < kQp / 8; ++kk) {
+            const int q = kk * 8 + 2 * t;
+            bq[kk] = q < Q ? pack_bf16(__ldg(w1s + static_cast<int64_t>(q) * P + p),
+                                       __ldg(w1s + static_cast<int64_t>(q + 1) * P + p))
+                           : 0u;
+          }
+          for (int mt = 0; mt < mts; ++mt) {
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int kk = 0; kk < kQp / 8; ++kk) {
+              const T* ar = d1r + (mt * 16 + g) * kQp + kk * 8 + 2 * t;
+              mma1688(d, *reinterpret_cast<const uint32_t*>(ar),
+                      *reinterpret_cast<const uint32_t*>(ar + 8 * kQp), bq[kk]);
+            }
+            unsigned char* row = xt + (mt * 16 + g) * prm.xs + 2 * (nb * 8 + 2 * t);
+            *reinterpret_cast<uint32_t*>(row) = pack_f32(d[0], d[1]);
+            *reinterpret_cast<uint32_t*>(row + 8 * prm.xs) = pack_f32(d[2], d[3]);
+          }
+        }
+        __syncthreads();
+        const int chunks = P / 8;  // 16-byte chunks a row
+        for (int k = tid; k < rows * chunks; k += kFastThreads) {
+          const int b = k / chunks, w = k % chunks;
+          *reinterpret_cast<uint4*>(dx + (t0 + b) * n + static_cast<int64_t>(c) * P + 8 * w) =
+              *reinterpret_cast<const uint4*>(xt + b * prm.xs + 16 * w);
         }
       }
     } else {
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-#pragma unroll
-        for (int r = 0; r < Q; ++r) {
-          const float4 o = *reinterpret_cast<const float4*>(sm + u * J + kFast * r);
-          // column e = (s = v, l = e): out1[b, r*L + l]
-          acc[r][0] += o.x * xv[u][0];
-          acc[r][1] += o.y * xv[u][1];
-          acc[r][2] += o.z * xv[u][2];
-          acc[r][3] += o.w * xv[u][3];
+      for (int k = tid; k < Q * P; k += kFastThreads) {  // dw1
+        const int q = k / P, p = k % P;
+        float& a = acc1[F::index(p, q)];
+        for (int b = 0; b < TR; ++b)
+          a += to_f32(reinterpret_cast<const T*>(xt + b * prm.xs)[p]) * to_f32(d1c[q * TR + b]);
+      }
+      if constexpr (kDx) {
+        for (int k = tid; k < rows * P; k += kFastThreads) {
+          const int b = k / P, p = k % P;
+          float a = 0.f;
+          for (int q = 0; q < Q; ++q)
+            a += to_f32(d1r[b * kQp + q]) * to_f32(w1c[static_cast<int64_t>(q) * P + p]);
+          dx[(t0 + b) * n + static_cast<int64_t>(c) * P + p] = from_f32<T>(a);
         }
       }
-    }
-  }
-  if (!active) return;
-  if (xside) {
-    float* out = part1 + static_cast<int64_t>(blockIdx.y) * J * P;
-#pragma unroll
-    for (int q = 0; q < Q; ++q) store4(out + static_cast<int64_t>(k * Q + q) * P + p0, acc[q]);
-  } else {
-    float* out = part2 + static_cast<int64_t>(blockIdx.y) * J * S;
-#pragma unroll
-    for (int e = 0; e < C; ++e) {  // l = e, s = v: dw2[l, v, :]
-#pragma unroll
-      for (int r0 = 0; r0 < Q; r0 += 4) {
-        const float vals[4] = {acc[r0][e], acc[r0 + 1][e], acc[r0 + 2][e], acc[r0 + 3][e]};
-        store4(out + (static_cast<int64_t>(e) * S + v) * Q + r0, vals);
+      for (int k = tid; k < 4 * sl * Q; k += kFastThreads) {  // dw2
+        const int l = k / (sl * Q), s = k / Q % sl, r = k % Q;
+        float& a = dw2_global ? p2[(static_cast<int64_t>(l) * S + s0 + s) * Q + r]
+                              : acc2[l * acc2_l + F::index(s, r)];
+        for (int b = 0; b < TR; ++b)
+          a += to_f32(reinterpret_cast<const T*>(dt + b * prm.ds)[4 * s + l]) *
+               to_f32(o1[(l * kQp + r) * TR + b]);
       }
     }
+    fence_async_smem();  // this tile's reads of stage st before the copy into it
+    __syncthreads();     // stage st, o1, d1c and d1r are free
+    if (warp == 0 && i + prm.stages < ntiles) issue(i + prm.stages);
+  }
+
+  // The cluster's sums: block c of dw1, the slice of dw2.
+  float* p1 = prm.part1 + (static_cast<int64_t>(cl) * 4 + c) * Q * P;
+  for (int k = tid; k < Q * P; k += kFastThreads) p1[k] = acc1[F::index(k % P, k / P)];
+  for (int k = tid; k < 4 * sl * Q && !dw2_global; k += kFastThreads) {
+    const int l = k / (sl * Q), s = k / Q % sl, r = k % Q;
+    p2[(static_cast<int64_t>(l) * S + s0 + s) * Q + r] = acc2[l * acc2_l + F::index(s, r)];
   }
 }
+
 
 // dw1[i] = sum_g part1[g * count1 + i], then dw2 likewise, in group order.
 __global__ void sum_groups_kernel(const float* __restrict__ part1,
@@ -708,7 +926,15 @@ __global__ void sum_groups_kernel(const float* __restrict__ part1,
     const float* part = first ? part1 + i : part2 + (i - count1);
     const int64_t stride = first ? count1 : count2;
     float acc = 0.f;
-    for (int g = 0; g < groups; ++g) acc += part[g * stride];
+    int g = 0;
+    for (; g + 8 <= groups; g += 8) {  // eight loads in flight, added in order
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = part[(g + u) * stride];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc += v[u];
+    }
+    for (; g < groups; ++g) acc += part[g * stride];
     if (first) {
       dw1[i] = acc;
     } else {
@@ -771,112 +997,6 @@ Shape plan(int64_t M, int K, int Q, int P, int L, int S, int R, int itemsize, bo
   return sh;
 }
 
-struct FastPlan {
-  int groups;
-  int64_t rows_per_group;
-  int x_ctas, d_ctas;
-};
-
-// rows > 0 sets the rows of a group; 0 chooses them so that the columns
-// launch has about two CTAs per SM.
-FastPlan fast_plan(int64_t M, int Q, int P, int S, int64_t rows, int num_sms) {
-  FastPlan fp;
-  const int cols = fast_cols(Q);
-  fp.x_ctas = static_cast<int>(ceil_div(static_cast<int64_t>(kFast) * P / cols, kColThreads));
-  fp.d_ctas = static_cast<int>(ceil_div(static_cast<int64_t>(kFast) * S / cols, kColThreads));
-  if (rows > 0) {
-    fp.rows_per_group = rows;
-  } else {
-    int64_t g = ceil_div(2 * static_cast<int64_t>(num_sms), fp.x_ctas + fp.d_ctas);
-    const int64_t max_g = ceil_div(M, 4 * kUnroll);
-    if (g > max_g) g = max_g;
-    if (g < 1) g = 1;
-    fp.rows_per_group = ceil_div(ceil_div(M, g), kUnroll) * kUnroll;
-  }
-  fp.groups = static_cast<int>(ceil_div(M, fp.rows_per_group));
-  return fp;
-}
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
-bool fast_shape(int K, int Q, int P, int L, int S, int R) {
-  return K == kFast && L == kFast && Q == R && (Q == 4 || Q == 8 || Q == 16) &&
-         P % 8 == 0 && S % 2 == 0;
-}
-
-bool fast_path(const void* x, const void* dout, const void* w1, const void* w2, const void* dx,
-               int K, int Q, int P, int L, int S, int R) {
-  return fast_shape(K, Q, P, L, S, R) && aligned16(x) && aligned16(dout) && aligned16(w1) &&
-         aligned16(w2) && (dx == nullptr || aligned16(dx));
-}
-
-int device_sms(int device) {
-  int num_sms = 0;
-  if (cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
-    return 0;
-  return num_sms;
-}
-
-// The groups of a launch on either path.
-int plan_groups(bool fast, int64_t M, int K, int Q, int P, int L, int S, int R, int itemsize,
-                bool with_dx, int64_t rows, int num_sms) {
-  if (fast) return fast_plan(M, Q, P, S, rows, num_sms).groups;
-  int groups = 0, chunks = 0;
-  plan(M, K, Q, P, L, S, R, itemsize, with_dx, rows, num_sms, &groups, &chunks);
-  return groups;
-}
-
-// fp32 scratch a launch needs: the fast path's row summaries and the
-// groups' partial sums (none with one group).
-int64_t workspace_floats(bool fast, int64_t M, int K, int Q, int P, int L, int S, int R,
-                         int itemsize, bool with_dx, int64_t rows, int num_sms) {
-  const int64_t J = static_cast<int64_t>(K) * Q;
-  const int64_t groups = plan_groups(fast, M, K, Q, P, L, S, R, itemsize, with_dx, rows, num_sms);
-  return (fast ? 2 * M * J : 0) + (groups > 1 ? groups * J * (P + S) : 0);
-}
-
-template <typename T, int Q, bool kDx>
-cudaError_t launch_fast(const void* x, const void* dout, const void* w1, const void* w2,
-                        void* dx, float* work, float* dw1, float* dw2, int64_t M, int P, int S,
-                        int64_t rows, int num_sms, cudaStream_t stream) {
-  constexpr int J = kFast * Q;
-  const FastPlan fp = fast_plan(M, Q, P, S, rows, num_sms);
-  if (fp.groups > kMaxGridY) return cudaErrorInvalidValue;
-  float* s1 = work;
-  float* s2 = work + M * J;
-  // With one group the columns launch writes the outputs directly.
-  float* part1 = fp.groups > 1 ? work + 2 * M * J : dw1;
-  float* part2 = fp.groups > 1 ? part1 + static_cast<int64_t>(fp.groups) * J * P : dw2;
-  const T* xt = static_cast<const T*>(x);
-  const T* dt = static_cast<const T*>(dout);
-  const T* w1t = static_cast<const T*>(w1);
-  const T* w2t = static_cast<const T*>(w2);
-  const dim3 cgrid(static_cast<unsigned>(fp.x_ctas + fp.d_ctas), static_cast<unsigned>(fp.groups));
-  cudaError_t err;
-  if constexpr (Q == kFast) {
-    const dim3 sgrid(static_cast<unsigned>(ceil_div(M, kSumWarps)), 2);
-    summaries_kernel<T><<<sgrid, kSumWarps * 32, 0, stream>>>(xt, dt, w1t, w2t, s1, s2, M, P, S);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    columns_kernel<T, kDx><<<cgrid, kColThreads, 0, stream>>>(
-        xt, dt, w1t, w2t, s1, s2, static_cast<T*>(dx), part1, part2, M, P, S, fp.rows_per_group,
-        fp.x_ctas);
-  } else {
-    const dim3 sgrid(static_cast<unsigned>(ceil_div(M, kSumWarps * sum_rows(Q))), 2);
-    summaries_rows_kernel<T, Q><<<sgrid, kSumWarps * 32, 0, stream>>>(xt, dt, w1t, w2t, s1, s2,
-                                                                      M, P, S);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    columns_rows_kernel<T, Q, kDx><<<cgrid, kColThreads, 0, stream>>>(
-        xt, dt, w1t, s1, s2, static_cast<T*>(dx), part1, part2, M, P, S, fp.rows_per_group,
-        fp.x_ctas);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess || fp.groups == 1) return err;
-  return sum_groups(part1, part2, dw1, dw2, static_cast<int64_t>(J) * P,
-                    static_cast<int64_t>(J) * S, fp.groups, stream);
-}
-
 template <typename T, bool kDx>
 cudaError_t launch(const void* x, const void* dout, const void* w1, const void* w2, void* dx,
                    float* part1, float* part2, float* dw1, float* dw2, const Shape& sh,
@@ -902,51 +1022,325 @@ cudaError_t launch(const void* x, const void* dout, const void* w1, const void* 
   return sum_groups(part1, part2, dw1, dw2, J * sh.P, J * sh.S, groups, stream);
 }
 
-// Dispatch by shape: the fast path at the Q = R it instantiates, the
-// generic kernel for every other shape.
-template <typename T, bool kDx>
-cudaError_t dispatch(bool fast, const void* x, const void* dout, const void* w1, const void* w2,
-                     void* dx, float* work, float* dw1, float* dw2, int64_t M, int K, int Q,
-                     int P, int L, int S, int R, int64_t rows, int num_sms, cudaStream_t stream) {
-  if (fast) {
+// -- the cluster kernel's plan and launch
+
+// The plan of a launch on the cluster kernel: the row tile and stages, the
+// row groups and the clusters that walk them, and the layout of a CTA's
+// shared memory.
+struct ClusterPlan {
+  int tile = 0, stages = 0, groups = 0, clusters = 0;
+  int64_t rows_per_group = 0;
+  int Sc = 0, xs = 0, ds = 0, stage_bytes = 0;
+  int off_acc1 = 0, off_acc2 = 0, off_recv = 0, off_work = 0;
+  bool dw2_global = false;  // dw2's sums in the cluster's partial, not in shared memory
+  int64_t smem = 0;
+};
+
+int64_t round_up(int64_t a, int64_t b) { return (a + b - 1) / b * b; }
+
+// A staged row's bytes, rounded so that 8 rows at the same column fall in
+// distinct 16-byte bank groups (an odd number of 16-byte units).
+int odd16(int64_t bytes) {
+  const int64_t s = round_up(bytes, 16);
+  return static_cast<int>((s / 16) % 2 ? s : s + 16);
+}
+
+// Fill the layout of `fp` (tile and stages set); returns its bytes.
+int64_t fast_layout(ClusterPlan& fp, int Q, int P, int S, int item) {
+  const int qp = Q < 8 ? 8 : Q, J = 4 * Q;
+  const int64_t lanes = Q == 4 ? 16 : 32, nt = qp / 8;
+  fp.Sc = static_cast<int>(round_up(ceil_div(S, kC), 2));
+  const int64_t p16 = round_up(P, 16), sc16 = round_up(fp.Sc, 16);
+  fp.xs = odd16(p16 * item);
+  fp.ds = odd16(sc16 * 4 * item);
+  fp.stage_bytes = static_cast<int>(round_up(static_cast<int64_t>(fp.tile) * (fp.xs + fp.ds), 128));
+  int64_t off = 128 + static_cast<int64_t>(fp.stages) * fp.stage_bytes;  // mbarriers, stages
+  fp.off_acc1 = static_cast<int>(off);
+  off += round_up(p16 / 16 * nt * lanes * 16, 128);
+  fp.off_acc2 = static_cast<int>(off);
+  if (!fp.dw2_global) off += round_up(4 * sc16 / 16 * nt * lanes * 16, 128);
+  fp.off_recv = static_cast<int>(off);
+  off += round_up(2 * static_cast<int64_t>(fp.tile) * (kC * Q * 4 + J * item), 128);  // recv
+  fp.off_work = static_cast<int>(off);
+  const int64_t sums = static_cast<int64_t>(6) * qp * fp.tile * item;  // o1, d1c, d1r
+  const int64_t parts =
+      item == 2 ? static_cast<int64_t>(fp.tile / 16) * fast_threads(Q) / 32 * 5 * 128 * 4 : 0;
+  off += round_up(sums > parts ? sums : parts, 128);
+  fp.smem = off;
+  return off;
+}
+
+using FastKernel = void (*)(FastParams);
+
+FastKernel fast_kernel(int itemsize, int Q, bool dx) {
+  if (itemsize == 2) {
     switch (Q) {
-      case 4:
-        return launch_fast<T, 4, kDx>(x, dout, w1, w2, dx, work, dw1, dw2, M, P, S, rows,
-                                      num_sms, stream);
-      case 8:
-        return launch_fast<T, 8, kDx>(x, dout, w1, w2, dx, work, dw1, dw2, M, P, S, rows,
-                                      num_sms, stream);
-      case 16:
-        return launch_fast<T, 16, kDx>(x, dout, w1, w2, dx, work, dw1, dw2, M, P, S, rows,
-                                       num_sms, stream);
-      default:
-        return cudaErrorInvalidValue;  // fast_shape admits no other Q
+      case 4: return dx ? bwd_cluster_kernel<bf16, 4, true> : bwd_cluster_kernel<bf16, 4, false>;
+      case 8: return dx ? bwd_cluster_kernel<bf16, 8, true> : bwd_cluster_kernel<bf16, 8, false>;
+      case 16: return dx ? bwd_cluster_kernel<bf16, 16, true> : bwd_cluster_kernel<bf16, 16, false>;
+    }
+  } else {
+    switch (Q) {
+      case 4: return dx ? bwd_cluster_kernel<float, 4, true> : bwd_cluster_kernel<float, 4, false>;
+      case 8: return dx ? bwd_cluster_kernel<float, 8, true> : bwd_cluster_kernel<float, 8, false>;
+      case 16: return dx ? bwd_cluster_kernel<float, 16, true> : bwd_cluster_kernel<float, 16, false>;
     }
   }
+  return nullptr;
+}
+
+cudaLaunchConfig_t cluster_config(unsigned clusters, int threads, int64_t smem,
+                                  cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * kC, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kC;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of `kernel` at `smem` bytes a CTA that the device holds at once
+// (0 where none fits); remembered per device, kernel and size.
+int max_clusters(int device, FastKernel kernel, int threads, int64_t smem) {
+  struct Entry {
+    int device;
+    FastKernel kernel;
+    int64_t smem;
+    int clusters;
+  };
+  static Entry seen[64];
+  static int count = 0;
+  static std::mutex lock;
+  std::lock_guard<std::mutex> hold(lock);
+  for (int i = 0; i < count; ++i)
+    if (seen[i].device == device && seen[i].kernel == kernel && seen[i].smem == smem)
+      return seen[i].clusters;
+  int clusters = 0;
+  if (cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) == cudaSuccess) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(64, threads, smem, nullptr, &attr);
+    if (cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel), &cfg) !=
+        cudaSuccess)
+      clusters = 0;
+  }
+  cudaGetLastError();  // a refusal above is an answer, not a fault of the next launch
+  if (count < 64) seen[count++] = {device, kernel, smem, clusters};
+  return clusters;
+}
+
+// The (tile, stages) the plan tries, in order: the first that fits in
+// shared memory is taken.  A larger tile first: a tile's fixed costs (its
+// barriers, the summaries' partial sums, the exchange) weigh more than the
+// depth of the ring, which the H100 hardly notices (PERF.md §6, the
+// `--sweep` of scripts/compare_monarch_bwd.py).  Rows of 8 only for float32
+// (the tensor cores' products take 16 rows at a time).
+constexpr int kTiles[][2] = {{32, 3}, {32, 2}, {32, 1}, {16, 3}, {16, 2}, {16, 1}, {8, 2}, {8, 1}};
+
+// The plan of a cluster launch; false where none fits (the shape takes the
+// generic kernel).  rows > 0 sets the rows of a group (K13); tile and
+// stages > 0 force those (the comparison script's sweep).
+bool cluster_plan(int device, int itemsize, bool with_dx, int64_t M, int Q, int P, int S,
+               int64_t rows, int tile, int stages, ClusterPlan* out) {
+  const FastKernel kernel = fast_kernel(itemsize, Q, with_dx);
+  if (kernel == nullptr) return false;
+  auto fits = [&](int ts, int st, ClusterPlan& fp) {
+    fp.tile = ts;
+    fp.stages = st;
+    return fast_layout(fp, Q, P, S, itemsize) <= kSmemMax &&
+           (fp.clusters = max_clusters(device, kernel, fast_threads(Q), fp.smem)) > 0;
+  };
+  auto pick = [&](int64_t cap, ClusterPlan& fp) {
+    for (const auto& ts : kTiles)
+      if (ts[0] <= cap && (ts[0] >= 16 || itemsize == 4) && fits(ts[0], ts[1], fp)) return true;
+    return false;
+  };
+  // The plan's own tile and stages set the row groups; a forced tile and
+  // stages keep them, so that they change no sum's order.  Where no tile
+  // fits with dw2's sums in shared memory, they go to the cluster's
+  // partial in device memory (the same adds in the same order).
+  ClusterPlan fp;
+  if (!pick(rows > 0 ? rows : kMaxTile, fp)) {
+    fp.dw2_global = true;
+    if (!pick(rows > 0 ? rows : kMaxTile, fp)) return false;
+  }
+  if (rows > 0) {
+    fp.rows_per_group = rows;
+  } else {
+    // One row group a cluster of the grid, at least 16 rows each.
+    int64_t g = ceil_div(M, 16);
+    if (g > fp.clusters) g = fp.clusters;
+    fp.rows_per_group = round_up(ceil_div(M, g), 16);
+    if (fp.rows_per_group < fp.tile && !pick(fp.rows_per_group, fp)) return false;
+  }
+  if ((tile > 0 || stages > 0) &&
+      !((tile == 32 || tile == 16 || (tile == 8 && itemsize == 4)) && stages >= 1 &&
+        stages <= kMaxStages && fits(tile, stages, fp)))
+    return false;
+  const int64_t groups = ceil_div(M, fp.rows_per_group);
+  if (groups > INT32_MAX) return false;
+  fp.groups = static_cast<int>(groups);
+  fp.clusters = static_cast<int>(groups < fp.clusters ? groups : fp.clusters);
+  *out = fp;
+  return true;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+bool fast_shape(int K, int Q, int P, int L, int S, int R) {
+  return K == kC && L == kC && Q == R && (Q == 4 || Q == 8 || Q == 16) && P % 8 == 0 &&
+         S % 2 == 0;
+}
+
+bool fast_pointers(const void* x, const void* dout, const void* w1, const void* w2,
+                   const void* dx) {
+  return aligned16(x) && aligned16(dout) && aligned16(w1) && aligned16(w2) &&
+         (dx == nullptr || aligned16(dx));
+}
+
+cudaError_t launch_cluster(const void* x, const void* dout, const void* w1, const void* w2,
+                           void* dx, float* work, float* dw1, float* dw2, int64_t M, int Q, int P,
+                           int S, int itemsize, const ClusterPlan& fp, cudaStream_t stream) {
+  const FastKernel kernel = fast_kernel(itemsize, Q, dx != nullptr);
+  const int64_t J = 4 * static_cast<int64_t>(Q);
+  float* part1 = fp.clusters > 1 ? work : dw1;
+  float* part2 = fp.clusters > 1 ? work + fp.clusters * J * P : dw2;
+  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(fp.smem));
+  if (err != cudaSuccess) return err;
+  FastParams prm{x, dout, w1, w2, dx, part1, part2, M, fp.rows_per_group, P, S, fp.Sc,
+                 fp.tile, fp.stages, fp.groups, fp.clusters, fp.xs, fp.ds, fp.stage_bytes,
+                 fp.off_acc1, fp.off_acc2, fp.off_recv, fp.off_work, fp.dw2_global ? 1 : 0};
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(static_cast<unsigned>(fp.clusters),
+                                                fast_threads(Q), fp.smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, prm);
+  if (err != cudaSuccess || fp.clusters == 1) return err;
+  return sum_groups(part1, part2, dw1, dw2, J * P, J * S, fp.clusters, stream);
+}
+
+int device_sms(int device) {
+  int num_sms = 0;
+  if (cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return 0;
+  return num_sms;
+}
+
+// A launch's design and plan: the cluster kernel where the shape, the
+// pointers and shared memory allow, else the generic kernel.
+struct Launch {
+  bool fast = false;
+  ClusterPlan fp;
+  Shape sh{};
   int groups = 0, chunks = 0;
-  const Shape sh = plan(M, K, Q, P, L, S, R, sizeof(T), kDx, rows, num_sms, &groups, &chunks);
+};
+
+Launch plan_launch(int device, int itemsize, bool with_dx, bool aligned, int64_t M, int K, int Q,
+                   int P, int L, int S, int R, int64_t rows, int tile, int stages) {
+  Launch ln;
+  ln.fast = aligned && fast_shape(K, Q, P, L, S, R) &&
+            cluster_plan(device, itemsize, with_dx, M, Q, P, S, rows, tile, stages, &ln.fp);
+  if (ln.fast) {
+    ln.groups = ln.fp.groups;
+  } else {
+    ln.sh = plan(M, K, Q, P, L, S, R, itemsize, with_dx, rows, device_sms(device), &ln.groups,
+                 &ln.chunks);
+  }
+  return ln;
+}
+
+// fp32 scratch of a launch: the partial sums of the clusters or groups
+// (none with one).
+int64_t workspace_floats(const Launch& ln, int K, int Q, int P, int S) {
   const int64_t J = static_cast<int64_t>(K) * Q;
+  const int64_t parts = ln.fast ? ln.fp.clusters : ln.groups;
+  return parts > 1 ? parts * J * (P + S) : 0;
+}
+
+// Dispatch by design: the generic kernel at T.
+template <typename T, bool kDx>
+cudaError_t dispatch_generic(const Launch& ln, const void* x, const void* dout, const void* w1,
+                             const void* w2, void* dx, float* work, float* dw1, float* dw2,
+                             cudaStream_t stream) {
+  const int64_t J = static_cast<int64_t>(ln.sh.K) * ln.sh.Q;
   float* part1 = work;
-  float* part2 = groups > 1 ? work + static_cast<int64_t>(groups) * J * P : nullptr;
-  return launch<T, kDx>(x, dout, w1, w2, dx, part1, part2, dw1, dw2, sh, groups, chunks,
+  float* part2 = ln.groups > 1 ? work + static_cast<int64_t>(ln.groups) * J * ln.sh.P : nullptr;
+  return launch<T, kDx>(x, dout, w1, w2, dx, part1, part2, dw1, dw2, ln.sh, ln.groups, ln.chunks,
                         stream);
+}
+
+int run(int dtype, int device, const void* x, const void* dout, const void* w1, const void* w2,
+        void* dx, float* work, float* dw1, float* dw2, int64_t M, int K, int Q, int P, int L, int S,
+        int R, int64_t rows, int tile, int stages, void* stream) {
+  // This library carries its own (static) CUDA runtime, whose current
+  // device is not PyTorch's: set it to the tensors' device.
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (M <= 0 || rows < 0 || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  const int itemsize = dtype == 0 ? 4 : 2;
+  const Launch ln = plan_launch(device, itemsize, dx != nullptr,
+                                fast_pointers(x, dout, w1, w2, dx), M, K, Q, P, L, S, R, rows,
+                                tile, stages);
+  if ((tile > 0 || stages > 0) && !ln.fast) return cudaErrorInvalidValue;
+  if (workspace_floats(ln, K, Q, P, S) > 0 && work == nullptr) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (ln.fast)
+    return launch_cluster(x, dout, w1, w2, dx, work, dw1, dw2, M, Q, P, S, itemsize, ln.fp, s);
+  if (ln.groups > 65535) return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return dx ? dispatch_generic<float, true>(ln, x, dout, w1, w2, dx, work, dw1, dw2, s)
+              : dispatch_generic<float, false>(ln, x, dout, w1, w2, dx, work, dw1, dw2, s);
+  return dx ? dispatch_generic<bf16, true>(ln, x, dout, w1, w2, dx, work, dw1, dw2, s)
+            : dispatch_generic<bf16, false>(ln, x, dout, w1, w2, dx, work, dw1, dw2, s);
 }
 
 }  // namespace
 
 // The plan of a launch with these shapes on 16-byte aligned tensors:
-// *fast = 1 where it takes the fast path, *groups its row groups.  itemsize
-// is 4 (float32) or 2 (bfloat16); rows_per_group 0 is the plan's own choice.
-// Returns the cudaError_t.
+// *fast = 1 where it takes the cluster kernel, *groups its row groups.
+// itemsize is 4 (float32) or 2 (bfloat16); rows_per_group 0 is the plan's
+// own choice.  Returns the cudaError_t.
 extern "C" int smft_monarch_bwd_plan(int itemsize, int device, int64_t M, int K, int Q, int P,
                                      int L, int S, int R, int64_t rows_per_group, int with_dx,
                                      int* fast, int* groups) {
-  const int num_sms = device_sms(device);
-  if (num_sms == 0) return cudaErrorInvalidDevice;
-  if (M <= 0 || rows_per_group < 0) return cudaErrorInvalidValue;
-  *fast = fast_shape(K, Q, P, L, S, R) ? 1 : 0;
-  *groups = plan_groups(*fast != 0, M, K, Q, P, L, S, R, itemsize, with_dx != 0, rows_per_group,
-                        num_sms);
+  if (M <= 0 || rows_per_group < 0 || (itemsize != 2 && itemsize != 4))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const Launch ln = plan_launch(device, itemsize, with_dx != 0, true, M, K, Q, P, L, S, R,
+                                rows_per_group, 0, 0);
+  *fast = ln.fast ? 1 : 0;
+  *groups = ln.groups;
+  return cudaSuccess;
+}
+
+// The cluster kernel's plan as 9 values (0 where the shape takes the
+// generic kernel, whose groups still fill `groups`): fast, groups,
+// clusters, rows a group, tile rows, stages, shared memory bytes a CTA,
+// values of s a slice, and 1 where dw2's sums live in device memory.
+// tile and stages > 0 force those.
+extern "C" int smft_monarch_bwd_plan_fields(int itemsize, int device, int64_t M, int K, int Q,
+                                            int P, int L, int S, int R, int64_t rows_per_group,
+                                            int with_dx, int tile, int stages, int64_t* out) {
+  if (M <= 0 || rows_per_group < 0 || (itemsize != 2 && itemsize != 4))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const Launch ln = plan_launch(device, itemsize, with_dx != 0, true, M, K, Q, P, L, S, R,
+                                rows_per_group, tile, stages);
+  const ClusterPlan& fp = ln.fp;
+  const int64_t fields[] = {ln.fast ? 1 : 0, ln.groups,         fp.clusters,
+                            fp.rows_per_group, fp.tile,  fp.stages,
+                            fp.smem,           fp.Sc,    fp.dw2_global ? 1 : 0};
+  for (int i = 0; i < 9; ++i) out[i] = ln.fast ? fields[i] : (i == 1 ? ln.groups : 0);
   return cudaSuccess;
 }
 
@@ -956,11 +1350,12 @@ extern "C" int64_t smft_monarch_bwd_workspace(int dtype, int device, const void*
                                               const void* dout, const void* w1, const void* w2,
                                               const void* dx, int64_t M, int K, int Q, int P,
                                               int L, int S, int R, int64_t rows_per_group) {
-  const int num_sms = device_sms(device);
-  if (num_sms == 0) return -1;
-  const bool fast = fast_path(x, dout, w1, w2, dx, K, Q, P, L, S, R);
-  return workspace_floats(fast, M, K, Q, P, L, S, R, dtype == 0 ? 4 : 2, dx != nullptr,
-                          rows_per_group, num_sms);
+  if (cudaSetDevice(device) != cudaSuccess || device_sms(device) == 0) return -1;
+  if (M <= 0 || rows_per_group < 0) return 0;
+  const Launch ln = plan_launch(device, dtype == 0 ? 4 : 2, dx != nullptr,
+                                fast_pointers(x, dout, w1, w2, dx), M, K, Q, P, L, S, R,
+                                rows_per_group, 0, 0);
+  return workspace_floats(ln, K, Q, P, S);
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  `dx` null means K4 (no dx).  `work`
@@ -973,31 +1368,21 @@ extern "C" int smft_monarch_bwd(int dtype, int device, const void* x, const void
                                 const void* w1, const void* w2, void* dx, float* work,
                                 float* dw1, float* dw2, int64_t M, int K, int Q, int P, int L,
                                 int S, int R, int64_t rows_per_group, void* stream) {
-  // This library carries its own (static) CUDA runtime, whose current
-  // device is not PyTorch's: set it to the tensors' device.
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const int num_sms = device_sms(device);
-  if (num_sms == 0) return cudaErrorInvalidDevice;
-  if (M <= 0 || rows_per_group < 0) return cudaErrorInvalidValue;
-  const bool fast = fast_path(x, dout, w1, w2, dx, K, Q, P, L, S, R);
-  const int itemsize = dtype == 0 ? 4 : 2;
-  if (workspace_floats(fast, M, K, Q, P, L, S, R, itemsize, dx != nullptr, rows_per_group,
-                       num_sms) > 0 &&
-      work == nullptr)
-    return cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return dx ? dispatch<float, true>(fast, x, dout, w1, w2, dx, work, dw1, dw2, M, K, Q, P, L,
-                                      S, R, rows_per_group, num_sms, s)
-              : dispatch<float, false>(fast, x, dout, w1, w2, dx, work, dw1, dw2, M, K, Q, P,
-                                       L, S, R, rows_per_group, num_sms, s);
-  }
-  if (dtype == 1) {
-    return dx ? dispatch<__nv_bfloat16, true>(fast, x, dout, w1, w2, dx, work, dw1, dw2, M, K,
-                                              Q, P, L, S, R, rows_per_group, num_sms, s)
-              : dispatch<__nv_bfloat16, false>(fast, x, dout, w1, w2, dx, work, dw1, dw2, M,
-                                               K, Q, P, L, S, R, rows_per_group, num_sms, s);
-  }
-  return cudaErrorInvalidValue;
+  return run(dtype, device, x, dout, w1, w2, dx, work, dw1, dw2, M, K, Q, P, L, S, R,
+             rows_per_group, 0, 0, stream);
+}
+
+// smft_monarch_bwd on the cluster kernel at a forced row tile and stage
+// depth (smft_monarch_bwd_plan_fields reports the plan and its scratch is
+// the plan's clusters x J x (P + S) floats); cudaErrorInvalidValue where
+// the shape does not take the cluster kernel or the forced plan does not
+// fit.
+extern "C" int smft_monarch_bwd_planned(int dtype, int device, const void* x, const void* dout,
+                                        const void* w1, const void* w2, void* dx, float* work,
+                                        float* dw1, float* dw2, int64_t M, int K, int Q, int P,
+                                        int L, int S, int R, int64_t rows_per_group, int tile,
+                                        int stages, void* stream) {
+  if (tile <= 0 || stages <= 0) return cudaErrorInvalidValue;
+  return run(dtype, device, x, dout, w1, w2, dx, work, dw1, dw2, M, K, Q, P, L, S, R,
+             rows_per_group, tile, stages, stream);
 }

@@ -13,6 +13,11 @@
 //   torch.ops.smft.monarch_dw_tile(x, dout, w1, w2, rows) -> (dw1, dw2)  (K13, K14)
 //   torch.ops.smft.monarch_bwd_plan(M, K, Q, P, L, S, R, rows, with_dx, itemsize)
 //       -> (fast, groups): the plan K3, K4 and K13 launch with
+//   torch.ops.smft.monarch_bwd_plan_fields(M, K, Q, P, L, S, R, rows, with_dx, itemsize,
+//       tile=0, stages=0) -> int[]: the cluster kernel's plan (fast, groups,
+//       clusters, rows a group, tile rows, stages, shared memory bytes, values
+//       of s a slice, dw2's sums in device memory); tile and stages > 0 force
+//       those
 //   torch.ops.smft.int4_mm(x, packed, scales, group)     -> y            (K5)
 //   torch.ops.smft.int4_mm_dx(dy, packed, scales, group) -> dx           (K6)
 //   torch.ops.smft.int8_mm(x, q, scales)                 -> y            (K7)
@@ -37,7 +42,7 @@
 // first reads the current device, the second depends on the shapes alone).
 // The launch's error code is checked here and raised; the kernels run on
 // PyTorch's current stream and allocate nothing: the outputs and the fp32
-// scratch (the backward's row summaries and per-group partial sums, the
+// scratch (the backward's per-cluster or per-group partial sums, the
 // tile paths' split partial sums, the fused linear's row summaries) are
 // allocated here.
 
@@ -75,6 +80,9 @@ extern "C" int smft_monarch_bwd(int dtype, int device, const void* x, const void
 extern "C" int smft_monarch_bwd_plan(int itemsize, int device, int64_t M, int K, int Q, int P,
                                      int L, int S, int R, int64_t rows_per_group, int with_dx,
                                      int* fast, int* groups);
+extern "C" int smft_monarch_bwd_plan_fields(int itemsize, int device, int64_t M, int K, int Q,
+                                            int P, int L, int S, int R, int64_t rows_per_group,
+                                            int with_dx, int tile, int stages, int64_t* out);
 extern "C" int64_t smft_quant_mm_workspace(int dtype, int device, int bits, int dx, int64_t M,
                                            int64_t in_f, int64_t out_f);
 extern "C" int smft_quant_mm(int dtype, int device, int bits, int dx, const void* a,
@@ -270,6 +278,27 @@ std::tuple<bool, int64_t> monarch_bwd_plan(int64_t M, int64_t K, int64_t Q, int6
       static_cast<int>(R), rows, with_dx ? 1 : 0, &fast, &groups);
   C10_CUDA_CHECK(static_cast<cudaError_t>(err));
   return {fast != 0, groups};
+}
+
+std::vector<int64_t> monarch_bwd_plan_fields(int64_t M, int64_t K, int64_t Q, int64_t P,
+                                             int64_t L, int64_t S, int64_t R, int64_t rows,
+                                             bool with_dx, int64_t itemsize, int64_t tile,
+                                             int64_t stages) {
+  if (rows != 0) check_rows(rows);
+  TORCH_CHECK(M > 0, "monarch_bwd_plan_fields needs M > 0, got ", M);
+  TORCH_CHECK(itemsize == 2 || itemsize == 4, "itemsize must be 2 (bfloat16) or 4 (float32)");
+  const int64_t lim = INT32_MAX;
+  TORCH_CHECK(K <= lim && Q <= lim && P <= lim && L <= lim && S <= lim && R <= lim &&
+                  tile >= 0 && tile <= lim && stages >= 0 && stages <= lim,
+              "factor dims, tile and stages must fit in 32 bits");
+  std::vector<int64_t> out(9, 0);
+  const int err = smft_monarch_bwd_plan_fields(
+      static_cast<int>(itemsize), c10::cuda::current_device(), M, static_cast<int>(K),
+      static_cast<int>(Q), static_cast<int>(P), static_cast<int>(L), static_cast<int>(S),
+      static_cast<int>(R), rows, with_dx ? 1 : 0, static_cast<int>(tile),
+      static_cast<int>(stages), out.data());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(err));
+  return out;
 }
 
 at::Tensor monarch_fwd_add(const at::Tensor& base, const at::Tensor& x,
@@ -536,6 +565,9 @@ TORCH_LIBRARY(smft, m) {
   m.def("monarch_bwd_plan(int M, int K, int Q, int P, int L, int S, int R, int rows, "
         "bool with_dx, int itemsize=2) -> (bool, int)",
         &monarch_bwd_plan);
+  m.def("monarch_bwd_plan_fields(int M, int K, int Q, int P, int L, int S, int R, int rows, "
+        "bool with_dx, int itemsize=2, int tile=0, int stages=0) -> int[]",
+        &monarch_bwd_plan_fields);
   m.def("int8_mm(Tensor x, Tensor q, Tensor scales) -> Tensor");
   m.def("int8_mm_dx(Tensor dy, Tensor q, Tensor scales) -> Tensor");
   m.def("int4_mm(Tensor x, Tensor packed, Tensor scales, int group) -> Tensor");

@@ -35,17 +35,19 @@ reports the plan a launch of K1/K2 (or K12 at ``rows``) takes: its row tile
 and column ranges, which the plan picks from the row count.
 
 ``monarch_dw_tile(x, dout, w1, w2, rows)`` launches K4's kernel with its row
-group set to ``rows`` (a positive multiple of 16; the sweep is
-``DW_TILE_ROWS``): K13, the counterpart of ``dw_kernel_v2`` in
-``scripts/exp_dw_kernel.py``, whose sequence tile ts sets how many row
-groups sum their partial gradients (11, 6 and 3 at 2664 rows).
-``monarch_dw_merged`` is K13 at ``MERGED_DW_ROWS``: K14, the counterpart of
-``dw_call_v2`` in ``scripts/exp_merged_v3.py``.  Only the ports of those
-scripts drive them.  Their plain version is ``monarch_dw_fused_reference``:
-the function does not depend on the row group.  Unlike the two TPU kernels
-they mask the rows past M.  ``monarch_bwd_plan`` reports the plan a launch
-of K3, K4 or K13 takes: the fast path (nblocks 4, blk_r in ``FAST_BLK_R``)
-or the generic kernel, and its row groups.
+group set to ``rows`` (a positive multiple of ``DW_ROW_STEP``, the kernel's
+16-row mma tile; the sweep is ``DW_TILE_ROWS``): K13, the counterpart of
+``dw_kernel_v2`` in ``scripts/exp_dw_kernel.py``, whose sequence tile ts
+sets the row groups (11, 6 and 3 at 2664 rows) that the kernel's clusters
+walk.  ``monarch_dw_merged`` is K13 at ``MERGED_DW_ROWS``: K14, the
+counterpart of ``dw_call_v2`` in ``scripts/exp_merged_v3.py``.  Only the
+ports of those scripts drive them.  Their plain version is
+``monarch_dw_fused_reference``: the function does not depend on the row
+group.  Unlike the two TPU kernels they mask the rows past M.
+``monarch_bwd_plan`` reports the design a launch of K3, K4 or K13 takes:
+the cluster kernel (nblocks 4, blk_r in ``FAST_BLK_R``; "fast") or the
+generic kernel, and its row groups; ``monarch_bwd_plan_fields`` the cluster
+kernel's whole plan (``BWD_PLAN_KEYS``).
 
 ``LAUNCHES`` counts the launches of each kernel: a wrapper adds one where it
 launches its kernel, and nowhere else.
@@ -68,8 +70,14 @@ FWD_TILE_ROWS = (8, 16, 32, 64)  # K12's row tiles: csrc/monarch_fwd.cu's kFwdTi
 FWD_PLAN_KEYS = ("rows", "row_tiles", "ranges", "chunks", "cpl", "ns", "smem")
 DW_TILE_ROWS = (256, 512, 1024)  # K13's sweep: scripts/exp_dw_kernel.py:107
 MERGED_DW_ROWS = 256  # K14: dw_call_v2's ts, scripts/exp_merged_v3.py:23
-DW_ROW_STEP = 16  # a row group is a multiple of the generic kernel's row tile
-FAST_BLK_R = (4, 8, 16)  # blk_r (Q = R, nblocks 4) of csrc/monarch_bwd.cu's fast path
+DW_ROW_STEP = 16  # a row group is a multiple of the cluster kernel's 16-row mma tile
+FAST_BLK_R = (4, 8, 16)  # blk_r (Q = R, nblocks 4) of csrc/monarch_bwd.cu's cluster kernel
+# csrc/monarch_bwd.cu's smft_monarch_bwd_plan_fields: whether the cluster
+# kernel runs, row groups, clusters, rows a group, rows a tile, stages of the
+# copy ring, shared memory bytes a CTA, values of s a CTA's slice of dout,
+# whether dw2's sums live in device memory (too wide for shared memory)
+BWD_PLAN_KEYS = ("fast", "groups", "clusters", "rows", "tile", "stages", "smem", "slice",
+                 "dw2_global")
 
 _ops = None
 
@@ -137,9 +145,10 @@ def _launch_fwd(x2d, w1, w2, base2d=None):
 
 
 def monarch_bwd(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, dout: torch.Tensor):
-    """K3: ``(dx, dw1, dw2)`` of the Monarch multiply in one CUDA kernel (and
-    a pass that sums its per-group partials).  x (M, n), dout (M, m); dout
-    is taken in x's dtype; dw1 and dw2 come out in fp32."""
+    """K3: ``(dx, dw1, dw2)`` of the Monarch multiply in one CUDA kernel (and,
+    with more than one cluster or group, a pass that sums their partials).
+    x (M, n), dout (M, m); dout is taken in x's dtype; dw1 and dw2 come out
+    in fp32."""
     _check(x, w1, w2, dout)
     dx, dw1, dw2 = load_ops().monarch_bwd(x.contiguous(), w1.contiguous(), w2.contiguous(),
                                           dout.to(x.dtype).contiguous())
@@ -193,12 +202,26 @@ def monarch_bwd_plan(rows_m: int, w1_shape, w2_shape, rows: int = 0, with_dx: bo
                      dtype: torch.dtype = torch.bfloat16) -> tuple[bool, int]:
     """``(fast, groups)``: whether a launch of K3 (``with_dx``), K4 or K13
     (``rows`` > 0) on ``rows_m`` rows of 16-byte aligned tensors takes the
-    fast path, and how many row groups it sums.  Reads the current card."""
+    cluster kernel ("fast"), and how many row groups it sums.  Reads the
+    current card."""
     if rows:
         _check_rows(rows)
     fast, groups = load_ops().monarch_bwd_plan(rows_m, *w1_shape, *w2_shape, rows, with_dx,
                                                dtype.itemsize)
     return bool(fast), int(groups)
+
+
+def monarch_bwd_plan_fields(rows_m: int, w1_shape, w2_shape, rows: int = 0,
+                            with_dx: bool = False, dtype: torch.dtype = torch.bfloat16,
+                            tile: int = 0, stages: int = 0) -> dict:
+    """The plan of a launch of K3, K4 or K13 as ``BWD_PLAN_KEYS`` (all but
+    ``groups`` 0 where it takes the generic kernel); ``tile`` and ``stages``
+    > 0 force those.  Reads the current card."""
+    if rows:
+        _check_rows(rows)
+    plan = load_ops().monarch_bwd_plan_fields(rows_m, *w1_shape, *w2_shape, rows, with_dx,
+                                              dtype.itemsize, tile, stages)
+    return dict(zip(BWD_PLAN_KEYS, (int(v) for v in plan)))
 
 
 class _MonarchKernelFn(torch.autograd.Function):

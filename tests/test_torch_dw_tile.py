@@ -17,7 +17,7 @@ which masks), in interpret mode, and against ``jax.grad`` of
 fp32 gradient's scale, as the port holds K4 in bf16 (an intermediate one
 bf16 ulp apart enters every row's product).
 The pure-Python parts: the sweep's row groups and shapes are the JAX
-scripts', the bounds, the source's fast-path instantiations, and the
+scripts', the bounds, the source's cluster-kernel instantiations, and the
 wrappers refusing CPU tensors and bad row groups before any build.
 """
 
@@ -145,12 +145,21 @@ def test_torch_exp_dw_kernel_bounds():
 
 
 def test_torch_dw_tile_source_instantiates_fast_blk_r():
+    """The cluster kernel is instantiated at every blk_r of ``FAST_BLK_R``,
+    for bf16 and f32, K3 and K4 (12 kernels), and the shape test admits
+    the same; its row tiles (16 and 32 rows in bf16, the mma's 16-row M
+    steps) are multiples of the row group's step."""
     src = SOURCE.read_text()
-    found = sorted(int(q) for q in re.findall(r"launch_fast<T, (\d+), kDx>", src))
-    assert tuple(found) == monarch_cuda.FAST_BLK_R == (4, 8, 16)
+    inst = set(re.findall(r"bwd_cluster_kernel<(bf16|float), (\d+), (true|false)>", src))
+    assert len(inst) == 12
+    assert tuple(sorted({int(q) for _, q, _ in inst})) == monarch_cuda.FAST_BLK_R == (4, 8, 16)
     assert "(Q == 4 || Q == 8 || Q == 16)" in src  # the shape test admits the same
-    assert "constexpr int kTileRows = 16;" in src  # the row group's step
-    assert monarch_cuda.DW_ROW_STEP == 16
+    tiles = re.search(r"constexpr int kTiles\[\]\[2\] = \{(.*?)\};", src).group(1)
+    rows = {int(r) for r in re.findall(r"\{(\d+), \d+\}", tiles)}
+    assert rows == {8, 16, 32}  # 8 only in f32: "Rows of 8 only for float32"
+    assert "(ts[0] >= 16 || itemsize == 4)" in src
+    assert "constexpr int kMaxTile = 32;" in src
+    assert monarch_cuda.DW_ROW_STEP == 16 and all(r % 16 == 0 for r in rows - {8})
 
 
 def test_torch_dw_tile_wrappers_refuse_before_building():

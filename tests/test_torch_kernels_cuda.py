@@ -210,6 +210,87 @@ def test_torch_backward_kernels_match_plain_on_card(cuda_device, case, dtype):
         assert torch.equal(a, b)
 
 
+# The cluster kernel (csrc/monarch_bwd.cu's bwd_cluster_kernel), (M, K, Q,
+# P, L, S, R): one row; M past its 16- and 32-row tiles and its stages (2049
+# rows at gate_proj's widths: 16-row tiles, 2 stages); slices of dout uneven
+# over the cluster's four CTAs (S = 6: 2, 2, 2, 0 values of s; S = 14: 4, 4,
+# 4, 2); P = 520, no multiple of the 16-wide k step; down_proj's P = 1408;
+# blk_r 4, 8 and 16; the fused linear bench's gate shape (2664 x 4096 ->
+# 11264, blk_r 8), whose dw2 sums do not fit in shared memory beside a
+# stage and live in the cluster's partial in device memory.
+CLUSTER_CASES = [(1, 4, 8, 16, 4, 6, 8), (17, 4, 4, 520, 4, 14, 4), (33, 4, 8, 64, 4, 48, 8),
+                 (100, 4, 16, 1024, 4, 256, 16), (70, 4, 4, 1408, 4, 512, 4),
+                 (2049, 4, 4, 512, 4, 1408, 4), (2664, 4, 8, 1024, 4, 2816, 8)]
+
+
+def _planned(x, dout, w1, w2, with_dx, tile, stages):
+    """K3 (``with_dx``) or K4 on the cluster kernel at a forced (tile,
+    stages), through the library's C interface."""
+    import ctypes
+
+    from sparse_matrix_fine_tuning_torch.kernels.build import build
+
+    lib = ctypes.CDLL(str(build()))
+    fn = lib.smft_monarch_bwd_planned
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int64]
+                   + [ctypes.c_int] * 6 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p])
+    K, Q, P = w1.shape
+    L, S, R = w2.shape
+    plan = monarch_cuda.monarch_bwd_plan_fields(x.shape[0], w1.shape, w2.shape, with_dx=with_dx,
+                                                dtype=x.dtype, tile=tile, stages=stages)
+    if not plan["fast"]:
+        return None
+    floats = plan["clusters"] * K * Q * (P + S) if plan["clusters"] > 1 else 0
+    work = torch.empty(max(floats, 1), device=x.device)
+    dx = torch.empty_like(x) if with_dx else None
+    dw1 = torch.empty(K, Q, P, device=x.device)
+    dw2 = torch.empty(L, S, R, device=x.device)
+    err = fn(1 if x.dtype == torch.bfloat16 else 0, x.get_device(), x.data_ptr(), dout.data_ptr(),
+             w1.data_ptr(), w2.data_ptr(), dx.data_ptr() if with_dx else None,
+             work.data_ptr() if floats else None, dw1.data_ptr(), dw2.data_ptr(), x.shape[0],
+             K, Q, P, L, S, R, 0, tile, stages, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return (dx, dw1, dw2) if with_dx else (dw1, dw2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CLUSTER_CASES)
+def test_torch_backward_cluster_kernel_on_card(cuda_device, case, dtype):
+    """K3 and K4 on the cluster kernel (``monarch_bwd_plan_fields``: a plan
+    whose tile, stages and slice are ragged against the case) against their
+    plain versions, one launch counted each; a repeat gives the same bits,
+    and so does every forced row tile and stage depth that fits."""
+    batch = case[0]
+    x, w1, w2, dout = _inputs(case, dtype, cuda_device)
+    before = dict(monarch_cuda.LAUNCHES)
+    with torch.no_grad():
+        want = monarch_cuda.monarch_bwd_reference(x, w1, w2, dout)
+        for with_dx, name in ((True, "monarch_bwd"), (False, "monarch_dw_fused")):
+            plan = monarch_cuda.monarch_bwd_plan_fields(batch, w1.shape, w2.shape,
+                                                        with_dx=with_dx, dtype=dtype)
+            assert plan["fast"] == 1 and plan["clusters"] >= 1 and plan["tile"] in (8, 16, 32)
+            assert plan["dw2_global"] == (case == CLUSTER_CASES[-1])
+            call = (lambda: monarch_cuda.monarch_bwd(x, w1, w2, dout)) if with_dx else \
+                (lambda: monarch_cuda.monarch_dw_fused(x, dout, w1, w2))
+            got, again = call(), call()
+            torch.cuda.synchronize()
+            for g, a, w in zip(got, again, want if with_dx else want[1:]):
+                assert g.shape == w.shape and g.dtype == w.dtype and bool(torch.isfinite(g).all())
+                assert float((g.float() - w.float()).abs().max()) <= _tol(w.to(dtype)), name
+                assert torch.equal(g, a), name
+            for tile in (8, 16, 32):
+                for stages in (1, 2, 3):
+                    forced = _planned(x, dout, w1, w2, with_dx, tile, stages)
+                    torch.cuda.synchronize()
+                    if forced is not None:
+                        assert all(torch.equal(f, g) for f, g in zip(forced, got)), \
+                            (name, tile, stages)
+    assert monarch_cuda.LAUNCHES["monarch_bwd"] == before["monarch_bwd"] + 2
+    assert monarch_cuda.LAUNCHES["monarch_dw_fused"] == before["monarch_dw_fused"] + 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_torch_autograd_functions_use_k3_on_card(cuda_device, dtype):
@@ -269,7 +350,7 @@ def test_torch_merged_apply_uses_k4_on_card(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_torch_backward_kernels_take_unaligned_rows(cuda_device, dtype):
     """Inputs whose data does not start on 16 bytes take the generic kernel
-    (the fast one loads 16 bytes at a time) and agree all the same."""
+    (the cluster kernel copies rows of 16-byte units) and agree all the same."""
     x, w1, w2, dout = _inputs((33, 4, 4, 32, 4, 32, 4), dtype, cuda_device)
     flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)
     shifted = flat[1:].view(x.shape)
@@ -764,8 +845,8 @@ def test_torch_benchlib_time_ms_on_card(cuda_device):
     assert 0 < device_ms <= call_ms
 
 
-# -- the dw experiments: K13 (K4 at a row group), K14, the fast path at blk_r 8, 16
-# (batch, K, Q, P, L, S, R): the fast path at blk_r 8 and 16, ragged rows,
+# -- the dw experiments: K13 (K4 at a row group), K14, the cluster kernel at blk_r 8, 16
+# (batch, K, Q, P, L, S, R): the cluster kernel at blk_r 8 and 16, ragged rows,
 # P = 1024 as at the experiments' widths; and the dw script's shape
 DW_CASES = [(600, 4, 8, 64, 4, 48, 8), (601, 4, 16, 1024, 4, 256, 16),
             (2664, 4, 16, 1024, 4, 1024, 16)]
@@ -775,9 +856,9 @@ DW_CASES = [(600, 4, 8, 64, 4, 48, 8), (601, 4, 16, 1024, 4, 256, 16),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", DW_CASES[:2])
 def test_torch_backward_fast_path_at_blk_r_8_and_16_on_card(cuda_device, case, dtype):
-    """K3 and K4 at blk_r 8 and 16 take the fast path (``monarch_bwd_plan``)
-    and agree with their plain versions; at blk_r 4 the plan keeps the fast
-    path too."""
+    """K3 and K4 at blk_r 8 and 16 take the cluster kernel
+    (``monarch_bwd_plan``'s "fast") and agree with their plain versions; at
+    blk_r 4 the plan keeps the cluster kernel too."""
     batch, k, q, p, l, s, r = case
     x, w1, w2, dout = _inputs(case, dtype, cuda_device)
     for with_dx in (True, False):
