@@ -41,9 +41,10 @@ hand-written CUDA kernels, and checks them:
      were merged on the CPU;
  11. quantized serving, bfloat16, timed: int8 unmerged (K7, K2), int8
      requantize-merged with the w8a8 head (K7), int4 unmerged (K5, K2);
-     each decode step's profile launches ``qgemv_kernel`` once an adapted
-     linear and ``qsplit_sum`` never, printed beside the wrappers' count of
-     the same steps;
+     in each profiled decode step the wrappers count the decode kernel once
+     an adapted linear, exactly; the profiler counts ``qgemv_kernel`` as
+     often over the profiled steps, or one record short (it loses one now
+     and then), and ``qsplit_sum`` never;
  12. quantized training: one float32 step (2 layers) on the card against a
      CPU copy, int8 and int4; then 22-layer bfloat16 training over an int8
      base (``run_alpaca --bits 8``: K7 and K8 at training rows) and over an
@@ -52,8 +53,11 @@ hand-written CUDA kernels, and checks them:
      factor gradients, K4's kernel) against their plain versions at
      ``bench_more_linear``'s three Llama-7B and micro-bench shapes (bf16)
      and a ragged f32 case, timed beside their bound and one PyTorch call,
-     the autograd Function against the plain composition, then the port of
-     ``scripts/bench_more_linear.py`` (fused, hybrid and plain steps);
+     each bf16 call's tile plan printed, HGMMA in the SASS of every bf16
+     K9/K10 kernel (``csrc/more_linear.cu``'s ``fused_kernel``) and no spill
+     in ptxas's report, the autograd Function against the plain
+     composition, then the port of ``scripts/bench_more_linear.py`` (fused,
+     hybrid and plain steps);
  14. the forward-tile experiments: K15 (the wgmma + TMA tiled matmul) at
      every tile and K12 (K1 at every row tile) against their plain versions
      at a ragged shape, K12 at every row tile equal to K1 at its own plan bit
@@ -75,9 +79,12 @@ hand-written CUDA kernels, and checks them:
      at its four shapes (each variant checked against its plain version
      and the JAX script's oracle bound, then timed).
 
-Each main path (6, 8 off, 8 on, each configuration of 11, each step of 12,
-the bench of 13, each script of 14, 15 and 16) zeroes the launch counts of
-every kernel just before it and reads them just after.  Any failed check
+Serving (5, 6, 10 and 11) runs before the experiments (13-16), the
+quantized decode profiles after as few other profiler sessions as the
+script opens (ROADMAP C.10).  Each main path (6, 8 off, 8 on, each
+configuration of 11, each step of 12, the bench of 13, each script of 14,
+15 and 16) zeroes the launch counts of every kernel just before it and
+reads them just after.  Any failed check
 exits non-zero.  The line before the last is one JSON object on the
 kernels (K5 and K7 at decode and, as ``int4_matmul_tile`` and
 ``int8_matmul_tile``, at a training micro-batch, each entry's launches
@@ -211,6 +218,8 @@ DECODE_ROTATE_BYTES = 100e6
 # merged int8 model with the w8a8 head adds one more int8 rounding of
 # W + delta and of the head's activations: >= 0.99.
 QUANT_COS = {8: 0.99, 4: 0.6}
+# decode steps each quantized configuration profiles (profile_decode)
+DECODE_PROFILE_STEPS = 8
 # The fused dense + Monarch linear (K9-K11): short labels of
 # bench_more_linear.SHAPES, and the ragged f32 check (tests/kernels/
 # test_more_linear.py:17): (label, rows, n, m, nblocks, blk_r).
@@ -220,6 +229,9 @@ MORE_RAGGED = ("ragged", 200, 128, 96, 4, 8)
 # The bench's fused loss against its plain one: each bf16 y is within two
 # ulps (2**-7 relatively) of the plain path's, so each y**2 within 2**-6.
 MORE_LOSS_RTOL = 2.0 ** -6
+# instantiations of bf16's K9/K10 kernel (csrc/more_linear.cu): six pairs
+# of tile and summary width, forward and dx
+MORE_FUSED_KERNELS = 12
 # The forward-tile experiments' ragged checks: K15 at (M, K, N) with M past
 # every BM, K past the k step of 64 and N past every BN (multiples of 8, as
 # TMA needs); K12 at (B, n, m, nblocks, rank) in f32, B past every row tile.
@@ -837,10 +849,11 @@ def device_busy_ms(fn, calls: int, label: str, kernels: dict | None = None):
 
 @torch.inference_mode()
 def profile_decode(model, ids, mask, steps: int = 8, kernels: dict | None = None,
-                   wrappers: dict | None = None):
+                   wrappers: list | None = None):
     """Device time per decode forward after a prefill, from torch.profiler;
     ``kernels`` as ``device_busy_ms``'s; ``wrappers``, where given, receives
-    the wrappers' launch counts a profiled step (``counts``)."""
+    the wrappers' launch counts (``counts``) of each profiled step, one dict
+    a step."""
     from sparse_matrix_fine_tuning_torch.models.generate import _positions_from_mask
     from sparse_matrix_fine_tuning_torch.models.llama import init_caches
 
@@ -857,13 +870,16 @@ def profile_decode(model, ids, mask, steps: int = 8, kernels: dict | None = None
         return model(tok, attention_mask=mask_full, positions=pos + i, caches=caches,
                      cache_index=t + i)
 
+    def counted(i):
+        before = counts()
+        out = step(i + 1)
+        if wrappers is not None:
+            after = counts()
+            wrappers.append({k: after[k] - before[k] for k in after})
+        return out
+
     step(0)
-    before = counts()
-    busy_ms = device_busy_ms(lambda i: step(i + 1), steps, "decode steps", kernels)
-    if wrappers is not None:
-        after = counts()
-        wrappers.update({k: (after[k] - before[k]) / steps for k in after})
-    return busy_ms
+    return device_busy_ms(counted, steps, "decode steps", kernels)
 
 
 def phase_bf16(f32: dict, card: str) -> dict:
@@ -1372,7 +1388,24 @@ def _outputs(out) -> tuple:
     return out if isinstance(out, tuple) else (out,)
 
 
-def phase_more_linear(card: str) -> dict:
+def more_linear_ptxas(lib) -> None:
+    """ptxas's registers and spills of each instantiation of bf16's K9/K10
+    kernel, from the build's log; none may spill."""
+    from sparse_matrix_fine_tuning_torch.kernels.build import LOG_NAME
+    from sparse_matrix_fine_tuning_torch.scripts.compare_monarch_bwd import ptxas_lines
+
+    lines = [ln for ln in ptxas_lines((lib.parent / LOG_NAME).read_text())
+             if "fused_kernel" in ln]
+    require(len(lines) == MORE_FUSED_KERNELS,
+            f"ptxas: {len(lines)} fused_kernel instantiations, expected {MORE_FUSED_KERNELS}")
+    for line in lines:
+        name, rest = line.split(": ", 1)
+        args = name[name.index("fused_kernel") + len("fused_kernel"):]
+        print(f"[more-linear] ptxas fused_kernel{args[:24]}: {rest}", flush=True)
+        require(" 0 bytes spill stores" in rest, f"ptxas: {line} spills")
+
+
+def phase_more_linear(card: str, lib) -> dict:
     """The fused dense + Monarch linear, at ``bench_more_linear``'s three
     shapes in bf16 and at one ragged f32 case:
       * K9, K10 and K11 against their plain versions (``tolerance``; K11's
@@ -1384,9 +1417,11 @@ def phase_more_linear(card: str) -> dict:
       * one forward and backward of ``more_linear``: y and the gradients of
         x, w1 and w2 against the plain composition's autograd, each kernel
         launched exactly once.
-    Then the counted main path: ``bench_more_linear.run`` at the three shapes
-    (fused, hybrid and plain steps), the launch counts zeroed just before
-    and read just after."""
+    bf16's K9/K10 kernel (``fused_kernel``): its plan at each bench shape,
+    HGMMA in the SASS of all its instantiations and ptxas's report of no
+    spill.  Then the counted main path: ``bench_more_linear.run`` at the
+    three shapes (fused, hybrid and plain steps), the launch counts zeroed
+    just before and read just after."""
     import torch.nn.functional as F
 
     from sparse_matrix_fine_tuning_torch.ops.monarch import (
@@ -1460,6 +1495,14 @@ def phase_more_linear(card: str) -> dict:
     print(f"[more-linear] {card}: K9, K10, K11 and the autograd Function (y, dx, dw1, dw2) "
           "within tolerance of the plain versions at the three bench shapes (bf16) and the "
           "ragged case (f32); one launch of each a forward and backward", flush=True)
+    for label, (_, rows, n, m, nb, r) in zip(MORE_LABELS, bench.SHAPES):
+        for name, dx in (("K9", False), ("K10", True)):
+            print(f"[more-linear] plan {label} {name}: "
+                  f"{ml.more_linear_plan(rows, n, m, nb * r, dx)}", flush=True)
+    hgmma = check_hgmma(lib, "fused_kernel", MORE_FUSED_KERNELS)
+    more_linear_ptxas(lib)
+    print(f"[more-linear] {card}: HGMMA in all {hgmma} bf16 K9/K10 kernels, none spills",
+          flush=True)
 
     reset_counts()  # the counted main path starts here
     runs = [bench.run(*shape) for shape in bench.SHAPES]
@@ -1477,15 +1520,6 @@ def phase_more_linear(card: str) -> dict:
               f"(wall {run['fused_wall_us']:.1f}, {run['hybrid_wall_us']:.1f}, "
               f"{run['plain_wall_us']:.1f}); loss rel diff {run['rel_diff']:.2e}", flush=True)
     RECORDS.append({"bench_more_linear": runs, "card": card})
-    # where a bench step's device time goes: one step of each path per
-    # shape under the profiler (not part of the counted main path)
-    for label, shape in zip(MORE_LABELS, bench.SHAPES):
-        x, wd, w1, w2 = bench.make_inputs(*shape[1:])
-        x, w1, w2 = (t.requires_grad_() for t in (x, w1, w2))
-        for name, loss_fn in bench.PATHS.items():
-            bench.value_and_grad(loss_fn, x, wd, w1, w2)
-            device_busy_ms(lambda i: bench.value_and_grad(loss_fn, x, wd, w1, w2), 2,
-                           f"bench {label} {name} steps")
     return {"worst": worst, "layer": {name: _layer_sums(recs) for name, recs in main.items()},
             "launches": {name: launches[name] for name in MORE_KERNELS}}
 
@@ -1931,21 +1965,31 @@ def phase_quant_bf16(f32: dict, card: str) -> dict:
         toks, main_s = timed(lambda: generate(model, ids, mask, gc))
         launches = counts()  # the counted main path ends here
         peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
-        kernels, wrappers = {}, {}
-        busy_ms = profile_decode(model, fresh_ids(), mask, kernels=kernels, wrappers=wrappers)
+        kernels, wrappers = {}, []
+        busy_ms = profile_decode(model, fresh_ids(), mask, steps=DECODE_PROFILE_STEPS,
+                                 kernels=kernels, wrappers=wrappers)
         name = f"int{bits}_matmul"
+        # the decode kernel once an adapted linear a step, one launch a call:
+        # the wrappers' own count, exact every step; the profiler, which
+        # loses a record now and then (ROADMAP C.10), within one record of
+        # it over the profiled steps and never above it; qsplit_sum never
+        per_step = [w[name] for w in wrappers]
+        require(per_step == [N_ADAPTED] * DECODE_PROFILE_STEPS,
+                f"{label}: the wrappers counted {per_step} {name} launches in the profiled "
+                f"decode steps; expected {N_ADAPTED} each")
         if busy_ms is not None:
-            # the decode kernel once an adapted linear a step, one launch a
-            # call; beside the profiler's count, the wrappers' count of the
-            # same steps (ROADMAP C.10)
-            gemv = sum(n for key, n in kernels.items() if "qgemv_kernel" in key)
-            split = sum(n for key, n in kernels.items() if "qsplit_sum" in key)
-            print(f"[quant-bf16] {label}: a decode step launches qgemv_kernel {gemv:g} times "
-                  f"by the profiler, {wrappers[name]:g} by the wrappers' count ({name}), "
-                  f"qsplit_sum {split:g} times", flush=True)
-            require(gemv == N_ADAPTED and split == 0,
-                    f"{label}: a decode step launched qgemv_kernel {gemv} and qsplit_sum "
-                    f"{split} times; expected {N_ADAPTED} and 0")
+            want = N_ADAPTED * DECODE_PROFILE_STEPS
+            gemv = round(DECODE_PROFILE_STEPS * sum(
+                n for key, n in kernels.items() if "qgemv_kernel" in key))
+            split = round(DECODE_PROFILE_STEPS * sum(
+                n for key, n in kernels.items() if "qsplit_sum" in key))
+            print(f"[quant-bf16] {label}: {DECODE_PROFILE_STEPS} decode steps launch "
+                  f"qgemv_kernel {gemv} times by the profiler, {sum(per_step)} by the wrappers' "
+                  f"count ({name}: {per_step}), qsplit_sum {split} times", flush=True)
+            require(want - 1 <= gemv <= want and split == 0,
+                    f"{label}: the profiler counted qgemv_kernel {gemv} and qsplit_sum {split} "
+                    f"times in {DECODE_PROFILE_STEPS} decode steps; expected {want} (at least "
+                    f"{want - 1}) and 0")
         want = N_ADAPTED * (1 + steps)
         expect = {name: want, "monarch_add": 0 if merged else want}
         require(tuple(toks.shape) == (BATCH, PROMPT + NEW), f"{label}: tokens {tuple(toks.shape)}")
@@ -2045,14 +2089,9 @@ def main() -> None:
     lap("kernels")
     phase_autograd(card)
     phase_quant_autograd(card)
-    more = phase_more_linear(card)
-    lap("fused dense+Monarch linear")
-    tiles = phase_tiles(card, lib)
-    lap("forward-tile experiments")
-    dws = phase_dw(card)
-    lap("dw experiments")
-    variants = phase_int4_variants(card)
-    lap("int4 dequant variants")
+    # serving first: its quantized decode profiles lose records after other
+    # profiler sessions in the process (ROADMAP C.10), and the experiments
+    # below open a dozen
     f32 = phase_f32()
     phase_quant_f32(f32, card)
     lap("f32 serving")
@@ -2060,6 +2099,14 @@ def main() -> None:
     qserving = phase_quant_bf16(f32, card)
     del f32
     lap("bf16 serving")
+    more = phase_more_linear(card, lib)
+    lap("fused dense+Monarch linear")
+    tiles = phase_tiles(card, lib)
+    lap("forward-tile experiments")
+    dws = phase_dw(card)
+    lap("dw experiments")
+    variants = phase_int4_variants(card)
+    lap("int4 dequant variants")
     phase_train_f32(card)
     phase_quant_train_f32(card)
     lap("f32 training")

@@ -34,16 +34,20 @@
 //       decode call's launch floor, an empty kernel at its grid
 //   torch.ops.smft.more_linear_fwd(x, dense_w, w1, w2)   -> y            (K9)
 //   torch.ops.smft.more_linear_dx(dout, dense_w, w1, w2) -> dx           (K10)
+//   torch.ops.smft.more_linear_plan(M, n, m, J, dx) -> int[]: the plan of a
+//       bf16 K9 (dx false) or K10 call (bm, bn, jk, stages, row tiles, column
+//       tiles, threads, shared memory bytes)
 //   torch.ops.smft.tiled_matmul(x, w, bm, bn, stages)    -> y            (K15)
 // K11 is monarch_dw_fused (K4's kernel); K13 is K4's kernel at a row group
 // of `rows`, and K14 K13 at 256 rows.  Only a CUDA implementation of the
 // tensor ops is registered, so a tensor on another device is refused by the
-// dispatcher; monarch_bwd_plan and monarch_fwd_plan take no tensor (the
-// first reads the current device, the second depends on the shapes alone).
+// dispatcher; monarch_bwd_plan, more_linear_plan and monarch_fwd_plan take
+// no tensor (the first two read the current device, the third depends on
+// the shapes alone).
 // The launch's error code is checked here and raised; the kernels run on
 // PyTorch's current stream and allocate nothing: the outputs and the fp32
 // scratch (the backward's per-cluster or per-group partial sums, the
-// tile paths' split partial sums, the fused linear's row summaries) are
+// tile paths' split partial sums, the fused linear's f32 row summaries) are
 // allocated here.
 
 #include <ATen/core/Tensor.h>
@@ -100,6 +104,8 @@ extern "C" int smft_more_linear(int dtype, int device, int dx, const void* a, co
                                 const void* w1, const void* w2, void* out, float* work,
                                 int64_t M, int64_t n, int64_t m, int K, int Q, int P, int L,
                                 int S, int R, void* stream);
+extern "C" int smft_more_linear_plan(int device, int dx, int64_t M, int64_t n, int64_t m, int J,
+                                     int64_t* plan);
 
 namespace {
 
@@ -498,16 +504,31 @@ at::Tensor run_more_linear(const at::Tensor& a, const at::Tensor& wd, const at::
   const int64_t M = a.size(0);
   at::Tensor out = at::empty({M, dx ? n : m}, a.options());
   if (M == 0) return out;
-  at::Tensor work = at::empty({M * K * Q}, a.options().dtype(at::kFloat));
+  // the f32 path's row summaries; bf16 computes them inside its one launch
+  const bool f32 = a.scalar_type() == at::kFloat;
+  at::Tensor work = f32 ? at::empty({M * K * Q}, a.options().dtype(at::kFloat)) : at::Tensor();
   const int device = a.get_device();
   const auto stream = c10::cuda::getCurrentCUDAStream(device);
   const int err = smft_more_linear(
-      a.scalar_type() == at::kFloat ? 0 : 1, device, dx ? 1 : 0, a.data_ptr(), wd.data_ptr(),
-      w1.data_ptr(), w2.data_ptr(), out.data_ptr(), work.data_ptr<float>(), M, n, m,
+      f32 ? 0 : 1, device, dx ? 1 : 0, a.data_ptr(), wd.data_ptr(), w1.data_ptr(),
+      w2.data_ptr(), out.data_ptr(), f32 ? work.data_ptr<float>() : nullptr, M, n, m,
       static_cast<int>(K), static_cast<int>(Q), static_cast<int>(P), static_cast<int>(L),
       static_cast<int>(S), static_cast<int>(R), static_cast<void*>(stream.stream()));
   C10_CUDA_CHECK(static_cast<cudaError_t>(err));
   return out;
+}
+
+// The plan of a bf16 K9 (dx false) or K10 call on M rows, x (M, n), y (M,
+// m), J = K*Q: (bm, bn, jk, stages, row tiles, column tiles, threads, shared
+// memory bytes), on the current device.
+std::vector<int64_t> more_linear_plan(int64_t M, int64_t n, int64_t m, int64_t J, bool dx) {
+  TORCH_CHECK(M > 0 && n > 0 && m > 0 && J > 0 && J <= 64,
+              "more_linear_plan takes M, n, m > 0 and 0 < J <= 64");
+  std::vector<int64_t> plan(8);
+  const int err = smft_more_linear_plan(c10::cuda::current_device(), dx ? 1 : 0, M, n, m,
+                                        static_cast<int>(J), plan.data());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(err));
+  return plan;
 }
 
 at::Tensor more_linear_fwd(const at::Tensor& x, const at::Tensor& dense_w, const at::Tensor& w1,
@@ -581,6 +602,7 @@ TORCH_LIBRARY(smft, m) {
         &quant_decode_empty);
   m.def("more_linear_fwd(Tensor x, Tensor dense_w, Tensor w1, Tensor w2) -> Tensor");
   m.def("more_linear_dx(Tensor dout, Tensor dense_w, Tensor w1, Tensor w2) -> Tensor");
+  m.def("more_linear_plan(int M, int n, int m, int J, bool dx) -> int[]", &more_linear_plan);
   m.def("tiled_matmul(Tensor x, Tensor w, int bm, int bn, int stages) -> Tensor");
 }
 

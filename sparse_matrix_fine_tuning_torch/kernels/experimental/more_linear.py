@@ -18,8 +18,10 @@ w2[l, s, r] are the TPU kernel's permuted-dense expansions.  Neither is ever
 built here: the kernels and the plain versions index the factors.
 
 ``more_linear_fwd`` (K9) and ``more_linear_dx`` (K10) launch the hand-written
-CUDA kernels of ``csrc/more_linear.cu``.  ``more_linear_dw`` (K11) launches
-K4's kernel of ``csrc/monarch_bwd.cu``, since the TPU's ``_dw_kernel``
+CUDA kernels of ``csrc/more_linear.cu`` (bf16: one warp-specialised wgmma +
+TMA launch a call, whose tile plan ``more_linear_plan`` reads; f32: a
+row-summary pass, then a CUDA-core tile kernel).  ``more_linear_dw`` (K11)
+launches K4's kernel of ``csrc/monarch_bwd.cu``, since the TPU's ``_dw_kernel``
 computes the same function as ``_dw_only_kernel``; it counts under its own
 key and leaves ``monarch_cuda.LAUNCHES`` as it was.  The three take CUDA
 tensors only and raise for anything else.  ``more_linear`` dispatches by
@@ -42,6 +44,8 @@ from sparse_matrix_fine_tuning_torch.kernels.monarch_cuda import (
 from sparse_matrix_fine_tuning_torch.ops.monarch import _forward_with_out1
 
 LAUNCHES = {"more_linear_fwd": 0, "more_linear_dx": 0, "more_linear_dw": 0}
+# the fields of ``more_linear_plan``
+PLAN_KEYS = ("bm", "bn", "jk", "stages", "row_tiles", "col_tiles", "threads", "smem")
 
 
 def reset_launch_counts() -> None:
@@ -89,6 +93,16 @@ def _check(*tensors: torch.Tensor) -> None:
         if not t.is_cuda:
             raise ValueError(f"the fused dense+Monarch CUDA kernels take CUDA tensors, got one "
                              f"on {t.device}")
+
+
+def more_linear_plan(m_rows: int, n: int, m: int, j: int, dx: bool) -> dict:
+    """The plan of a bf16 K9 (``dx`` False: x (m_rows, n) -> (m_rows, m)) or
+    K10 call on the current card, as ``PLAN_KEYS``: the output tile (bm x
+    bn), the row summaries' width jk (J = K*Q rounded up to 16), the ring's
+    stages, the grid, the threads and the shared memory of a CTA.  The
+    library is loaded (built) first."""
+    plan = load_ops().more_linear_plan(m_rows, n, m, j, dx)
+    return dict(zip(PLAN_KEYS, (int(v) for v in plan)))
 
 
 def _aligned(a: torch.Tensor) -> torch.Tensor:

@@ -672,10 +672,20 @@ def test_torch_int8_dot_on_card(cuda_device, rows):
 # -- the fused dense + Monarch linear: K9, K10 and K11 ------------------------
 # (rows, n, m, K, Q, L), R = K*Q / L: aligned and ragged row counts, a width
 # no multiple of the 128-wide tile (96, 192, 24), L != K, and blk_r 16
-# (K*Q = 64, the most the kernels take).  The kernels take n and m that are
-# multiples of 8 and K*Q <= 64; the binding refuses the rest.
+# (K*Q = 64, the most the kernels take); P = 16, 24 and 32, where one
+# 64-wide k step straddles factor blocks; the last three, 2664 rows at 1800
+# -> 1800, take bf16's 128-row tile plans (J = 16: 256 columns; J = 32: K9
+# 224, K10 192; J = 64: 192; the others its 64 x 128 one), ragged against
+# them in M and N: with the 64 x 128 cases, every tile of the plan.
+# The kernels take n and m that are multiples of 8 and K*Q <= 64; the
+# binding refuses the rest.
 MORE_CASES = [(256, 256, 384, 4, 4, 4), (200, 128, 96, 4, 8, 4), (65, 96, 192, 4, 4, 4),
-              (9, 64, 24, 4, 2, 2), (300, 1024, 1024, 4, 16, 4)]
+              (9, 64, 24, 4, 2, 2), (300, 1024, 1024, 4, 16, 4), (2664, 1800, 1800, 4, 4, 4),
+              (2664, 1800, 1800, 4, 8, 4), (2664, 1800, 1800, 4, 16, 4)]
+# the repeat test's cases: MORE_CASES and the bench's gate shape (2664 x 4096
+# -> 11264, J = 32)
+REPEAT_CASES = MORE_CASES + [(2664, 4096, 11264, 4, 8, 4)]
+REPEATS = 100
 
 
 def _more_operands(case, dtype, device):
@@ -744,6 +754,81 @@ def test_torch_more_linear_autograd_on_card(cuda_device, dtype):
     for g, w in zip([y.detach().reshape(plain.shape)] + [t.grad for t in got_leaves], want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert float((g.float() - w.float()).abs().max()) <= _tol(w)
+
+
+@pytest.mark.cuda
+def test_torch_more_linear_plan_on_card(cuda_device):
+    """bf16's tile plan: 128 rows where 128 x 256 tiles make a wave of CTAs
+    (the last three MORE_CASES entries, the bench's qkv and gate shapes), 256
+    columns wide at J <= 16, at J <= 32 K9 224 and K10 192, 192 above; else
+    64 x 128; the summaries' width J rounded up to 16; the grid
+    covers the output."""
+    from sparse_matrix_fine_tuning_torch.kernels.experimental import more_linear as ml
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(rows, n, m, K * Q) for rows, n, m, K, Q, _ in MORE_CASES]
+    shapes += [(2664, 4096, 4096, 16), (1024, 1024, 1024, 64), (2664, 4096, 11264, 32)]
+    for rows, n, m, j in shapes:
+        for dx in (False, True):
+            plan = ml.more_linear_plan(rows, n, m, j, dx)
+            width = n if dx else m
+            big = -(-rows // 128) * -(-width // 256) >= sms
+            wide = 256 if j <= 16 else 192 if dx or j > 32 else 224
+            want = (128, wide) if big else (64, 128)
+            assert (plan["bm"], plan["bn"]) == want, (rows, n, m, j)
+            assert plan["jk"] == -(-j // 16) * 16 or (j > 32 and plan["jk"] == 64)
+            assert plan["row_tiles"] * plan["bm"] >= rows > (plan["row_tiles"] - 1) * plan["bm"]
+            assert plan["col_tiles"] * plan["bn"] >= width > (plan["col_tiles"] - 1) * plan["bn"]
+            assert 2 <= plan["stages"] <= 4 and plan["smem"] <= 232448
+    assert ml.more_linear_plan(*MORE_CASES[-3][:3], 16, False)["bn"] == 256
+    assert ml.more_linear_plan(*MORE_CASES[-2][:3], 32, False)["bn"] == 224
+    assert ml.more_linear_plan(*MORE_CASES[-1][:3], 64, True)["bn"] == 192
+    assert ml.more_linear_plan(*MORE_CASES[-1][:3], 64, False)["bm"] == 128
+    assert ml.more_linear_plan(1024, 1024, 1024, 64, True)["bm"] == 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", REPEAT_CASES)
+def test_torch_more_linear_bf16_repeat_on_card(cuda_device, case):
+    """A bf16 K9 or K10 call repeated REPEATS times gives the same bits
+    every time (a race in the ring or the factor slices would show as a
+    call that differs)."""
+    from sparse_matrix_fine_tuning_torch.kernels.experimental import more_linear as ml
+
+    x, wd, w1, w2, dout = _more_operands(case, torch.bfloat16, cuda_device)
+    with torch.no_grad():
+        for name, call in (("K9", lambda: ml.more_linear_fwd(x, wd, w1, w2)),
+                           ("K10", lambda: ml.more_linear_dx(dout, wd, w1, w2))):
+            first = call()
+            differ = [i for i in range(REPEATS) if not torch.equal(first, call())]
+            assert not differ, f"{name}: calls {differ} of {REPEATS} gave other bits"
+
+
+@pytest.mark.cuda
+def test_torch_more_linear_bf16_one_launch_on_card(cuda_device):
+    """Each bf16 K9 and K10 call at every MORE_CASES entry is one launch of
+    the fused kernel, by the profiler's count of all the calls in one
+    session (the profiler loses records in sessions after others in a
+    process: ROADMAP C.10)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparse_matrix_fine_tuning_torch.kernels.experimental import more_linear as ml
+
+    calls = []
+    for case in MORE_CASES:
+        x, wd, w1, w2, dout = _more_operands(case, torch.bfloat16, cuda_device)
+        calls += [lambda x=x, wd=wd, w1=w1, w2=w2: ml.more_linear_fwd(x, wd, w1, w2),
+                  lambda d=dout, wd=wd, w1=w1, w2=w2: ml.more_linear_dx(d, wd, w1, w2)]
+    with torch.no_grad():
+        for call in calls:  # build and warm up outside the session
+            call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for call in calls:
+                call()
+            torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == len(calls) and all("fused_kernel" in k for k in kernels), kernels
 
 
 @pytest.mark.cuda
