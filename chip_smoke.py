@@ -232,10 +232,16 @@ MORE_LOSS_RTOL = 2.0 ** -6
 # instantiations of bf16's K9/K10 kernel (csrc/more_linear.cu): six pairs
 # of tile and summary width, forward and dx
 MORE_FUSED_KERNELS = 12
+# K9/K10 at J = 32, 2664 x 1800 -> 1800 ((rows, n, m, K, Q, L) of
+# compare_more_linear.inputs), where one card run once gave other bits:
+# MORE_REPEATS calls of each must equal the first bit for bit.
+MORE_REPEAT_CASE = (2664, 1800, 1800, 4, 8, 4)
+MORE_REPEATS = 50
 # The forward-tile experiments' ragged checks: K15 at (M, K, N) with M past
 # every BM, K past the k step of 64 and N past every BN (multiples of 8, as
 # TMA needs); K12 at (B, n, m, nblocks, rank) in f32, B past every row tile.
 TILES_RAGGED = (200, 200, 392)
+TILES_BENCH = (2664, 4096, 4096)  # K15's repeat check: exp_matmul_tiles.SHAPE
 FWD_TILE_RAGGED = (37, 256, 384, 4, 4)
 # The dw experiments' ragged checks, (M, K, Q, P, L, S, R): the fast path at
 # blk_r 8 and 16, and the generic kernel (P % 8 != 0), M past every row
@@ -504,19 +510,19 @@ def phase_kernels(card: str) -> dict:
     return {"worst": worst, "layer": layer}
 
 
-def bwd_ptxas(lib) -> None:
-    """ptxas's registers and spills of each instantiation of the cluster
-    kernel (K3, K4, K11, K13, K14), from the build's log; none may spill."""
+def kernel_ptxas(lib, kernel: str, count: int, tag: str) -> None:
+    """ptxas's registers and spills of each of the ``count`` instantiations
+    of ``kernel``, from the build's log (``kernels/_build/<key>/build.log``,
+    which the build keeps); none may spill."""
     from sparse_matrix_fine_tuning_torch.kernels.build import LOG_NAME
     from sparse_matrix_fine_tuning_torch.scripts.compare_monarch_bwd import ptxas_lines
 
-    lines = [ln for ln in ptxas_lines((lib.parent / LOG_NAME).read_text())
-             if "bwd_cluster_kernel" in ln]
-    require(len(lines) == 12, f"ptxas: {len(lines)} cluster kernel instantiations, expected 12")
+    lines = [ln for ln in ptxas_lines((lib.parent / LOG_NAME).read_text()) if kernel in ln]
+    require(len(lines) == count, f"ptxas: {len(lines)} {kernel} instantiations, expected {count}")
     for line in lines:
         name, rest = line.split(": ", 1)
-        args = name[name.index("bwd_cluster_kernel") + len("bwd_cluster_kernel"):]
-        print(f"[kernels] ptxas bwd_cluster_kernel{args[:24]}: {rest}", flush=True)
+        args = name[name.index(kernel) + len(kernel):]
+        print(f"[{tag}] ptxas {kernel}{args[:24]}: {rest}", flush=True)
         require(" 0 bytes spill stores" in rest, f"ptxas: {line} spills")
 
 
@@ -525,7 +531,7 @@ def phase_kernels_bwd(card: str, lib) -> dict:
     seven projections, rows M in BWD_ROWS (ragged and whole), bf16 and f32,
     each on the cluster kernel (``monarch_bwd_plan_fields``, printed with its
     launches a call at a training micro-batch), after ptxas's registers and
-    spills of its 12 instantiations (``bwd_ptxas``).
+    spills of its 12 instantiations (``kernel_ptxas``).
     No single PyTorch call computes either function (dx and the two factor
     gradients of the Monarch structure), so they have no library time.
     Tolerances: dx as the forward's output; the fp32 factor gradients 1e-5
@@ -535,7 +541,7 @@ def phase_kernels_bwd(card: str, lib) -> dict:
     nb, r = PEFT["nblocks"], PEFT["blk_r"]
     worst = {"monarch_bwd": 0.0, "monarch_dw_fused": 0.0}
     train = {name: [] for name in worst}
-    bwd_ptxas(lib)
+    kernel_ptxas(lib, "bwd_cluster_kernel", 12, "kernels")
     for dtype in (torch.bfloat16, torch.float32):
         for m_rows in BWD_ROWS:
             for proj, n_in, n_out in PROJECTIONS:
@@ -1388,21 +1394,23 @@ def _outputs(out) -> tuple:
     return out if isinstance(out, tuple) else (out,)
 
 
-def more_linear_ptxas(lib) -> None:
-    """ptxas's registers and spills of each instantiation of bf16's K9/K10
-    kernel, from the build's log; none may spill."""
-    from sparse_matrix_fine_tuning_torch.kernels.build import LOG_NAME
-    from sparse_matrix_fine_tuning_torch.scripts.compare_monarch_bwd import ptxas_lines
+def more_linear_repeats() -> None:
+    """K9 and K10 (bf16) at ``MORE_REPEAT_CASE``: ``MORE_REPEATS`` calls of
+    each give the first call's bits (PERF.md §7 left a race at J = 32
+    open; every run of this script now looks for it)."""
+    from sparse_matrix_fine_tuning_torch.scripts.compare_more_linear import inputs
 
-    lines = [ln for ln in ptxas_lines((lib.parent / LOG_NAME).read_text())
-             if "fused_kernel" in ln]
-    require(len(lines) == MORE_FUSED_KERNELS,
-            f"ptxas: {len(lines)} fused_kernel instantiations, expected {MORE_FUSED_KERNELS}")
-    for line in lines:
-        name, rest = line.split(": ", 1)
-        args = name[name.index("fused_kernel") + len("fused_kernel"):]
-        print(f"[more-linear] ptxas fused_kernel{args[:24]}: {rest}", flush=True)
-        require(" 0 bytes spill stores" in rest, f"ptxas: {line} spills")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    x, dout, wd, w1, w2 = inputs(*MORE_REPEAT_CASE, torch.bfloat16, g)
+    with torch.no_grad():
+        for name, call in (("K9", lambda: ml.more_linear_fwd(x, wd, w1, w2)),
+                           ("K10", lambda: ml.more_linear_dx(dout, wd, w1, w2))):
+            first = call()
+            same = sum(bool(torch.equal(call(), first)) for _ in range(MORE_REPEATS))
+            require(same == MORE_REPEATS, f"{name} at {MORE_REPEAT_CASE}: {MORE_REPEATS - same} "
+                                          f"of {MORE_REPEATS} repeats gave other bits")
+    print(f"[more-linear] K9 and K10 at {MORE_REPEAT_CASE} (J = 32): {MORE_REPEATS} repeats "
+          "each equal the first bit for bit", flush=True)
 
 
 def phase_more_linear(card: str, lib) -> dict:
@@ -1500,7 +1508,8 @@ def phase_more_linear(card: str, lib) -> dict:
             print(f"[more-linear] plan {label} {name}: "
                   f"{ml.more_linear_plan(rows, n, m, nb * r, dx)}", flush=True)
     hgmma = check_hgmma(lib, "fused_kernel", MORE_FUSED_KERNELS)
-    more_linear_ptxas(lib)
+    kernel_ptxas(lib, "fused_kernel", MORE_FUSED_KERNELS, "more-linear")
+    more_linear_repeats()
     print(f"[more-linear] {card}: HGMMA in all {hgmma} bf16 K9/K10 kernels, none spills",
           flush=True)
 
@@ -1549,7 +1558,10 @@ def phase_tiles(card: str, lib) -> dict:
         against ``tiled_matmul_reference`` (bf16) and K12 at every row tile
         against ``monarch_kernel_reference`` (f32; and bf16 at 8 rows bit
         for bit against K1, whose instantiation it is);
-      * every K15 kernel's SASS holds HGMMA (``check_hgmma``);
+      * every K15 kernel's SASS holds HGMMA (``check_hgmma``) and none
+        spills (``kernel_ptxas``); at the bench shape each tile's plan is
+        the Python mirror's (``schedule_plan``) and a repeated call gives
+        the same bits;
       * the counted main paths: the ports of ``exp_matmul_tiles`` and
         ``exp_fwd_tile`` at 2664 x 4096 -> 4096, each of which checks every
         variant against its plain version before timing it, the launch
@@ -1587,10 +1599,23 @@ def phase_tiles(card: str, lib) -> dict:
                     f"monarch_fwd_tile at {rows} rows differs from K1 at its own row tile "
                     f"({k1_rows})")
     hgmma = check_hgmma(lib, "tiled_mm_kernel", len(tm.TILES))
+    kernel_ptxas(lib, "tiled_mm_kernel", len(tm.TILES), "tiles")
+    m, k, n = TILES_BENCH
+    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+    for tile in tm.TILES:
+        plan = tm.tiled_matmul_plan(m, n, k, tile)
+        require(plan == tm.schedule_plan(m, n, k, tile, plan["resident"]),
+                f"tiled_matmul {tile}: the kernel's plan {plan} is not the Python mirror's")
+        require(torch.equal(tm.tiled_matmul(x, w, tile), tm.tiled_matmul(x, w, tile)),
+                f"tiled_matmul {tile} at {TILES_BENCH}: a repeated call gave other bits")
+        print(f"[tiles] plan {tile} at {TILES_BENCH}: {plan}", flush=True)
+    del x, w
     print(f"[tiles] {card}: K15 at {len(tm.TILES)} tiles and K12 at "
           f"{len(monarch_cuda.FWD_TILE_ROWS)} row tiles within tolerance at the ragged shapes; "
           f"K12 at every row tile equals K1 at its own ({k1_rows} rows); HGMMA in all "
-          f"{hgmma} K15 kernels", flush=True)
+          f"{hgmma} K15 kernels, none spills; K15 repeats bit for bit at {TILES_BENCH}, "
+          "its plan the mirror's", flush=True)
 
     reset_counts()  # the counted main path starts here: exp_matmul_tiles
     mm = exp_matmul_tiles.run()

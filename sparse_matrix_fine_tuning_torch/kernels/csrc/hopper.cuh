@@ -1,8 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels
 // (K15 in tiled_matmul.cu; the bf16 tile path of K5-K8 in quant_wgmma.cu;
 // K9 and K10 in more_linear.cu):
-//   * mbarriers: init, arm with a byte count, arrive, wait on a phase;
-//   * TMA: a 2-D tile load completing on an mbarrier;
+//   * mbarriers: init, arm with a byte count, arrive, wait on a phase (one
+//     that never ends traps);
+//   * TMA: a 2-D tile load completing on an mbarrier, and a 2-D tile store
+//     from shared memory in a bulk group, with the fence that orders the
+//     threads' writes of shared memory before the async proxy reads them;
 //   * wgmma: the shared-memory descriptor of a 128-byte-swizzled tile, the
 //     fence, commit and wait of a warpgroup's asynchronous MMAs, and
 //     m64nNk16 (bf16 in, fp32 sums; N 16, 32, 64, 128, 192, 224, 256) with
@@ -58,6 +61,43 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   while (!mbar_try_wait(bar, parity)) {
   }
+}
+
+// mbar_wait, except that a wait that never ends traps, so that a fault in
+// the pipeline is a launch error and not a hung card.
+__device__ __forceinline__ void wait_or_trap(uint32_t bar, uint32_t parity) {
+  uint32_t spins = 0;
+  while (!mbar_try_wait(bar, parity)) {
+    if (++spins == (1u << 22)) __trap();
+  }
+}
+
+// Orders this thread's writes of shared memory before the async proxy's
+// reads of it (a wgmma operand, a TMA store's source).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// A 2-D TMA store of the box at `src` in shared memory to (c0 inner, c1
+// outer) of the map's tensor, in this thread's current bulk group; TMA clips
+// what lies past the tensor's edges.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+// Closes this thread's current bulk group of TMA stores.
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Waits until every bulk group this thread committed has read its shared
+// memory (the source may then be written again).
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
 // A 2-D TMA load of the box at (c0 inner, c1 outer) into shared memory,

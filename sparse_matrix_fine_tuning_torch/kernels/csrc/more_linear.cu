@@ -390,32 +390,11 @@ struct Params {
   int fast_epi;        // K9: the Monarch factor by runs of w2 (R % 4 == 0, R <= 16, 8 bytes)
 };
 
-// mbar_wait, except that a wait that never ends traps, so that a fault in
-// the pipeline is a launch error and not a hung card.
-__device__ __forceinline__ void wait_or_trap(uint32_t bar, uint32_t parity) {
-  uint32_t spins = 0;
-  while (!mbar_try_wait(bar, parity)) {
-    if (++spins == (1u << 22)) __trap();
-  }
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
 // The output tile goes out through shared memory by TMA: 32-column boxes of
 // 64 rows, 64-byte swizzled (16-byte chunk c of row r at c ^ ((r / 2) % 4):
 // a warp's 4-byte stores of a fragment column fall in distinct banks); TMA
 // clips rows past M and columns past N.
 constexpr int kOutBox = 64 * 32 * 2;  // one (64 x 32) box of the output, 4 KB
-
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
-                                             int c1) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
-                   reinterpret_cast<uint64_t>(map)),
-               "r"(src), "r"(c0), "r"(c1)
-               : "memory");
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
@@ -829,8 +808,8 @@ __global__ void __launch_bounds__(Tile<BM, BN, JK>::kThreads, 1)
       for (int b = 0; b < BN / 32 && n0 + 32 * b < p.N; ++b)
         tma_store_2d(&map_y, out + b * kOutBox, n0 + 32 * b, rows);
     }
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");  // the smem is read
+    tma_store_commit();
+    tma_store_wait_read();  // the smem is read
   }
 }
 

@@ -106,6 +106,8 @@ extern "C" int smft_more_linear(int dtype, int device, int dx, const void* a, co
                                 int S, int R, void* stream);
 extern "C" int smft_more_linear_plan(int device, int dx, int64_t M, int64_t n, int64_t m, int J,
                                      int64_t* plan);
+extern "C" int smft_tiled_matmul_plan(int device, int64_t M, int64_t N, int64_t K, int bm, int bn,
+                                      int stages, int64_t* out);
 
 namespace {
 
@@ -570,6 +572,23 @@ at::Tensor tiled_matmul(const at::Tensor& x, const at::Tensor& w, int64_t bm, in
   return y;
 }
 
+// The plan of a K15 call at (M, N, K) and the tile, on the current device:
+// resident CTAs, the grid's CTAs, CTAs a cluster, row, column and k tiles,
+// units, the staged output columns and the shared memory a CTA
+// (tiled_matmul.PLAN_KEYS).
+std::vector<int64_t> tiled_matmul_plan(int64_t M, int64_t N, int64_t K, int64_t bm, int64_t bn,
+                                       int64_t stages) {
+  TORCH_CHECK(M > 0 && N > 0 && K > 0, "tiled_matmul_plan takes M, N, K > 0");
+  std::vector<int64_t> plan(9);
+  const int err = smft_tiled_matmul_plan(c10::cuda::current_device(), M, N, K,
+                                         static_cast<int>(bm), static_cast<int>(bn),
+                                         static_cast<int>(stages), plan.data());
+  TORCH_CHECK(err != cudaErrorInvalidValue, "tiled_matmul_plan: the tile (", bm, ", ", bn, ", ",
+              stages, ") is not instantiated");
+  C10_CUDA_CHECK(static_cast<cudaError_t>(err));
+  return plan;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(smft, m) {
@@ -604,6 +623,8 @@ TORCH_LIBRARY(smft, m) {
   m.def("more_linear_dx(Tensor dout, Tensor dense_w, Tensor w1, Tensor w2) -> Tensor");
   m.def("more_linear_plan(int M, int n, int m, int J, bool dx) -> int[]", &more_linear_plan);
   m.def("tiled_matmul(Tensor x, Tensor w, int bm, int bn, int stages) -> Tensor");
+  m.def("tiled_matmul_plan(int M, int N, int K, int bm, int bn, int stages) -> int[]",
+        &tiled_matmul_plan);
 }
 
 TORCH_LIBRARY_IMPL(smft, CUDA, m) {

@@ -147,19 +147,6 @@ struct Params {
   int per_slice;    // stages a slice (blockIdx.z)
 };
 
-// mbar_wait, except that a wait that never ends traps, so that a fault in
-// the pipeline is a launch error and not a hung card.
-__device__ __forceinline__ void wait_or_trap(uint32_t bar, uint32_t parity) {
-  uint32_t spins = 0;
-  while (!mbar_try_wait(bar, parity)) {
-    if (++spins == (1u << 22)) __trap();
-  }
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
 // One cell: byte e of `u`, a code offset by kOffset (an int4 nibble, already
 // shifted to the low half of its byte: 8), times its scale, in f32:
 // quant_matmul.cu's dequant_group.

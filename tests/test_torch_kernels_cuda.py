@@ -880,6 +880,69 @@ def test_torch_tiled_matmul_matches_plain_on_card(cuda_device, shape):
     assert tm.LAUNCHES["tiled_matmul"] == before + len(tm.TILES)
 
 
+def _tiled_operands(m, k, n, device):
+    g = torch.Generator(device=device).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=device).to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=g, device=device) * 0.02).to(torch.bfloat16)
+    return x, w
+
+
+@pytest.mark.cuda
+def test_torch_tiled_matmul_schedule_edges_on_card(cuda_device):
+    """K15's persistent schedule at its edges, at every tile, sized from the
+    card's own resident clusters (the plan, which must equal the Python
+    mirror ``schedule_plan``): under a wave of units, a whole wave, one unit
+    past it (its second row tile past M), K of one k step, of 64 k + 8 and
+    under one step, and N past BN; each within tolerance of the plain
+    version, one launch a call."""
+    from sparse_matrix_fine_tuning_torch.kernels.experimental import tiled_matmul as tm
+
+    for tile in tm.TILES:
+        bm, bn = tile[:2]
+        resident = tm.tiled_matmul_plan(2664, 4096, 4096, tile)["resident"]
+        rc = resident // tm.CLUSTER
+        cases = {"under a wave": ((2 * (rc - 2)) * bm - 5, 200, bn - 8, rc - 2),
+                 "a whole wave": (2 * rc * bm - 5, 64, bn, rc),
+                 "one unit past a wave": ((2 * rc + 1) * bm - 5, 136, bn - 8, rc + 1),
+                 "N past BN": (rc * bm - 5, 8, bn + 8, None)}
+        for label, (m, k, n, units) in cases.items():
+            plan = tm.tiled_matmul_plan(m, n, k, tile)
+            assert plan == tm.schedule_plan(m, n, k, tile, resident), (tile, label, plan)
+            assert units is None or plan["units"] == units, (tile, label, plan)
+            x, w = _tiled_operands(m, k, n, cuda_device)
+            want = tm.tiled_matmul_reference(x, w)
+            before = tm.LAUNCHES["tiled_matmul"]
+            got = tm.tiled_matmul(x, w, tile)
+            torch.cuda.synchronize()
+            assert tm.LAUNCHES["tiled_matmul"] == before + 1
+            assert got.shape == want.shape and bool(torch.isfinite(got).all())
+            assert float((got.float() - want.float()).abs().max()) <= _tol(want), (tile, label)
+
+
+@pytest.mark.cuda
+def test_torch_tiled_matmul_repeats_bits_on_card(cuda_device):
+    """K15 at the bench shape, 2664 x 4096 -> 4096, at every tile: a repeated
+    call gives the same bits (each output summed in one fixed order), one
+    launch a call; and the profiler sees one kernel a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparse_matrix_fine_tuning_torch.kernels.experimental import tiled_matmul as tm
+
+    x, w = _tiled_operands(2664, 4096, 4096, cuda_device)
+    for tile in tm.TILES:
+        before = tm.LAUNCHES["tiled_matmul"]
+        first = tm.tiled_matmul(x, w, tile)
+        again = tm.tiled_matmul(x, w, tile)
+        torch.cuda.synchronize()
+        assert tm.LAUNCHES["tiled_matmul"] == before + 2
+        assert torch.equal(first, again), tile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tm.tiled_matmul(x, w)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "tiled_mm_kernel" in kernels[0], kernels
+
+
 @pytest.mark.cuda
 def test_torch_tiled_matmul_refuses_what_it_does_not_take(cuda_device):
     """float32, K or N no multiple of 8, and a tile that is not instantiated
