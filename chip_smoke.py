@@ -43,8 +43,9 @@ hand-written CUDA kernels, and checks them:
      requantize-merged with the w8a8 head (K7), int4 unmerged (K5, K2);
      in each profiled decode step the wrappers count the decode kernel once
      an adapted linear, exactly; the profiler counts ``qgemv_kernel`` as
-     often over the profiled steps, or one record short (it loses one now
-     and then), and ``qsplit_sum`` never;
+     often over the profiled steps, exactly (in a window padded at both
+     ends, which keeps every record: ROADMAP C.10), and ``qsplit_sum``
+     never;
  12. quantized training: one float32 step (2 layers) on the card against a
      CPU copy, int8 and int4; then 22-layer bfloat16 training over an int8
      base (``run_alpaca --bits 8``: K7 and K8 at training rows) and over an
@@ -77,14 +78,22 @@ hand-written CUDA kernels, and checks them:
      their plain versions at ragged shapes, f32mul bit for bit K5 at
      decode rows, then the port of ``scripts/exp_int4_dequant_variants.py``
      at its four shapes (each variant checked against its plain version
-     and the JAX script's oracle bound, then timed).
+     and the JAX script's oracle bound, then timed);
+ 17. the Alpaca + MMLU harness (``scripts/run_alpaca.py``, as users run
+     it): the tiny smoke Llama in float32 at ``--bits`` 16, 8 and 4 on the
+     card against the same run on the CPU (the logged losses, eval_loss and
+     the MMLU choice logits within 1e-4, launches exact), then at
+     TinyLlama-1.1B widths (22 layers, bf16, random seeded weights through
+     the harness's ``build`` seam) at ``--bits`` 16 and 4 with the harness's
+     defaults: launches exact (K3 4,928; K6 4,832), the wall and device-busy
+     ms a step, the MMLU scoring and predict seconds, the peak memory.
 
-Serving (5, 6, 10 and 11) runs before the experiments (13-16), the
-quantized decode profiles after as few other profiler sessions as the
-script opens (ROADMAP C.10).  Each main path (6, 8 off, 8 on, each
+Serving (5, 6, 10 and 11) runs before the experiments (13-16).  Every
+profile is taken in ``benchlib.device_profile``'s window, padded at both
+ends so that it keeps every kernel's record (ROADMAP C.10).  Each main path (6, 8 off, 8 on, each
 configuration of 11, each step of 12, the bench of 13, each script of 14,
-15 and 16) zeroes the launch counts of every kernel just before it and
-reads them just after.  Any failed check
+15 and 16, each harness run of 17) zeroes the launch counts of every kernel
+just before it and reads them just after.  Any failed check
 exits non-zero.  The line before the last is one JSON object on the
 kernels (K5 and K7 at decode and, as ``int4_matmul_tile`` and
 ``int8_matmul_tile``, at a training micro-batch, each entry's launches
@@ -100,9 +109,13 @@ It imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -118,6 +131,7 @@ try:
     from sparse_matrix_fine_tuning_torch.kernels.experimental import tiled_matmul as tm
     from sparse_matrix_fine_tuning_torch.utils import benchlib
     from sparse_matrix_fine_tuning_torch.utils.benchlib import card_line, roofline_ms, time_ms
+    from sparse_matrix_fine_tuning_torch.utils.testing import TOLERANCES
 except ImportError as exc:  # run outside a checkout of the repository
     print(f"chip_smoke: cannot import the port ({exc}); run it from the repository root",
           file=sys.stderr)
@@ -270,6 +284,19 @@ INT4_VARIANT_ROWS = (3, 13, 40)
 INT4_VARIANT_RAGGED = (1536, 272, 64)
 # K16's JSON line: the best variant at this shape of the script
 INT4_VARIANT_SHAPE = (4, 2048, 5632)
+# The Alpaca harness (phase_alpaca): (a) the smoke argv on the card and on
+# the CPU, whose losses, eval_loss and MMLU choice logits (float32) agree
+# within ALPACA_TOL; (b) the full-width argv, the harness's defaults
+# otherwise.  Both take 2 optimizer steps of 16 micro-batches.
+ALPACA_STEPS, ALPACA_GA = 2, 16
+ALPACA_ARGV = ["--smoke=True", "--dropout=0.0", f"--max_steps={ALPACA_STEPS}",
+               "--logging_steps=1", "--eval_dataset_size=8", "--max_mmlu_samples=16",
+               "--do_predict=True", "--max_new_tokens=8"]
+ALPACA_FULL_NEW = 16
+ALPACA_FULL_ARGV = [f"--max_steps={ALPACA_STEPS}", "--logging_steps=1", "--eval_dataset_size=8",
+                    "--max_mmlu_samples=32", "--do_predict=True",
+                    f"--max_new_tokens={ALPACA_FULL_NEW}"]
+ALPACA_TOL = TOLERANCES["f32_logits"]
 OUT_DIR = "chip_smoke_out"  # per-case records; .gitignore lists it
 RECORDS: list[dict] = []  # one per kernel case, written to OUT_DIR
 
@@ -816,20 +843,24 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def device_busy_ms(fn, calls: int, label: str, kernels: dict | None = None):
-    """Device time per call of ``fn`` from torch.profiler (None when the
-    profiler sees no device time), and the top kernels by device time;
-    ``kernels``, where given, receives each device kernel's launches a call
-    by name."""
-    from torch.profiler import ProfilerActivity, profile
-
+@contextlib.contextmanager
+def device_busy(label: str, calls: int = 1, kernels: dict | None = None):
+    """Profile a block of ``calls`` calls with torch.profiler, recording the
+    card alone (host operators' ranges, ``Optimizer.step#AdamW.step`` among
+    them, would count their kernels' time again, and make a session of 10^5
+    kernels slow to read back), in ``benchlib.device_profile``'s padded
+    window, which keeps every kernel's record (ROADMAP C.10).  Yields a dict that receives ``busy_ms``,
+    the device time per call (None when the profiler sees no device time),
+    and ``wall_ms``, the wall time per call with the profiler on; prints
+    the top kernels by device time.  ``kernels``, where given, receives
+    each device kernel's launches a call by name."""
+    result = {}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with benchlib.device_profile() as prof:
         t0 = time.perf_counter()
-        for i in range(calls):
-            fn(i)
+        yield result
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", 0) or 0
@@ -839,18 +870,26 @@ def device_busy_ms(fn, calls: int, label: str, kernels: dict | None = None):
         for _, count, key in rows:
             kernels[key] = kernels.get(key, 0) + count / calls
     busy_ms = sum(row[0] for row in rows) / calls
+    result.update(busy_ms=busy_ms or None, wall_ms=wall_ms)
     if busy_ms == 0:
         print(f"[profile] {label}: device time not measured (the profiler saw no device time)",
               flush=True)
-        return None
+        return
     launches = sum(row[1] for row in rows) / calls
-    print(f"[profile] {calls} {label} under the profiler: wall {wall_ms / calls:.3f} ms each "
+    print(f"[profile] {calls} {label} under the profiler: wall {wall_ms:.3f} ms each "
           f"(profiler on), device busy {busy_ms:.3f} ms and {launches:.0f} kernels each",
           flush=True)
     for dev_ms, count, key in sorted(rows, reverse=True)[:12]:
         print(f"[profile]   {dev_ms / calls:8.4f} ms  {count // calls:5d} launches  {key[:90]}",
               flush=True)
-    return busy_ms
+
+
+def device_busy_ms(fn, calls: int, label: str, kernels: dict | None = None):
+    """``device_busy``'s device ms per call of ``fn(i)``, i < ``calls``."""
+    with device_busy(label, calls, kernels) as result:
+        for i in range(calls):
+            fn(i)
+    return result["busy_ms"]
 
 
 @torch.inference_mode()
@@ -1995,9 +2034,9 @@ def phase_quant_bf16(f32: dict, card: str) -> dict:
                                  kernels=kernels, wrappers=wrappers)
         name = f"int{bits}_matmul"
         # the decode kernel once an adapted linear a step, one launch a call:
-        # the wrappers' own count, exact every step; the profiler, which
-        # loses a record now and then (ROADMAP C.10), within one record of
-        # it over the profiled steps and never above it; qsplit_sum never
+        # the wrappers' own count, exact every step; the profiler's count
+        # over the profiled steps, exact (device_busy's padded window keeps
+        # every record, ROADMAP C.10); qsplit_sum never
         per_step = [w[name] for w in wrappers]
         require(per_step == [N_ADAPTED] * DECODE_PROFILE_STEPS,
                 f"{label}: the wrappers counted {per_step} {name} launches in the profiled "
@@ -2011,10 +2050,9 @@ def phase_quant_bf16(f32: dict, card: str) -> dict:
             print(f"[quant-bf16] {label}: {DECODE_PROFILE_STEPS} decode steps launch "
                   f"qgemv_kernel {gemv} times by the profiler, {sum(per_step)} by the wrappers' "
                   f"count ({name}: {per_step}), qsplit_sum {split} times", flush=True)
-            require(want - 1 <= gemv <= want and split == 0,
+            require(gemv == want and split == 0,
                     f"{label}: the profiler counted qgemv_kernel {gemv} and qsplit_sum {split} "
-                    f"times in {DECODE_PROFILE_STEPS} decode steps; expected {want} (at least "
-                    f"{want - 1}) and 0")
+                    f"times in {DECODE_PROFILE_STEPS} decode steps; expected {want} and 0")
         want = N_ADAPTED * (1 + steps)
         expect = {name: want, "monarch_add": 0 if merged else want}
         require(tuple(toks.shape) == (BATCH, PROMPT + NEW), f"{label}: tokens {tuple(toks.shape)}")
@@ -2100,6 +2138,218 @@ def phase_quant_train_bf16(card: str, bits: int) -> dict:
     return {"launches": {name: launches[name], name + "_dx": launches[name + "_dx"]}}
 
 
+# -- the Alpaca + MMLU harness (scripts/run_alpaca.py) --------------------------
+
+def _alpaca_records(out_dir: str, name: str = "metrics.jsonl") -> list:
+    with open(os.path.join(out_dir, "alpaca", name)) as f:
+        return [json.loads(line) for line in f]
+
+
+def alpaca_run(argv: list, build=None, step_context=None) -> dict:
+    """One ``run_alpaca.run`` with the launch counts zeroed just before it
+    and read just after, and the forwards of its model counted (a hook on
+    the decoder stack, through which training, the eval loss, MMLU and
+    generation all pass), with the shapes of the training forwards; the
+    wall seconds of the whole run beside them.  ``step_context`` goes to
+    the harness's trainer."""
+    from sparse_matrix_fine_tuning_torch.scripts import run_alpaca
+
+    forwards, shapes = [0], collections.Counter()
+
+    def hook(module, args):
+        forwards[0] += 1
+        if module.training:
+            shapes[tuple(args[0].shape)] += 1
+
+    def counted(args, peft_config):
+        model = (build or run_alpaca.build_model)(args, peft_config)
+        model.model.register_forward_pre_hook(hook)
+        return model
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    reset_counts()  # the counted main path starts here
+    t0 = time.perf_counter()
+    result = run_alpaca.run(argv, build=counted, step_context=step_context)
+    seconds = time.perf_counter() - t0
+    launches = counts()  # the counted main path ends here
+    return {"run": result, "launches": launches, "forwards": forwards[0],
+            "train_shapes": dict(shapes), "seconds": seconds}
+
+
+def alpaca_expect(bits: int, adapted: int, forwards: int, micro: int, forward: str) -> dict:
+    """The exact launches of a harness run: ``forward`` (K2, or K1 where
+    dropout wraps the adapter branch) and the quantized forward on every
+    adapted linear each forward of the model, K3 on every adapted linear
+    each training micro-batch, the quantized dx on all but layer 0's q, k
+    and v (their input, the frozen embedding normalised, needs no
+    gradient); nothing else."""
+    expect = {forward: adapted * forwards, "monarch_bwd": adapted * micro}
+    if bits != 16:
+        expect[f"int{bits}_matmul"] = adapted * forwards
+        expect[f"int{bits}_matmul_dx"] = (adapted - 3) * micro
+    return expect
+
+
+def phase_alpaca_smoke(card: str) -> dict:
+    """(a) The tiny smoke Llama (float32, TF32 off) at ``--bits`` 16, 8 and 4
+    on the card and on the CPU (``--platform=cpu``, the plain path,
+    launching nothing): the logged losses, ``eval_loss`` and the MMLU choice
+    logits agree within ``ALPACA_TOL``, ``eval_results.json`` and
+    ``predictions.jsonl`` are written, and the card's launches are exact
+    (``alpaca_expect``).  Returns the launches of the card's runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tol = ALPACA_TOL
+    micro = ALPACA_STEPS * ALPACA_GA
+    launches = {}
+    for bits in (16, 8, 4):
+        out = os.path.join(OUT_DIR, f"alpaca_{bits}")
+        for d in (out, f"{out}_cpu"):  # the run logger appends to metrics.jsonl
+            shutil.rmtree(d, ignore_errors=True)
+        argv = [*ALPACA_ARGV, "--bits", str(bits)]
+        card_run = alpaca_run([*argv, f"--output_dir={out}"])
+        cpu_run = alpaca_run([*argv, f"--output_dir={out}_cpu", "--platform=cpu"])
+        require(not any(cpu_run["launches"].values()),
+                f"alpaca int{bits}: the CPU run launched {cpu_run['launches']}")
+        require(card_run["forwards"] == cpu_run["forwards"] > micro,
+                f"alpaca int{bits}: {card_run['forwards']} forwards on the card, "
+                f"{cpu_run['forwards']} on the CPU")
+        expect = alpaca_expect(bits, 7 * 2, card_run["forwards"], micro, "monarch_add")
+        got = card_run["launches"]
+        require(got == {**dict.fromkeys(got, 0), **expect},
+                f"alpaca int{bits}: launches {got}; expected {expect}")
+        for k, v in expect.items():
+            launches[k] = launches.get(k, 0) + v
+        losses = [[r["loss"] for r in _alpaca_records(d) if "loss" in r]
+                  for d in (out, f"{out}_cpu")]
+        require(len(losses[0]) == len(losses[1]) == ALPACA_STEPS, f"losses {losses}")
+        err = max(abs(a - b) - tol["rtol"] * abs(b) for a, b in zip(*losses))
+        require(err <= tol["atol"], f"alpaca int{bits}: losses {losses[0]} card, "
+                                    f"{losses[1]} CPU")
+        m_card, m_cpu = card_run["run"].metrics, cpu_run["run"].metrics
+        require(abs(m_card["eval_loss"] - m_cpu["eval_loss"])
+                <= tol["atol"] + tol["rtol"] * abs(m_cpu["eval_loss"]),
+                f"alpaca int{bits}: eval_loss {m_card['eval_loss']} card, {m_cpu['eval_loss']} CPU")
+        logits = [torch.from_numpy(r["run"].choice_logits()) for r in (card_run, cpu_run)]
+        gap = float(((logits[0] - logits[1]).abs() - tol["rtol"] * logits[1].abs()).max())
+        n_mmlu = len(card_run["run"].mmlu_eval)
+        require(logits[0].shape == logits[1].shape == (n_mmlu, 4) and gap <= tol["atol"],
+                f"alpaca int{bits}: MMLU choice logits differ by {gap} past the rtol")
+        for name in ("eval_results.json", "predictions.jsonl"):
+            require(os.path.getsize(os.path.join(out, "alpaca", name)) > 0, f"no {name}")
+        preds = [[r["prediction"] for r in _alpaca_records(d, "predictions.jsonl")]
+                 for d in (out, f"{out}_cpu")]
+        same = sum(a == b for a, b in zip(*preds))
+        acc = [m["eval_mmlu_eval_accuracy"] for m in (m_card, m_cpu)]
+        print(f"[alpaca] {card}: smoke, {f'int{bits}' if bits < 16 else 'f32'} base: losses "
+              f"{losses[0]} card, {losses[1]} CPU; eval_loss {m_card['eval_loss']} / "
+              f"{m_cpu['eval_loss']}; MMLU choice logits max |card - CPU| "
+              f"{float((logits[0] - logits[1]).abs().max()):.2e} (tol {tol}); MMLU accuracy "
+              f"{acc[0]} / {acc[1]}; predictions equal {same}/{len(preds[0])}; "
+              f"{card_run['forwards']} forwards; launches {expect}; wall "
+              f"{card_run['seconds']:.2f} s "
+              f"card, {cpu_run['seconds']:.2f} s CPU", flush=True)
+        del card_run, cpu_run
+    return launches
+
+
+def phase_alpaca_full(card: str) -> dict:
+    """(b) The harness at TinyLlama-1.1B widths (all 22 layers, bf16, random
+    seeded weights through the ``build`` seam) at ``--bits`` 16 and 4 with
+    the harness's defaults (dropout 0.1, so K1 and not K2 in the forwards;
+    batch 4 x ga 16; lengths 1024/256; 5-shot MMLU at 2048 tokens) over its
+    synthetic data: the launches exact (``alpaca_expect``: K3 154 x 32 =
+    4,928, K6 151 x 32 = 4,832); the harness's own two steps, through its
+    trainer's ``step_context``: step 0 under the profiler (device busy),
+    step 1 alone (wall ms, the card synchronised around it, and its peak
+    memory); the MMLU scoring and predict seconds the harness measured;
+    the peak memory over the run and what stays resident after it.
+    Returns the launches."""
+    from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig
+    from sparse_matrix_fine_tuning_torch.models.llama import LlamaForCausalLM
+    from sparse_matrix_fine_tuning_torch.scripts import run_alpaca
+    from sparse_matrix_fine_tuning_torch.utils.profiling import device_memory_stats
+
+    micro = ALPACA_STEPS * ALPACA_GA
+    launches = {}
+    def build_full(args, peft_config):
+        cfg = LlamaConfig(**MODEL, param_dtype="bfloat16", dtype="bfloat16",
+                          max_position_embeddings=2048)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+        return run_alpaca.adapt_model(LlamaForCausalLM(cfg, device="cuda", generator=g), args,
+                                      peft_config)
+
+    for bits in (16, 4):
+        base = "int4" if bits == 4 else "bf16"
+        steps = {}
+
+        @contextlib.contextmanager
+        def harness_step(k):
+            if k == 0:
+                with device_busy(f"harness training step 0 ({base} base)") as prof:
+                    yield
+                steps.update(busy_ms=prof["busy_ms"], profiled_wall_ms=prof["wall_ms"])
+                return
+            torch.cuda.synchronize()
+            steps["peak_before_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            steps.setdefault("wall_ms", []).append((time.perf_counter() - t0) * 1e3)
+            steps["peak_gb"] = device_memory_stats()["cuda:0"]["peak_bytes_in_use"] / 1e9
+
+        gc.collect()  # what the last run left to the cyclic collector goes before measuring
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before_gb = torch.cuda.memory_allocated() / 1e9
+        out = os.path.join(OUT_DIR, f"alpaca_full_{bits}")
+        shutil.rmtree(out, ignore_errors=True)
+        full = alpaca_run([*ALPACA_FULL_ARGV, "--bits", str(bits), f"--output_dir={out}"],
+                          build=build_full, step_context=harness_step)
+        memory = device_memory_stats()["cuda:0"]
+        # step 1 reset the peak: the run's is the larger of the peaks before and since
+        run_peak_gb = max(memory["peak_bytes_in_use"] / 1e9, steps["peak_before_gb"])
+        resident_gb = memory["bytes_in_use"] / 1e9
+        expect = alpaca_expect(bits, N_ADAPTED, full["forwards"], micro, "monarch_kernel")
+        got = full["launches"]
+        require(got == {**dict.fromkeys(got, 0), **expect},
+                f"alpaca full width int{bits}: launches {got}; expected {expect}")
+        for k, v in expect.items():
+            launches[k] = launches.get(k, 0) + v
+        metrics, a = full["run"].metrics, full["run"].trainer.args
+        require(math.isfinite(metrics["eval_loss"]), f"eval_loss {metrics['eval_loss']}")
+        losses = [r["loss"] for r in _alpaca_records(out) if "loss" in r]
+        require(len(losses) == ALPACA_STEPS and all(map(math.isfinite, losses)),
+                f"losses {losses}")
+        require(len(steps.get("wall_ms", [])) == ALPACA_STEPS - 1 and "busy_ms" in steps,
+                f"alpaca full width int{bits}: the harness's steps seen {steps}")
+        wall, busy = steps["wall_ms"][0], steps["busy_ms"]
+        idle = f"{1 - busy / wall:.3f}" if busy is not None else "not measured"
+        print(f"[alpaca-full] {card}: TinyLlama-1.1B widths, 22 layers, bf16, {base} base, "
+              f"dropout 0.1: losses {losses}, eval_loss {metrics['eval_loss']}; the harness's "
+              f"steps (ga {a.gradient_accumulation_steps} x bs {a.per_device_train_batch_size}; "
+              f"training forwards by shape {full['train_shapes']}): step 1 wall {wall:.2f} ms "
+              f"(alone, the card synchronised around it), step 0 device busy "
+              f"{busy if busy is None else round(busy, 2)} ms (profiled; wall "
+              f"{steps['profiled_wall_ms']:.2f} ms with the profiler on, the run's first "
+              f"step), idle share {idle} (1 - step 0 busy / step 1 wall); MMLU scoring "
+              f"{metrics['eval_mmlu_runtime']} s ({len(full['run'].mmlu_eval)} items, "
+              f"--mmlu_kshot {full['run'].args.mmlu_kshot}) and predict "
+              f"{metrics['predict_runtime']} s "
+              f"({metrics['predict_samples']} rows, {ALPACA_FULL_NEW} new tokens), both wall; "
+              f"harness run {full['seconds']:.2f} s wall; memory: {before_gb:.2f} GB allocated "
+              f"before the run, peak {run_peak_gb:.2f} GB over "
+              f"the run (the build and quantization on the card included), {resident_gb:.2f} GB "
+              f"resident after it, peak {steps['peak_gb']:.2f} GB over step 1; "
+              f"{full['forwards']} forwards; launches {expect}", flush=True)
+        del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
 
@@ -2114,9 +2364,9 @@ def main() -> None:
     lap("kernels")
     phase_autograd(card)
     phase_quant_autograd(card)
-    # serving first: its quantized decode profiles lose records after other
-    # profiler sessions in the process (ROADMAP C.10), and the experiments
-    # below open a dozen
+    # serving before the experiments, whose dozen profiler sessions made its
+    # quantized decode profiles lose records until benchlib.device_profile
+    # padded each session's window (ROADMAP C.10)
     f32 = phase_f32()
     phase_quant_f32(f32, card)
     lap("f32 serving")
@@ -2139,6 +2389,12 @@ def main() -> None:
     q8training = phase_quant_train_bf16(card, 8)
     q4training = phase_quant_train_bf16(card, 4)
     lap("bf16 training")
+    alpaca = phase_alpaca_smoke(card)
+    lap("alpaca harness, smoke")
+    alpaca_full = phase_alpaca_full(card)
+    print(f"[alpaca] launches of the harness's runs: smoke {alpaca}, full width {alpaca_full}",
+          flush=True)
+    lap("alpaca harness, full width")
     launches = {"monarch_kernel": serving["launches"]["monarch_kernel"],
                 "monarch_add": serving["launches"]["monarch_add"],
                 "monarch_bwd": training["launches"]["monarch_bwd"],

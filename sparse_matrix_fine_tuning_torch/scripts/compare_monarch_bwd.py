@@ -336,8 +336,6 @@ def time_dw(libs: dict) -> dict:
 def count_launches(libs: dict, g: torch.Generator) -> dict:
     """Kernels a call launches and their device us, by the profiler: K3 and
     K4 at q_proj (M = 2048 and 65) and at the dw shape (rank 16)."""
-    from torch.profiler import ProfilerActivity, profile
-
     out = {}
     cases = [("q M=2048", projection(2048, 2048, 2048, torch.bfloat16, g)),
              ("q M=65", projection(65, 2048, 2048, torch.bfloat16, g)),
@@ -349,7 +347,7 @@ def count_launches(libs: dict, g: torch.Generator) -> dict:
                     call = backward(lib, x, dout, w1, w2, with_dx)
                     call()
                     torch.cuda.synchronize()
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    with benchlib.device_profile() as prof:
                         call()
                         torch.cuda.synchronize()
                     kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()

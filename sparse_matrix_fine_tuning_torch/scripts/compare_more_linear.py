@@ -279,8 +279,6 @@ def time_shapes(libs: dict) -> dict:
 def count_launches(libs: dict) -> dict:
     """Kernels a call launches and their device us, by the profiler, at the
     three bench shapes."""
-    from torch.profiler import ProfilerActivity, profile
-
     out = {}
     with torch.no_grad():
         for label, shape in zip(LABELS, bench.SHAPES):
@@ -290,7 +288,7 @@ def count_launches(libs: dict) -> dict:
                     call = call_of(lib, dx, a, wd, w1, w2)
                     call()
                     torch.cuda.synchronize()
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    with benchlib.device_profile() as prof:
                         call()
                         torch.cuda.synchronize()
                     kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()

@@ -204,8 +204,6 @@ def time_shapes(libs: dict, g: torch.Generator) -> dict:
 def count_launches(libs: dict, tile, g: torch.Generator) -> dict:
     """Kernels (and memsets) a call launches and their device us, by the
     profiler, at the bench shape."""
-    from torch.profiler import ProfilerActivity, profile
-
     out = {}
     m, k, n = SHAPES[0]
     x, w = inputs(m, k, n, g)
@@ -214,7 +212,7 @@ def count_launches(libs: dict, tile, g: torch.Generator) -> dict:
             call = call_of(lib, x, w, tile)
             call()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with benchlib.device_profile() as prof:
                 call()
                 torch.cuda.synchronize()
             kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()

@@ -15,8 +15,9 @@ What it keeps of the JAX trainer:
     (``training/optim.py``);
   * only the trainable filter's parameters train (``peft/surgery.py``):
     adapters and the extra paths, the LM head by default;
-  * logging, ``evaluate``, trainable-only checkpoints, ``load_checkpoint``
-    and ``load_best_model_at_end``.
+  * logging (every ``log_param_steps``, ``param_stats`` and, to the
+    logger, ``utils/logging.watch_layers``), ``evaluate``, trainable-only
+    checkpoints, ``load_checkpoint`` and ``load_best_model_at_end``.
 
 Set aside, raising ``NotImplementedError``: a device mesh and sequence
 parallelism (ROADMAP.md queue A item 28), ``state_split=False`` (the JAX
@@ -28,6 +29,7 @@ queue A item 15).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -49,6 +51,7 @@ from sparse_matrix_fine_tuning_torch.peft.surgery import (
 from sparse_matrix_fine_tuning_torch.training import checkpoint as ckpt_lib
 from sparse_matrix_fine_tuning_torch.training.optim import build_optimizer
 from sparse_matrix_fine_tuning_torch.utils.device import resolve_device
+from sparse_matrix_fine_tuning_torch.utils.logging import watch_layers
 
 _MESH_ITEM = "ROADMAP.md queue A item 28, 'parallel/'"
 
@@ -102,6 +105,9 @@ class Trainer:
       compute_metrics: (model, eval_data) -> dict, optional.
       mesh: refused (queue A item 28).
       device: where batches go; the card when None.
+      step_context: step -> context manager, optional, entered around each
+        optimizer step's ``train_step`` in ``train`` (a caller's timing or
+        profiling of the run's own steps).
     """
 
     def __init__(self, model: nn.Module, args: TrainingArgs,
@@ -109,7 +115,7 @@ class Trainer:
                  loss_fn: Optional[Callable] = None, compute_metrics: Optional[Callable] = None,
                  mesh=None, logger=None,
                  extra_trainable_paths: Iterable[str] = DEFAULT_TRAINABLE_PATHS,
-                 device=None):
+                 device=None, step_context: Optional[Callable] = None):
         if mesh is not None:
             raise NotImplementedError(f"a device mesh: {_MESH_ITEM}")
         if args.sequence_parallel == "on":
@@ -129,6 +135,7 @@ class Trainer:
         self.loss_fn = loss_fn or self._default_loss
         self.compute_metrics = compute_metrics
         self.logger = logger
+        self.step_context = step_context or (lambda step: contextlib.nullcontext())
         self.extra_paths = tuple(extra_trainable_paths)
         self.step = 0
         self.log_history: list[dict] = []
@@ -288,7 +295,8 @@ class Trainer:
                 break
             for batch, _ in self._batches(self.train_data, bs, shuffle=True, seed=a.seed + epoch,
                                           accum=g):
-                loss = self.train_step(batch)
+                with self.step_context(self.step):
+                    loss = self.train_step(batch)
                 if a.logging_steps:
                     running.append(loss)
                     tokens += int(batch["input_ids"].numel())
@@ -307,6 +315,8 @@ class Trainer:
                         self.logger.log(rec)
                 if a.log_param_steps and self.step % a.log_param_steps == 0:
                     param_stats(self.model, extra_paths=self.extra_paths)
+                    if self.logger is not None:
+                        watch_layers(self.model, self.logger)
                 if a.eval_steps and self.step % a.eval_steps == 0 and self.eval_data is not None:
                     self._do_eval()
                     self.model.train()

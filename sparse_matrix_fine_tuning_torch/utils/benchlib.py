@@ -15,18 +15,22 @@ and the spin kernel then no longer covers the enqueueing.
 ``require_card`` fails where no CUDA card is visible: a measurement never
 falls back to the CPU.  ``roofline_ms`` is the least time the card could
 take for a given number of bytes and operations (an H100 SXM's published
-rates).
+rates).  ``device_profile`` is the profiler session whose kernel records
+can be counted.
 """
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import subprocess
+import time
 
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published HBM3 rate
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16; fp32 off tensor cores
+PROFILE_PAD_S = 0.05  # host sleep at each end of a profiler session (device_profile)
 
 
 def require_card(what: str) -> str:
@@ -86,3 +90,23 @@ def time_ms(fn, reps: int = 50, rounds: int = 5) -> tuple[float, float]:
 def calls_per_timing(reps: int = 50, rounds: int = 5) -> int:
     """How many times ``time_ms(fn, reps, rounds)`` calls ``fn``."""
     return 3 + 2 * reps * rounds
+
+
+@contextlib.contextmanager
+def device_profile(activities=None):
+    """``torch.profiler.profile`` of the card alone (or of ``activities``),
+    its window padded with ``PROFILE_PAD_S`` of host sleep at each end;
+    yields the profile.  The block synchronises the card before it ends.
+
+    Kineto keeps a device record only where the kernel lies inside the
+    session's window on the host's clock, and the card's timestamps, mapped
+    onto that clock, strayed by up to 6 ms on an H100: without a pad the
+    first kernels of a session were lost in 22 of 1,248 sessions, with a
+    20 ms pad in none of 1,248 (``scripts/probe_profiler_window.py``;
+    ROADMAP C.10)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=list(activities or [ProfilerActivity.CUDA])) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        time.sleep(PROFILE_PAD_S)

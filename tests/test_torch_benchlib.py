@@ -2,6 +2,8 @@
 to measure without a card, on the CPU.  Where a card is visible the
 refusal tests check the other side: the helper names the card."""
 
+import time
+
 import pytest
 import torch
 
@@ -9,6 +11,7 @@ from sparse_matrix_fine_tuning_torch.scripts import (
     bench_more_linear,
     exp_fwd_tile,
     exp_matmul_tiles,
+    probe_profiler_window,
 )
 from sparse_matrix_fine_tuning_torch.utils import benchlib
 
@@ -33,8 +36,24 @@ def test_torch_benchlib_calls_per_timing():
     assert benchlib.calls_per_timing() == 503
 
 
+def test_torch_benchlib_device_profile_pads_its_window():
+    """The session opens PROFILE_PAD_S before its block and closes as long
+    after it, and records what the block ran (here the CPU's operators)."""
+    from torch.profiler import ProfilerActivity
+
+    t0 = time.perf_counter()
+    with benchlib.device_profile([ProfilerActivity.CPU]) as prof:
+        entered = time.perf_counter()
+        torch.ones(4).add_(1)
+        left = time.perf_counter()
+    closed = time.perf_counter()
+    assert entered - t0 >= benchlib.PROFILE_PAD_S
+    assert closed - left >= benchlib.PROFILE_PAD_S
+    assert any(ev.key == "aten::add_" for ev in prof.key_averages())
+
+
 @pytest.mark.parametrize("main", [bench_more_linear.main, exp_matmul_tiles.main,
-                                  exp_fwd_tile.main])
+                                  exp_fwd_tile.main, lambda: probe_profiler_window.main([])])
 def test_torch_scripts_need_a_card(main):
     if torch.cuda.is_available():
         assert benchlib.require_card("x") == torch.cuda.get_device_name(0)

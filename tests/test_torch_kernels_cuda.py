@@ -808,11 +808,10 @@ def test_torch_more_linear_bf16_repeat_on_card(cuda_device, case):
 def test_torch_more_linear_bf16_one_launch_on_card(cuda_device):
     """Each bf16 K9 and K10 call at every MORE_CASES entry is one launch of
     the fused kernel, by the profiler's count of all the calls in one
-    session (the profiler loses records in sessions after others in a
-    process: ROADMAP C.10)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    session (``benchlib.device_profile``'s padded window keeps every record:
+    ROADMAP C.10)."""
     from sparse_matrix_fine_tuning_torch.kernels.experimental import more_linear as ml
+    from sparse_matrix_fine_tuning_torch.utils import benchlib
 
     calls = []
     for case in MORE_CASES:
@@ -823,7 +822,7 @@ def test_torch_more_linear_bf16_one_launch_on_card(cuda_device):
         for call in calls:  # build and warm up outside the session
             call()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with benchlib.device_profile() as prof:
             for call in calls:
                 call()
             torch.cuda.synchronize()
@@ -924,9 +923,8 @@ def test_torch_tiled_matmul_repeats_bits_on_card(cuda_device):
     """K15 at the bench shape, 2664 x 4096 -> 4096, at every tile: a repeated
     call gives the same bits (each output summed in one fixed order), one
     launch a call; and the profiler sees one kernel a call."""
-    from torch.profiler import ProfilerActivity, profile
-
     from sparse_matrix_fine_tuning_torch.kernels.experimental import tiled_matmul as tm
+    from sparse_matrix_fine_tuning_torch.utils import benchlib
 
     x, w = _tiled_operands(2664, 4096, 4096, cuda_device)
     for tile in tm.TILES:
@@ -936,7 +934,7 @@ def test_torch_tiled_matmul_repeats_bits_on_card(cuda_device):
         torch.cuda.synchronize()
         assert tm.LAUNCHES["tiled_matmul"] == before + 2
         assert torch.equal(first, again), tile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with benchlib.device_profile() as prof:
         tm.tiled_matmul(x, w)
         torch.cuda.synchronize()
     kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]

@@ -33,6 +33,14 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.scripts.exp_dw_kernel",
     "sparse_matrix_fine_tuning_torch.scripts.exp_merged_v3",
     "sparse_matrix_fine_tuning_torch.scripts.exp_int4_dequant_variants",
+    "sparse_matrix_fine_tuning_torch.scripts.probe_profiler_window",
+    "sparse_matrix_fine_tuning_torch.scripts.run_alpaca",
+    "sparse_matrix_fine_tuning_torch.data",
+    "sparse_matrix_fine_tuning_torch.data.templates",
+    "sparse_matrix_fine_tuning_torch.data.reasoning",
+    "sparse_matrix_fine_tuning_torch.data.tokenizer",
+    "sparse_matrix_fine_tuning_torch.data.alpaca",
+    "sparse_matrix_fine_tuning_torch.data.mmlu",
     "sparse_matrix_fine_tuning_torch.layers.monarch_linear",
     "sparse_matrix_fine_tuning_torch.models.config",
     "sparse_matrix_fine_tuning_torch.models.llama",
@@ -43,6 +51,9 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.utils.jax_bridge",
     "sparse_matrix_fine_tuning_torch.utils.device",
     "sparse_matrix_fine_tuning_torch.utils.benchlib",
+    "sparse_matrix_fine_tuning_torch.utils.config",
+    "sparse_matrix_fine_tuning_torch.utils.logging",
+    "sparse_matrix_fine_tuning_torch.utils.profiling",
     "sparse_matrix_fine_tuning_torch.training.optim",
     "sparse_matrix_fine_tuning_torch.training.checkpoint",
     "sparse_matrix_fine_tuning_torch.training.trainer",

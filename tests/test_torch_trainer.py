@@ -11,6 +11,7 @@ sums taken in another order.
 """
 
 import dataclasses
+import json
 import os
 
 import jax.numpy as jnp
@@ -29,6 +30,7 @@ from sparse_matrix_fine_tuning_torch.utils.jax_bridge import (
     read_jax_trainable,
     write_jax_trainable,
 )
+from sparse_matrix_fine_tuning_torch.utils.logging import RunLogger, watch_layers
 from sparse_matrix_fine_tuning_torch.utils.testing import TOLERANCES, to_numpy
 from sparse_matrix_fine_tuning_tpu import models as jmodels
 from sparse_matrix_fine_tuning_tpu import peft as jpeft
@@ -37,6 +39,7 @@ from sparse_matrix_fine_tuning_tpu.training import Trainer as JaxTrainer
 from sparse_matrix_fine_tuning_tpu.training import TrainingArgs as JaxTrainingArgs
 from sparse_matrix_fine_tuning_tpu.training import checkpoint as jckpt
 from sparse_matrix_fine_tuning_tpu.peft.surgery import trainable_filter as jax_trainable_filter
+from sparse_matrix_fine_tuning_tpu.utils.logging import watch_layers as jax_watch_layers
 
 MODEL = TOLERANCES["f32_logits"]
 PEFT = {"monarch": True, "nblocks": 4, "blk_r": 4, "adapter": True,
@@ -261,3 +264,27 @@ def test_torch_trainable_npz_reads_bf16(tmp_path, stored):
     for name, p in tm.named_parameters():
         if p.requires_grad:
             np.testing.assert_array_equal(to_numpy(p), want[name])
+
+
+def test_torch_trainer_watches_layers_with_the_logger(tmp_path):
+    """Every ``log_param_steps`` steps the trainer hands ``watch_layers``'s
+    adapter statistics to its logger, as the JAX trainer does
+    (training/trainer.py:509-513), and they equal the JAX statistics of the
+    same trained factors."""
+    jm = _jax_model(seed=3)
+    tm = _port_of(jm)
+    data = _data()
+    args = dataclasses.replace(_args(TrainingArgs, tmp_path, "port", "off"), log_param_steps=2)
+    logger = RunLogger(str(tmp_path / "log"))
+    Trainer(tm, args, train_data=data, logger=logger, device="cpu").train()
+    logger.finish()
+    jargs = dataclasses.replace(_args(JaxTrainingArgs, tmp_path, "jax", "off"), log_param_steps=0)
+    JaxTrainer(jm, jargs, train_data=data).train()
+    with open(tmp_path / "log" / "metrics.jsonl") as f:
+        watched = [r for r in map(json.loads, f) if any(k.startswith("watch/") for k in r)]
+    assert len(watched) == 1  # at step 2 of 3
+    want = jax_watch_layers(jm)
+    got = watch_layers(tm)
+    assert sorted(got) == sorted(want) == sorted(k for k in watched[0] if k != "_ts")
+    for key, value in want.items():
+        assert abs(got[key] - value) <= 1e-5, key
