@@ -20,10 +20,13 @@ hand-written CUDA kernels, and checks them:
      the adapters merged on the CPU;
   6. serving, bfloat16: greedy decode timed, unmerged (K2) and merged (K1);
   7. training, float32, 2 layers: one optimizer step on the card against a
-     CPU copy on the plain path, merged training off (K2, K3) and on (K4);
+     CPU copy on the plain path, merged training off (K2, K3) and on (K4),
+     and with splash attention (K17 forward, K18 and K19 backward);
   8. training, bfloat16, all 22 layers, bs 4 x ga 8 x seq 512 through
      ``Trainer``: merged training off, then on from the same state on the
-     same batches, timed and profiled;
+     same batches, timed and profiled; then with splash attention, merged
+     off, from the same state on the same batches (K17-K19 704 launches
+     each, the first loss against the einsum run's), timed and profiled;
   9. the quantized base: K7/K5 (forward) and K8/K6 (dx) against their plain
      versions at the slice's shapes, timed beside their bound and one
      PyTorch call on the dequantized matrix, and their autograd Functions;
@@ -79,7 +82,13 @@ hand-written CUDA kernels, and checks them:
      decode rows, then the port of ``scripts/exp_int4_dequant_variants.py``
      at its four shapes (each variant checked against its plain version
      and the JAX script's oracle bound, then timed);
- 17. the Alpaca + MMLU harness (``scripts/run_alpaca.py``, as users run
+ 17. splash attention's kernels: K17 (causal flash-attention forward), K18
+     (dq) and K19 (dk/dv) of ``csrc/flash_attention.cu`` against their
+     plain versions at the attention bench's shape, the 1.1B training
+     micro-batch's and ragged t, bf16 and f32, ptxas's report, timed in
+     bf16 beside their bound and SDPA (run with the kernels of 3 and 4);
+     then the port of ``scripts/bench_attention.py`` after training (8);
+ 18. the Alpaca + MMLU harness (``scripts/run_alpaca.py``, as users run
      it): the tiny smoke Llama in float32 at ``--bits`` 16, 8 and 4 on the
      card against the same run on the CPU (the logged losses, eval_loss and
      the MMLU choice logits within 1e-4, launches exact), then at
@@ -90,9 +99,10 @@ hand-written CUDA kernels, and checks them:
 
 Serving (5, 6, 10 and 11) runs before the experiments (13-16).  Every
 profile is taken in ``benchlib.device_profile``'s window, padded at both
-ends so that it keeps every kernel's record (ROADMAP C.10).  Each main path (6, 8 off, 8 on, each
-configuration of 11, each step of 12, the bench of 13, each script of 14,
-15 and 16, each harness run of 17) zeroes the launch counts of every kernel
+ends so that it keeps every kernel's record (ROADMAP C.10).  Each main path (6, 8 off, 8 on, 8
+with splash, each configuration of 11, each step of 12, the bench of 13,
+each script of 14, 15 and 16, the attention bench of 17, each harness run
+of 18) zeroes the launch counts of every kernel
 just before it and reads them just after.  Any failed check
 exits non-zero.  The line before the last is one JSON object on the
 kernels (K5 and K7 at decode and, as ``int4_matmul_tile`` and
@@ -102,7 +112,9 @@ those of its own source: the decode entries serving's decode steps, the
 forwards; K9-K11: ms, plain, library and bound summed over the bench's
 three shapes; K15, K12 and K13: the best tile's ms at the scripts' shape,
 the tile in ``records.json``; K14 at that shape; K16 the best variant at
-(4, 2048, 5632)); the last is ``{"ok": true, "device": {...}}``.
+(4, 2048, 5632); K17-K19 at the 1.1B micro-batch, their launches those
+of the 22-layer splash training); the last is ``{"ok": true, "device":
+{...}}``.
 Per-case records go to ``chip_smoke_out/records.json``.
 It imports nothing of JAX.
 """
@@ -111,6 +123,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -125,13 +138,15 @@ try:
     import torch
 
     from sparse_matrix_fine_tuning_torch import quant
-    from sparse_matrix_fine_tuning_torch.kernels import monarch_cuda, quant_cuda
+    from sparse_matrix_fine_tuning_torch.kernels import attention_cuda, monarch_cuda, quant_cuda
     from sparse_matrix_fine_tuning_torch.kernels.build import build
     from sparse_matrix_fine_tuning_torch.kernels.experimental import more_linear as ml
     from sparse_matrix_fine_tuning_torch.kernels.experimental import tiled_matmul as tm
     from sparse_matrix_fine_tuning_torch.utils import benchlib
     from sparse_matrix_fine_tuning_torch.utils.benchlib import card_line, roofline_ms, time_ms
-    from sparse_matrix_fine_tuning_torch.utils.testing import TOLERANCES
+    from sparse_matrix_fine_tuning_torch.ops.attention import attention_cost
+    from sparse_matrix_fine_tuning_torch.utils.testing import (ATTN_BLOCK_ROWS, ATTN_BLOCK_RTOL,
+                                                               TOLERANCES, attention_block_error)
 except ImportError as exc:  # run outside a checkout of the repository
     print(f"chip_smoke: cannot import the port ({exc}); run it from the repository root",
           file=sys.stderr)
@@ -213,7 +228,42 @@ KERNELS = {
                           "scripts/exp_merged_v3.py:23"),
     "int4_variant": ("sparse_matrix_fine_tuning_torch/kernels/csrc/quant_matmul.cu",
                      "scripts/exp_int4_dequant_variants.py:108"),
+    # K17-K19: the three Pallas kernels of JAX's splash attention that
+    # _splash_attention runs (forward, dq, dk/dv)
+    "splash_fwd": ("sparse_matrix_fine_tuning_torch/kernels/csrc/flash_attention.cu",
+                   "sparse_matrix_fine_tuning_tpu/models/llama.py:57"),
+    "splash_dq": ("sparse_matrix_fine_tuning_torch/kernels/csrc/flash_attention.cu",
+                  "sparse_matrix_fine_tuning_tpu/models/llama.py:57"),
+    "splash_dkv": ("sparse_matrix_fine_tuning_torch/kernels/csrc/flash_attention.cu",
+                   "sparse_matrix_fine_tuning_tpu/models/llama.py:57"),
 }
+ATTN_KERNELS = ("splash_fwd", "splash_dq", "splash_dkv")
+# K17-K19's checks, (label, (b, t, heads, head_dim)): the attention bench's
+# shape (scripts/bench_attention.py:17), the 1.1B training micro-batch (the
+# JSON line's; bs 4 x seq 512, 32 heads of 64) and t ragged against the
+# bf16 kernels' 64-row tiles, K19's 32-row steps at 128 and the f32
+# kernels' 32-row tiles; bf16 and f32 at each.  Timed (bf16) at the first two.
+ATTN_SHAPES = (("bench", (4, 1024, 32, 128)), ("1.1B", (TRAIN_BS, TRAIN_SEQ, 32, 64)),
+               ("ragged", (2, 200, 4, 64)), ("ragged", (1, 1000, 2, 128)))
+ATTN_REPS, ATTN_ROUNDS = 20, 3  # time_ms at these shapes: the plain versions take ms a call
+# The 22-layer bf16 splash run against einsum (phase_train_splash): einsum
+# rounds the scores and the probabilities to bf16 where splash keeps them in
+# fp32 (P rounds for P.V only).  The loss gap, the first step's against the
+# einsum run's and the first micro-batch's against einsum's arithmetic, and
+# the factors' gradients' relative error on that micro-batch.  Limits 3x
+# the largest sound readings (H100, PERF.md §6):
+# loss 0.00111 (the splash kernels 0.00039, K17's plain version with
+# an fp32 backward 0.00111), gradients 0.047 (every sound arithmetic is
+# 0.044-0.047 from every other: 22 bf16 layers of random weights spread one
+# ulp that far).  Each of ATTENTION_CONTROLS must exceed one of them: they
+# read 0.0025-0.043 in the loss and 0.40-1.4 in the gradients.
+SPLASH_LOSS_ATOL = 3.3e-3
+SPLASH_GRAD_RTOL = 0.15
+# bench_attention's max |difference| of dpa's and splash's output against
+# einsum's (q, k, v N(0, 1), head_dim 128): einsum rounds its scores to bf16,
+# whose ulp is 0.25 at the 30-40 they reach there, 2% of p; readings 0.0234
+# (dpa and splash, PERF.md §6), limit about 2x.
+BENCH_ATTN_DIFF = 0.05
 # The quantized base (quant/, run_alpaca.py --bits): (bits, whether dx).
 QUANT_KERNELS = {"int8_matmul": (8, False), "int8_matmul_dx": (8, True),
                  "int4_matmul": (4, False), "int4_matmul_dx": (4, True)}
@@ -312,16 +362,18 @@ def require(cond: bool, what: str) -> None:
 
 def reset_counts() -> None:
     """Zero the launch counts of every kernel (K1-K4, K12-K14, K5-K8, K16,
-    K9-K11 and K15)."""
+    K9-K11, K15 and K17-K19)."""
     monarch_cuda.reset_launch_counts()
     quant_cuda.reset_launch_counts()
     ml.reset_launch_counts()
     tm.reset_launch_counts()
+    attention_cuda.reset_launch_counts()
 
 
 def counts() -> dict:
     """The launch counts of every kernel since the last reset."""
-    return {**monarch_cuda.LAUNCHES, **quant_cuda.LAUNCHES, **ml.LAUNCHES, **tm.LAUNCHES}
+    return {**monarch_cuda.LAUNCHES, **quant_cuda.LAUNCHES, **ml.LAUNCHES, **tm.LAUNCHES,
+            **attention_cuda.LAUNCHES}
 
 
 def phase_device() -> str:
@@ -1027,16 +1079,17 @@ def train_data(rows: int, seq: int, seed: int) -> dict:
     return {"input_ids": ids, "attention_mask": np.ones_like(ids), "labels": ids.copy()}
 
 
-def train_model(dtype: str, layers: int):
+def train_model(dtype: str, layers: int, attention_impl: str = "einsum"):
     """The training slice's model on the card: TinyLlama-1.1B widths,
     ``layers`` decoder layers, adapters on all seven projections with the
-    random nonzero factors of ``randomize_adapters``."""
+    random nonzero factors of ``randomize_adapters``; the same weights for
+    every ``attention_impl``."""
     from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig
     from sparse_matrix_fine_tuning_torch.models.llama import LlamaForCausalLM
     from sparse_matrix_fine_tuning_torch.peft.surgery import init_monarch
 
     cfg = LlamaConfig(**{**MODEL, "num_hidden_layers": layers}, param_dtype=dtype, dtype=dtype,
-                      max_position_embeddings=TRAIN_SEQ)
+                      max_position_embeddings=TRAIN_SEQ, attention_impl=attention_impl)
     g = torch.Generator(device="cuda").manual_seed(SEED + 8)
     model = LlamaForCausalLM(cfg, device="cuda", generator=g)
     require(len(init_monarch(model, PEFT, generator=g)) == 7 * layers, "adapters missing")
@@ -1153,7 +1206,9 @@ def phase_train_f32(card: str) -> None:
     """One optimizer step (bs 2 x ga 2 x seq 128, full width, 2 layers, f32,
     TF32 off) through Trainer on the card against a CPU copy on the plain
     path (``check_step``), with merged training off (K2 forward, K3
-    backward) and on (K4)."""
+    backward) and on (K4); then with ``attention_impl="splash"``, merged
+    off (K17 forward, K18 and K19 backward in every layer, the CPU copy on
+    their plain versions)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     c = F32_TRAIN
@@ -1165,6 +1220,10 @@ def phase_train_f32(card: str) -> None:
     for merged in ("off", "on"):
         model.load_state_dict(state)
         check_step(model, data, merged, expect[merged], f"[train-f32] {card}: merged {merged}")
+    del model
+    model = train_model("float32", c["layers"], attention_impl="splash")
+    check_step(model, data, "off", {**expect["off"], **dict.fromkeys(ATTN_KERNELS, n // 7)},
+               f"[train-f32] {card}: splash attention, merged off")
     del model
     torch.cuda.empty_cache()
 
@@ -1195,7 +1254,318 @@ def phase_train_bf16(card: str) -> dict:
     del model
     torch.cuda.empty_cache()
     return {"launches": {**runs["off"]["launches"],
-                         "monarch_dw_fused": runs["on"]["launches"]["monarch_dw_fused"]}}
+                         "monarch_dw_fused": runs["on"]["launches"]["monarch_dw_fused"]},
+            "losses": runs["off"]["losses"]}
+
+
+# -- splash attention (K17-K19) ---------------------------------------------------
+
+@contextlib.contextmanager
+def skipped_kv_tile():
+    """A planted fault in the plain versions (``ops/attention.py``): the
+    last 64-row q tile skips kv tile 0, as a kernel whose loop started one
+    tile late there would (K17 renormalises without it; K18 and K19, given
+    the true lse, get p = 0 there).  Needs t > 64."""
+    from sparse_matrix_fine_tuning_torch.ops import attention as attn_ref
+
+    scores = attn_ref._scores
+
+    def faulty(q, k):
+        s = scores(q, k)
+        last = (s.shape[-1] - 1) // ATTN_BLOCK_ROWS * ATTN_BLOCK_ROWS
+        require(last > 0, "skipped_kv_tile needs t > 64")
+        return torch.cat([s[..., :last, :], torch.cat(
+            [torch.full_like(s[..., last:, :ATTN_BLOCK_ROWS], float("-inf")),
+             s[..., last:, ATTN_BLOCK_ROWS:]], -1)], -2)
+
+    attn_ref._scores = faulty
+    try:
+        yield
+    finally:
+        attn_ref._scores = scores
+
+
+def narrowed(dtype: torch.dtype, *xs):
+    """A planted fault: the operands rounded to the next narrower type
+    (bf16 -> float8_e4m3, f32 -> bf16) and back, as a kernel that loaded
+    them at that precision would see them."""
+    narrow = torch.float8_e4m3fn if dtype == torch.bfloat16 else torch.bfloat16
+    return [x.to(narrow).to(dtype) for x in xs]
+
+
+def attention_check(got: tuple, ref: tuple, dtype: torch.dtype) -> dict:
+    """K17-K19's check of one call's outputs against the plain version's:
+    every output finite, of ref's shape and dtype, within ``tolerance`` of
+    its scale (the lse: 1e-5 of it), and each (b, t, h, d) output within
+    ``ATTN_BLOCK_RTOL`` row block by row block (``attention_block_error``).
+    Returns the largest abs error, the largest share of either tolerance,
+    the largest block error and whether every bound held."""
+    err = share = block = 0.0
+    ok = True
+    for a, b in zip(got, ref):
+        e = float((a.float() - b.float()).abs().max())
+        tol = (1e-5 * float(b.abs().max()) if b.dtype == torch.float32 and
+               dtype == torch.bfloat16 else tolerance(dtype, b))
+        ok &= a.shape == b.shape and a.dtype == b.dtype and bool(torch.isfinite(a).all())
+        ok &= e <= tol
+        err, share = max(err, e), max(share, e / tol)
+        if b.dim() == 4:
+            blk = attention_block_error(a, b)
+            ok &= blk <= ATTN_BLOCK_RTOL[dtype]
+            block, share = max(block, blk), max(share, blk / ATTN_BLOCK_RTOL[dtype])
+    return {"err": err, "share": share, "block": block, "ok": ok}
+
+
+def phase_attention(card: str, lib) -> dict:
+    """K17, K18 and K19 (``csrc/flash_attention.cu``) against their plain
+    versions (``ops/attention.py``) at ``ATTN_SHAPES``, bf16 and f32
+    (``attention_check``), the backward kernels fed the plain forward's lse
+    and di; two planted faults of the plain versions (``skipped_kv_tile``,
+    ``narrowed``) must fail the same check at every case, and the printed
+    line says whether the scale-wide bound alone would have seen them;
+    ptxas's registers (no spill in any of the 12 instantiations); timed in
+    bf16 at the bench's and the 1.1B micro-batch's shape beside the bound,
+    the plain version and SDPA (``scaled_dot_product_attention(is_causal=
+    True)``: its forward for K17, its backward through
+    ``torch.autograd.grad`` (dq, dk and dv in one call) for K18 and K19).
+    Returns the worst errors and the 1.1B shape's records."""
+    import torch.nn.functional as F
+
+    from sparse_matrix_fine_tuning_torch.ops import attention as attn_ref
+
+    for kernel in ("fwd_bf16_kernel", "dq_bf16_kernel", "dkv_bf16_kernel", "fwd_f32_kernel",
+                   "dq_f32_kernel", "dkv_f32_kernel"):
+        kernel_ptxas(lib, kernel, 2, "attention")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    worst, layer = dict.fromkeys(ATTN_KERNELS, 0.0), {}
+    blocks = {}
+    for label, shape in ATTN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, dout = (torch.randn(shape, generator=g, device="cuda") for _ in range(4))
+            q = q / shape[-1] ** 0.5
+            q, k, v, dout = (x.to(dtype) for x in (q, k, v, dout))
+            o_ref, lse_ref = attn_ref.causal_attention_reference(q, k, v)
+            di = attn_ref.attention_di(o_ref, dout)
+            # the library call: SDPA on (b, h, t, d) views, q already scaled
+            qh, kh, vh = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+            sdpa = {}
+
+            def sdpa_fwd():
+                return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=1.0)
+
+            def sdpa_bwd():
+                if "out" not in sdpa:
+                    sdpa["out"] = sdpa_fwd()
+                return torch.autograd.grad(sdpa["out"], (qh, kh, vh), dout.transpose(1, 2),
+                                           retain_graph=True)
+
+            plains = {
+                "splash_fwd": lambda q, k, v, dout: attn_ref.causal_attention_reference(q, k, v),
+                "splash_dq": lambda q, k, v, dout: attn_ref.attention_dq_reference(
+                    q, k, v, dout, lse_ref, di),
+                "splash_dkv": lambda q, k, v, dout: attn_ref.attention_dkv_reference(
+                    q, k, v, dout, lse_ref, di)}
+            cases = {
+                "splash_fwd": (lambda: attention_cuda.splash_fwd(q, k, v), sdpa_fwd),
+                "splash_dq": (lambda: attention_cuda.splash_dq(q, k, v, dout, lse_ref, di),
+                              sdpa_bwd),
+                "splash_dkv": (lambda: attention_cuda.splash_dkv(q, k, v, dout, lse_ref, di),
+                               sdpa_bwd)}
+            for name, (kern, library) in cases.items():
+                plain = functools.partial(plains[name], q, k, v, dout)
+                before = attention_cuda.LAUNCHES[name]
+                got, ref = kern(), plain()
+                torch.cuda.synchronize()
+                require(attention_cuda.LAUNCHES[name] == before + 1, f"{name} did not launch")
+                got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+                c = attention_check(got, ref, dtype)
+                require(c["ok"], f"{name} {label} {tuple(shape)} {dtype}: max abs err "
+                        f"{c['err']}, block error {c['block']} ({c['share']} of a tolerance)")
+                worst[name] = max(worst[name], c["err"])
+                key = f"{name} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+                blocks[key] = max(blocks.get(key, 0.0), c["block"])
+                # the planted faults: the same check must reject each
+                with skipped_kv_tile():
+                    tile = plain()
+                prec = plains[name](*narrowed(dtype, q, k, v, dout))
+                faults = {}
+                for fault, out in (("tile", tile), ("narrow", prec)):
+                    out = out if isinstance(out, tuple) else (out,)
+                    f = attention_check(out, ref, dtype)
+                    require(not f["ok"], f"{name} {label} {tuple(shape)} {dtype}: the planted "
+                            f"fault {fault} passed the check ({f})")
+                    scale_share = max(float((a.float() - b.float()).abs().max())
+                                      / tolerance(dtype, b) for a, b in zip(out, ref)
+                                      if b.dim() == 4)
+                    faults[fault] = {"block": f["block"], "scale_share": scale_share,
+                                     "block_share": f["block"] / ATTN_BLOCK_RTOL[dtype]}
+                shown = ", ".join(f"{f} {v['block']:.4f} ({v['block_share']:.1f} of the limit; "
+                                  f"{v['scale_share']:.2f} of the scale-wide bound)"
+                                  for f, v in faults.items())
+                print(f"[attention] {name:10s} {label:6s} {tuple(shape)} {key.split()[1]}: "
+                      f"err {c['err']:.3e}, block {c['block']:.3e} ({c['share']:.3f} of a tol); "
+                      f"planted faults rejected, block errors {shown}", flush=True)
+                RECORDS.append({"kernel": name, "label": label, "shape": list(shape),
+                                "dtype": key.split()[1], "check": c, "faults": faults})
+                if label == "ragged" or dtype != torch.bfloat16:
+                    continue
+                ms, call = time_ms(kern, ATTN_REPS, ATTN_ROUNDS)
+                plain_ms, plain_call = time_ms(plain, ATTN_REPS, ATTN_ROUNDS)
+                library_ms = time_ms(library, ATTN_REPS, ATTN_ROUNDS)[0]
+                nbytes, ops = attention_cost(name, shape, dtype)
+                bound_ms, bound_by = roofline_ms(nbytes, ops, dtype)
+                rec = {"kernel": name, "label": label, "shape": list(shape), "dtype": "bfloat16",
+                       "max_abs_err": c["err"], "share_of_tol": c["share"], "ms": ms,
+                       "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "call_ms": call, "plain_call_ms": plain_call,
+                       "TFLOP_per_s": ops / ms / 1e9}
+                RECORDS.append(rec)
+                print(f"[attention] {name:10s} {label:6s} {tuple(shape)} bf16: {ms:.5f} ms (call "
+                      f"{call:.5f}), plain {plain_ms:.5f}, SDPA {library_ms:.5f}, bound "
+                      f"{bound_ms:.5f} ({bound_by}), {100 * bound_ms / ms:.1f}% of it, "
+                      f"{ops / ms / 1e9:.1f} TFLOP/s", flush=True)
+                if label == "1.1B":
+                    layer[name] = rec
+    print(f"[attention] {card}: K17-K19 within tolerance at {len(ATTN_SHAPES)} shapes, bf16 and "
+          f"f32; worst abs errors {worst}; worst block errors {blocks} (limits "
+          f"{ {str(k): v for k, v in ATTN_BLOCK_RTOL.items()} })", flush=True)
+    return {"worst": worst, "layer": layer}
+
+
+def einsum_attention(q, k, v, causal: bool = True):
+    """``LlamaAttention``'s einsum branch with the causal bias alone (an
+    all-ones mask): bf16 scores, in fp32 over sqrt(head_dim), an fp32
+    softmax, the probabilities in q's dtype, times v.  ``causal=False`` is a
+    control: the mask dropped."""
+    t = q.shape[1]
+    scores = torch.einsum("bthd,bshd->bhts", q, k).float() / math.sqrt(q.shape[-1])
+    if causal:
+        keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~keep, float("-inf"))
+    return torch.einsum("bhts,bshd->bthd", torch.softmax(scores, -1).to(q.dtype), v)
+
+
+def plain_splash_attention(q, k, v):
+    """``_splash_attention`` on K17's plain version (``ops/attention.py``);
+    through autograd its backward keeps fp32 throughout."""
+    from sparse_matrix_fine_tuning_torch.ops import attention as attn_ref
+
+    scale = float(torch.tensor(1.0 / q.shape[-1] ** 0.5, dtype=q.dtype))
+    return attn_ref.causal_attention_reference(q * scale, k, v)[0]
+
+
+def tile_skipped_attention(q, k, v):
+    """A control: ``plain_splash_attention`` with ``skipped_kv_tile``'s
+    fault planted in it."""
+    with skipped_kv_tile():
+        return plain_splash_attention(q, k, v)
+
+
+# Wrong attentions that the end-to-end check must reject (phase_train_splash).
+ATTENTION_CONTROLS = {"no causal mask": functools.partial(einsum_attention, causal=False),
+                      "o = v": lambda q, k, v: v,
+                      "one kv tile skipped": tile_skipped_attention}
+
+
+def first_batch_loss_and_grads(model, attention=None) -> tuple[float, list]:
+    """The first training micro-batch's loss (as ``Trainer`` computes it)
+    and the trainable factors' gradients, no optimizer step, with
+    ``models/llama._splash_attention`` replaced by ``attention`` (None: the
+    kernels)."""
+    from sparse_matrix_fine_tuning_torch.models import llama
+    from sparse_matrix_fine_tuning_torch.peft.surgery import trainable_filter
+
+    data = train_data(TRAIN_BS * TRAIN_GA * TRAIN_STEPS, TRAIN_SEQ, SEED + 10)
+    ids, mask, labels = (torch.as_tensor(data[k][:TRAIN_BS], device="cuda")
+                         for k in ("input_ids", "attention_mask", "labels"))
+    trainable_filter(model, ())
+    params = [p for p in model.parameters() if p.requires_grad]
+    kept = llama._splash_attention
+    llama._splash_attention = attention or kept
+    try:
+        loss = model.training_loss(ids, labels, attention_mask=mask)
+        # allow_unused: the control o = v leaves q_proj's factors out
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+    finally:
+        llama._splash_attention = kept
+    return float(loss.detach()), [torch.zeros_like(p, dtype=torch.float32) if g is None
+                                  else g.float() for p, g in zip(params, grads)]
+
+
+def phase_train_splash(card: str, einsum_losses: list) -> dict:
+    """The training slice with ``attention_impl="splash"`` (``train_timed``:
+    22 layers, bf16, bs 4 x ga 8 x seq 512, merged off), from the state and
+    on the batches of ``phase_train_bf16``'s einsum run: K17, K18 and K19
+    launch once a layer each micro-batch, exactly; the first step's loss is
+    the einsum run's within ``SPLASH_LOSS_ATOL``.  Before it, on the fresh
+    model's first micro-batch (``first_batch_loss_and_grads``): the loss
+    within ``SPLASH_LOSS_ATOL`` and the factors' gradients within
+    ``SPLASH_GRAD_RTOL`` (relative, all together) of ``einsum_attention``'s,
+    and each of ``ATTENTION_CONTROLS`` outside one of the two.
+    ``plain_splash_attention`` is read beside the kernels (printed, and the
+    kernels' gradients against its)."""
+    def rel(grads, ref):
+        err = sum(float((g - r).square().sum()) for g, r in zip(grads, ref))
+        return math.sqrt(err / sum(float(r.square().sum()) for r in ref))
+
+    model = train_model("bfloat16", MODEL["num_hidden_layers"], attention_impl="splash")
+    ref_loss, ref_grads = first_batch_loss_and_grads(model, einsum_attention)
+    gaps, kept = {}, {}
+    for tag, attention in {"splash": None, "plain fp32": plain_splash_attention, **ATTENTION_CONTROLS}.items():
+        loss, grads = first_batch_loss_and_grads(model, attention)
+        gaps[tag] = {"loss": abs(loss - ref_loss), "grad": rel(grads, ref_grads)}
+        if tag in ("splash", "plain fp32"):
+            kept[tag] = grads
+    against_plain = rel(kept["splash"], kept["plain fp32"])
+    del kept
+    shown = "; ".join(f"{t}: {g['loss']:.6f}, {g['grad']:.3e}" for t, g in gaps.items())
+    print(f"[train-splash] first micro-batch against the einsum branch (loss {ref_loss:.5f}), "
+          f"loss gap and factor gradients' relative error: {shown} (limits {SPLASH_LOSS_ATOL}, "
+          f"{SPLASH_GRAD_RTOL}); the kernels' gradients against the plain fp32 ones "
+          f"{against_plain:.3e}", flush=True)
+    g = gaps["splash"]
+    require(g["loss"] <= SPLASH_LOSS_ATOL and g["grad"] <= SPLASH_GRAD_RTOL,
+            f"splash against einsum on the first micro-batch: {g}")
+    for tag in ATTENTION_CONTROLS:
+        g = gaps[tag]
+        require(g["loss"] > SPLASH_LOSS_ATOL or g["grad"] > SPLASH_GRAD_RTOL,
+                f"the control {tag!r} passed the end-to-end check: {g}")
+    RECORDS.append({"splash_first_batch": gaps, "splash_against_plain_fp32": against_plain,
+                    "card": card})
+    torch.cuda.empty_cache()
+    run = train_timed(model, "off", f"[train-splash] {card}: attention splash, merged off")
+    launches = run["launches"]
+    want = N_ADAPTED * TRAIN_GA * TRAIN_STEPS
+    per_kernel = MODEL["num_hidden_layers"] * TRAIN_GA * TRAIN_STEPS
+    expect = {"monarch_add": want, "monarch_bwd": want, **dict.fromkeys(ATTN_KERNELS, per_kernel)}
+    require(launches == {**dict.fromkeys(launches, 0), **expect},
+            f"splash training: launches {launches}; expected {expect}")
+    diffs = [abs(a - b) for a, b in zip(run["losses"], einsum_losses)]
+    print(f"[train-splash] splash against einsum, same state and batches: loss differences "
+          f"{[f'{d:.5f}' for d in diffs]} (the first within {SPLASH_LOSS_ATOL})", flush=True)
+    require(diffs[0] <= SPLASH_LOSS_ATOL, f"splash's first loss differs by {diffs[0]}")
+    del model
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_bench_attention(card: str) -> None:
+    """The port of ``scripts/bench_attention.py`` (its own checks and times),
+    K17-K19's launches exact: one forward in its cross-check, and a forward
+    and a backward in each of its splash steps; dpa's and splash's outputs
+    within ``BENCH_ATTN_DIFF`` of einsum's."""
+    from sparse_matrix_fine_tuning_torch.scripts import bench_attention
+
+    reset_counts()  # the counted main path starts here: bench_attention
+    out = bench_attention.run()
+    launches = counts()  # ... and ends here
+    steps = out["steps"]
+    expect = {"splash_fwd": steps + 1, "splash_dq": steps, "splash_dkv": steps}
+    require(launches == {**dict.fromkeys(launches, 0), **expect},
+            f"bench_attention: launches {launches}; expected {expect}")
+    require(all(math.isfinite(d) and d <= BENCH_ATTN_DIFF for d in out["diffs"].values()),
+            f"bench_attention: differences against einsum {out['diffs']} (limit {BENCH_ATTN_DIFF})")
+    RECORDS.append({"bench_attention": out, "card": card})
 
 
 # -- the quantized base (K5-K8) ------------------------------------------------
@@ -2361,6 +2731,7 @@ def main() -> None:
     fwd = phase_kernels(card)
     bwd = phase_kernels_bwd(card, lib)
     qk = phase_quant_kernels(card, lib)
+    attn = phase_attention(card, lib)
     lap("kernels")
     phase_autograd(card)
     phase_quant_autograd(card)
@@ -2386,6 +2757,10 @@ def main() -> None:
     phase_quant_train_f32(card)
     lap("f32 training")
     training = phase_train_bf16(card)
+    splash = phase_train_splash(card, training["losses"])
+    lap("bf16 training with splash attention")
+    phase_bench_attention(card)
+    lap("attention bench")
     q8training = phase_quant_train_bf16(card, 8)
     q4training = phase_quant_train_bf16(card, 4)
     lap("bf16 training")
@@ -2411,11 +2786,12 @@ def main() -> None:
                 + q4training["launches"]["int4_matmul"],
                 "int4_matmul_dx": q4training["launches"]["int4_matmul_dx"],
                 **more["launches"], **tiles["launches"], **dws["launches"],
-                **variants["launches"]}
+                **variants["launches"],
+                **{name: splash["launches"][name] for name in ATTN_KERNELS}}
     measured = {**fwd["layer"], **bwd["layer"], **qk["layer"], **more["layer"], **tiles["layer"],
-                **dws["layer"], **variants["layer"]}
+                **dws["layer"], **variants["layer"], **attn["layer"]}
     worst = {**fwd["worst"], **bwd["worst"], **qk["worst"], **more["worst"], **tiles["worst"],
-             **dws["worst"], **variants["worst"]}
+             **dws["worst"], **variants["worst"], **attn["worst"]}
     require(all(launches[name] > 0 for name in KERNELS), f"a kernel never launched: {launches}")
     lines = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
               "launches": launches[name], "max_abs_err": worst[name],

@@ -1,6 +1,6 @@
 // PyTorch bindings of the kernels in monarch_fwd.cu, monarch_bwd.cu,
 // quant_matmul.cu (with quant_wgmma.cu, the bf16 tile path of K5-K8, behind
-// its smft_quant_mm), more_linear.cu and tiled_matmul.cu:
+// its smft_quant_mm), more_linear.cu, tiled_matmul.cu and flash_attention.cu:
 //   torch.ops.smft.monarch_fwd(x, w1, w2)            -> out              (K1)
 //   torch.ops.smft.monarch_fwd_tile(x, w1, w2, rows) -> out              (K12)
 //   torch.ops.smft.monarch_fwd_add(base, x, w1, w2)  -> base + out       (K2)
@@ -38,6 +38,11 @@
 //       bf16 K9 (dx false) or K10 call (bm, bn, jk, stages, row tiles, column
 //       tiles, threads, shared memory bytes)
 //   torch.ops.smft.tiled_matmul(x, w, bm, bn, stages)    -> y            (K15)
+//   torch.ops.smft.flash_attn_fwd(q, k, v)               -> (o, lse)     (K17)
+//   torch.ops.smft.flash_attn_dq(q, k, v, dout, lse, di) -> dq           (K18)
+//   torch.ops.smft.flash_attn_dkv(q, k, v, dout, lse, di) -> (dk, dv)    (K19)
+//       causal attention over (B, T, H, D) tensors, q already scaled; lse
+//       and di fp32 (B, H, T)
 // K11 is monarch_dw_fused (K4's kernel); K13 is K4's kernel at a row group
 // of `rows`, and K14 K13 at 256 rows.  Only a CUDA implementation of the
 // tensor ops is registered, so a tensor on another device is refused by the
@@ -106,6 +111,17 @@ extern "C" int smft_more_linear(int dtype, int device, int dx, const void* a, co
                                 int S, int R, void* stream);
 extern "C" int smft_more_linear_plan(int device, int dx, int64_t M, int64_t n, int64_t m, int J,
                                      int64_t* plan);
+extern "C" int smft_flash_attn_fwd(int dtype, int device, const void* q, const void* k,
+                                   const void* v, void* o, float* lse, int64_t B, int64_t T,
+                                   int64_t H, int64_t D, void* stream);
+extern "C" int smft_flash_attn_dq(int dtype, int device, const void* q, const void* k,
+                                  const void* v, const void* dout, const float* lse,
+                                  const float* di, void* dq, int64_t B, int64_t T, int64_t H,
+                                  int64_t D, void* stream);
+extern "C" int smft_flash_attn_dkv(int dtype, int device, const void* q, const void* k,
+                                   const void* v, const void* dout, const float* lse,
+                                   const float* di, void* dk, void* dv, int64_t B, int64_t T,
+                                   int64_t H, int64_t D, void* stream);
 extern "C" int smft_tiled_matmul_plan(int device, int64_t M, int64_t N, int64_t K, int bm, int bn,
                                       int stages, int64_t* out);
 
@@ -589,6 +605,88 @@ std::vector<int64_t> tiled_matmul_plan(int64_t M, int64_t N, int64_t K, int64_t 
   return plan;
 }
 
+
+// K17-K19: q, k, v (and dout) contiguous (B, T, H, D), one dtype (float32 or
+// bfloat16), D 64 or 128, 16-byte aligned; lse and di contiguous fp32
+// (B, H, T).
+void check_attention(const at::Tensor& q, const std::vector<const at::Tensor*>& others,
+                     const char* what) {
+  TORCH_CHECK(q.scalar_type() == at::kFloat || q.scalar_type() == at::kBFloat16, what,
+              " takes float32 or bfloat16, got ", q.scalar_type());
+  TORCH_CHECK(q.dim() == 4, what, ": q must be (B, T, H, D), got ", q.sizes());
+  TORCH_CHECK(q.size(3) == 64 || q.size(3) == 128, what, " takes a head dim of 64 or 128, got ",
+              q.size(3));
+  TORCH_CHECK(q.size(1) < INT32_MAX && q.size(2) < INT32_MAX, what,
+              ": T and H must fit in 32 bits");
+  check_tensor(q, "q", q);
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(q.data_ptr()) % 16 == 0, what,
+              ": the tensors must start on 16 bytes");
+  for (const at::Tensor* t : others) {
+    check_tensor(*t, "k, v and dout", q);
+    TORCH_CHECK(t->sizes() == q.sizes(), what, ": k, v and dout must have q's shape ",
+                q.sizes(), ", got ", t->sizes());
+    TORCH_CHECK(reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0, what,
+                ": the tensors must start on 16 bytes");
+  }
+}
+
+void check_rowstats(const at::Tensor& t, const char* name, const at::Tensor& q) {
+  TORCH_CHECK(t.is_cuda() && t.device() == q.device(), name, " must be on the device of q");
+  TORCH_CHECK(t.scalar_type() == at::kFloat && t.is_contiguous(), name,
+              " must be contiguous float32");
+  TORCH_CHECK(t.dim() == 3 && t.size(0) == q.size(0) && t.size(1) == q.size(2) &&
+                  t.size(2) == q.size(1),
+              name, " must be (B, H, T) = (", q.size(0), ", ", q.size(2), ", ", q.size(1),
+              "), got ", t.sizes());
+}
+
+std::tuple<at::Tensor, at::Tensor> flash_attn_fwd(const at::Tensor& q, const at::Tensor& k,
+                                                  const at::Tensor& v) {
+  check_attention(q, {&k, &v}, "flash_attn_fwd");
+  at::Tensor o = at::empty(q.sizes(), q.options());
+  at::Tensor lse = at::empty({q.size(0), q.size(2), q.size(1)}, q.options().dtype(at::kFloat));
+  const auto stream = c10::cuda::getCurrentCUDAStream(q.get_device());
+  const int err = smft_flash_attn_fwd(q.scalar_type() == at::kFloat ? 0 : 1, q.get_device(),
+                                      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                      lse.data_ptr<float>(), q.size(0), q.size(1), q.size(2),
+                                      q.size(3), static_cast<void*>(stream.stream()));
+  C10_CUDA_CHECK(static_cast<cudaError_t>(err));
+  return {o, lse};
+}
+
+at::Tensor flash_attn_dq(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+                         const at::Tensor& dout, const at::Tensor& lse, const at::Tensor& di) {
+  check_attention(q, {&k, &v, &dout}, "flash_attn_dq");
+  check_rowstats(lse, "lse", q);
+  check_rowstats(di, "di", q);
+  at::Tensor dq = at::empty(q.sizes(), q.options());
+  const auto stream = c10::cuda::getCurrentCUDAStream(q.get_device());
+  const int err = smft_flash_attn_dq(q.scalar_type() == at::kFloat ? 0 : 1, q.get_device(),
+                                     q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                                     lse.data_ptr<float>(), di.data_ptr<float>(), dq.data_ptr(),
+                                     q.size(0), q.size(1), q.size(2), q.size(3),
+                                     static_cast<void*>(stream.stream()));
+  C10_CUDA_CHECK(static_cast<cudaError_t>(err));
+  return dq;
+}
+
+std::tuple<at::Tensor, at::Tensor> flash_attn_dkv(const at::Tensor& q, const at::Tensor& k,
+                                                  const at::Tensor& v, const at::Tensor& dout,
+                                                  const at::Tensor& lse, const at::Tensor& di) {
+  check_attention(q, {&k, &v, &dout}, "flash_attn_dkv");
+  check_rowstats(lse, "lse", q);
+  check_rowstats(di, "di", q);
+  at::Tensor dk = at::empty(q.sizes(), q.options()), dv = at::empty(q.sizes(), q.options());
+  const auto stream = c10::cuda::getCurrentCUDAStream(q.get_device());
+  const int err = smft_flash_attn_dkv(q.scalar_type() == at::kFloat ? 0 : 1, q.get_device(),
+                                      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                                      lse.data_ptr<float>(), di.data_ptr<float>(), dk.data_ptr(),
+                                      dv.data_ptr(), q.size(0), q.size(1), q.size(2), q.size(3),
+                                      static_cast<void*>(stream.stream()));
+  C10_CUDA_CHECK(static_cast<cudaError_t>(err));
+  return {dk, dv};
+}
+
 }  // namespace
 
 TORCH_LIBRARY(smft, m) {
@@ -625,6 +723,11 @@ TORCH_LIBRARY(smft, m) {
   m.def("tiled_matmul(Tensor x, Tensor w, int bm, int bn, int stages) -> Tensor");
   m.def("tiled_matmul_plan(int M, int N, int K, int bm, int bn, int stages) -> int[]",
         &tiled_matmul_plan);
+  m.def("flash_attn_fwd(Tensor q, Tensor k, Tensor v) -> (Tensor, Tensor)");
+  m.def("flash_attn_dq(Tensor q, Tensor k, Tensor v, Tensor dout, Tensor lse, Tensor di) -> "
+        "Tensor");
+  m.def("flash_attn_dkv(Tensor q, Tensor k, Tensor v, Tensor dout, Tensor lse, Tensor di) -> "
+        "(Tensor, Tensor)");
 }
 
 TORCH_LIBRARY_IMPL(smft, CUDA, m) {
@@ -642,4 +745,7 @@ TORCH_LIBRARY_IMPL(smft, CUDA, m) {
   m.impl("more_linear_fwd", &more_linear_fwd);
   m.impl("more_linear_dx", &more_linear_dx);
   m.impl("tiled_matmul", &tiled_matmul);
+  m.impl("flash_attn_fwd", &flash_attn_fwd);
+  m.impl("flash_attn_dq", &flash_attn_dq);
+  m.impl("flash_attn_dkv", &flash_attn_dkv);
 }

@@ -14,6 +14,9 @@ from typing import Optional
 import torch
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+# The JAX config's attention implementations (its models/config.py:106-110);
+# the JAX model runs any other value as "einsum", the port refuses it.
+ATTENTION_IMPLS = ("einsum", "dpa", "splash")
 
 
 def _resolve_dtype(name: Optional[str]) -> Optional[torch.dtype]:

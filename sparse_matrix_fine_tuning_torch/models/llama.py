@@ -18,10 +18,19 @@ and ``training_loss`` the forward plus that loss, chunked over tokens when
 (``quant.quantize_lm_head``, which refuses a tied head); the loss takes
 either as the head callable.
 
+Attention, as ``config.attention_impl`` picks it (the JAX llama.py:138-150): "einsum"
+as above; "dpa" the composition ``jax.nn.dot_product_attention`` runs
+through XLA (``_dpa_attention``: fp32 scores, the bias, an fp32 softmax,
+probabilities in the keys' dtype); "splash" the causal flash attention of
+``kernels/attention_cuda.py`` (K17-K19 on the card), which ignores the bias
+(pure-causal is exact for right-padded rows: a pad key comes after every
+real query).  "dpa" and "splash" serve the training path (no cache);
+prefill and decode over a cache take the einsum attention, as in JAX.
+
 Not ported yet: ``UnitOffsetRMSNorm`` (Gemma), layer hooks, ``segment_ids``
-packing, remat and the "dpa"/"splash" attention implementations (ROADMAP.md
-queue A: "The Llama model, training part", "Interventions", "Other model
-families"); a config or call asking for them is refused.
+packing and remat (ROADMAP.md queue A: "The Llama model, training part",
+"Interventions", "Other model families"); a config or call asking for them
+is refused.
 
 The model is built on the card unless ``device="cpu"`` is passed
 (``utils/device.py``).
@@ -36,7 +45,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig
+from sparse_matrix_fine_tuning_torch.kernels.attention_cuda import splash_attention
+from sparse_matrix_fine_tuning_torch.models.config import ATTENTION_IMPLS, LlamaConfig
 from sparse_matrix_fine_tuning_torch.ops.activations import geglu, swiglu
 from sparse_matrix_fine_tuning_torch.utils.device import resolve_device, seeded_generator
 
@@ -102,6 +112,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def _splash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal flash attention, the JAX model's ``_splash_attention``
+    (llama.py:57): q, k, v (b, t, heads, head_dim) with equal heads ->
+    (b, t, heads, head_dim).  q is scaled by ``1/sqrt(head_dim)`` in its own
+    dtype first, as JAX multiplies by a weakly typed scalar (at head_dim 128
+    that rounds q in bf16; at 64 it is exact).  Purely causal: no bias."""
+    scale = float(torch.tensor(1.0 / q.shape[-1] ** 0.5, dtype=q.dtype))
+    return splash_attention(q * scale, k, v)
+
+
+def _dpa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                   scale: float) -> torch.Tensor:
+    """``jax.nn.dot_product_attention(q, k, v, bias=bias.astype(q.dtype),
+    scale=scale)`` as XLA computes it (jax/_src/nn/functions.py,
+    ``_dot_product_attention_core``): the scores with fp32 sums, times the
+    fp32 scale, plus the bias, an fp32 softmax, the probabilities rounded to
+    the keys' dtype, then their product with v.  (b, t, heads, head_dim)."""
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    scores = scores + bias.to(q.dtype).float()
+    probs = torch.softmax(scores, dim=-1).to(k.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
 def _linear(cfg: LlamaConfig, in_f: int, out_f: int, device, generator, bias: bool = False):
     return Linear(in_f, out_f, bias, dtype=cfg.compute_dtype, param_dtype=cfg.params_dtype,
                   device=device, generator=generator)
@@ -140,11 +173,17 @@ class LlamaAttention(nn.Module):
         groups = self.num_heads // self.num_kv
         kr = k.repeat_interleave(groups, dim=2) if groups > 1 else k
         vr = v.repeat_interleave(groups, dim=2) if groups > 1 else v
-        scores = torch.einsum("bthd,bshd->bhts", q, kr).float() / math.sqrt(self.head_dim)
-        scores = scores + attn_bias.float()
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        ctx = torch.einsum("bhts,bshd->bthd", probs, vr).reshape(b, t, -1)
-        return self.o_proj(ctx), new_cache
+        impl = self.cfg.attention_impl
+        if cache is None and impl == "splash":
+            ctx = _splash_attention(q, kr, vr)
+        elif cache is None and impl == "dpa":
+            ctx = _dpa_attention(q, kr, vr, attn_bias, 1.0 / math.sqrt(self.head_dim))
+        else:
+            scores = torch.einsum("bthd,bshd->bhts", q, kr).float() / math.sqrt(self.head_dim)
+            scores = scores + attn_bias.float()
+            probs = torch.softmax(scores, dim=-1).to(x.dtype)
+            ctx = torch.einsum("bhts,bshd->bthd", probs, vr)
+        return self.o_proj(ctx.reshape(b, t, -1)), new_cache
 
 
 class LlamaMLP(nn.Module):
@@ -231,7 +270,15 @@ class LlamaModel(nn.Module):
             x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype, device=x.device)
         if positions is None:
             positions = torch.arange(t, device=x.device).expand(b, t)
-        bias = self._bias(attention_mask, t, caches, cache_index, x.dtype, x.device)
+        if caches is None and cfg.attention_impl == "splash":
+            if cfg.sliding_window is not None:
+                # splash builds its own pure-causal mask and ignores the bias:
+                # it would silently attend beyond the window (llama.py:266-271)
+                raise ValueError("sliding_window requires a bias-carrying attention_impl "
+                                 "(einsum or dpa)")
+            bias = None  # splash takes no bias
+        else:
+            bias = self._bias(attention_mask, t, caches, cache_index, x.dtype, x.device)
         new_caches = None if caches is None else []
         for i, layer in enumerate(self.layers):
             if caches is None:
@@ -252,10 +299,9 @@ class LlamaForCausalLM(nn.Module):
         if cfg.rmsnorm_unit_offset:
             raise NotImplementedError(
                 "UnitOffsetRMSNorm (Gemma): ROADMAP.md queue A, 'Other model families'")
-        if cfg.attention_impl != "einsum":
-            raise NotImplementedError(f"attention_impl {cfg.attention_impl!r}: the port has the "
-                                      "einsum attention only (ROADMAP.md queue A, "
-                                      "'The Llama model, training part')")
+        if cfg.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"unknown attention_impl {cfg.attention_impl!r} "
+                             f"({' | '.join(ATTENTION_IMPLS)})")
         if cfg.remat:
             raise NotImplementedError(
                 "remat: ROADMAP.md queue A, 'The Llama model, training part'")

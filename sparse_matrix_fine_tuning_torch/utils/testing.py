@@ -9,6 +9,11 @@ once and silently broke a parity experiment (ROADMAP.md, commit 52fcba2).
   * f32 model logits: a few layers of such sums, 1e-4;
   * bf16 ops: two bf16 ulps of the output's scale, ``bf16_atol``; the
     intermediate may round one ulp apart and the output rounds once more.
+
+``attention_block_error`` and ``ATTN_BLOCK_RTOL`` hold K17-K19's outputs
+row block by row block, where the scale-wide bound is loose: an attention
+output's largest value sits in its first rows (o[0] = v[0]), while a late
+row averages hundreds of values and is many times smaller.
 """
 
 from __future__ import annotations
@@ -25,6 +30,34 @@ TOLERANCES = {
 def bf16_atol(ref) -> float:
     """Two bf16 ulps at the scale of ``ref``: 2 * 2**-7 * max|ref|."""
     return float(np.abs(np.asarray(ref, np.float32)).max()) * 2.0 ** -6
+
+
+# K17-K19 against their plain versions: ``attention_block_error`` at most
+# this.  bf16: the outputs round once and the kernels round P (or dS) to
+# bf16 where the plain versions round it too or keep fp32; f32: the sums in
+# another order.  Readings (H100, PERF.md §6): bf16 up to 0.0026 (K17) and
+# 0.0009 (K18, K19), f32 up to 5.1e-7; planted faults 0.034 and more.
+ATTN_BLOCK_ROWS = 64
+ATTN_BLOCK_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+
+
+def attention_block_error(got: torch.Tensor, ref: torch.Tensor,
+                          rows: int = ATTN_BLOCK_ROWS) -> float:
+    """The largest ||got - ref|| / ||ref|| (Frobenius) over the blocks of
+    ``rows`` rows of t in each (batch, head) of two (b, t, heads, head_dim)
+    tensors (the last block ragged).  A block where ref is 0 gives 0 if got
+    is 0 there too, else infinity."""
+    b, t, h, d = ref.shape
+    pad = -t % rows
+
+    def block_sq(x):
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        return x.view(b, (t + pad) // rows, rows, h, d).square().sum((2, 4))
+
+    err, scale = block_sq(got.float() - ref.float()), block_sq(ref.float())
+    ratio = torch.where(scale > 0, err / scale.clamp_min(torch.finfo(torch.float32).tiny),
+                        torch.where(err > 0, float("inf"), 0.0))
+    return float(ratio.max().sqrt())
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

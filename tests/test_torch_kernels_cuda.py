@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K16 and their autograd Functions against their
+"""The port's CUDA kernels K1-K19 and their autograd Functions against their
 plain versions, on the card.  Marked ``cuda``: they skip where no card is visible, and run on the
 card with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 This file imports no JAX, so it also runs where JAX is not installed.
@@ -18,14 +18,27 @@ the kernel's sums does not depend on its plan); K15 (the tiled bf16 matmul)
 two bf16 ulps: both sides round once from fp32 sums taken in another order.
 K13 and K14 (K4 at a row group) as K4.  K16 (K5's decode kernel in the
 seven int4 arithmetic variants): two bf16 ulps of the raw output's scale, as
-K5; its f32mul variant equals K5 bit for bit at the decode rows.
+K5; its f32mul variant equals K5 bit for bit at the decode rows.  K17-K19
+(causal flash attention, ``csrc/flash_attention.cu``): float32 1e-5 of each
+output's scale (sums in another order); bfloat16 two ulps of its scale, as
+the rest: K18/K19 round ds (and K19 p) to bf16 as their plain versions do,
+and K17 rounds P to bf16 for P.V where its plain version keeps P in fp32,
+which moves o by at most 2**-9 of max|v|, under the tolerance here (o's
+first row is v's first row).  Since that scale sits in the first rows and a
+late row averages hundreds of values and is many times smaller, each
+64-row block of each (batch, head) is also held within
+``utils/testing.ATTN_BLOCK_RTOL`` of its own norm.  lse within 1e-5 of its
+scale in both dtypes (fp32 sums; the bf16 kernels take exp from the fast
+approximate unit).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from sparse_matrix_fine_tuning_torch.kernels import monarch_cuda
+from sparse_matrix_fine_tuning_torch.kernels import attention_cuda, monarch_cuda
+from sparse_matrix_fine_tuning_torch.ops import attention as attn_ref
+from sparse_matrix_fine_tuning_torch.utils.testing import ATTN_BLOCK_RTOL, attention_block_error
 
 # (batch, K, Q, P, L, S, R); the last has L != K
 CASES = [(16, 4, 4, 32, 4, 32, 4), (65, 4, 8, 16, 4, 24, 8), (8, 2, 16, 64, 2, 64, 16),
@@ -1148,3 +1161,99 @@ def test_torch_int4_variant_refuses_what_it_does_not_take(cuda_device):
     assert plan["rows"] == 2 and plan["row_blocks"] == 20 and plan["mma"] == 0
     plan = qc.int4_variant_plan(40, 1536, 272, "f32mul")
     assert plan["rows"] == 16 and plan["row_blocks"] == 3 and plan["mma"] == 1
+
+
+# K17-K19 at (b, t, heads, head_dim): head_dim 64 and 128, t ragged against
+# the bf16 kernels' 64-row tiles, K19's 32-row steps at 128 and the f32
+# kernels' 32-row tiles (2, 200, 513, 1000), and t on a tile edge (64).  Not
+# t = 1: there dq and dk are exactly 0 (ds = p (dp - di) with o = v), so a
+# tolerance relative to their scale is 0 while both sides leave the fp32
+# residue of dp - di.
+ATTN_CASES = [(2, 200, 4, 64), (1, 1000, 2, 128), (2, 64, 3, 128), (1, 2, 2, 64),
+              (2, 513, 2, 64), (1, 200, 2, 128)]
+
+
+def _attn_inputs(case, dtype, device):
+    """(q, k, v, dout), q scaled by 1/sqrt(head_dim) as the model does."""
+    b, t, h, d = case
+    rng = np.random.default_rng(sum(case))
+    arrays = [rng.standard_normal((b, t, h, d)) for _ in range(4)]
+    arrays[0] = arrays[0] / np.sqrt(d)
+    return [torch.tensor(a, dtype=torch.float32).to(device=device, dtype=dtype) for a in arrays]
+
+
+def _attn_tol(want: torch.Tensor) -> float:
+    scale = float(want.float().abs().max())
+    return scale * (1e-5 if want.dtype == torch.float32 else 2.0 ** -6)
+
+
+def _assert_attn_close(got: torch.Tensor, want: torch.Tensor) -> None:
+    """Within ``_attn_tol`` of the scale, and row block by row block within
+    ``ATTN_BLOCK_RTOL`` (a late row is many times smaller than the first)."""
+    got = got.detach().to(want.device)
+    assert float((got.float() - want.float()).abs().max()) <= _attn_tol(want)
+    assert attention_block_error(got, want) <= ATTN_BLOCK_RTOL[want.dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_torch_attention_kernels_match_plain_on_card(cuda_device, case, dtype):
+    """K17, K18 and K19 against their plain versions (the backward kernels
+    fed the plain forward's lse and di), one launch each."""
+    q, k, v, dout = _attn_inputs(case, dtype, cuda_device)
+    before = dict(attention_cuda.LAUNCHES)
+    o, lse = attention_cuda.splash_fwd(q, k, v)
+    o_ref, lse_ref = attn_ref.causal_attention_reference(q, k, v)
+    di = attn_ref.attention_di(o_ref, dout)
+    dq = attention_cuda.splash_dq(q, k, v, dout, lse_ref, di)
+    dk, dv = attention_cuda.splash_dkv(q, k, v, dout, lse_ref, di)
+    dq_ref = attn_ref.attention_dq_reference(q, k, v, dout, lse_ref, di)
+    dk_ref, dv_ref = attn_ref.attention_dkv_reference(q, k, v, dout, lse_ref, di)
+    torch.cuda.synchronize()
+    assert {n: attention_cuda.LAUNCHES[n] - before[n] for n in before} == \
+        {"splash_fwd": 1, "splash_dq": 1, "splash_dkv": 1}
+    assert lse.dtype == torch.float32 and lse.shape == lse_ref.shape
+    scale = float(lse_ref.abs().max())
+    assert float((lse - lse_ref).abs().max()) <= 1e-5 * scale
+    for got, want in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.shape == want.shape and got.dtype == want.dtype == dtype
+        assert bool(torch.isfinite(got).all())
+        _assert_attn_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_torch_splash_function_on_card(cuda_device, dtype):
+    """The autograd Function on the card: forward K17, backward K18 and K19
+    (one launch each), against the same Function's plain path on CPU copies,
+    tolerances as above."""
+    q, k, v, dout = _attn_inputs((2, 200, 4, 64), dtype, cuda_device)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    before = dict(attention_cuda.LAUNCHES)
+    out = attention_cuda.splash_attention(*leaves)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert {n: attention_cuda.LAUNCHES[n] - before[n] for n in before} == \
+        {"splash_fwd": 1, "splash_dq": 1, "splash_dkv": 1}
+    want_out = attention_cuda.splash_attention(*cpu)
+    want = torch.autograd.grad(want_out, cpu, dout.cpu())
+    for g, w in ((out, want_out), *zip(got, want)):
+        assert g.dtype == w.dtype
+        _assert_attn_close(g, w)
+
+
+@pytest.mark.cuda
+def test_torch_attention_kernels_refuse_what_they_do_not_take(cuda_device):
+    """A head_dim other than 64 or 128, float16, or a CPU tensor is refused
+    before any launch."""
+    q, k, v, _ = _attn_inputs((1, 16, 2, 64), torch.bfloat16, cuda_device)
+    before = dict(attention_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention_cuda.splash_fwd(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="bfloat16"):
+        attention_cuda.splash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="CUDA"):
+        attention_cuda.splash_fwd(q, k.cpu(), v)
+    assert attention_cuda.LAUNCHES == before

@@ -192,8 +192,7 @@ def test_torch_llama_config_matches_jax():
     assert LlamaConfig.tiny().params_dtype == torch.float32
 
 
-@pytest.mark.parametrize("kw", [{"rmsnorm_unit_offset": True}, {"attention_impl": "splash"},
-                                {"remat": True}])
+@pytest.mark.parametrize("kw", [{"rmsnorm_unit_offset": True}, {"remat": True}])
 def test_torch_llama_refuses_unported_options(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LlamaForCausalLM(LlamaConfig.tiny(**kw), device="cpu")

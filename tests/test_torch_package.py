@@ -19,15 +19,18 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.ops.blockdiag",
     "sparse_matrix_fine_tuning_torch.ops.activations",
     "sparse_matrix_fine_tuning_torch.ops.losses",
+    "sparse_matrix_fine_tuning_torch.ops.attention",
     "sparse_matrix_fine_tuning_torch.kernels.build",
     "sparse_matrix_fine_tuning_torch.kernels.monarch_cuda",
     "sparse_matrix_fine_tuning_torch.kernels.quant_cuda",
     "sparse_matrix_fine_tuning_torch.kernels.merged",
+    "sparse_matrix_fine_tuning_torch.kernels.attention_cuda",
     "sparse_matrix_fine_tuning_torch.kernels.experimental",
     "sparse_matrix_fine_tuning_torch.kernels.experimental.more_linear",
     "sparse_matrix_fine_tuning_torch.kernels.experimental.tiled_matmul",
     "sparse_matrix_fine_tuning_torch.scripts",
     "sparse_matrix_fine_tuning_torch.scripts.bench_more_linear",
+    "sparse_matrix_fine_tuning_torch.scripts.bench_attention",
     "sparse_matrix_fine_tuning_torch.scripts.exp_matmul_tiles",
     "sparse_matrix_fine_tuning_torch.scripts.exp_fwd_tile",
     "sparse_matrix_fine_tuning_torch.scripts.exp_dw_kernel",
@@ -194,7 +197,7 @@ def test_torch_build_key_follows_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "CSRC", csrc)
     assert build.build_key() == key
     for name in ("monarch_fwd.cu", "monarch_bwd.cu", "quant_matmul.cu", "more_linear.cu",
-                 "tiled_matmul.cu", "quant_wgmma.cu", "hopper.cuh"):
+                 "tiled_matmul.cu", "quant_wgmma.cu", "flash_attention.cu", "hopper.cuh"):
         src = csrc / name
         src.write_text(src.read_text() + "\n// edited\n")
         edited = build.build_key()
