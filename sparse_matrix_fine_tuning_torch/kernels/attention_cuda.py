@@ -24,6 +24,13 @@ tensor cores' P.V, where the TPU kernel keeps P in fp32.
 
 ``LAUNCHES`` counts the launches of each kernel: a wrapper adds one where it
 launches its kernel, and nowhere else.
+
+K17 and K19 in bfloat16 are persistent: as many CTAs as the card holds at
+once (one an SM) walk the work items, (batch * head, 128-row tile), longest
+first.  ``attention_schedule`` and ``schedule_plan`` mirror the kernels'
+schedule and plan in Python (the CPU tests hold them to their rules);
+``attention_plan`` reads the card's plan (``PLAN_KEYS``), which the card
+tests hold to the mirror.
 """
 
 from __future__ import annotations
@@ -40,6 +47,100 @@ from sparse_matrix_fine_tuning_torch.ops.attention import (
 
 LAUNCHES = {"splash_fwd": 0, "splash_dq": 0, "splash_dkv": 0}
 HEAD_DIMS = (64, 128)  # the head widths csrc/flash_attention.cu instantiates
+
+
+# The persistent bf16 K17 and K19 (csrc/flash_attention.cu): rows a tile
+# (K17's q tile, K19's kv tile); K17's kv tile rows by head_dim; K19's q
+# rows a step, and its passes over q (dv, then dk, at 128); ring stages by
+# kernel and head_dim; the threads of a CTA (two consumer warpgroups and a
+# producer warp).
+TILE_ROWS = 128
+FWD_KV_ROWS = {64: 128, 128: 64}
+DKV_Q_ROWS = 64
+DKV_PASSES = {64: 1, 128: 2}
+STAGES = {("splash_fwd", 64): 3, ("splash_fwd", 128): 3,
+          ("splash_dkv", 64): 4, ("splash_dkv", 128): 2}
+DKV_KV_BUFS = {64: 2, 128: 1}  # K19's k and v tiles in flight: the next item's beside this one's
+THREADS = 288
+# The fields of a plan (smft_flash_attn_plan): SMs, CTAs an SM, the grid's
+# CTAs, items, 128-row tiles, steps of T (K17: kv tiles; K19: q steps), step
+# rows, passes over q, ring stages, threads and shared memory a CTA (bytes).
+PLAN_KEYS = ("sms", "per_sm", "ctas", "items", "tiles", "steps", "step_rows", "passes",
+             "stages", "threads", "smem")
+_WHICH = {"splash_fwd": 0, "splash_dkv": 2}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _step_rows(kernel: str, head_dim: int) -> int:
+    return FWD_KV_ROWS[head_dim] if kernel == "splash_fwd" else DKV_Q_ROWS
+
+
+def _item(kernel: str, heads_total: int, tiles: int, w: int) -> tuple[int, int]:
+    """(batch * head, tile) of item ``w``: the kernels' ``ws_item``.  K17
+    takes the last q tile (the most kv tiles) first, K19 kv tile 0 (the most
+    q steps)."""
+    rank, bh = divmod(w, heads_total)
+    return bh, (tiles - 1 - rank if kernel == "splash_fwd" else rank)
+
+
+def item_length(kernel: str, t: int, head_dim: int, tile: int) -> int:
+    """The ring steps of an item: K17's kv tiles up to the q tile's diagonal
+    and none past t; K19's q steps from the one that reaches the kv tile's
+    first row to the last, once a pass."""
+    step = _step_rows(kernel, head_dim)
+    if kernel == "splash_fwd":
+        return min((tile + 1) * TILE_ROWS // step, _cdiv(t, step))
+    return DKV_PASSES[head_dim] * (_cdiv(t, step) - tile * TILE_ROWS // step)
+
+
+def attention_schedule(kernel: str, b: int, t: int, heads: int, head_dim: int,
+                       ctas: int) -> list[list[tuple[int, int, int]]]:
+    """The persistent K17 (``"splash_fwd"``) or K19 (``"splash_dkv"``) on
+    ``ctas`` CTAs: for each CTA its items in order, as (batch * head, tile,
+    length).  CTA c takes items c, c + ctas, ... of the longest-first list."""
+    heads_total, tiles = b * heads, _cdiv(t, TILE_ROWS)
+    out = [[] for _ in range(ctas)]
+    for w in range(heads_total * tiles):
+        bh, tile = _item(kernel, heads_total, tiles, w)
+        out[w % ctas].append((bh, tile, item_length(kernel, t, head_dim, tile)))
+    return out
+
+
+def _round_up(x: int, a: int) -> int:
+    return _cdiv(x, a) * a
+
+
+def schedule_plan(kernel: str, b: int, t: int, heads: int, head_dim: int, sms: int,
+                  per_sm: int) -> dict:
+    """The plan (``PLAN_KEYS``) the kernel's host code makes for a call on a
+    card of ``sms`` SMs holding ``per_sm`` CTAs each."""
+    tiles = _cdiv(t, TILE_ROWS)
+    items = b * heads * tiles
+    stages = STAGES[(kernel, head_dim)]
+    step = _step_rows(kernel, head_dim)
+    tile_bytes = TILE_ROWS * head_dim * 2
+    if kernel == "splash_fwd":
+        passes = 1
+        # two q tiles and o's staging, the ring of k and v; barriers q_full
+        # and q_empty two each and three a stage; the swizzle's alignment slack
+        smem = 3 * tile_bytes + 2 * stages * step * head_dim * 2 + 8 * (4 + 3 * stages) + 1024
+    else:
+        passes, bufs = DKV_PASSES[head_dim], DKV_KV_BUFS[head_dim]
+        # the pairs of k and v, the staging of dk and dv, the ring of (q,
+        # dout, lse, di); barriers kv_full and kv_empty a pair and two a
+        # stage; the slack
+        stage = _round_up(2 * step * head_dim * 2 + 2 * step * 4, 1024)
+        smem = (2 * bufs + 2) * tile_bytes + stages * stage + 8 * (2 * bufs + 2 * stages) + 1024
+    return dict(zip(PLAN_KEYS, (sms, per_sm, min(items, sms * per_sm), items, tiles,
+                                _cdiv(t, step), step, passes, stages, THREADS, smem)))
+
+
+def attention_plan(kernel: str, b: int, t: int, heads: int, head_dim: int) -> dict:
+    """The card's plan of a bf16 K17 or K19 call (``PLAN_KEYS``)."""
+    return dict(zip(PLAN_KEYS, load_ops().flash_attn_plan(_WHICH[kernel], b, t, heads, head_dim)))
 
 
 def reset_launch_counts() -> None:

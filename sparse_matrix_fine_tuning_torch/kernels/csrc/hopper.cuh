@@ -1,15 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels
 // (K15 in tiled_matmul.cu; the bf16 tile path of K5-K8 in quant_wgmma.cu;
-// K9 and K10 in more_linear.cu):
+// K9 and K10 in more_linear.cu; K17 and K19 in flash_attention.cu):
 //   * mbarriers: init, arm with a byte count, arrive, wait on a phase (one
 //     that never ends traps);
-//   * TMA: a 2-D tile load completing on an mbarrier, and a 2-D tile store
-//     from shared memory in a bulk group, with the fence that orders the
-//     threads' writes of shared memory before the async proxy reads them;
+//   * TMA: a 2- or 4-D tile load completing on an mbarrier, and a 2- or 4-D
+//     tile store from shared memory in a bulk group, with the fence that
+//     orders the threads' writes of shared memory before the async proxy
+//     reads them;
 //   * wgmma: the shared-memory descriptor of a 128-byte-swizzled tile, the
 //     fence, commit and wait of a warpgroup's asynchronous MMAs, and
 //     m64nNk16 (bf16 in, fp32 sums; N 16, 32, 64, 128, 192, 224, 256) with
-//     B K-major or MN-major, and m64nNk16 (N 128, 192, 224, 256) with A
+//     B K-major or MN-major, and m64nNk16 (N 64, 128, 192, 224, 256) with A
 //     from registers;
 //   * host side: libcuda's cuTensorMapEncodeTiled, reached through
 //     cudaGetDriverEntryPoint (the libraries carry their own static runtime
@@ -89,6 +90,18 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t sr
                : "memory");
 }
 
+// A 4-D TMA store of the box at `src` to (c0 innermost .. c3) of the map's
+// tensor, in this thread's current bulk group; TMA clips what lies past the
+// tensor's edges.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // Closes this thread's current bulk group of TMA stores.
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
@@ -108,6 +121,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A 4-D TMA load of the box at (c0 innermost .. c3) into shared memory,
+// completing on `bar`; what lies past the tensor's edges reads 0.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -547,6 +571,29 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
+}
+
+template <int kTransB = 0>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
 }
 

@@ -122,6 +122,8 @@ extern "C" int smft_flash_attn_dkv(int dtype, int device, const void* q, const v
                                    const void* v, const void* dout, const float* lse,
                                    const float* di, void* dk, void* dv, int64_t B, int64_t T,
                                    int64_t H, int64_t D, void* stream);
+extern "C" int smft_flash_attn_plan(int which, int device, int64_t B, int64_t T, int64_t H,
+                                    int64_t D, int64_t* out);
 extern "C" int smft_tiled_matmul_plan(int device, int64_t M, int64_t N, int64_t K, int bm, int bn,
                                       int stages, int64_t* out);
 
@@ -687,6 +689,18 @@ std::tuple<at::Tensor, at::Tensor> flash_attn_dkv(const at::Tensor& q, const at:
   return {dk, dv};
 }
 
+// The plan of a persistent bf16 K17 (which 0) or K19 (which 2) call at (B,
+// T, H, D) on the current device (attention_cuda.PLAN_KEYS).
+std::vector<int64_t> flash_attn_plan(int64_t which, int64_t B, int64_t T, int64_t H, int64_t D) {
+  std::vector<int64_t> plan(11);
+  const int err = smft_flash_attn_plan(static_cast<int>(which), c10::cuda::current_device(), B, T,
+                                       H, D, plan.data());
+  TORCH_CHECK(err != cudaErrorInvalidValue, "flash_attn_plan: no persistent kernel ", which,
+              " at (B, T, H, D) = (", B, ", ", T, ", ", H, ", ", D, ")");
+  C10_CUDA_CHECK(static_cast<cudaError_t>(err));
+  return plan;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(smft, m) {
@@ -728,6 +742,7 @@ TORCH_LIBRARY(smft, m) {
         "Tensor");
   m.def("flash_attn_dkv(Tensor q, Tensor k, Tensor v, Tensor dout, Tensor lse, Tensor di) -> "
         "(Tensor, Tensor)");
+  m.def("flash_attn_plan(int which, int B, int T, int H, int D) -> int[]", &flash_attn_plan);
 }
 
 TORCH_LIBRARY_IMPL(smft, CUDA, m) {
