@@ -86,7 +86,7 @@ hand-written CUDA kernels, and checks them:
      (dq) and K19 (dk/dv) of ``csrc/flash_attention.cu`` against their
      plain versions at the attention bench's shape, the 1.1B training
      micro-batch's and ragged t, bf16 and f32, ptxas's report (no spill),
-     HGMMA in the SASS of the persistent bf16 K17 and K19, each bf16 shape's
+     HGMMA in the SASS of the persistent bf16 K17-K19, each bf16 shape's
      schedule, timed in bf16 beside their bound and SDPA (run with the
      kernels of 3 and 4);
      then the port of ``scripts/bench_attention.py`` after training (8);
@@ -243,13 +243,14 @@ ATTN_KERNELS = ("splash_fwd", "splash_dq", "splash_dkv")
 # K17-K19's checks, (label, (b, t, heads, head_dim)): the attention bench's
 # shape (scripts/bench_attention.py:17), the 1.1B training micro-batch (the
 # JSON line's; bs 4 x seq 512, 32 heads of 64) and t ragged against the
-# persistent K17 and K19's 128-row tiles and 64-row kv tiles and q steps,
-# K18's 64-row tiles and the f32 kernels' 32-row tiles (the last: one
-# 128-row tile and a row, heads that start off 16 bytes in lse and di);
+# persistent K17-K19's 128-row tiles, their 64-row kv tiles and q steps and
+# the f32 kernels' 32-row tiles ((3, 129, 5, 64): one 128-row tile and a
+# row, heads that start off 16 bytes in lse and di; (2, 65, 3, 64): one of
+# K18's 64-row kv tiles and a row at head_dim 64, where K17's are 128);
 # bf16 and f32 at each.  Timed (bf16) at the first two.
 ATTN_SHAPES = (("bench", (4, 1024, 32, 128)), ("1.1B", (TRAIN_BS, TRAIN_SEQ, 32, 64)),
                ("ragged", (2, 200, 4, 64)), ("ragged", (1, 1000, 2, 128)),
-               ("ragged", (3, 129, 5, 64)))
+               ("ragged", (3, 129, 5, 64)), ("ragged", (2, 65, 3, 64)))
 ATTN_REPS, ATTN_ROUNDS = 20, 3  # time_ms at these shapes: the plain versions take ms a call
 # The 22-layer bf16 splash run against einsum (phase_train_splash): einsum
 # rounds the scores and the probabilities to bf16 where splash keeps them in
@@ -1329,7 +1330,7 @@ def phase_attention(card: str, lib) -> dict:
     ``narrowed``) must fail the same check at every case, and the printed
     line says whether the scale-wide bound alone would have seen them;
     ptxas's registers (no spill in any of the 12 instantiations), HGMMA in
-    the SASS of the persistent K17 and K19 at head_dim 64 and 128
+    the SASS of the persistent K17, K18 and K19 at head_dim 64 and 128
     (``check_hgmma``), each bf16 shape's schedule (CTAs, items, stages: the
     card's plan, which must be the Python mirror's); timed in
     bf16 at the bench's and the 1.1B micro-batch's shape beside the bound,
@@ -1341,14 +1342,15 @@ def phase_attention(card: str, lib) -> dict:
 
     from sparse_matrix_fine_tuning_torch.ops import attention as attn_ref
 
-    for kernel in ("fwd_wgmma_kernel", "dq_bf16_kernel", "dkv_wgmma_kernel", "fwd_f32_kernel",
+    for kernel in ("fwd_wgmma_kernel", "dq_wgmma_kernel", "dkv_wgmma_kernel", "fwd_f32_kernel",
                    "dq_f32_kernel", "dkv_f32_kernel"):
         kernel_ptxas(lib, kernel, 2, "attention")
-    hgmma = check_hgmma(lib, "fwd_wgmma_kernel", 2) + check_hgmma(lib, "dkv_wgmma_kernel", 2)
-    print(f"[attention] {card}: HGMMA in all {hgmma} persistent K17 and K19 kernels, none spills",
+    hgmma = sum(check_hgmma(lib, kernel, 2)
+                for kernel in ("fwd_wgmma_kernel", "dq_wgmma_kernel", "dkv_wgmma_kernel"))
+    print(f"[attention] {card}: HGMMA in all {hgmma} persistent K17-K19 kernels, none spills",
           flush=True)
     for label, shape in ATTN_SHAPES:
-        for name in ("splash_fwd", "splash_dkv"):
+        for name in ATTN_KERNELS:
             plan = attention_cuda.attention_plan(name, *shape)
             require(plan == attention_cuda.schedule_plan(name, *shape, plan["sms"], plan["per_sm"]),
                     f"{name} {shape}: the card's plan {plan} is not the mirror's")

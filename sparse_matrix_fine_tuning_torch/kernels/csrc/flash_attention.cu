@@ -31,36 +31,40 @@
 // shared memory while the other operands stream through a ring, and the
 // T x T scores never leave the registers.
 //
-// Design, bf16:
-//   K17 and K19 (after FlashAttention-3): persistent CTAs, one an SM, walk
-//        their work items longest first (ws_item); a producer warp issues
-//        TMA loads into a ring of stages and runs on from one item into the
-//        next; two consumer warpgroups of 64 rows each multiply on the
-//        tensor cores through wgmma (S from shared memory; P.V, dV and dK
-//        with the bf16 probabilities as register A fragments).
-//        K17: an item is (batch * head, 128-row q tile); per kv tile S_j is
+// Design, bf16 (after FlashAttention-3): all three kernels are persistent:
+//   one CTA an SM walks its work items, longest first (ws_item; K18 in
+//   units of equal work, dq_unit); a producer warp issues TMA loads into a
+//   ring of stages and runs on from one item into the next; two consumer
+//   warpgroups of 64 rows each multiply on the tensor cores through wgmma
+//   (S and dP from shared memory; P.V, dV, dK and dQ with the bf16
+//   probabilities or dS as register A fragments).
+//   K17: an item is (batch * head, 128-row q tile); per kv tile S_j is
 //        issued before P_{j-1}.V_{j-1}, and the softmax of S_j runs while
 //        P.V does; the two warpgroups take turns to issue, so that one's
 //        softmax overlaps the other's products; the next item's q tile
 //        loads while this one runs; only the diagonal tiles are masked; o
 //        leaves by TMA store.
-//        K19: an item is (batch * head, 128-row kv tile), k and v resident
+//   K18: an item is (batch * head, 128-row q tile), as K17's, taken in
+//        units of a head's longest and shortest q tile, head by head (so
+//        that the CTAs that run at once share k and v in L2); q, dout, lse
+//        and di for the item (the next item's while this one runs), k and
+//        v through the ring in 64-row tiles; per kv tile S_j is issued
+//        with dS_{j-1} k_{j-1}, the exponentials of tile j run while the
+//        latter does, then dP_j; only the diagonal tile is masked; dq
+//        leaves by TMA store from the item's dout tile, which no product
+//        reads any more.
+//   K19: an item is (batch * head, 128-row kv tile), k and v resident
 //        (at D = 64 the next item's load beside them); q, dout, lse and di
 //        stream a 64-row step at a time; S^T, dP^T, then dV += P^T dout and
 //        dK += dS^T q, masked without branches; a warpgroup skips the steps
 //        wholly before its rows; dk and dv leave by TMA store.
-//   K18: one CTA of 4 warps (16 rows each) per 64-row q tile, mma.sync
-//        m16n8k16 with fp32 sums, operands from padded shared memory by
-//        ldmatrix (row stride D + 8: every ldmatrix phase conflict-free), k
-//        and v through a two-stage cp.async ring: S = q k^T and dP = dout
-//        v^T, p recomputed from lse, ds = p (dp - di), dq += ds k.
 // K18 and K19 stay separate, as the splash kernels do: no atomics, so every
 // gradient is deterministic.
 // f32 (the checks' path) runs on FMA: 32-row tiles, 8 threads a row.
 //
 // D must be 64 or 128; any T is taken, ragged against every tile: rows past
-// T load as zeros (TMA's or cp.async's zero fill), are masked out of every
-// sum and are never stored.  The kernels need 16-byte aligned, contiguous
+// T load as zeros (TMA's zero fill, or the f32 kernels' own), add nothing to
+// any sum that is stored, and are never stored.  The kernels need 16-byte aligned, contiguous
 // (B, T, H, D) tensors and contiguous fp32 (B, H, T) lse and di (ops.cpp
 // checks).
 
@@ -78,8 +82,6 @@ namespace {
 using namespace smft_hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;   // bf16 K18: 4 warps, 16 rows each
-constexpr int kTile = 64;       // bf16 K18: the q rows a CTA owns
 constexpr int kF32Threads = 256;
 constexpr int kF32Tile = 32;    // f32: the rows a CTA owns and the tile it walks
 
@@ -98,130 +100,10 @@ struct Params {
 
 // -- PTX helpers --------------------------------------------------------------
 
-// 16 bytes global -> shared; zero-filled where !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// d += a b: m16n8k16, bf16 in, fp32 sums.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Two fp32 values rounded to a bf16x2 register, `lo` in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// -- bf16 tiles ---------------------------------------------------------------
-
-// ROWS x D rows of a (B, T, H, D) tensor, from row `row0` of one (batch,
-// head), into shared memory at row stride D + 8; rows past T are zeros.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int T,
-                                          int64_t stride) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  static_assert(ROWS * kChunks % kThreads == 0, "the tile must split evenly over the threads");
-#pragma unroll
-  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
-    const int c = threadIdx.x + it * kThreads;
-    const int r = c / kChunks, cc = c % kChunks, row = row0 + r;
-    const bool ok = row < T;
-    cp_async16(dst + r * (D + 8) + cc * 8, src + (ok ? row * stride : 0) + cc * 8, ok);
-  }
-}
-
-// s[n] += A B^T over D: A the warp's 16 rows at `a`, B the NT * 8 rows at
-// `b`, both row-major (row stride D + 8) in shared memory.  s[n] is the
-// m16n8 accumulator of B's rows 8n .. 8n + 7.
-template <int D, int NT>
-__device__ __forceinline__ void mma_abt(float (&s)[NT][4], const bf16* a, const bf16* b,
-                                        int lane) {
-  constexpr int LD = D + 8;
-  const int mi = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    ldsm4(af, a + ((mi & 1) * 8 + r) * LD + kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t bf[4];
-      ldsm4(bf, b + (np * 16 + (mi >> 1) * 8 + r) * LD + kk * 16 + (mi & 1) * 8);
-      mma16816(s[2 * np], af, bf[0], bf[1]);
-      mma16816(s[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// o += round_bf16(P) V: P the warp's 16 x (NT * 8) fp32 accumulators (the
-// layout mma_abt leaves), V NT * 8 rows of D at `v` (row stride D + 8).
-template <int D, int NT>
-__device__ __forceinline__ void mma_pv(float (&o)[D / 8][4], const float (&p)[NT][4],
-                                       const bf16* v, int lane) {
-  constexpr int LD = D + 8;
-  const int mi = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int ks = 0; ks < NT / 2; ++ks) {
-    const uint32_t af[4] = {pack_bf16(p[2 * ks][0], p[2 * ks][1]),
-                            pack_bf16(p[2 * ks][2], p[2 * ks][3]),
-                            pack_bf16(p[2 * ks + 1][0], p[2 * ks + 1][1]),
-                            pack_bf16(p[2 * ks + 1][2], p[2 * ks + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t bf[4];
-      ldsm4_t(bf, v + (ks * 16 + (mi & 1) * 8 + r) * LD + dp * 16 + (mi >> 1) * 8);
-      mma16816(o[2 * dp], af, bf[0], bf[1]);
-      mma16816(o[2 * dp + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// Store the warp's 16 x D fp32 accumulators, scaled by scale[row half], as
-// bf16 rows row0 and row0 + 8 (those below T) of a (B, T, H, D) tensor.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 8][4], int row0,
-                                           int T, int64_t stride, const float (&scale)[2],
-                                           int lane) {
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int row = row0 + rr * 8;
-    if (row >= T) continue;
-    uint32_t* dst = reinterpret_cast<uint32_t*>(out + row * stride + 2 * (lane & 3));
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      dst[dn * 4] = pack_bf16(acc[dn][2 * rr] * scale[rr], acc[dn][2 * rr + 1] * scale[rr]);
-  }
 }
 
 struct Head {
@@ -235,77 +117,6 @@ __device__ __forceinline__ Head head_of(const Params& p) {
   const int bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H;
   return {(static_cast<int64_t>(b) * p.T * p.H + h) * D, static_cast<int64_t>(p.H) * D,
           static_cast<int64_t>(bh) * p.T};
-}
-
-// K18, bf16.  grid (B * H, q tiles), the last q tile first.
-template <int D>
-__global__ void __launch_bounds__(kThreads) dq_bf16_kernel(const Params p) {
-  constexpr int LD = D + 8, NT = kTile / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sO = sQ + kTile * LD;      // dout
-  bf16* sK = sO + kTile * LD;      // 2 stages
-  bf16* sV = sK + 2 * kTile * LD;  // 2 stages
-  const Head hd = head_of<D>(p);
-  const bf16* q = static_cast<const bf16*>(p.q) + hd.base;
-  const bf16* k = static_cast<const bf16*>(p.k) + hd.base;
-  const bf16* v = static_cast<const bf16*>(p.v) + hd.base;
-  const bf16* dout = static_cast<const bf16*>(p.dout) + hd.base;
-  const int T = p.T, qt = gridDim.y - 1 - blockIdx.y, q0 = qt * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tq = lane & 3;
-  const int row0 = q0 + warp * 16 + (lane >> 2);
-
-  load_tile<D, kTile>(sQ, q, q0, T, hd.stride);
-  load_tile<D, kTile>(sO, dout, q0, T, hd.stride);
-  load_tile<D, kTile>(sK, k, 0, T, hd.stride);
-  load_tile<D, kTile>(sV, v, 0, T, hd.stride);
-  cp_async_commit();
-  float lse[2], di[2];
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int row = row0 + rr * 8;
-    lse[rr] = row < T ? p.lse[hd.lse + row] : 0.f;
-    di[rr] = row < T ? p.di[hd.lse + row] : 0.f;
-  }
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
-
-  for (int j = 0; j <= qt; ++j) {
-    const int st = j & 1;
-    if (j < qt) {
-      load_tile<D, kTile>(sK + (st ^ 1) * kTile * LD, k, (j + 1) * kTile, T, hd.stride);
-      load_tile<D, kTile>(sV + (st ^ 1) * kTile * LD, v, (j + 1) * kTile, T, hd.stride);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kt = sK + st * kTile * LD;
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_abt<D, NT>(s, sQ + warp * 16 * LD, kt, lane);
-    mma_abt<D, NT>(dp, sO + warp * 16 * LD, sV + st * kTile * LD, lane);
-    const bool diag = j == qt;
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = e >> 1;
-        const bool masked = diag && j * kTile + n * 8 + 2 * tq + (e & 1) > row0 + rr * 8;
-        const float pv = masked ? 0.f : __expf(s[n][e] - lse[rr]);
-        s[n][e] = pv * (dp[n][e] - di[rr]);  // ds
-      }
-    mma_pv<D, NT>(dq, s, kt, lane);
-    __syncthreads();
-  }
-  const float one[2] = {1.f, 1.f};
-  store_rows<D>(static_cast<bf16*>(p.o) + hd.base, dq, row0, T, hd.stride, one, lane);
 }
 
 // -- f32 (FMA) ------------------------------------------------------------------
@@ -530,7 +341,7 @@ __global__ void __launch_bounds__(kF32Threads) dkv_f32_kernel(const Params p) {
   }
 }
 
-// -- bf16 K17 and K19 on Hopper: TMA, wgmma, a producer warp --------------------
+// -- bf16 K17-K19 on Hopper: TMA, wgmma, a producer warp ------------------------
 // Two consumer warpgroups (threads 0-255), each owning 64 rows of a 128-row
 // tile, and one producer warp (threads 256-287) whose lane 0 issues every TMA
 // load.  ptxas compiles every role at 168 registers a thread (the launch
@@ -538,22 +349,25 @@ __global__ void __launch_bounds__(kF32Threads) dkv_f32_kernel(const Params p) {
 // warpgroup that gives its registers up to the consumers (setmaxnreg) did
 // not lift that bound (its SASS held USETMAXREG, its spills stayed), so the
 // tiles are sized to fit it: K17 walks kv tiles of 128 rows at D = 64 and
-// 64 at D = 128 (S and P in registers beside o), and K19 at D = 128 takes
-// two passes over q, dv then dk (one sum of 64 x 128 fp32 beside S and dP).
+// 64 at D = 128 (S and P in registers beside o), K18 kv tiles of 64 rows
+// (S, dP and the last tile's dS beside dq), and K19 at D = 128 takes two
+// passes over q, dv then dk (one sum of 64 x 128 fp32 beside S and dP).
 //
 // Layouts: a tile of (B, T, H, D) rows is D / 64 boxes of (rows x 64
 // columns), 128-byte rows, 128-byte swizzled, box after box.  A K-major
-// operand (q, k or v over D; q or dout over D for K19's S^T and dP^T) steps
+// operand (q, k or v over D; dout over D for K18's dP; q or dout over D for
+// K19's S^T and dP^T) steps
 // 32 bytes a k16 inside the box's rows and a box every 4 k16 steps, 8-row
-// groups 1024 bytes apart (SBO).  An MN-major operand (v for P.V; dout and q
-// for dV and dK, k along their rows) steps 16 rows (2048 bytes) a k16, its
+// groups 1024 bytes apart (SBO).  An MN-major operand (v for P.V; k for
+// dS.k; dout and q for dV and dK, k along their rows) steps 16 rows (2048
+// bytes) a k16, its
 // 64-column boxes LBO apart.  TMA reads a (B, T, H, D) tensor through a 4-D
 // map (D, H, T, B): rows past T come in as zeros per (batch, head), and the
 // epilogues' TMA stores drop them.
 
 constexpr int kWsConsumers = 2;                      // warpgroups of 64 rows
 constexpr int kWsThreads = kWsConsumers * 128 + 32;  // + the producer warp
-constexpr int kWsTile = kWsConsumers * 64;  // rows a tile: K17's q tile, K19's kv tile
+constexpr int kWsTile = kWsConsumers * 64;  // rows a tile: K17's and K18's q tile, K19's kv tile
 constexpr int kAtomBytes = 1024;            // the 128-byte swizzle's period
 constexpr int kSmemLimit = 232448;          // shared memory a CTA may take (227 KB)
 
@@ -569,43 +383,46 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // K17's kv tile rows and K19's passes over q (2: dv, then dk) at head dim
-// D, and K19's q step rows.
+// D; K18's kv tile rows and K19's q step rows.
 __host__ __device__ constexpr int fwd_kv_rows(int D) { return D == 64 ? 128 : 64; }
 __host__ __device__ constexpr int dkv_passes(int D) { return D == 64 ? 1 : 2; }
+constexpr int kDqRows = 64;
 constexpr int kDkvRows = 64;
 
 // A launch's work: items (batch * head, 128-row tile) taken longest first.
-// K17's item (bh, q tile qt) walks the kv tiles up to its diagonal; K19's
-// (bh, kv tile kt) walks the q steps from the first that reaches kt's rows
-// to the last (twice at D = 128).
+// K17's and K18's item (bh, q tile qt) walks the kv tiles up to its
+// diagonal; K19's (bh, kv tile kt) walks the q steps from the first that
+// reaches kt's rows to the last (twice at D = 128).
 struct WsSched {
   int bh;     // B * H
   int tiles;  // 128-row tiles of T
-  int items;  // bh * tiles
-  int steps;  // K17: kv tiles of T; K19: q steps of T
+  int items;  // K17, K19: bh * tiles; K18: bh * dq_units(tiles)
+  int steps;  // K17, K18: kv tiles of T; K19: q steps of T
 };
 
 // Item w of a launch: rank r = w / bh of the tiles by length, head w % bh.
-// K17 takes the last q tile (the most kv tiles) first, K19 kv tile 0 (the
-// most q steps).  CTA c takes items c, c + ctas, ...: each CTA's items
-// never grow longer.
-__host__ __device__ inline void ws_item(const WsSched& s, bool fwd, int w, int& bh, int& tile) {
+// K17 and K18 (`last_first`) take the last q tile (the most kv tiles)
+// first, K19 kv tile 0 (the most q steps).  CTA c takes items c, c + ctas,
+// ...: each CTA's items never grow longer.
+__host__ __device__ inline void ws_item(const WsSched& s, bool last_first, int w, int& bh,
+                                        int& tile) {
   const int rank = w / s.bh;
   bh = w - rank * s.bh;
-  tile = fwd ? s.tiles - 1 - rank : rank;
+  tile = last_first ? s.tiles - 1 - rank : rank;
 }
 
-// K17's kv tiles of q tile qt: those up to its diagonal, none past T.
-__host__ __device__ inline int fwd_kv_tiles(const WsSched& s, int qt, int D) {
-  const int n = (qt + 1) * kWsTile / fwd_kv_rows(D);
+// K17's or K18's kv tiles (of `rows` rows) of q tile qt: those up to its
+// diagonal, none past T.
+__host__ __device__ inline int q_kv_tiles(const WsSched& s, int qt, int rows) {
+  const int n = (qt + 1) * kWsTile / rows;
   return n < s.steps ? n : s.steps;
 }
 
 struct WsArgs {
   WsSched s;
   int T, H;
-  float* lse;       // (B, H, T): K17 writes it, K19 reads it
-  const float* di;  // (B, H, T): K19 reads it
+  float* lse;       // (B, H, T): K17 writes it, K18 and K19 read it
+  const float* di;  // (B, H, T): K18 and K19 read it
 };
 
 // A consumer warpgroup's named barrier (1 + wg).
@@ -679,18 +496,32 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int kk) {
   return sw128_desc(tile + kk * 2048, rows * 128, kAtomBytes);
 }
 
+// kmajor and mnmajor of step kk as their step 0's descriptor plus the
+// step's offset (the start address field counts 16 bytes and a tile lies
+// below 256 KB: no carry), so that a loop keeps one base and not a
+// descriptor a step in registers.
+__device__ __forceinline__ uint64_t kmajor_step(uint64_t d0, int rows, int kk) {
+  return d0 + static_cast<uint64_t>(((kk / 4) * rows * 128 + (kk % 4) * 32) >> 4);
+}
+
+__device__ __forceinline__ uint64_t mnmajor_step(uint64_t d0, int kk) {
+  return d0 + static_cast<uint64_t>(kk * 2048 >> 4);
+}
+
 // Writes a warpgroup's 64 x D fp32 accumulator, times scale[row half], as
-// bf16 into `stage`: D / 64 boxes of 64 x 64, 128-byte swizzled (a TMA
-// store's source).  Thread t holds rows r and r + 8, r = 16 (t / 32) +
-// (t % 32) / 4; acc[4 j ..] are columns 8 j + 2 (t % 4), + 1 of them.
-template <int D>
+// bf16 into `stage`: D / 64 boxes of 64 x 64 (kBoxBytes apart: 8192, or
+// 16384 where the rows are half of a 128-row tile's boxes), 128-byte
+// swizzled (a TMA store's source).  Thread t holds rows r and r + 8, r = 16
+// (t / 32) + (t % 32) / 4; acc[4 j ..] are columns 8 j + 2 (t % 4), + 1 of
+// them.
+template <int D, int kBoxBytes = 8192>
 __device__ __forceinline__ void stage_rows(uint8_t* stage, const float (&acc)[D / 2], int t,
                                            const float (&scale)[2]) {
   const int r = (t / 32) * 16 + (t % 32) / 4;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     uint8_t* const at =
-        stage + (j / 8) * 8192 + r * 128 + ((((j % 8) ^ (r & 7)) << 4) | ((t % 4) << 2));
+        stage + (j / 8) * kBoxBytes + r * 128 + ((((j % 8) ^ (r & 7)) << 4) | ((t % 4) << 2));
     *reinterpret_cast<uint32_t*>(at) = pack_bf16(acc[4 * j] * scale[0], acc[4 * j + 1] * scale[0]);
     *reinterpret_cast<uint32_t*>(at + 8 * 128) =
         pack_bf16(acc[4 * j + 2] * scale[1], acc[4 * j + 3] * scale[1]);
@@ -760,7 +591,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     for (int w = blockIdx.x; w < a.s.items; w += gridDim.x, ++n) {
       int bh, qt;
       ws_item(a.s, true, w, bh, qt);
-      const int b = bh / a.H, h = bh - b * a.H, nkv = fwd_kv_tiles(a.s, qt, D);
+      const int b = bh / a.H, h = bh - b * a.H, nkv = q_kv_tiles(a.s, qt, kBc);
       const uint32_t qf = q_full + 8 * (n % 2), qs = base + C::kQ + (n % 2) * C::kQBytes;
       if (n >= 2) wait_or_trap(q_empty + 8 * (n % 2), ((n / 2) - 1) & 1);
       mbar_expect_tx(qf, C::kQBytes);
@@ -796,7 +627,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   for (int w = blockIdx.x; w < a.s.items; w += gridDim.x, ++n) {
     int bh, qt;
     ws_item(a.s, true, w, bh, qt);
-    const int b = bh / a.H, h = bh - b * a.H, nkv = fwd_kv_tiles(a.s, qt, D);
+    const int b = bh / a.H, h = bh - b * a.H, nkv = q_kv_tiles(a.s, qt, kBc);
     const int row0 = qt * kWsTile + 64 * wg;  // the warpgroup's first q row
     const uint32_t qs = base + C::kQ + (n % 2) * C::kQBytes, qe = q_empty + 8 * (n % 2);
     float o[D / 2], s[kBc / 2];
@@ -936,6 +767,302 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 #pragma unroll
       for (int x = 0; x < kBoxes; ++x) tma_store_4d(&map_o, stage + x * 8192, 64 * x, h, row0, b);
       tma_store_commit();
+    }
+  }
+  if (t == 0) tma_store_wait_read();  // the staging is read before the CTA leaves
+}
+
+// K18's shared memory: two item buffers (item n in buffer n % 2, so that
+// the next item's loads while this one runs), each a q tile and a dout
+// tile (128 rows; the dout tile then stages dq for its TMA store) and the
+// tile's lse and di rows (fp32); kStages stages of k and v (kBc rows each);
+// then the barriers q_full[2], q_empty[2], kv_full[S], kv_empty[S].
+template <int D>
+struct DqWs {
+  static constexpr int kBc = kDqRows;
+  static constexpr int kStages = D == 128 ? 2 : 4;
+  static constexpr int kQBytes = kWsTile * D * 2;  // a q or dout tile
+  static constexpr int kKvBytes = kBc * D * 2;     // k or v a stage
+  static constexpr int kItem = 2 * kQBytes + 2 * kWsTile * 4;  // q, dout, lse, di
+  static constexpr int kQ = 0;          // buffer qb at kQ + qb kItem: q, dout after it
+  static constexpr int kK = kQ + 2 * kItem;  // stage st: k at kK + 2 st kKvBytes, v after it
+  static constexpr int kBars = kK + 2 * kStages * kKvBytes;
+  static constexpr int kSmem = kBars + 8 * (4 + 2 * kStages) + kAtomBytes;
+  static_assert(kItem % kAtomBytes == 0, "an item buffer must keep the swizzle's alignment");
+  static_assert(kSmem <= kSmemLimit, "K18's tiles must fit in 227 KB");
+};
+
+// K18's units of work: a unit is a pair of q tiles of one (batch * head),
+// the one with the most kv tiles and the one with the fewest (tiles - 1 -
+// p and p), so that every unit but an odd middle tile's holds the same
+// work; units head by head, so that the CTAs that run at once share their
+// heads' k and v in L2.
+__host__ __device__ constexpr int dq_units(int tiles) { return (tiles + 1) / 2; }
+
+// Unit u: its (batch * head) and q tiles, the longer first (lo = -1: none).
+__host__ __device__ inline void dq_unit(const WsSched& s, int u, int& bh, int& hi, int& lo) {
+  const int per = dq_units(s.tiles);
+  bh = u / per;
+  const int p = u - bh * per;
+  hi = s.tiles - 1 - p;
+  lo = p < hi ? p : -1;
+}
+
+// K18, bf16: persistent, CTA c takes units c, c + ctas, ... (dq_unit), and
+// a unit's q tiles, the longer first; an item is one q tile (128 rows).  The
+// producer loads an item's q and dout tiles (TMA) and its lse and di rows
+// (its lanes' plain loads, as K19's: no 1-D TMA) into the buffer the item
+// before last used, then its kv tiles through the ring, and runs on into
+// the next item as stages free.  A consumer warpgroup owns 64 q rows; per
+// kv tile j it issues S_j = q k_j^T (wgmma from shared memory, k K-major)
+// and dq += dS_{j-1} k_{j-1} (wgmma, dS the bf16 A fragments in registers,
+// k MN-major); takes p = exp(S_j - lse) while that product runs; then
+// issues dP_j = dout v_j^T (v K-major) and takes dS_j = p (dP_j - di),
+// packed as the next tile's A fragments.  (dP_j issued beside S_j spilled
+// at D = 128 and was slower at 64, and S_{j+1} issued before the
+// exponentials of tile j, where the registers allowed it (D = 64), was
+// slower too: PERF.md §6.)  Only the diagonal tile is masked, without
+// branches, and the warpgroup walks only the tiles up to its rows'
+// diagonal.  The epilogue stages dq in the warpgroup's own rows of the dout
+// tile, whose last reader (dP) is done, and stores it by TMA; the buffer is
+// handed back (q_empty) once that store has read it, at the next item's
+// first products.  No atomics.
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_do,
+                    const __grid_constant__ CUtensorMap map_dq, const WsArgs a) {
+  using C = DqWs<D>;
+  constexpr int S = C::kStages, kBc = C::kBc, kBoxes = D / 64, kSteps = kBc / 16;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + kAtomBytes - 1) & ~static_cast<uint32_t>(kAtomBytes - 1);
+  const uint32_t q_full = base + C::kBars, q_empty = q_full + 16, kv_full = q_full + 32;
+  const uint32_t kv_empty = kv_full + 8 * S;
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(q_full + 8 * qb, 2);  // the producer's TMA bytes, then its lse and di
+      mbar_init(q_empty + 8 * qb, kWsConsumers);
+    }
+    for (int st = 0; st < S; ++st) {
+      mbar_init(kv_full + 8 * st, 1);
+      mbar_init(kv_empty + 8 * st, kWsConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == kWsConsumers) {
+    // The producer warp: lane 0 issues the TMA loads; every lane copies its
+    // share of the item's lse and di rows (zeros past T), and lane 0 then
+    // arrives on the buffer's barrier (its second arrival).
+    const int lane = threadIdx.x % 32;
+    uint32_t it = 0, n = 0;
+    for (int u = blockIdx.x; u < a.s.items; u += gridDim.x) {
+      int bh, hi, lo;
+      dq_unit(a.s, u, bh, hi, lo);
+      const int b = bh / a.H, h = bh - b * a.H;
+      const float* lse = a.lse + static_cast<int64_t>(bh) * a.T;
+      const float* di = a.di + static_cast<int64_t>(bh) * a.T;
+      for (int half = 0; half < 2; ++half, ++n) {
+        const int qt = half == 0 ? hi : lo;
+        if (qt < 0) break;
+        const int nkv = q_kv_tiles(a.s, qt, kBc);
+        const uint32_t qf = q_full + 8 * (n % 2), qs = base + C::kQ + (n % 2) * C::kItem;
+        const uint32_t os = qs + C::kQBytes;
+        float lrow[kWsTile / 32], drow[kWsTile / 32];  // loaded before the buffer frees
+#pragma unroll
+        for (int c = 0; c < kWsTile / 32; ++c) {
+          const int row = qt * kWsTile + 32 * c + lane;
+          lrow[c] = row < a.T ? lse[row] : 0.f;
+          drow[c] = row < a.T ? di[row] : 0.f;
+        }
+        if (lane == 0) {
+          if (n >= 2) wait_or_trap(q_empty + 8 * (n % 2), ((n / 2) - 1) & 1);
+          mbar_expect_tx(qf, 2 * C::kQBytes);
+#pragma unroll
+          for (int x = 0; x < kBoxes; ++x) {
+            tma_load_4d(qs + x * kWsTile * 128, &map_q, qf, 64 * x, h, qt * kWsTile, b);
+            tma_load_4d(os + x * kWsTile * 128, &map_do, qf, 64 * x, h, qt * kWsTile, b);
+          }
+        }
+        __syncwarp();  // the buffer is free
+        float* sl = reinterpret_cast<float*>(smem_raw + (os + C::kQBytes - raw));
+#pragma unroll
+        for (int c = 0; c < kWsTile / 32; ++c) {
+          sl[32 * c + lane] = lrow[c];
+          sl[kWsTile + 32 * c + lane] = drow[c];
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(qf);
+        for (int j = 0; j < nkv; ++j, ++it) {
+          if (lane != 0) continue;
+          const int st = it % S;
+          if (it >= S) wait_or_trap(kv_empty + 8 * st, ((it / S) - 1) & 1);
+          const uint32_t ks = base + C::kK + 2 * st * C::kKvBytes, vs = ks + C::kKvBytes;
+          mbar_expect_tx(kv_full + 8 * st, 2 * C::kKvBytes);
+#pragma unroll
+          for (int x = 0; x < kBoxes; ++x) {
+            tma_load_4d(ks + x * kBc * 128, &map_k, kv_full + 8 * st, 64 * x, h, j * kBc, b);
+            tma_load_4d(vs + x * kBc * 128, &map_v, kv_full + 8 * st, 64 * x, h, j * kBc, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: rows 64 wg .. + 63 of each q tile; thread t holds
+  // rows r and r + 8 of them and, in each 8-column group of S and dP,
+  // columns 2 (t % 4) and + 1.
+  const int t = threadIdx.x % 128;
+  const int r = (t / 32) * 16 + (t % 32) / 4, cq = 2 * (t % 4);
+  uint32_t it = 0, n = 0;
+  for (int u = blockIdx.x; u < a.s.items; u += gridDim.x) {
+    int bh, hi, lo;
+    dq_unit(a.s, u, bh, hi, lo);
+    for (int half = 0; half < 2; ++half, ++n) {
+      const int qt = half == 0 ? hi : lo;
+      if (qt < 0) break;
+      const int nkv = q_kv_tiles(a.s, qt, kBc);
+      const int row0 = qt * kWsTile + 64 * wg;  // the warpgroup's first q row
+      const uint32_t qs = base + C::kQ + (n % 2) * C::kItem, os = qs + C::kQBytes;
+      const float* sl = reinterpret_cast<const float*>(smem_raw + (os + C::kQBytes - raw));
+      float dq[D / 2], s[kBc / 2], dp[kBc / 2];
+      uint32_t da[kSteps][4];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+      // S_j = q k_j^T into s and dP_j = dout v_j^T into dp (zeroed first)
+      const uint64_t q_desc = kmajor(qs, kWsTile, 64 * wg, 0), o_desc = kmajor(os, kWsTile, 64 * wg, 0);
+      auto issue_s = [&](uint32_t ks) {
+#pragma unroll
+        for (int i = 0; i < kBc / 2; ++i) s[i] = 0.f;
+        const uint64_t k_desc = kmajor(ks, kBc, 0, 0);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma_ss<kBc>(s, kmajor_step(q_desc, kWsTile, kk), kmajor_step(k_desc, kBc, kk));
+        wgmma_commit();
+      };
+      auto issue_dp = [&](uint32_t ks) {
+#pragma unroll
+        for (int i = 0; i < kBc / 2; ++i) dp[i] = 0.f;
+        const uint64_t v_desc = kmajor(ks + C::kKvBytes, kBc, 0, 0);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma_ss<kBc>(dp, kmajor_step(o_desc, kWsTile, kk), kmajor_step(v_desc, kBc, kk));
+        wgmma_commit();
+      };
+      // dq += dS k_j: dS the packed A fragments, k_j MN-major
+      auto issue_dq = [&](uint32_t ks) {
+        const uint64_t k_desc = mnmajor(ks, kBc, 0);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk) mma_rs<D>(dq, da[kk], mnmajor_step(k_desc, kk));
+        wgmma_commit();
+      };
+      auto kv_stage = [&](uint32_t i) { return base + C::kK + 2 * (i % S) * C::kKvBytes; };
+      // p = exp(s - lse) = 2^(s log2 e - lse log2 e) into s, 0 past the
+      // diagonal of tile j (its last, where the keys reach past the
+      // warpgroup's first row; without branches); then dS = p (dp - di)
+      // into s.  Rows and keys past T are zeros: their dS adds nothing
+      // that is stored.
+      auto probs = [&](int j) {
+        const bool diag = j * kBc + kBc - 1 > row0;
+        float lse2[2];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) lse2[rr] = sl[64 * wg + r + 8 * rr] * kLog2e;
+#pragma unroll
+        for (int jj = 0; jj < kBc / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int rr = e >> 1;
+            const bool keep = !diag | (j * kBc + 8 * jj + cq + (e & 1) <= row0 + r + 8 * rr);
+            s[4 * jj + e] = ex2(keep ? fmaf(s[4 * jj + e], kLog2e, -lse2[rr]) : -INFINITY);
+          }
+      };
+      auto grads = [&]() {
+#pragma unroll
+        for (int jj = 0; jj < kBc / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[4 * jj + e] *= dp[4 * jj + e] - sl[kWsTile + 64 * wg + r + 8 * (e >> 1)];
+      };
+
+      // the warpgroup's kv tiles: those up to its rows' diagonal (tile
+      // row0 / kBc, the one tile that reaches past its first row); the
+      // item's tiles after them it only releases
+      const int last_j = row0 / kBc < nkv - 1 ? row0 / kBc : nkv - 1;
+      wait_or_trap(q_full + 8 * (n % 2), (n / 2) & 1);
+      wait_or_trap(kv_full + 8 * (it % S), (it / S) & 1);
+      issue_s(kv_stage(it));
+      if (n > 0 && t == 0) {  // the last item's dq staging is read: hand its buffer back
+        tma_store_wait_read();
+        mbar_arrive(q_empty + 8 * ((n - 1) % 2));
+      }
+      wgmma_wait<0>();
+      fence_acc(s);
+      // Tile j: S_j (tile 0's issued above) and dS_{j-1} k_{j-1}; the
+      // exponentials of S_j while dS_{j-1} k_{j-1} runs; then dP_j, dS_j and
+      // its A fragments.  (The loop that took the first tile apart, S_0 and
+      // dP_0 issued together, ran 10% slower at the 1.1B micro-batch.)
+      for (int j = 0; j <= last_j; ++j) {
+        const uint32_t cur = it + j, prev = cur - 1;
+        if (j > 0) {
+          wait_or_trap(kv_full + 8 * (cur % S), (cur / S) & 1);
+          issue_s(kv_stage(cur));
+          issue_dq(kv_stage(prev));
+          wgmma_wait<1>();  // S_j is done; dS_{j-1} k_{j-1} may run on
+          fence_acc(s);
+        }
+        probs(j);
+        wgmma_wait<0>();
+        if (j > 0) {
+          fence_acc(dq);
+          fence_regs(da);
+          if (t == 0) mbar_arrive(kv_empty + 8 * (prev % S));
+        }
+        issue_dp(kv_stage(cur));
+        wgmma_wait<0>();
+        fence_acc(dp);
+        grads();
+        pack_a<kSteps>(da, s);
+      }
+      {
+        const uint32_t last = it + last_j;
+        issue_dq(kv_stage(last));
+        wgmma_wait<0>();
+        fence_acc(dq);
+        fence_regs(da);
+        if (t == 0) mbar_arrive(kv_empty + 8 * (last % S));
+      }
+      for (int j = last_j + 1; j < nkv; ++j) {  // tiles wholly after this warpgroup's rows
+        const uint32_t cur = it + j;
+        wait_or_trap(kv_full + 8 * (cur % S), (cur / S) & 1);
+        if (t == 0) mbar_arrive(kv_empty + 8 * (cur % S));
+      }
+      it += nkv;
+
+      // The epilogue: dq through the warpgroup's rows of the dout tile by TMA.
+      const float one[2] = {1.f, 1.f};
+      const uint32_t stage = os + 64 * wg * 128;
+      stage_rows<D, kWsTile * 128>(smem_raw + (stage - raw), dq, t, one);
+      fence_proxy_async();
+      warpgroup_sync(wg);
+      if (t == 0) {
+        if (row0 < a.T) {
+          const int b = bh / a.H, h = bh - b * a.H;
+#pragma unroll
+          for (int x = 0; x < kBoxes; ++x)
+            tma_store_4d(&map_dq, stage + x * kWsTile * 128, 64 * x, h, row0, b);
+        }
+        tma_store_commit();
+      }
     }
   }
   if (t == 0) tma_store_wait_read();  // the staging is read before the CTA leaves
@@ -1197,9 +1324,6 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// K18's shared memory (bf16): q, dout and two stages of k and v, 64 rows each.
-constexpr size_t dq_bf16_smem(int D) { return 6 * kTile * (D + 8) * sizeof(bf16); }
-
 constexpr size_t f32_smem(int which, int D) {
   const size_t lr = D + 4, lc = D + 1, t = kF32Tile, ps = kPS;
   if (which == kFwd) return (t * lr + t * lc + t * D + t * ps) * sizeof(float);
@@ -1207,23 +1331,20 @@ constexpr size_t f32_smem(int which, int D) {
   return (2 * t * lr + 2 * t * lc + 2 * t * ps + 2 * t) * sizeof(float);
 }
 
-// The one-CTA-a-tile kernels: K18 in bf16, and K17-K19 in f32.
+// The one-CTA-a-tile kernels: K17-K19 in f32.
 template <int D>
-const void* grid_kernel_of(int dtype, int which) {
-  if (dtype == 1) return reinterpret_cast<const void*>(dq_bf16_kernel<D>);
+const void* f32_kernel_of(int which) {
   if (which == kFwd) return reinterpret_cast<const void*>(fwd_f32_kernel<D>);
   if (which == kDq) return reinterpret_cast<const void*>(dq_f32_kernel<D>);
   return reinterpret_cast<const void*>(dkv_f32_kernel<D>);
 }
 
-cudaError_t run_grid(int which, int dtype, const Params& prm, int64_t B, int64_t T, int64_t H,
-                     int64_t D, cudaStream_t stream) {
-  const int64_t tile = dtype == 1 ? kTile : kF32Tile;
-  const int64_t tiles = (T + tile - 1) / tile;
+cudaError_t run_f32(int which, const Params& prm, int64_t B, int64_t T, int64_t H, int64_t D,
+                    cudaStream_t stream) {
+  const int64_t tiles = (T + kF32Tile - 1) / kF32Tile;
   if (tiles > 65535) return cudaErrorInvalidValue;
-  const void* fn = D == 64 ? grid_kernel_of<64>(dtype, which) : grid_kernel_of<128>(dtype, which);
-  const size_t smem = dtype == 1 ? dq_bf16_smem(static_cast<int>(D))
-                                 : f32_smem(which, static_cast<int>(D));
+  const void* fn = D == 64 ? f32_kernel_of<64>(which) : f32_kernel_of<128>(which);
+  const size_t smem = f32_smem(which, static_cast<int>(D));
   // The dynamic shared memory limit is each function's own.
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024) {
@@ -1233,34 +1354,42 @@ cudaError_t run_grid(int which, int dtype, const Params& prm, int64_t B, int64_t
   }
   const dim3 grid(static_cast<unsigned>(B * H), static_cast<unsigned>(tiles), 1);
   void* args[] = {const_cast<Params*>(&prm)};
-  return cudaLaunchKernel(fn, grid, dim3(dtype == 1 ? kThreads : kF32Threads), args, smem,
-                          stream);
+  return cudaLaunchKernel(fn, grid, dim3(kF32Threads), args, smem, stream);
 }
 
 // -- the persistent kernels' plans and launches --
 
-// The plan of a K17 (which 0) or K19 (which 2) call in bf16, the fields of
-// attention_cuda.PLAN_KEYS: SMs, CTAs an SM, the grid's CTAs, items, 128-row
-// tiles, steps (K17: kv tiles; K19: q steps), step rows, passes over q, ring
-// stages, threads and shared memory a CTA.
+// The plan of a K17 (which 0), K18 (1) or K19 (2) call in bf16, the fields
+// of attention_cuda.PLAN_KEYS: SMs, CTAs an SM, the grid's CTAs, items,
+// 128-row tiles, steps (K17, K18: kv tiles; K19: q steps), step rows, passes
+// over q, ring stages, threads and shared memory a CTA.
 constexpr int kPlanFields = 11;
 
 template <int D>
 struct WsKernel {
   static const void* fn(int which) {
-    return which == kFwd ? reinterpret_cast<const void*>(fwd_wgmma_kernel<D>)
-                         : reinterpret_cast<const void*>(dkv_wgmma_kernel<D>);
+    if (which == kFwd) return reinterpret_cast<const void*>(fwd_wgmma_kernel<D>);
+    if (which == kDq) return reinterpret_cast<const void*>(dq_wgmma_kernel<D>);
+    return reinterpret_cast<const void*>(dkv_wgmma_kernel<D>);
   }
-  static int smem(int which) { return which == kFwd ? FwdWs<D>::kSmem : DkvWs<D>::kSmem; }
-  static int stages(int which) { return which == kFwd ? FwdWs<D>::kStages : DkvWs<D>::kStages; }
-  static int step_rows(int which) { return which == kFwd ? fwd_kv_rows(D) : kDkvRows; }
+  static int smem(int which) {
+    return which == kFwd ? FwdWs<D>::kSmem : which == kDq ? DqWs<D>::kSmem : DkvWs<D>::kSmem;
+  }
+  static int stages(int which) {
+    return which == kFwd ? FwdWs<D>::kStages
+                         : which == kDq ? DqWs<D>::kStages : DkvWs<D>::kStages;
+  }
+  static int step_rows(int which) {
+    return which == kFwd ? fwd_kv_rows(D) : which == kDq ? kDqRows : kDkvRows;
+  }
+  static int passes(int which) { return which == kDkv ? dkv_passes(D) : 1; }
 };
 
 // SMs and CTAs of a kernel an SM on `device`, found once a kernel and device.
 template <int D>
 cudaError_t ws_resident(int which, int device, int* sms, int* per_sm) {
-  static int known[2][64][2] = {};
-  const int k = which == kFwd ? 0 : 1;
+  static int known[3][64][2] = {};
+  const int k = which;
   if (device >= 0 && device < 64 && known[k][device][0] > 0) {
     *sms = known[k][device][0];
     *per_sm = known[k][device][1];
@@ -1288,7 +1417,7 @@ WsSched ws_sched(int which, int64_t B, int64_t T, int64_t H) {
   WsSched s{};
   s.bh = static_cast<int>(B * H);
   s.tiles = static_cast<int>((T + kWsTile - 1) / kWsTile);
-  s.items = s.bh * s.tiles;
+  s.items = s.bh * (which == kDq ? dq_units(s.tiles) : s.tiles);
   const int step = WsKernel<D>::step_rows(which);
   s.steps = static_cast<int>((T + step - 1) / step);
   return s;
@@ -1302,8 +1431,8 @@ cudaError_t ws_plan(int which, int device, int64_t B, int64_t T, int64_t H, int6
   const WsSched s = ws_sched<D>(which, B, T, H);
   const int ctas = s.items < sms * per_sm ? s.items : sms * per_sm;
   const int64_t v[kPlanFields] = {sms, per_sm, ctas, s.items, s.tiles, s.steps,
-                                  WsKernel<D>::step_rows(which),
-                                  which == kFwd ? 1 : dkv_passes(D), WsKernel<D>::stages(which),
+                                  WsKernel<D>::step_rows(which), WsKernel<D>::passes(which),
+                                  WsKernel<D>::stages(which),
                                   kWsThreads, WsKernel<D>::smem(which)};
   for (int i = 0; i < kPlanFields; ++i) out[i] = v[i];
   return cudaSuccess;
@@ -1347,6 +1476,15 @@ cudaError_t run_ws(int which, int device, const Params& prm, int64_t B, int64_t 
         !bthd_map(encode, &mo, prm.o, B, T, H, D, 64))
       return cudaErrorInvalidValue;
     fwd_wgmma_kernel<D><<<grid, block, smem, stream>>>(mq, mk, mv, mo, a);
+  } else if (which == kDq) {
+    CUtensorMap mdo;
+    if (!bthd_map(encode, &mq, prm.q, B, T, H, D, kWsTile) ||
+        !bthd_map(encode, &mk, prm.k, B, T, H, D, step) ||
+        !bthd_map(encode, &mv, prm.v, B, T, H, D, step) ||
+        !bthd_map(encode, &mdo, prm.dout, B, T, H, D, kWsTile) ||
+        !bthd_map(encode, &mo, prm.o, B, T, H, D, 64))
+      return cudaErrorInvalidValue;
+    dq_wgmma_kernel<D><<<grid, block, smem, stream>>>(mq, mk, mv, mdo, mo, a);
   } else {
     CUtensorMap mdo, mdk, mdv;
     if (!bthd_map(encode, &mq, prm.q, B, T, H, D, step) ||
@@ -1371,11 +1509,11 @@ cudaError_t run(int which, int dtype, int device, const Params& prm, int64_t B, 
     return cudaErrorInvalidValue;
   if (B * H * T > 0x7fffffff || T * H * D > (int64_t{1} << 40)) return cudaErrorInvalidValue;
   if (B == 0 || T == 0) return cudaSuccess;
-  if (dtype == 1 && which != kDq) {
+  if (dtype == 1) {
     err = D == 64 ? run_ws<64>(which, device, prm, B, T, H, stream)
                   : run_ws<128>(which, device, prm, B, T, H, stream);
   } else {
-    err = run_grid(which, dtype, prm, B, T, H, D, stream);
+    err = run_f32(which, prm, B, T, H, D, stream);
   }
   if (err != cudaSuccess) cudaGetLastError();  // clear it: the caller gets it here
   return err;
@@ -1425,15 +1563,15 @@ extern "C" int smft_flash_attn_dkv(int dtype, int device, const void* q, const v
              static_cast<cudaStream_t>(stream));
 }
 
-// The plan of a bf16 K17 (which 0) or K19 (which 2) call at (B, T, H, D) on
-// `device`: the 11 fields of attention_cuda.PLAN_KEYS into `out`.  Returns a
-// cudaError_t (cudaErrorInvalidValue for K18, which is not persistent, or a
-// shape the kernels do not take).
+// The plan of a bf16 K17 (which 0), K18 (1) or K19 (2) call at (B, T, H, D)
+// on `device`: the 11 fields of attention_cuda.PLAN_KEYS into `out`.
+// Returns a cudaError_t (cudaErrorInvalidValue for a shape the kernels do
+// not take).
 extern "C" int smft_flash_attn_plan(int which, int device, int64_t B, int64_t T, int64_t H,
                                     int64_t D, int64_t* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if ((which != kFwd && which != kDkv) || (D != 64 && D != 128) || B <= 0 || T <= 0 || H <= 0 ||
+  if ((which != kFwd && which != kDq && which != kDkv) || (D != 64 && D != 128) || B <= 0 || T <= 0 || H <= 0 ||
       B * H * T > 0x7fffffff)
     return cudaErrorInvalidValue;
   return D == 64 ? ws_plan<64>(which, device, B, T, H, out)

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels
 // (K15 in tiled_matmul.cu; the bf16 tile path of K5-K8 in quant_wgmma.cu;
-// K9 and K10 in more_linear.cu; K17 and K19 in flash_attention.cu):
+// K9 and K10 in more_linear.cu; K17-K19 in flash_attention.cu):
 //   * mbarriers: init, arm with a byte count, arrive, wait on a phase (one
 //     that never ends traps);
 //   * TMA: a 2- or 4-D tile load completing on an mbarrier, and a 2- or 4-D

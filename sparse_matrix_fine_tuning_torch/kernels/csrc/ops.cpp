@@ -689,8 +689,8 @@ std::tuple<at::Tensor, at::Tensor> flash_attn_dkv(const at::Tensor& q, const at:
   return {dk, dv};
 }
 
-// The plan of a persistent bf16 K17 (which 0) or K19 (which 2) call at (B,
-// T, H, D) on the current device (attention_cuda.PLAN_KEYS).
+// The plan of a persistent bf16 K17 (which 0), K18 (1) or K19 (2) call at
+// (B, T, H, D) on the current device (attention_cuda.PLAN_KEYS).
 std::vector<int64_t> flash_attn_plan(int64_t which, int64_t B, int64_t T, int64_t H, int64_t D) {
   std::vector<int64_t> plan(11);
   const int err = smft_flash_attn_plan(static_cast<int>(which), c10::cuda::current_device(), B, T,

@@ -19,9 +19,9 @@ interface (``smft_flash_attn_fwd``, ``smft_flash_attn_dq``,
      ``ATTN_BLOCK_RTOL``, lse within 1e-5 of its scale; where the exact
      output is 0 (t = 1: dq and dk, whose ds = p (dp - di) is 0 with o = v)
      within ``ZERO_ATOL`` instead.  The outputs start as NaN, so a row that
-     no CTA wrote fails; a repeated call gives the same bits; this tree's
-     plan of each persistent call is the mirror's
-     (``attention_cuda.schedule_plan``);
+     no CTA wrote fails; a repeated call gives the same bits; each
+     library's plan of each persistent bf16 call (K17-K19 in this tree) is
+     the mirror's (``attention_cuda.schedule_plan``);
   2. device ms a call (``utils/benchlib.time_ms``) of K17, K18 and K19 in
      bf16 at ``SHAPES`` (the 1.1B training micro-batch, then the attention
      bench's), the libraries in turns (old, new, new, old: each one's time
@@ -61,14 +61,15 @@ KERNELS = ("splash_fwd", "splash_dq", "splash_dkv")
 SHAPES = [("1.1B", (4, 512, 32, 64)), ("bench", (4, 1024, 32, 128))]
 # chip_smoke.py's ATTN_SHAPES, checked here too
 SMOKE_SHAPES = [(4, 1024, 32, 128), (4, 512, 32, 64), (2, 200, 4, 64), (1, 1000, 2, 128),
-                (3, 129, 5, 64)]
+                (3, 129, 5, 64), (2, 65, 3, 64)]
 # Ragged against the persistent kernels' 128-row tiles, K17's 64-row kv
-# tiles at head_dim 128 and K19's 64-row steps, at both head_dims: t = 1;
-# t under one tile; one tile plus a row (8 items: under a wave); 133 items
-# (a wave of 132 CTAs and one more, t = 6 tiles + 65 rows, 13 steps + 1
-# row); 198 items (t = 5 tiles + 60 rows); t of one 64-row step
+# tiles at head_dim 128, K18's 64-row kv tiles and K19's 64-row steps, at
+# both head_dims: t = 1; t under one tile; one tile plus a row (8 items:
+# under a wave); 133 items (a wave of 132 CTAs and one more, t = 6 tiles +
+# 65 rows, 13 steps + 1 row); 198 items (t = 5 tiles + 60 rows); t of one
+# 64-row step; 133 of K18's units (pairs of q tiles; t = one tile + a row)
 RAGGED = [(1, 1, 2, 64), (1, 1, 2, 128), (2, 100, 3, 64), (2, 100, 3, 128), (1, 129, 4, 64),
-          (1, 833, 19, 64), (3, 700, 11, 128), (2, 64, 3, 128)]
+          (1, 833, 19, 64), (3, 700, 11, 128), (2, 64, 3, 128), (7, 129, 19, 64)]
 CHECKS = SMOKE_SHAPES + RAGGED
 ZERO_ATOL = 1e-4  # an output whose exact value is 0: both sides keep an fp32 residue
 REPS, ROUNDS = 20, 3
@@ -99,15 +100,20 @@ def build_lib(csrc: Path, name: str, out_root: Path = OUT) -> ctypes.CDLL:
     return lib
 
 
+CUDA_ERROR_INVALID_VALUE = 1  # what a plan returns for a kernel that is not persistent
+
+
 def plan_of(lib, kernel: str, shape) -> dict | None:
     """The library's plan of a persistent bf16 call (``attention_cuda.PLAN_KEYS``),
-    None where it has none (the one-CTA-a-tile design)."""
+    None where it has none: a library without ``smft_flash_attn_plan``, or
+    one whose plan refuses the kernel (a one-CTA-a-tile design)."""
     if not hasattr(lib, "smft_flash_attn_plan"):
         return None
     out = (ctypes.c_int64 * len(attention_cuda.PLAN_KEYS))()
-    which = {"splash_fwd": 0, "splash_dkv": 2}[kernel]
-    err = lib.smft_flash_attn_plan(which, torch.cuda.current_device(), *shape,
-                                   ctypes.cast(out, ctypes.c_void_p))
+    err = lib.smft_flash_attn_plan(attention_cuda._WHICH[kernel], torch.cuda.current_device(),
+                                   *shape, ctypes.cast(out, ctypes.c_void_p))
+    if err == CUDA_ERROR_INVALID_VALUE and kernel == "splash_dq":
+        return None
     if err:
         raise RuntimeError(f"smft_flash_attn_plan returned {err}")
     return dict(zip(attention_cuda.PLAN_KEYS, list(out)))
@@ -206,8 +212,10 @@ def check_lib(name: str, lib, g: torch.Generator) -> dict:
                                            "gave other bits")
                     key = f"{kernel} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
                     worst[key] = max(worst.get(key, 0.0), c["share"])
-                    if dtype == torch.bfloat16 and kernel != "splash_dq":
+                    if dtype == torch.bfloat16:
                         plan = plan_of(lib, kernel, shape)
+                        if plan is None and name == "new":
+                            raise RuntimeError(f"{name} {kernel} {shape}: no plan")
                         if plan is not None:
                             mirror = attention_cuda.schedule_plan(kernel, *shape, plan["sms"],
                                                                   plan["per_sm"])
@@ -252,7 +260,7 @@ def time_shapes(libs: dict, g: torch.Generator) -> dict:
                 times = in_turns({name: call_of(lib, kernel, *xs) for name, lib in libs.items()})
                 bound, by = benchlib.roofline_ms(*attention_cost(kernel, shape, torch.bfloat16),
                                                  torch.bfloat16)
-                plan = plan_of(libs["new"], kernel, shape) if kernel != "splash_dq" else None
+                plan = plan_of(libs["new"], kernel, shape)
                 print(f"{label} {shape} {kernel}: ms " + ", ".join(
                     f"{n} {ms:.5f} ({100 * bound / ms:.1f}% of the bound)"
                     for n, ms in times.items())

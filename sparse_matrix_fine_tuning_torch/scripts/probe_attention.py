@@ -1,10 +1,10 @@
-"""Where K17 and K19 (``csrc/flash_attention.cu``) spend their time, on the
+"""Where K17-K19 (``csrc/flash_attention.cu``) spend their time, on the
 card: ``python -m sparse_matrix_fine_tuning_torch.scripts.probe_attention [--variants NAME ...]``.
 
 Builds patched copies of ``flash_attention.cu`` (``VARIANTS``), each into a
 library of its own (nvcc, in parallel), with one phase dropped or one
-choice changed, and times K17 and K19 in bf16 in turns with the unpatched
-kernels at ``compare_attention.SHAPES``.  A dropped phase leaves the results
+choice changed, and times K17, K18 and K19 in bf16 in turns with the
+unpatched kernels at ``compare_attention.SHAPES``.  A dropped phase leaves the results
 wrong: those variants are timed, never checked (the unpatched kernels and
 the whole ones, ``CHECKED``, are checked against the plain versions first).
 The difference of a variant's time to the whole kernel's is what that phase
@@ -28,7 +28,7 @@ from sparse_matrix_fine_tuning_torch.utils import benchlib
 
 SOURCE = cmp.SOURCE
 OUT = kbuild.BUILD_ROOT / "probe_attention"
-KERNELS = ("splash_fwd", "splash_dkv")
+KERNELS = ("splash_fwd", "splash_dq", "splash_dkv")
 _NEVER = "a.T < 0"  # a condition the compiler cannot fold: the work never runs
 # name -> [(text of this tree's flash_attention.cu, its replacement)]
 VARIANTS = {
@@ -100,8 +100,80 @@ VARIANTS = {
     # K19: three stages of q, dout, lse and di at head_dim 64 (checked)
     "dkv 3 stages": [("static constexpr int kStages = D == 64 ? 4 : 2;",
                       "static constexpr int kStages = D == 64 ? 3 : 2;")],
+    # K18: the exponentials of p (s log2 e - lse log2 e kept as it is)
+    "dq no exp": [("s[4 * jj + e] = ex2(keep ? fmaf(s[4 * jj + e], kLog2e, -lse2[rr]) : -INFINITY);",
+                   "s[4 * jj + e] = keep ? fmaf(s[4 * jj + e], kLog2e, -lse2[rr]) : 0.f;")],
+    # K18: the S = q k^T wgmmas
+    "dq no S": [("for (int kk = 0; kk < D / 16; ++kk)\n          mma_ss<kBc>(s,",
+                 f"for (int kk = 0; {_NEVER} && kk < D / 16; ++kk)\n          mma_ss<kBc>(s,")],
+    # K18: the dP = dout v^T wgmmas
+    "dq no dP": [("          mma_ss<kBc>(dp, kmajor_step(o_desc,",
+                  f"          if ({_NEVER}) mma_ss<kBc>(dp, kmajor_step(o_desc,")],
+    # K18: the dq += dS k wgmmas
+    "dq no dS.k": [("for (int kk = 0; kk < kSteps; ++kk) mma_rs<D>(dq, da[kk], mnmajor_step(k_desc, kk));",
+                    f"for (int kk = 0; {_NEVER} && kk < kSteps; ++kk) "
+                    "mma_rs<D>(dq, da[kk], mnmajor_step(k_desc, kk));")],
+    # K18 with FlashAttention-3's ping-pong: a warpgroup holds the turn from
+    # issuing S_j (dP_j, dS_{j-1} k_{j-1}) until S_j is done, so that one's
+    # exponentials run while the other's products do; a turn for each kv
+    # tile (checked)
+    "dq pingpong": [
+        ("group of S and dP,\n  // columns 2 (t % 4) and + 1.\n  const int t = threadIdx.x % 128;\n"
+         "  const int r = (t / 32) * 16 + (t % 32) / 4, cq = 2 * (t % 4);\n",
+         "group of S and dP,\n  // columns 2 (t % 4) and + 1.\n  const int t = threadIdx.x % 128;\n"
+         "  const int r = (t / 32) * 16 + (t % 32) / 4, cq = 2 * (t % 4);\n"
+         "  if (wg == 1) turn_pass(wg);\n"),
+        ("      issue_s(kv_stage(it));\n      if (n > 0 && t == 0)",
+         "      turn_wait(wg);\n      issue_s(kv_stage(it));\n      if (n > 0 && t == 0)"),
+        ("      wgmma_wait<0>();\n      fence_acc(s);\n      // Tile j",
+         "      wgmma_wait<0>();\n      turn_pass(wg);\n      fence_acc(s);\n      // Tile j"),
+        ("          issue_s(kv_stage(cur));\n          issue_dq(kv_stage(prev));\n"
+         "          wgmma_wait<1>();  // S_j is done; dS_{j-1} k_{j-1} may run on\n",
+         "          turn_wait(wg);\n          issue_s(kv_stage(cur));\n          issue_dq(kv_stage(prev));\n"
+         "          wgmma_wait<1>();  // S_j is done; dS_{j-1} k_{j-1} may run on\n"
+         "          turn_pass(wg);\n"),
+        ("        if (t == 0) mbar_arrive(kv_empty + 8 * (cur % S));\n      }\n      it += nkv;",
+         "        if (t == 0) mbar_arrive(kv_empty + 8 * (cur % S));\n        turn_wait(wg);\n"
+         "        turn_pass(wg);\n      }\n      it += nkv;")],
+    # K18 with a quarter of the exponentials on the FMA pipe (a degree-5
+    # polynomial of 2^f after rounding x by the 1.5 2^23 shift), beside the
+    # special function unit's ex2 for the rest (checked)
+    "dq poly exp": [
+        ("constexpr float kLog2e = 1.4426950408889634f;\n",
+         "constexpr float kLog2e = 1.4426950408889634f;\n"
+         "__device__ __forceinline__ float ex2_fma(float x) {\n"
+         "  x = fmaxf(x, -127.f);\n"
+         "  const float j = x + 12582912.f;\n"
+         "  const float f = x - (j - 12582912.f);\n"
+         "  float p = fmaf(fmaf(fmaf(fmaf(fmaf(1.3333558e-3f, f, 9.6181291e-3f), f, 5.5504109e-2f), f,\n"
+         "                      2.4022651e-1f), f, 6.9314718e-1f), f, 1.f);\n"
+         "  return __uint_as_float(__float_as_uint(p) + (__float_as_uint(j) << 23));\n"
+         "}\n"),
+        ("            s[4 * jj + e] = ex2(keep ? fmaf(s[4 * jj + e], kLog2e, -lse2[rr]) : -INFINITY);",
+         "            const float xx = fmaf(s[4 * jj + e], kLog2e, -lse2[rr]);\n"
+         "            s[4 * jj + e] = jj % 4 == 3 ? (keep ? ex2_fma(xx) : 0.f) : ex2(keep ? xx : -INFINITY);")],
+    # K18 with dP_j issued beside S_j, before the exponentials (checked)
+    "dq early dP": [("      issue_s(kv_stage(it));\n      if (n > 0 && t == 0)",
+                     "      issue_s(kv_stage(it));\n      issue_dp(kv_stage(it));\n"
+                     "      if (n > 0 && t == 0)"),
+                    ("          issue_s(kv_stage(cur));\n          issue_dq(kv_stage(prev));\n",
+                     "          issue_s(kv_stage(cur));\n          issue_dp(kv_stage(cur));\n"
+                     "          issue_dq(kv_stage(prev));\n"),
+                    ("        issue_dp(kv_stage(cur));\n        wgmma_wait<0>();\n        fence_acc(dp);\n",
+                     "        fence_acc(dp);\n")],
+    # K18 on K17's schedule: a unit is one q tile, the last q tiles of every
+    # head first (checked)
+    "dq longest first": [("__host__ __device__ constexpr int dq_units(int tiles) { return (tiles + 1) / 2; }",
+                          "__host__ __device__ constexpr int dq_units(int tiles) { return tiles; }"),
+                         ("  const int per = dq_units(s.tiles);\n  bh = u / per;\n"
+                          "  const int p = u - bh * per;\n  hi = s.tiles - 1 - p;\n  lo = p < hi ? p : -1;",
+                          "  ws_item(s, true, u, bh, hi);\n  lo = -1;")],
+    # K18: six stages of k and v at head_dim 64 (checked)
+    "dq 6 stages": [("static constexpr int kStages = D == 128 ? 2 : 4;",
+                     "static constexpr int kStages = D == 128 ? 2 : 6;")],
 }
-CHECKED = ("full", "fwd no turns", "fwd 2 stages", "fwd kv rows", "dkv turns", "dkv 3 stages")
+CHECKED = ("full", "fwd no turns", "fwd 2 stages", "fwd kv rows", "dkv turns", "dkv 3 stages",
+           "dq early dP", "dq longest first", "dq 6 stages", "dq pingpong", "dq poly exp")
 
 
 def patched(name: str, source: str) -> str:

@@ -38,15 +38,16 @@ def test_torch_compare_attention_checks_chip_smokes_shapes():
     assert [shape for _, shape in chip_smoke.ATTN_SHAPES] == cmp.SMOKE_SHAPES
 
 
-@pytest.mark.parametrize("kernel", ["splash_fwd", "splash_dkv"])
+@pytest.mark.parametrize("kernel", ["splash_fwd", "splash_dq", "splash_dkv"])
 @pytest.mark.parametrize("head_dim", [64, 128])
 def test_torch_compare_attention_checks_reach_the_edges(kernel, head_dim):
     """At each head_dim the checked shapes hold t = 1 (the exact zero), t
     under one 128-row tile, t ragged against the tiles and the kernel's
-    step (K17's kv tile, K19's q step), t a whole number of tiles, and on
-    132 SMs items under a wave, a wave and one, and several waves."""
+    step (K17's and K18's kv tile, K19's q step), t a whole number of tiles,
+    and on 132 SMs items under a wave, a wave and one, and several waves."""
     shapes = [s for s in cmp.CHECKS if s[3] == head_dim]
-    step = ac.FWD_KV_ROWS[head_dim] if kernel == "splash_fwd" else ac.DKV_Q_ROWS
+    step = {"splash_fwd": ac.FWD_KV_ROWS[head_dim], "splash_dq": ac.DQ_KV_ROWS,
+            "splash_dkv": ac.DKV_Q_ROWS}[kernel]
     assert any(t == 1 for _, t, _, _ in shapes) and any(1 < t < 128 for _, t, _, _ in shapes)
     assert any(t % 128 and t > 128 for _, t, _, _ in shapes)
     assert any(t % step for _, t, _, _ in shapes) and any(t % 128 == 0 for _, t, _, _ in shapes)

@@ -1164,9 +1164,9 @@ def test_torch_int4_variant_refuses_what_it_does_not_take(cuda_device):
 
 
 # K17-K19 at (b, t, heads, head_dim): head_dim 64 and 128, t ragged against
-# K18's 64-row tiles, the persistent K17 and K19's 128-row tiles and 64-row
-# kv tiles and q steps, and the f32 kernels' 32-row tiles (2, 200, 513,
-# 1000), and t on a tile edge (64).  Not
+# the persistent K17-K19's 128-row tiles and 64-row kv tiles and q steps,
+# and the f32 kernels' 32-row tiles (2, 200, 513, 1000), and t on a tile
+# edge (64).  Not
 # t = 1: there dq and dk are exactly 0 (ds = p (dp - di) with o = v), so a
 # tolerance relative to their scale is 0 while both sides leave the fp32
 # residue of dp - di.
@@ -1245,44 +1245,49 @@ def test_torch_splash_function_on_card(cuda_device, dtype):
         _assert_attn_close(g, w)
 
 
-# The persistent bf16 K17 and K19 (attention_cuda.schedule_plan): t ragged
-# against their 128-row tiles, K17's 64-row kv tiles at head_dim 128 and K19's
-# 64-row q steps: t = 1, t under one tile, one tile plus a row, one 64-row
-# tile plus a row; items under one wave of 132 CTAs (all of these) and over
-# it ((1, 833, 19, 64): 133 items, a wave and one; (3, 700, 11, 128): 198).
+# The persistent bf16 K17-K19 (attention_cuda.schedule_plan): t ragged
+# against their 128-row tiles, K17's 64-row kv tiles at head_dim 128, K18's
+# 64-row kv tiles and K19's 64-row q steps: t = 1, t under one tile, one
+# tile plus a row, one 64-row tile plus a row (at head_dim 64 too, where
+# K18's kv tiles are not K17's); items under one wave of 132 CTAs (all of
+# these) and over it ((1, 833, 19, 64): 133 items, a wave and one; (3, 700,
+# 11, 128): 198; (7, 129, 19, 64): 266 items, 133 of K18's units).
 PERSISTENT_ATTN_CASES = [(1, 1, 2, 64), (1, 1, 2, 128), (2, 100, 3, 64), (2, 100, 3, 128),
-                         (1, 129, 4, 64), (1, 129, 4, 128), (1, 65, 2, 128), (1, 833, 19, 64),
-                         (3, 700, 11, 128)]
+                         (1, 129, 4, 64), (1, 129, 4, 128), (1, 65, 2, 128), (1, 65, 2, 64),
+                         (1, 833, 19, 64), (3, 700, 11, 128), (7, 129, 19, 64)]
 _ZERO_ATOL = 1e-4  # an output whose exact value is 0 (t = 1: dq and dk); both keep an fp32 residue
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", PERSISTENT_ATTN_CASES)
 def test_torch_persistent_attention_kernels_on_card(cuda_device, case):
-    """The persistent K17 and K19 in bf16 at ``PERSISTENT_ATTN_CASES``:
-    against their plain versions (dk of t = 1, exactly 0, within
+    """The persistent K17-K19 in bf16 at ``PERSISTENT_ATTN_CASES``: against
+    their plain versions (dq and dk of t = 1, exactly 0, within
     ``_ZERO_ATOL``), each card plan the Python mirror's, and every output
     the same bits on a repeated call."""
     q, k, v, dout = _attn_inputs(case, torch.bfloat16, cuda_device)
     o, lse = attention_cuda.splash_fwd(q, k, v)
     o_ref, lse_ref = attn_ref.causal_attention_reference(q, k, v)
     di = attn_ref.attention_di(o_ref, dout)
+    dq = attention_cuda.splash_dq(q, k, v, dout, lse_ref, di)
+    dq_ref = attn_ref.attention_dq_reference(q, k, v, dout, lse_ref, di)
     dk, dv = attention_cuda.splash_dkv(q, k, v, dout, lse_ref, di)
     dk_ref, dv_ref = attn_ref.attention_dkv_reference(q, k, v, dout, lse_ref, di)
     torch.cuda.synchronize()
     assert float((lse - lse_ref).abs().max()) <= 1e-5 * float(lse_ref.abs().max())
-    for got, want in ((o, o_ref), (dk, dk_ref), (dv, dv_ref)):
+    for got, want in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         assert got.dtype == want.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
         if float(want.float().abs().max()) <= _ZERO_ATOL:
             assert float(got.float().abs().max()) <= _ZERO_ATOL
         else:
             _assert_attn_close(got, want)
-    for kernel in ("splash_fwd", "splash_dkv"):
+    for kernel in ("splash_fwd", "splash_dq", "splash_dkv"):
         plan = attention_cuda.attention_plan(kernel, *case)
         assert plan == attention_cuda.schedule_plan(kernel, *case, plan["sms"], plan["per_sm"])
     o2, lse2 = attention_cuda.splash_fwd(q, k, v)
+    dq2 = attention_cuda.splash_dq(q, k, v, dout, lse_ref, di)
     dk2, dv2 = attention_cuda.splash_dkv(q, k, v, dout, lse_ref, di)
-    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse) and torch.equal(dq2, dq)
     assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
 
 
@@ -1293,21 +1298,23 @@ def test_torch_persistent_attention_schedule_covers_every_item_on_card(cuda_devi
     (allocated uninitialised) are finite and match the plain versions
     everywhere: no item was left out."""
     for case in ((4, 512, 32, 64), (4, 1024, 32, 128)):
-        for kernel in ("splash_fwd", "splash_dkv"):
+        for kernel in ("splash_fwd", "splash_dq", "splash_dkv"):
             plan = attention_cuda.attention_plan(kernel, *case)
             sched = attention_cuda.attention_schedule(kernel, *case, plan["ctas"])
             items = [(bh, tile) for cta in sched for bh, tile, _ in cta]
-            assert len(items) == len(set(items)) == plan["items"]
+            assert len(items) == len(set(items)) == case[0] * case[2] * plan["tiles"]
         q, k, v, dout = _attn_inputs(case, torch.bfloat16, cuda_device)
         o, lse = attention_cuda.splash_fwd(q, k, v)
         o_ref, lse_ref = attn_ref.causal_attention_reference(q, k, v)
         di = attn_ref.attention_di(o_ref, dout)
+        dq = attention_cuda.splash_dq(q, k, v, dout, lse_ref, di)
+        dq_ref = attn_ref.attention_dq_reference(q, k, v, dout, lse_ref, di)
         dk, dv = attention_cuda.splash_dkv(q, k, v, dout, lse_ref, di)
         dk_ref, dv_ref = attn_ref.attention_dkv_reference(q, k, v, dout, lse_ref, di)
-        for got, want in ((o, o_ref), (dk, dk_ref), (dv, dv_ref)):
+        for got, want in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
             assert bool(torch.isfinite(got).all())
             _assert_attn_close(got, want)
-        del q, k, v, dout, o, dk, dv, o_ref, dk_ref, dv_ref
+        del q, k, v, dout, o, dq, dk, dv, o_ref, dq_ref, dk_ref, dv_ref
 
 
 @pytest.mark.cuda
