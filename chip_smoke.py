@@ -21,12 +21,17 @@ hand-written CUDA kernels, and checks them:
   6. serving, bfloat16: greedy decode timed, unmerged (K2) and merged (K1);
   7. training, float32, 2 layers: one optimizer step on the card against a
      CPU copy on the plain path, merged training off (K2, K3) and on (K4),
-     and with splash attention (K17 forward, K18 and K19 backward);
+     with splash attention (K17 forward, K18 and K19 backward),
+     and with remat "dots" against the same step without remat (K2 twice);
   8. training, bfloat16, all 22 layers, bs 4 x ga 8 x seq 512 through
      ``Trainer``: merged training off, then on from the same state on the
      same batches, timed and profiled; then with splash attention, merged
      off, from the same state on the same batches (K17-K19 704 launches
      each, the first loss against the einsum run's), timed and profiled;
+     then with remat "dots" and "nothing" from the same state on the same
+     batches, timed and profiled beside the run without remat (K2 twice an
+     adapted linear and micro-batch, K3 once), one merged-on step under
+     "dots" (K4 once) and one splash step under "nothing" (K17 twice);
   9. the quantized base: K7/K5 (forward) and K8/K6 (dx) against their plain
      versions at the slice's shapes, timed beside their bound and one
      PyTorch call on the dequantized matrix, and their autograd Functions;
@@ -93,16 +98,20 @@ hand-written CUDA kernels, and checks them:
  18. the Alpaca + MMLU harness (``scripts/run_alpaca.py``, as users run
      it): the tiny smoke Llama in float32 at ``--bits`` 16, 8 and 4 on the
      card against the same run on the CPU (the logged losses, eval_loss and
-     the MMLU choice logits within 1e-4, launches exact), then at
+     the MMLU choice logits within 1e-4, launches exact), and at 16 with
+     ``--pack=True`` likewise; a run resumed at step 2 (``--resume=True``)
+     against a straight one, the losses within 1e-4; then at
      TinyLlama-1.1B widths (22 layers, bf16, random seeded weights through
      the harness's ``build`` seam) at ``--bits`` 16 and 4 with the harness's
-     defaults: launches exact (K3 4,928; K6 4,832), the wall and device-busy
-     ms a step, the MMLU scoring and predict seconds, the peak memory.
+     defaults, and at 16 with ``--pack=True``: launches exact (K3 4,928; K6
+     4,832), the wall and device-busy ms a step, the MMLU scoring and
+     predict seconds, the peak memory, the packed rows and their token
+     efficiency.
 
 Serving (5, 6, 10 and 11) runs before the experiments (13-16).  Every
 profile is taken in ``benchlib.device_profile``'s window, padded at both
 ends so that it keeps every kernel's record (ROADMAP C.10).  Each main path (6, 8 off, 8 on, 8
-with splash, each configuration of 11, each step of 12, the bench of 13,
+with splash, each remat run and step of 8, each configuration of 11, each step of 12, the bench of 13,
 each script of 14, 15 and 16, the attention bench of 17, each harness run
 of 18) zeroes the launch counts of every kernel
 just before it and reads them just after.  Any failed check
@@ -125,6 +134,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -1117,7 +1127,7 @@ def check_step(model, data: dict, merged: str, expect: dict, tag: str) -> dict:
     a CPU copy on the plain path.  The card's step launches exactly
     ``expect``; the loss, every factor's gradient and the updated factors
     agree within the F32_TRAIN_* tolerances.  ``tag`` opens the printed
-    line; returns the card's launch counts."""
+    line; returns the card's launch counts, loss and factor gradients."""
     import copy
 
     from sparse_matrix_fine_tuning_torch.training.trainer import Trainer
@@ -1156,7 +1166,7 @@ def check_step(model, data: dict, merged: str, expect: dict, tag: str) -> dict:
     print(f"{tag}: loss {loss:.6f} card, {want_loss:.6f} CPU; worst factor gradient error "
           f"{worst_g:.2e} of its scale; worst update difference {worst_p:.2e} (lr {TRAIN_LR}); "
           f"launches {expect}", flush=True)
-    return launches
+    return {"launches": launches, "loss": loss, "grads": {n: g for n, (g, _) in got.items()}}
 
 
 def train_timed(model, merged: str, tag: str, extra: str = "") -> dict:
@@ -1164,8 +1174,8 @@ def train_timed(model, merged: str, tag: str, extra: str = "") -> dict:
     warm-up and 3 timed optimizer steps, the launch counts zeroed just
     before the first step and read just after the last, then one step
     under the profiler.  Prints step ms, tokens/s, MFU, peak memory and the
-    idle share after ``tag`` (and ``extra``); returns the losses and the
-    launch counts."""
+    idle share after ``tag`` (and ``extra``); returns the losses, the
+    launch counts and those numbers."""
     from sparse_matrix_fine_tuning_torch.training.trainer import Trainer
 
     data = train_data(TRAIN_BS * TRAIN_GA * TRAIN_STEPS, TRAIN_SEQ, SEED + 10)
@@ -1205,7 +1215,8 @@ def train_timed(model, merged: str, tag: str, extra: str = "") -> dict:
           f"+ 12 L h T), {extra}peak memory {peak_gb:.2f} GB, device busy "
           f"{busy if busy is None else round(busy, 2)} ms/step, idle share {idle}; launches "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
-    return {"losses": losses, "launches": launches}
+    return {"losses": losses, "launches": launches, "step_ms": step_ms, "busy_ms": busy,
+            "peak_gb": peak_gb, "mfu": mfu}
 
 
 def phase_train_f32(card: str) -> None:
@@ -1223,9 +1234,28 @@ def phase_train_f32(card: str) -> None:
     data = train_data(c["bs"] * c["ga"], c["seq"], SEED + 9)
     n = 7 * c["layers"] * c["ga"]
     expect = {"off": {"monarch_add": n, "monarch_bwd": n}, "on": {"monarch_dw_fused": n}}
+    steps = {}
     for merged in ("off", "on"):
         model.load_state_dict(state)
-        check_step(model, data, merged, expect[merged], f"[train-f32] {card}: merged {merged}")
+        steps[merged] = check_step(model, data, merged, expect[merged],
+                                   f"[train-f32] {card}: merged {merged}")
+    # remat "dots": the forward kernel again in the recompute, K3 once; the
+    # step against the one without remat on the card, then the CPU copy's
+    model.load_state_dict(state)
+    set_remat(model, "dots")
+    remat = check_step(model, data, "off", {"monarch_add": 2 * n, "monarch_bwd": n},
+                       f"[train-f32] {card}: remat dots, merged off")
+    plain = steps["off"]
+    require(abs(remat["loss"] - plain["loss"]) <= F32_TRAIN_LOSS_RTOL * abs(plain["loss"]),
+            f"remat dots: loss {remat['loss']}, {plain['loss']} without remat")
+    worst = 0.0
+    for name, grad in plain["grads"].items():
+        err = float((remat["grads"][name] - grad).abs().max()) / float(grad.abs().max())
+        require(err <= F32_TRAIN_GRAD_TOL, f"remat dots: grad of {name} {err:.2e} of its scale")
+        worst = max(worst, err)
+    print(f"[train-f32] {card}: remat dots against no remat on the card: loss {remat['loss']:.6f} "
+          f"/ {plain['loss']:.6f}, worst factor gradient error {worst:.2e} of its scale "
+          f"(tol {F32_TRAIN_GRAD_TOL})", flush=True)
     del model
     model = train_model("float32", c["layers"], attention_impl="splash")
     check_step(model, data, "off", {**expect["off"], **dict.fromkeys(ATTN_KERNELS, n // 7)},
@@ -1242,10 +1272,7 @@ def phase_train_bf16(card: str) -> dict:
     factors = {n: p.detach().clone() for n, p in model.named_parameters() if "blkdiag" in n}
     runs = {}
     for merged in ("off", "on"):
-        with torch.no_grad():
-            for n, p in model.named_parameters():
-                if n in factors:
-                    p.copy_(factors[n])
+        restore_factors(model, factors)
         runs[merged] = train_timed(model, merged, f"[train-bf16] {card}: merged {merged}")
         launches = runs[merged]["launches"]
         want = N_ADAPTED * TRAIN_GA * TRAIN_STEPS
@@ -1261,7 +1288,126 @@ def phase_train_bf16(card: str) -> dict:
     torch.cuda.empty_cache()
     return {"launches": {**runs["off"]["launches"],
                          "monarch_dw_fused": runs["on"]["launches"]["monarch_dw_fused"]},
-            "losses": runs["off"]["losses"]}
+            "losses": runs["off"]["losses"], "off": runs["off"]}
+
+
+@torch.no_grad()
+def restore_factors(model, factors: dict) -> None:
+    for n, p in model.named_parameters():
+        if n in factors:
+            p.copy_(factors[n])
+
+
+def set_remat(model, policy) -> None:
+    """Remat on with ``policy`` ("dots" or "nothing"), or off (None): the
+    decoder stack reads its config at every forward."""
+    cfg = dataclasses.replace(model.config, remat=policy is not None,
+                              remat_policy=policy or "nothing")
+    model.config = model.model.config = cfg
+
+
+def remat_step(model, factors: dict, merged: str, policy) -> tuple[float, dict]:
+    """One optimizer step (bs 4 x ga 8 x seq 512) from ``factors`` with remat
+    ``policy`` (None: off) through a fresh Trainer on ``train_timed``'s first
+    batch; the loss and the step's launches."""
+    from sparse_matrix_fine_tuning_torch.training.trainer import Trainer
+
+    restore_factors(model, factors)
+    set_remat(model, policy)
+    data = train_data(TRAIN_BS * TRAIN_GA, TRAIN_SEQ, SEED + 10)
+    tr = Trainer(model, train_args(merged, TRAIN_BS, TRAIN_GA, 1), train_data=data,
+                 extra_trainable_paths=(), device="cuda")
+    batch, _ = next(tr._batches(data, TRAIN_BS, shuffle=False, accum=TRAIN_GA))
+    torch.cuda.synchronize()
+    reset_counts()
+    loss = float(tr.train_step(batch))
+    launches = counts()
+    tr.close()
+    set_remat(model, None)
+    return loss, launches
+
+
+def phase_train_remat(card: str, plain: dict) -> None:
+    """Remat at full size (``train_timed``: TinyLlama-1.1B widths, all 22
+    layers, bf16, bs 4 x ga 8 x seq 512, merged off) from
+    ``phase_train_bf16``'s factors on its batches, "dots" then "nothing",
+    each beside ``plain`` (that phase's merged-off run, no remat): ms a
+    step, busy, idle share, peak memory, MFU (the same FLOPs: the recompute
+    is no useful work).  Launches, derived from the code: the recompute
+    runs each adapted linear's forward again, so K2 launches twice an
+    adapted linear and micro-batch (2 x 154 x 8 x 4 = 9,856) under either
+    policy ("dots" keeps only ``aten.mm``'s outputs, and K2 adds into one
+    of them); K3 once (4,928).  The losses within
+    ``BF16_MERGED_LOSS_ATOL`` of ``plain``'s.  Then one step from the same
+    factors with merged training on, without remat and under "dots": K4
+    once an adapted linear and micro-batch (1,232) in both, the merged
+    product's output kept, so no kernel of ours in the recompute; the
+    losses within the same tolerance.  Then a splash model (the same
+    weights, ``attention_impl="splash"``): one step without remat and one
+    under "nothing", where K17 runs twice a layer and micro-batch (352),
+    K18 and K19 once (176), K2 2,464 and K3 1,232."""
+    model = train_model("bfloat16", MODEL["num_hidden_layers"])
+    factors = {n: p.detach().clone() for n, p in model.named_parameters() if "blkdiag" in n}
+    want = N_ADAPTED * TRAIN_GA * TRAIN_STEPS
+    rows = {"none": plain}
+    for policy in ("dots", "nothing"):
+        restore_factors(model, factors)
+        set_remat(model, policy)
+        run = train_timed(model, "off", f"[train-remat] {card}: remat {policy}, merged off")
+        set_remat(model, None)
+        expect = {"monarch_add": 2 * want, "monarch_bwd": want}
+        launches = run["launches"]
+        require(launches == {**dict.fromkeys(launches, 0), **expect},
+                f"remat {policy}: launches {launches}; expected {expect}")
+        diff = max(abs(a - b) for a, b in zip(run["losses"], plain["losses"]))
+        require(diff <= BF16_MERGED_LOSS_ATOL, f"remat {policy}: losses {run['losses']}, "
+                                               f"{plain['losses']} without remat")
+        rows[policy] = {**run, "loss_diff": diff}
+    for policy, r in rows.items():
+        busy = r["busy_ms"]
+        idle = f"{1 - busy / r['step_ms']:.3f}" if busy is not None else "not measured"
+        print(f"[train-remat] {card}: remat {policy:7s}: step {r['step_ms']:.2f} ms (wall, "
+              f"median of {TRAIN_STEPS - 1}), device busy "
+              f"{busy if busy is None else round(busy, 2)} ms, idle share {idle}, peak "
+              f"{r['peak_gb']:.2f} GB, MFU {100 * r['mfu']:.2f}%, largest loss difference "
+              f"from no remat {r.get('loss_diff', 0.0):.5f}", flush=True)
+    RECORDS.append({"train_remat": {p: {k: r[k] for k in ("step_ms", "busy_ms", "peak_gb", "mfu",
+                                                         "losses")} for p, r in rows.items()},
+                    "card": card})
+    steps = {}
+    for policy in (None, "dots"):
+        steps[policy] = remat_step(model, factors, "on", policy)
+        expect = {"monarch_dw_fused": N_ADAPTED * TRAIN_GA}
+        launches = steps[policy][1]
+        require(launches == {**dict.fromkeys(launches, 0), **expect},
+                f"merged on, remat {policy}: launches {launches}; expected {expect}")
+    diff = abs(steps["dots"][0] - steps[None][0])
+    require(diff <= BF16_MERGED_LOSS_ATOL, f"merged on: remat dots loss {steps['dots'][0]}, "
+                                           f"{steps[None][0]} without")
+    print(f"[train-remat] {card}: merged on, one step: loss {steps['dots'][0]:.5f} under dots, "
+          f"{steps[None][0]:.5f} without remat; launches {expect} in both", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    model = train_model("bfloat16", MODEL["num_hidden_layers"], attention_impl="splash")
+    per_layer = MODEL["num_hidden_layers"] * TRAIN_GA
+    steps = {}
+    for policy in (None, "nothing"):
+        steps[policy] = remat_step(model, factors, "off", policy)
+        twice = 2 if policy else 1
+        expect = {"monarch_add": twice * N_ADAPTED * TRAIN_GA, "monarch_bwd": N_ADAPTED * TRAIN_GA,
+                  "splash_fwd": twice * per_layer, "splash_dq": per_layer,
+                  "splash_dkv": per_layer}
+        launches = steps[policy][1]
+        require(launches == {**dict.fromkeys(launches, 0), **expect},
+                f"splash, remat {policy}: launches {launches}; expected {expect}")
+    diff = abs(steps["nothing"][0] - steps[None][0])
+    require(diff <= BF16_MERGED_LOSS_ATOL, f"splash: remat nothing loss {steps['nothing'][0]}, "
+                                           f"{steps[None][0]} without")
+    print(f"[train-remat] {card}: splash attention, one step: loss {steps['nothing'][0]:.5f} "
+          f"under nothing, {steps[None][0]:.5f} without remat; launches under nothing {expect}",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
 
 
 # -- splash attention (K17-K19) ---------------------------------------------------
@@ -2584,57 +2730,63 @@ def alpaca_expect(bits: int, adapted: int, forwards: int, micro: int, forward: s
 
 
 def phase_alpaca_smoke(card: str) -> dict:
-    """(a) The tiny smoke Llama (float32, TF32 off) at ``--bits`` 16, 8 and 4
-    on the card and on the CPU (``--platform=cpu``, the plain path,
-    launching nothing): the logged losses, ``eval_loss`` and the MMLU choice
-    logits agree within ``ALPACA_TOL``, ``eval_results.json`` and
-    ``predictions.jsonl`` are written, and the card's launches are exact
-    (``alpaca_expect``).  Returns the launches of the card's runs."""
+    """(a) The tiny smoke Llama (float32, TF32 off) at ``--bits`` 16, 8 and 4,
+    and at 16 with ``--pack=True``, on the card and on the CPU
+    (``--platform=cpu``, the plain path, launching nothing): the logged
+    losses, ``eval_loss`` and the MMLU choice logits agree within
+    ``ALPACA_TOL``, ``eval_results.json`` and ``predictions.jsonl`` are
+    written, and the card's launches are exact (``alpaca_expect``).  Then
+    ``alpaca_resume``.  Returns the launches of the card's runs."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tol = ALPACA_TOL
     micro = ALPACA_STEPS * ALPACA_GA
     launches = {}
-    for bits in (16, 8, 4):
-        out = os.path.join(OUT_DIR, f"alpaca_{bits}")
+    for bits, extra in ((16, []), (8, []), (4, []), (16, ["--pack=True"])):
+        name = f"int{bits}" if bits < 16 else "f32" + (" packed" if extra else "")
+        out = os.path.join(OUT_DIR, f"alpaca_{bits}" + ("_pack" if extra else ""))
         for d in (out, f"{out}_cpu"):  # the run logger appends to metrics.jsonl
             shutil.rmtree(d, ignore_errors=True)
-        argv = [*ALPACA_ARGV, "--bits", str(bits)]
+        argv = [*ALPACA_ARGV, "--bits", str(bits), *extra]
         card_run = alpaca_run([*argv, f"--output_dir={out}"])
         cpu_run = alpaca_run([*argv, f"--output_dir={out}_cpu", "--platform=cpu"])
         require(not any(cpu_run["launches"].values()),
-                f"alpaca int{bits}: the CPU run launched {cpu_run['launches']}")
+                f"alpaca {name}: the CPU run launched {cpu_run['launches']}")
         require(card_run["forwards"] == cpu_run["forwards"] > micro,
-                f"alpaca int{bits}: {card_run['forwards']} forwards on the card, "
+                f"alpaca {name}: {card_run['forwards']} forwards on the card, "
                 f"{cpu_run['forwards']} on the CPU")
         expect = alpaca_expect(bits, 7 * 2, card_run["forwards"], micro, "monarch_add")
         got = card_run["launches"]
         require(got == {**dict.fromkeys(got, 0), **expect},
-                f"alpaca int{bits}: launches {got}; expected {expect}")
+                f"alpaca {name}: launches {got}; expected {expect}")
         for k, v in expect.items():
             launches[k] = launches.get(k, 0) + v
         losses = [[r["loss"] for r in _alpaca_records(d) if "loss" in r]
                   for d in (out, f"{out}_cpu")]
         require(len(losses[0]) == len(losses[1]) == ALPACA_STEPS, f"losses {losses}")
         err = max(abs(a - b) - tol["rtol"] * abs(b) for a, b in zip(*losses))
-        require(err <= tol["atol"], f"alpaca int{bits}: losses {losses[0]} card, "
+        require(err <= tol["atol"], f"alpaca {name}: losses {losses[0]} card, "
                                     f"{losses[1]} CPU")
         m_card, m_cpu = card_run["run"].metrics, cpu_run["run"].metrics
         require(abs(m_card["eval_loss"] - m_cpu["eval_loss"])
                 <= tol["atol"] + tol["rtol"] * abs(m_cpu["eval_loss"]),
-                f"alpaca int{bits}: eval_loss {m_card['eval_loss']} card, {m_cpu['eval_loss']} CPU")
+                f"alpaca {name}: eval_loss {m_card['eval_loss']} card, {m_cpu['eval_loss']} CPU")
         logits = [torch.from_numpy(r["run"].choice_logits()) for r in (card_run, cpu_run)]
         gap = float(((logits[0] - logits[1]).abs() - tol["rtol"] * logits[1].abs()).max())
         n_mmlu = len(card_run["run"].mmlu_eval)
         require(logits[0].shape == logits[1].shape == (n_mmlu, 4) and gap <= tol["atol"],
-                f"alpaca int{bits}: MMLU choice logits differ by {gap} past the rtol")
-        for name in ("eval_results.json", "predictions.jsonl"):
-            require(os.path.getsize(os.path.join(out, "alpaca", name)) > 0, f"no {name}")
+                f"alpaca {name}: MMLU choice logits differ by {gap} past the rtol")
+        for fname in ("eval_results.json", "predictions.jsonl"):
+            require(os.path.getsize(os.path.join(out, "alpaca", fname)) > 0, f"no {fname}")
         preds = [[r["prediction"] for r in _alpaca_records(d, "predictions.jsonl")]
                  for d in (out, f"{out}_cpu")]
         same = sum(a == b for a, b in zip(*preds))
         acc = [m["eval_mmlu_eval_accuracy"] for m in (m_card, m_cpu)]
-        print(f"[alpaca] {card}: smoke, {f'int{bits}' if bits < 16 else 'f32'} base: losses "
+        if extra:
+            packed = card_run["run"].trainer.train_data
+            name += (f" ({len(packed['input_ids'])} rows of {packed['input_ids'].shape[1]}, "
+                     f"{int(packed['attention_mask'].sum())} tokens)")
+        print(f"[alpaca] {card}: smoke, {name} base: losses "
               f"{losses[0]} card, {losses[1]} CPU; eval_loss {m_card['eval_loss']} / "
               f"{m_cpu['eval_loss']}; MMLU choice logits max |card - CPU| "
               f"{float((logits[0] - logits[1]).abs().max()):.2e} (tol {tol}); MMLU accuracy "
@@ -2643,7 +2795,43 @@ def phase_alpaca_smoke(card: str) -> dict:
               f"{card_run['seconds']:.2f} s "
               f"card, {cpu_run['seconds']:.2f} s CPU", flush=True)
         del card_run, cpu_run
+    for k, v in alpaca_resume(card).items():
+        launches[k] = launches.get(k, 0) + v
     return launches
+
+
+def alpaca_resume(card: str) -> dict:
+    """The smoke argv (no MMLU, no predictions) on the card: 2·N optimizer
+    steps straight (N = ``ALPACA_STEPS``), then N into another directory and
+    a second ``run`` there with ``--max_steps`` 2·N and ``--resume=True``,
+    which loads the checkpoint at N and goes on.  The resumed run's launches
+    exact (its N steps alone); the logged losses of steps N+1 to 2·N (and
+    1 to N) within ``ALPACA_TOL`` of the straight run's.  Returns the
+    resumed run's launches."""
+    tol = ALPACA_TOL
+    argv = [*ALPACA_ARGV, "--do_mmlu_eval=False", "--do_predict=False"]
+    straight, cut = (os.path.join(OUT_DIR, f"alpaca_{name}") for name in ("straight", "resumed"))
+    for d in (straight, cut):
+        shutil.rmtree(d, ignore_errors=True)
+    alpaca_run([*argv, f"--max_steps={2 * ALPACA_STEPS}", f"--output_dir={straight}"])
+    alpaca_run([*argv, f"--max_steps={ALPACA_STEPS}", f"--output_dir={cut}"])
+    resumed = alpaca_run([*argv, f"--max_steps={2 * ALPACA_STEPS}", "--resume=True",
+                          f"--output_dir={cut}"])
+    require(resumed["run"].trainer.step == 2 * ALPACA_STEPS,
+            f"alpaca resume: the resumed run ended at step {resumed['run'].trainer.step}")
+    expect = alpaca_expect(16, 7 * 2, resumed["forwards"], ALPACA_STEPS * ALPACA_GA,
+                           "monarch_add")
+    got = resumed["launches"]
+    require(got == {**dict.fromkeys(got, 0), **expect},
+            f"alpaca resume: launches {got}; expected {expect}")
+    losses = [[r["loss"] for r in _alpaca_records(d) if "loss" in r] for d in (cut, straight)]
+    require(len(losses[0]) == len(losses[1]) == 2 * ALPACA_STEPS, f"alpaca resume: {losses}")
+    err = max(abs(a - b) - tol["rtol"] * abs(b) for a, b in zip(*losses))
+    require(err <= tol["atol"], f"alpaca resume: losses {losses[0]} resumed, {losses[1]} straight")
+    print(f"[alpaca] {card}: smoke, resumed at step {ALPACA_STEPS} to {2 * ALPACA_STEPS}: losses "
+          f"{losses[0]} (the first {ALPACA_STEPS} before the resume), straight {losses[1]}; "
+          f"{resumed['forwards']} forwards in the resumed run; launches {expect}", flush=True)
+    return expect
 
 
 def phase_alpaca_full(card: str) -> dict:
@@ -2656,8 +2844,9 @@ def phase_alpaca_full(card: str) -> dict:
     trainer's ``step_context``: step 0 under the profiler (device busy),
     step 1 alone (wall ms, the card synchronised around it, and its peak
     memory); the MMLU scoring and predict seconds the harness measured;
-    the peak memory over the run and what stays resident after it.
-    Returns the launches."""
+    the peak memory over the run and what stays resident after it.  Then
+    the bf16 base with ``--pack=True``: the same, beside the packed rows'
+    count and token efficiency.  Returns the launches."""
     from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig
     from sparse_matrix_fine_tuning_torch.models.llama import LlamaForCausalLM
     from sparse_matrix_fine_tuning_torch.scripts import run_alpaca
@@ -2672,8 +2861,8 @@ def phase_alpaca_full(card: str) -> dict:
         return run_alpaca.adapt_model(LlamaForCausalLM(cfg, device="cuda", generator=g), args,
                                       peft_config)
 
-    for bits in (16, 4):
-        base = "int4" if bits == 4 else "bf16"
+    for bits, extra in ((16, []), (4, []), (16, ["--pack=True"])):
+        base = ("int4" if bits == 4 else "bf16") + (", packed" if extra else "")
         steps = {}
 
         @contextlib.contextmanager
@@ -2696,9 +2885,9 @@ def phase_alpaca_full(card: str) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         before_gb = torch.cuda.memory_allocated() / 1e9
-        out = os.path.join(OUT_DIR, f"alpaca_full_{bits}")
+        out = os.path.join(OUT_DIR, f"alpaca_full_{bits}" + ("_pack" if extra else ""))
         shutil.rmtree(out, ignore_errors=True)
-        full = alpaca_run([*ALPACA_FULL_ARGV, "--bits", str(bits), f"--output_dir={out}"],
+        full = alpaca_run([*ALPACA_FULL_ARGV, "--bits", str(bits), *extra, f"--output_dir={out}"],
                           build=build_full, step_context=harness_step)
         memory = device_memory_stats()["cuda:0"]
         # step 1 reset the peak: the run's is the larger of the peaks before and since
@@ -2707,7 +2896,7 @@ def phase_alpaca_full(card: str) -> dict:
         expect = alpaca_expect(bits, N_ADAPTED, full["forwards"], micro, "monarch_kernel")
         got = full["launches"]
         require(got == {**dict.fromkeys(got, 0), **expect},
-                f"alpaca full width int{bits}: launches {got}; expected {expect}")
+                f"alpaca full width, {base} base: launches {got}; expected {expect}")
         for k, v in expect.items():
             launches[k] = launches.get(k, 0) + v
         metrics, a = full["run"].metrics, full["run"].trainer.args
@@ -2716,11 +2905,19 @@ def phase_alpaca_full(card: str) -> dict:
         require(len(losses) == ALPACA_STEPS and all(map(math.isfinite, losses)),
                 f"losses {losses}")
         require(len(steps.get("wall_ms", [])) == ALPACA_STEPS - 1 and "busy_ms" in steps,
-                f"alpaca full width int{bits}: the harness's steps seen {steps}")
+                f"alpaca full width, {base} base: the harness's steps seen {steps}")
         wall, busy = steps["wall_ms"][0], steps["busy_ms"]
+        data = full["run"].trainer.train_data
+        rows, width = data["input_ids"].shape
+        packing = (f"{rows} training rows of {width} tokens, token efficiency "
+                   f"{int(data['attention_mask'].sum()) / (rows * width):.4f}; ")
+        RECORDS.append({"alpaca_full": base, "rows": rows, "width": width,
+                        "tokens": int(data["attention_mask"].sum()), "step1_wall_ms": wall,
+                        "step0_busy_ms": busy, "card": card})
         idle = f"{1 - busy / wall:.3f}" if busy is not None else "not measured"
         print(f"[alpaca-full] {card}: TinyLlama-1.1B widths, 22 layers, bf16, {base} base, "
-              f"dropout 0.1: losses {losses}, eval_loss {metrics['eval_loss']}; the harness's "
+              f"dropout 0.1: {packing}losses {losses}, eval_loss {metrics['eval_loss']}; "
+              f"the harness's "
               f"steps (ga {a.gradient_accumulation_steps} x bs {a.per_device_train_batch_size}; "
               f"training forwards by shape {full['train_shapes']}): step 1 wall {wall:.2f} ms "
               f"(alone, the card synchronised around it), step 0 device busy "
@@ -2781,6 +2978,8 @@ def main() -> None:
     training = phase_train_bf16(card)
     splash = phase_train_splash(card, training["losses"])
     lap("bf16 training with splash attention")
+    phase_train_remat(card, training["off"])
+    lap("bf16 training with remat")
     phase_bench_attention(card)
     lap("attention bench")
     q8training = phase_quant_train_bf16(card, 8)

@@ -14,8 +14,11 @@ A copy of part of ``sparse_matrix_fine_tuning_tpu/data/alpaca.py``
   * training rows are right-padded to the longest row (at most
     ``source_max_len + target_max_len``); attention mask = not-pad.
 
-Sequence packing (``pack_causal_lm``, ``pack_tokenized``) is not copied
-yet: ROADMAP.md queue A item 17b.
+Sequence packing (``pack_causal_lm``, ``pack_tokenized``, JAX
+data/alpaca.py:127-228): several examples a row, bin-packed best-fit
+decreasing, with ``segment_ids`` (1..n a row, 0 = pad) that the model turns
+into per-segment positions and segment-masked attention
+(``models/llama.py``); each segment's first label is ``IGNORE_INDEX``.
 """
 
 from __future__ import annotations
@@ -121,6 +124,110 @@ def collate_causal_lm(items: Sequence[dict], tokenizer, *,
     if not predict_with_generate:
         out["labels"] = labels
     return out
+
+
+def _bin_pack_decreasing(lengths: Sequence[int], max_len: int) -> list:
+    """Bin indices by BEST-fit decreasing; each bin's lengths sum <= max_len.
+
+    bisect on a sorted free-space list keeps this ~O(n log n + n * bins
+    memmove-in-C) -- a naive first-fit scan is O(n * bins) pure Python,
+    minutes of startup on the 52k-example alpaca set."""
+    import bisect
+    order = sorted(range(len(lengths)), key=lambda i: -lengths[i])
+    bins: list[list[int]] = []
+    free: list[tuple] = []  # sorted (space, bin_idx)
+    for i in order:
+        L = min(int(lengths[i]), max_len)
+        j = bisect.bisect_left(free, (L, -1))
+        if j < len(free):
+            space, b = free.pop(j)
+            bins[b].append(i)
+            bisect.insort(free, (space - L, b))
+        else:
+            bins.append([i])
+            bisect.insort(free, (max_len - L, len(bins) - 1))
+    return bins
+
+
+def _fill_bins(rows: list, bins: list, max_len: int, pad_id: int):
+    """rows: [(ids, labels)] ragged; emit the packed arrays + efficiency."""
+    n = len(bins)
+    p_ids = np.full((n, max_len), pad_id, np.int32)
+    p_seg = np.zeros((n, max_len), np.int32)
+    p_lab = np.full((n, max_len), IGNORE_INDEX, np.int32)
+    true_tokens = 0
+    for r, members in enumerate(bins):
+        pos = 0
+        for s, i in enumerate(members, start=1):
+            r_ids, r_lab = rows[i]
+            L = len(r_ids)
+            p_ids[r, pos:pos + L] = r_ids
+            p_lab[r, pos:pos + L] = r_lab
+            p_seg[r, pos:pos + L] = s
+            pos += L
+        true_tokens += pos
+    packed = {"input_ids": p_ids,
+              "attention_mask": (p_seg > 0).astype(np.int32),
+              "segment_ids": p_seg, "labels": p_lab}
+    return packed, true_tokens / max(n * max_len, 1)
+
+
+def pack_tokenized(data: dict, max_len: int):
+    """Pack ALREADY-TOKENIZED right-padded rows into segment-masked rows.
+
+    Generic sibling of pack_causal_lm for harnesses that tokenize first
+    (run_reasoning.py): takes {input_ids, attention_mask, labels}, extracts
+    each row's true tokens (mask > 0 -- works even with a leading masked
+    sink token), bin-packs them, and emits segment ids.  Each segment's
+    first token label is forced to IGNORE (seam masking for the shifted
+    loss).  Returns (packed dict, token efficiency).
+    """
+    ids = np.asarray(data["input_ids"])
+    mask = np.asarray(data["attention_mask"])
+    labels = np.asarray(data["labels"])
+    rows = []
+    for i in range(len(ids)):
+        sel = mask[i] > 0
+        r_ids, r_lab = ids[i][sel][:max_len], labels[i][sel][:max_len].copy()
+        if len(r_lab):
+            r_lab[0] = IGNORE_INDEX
+        rows.append((r_ids, r_lab))
+    bins = _bin_pack_decreasing([len(r[0]) for r in rows], max_len)
+    pad_id = int(ids[mask == 0][0]) if (mask == 0).any() else 0
+    return _fill_bins(rows, bins, max_len, pad_id)
+
+
+def pack_causal_lm(items: Sequence[dict], tokenizer, *,
+                   max_len: int = 2048, source_max_len: int = 1024,
+                   target_max_len: int = 256, train_on_source: bool = False,
+                   task: str = "alpaca"):
+    """SEQUENCE PACKING: several examples per row with segment ids.
+
+    The sibling of group_by_length: instead of trimming
+    per-batch padding, short examples are bin-packed (first-fit decreasing)
+    into full ``max_len`` rows.  ``segment_ids`` (1..n per row, 0 = pad)
+    drive block-diagonal attention masking and per-segment RoPE restarts in
+    models/llama.py, so the packed forward is exactly equivalent to running
+    each example alone.  Each segment's FIRST token gets an IGNORE label
+    (it is BOS; this also keeps the shifted loss from pairing a segment's
+    last logit with the next segment's first token when train_on_source).
+
+    Returns ({input_ids, attention_mask, segment_ids, labels}, efficiency)
+    where efficiency = true tokens / (rows * max_len).
+    """
+    pad_id = tokenizer.pad_token_id
+    seqs = []
+    for item in items:
+        _, ids, labels = _encode_example(
+            item, tokenizer, source_max_len=source_max_len,
+            target_max_len=target_max_len, train_on_source=train_on_source,
+            task=task)
+        ids, labels = ids[:max_len], labels[:max_len]
+        labels[0] = IGNORE_INDEX  # segment seam / BOS
+        seqs.append((ids, labels))
+
+    bins = _bin_pack_decreasing([len(s[0]) for s in seqs], max_len)
+    return _fill_bins(seqs, bins, max_len, pad_id)
 
 
 def train_eval_split(items: Sequence[dict], eval_dataset_size: int, seed: int = 42):

@@ -27,10 +27,25 @@ probabilities in the keys' dtype); "splash" the causal flash attention of
 real query).  "dpa" and "splash" serve the training path (no cache);
 prefill and decode over a cache take the einsum attention, as in JAX.
 
-Not ported yet: ``UnitOffsetRMSNorm`` (Gemma), layer hooks, ``segment_ids``
-packing and remat (ROADMAP.md queue A: "The Llama model, training part",
-"Interventions", "Other model families"); a config or call asking for them
-is refused.
+Sequence packing (the JAX llama.py:229-291): ``segment_ids`` (b, t), 1..n
+a row and 0 for padding, restart the RoPE positions at each segment and add
+-1e9 where a key lies in another segment, after the causal and padding
+terms, in the activation dtype; the bias is then (b, 1, t, t).  "splash"
+refuses it (its kernels are purely causal), and so does decode.
+
+Remat (``config.remat``, the JAX llama.py:293-317): in training with
+gradients on, each decoder layer runs under ``torch.utils.checkpoint``
+(non-reentrant; the random state is replayed, so dropout masks repeat).
+``remat_policy`` "nothing" keeps only each layer's input; "dots" also
+keeps the outputs of the products with no batch dimension (``aten.mm`` and
+``aten.addmm``: the base projections), as JAX's
+``dots_with_no_batch_dims_saveable``, and recomputes the rest (the Monarch
+kernels, attention's batched products, norms and activations).  On the
+card the recompute launches the layer's forward kernels again.
+
+Not ported yet: ``UnitOffsetRMSNorm`` (Gemma) and layer hooks (ROADMAP.md
+queue A: "Interventions", "Other model families"); a config or call asking
+for them is refused.
 
 The model is built on the card unless ``device="cpu"`` is passed
 (``utils/device.py``).
@@ -38,12 +53,19 @@ The model is built on the card unless ``device="cpu"`` is passed
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from sparse_matrix_fine_tuning_torch.kernels.attention_cuda import splash_attention
 from sparse_matrix_fine_tuning_torch.models.config import ATTENTION_IMPLS, LlamaConfig
@@ -138,6 +160,37 @@ def _dpa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torc
 def _linear(cfg: LlamaConfig, in_f: int, out_f: int, device, generator, bias: bool = False):
     return Linear(in_f, out_f, bias, dtype=cfg.compute_dtype, param_dtype=cfg.params_dtype,
                   device=device, generator=generator)
+
+
+# remat_policy "dots": the products with no batch dimension, whose outputs
+# the recompute reads back instead of running them again
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_context(policy: str):
+    """``checkpoint``'s ``context_fn`` for a ``remat_policy``: its default
+    (everything recomputed) for "nothing", the selective contexts that keep
+    ``_SAVED_DOTS``' outputs for "dots"."""
+    if policy == "nothing":
+        return noop_context_fn
+    if policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    raise ValueError(f"unknown remat_policy {policy!r} (nothing | dots)")
+
+
+def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Each token's offset within its own segment: ``idx - cummax(where(
+    boundary, idx, 0))``, boundaries where the id changes (the JAX
+    llama.py:251-261).  (b, t) -> (b, t) int64."""
+    b, t = segment_ids.shape
+    idx = torch.arange(t, device=segment_ids.device).expand(b, t)
+    boundary = torch.ones_like(segment_ids, dtype=torch.bool)
+    boundary[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
+    return idx - torch.cummax(torch.where(boundary, idx, 0), dim=1).values
 
 
 class LlamaAttention(nn.Module):
@@ -235,7 +288,7 @@ class LlamaModel(nn.Module):
                                      for _ in range(cfg.num_hidden_layers)])
         self.norm = _norm(cfg, device)
 
-    def _bias(self, attention_mask, t, caches, cache_index, dtype, device):
+    def _bias(self, attention_mask, t, caches, cache_index, dtype, device, segment_ids=None):
         cfg = self.config
         if caches is None:
             offs = torch.arange(t, device=device)
@@ -247,6 +300,9 @@ class LlamaModel(nn.Module):
                 pad = (1.0 - attention_mask[:, None, None, :].to(dtype)) * torch.tensor(
                     -1e9, dtype=dtype, device=device)
                 bias = bias + pad
+            if segment_ids is not None:
+                same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+                bias = bias + torch.where(same, 0.0, -1e9).to(dtype)
             return bias
         # over a fixed-size cache: query row i sits at slot cache_index + i
         # and may attend any valid slot at or before it
@@ -260,28 +316,44 @@ class LlamaModel(nn.Module):
         return torch.where(ok, 0.0, -1e9).to(dtype)
 
     def forward(self, input_ids, attention_mask=None, positions=None, caches=None,
-                cache_index=None):
+                cache_index=None, segment_ids=None):
+        """segment_ids: optional (b, t) ints of a packed batch
+        (``data/alpaca.pack_causal_lm``), training path only."""
         cfg = self.config
         b, t = input_ids.shape
+        if segment_ids is not None and caches is not None:
+            raise ValueError("segment_ids (sequence packing) is for the training path; "
+                             "decode over a cache never packs")
         x = self.embed_tokens(input_ids)
         if cfg.compute_dtype is not None:
             x = x.to(cfg.compute_dtype)
         if cfg.scale_embeddings:
             x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype, device=x.device)
         if positions is None:
-            positions = torch.arange(t, device=x.device).expand(b, t)
+            positions = (torch.arange(t, device=x.device).expand(b, t) if segment_ids is None
+                         else segment_positions(segment_ids))
         if caches is None and cfg.attention_impl == "splash":
+            # splash builds its own pure-causal mask and ignores the bias: it
+            # would silently attend beyond the window or across segments
+            # (llama.py:266-271, :283-288)
             if cfg.sliding_window is not None:
-                # splash builds its own pure-causal mask and ignores the bias:
-                # it would silently attend beyond the window (llama.py:266-271)
                 raise ValueError("sliding_window requires a bias-carrying attention_impl "
                                  "(einsum or dpa)")
+            if segment_ids is not None:
+                raise ValueError("sequence packing (segment_ids) requires a bias-carrying "
+                                 "attention_impl (einsum or dpa)")
             bias = None  # splash takes no bias
         else:
-            bias = self._bias(attention_mask, t, caches, cache_index, x.dtype, x.device)
+            bias = self._bias(attention_mask, t, caches, cache_index, x.dtype, x.device,
+                              segment_ids)
+        remat = cfg.remat and caches is None and self.training and torch.is_grad_enabled()
+        context_fn = remat_context(cfg.remat_policy) if remat else None
         new_caches = None if caches is None else []
         for i, layer in enumerate(self.layers):
-            if caches is None:
+            if remat:
+                x, _ = checkpoint(layer, x, bias, positions, use_reentrant=False,
+                                  context_fn=context_fn)
+            elif caches is None:
                 x, _ = layer(x, bias, positions)
             else:
                 kc, vc = caches[i]
@@ -303,8 +375,7 @@ class LlamaForCausalLM(nn.Module):
             raise ValueError(f"unknown attention_impl {cfg.attention_impl!r} "
                              f"({' | '.join(ATTENTION_IMPLS)})")
         if cfg.remat:
-            raise NotImplementedError(
-                "remat: ROADMAP.md queue A, 'The Llama model, training part'")
+            remat_context(cfg.remat_policy)  # an unknown policy raises
         device = resolve_device(device)
         generator = seeded_generator(device, generator)
         self.config = cfg
@@ -318,9 +389,9 @@ class LlamaForCausalLM(nn.Module):
         return self.lm_head(hidden)
 
     def forward(self, input_ids, attention_mask=None, positions=None, caches=None,
-                cache_index=None):
+                cache_index=None, segment_ids=None):
         hidden, new_caches = self.model(input_ids, attention_mask, positions, caches,
-                                        cache_index)
+                                        cache_index, segment_ids)
         out = self.logits(hidden)
         return (out, new_caches) if caches is not None else out
 

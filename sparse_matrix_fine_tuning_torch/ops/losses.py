@@ -71,13 +71,12 @@ def model_training_loss(model, input_ids, labels, *, attention_mask=None, positi
                         ignore_index: int = -100) -> torch.Tensor:
     """Forward and shifted CE for a causal LM of this package: chunked when
     ``model.config.loss_chunk > 0``, otherwise ``model.loss`` over full
-    logits."""
+    logits.  ``segment_ids`` (a packed batch) goes to the model; the seams
+    need no mask here, since each segment's first label is already
+    ``ignore_index``."""
     if layer_hooks is not None:
-        raise NotImplementedError("layer hooks: ROADMAP.md queue A, 'Interventions'")
-    if segment_ids is not None:
-        raise NotImplementedError(
-            "segment_ids packing: ROADMAP.md queue A, 'The Llama model, training part'")
-    hidden, _ = model.model(input_ids, attention_mask, positions)
+        raise NotImplementedError("layer hooks: ROADMAP.md queue A item 24, 'Interventions'")
+    hidden, _ = model.model(input_ids, attention_mask, positions, segment_ids=segment_ids)
     chunk = getattr(model.config, "loss_chunk", 0)
     if chunk:
         return chunked_causal_lm_loss(hidden, model.logits, labels, ignore_index=ignore_index,

@@ -25,12 +25,18 @@ Beyond the JAX harness's metrics, ``eval_mmlu_runtime`` and
 ``predict_runtime`` give the wall seconds of each MMLU scoring and of the
 predictions (HF Trainer's ``*_runtime`` keys).
 
+``--pack`` bin-packs the training examples into rows of ``--pack_max_len``
+tokens (default source + target max len) with ``segment_ids`` (JAX
+run_alpaca.py:265-275); the eval split stays unpacked.  ``--resume`` goes
+on from the newest checkpoint in the output directory (``Trainer``'s
+mid-epoch-exact resume).
+
 Refused with ``NotImplementedError`` before any work, each naming its
 ROADMAP.md queue A item: ``--do_tune`` (21), ``--adapter lora`` (22),
-``--optim adamw8bit`` (27), ``--resume`` (15), sampling, beams, penalties
-and n-gram bans with ``--do_predict`` (18), a local weights directory (13;
+``--optim adamw8bit`` (27), sampling, beams, penalties and n-gram bans with
+``--do_predict`` (18) and a local weights directory (13;
 ``--gradient_checkpointing`` and ``--remat_policy`` reach the model only
-through it) and ``--pack`` (17b).
+through it).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import torch
 from sparse_matrix_fine_tuning_torch.data.alpaca import (
     collate_causal_lm,
     format_items,
+    pack_causal_lm,
     train_eval_split,
 )
 from sparse_matrix_fine_tuning_torch.data.mmlu import (
@@ -112,7 +119,8 @@ def parse_args(argv=None):
                    help="co-batch similar lengths and trim the time axis to "
                         "bucketed maxima (reference qlora default)")
     p.add_argument("--pack", default=False, type=eval,
-                   help="sequence packing; refused (ROADMAP.md queue A item 17b)")
+                   help="sequence packing: bin-pack examples into full rows "
+                        "with segment-masked attention")
     p.add_argument("--pack_max_len", default=None, type=int,
                    help="packed row length (default source+target max len)")
     p.add_argument("--do_eval", default=True, type=eval)
@@ -144,7 +152,7 @@ def parse_args(argv=None):
     p.add_argument("--save_steps", default=0, type=int)
     p.add_argument("--save_total_limit", default=1, type=int)
     p.add_argument("--resume", default=False, type=eval,
-                   help="refused (ROADMAP.md queue A item 15)")
+                   help="go on from the newest checkpoint in the output directory")
     p.add_argument("--gradient_checkpointing", default=True, type=eval,
                    help="remat decoder layers of pretrained weights (reference "
                         "qlora default); reaches only local weights")
@@ -184,8 +192,6 @@ def check_supported(args) -> None:
         refused.append("--adapter lora (the LoRA baseline): item 22")
     if args.optim == "adamw8bit":
         refused.append("--optim adamw8bit: item 27")
-    if args.resume:
-        refused.append("--resume (mid-epoch-exact resume): item 15")
     if args.do_predict and (args.do_sample or args.num_beams > 1 or args.temperature is not None
                             or args.top_p is not None or args.top_k is not None
                             or args.repetition_penalty != 1.0
@@ -194,8 +200,6 @@ def check_supported(args) -> None:
                        "(greedy only): item 18")
     if not args.smoke and os.path.isdir(args.model):
         refused.append(f"local weights ({args.model!r}; the HF loaders): item 13")
-    if args.pack:
-        refused.append("--pack (sequence packing): item 17b")
     if refused:
         raise NotImplementedError("run_alpaca: " + "; ".join(refused)
                                   + " (ROADMAP.md queue A)")
@@ -350,7 +354,15 @@ def run(argv=None, *, build: Optional[Callable] = None,
         return collate_causal_lm(items, tokenizer, source_max_len=src_len,
                                  target_max_len=tgt_len, train_on_source=args.train_on_source)
 
-    train_data = collate(train_items)
+    if args.pack:
+        train_data, eff = pack_causal_lm(
+            train_items, tokenizer, max_len=args.pack_max_len or (src_len + tgt_len),
+            source_max_len=src_len, target_max_len=tgt_len,
+            train_on_source=args.train_on_source)
+        print(f"[alpaca] packed {len(train_items)} examples into "
+              f"{len(train_data['input_ids'])} rows ({eff:.0%} token efficiency)")
+    else:
+        train_data = collate(train_items)
     eval_data = collate(eval_items) if (eval_items and args.do_eval) else None
 
     mmlu_eval = mmlu_dev = None

@@ -17,14 +17,22 @@ What it keeps of the JAX trainer:
     adapters and the extra paths, the LM head by default;
   * logging (every ``log_param_steps``, ``param_stats`` and, to the
     logger, ``utils/logging.watch_layers``), ``evaluate``, trainable-only
-    checkpoints, ``load_checkpoint`` and ``load_best_model_at_end``.
+    checkpoints, ``load_checkpoint`` and ``load_best_model_at_end``;
+  * mid-epoch-exact resume (``train(resume=True)``, the JAX trainer's
+    ``_maybe_resume``): the newest numbered checkpoint in ``output_dir``
+    restores the factors, the optimizer, the random state, the step, the
+    best metric and checkpoint and ``log_history.json``; the run goes on at
+    epoch ``step // steps_per_epoch`` with ``_batches(skip=...)``, which
+    passes over the batches already taken without building them, so the
+    resumed run sees the batches an uninterrupted one would.  A run found
+    completed at this budget is loaded and not trained again; a completed
+    shorter run is continued.
 
 Set aside, raising ``NotImplementedError``: a device mesh and sequence
-parallelism (ROADMAP.md queue A item 28), ``state_split=False`` (the JAX
+parallelism (ROADMAP.md queue A item 28) and ``state_split=False`` (the JAX
 package's split of the frozen base out of the jitted step; in eager
 PyTorch the frozen base is never copied, which is what ``True`` buys
-there) and resuming a run (``train(resume=True)``; mid-epoch-exact resume is
-queue A item 15).
+there).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import time
 from typing import Callable, Iterable, Optional
 
@@ -218,9 +227,11 @@ class Trainer:
         return {k: (v[:, :maxlen] if k in self._TIME_KEYS and v.ndim >= 2 and v.shape[1] == t
                     else v) for k, v in batch.items()}
 
-    def _batches(self, data, batch_size, shuffle=True, seed=0, accum=1):
+    def _batches(self, data, batch_size, shuffle=True, seed=0, accum=1, skip=0):
         """Yield (batch, n_valid), batches as tensors on the device.  With
-        accum > 1 each leaf is (accum, batch_size, ...): one optimizer step."""
+        accum > 1 each leaf is (accum, batch_size, ...): one optimizer step.
+        ``skip``: start after the first ``skip`` batches without building
+        them; the order is a function of ``seed`` alone (mid-epoch resume)."""
         n = self._n_examples(data)
         idx = np.arange(n)
         if shuffle:
@@ -229,7 +240,7 @@ class Trainer:
         group = self.args.group_by_length and shuffle and "attention_mask" in data
         if group:
             idx = self._length_grouped_order(data, idx, macro)
-        for start in range(0, n, macro):
+        for start in range(skip * macro, n, macro):
             sel = idx[start:start + macro]
             batch = {k: v[sel] for k, v in data.items()}
             if group:
@@ -274,10 +285,11 @@ class Trainer:
         return total / g
 
     def train(self, resume: bool = False) -> dict:
-        if resume:
-            raise NotImplementedError(
-                "resuming a run: ROADMAP.md queue A item 15 (mid-epoch-exact resume)")
+        """Train to the step budget; ``resume``: go on from the newest
+        checkpoint in ``output_dir`` where there is one."""
         a = self.args
+        if resume:
+            self._maybe_resume()
         total_steps = self.num_training_steps()
         bs = a.per_device_train_batch_size
         if a.max_steps > 0:
@@ -290,11 +302,15 @@ class Trainer:
         tokens, window_t0 = 0, t0
         done = False
         self.model.train()
-        for epoch in range(epochs):
+        # the restored step sets the epoch and the batch within it
+        spe = max(self.steps_per_epoch(), 1)
+        start_epoch = min(self.step // spe, max(epochs - 1, 0))
+        skip = self.step - start_epoch * spe
+        for epoch in range(start_epoch, epochs):
             if done:
                 break
             for batch, _ in self._batches(self.train_data, bs, shuffle=True, seed=a.seed + epoch,
-                                          accum=g):
+                                          accum=g, skip=skip if epoch == start_epoch else 0):
                 with self.step_context(self.step):
                     loss = self.train_step(batch)
                 if a.logging_steps:
@@ -397,3 +413,40 @@ class Trainer:
         if self._n_merged:
             # stale merged operands would serve the weights from before the load
             refresh_merged(self.model)
+
+    def _maybe_resume(self) -> None:
+        """Load the newest numbered checkpoint of ``output_dir`` and the run's
+        bookkeeping, as the JAX trainer's ``_maybe_resume``; nothing there:
+        a fresh start."""
+        last, completed = ckpt_lib.get_last_checkpoint(self.args.output_dir,
+                                                       even_if_completed=True)
+        if last is None:
+            return
+        with open(os.path.join(last, "meta.json")) as f:
+            step = json.load(f).get("step", 0)
+        if completed and step >= self.num_training_steps():
+            # finished at this budget: load it, and train() takes no step
+            print(f"Run already completed at {last}; loading it")
+        else:
+            if completed:
+                # a longer budget: continue the finished shorter run
+                os.remove(os.path.join(self.args.output_dir, "completed"))
+            print(f"Resuming from {last}")
+        self.load_checkpoint(last)
+        self._restore_run_state(last)
+
+    def _restore_run_state(self, last: str) -> None:
+        """The best metric and checkpoint from ``last``'s meta and the log
+        history written beside the checkpoints, so that a resumed run
+        compares against the best before it and appends to its history."""
+        with open(os.path.join(last, "meta.json")) as f:
+            meta = json.load(f)
+        if meta.get("best_metric") is not None:
+            self.best_metric = meta["best_metric"]
+            best = meta.get("best_ckpt")
+            if best is not None and os.path.isdir(best):
+                self.best_ckpt = best
+        hist_path = os.path.join(self.args.output_dir, "log_history.json")
+        if not self.log_history and os.path.exists(hist_path):
+            with open(hist_path) as f:
+                self.log_history = json.load(f)

@@ -32,6 +32,8 @@ scale in both dtypes (fp32 sums; the bf16 kernels take exp from the fast
 approximate unit).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1330,3 +1332,57 @@ def test_torch_attention_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="CUDA"):
         attention_cuda.splash_fwd(q, k.cpu(), v)
     assert attention_cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_torch_remat_step_on_card(cuda_device, policy, dropout):
+    """One float32 training step of a 2-layer Llama (hidden 128, Monarch
+    adapters on all seven projections) at a ragged length (t = 37) with
+    remat against the same step without it, on the card: the recompute
+    launches each layer's forward kernel again (K2, or K1 where dropout
+    wraps the adapter branch: 14 launches a forward, 28 with remat), K3
+    once; the loss within 1e-5 of itself and every gradient within 1e-4 of
+    its largest (the same kernels on the same inputs; the random state is
+    replayed, so the dropout masks repeat)."""
+    from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig
+    from sparse_matrix_fine_tuning_torch.models.llama import LlamaForCausalLM
+    from sparse_matrix_fine_tuning_torch.peft import surgery
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig.tiny(hidden_size=128, num_hidden_layers=2, num_attention_heads=4,
+                           num_key_value_heads=2, intermediate_size=256)
+    ids = torch.randint(3, 256, (2, 37), generator=torch.Generator().manual_seed(1))
+    ids = ids.to(cuda_device)
+    forward = "monarch_kernel" if dropout else "monarch_add"
+    runs = []
+    for remat in (False, True):
+        model = LlamaForCausalLM(dataclasses.replace(cfg, remat=remat, remat_policy=policy),
+                                 device="cpu", generator=torch.Generator().manual_seed(0))
+        surgery.init_monarch(model, {"monarch": True, "nblocks": 4, "blk_r": 4,
+                                     "adapter": True, "dropout": dropout,
+                                     "target_modules": ["q_proj", "k_proj", "v_proj", "o_proj",
+                                                        "gate_proj", "up_proj", "down_proj"]},
+                             generator=torch.Generator().manual_seed(2))
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if "blkdiag2" in name:
+                    p.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(3))
+        model.to(cuda_device)
+        surgery.trainable_filter(model)
+        torch.cuda.manual_seed(4)
+        before = dict(monarch_cuda.LAUNCHES)
+        loss = model.training_loss(ids, ids)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = {n: monarch_cuda.LAUNCHES[n] - before[n] for n in before}
+        assert launches == {**dict.fromkeys(before, 0), forward: 28 if remat else 14,
+                            "monarch_bwd": 14}
+        runs.append((float(loss), {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                                   if p.requires_grad}))
+    (want, want_g), (got, got_g) = runs
+    assert abs(got - want) <= 1e-5 * abs(want)
+    assert sorted(got_g) == sorted(want_g) and len(want_g) == 29
+    for name, g in want_g.items():
+        assert float((got_g[name] - g).abs().max()) <= 1e-4 * float(g.abs().max()), name

@@ -192,8 +192,12 @@ def test_torch_llama_config_matches_jax():
     assert LlamaConfig.tiny().params_dtype == torch.float32
 
 
-@pytest.mark.parametrize("kw", [{"rmsnorm_unit_offset": True}, {"remat": True}])
+@pytest.mark.parametrize("kw", [{"rmsnorm_unit_offset": True},
+                                {"rmsnorm_unit_offset": True, "scale_embeddings": True,
+                                 "mlp_activation": "gelu_tanh"}])
 def test_torch_llama_refuses_unported_options(kw):
+    """``UnitOffsetRMSNorm`` alone and with the rest of the Gemma preset's
+    knobs; remat is ported (tests/test_torch_remat.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LlamaForCausalLM(LlamaConfig.tiny(**kw), device="cpu")
 

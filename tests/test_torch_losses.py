@@ -158,9 +158,11 @@ def test_torch_llama_loss_matches_jax(pair):
     np.testing.assert_allclose(float(got), float(want), **F32)
 
 
-@pytest.mark.parametrize("kw", [{"segment_ids": np.zeros((3, 10), np.int32)},
+@pytest.mark.parametrize("kw", [{"layer_hooks": {0: lambda hidden: hidden}},
                                 {"layer_hooks": {}}])
 def test_torch_training_loss_refuses_unported_options(pair, kw):
+    """Layer hooks (ROADMAP item 24), with a hook and with none; packing's
+    ``segment_ids`` are ported (tests/test_torch_packing.py)."""
     _, tm = pair
     ids, _, labels, _ = _lm_batch()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

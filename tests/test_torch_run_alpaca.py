@@ -2,8 +2,10 @@
 
 Both ``main``s run with the same argv (the tiny smoke Llama in float32, 2
 optimizer steps of 16 micro-batches, eval loss, 1-shot MMLU and greedy
-``--do_predict``) at ``--bits 16`` here and ``--bits 8`` in
-``test_torch_run_alpaca_int8.py``, which takes its checks from here.  The JAX harness
+``--do_predict``) at ``--bits 16`` here, ``--bits 8`` and ``4`` in
+``test_torch_run_alpaca_int8.py`` and ``..._int4.py``, with ``--pack=True``
+in ``..._pack.py`` and ``--resume=True`` in ``..._resume.py``, which take
+their runs and checks from here.  The JAX harness
 (``run_alpaca.py`` at the repository's root) builds its model with its own
 ``build_model``; the port's ``build`` seam builds the same structure
 (``adapt_model``) and carries that model's state across with
@@ -87,21 +89,28 @@ def _records(out_dir: str, name: str) -> list:
         return [json.loads(line) for line in f]
 
 
-def run_both(tmp_path, bits: int) -> dict:
-    argv = ARGV + ["--bits", str(bits)]
+def run_both(tmp_path, bits: int, extra=(), argv=ARGV, legs=((),)) -> dict:
+    """Both harnesses on ``argv`` with ``--bits`` and ``extra``, once for
+    each of ``legs`` (flags added to the argv) into the same output
+    directory; the port's model bridged from the JAX harness's first model,
+    before training.  The last leg's metrics and run."""
+    argv = [*argv, "--bits", str(bits), *extra]
     built = {}
     real_build = jax_harness.build_model
 
     def jax_build(args, peft_config):
         built["model"] = real_build(args, peft_config)
-        built["state"] = _flat_state(built["model"])  # copies, taken before training
+        # copies, taken before training, of the first model (a resumed run
+        # builds the same one again)
+        built.setdefault("state", _flat_state(built["model"]))
         return built["model"]
 
     jax_dir, port_dir = str(tmp_path / "jax"), str(tmp_path / "port")
     old_argv, jax_harness.build_model = sys.argv, jax_build
-    sys.argv = ["run_alpaca.py", *argv, f"--output_dir={jax_dir}"]
     try:
-        jax_metrics = jax_harness.main()
+        for leg in legs:
+            sys.argv = ["run_alpaca.py", *argv, *leg, f"--output_dir={jax_dir}"]
+            jax_metrics = jax_harness.main()
     finally:
         sys.argv, jax_harness.build_model = old_argv, real_build
 
@@ -115,9 +124,11 @@ def run_both(tmp_path, bits: int) -> dict:
         load_jax_state(model, built["state"])
         return model
 
-    result = port.run([*argv, f"--output_dir={port_dir}", "--platform=cpu"], build=bridged)
+    for leg in legs:
+        result = port.run([*argv, *leg, f"--output_dir={port_dir}", "--platform=cpu"],
+                          build=bridged)
     return {"jax": jax_metrics, "port": result, "jax_model": built["model"],
-            "jax_dir": jax_dir, "port_dir": port_dir}
+            "jax_dir": jax_dir, "port_dir": port_dir, "build": bridged}
 
 
 def check_losses(both):
@@ -185,7 +196,6 @@ def test_torch_alpaca_predictions_match_jax(both):
     (["--do_tune=True"], "item 21"),
     (["--adapter=lora"], "item 22"),
     (["--optim=adamw8bit"], "item 27"),
-    (["--resume=True"], "item 15"),
     (["--do_predict=True", "--do_sample=True"], "item 18"),
     (["--do_predict=True", "--num_beams=4"], "item 18"),
     (["--do_predict=True", "--temperature=0.7"], "item 18"),
@@ -194,7 +204,6 @@ def test_torch_alpaca_predictions_match_jax(both):
     (["--do_predict=True", "--repetition_penalty=1.1"], "item 18"),
     (["--do_predict=True", "--no_repeat_ngram_size=5"], "item 18"),
     (["--model", REPO], "item 13"),
-    (["--pack=True"], "item 17b"),
 ])
 def test_torch_alpaca_refusals(tmp_path, extra, item):
     """Each refused option raises before any work: nothing is built and the

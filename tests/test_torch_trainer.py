@@ -222,13 +222,128 @@ def test_torch_trainer_refuses_unported_options(tmp_path, kw, item):
         Trainer(tm, args, train_data=_data(), device="cpu")
 
 
-def test_torch_trainer_refuses_resume(tmp_path):
-    tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
-    surgery.init_monarch(tm, PEFT)
-    tr = Trainer(tm, _args(TrainingArgs, tmp_path, "port", "off"), train_data=_data(),
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tr.train(resume=True)
+def _resume_args(tmp_path, name, steps, grouped):
+    """Constant lr (a decaying schedule's horizon would differ between the
+    two budgets), a checkpoint at every step."""
+    return dataclasses.replace(
+        _args(TrainingArgs, tmp_path, name, "off"), max_steps=steps, save_steps=1,
+        lr_scheduler_type="constant", warmup_ratio=0.0, group_by_length=grouped,
+        length_bucket=4)
+
+
+def _resume_model():
+    """The tiny Llama with adapter dropout 0.1: the resumed run must replay
+    the random state too."""
+    tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu",
+                          generator=torch.Generator().manual_seed(3))
+    surgery.init_monarch(tm, {**PEFT, "dropout": 0.1}, generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        for name, p in tm.named_parameters():
+            if "blkdiag2" in name:
+                p.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(5))
+    return tm
+
+
+def _ragged_lengths(data):
+    lengths = np.random.default_rng(8).integers(2, T + 1, len(data["attention_mask"]))
+    data["attention_mask"] = (np.arange(T)[None, :] < lengths[:, None]).astype(np.int32)
+    data["labels"] = np.where(data["attention_mask"] > 0, data["input_ids"], -100).astype(np.int32)
+    return data
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=["shuffled", "length_grouped"])
+def test_torch_trainer_resume_matches_a_straight_run(tmp_path, grouped):
+    """Mid-epoch-exact resume, as the JAX trainer's (tests/training/
+    test_trainer.py:424): 4 steps an epoch; 3 steps, then a fresh trainer
+    resumed to 6, against 6 straight: the same losses at every step, the
+    same factors and optimizer state, bit for bit."""
+    data = _ragged_lengths(_data(n=BS * GA * 4))
+    torch.manual_seed(9)
+    first = Trainer(_resume_model(), _resume_args(tmp_path, "cut", 3, grouped),
+                    train_data=data, device="cpu")
+    assert first.steps_per_epoch() == 4
+    first.train()
+    with open(tmp_path / "cut" / "checkpoint-3" / "meta.json") as f:
+        meta = json.load(f)
+    assert (meta["epoch"], meta["batch_in_epoch"], meta["data_seed"]) == (0, 3, 7)
+    torch.manual_seed(10)  # the checkpoint's random state replaces it
+    resumed = Trainer(_resume_model(), _resume_args(tmp_path, "cut", 6, grouped),
+                      train_data=data, device="cpu")
+    resumed.train(resume=True)
+    torch.manual_seed(9)
+    straight = Trainer(_resume_model(), _resume_args(tmp_path, "straight", 6, grouped),
+                       train_data=data, device="cpu")
+    straight.train()
+    assert resumed.step == straight.step == 6
+    losses = [[r["loss"] for r in t.log_history if "loss" in r] for t in (resumed, straight)]
+    assert losses[0] == losses[1] and len(losses[0]) == 6
+    got = dict(resumed.model.named_parameters())
+    for name, p in straight.model.named_parameters():
+        if p.requires_grad:
+            assert torch.equal(got[name], p), name
+    want_opt = straight.optimizer.state_arrays()
+    got_opt = resumed.optimizer.state_arrays()
+    assert sorted(got_opt) == sorted(want_opt)
+    for k, v in want_opt.items():
+        assert torch.equal(torch.as_tensor(got_opt[k]), torch.as_tensor(v)), k
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=["shuffled", "length_grouped"])
+@pytest.mark.parametrize("skip", [0, 1, 3])
+def test_torch_trainer_skipped_batches_match_jax(tmp_path, grouped, skip):
+    """``_batches(skip=k)`` is the same batches as the JAX trainer's, the
+    first k passed over, with length grouping on and off."""
+    jm = _jax_model()
+    data = _ragged_lengths(_data(n=BS * GA * 3 + 3))
+    kw = {"group_by_length": grouped, "length_bucket": 4}
+    jtr = JaxTrainer(jm, dataclasses.replace(_args(JaxTrainingArgs, tmp_path, "jax", "off"), **kw),
+                     train_data=data)
+    ttr = Trainer(_port_of(jm), dataclasses.replace(_args(TrainingArgs, tmp_path, "port", "off"),
+                                                    **kw), train_data=data, device="cpu")
+    want = list(jtr._batches(data, BS, shuffle=True, seed=11, accum=GA, skip=skip))
+    got = list(ttr._batches(data, BS, shuffle=True, seed=11, accum=GA, skip=skip))
+    every = list(ttr._batches(data, BS, shuffle=True, seed=11, accum=GA))
+    assert len(got) == len(want) == 4 - skip
+    for (gb, gn), (wb, wn), (eb, _) in zip(got, want, every[skip:]):
+        assert gn == wn and set(gb) == set(wb) == set(eb)
+        for k in wb:
+            np.testing.assert_array_equal(gb[k].numpy(), np.asarray(wb[k]))
+            assert torch.equal(gb[k], eb[k])
+
+
+def test_torch_trainer_resume_of_a_finished_run_loads_it(tmp_path):
+    """As the JAX trainer (tests/training/test_trainer.py:239, :257): with
+    no checkpoint, resume starts fresh; a run completed at this budget is
+    loaded and not trained again; a resumed run keeps the best metric, its
+    checkpoint and the log history from before."""
+    data, evals = _data(), _data(seed=2, n=5)
+    fresh = Trainer(_port_of(_jax_model(seed=6)), _args(TrainingArgs, tmp_path, "run", "off"),
+                    train_data=data, device="cpu")
+    fresh.train(resume=True)  # nothing to resume from
+    again = Trainer(_port_of(_jax_model(seed=7)), _args(TrainingArgs, tmp_path, "run", "off"),
+                    train_data=data, device="cpu")
+    again.train(resume=True)
+    assert fresh.step == again.step == STEPS
+    assert again.log_history == fresh.log_history and len(fresh.log_history) == STEPS
+    got = dict(again.model.named_parameters())
+    for name, p in fresh.model.named_parameters():
+        if p.requires_grad:
+            assert torch.equal(got[name], p), name
+
+    kw = dict(eval_steps=1, load_best_model_at_end=True)
+    best = Trainer(_port_of(_jax_model(seed=6)),
+                   dataclasses.replace(_args(TrainingArgs, tmp_path, "best", "off"), **kw),
+                   train_data=data, eval_data=evals, device="cpu")
+    best.train()
+    os.remove(tmp_path / "best" / "completed")  # as if the run had stopped after its last step
+    later = Trainer(_port_of(_jax_model(seed=7)),
+                    dataclasses.replace(_args(TrainingArgs, tmp_path, "best", "off"), **kw),
+                    train_data=data, eval_data=evals, device="cpu")
+    later._maybe_resume()
+    assert later.step == STEPS
+    assert (later.best_metric, later.best_ckpt) == (best.best_metric, best.best_ckpt)
+    assert later.best_ckpt == str(tmp_path / "best" / "checkpoint-best")
+    assert later.log_history == best.log_history and later.log_history
 
 
 def test_torch_trainer_auto_merges_nothing(tmp_path):
