@@ -106,14 +106,28 @@ hand-written CUDA kernels, and checks them:
      defaults, and at 16 with ``--pack=True``: launches exact (K3 4,928; K6
      4,832), the wall and device-busy ms a step, the MMLU scoring and
      predict seconds, the peak memory, the packed rows and their token
-     efficiency.
+     efficiency;
+ 19. the reasoning harness (``scripts/run_reasoning.py``): the tiny smoke
+     Llama in float32 (``--dropout=0.0``) at ``-task math`` and ``-task
+     alpaca --greedy_decoding=False`` (penalty 1.1, 5-gram bans) on the
+     card against the CPU (losses within 1e-4, ``eval/*`` and generations
+     equal, launches exact), ``-task gsm8k`` sampled (three evals under one
+     seed equal) and ``beam_generate`` at 4 beams against a CPU copy of the
+     trained model (equal tokens); then TinyLlama-1.1B widths from an
+     HF-format directory written here (random seeded bf16 weights; the
+     loaded tensors equal the written ones; deleted after): 3 steps of
+     ``-task math`` with the harness's remat "nothing" and dropout 0.1 (K1
+     twice an adapted linear and micro-batch, K3 once), its greedy eval and
+     a beam-4 eval (beam-sample at temperature 0.1), launches exact (K2
+     none: with dropout every forward takes K1), each step's wall, busy,
+     idle share and peak memory, each eval's wall and busy a forward.
 
 Serving (5, 6, 10 and 11) runs before the experiments (13-16).  Every
 profile is taken in ``benchlib.device_profile``'s window, padded at both
 ends so that it keeps every kernel's record (ROADMAP C.10).  Each main path (6, 8 off, 8 on, 8
 with splash, each remat run and step of 8, each configuration of 11, each step of 12, the bench of 13,
 each script of 14, 15 and 16, the attention bench of 17, each harness run
-of 18) zeroes the launch counts of every kernel
+of 18 and 19, and 19's beam search and beam-4 eval) zeroes the launch counts of every kernel
 just before it and reads them just after.  Any failed check
 exits non-zero.  The line before the last is one JSON object on the
 kernels (K5 and K7 at decode and, as ``int4_matmul_tile`` and
@@ -134,6 +148,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import dataclasses
 import functools
 import gc
@@ -363,6 +378,29 @@ ALPACA_FULL_ARGV = [f"--max_steps={ALPACA_STEPS}", "--logging_steps=1", "--eval_
                     "--max_mmlu_samples=32", "--do_predict=True",
                     f"--max_new_tokens={ALPACA_FULL_NEW}"]
 ALPACA_TOL = TOLERANCES["f32_logits"]
+# The reasoning harness (phase_reasoning_smoke, phase_reasoning_full): (a) the
+# smoke argv, float32, on the card and on the CPU (-task is added per run);
+# beam_generate's new tokens there; (b) TinyLlama-1.1B's config.json for the
+# HF-format directory the phase writes, and the harness's argv at batch 4 x
+# ga 8 x max length 512 (its defaults otherwise: remat "nothing", dropout
+# 0.1), one math eval dataset, greedy then beam-sample at temperature 0.1;
+# the new tokens of the profiled evals.
+REASONING_STEPS, REASONING_GA = 2, 4
+REASONING_ARGV = ["--smoke=True", "--dropout=0.0", "-e", "1", "-batch_size", "4",
+                  "-gradient_accumulation_steps", str(REASONING_GA),
+                  f"--max_steps={REASONING_STEPS}", "--logging_steps=1",
+                  "--max_n_train_example=32", "--max_n_eval_example=4"]
+REASONING_BEAM_NEW = 12
+TINYLLAMA_HF = {"model_type": "llama", "architectures": ["LlamaForCausalLM"], **MODEL,
+                "max_position_embeddings": 2048, "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
+                "hidden_act": "silu", "bos_token_id": 1, "eos_token_id": 2, "pad_token_id": None,
+                "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
+REASONING_FULL_STEPS = 3
+REASONING_FULL_ARGV = ["-task", "math", "-batch_size", "4", "-gradient_accumulation_steps", "8",
+                       "-max_length", "512", f"--max_steps={REASONING_FULL_STEPS}",
+                       "--logging_steps=1", "-eval_dataset", "MultiArith",
+                       "--max_n_eval_example=8", "-top_k", "0", "-top_p", "1.0", "-t", "0.1"]
+REASONING_PROFILE_NEW = 16
 OUT_DIR = "chip_smoke_out"  # per-case records; .gitignore lists it
 RECORDS: list[dict] = []  # one per kernel case, written to OUT_DIR
 
@@ -390,6 +428,12 @@ def counts() -> dict:
     """The launch counts of every kernel since the last reset."""
     return {**monarch_cuda.LAUNCHES, **quant_cuda.LAUNCHES, **ml.LAUNCHES, **tm.LAUNCHES,
             **attention_cuda.LAUNCHES}
+
+
+def expect_only(got: dict, expect: dict, what: str) -> None:
+    """Require launch counts ``got`` to be ``expect`` and 0 elsewhere."""
+    require(got == {**dict.fromkeys(got, 0), **expect},
+            f"{what}: launches {got}; expected {expect}")
 
 
 def phase_device() -> str:
@@ -2678,8 +2722,8 @@ def phase_quant_train_bf16(card: str, bits: int) -> dict:
 
 # -- the Alpaca + MMLU harness (scripts/run_alpaca.py) --------------------------
 
-def _alpaca_records(out_dir: str, name: str = "metrics.jsonl") -> list:
-    with open(os.path.join(out_dir, "alpaca", name)) as f:
+def _alpaca_records(out_dir: str, name: str = "metrics.jsonl", task: str = "alpaca") -> list:
+    with open(os.path.join(out_dir, task, name)) as f:
         return [json.loads(line) for line in f]
 
 
@@ -2756,9 +2800,7 @@ def phase_alpaca_smoke(card: str) -> dict:
                 f"alpaca {name}: {card_run['forwards']} forwards on the card, "
                 f"{cpu_run['forwards']} on the CPU")
         expect = alpaca_expect(bits, 7 * 2, card_run["forwards"], micro, "monarch_add")
-        got = card_run["launches"]
-        require(got == {**dict.fromkeys(got, 0), **expect},
-                f"alpaca {name}: launches {got}; expected {expect}")
+        expect_only(card_run["launches"], expect, f"alpaca {name}")
         for k, v in expect.items():
             launches[k] = launches.get(k, 0) + v
         losses = [[r["loss"] for r in _alpaca_records(d) if "loss" in r]
@@ -2821,9 +2863,7 @@ def alpaca_resume(card: str) -> dict:
             f"alpaca resume: the resumed run ended at step {resumed['run'].trainer.step}")
     expect = alpaca_expect(16, 7 * 2, resumed["forwards"], ALPACA_STEPS * ALPACA_GA,
                            "monarch_add")
-    got = resumed["launches"]
-    require(got == {**dict.fromkeys(got, 0), **expect},
-            f"alpaca resume: launches {got}; expected {expect}")
+    expect_only(resumed["launches"], expect, "alpaca resume")
     losses = [[r["loss"] for r in _alpaca_records(d) if "loss" in r] for d in (cut, straight)]
     require(len(losses[0]) == len(losses[1]) == 2 * ALPACA_STEPS, f"alpaca resume: {losses}")
     err = max(abs(a - b) - tol["rtol"] * abs(b) for a, b in zip(*losses))
@@ -2832,6 +2872,34 @@ def alpaca_resume(card: str) -> dict:
           f"{losses[0]} (the first {ALPACA_STEPS} before the resume), straight {losses[1]}; "
           f"{resumed['forwards']} forwards in the resumed run; launches {expect}", flush=True)
     return expect
+
+
+def harness_step_context(steps: dict, label: str):
+    """A harness trainer's ``step_context``: step 0 under the profiler
+    (``busy_ms``, ``profiled_wall_ms``), each later step alone, the card
+    synchronised around it (``wall_ms``, one a step; ``peak_gb``, the last
+    step's peak memory; ``peak_before_gb``, the largest peak before a
+    step); all into ``steps``."""
+    from sparse_matrix_fine_tuning_torch.utils.profiling import device_memory_stats
+
+    @contextlib.contextmanager
+    def harness_step(k):
+        if k == 0:
+            with device_busy(f"{label} training step 0") as prof:
+                yield
+            steps.update(busy_ms=prof["busy_ms"], profiled_wall_ms=prof["wall_ms"])
+            return
+        torch.cuda.synchronize()
+        steps["peak_before_gb"] = max(steps.get("peak_before_gb", 0.0),
+                                      torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        steps.setdefault("wall_ms", []).append((time.perf_counter() - t0) * 1e3)
+        steps["peak_gb"] = device_memory_stats()["cuda:0"]["peak_bytes_in_use"] / 1e9
+
+    return harness_step
 
 
 def phase_alpaca_full(card: str) -> dict:
@@ -2854,6 +2922,7 @@ def phase_alpaca_full(card: str) -> dict:
 
     micro = ALPACA_STEPS * ALPACA_GA
     launches = {}
+
     def build_full(args, peft_config):
         cfg = LlamaConfig(**MODEL, param_dtype="bfloat16", dtype="bfloat16",
                           max_position_embeddings=2048)
@@ -2864,23 +2933,6 @@ def phase_alpaca_full(card: str) -> dict:
     for bits, extra in ((16, []), (4, []), (16, ["--pack=True"])):
         base = ("int4" if bits == 4 else "bf16") + (", packed" if extra else "")
         steps = {}
-
-        @contextlib.contextmanager
-        def harness_step(k):
-            if k == 0:
-                with device_busy(f"harness training step 0 ({base} base)") as prof:
-                    yield
-                steps.update(busy_ms=prof["busy_ms"], profiled_wall_ms=prof["wall_ms"])
-                return
-            torch.cuda.synchronize()
-            steps["peak_before_gb"] = torch.cuda.max_memory_allocated() / 1e9
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            yield
-            torch.cuda.synchronize()
-            steps.setdefault("wall_ms", []).append((time.perf_counter() - t0) * 1e3)
-            steps["peak_gb"] = device_memory_stats()["cuda:0"]["peak_bytes_in_use"] / 1e9
-
         gc.collect()  # what the last run left to the cyclic collector goes before measuring
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2888,15 +2940,14 @@ def phase_alpaca_full(card: str) -> dict:
         out = os.path.join(OUT_DIR, f"alpaca_full_{bits}" + ("_pack" if extra else ""))
         shutil.rmtree(out, ignore_errors=True)
         full = alpaca_run([*ALPACA_FULL_ARGV, "--bits", str(bits), *extra, f"--output_dir={out}"],
-                          build=build_full, step_context=harness_step)
+                          build=build_full,
+                          step_context=harness_step_context(steps, f"harness ({base} base)"))
         memory = device_memory_stats()["cuda:0"]
         # step 1 reset the peak: the run's is the larger of the peaks before and since
         run_peak_gb = max(memory["peak_bytes_in_use"] / 1e9, steps["peak_before_gb"])
         resident_gb = memory["bytes_in_use"] / 1e9
         expect = alpaca_expect(bits, N_ADAPTED, full["forwards"], micro, "monarch_kernel")
-        got = full["launches"]
-        require(got == {**dict.fromkeys(got, 0), **expect},
-                f"alpaca full width, {base} base: launches {got}; expected {expect}")
+        expect_only(full["launches"], expect, f"alpaca full width, {base} base")
         for k, v in expect.items():
             launches[k] = launches.get(k, 0) + v
         metrics, a = full["run"].metrics, full["run"].trainer.args
@@ -2937,6 +2988,320 @@ def phase_alpaca_full(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def reasoning_run(argv: list, build=None, step_context=None) -> dict:
+    """One ``run_reasoning.run`` with the launch counts zeroed just before it
+    and read just after, and its model's forwards counted by mode (a hook on
+    the decoder stack: "train" the training micro-batches, "eval" the
+    prefills and decode steps of generation); the wall seconds of the run
+    beside them.  ``forwards`` goes on counting the model's later calls."""
+    from sparse_matrix_fine_tuning_torch.scripts import run_reasoning
+
+    forwards = collections.Counter()
+
+    def hook(module, args):
+        forwards["train" if module.training else "eval"] += 1
+
+    def counted(args, peft_config):
+        model = (build or run_reasoning.build_model)(args, peft_config)
+        model.model.register_forward_pre_hook(hook)
+        return model
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    reset_counts()  # the counted main path starts here
+    t0 = time.perf_counter()
+    result = run_reasoning.run(argv, build=counted, step_context=step_context)
+    seconds = time.perf_counter() - t0
+    launches = counts()  # the counted main path ends here
+    return {"run": result, "launches": launches, "forwards": forwards,
+            "train_forwards": forwards["train"], "eval_forwards": forwards["eval"],
+            "seconds": seconds}
+
+
+def counted_eval(run: dict, label: str, **kw) -> dict:
+    """``ReasoningRun.evaluate(**kw)`` on a ``reasoning_run``'s trained model,
+    with the launch counts zeroed just before it and read just after: the
+    results, the launches, the forwards (prefills and decode steps) and the
+    wall seconds, the card synchronised around it."""
+    before = run["forwards"]["eval"]
+    torch.cuda.synchronize()
+    reset_counts()  # the counted main path starts here
+    t0 = time.perf_counter()
+    results = run["run"].evaluate(**kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts()  # the counted main path ends here
+    return {"results": results, "launches": launches, "seconds": seconds,
+            "forwards": run["forwards"]["eval"] - before, "label": label}
+
+
+def _generations(out_dir: str) -> list:
+    with open(os.path.join(out_dir, "generations.json")) as f:
+        return json.load(f)
+
+
+def phase_reasoning_smoke(card: str) -> dict:
+    """(a) The reasoning harness (``scripts/run_reasoning.py``) on the tiny
+    smoke Llama in float32, TF32 off, ``--dropout=0.0`` (the card's dropout
+    masks are not the CPU's): ``-task math --smoke=True`` on the card and
+    on the CPU: the logged losses within ``ALPACA_TOL``, the seven
+    ``eval/*`` and the generations equal, the card's launches exact (K2 on
+    every adapted linear each forward, K3 each training micro-batch), none
+    on the CPU.  ``-task alpaca --greedy_decoding=False`` (penalty 1.1 and
+    5-gram bans) likewise, its alpaca_eval dump equal.  ``-task gsm8k
+    --greedy_decoding=False`` (top-k 40, top-p 0.95, temperature 0.8): the
+    trained model's sampled eval twice, under one seed, equal.  Then
+    ``beam_generate`` at 4 beams on the math run's trained model and a CPU
+    copy of it: equal tokens, K2 exact.  Returns the launches."""
+    from sparse_matrix_fine_tuning_torch.models.generate import GenerationConfig, beam_generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tol = ALPACA_TOL
+    adapted = 7 * 2
+    launches = collections.Counter()
+    runs = {}
+    for task, extra in (("math", []), ("alpaca", ["--greedy_decoding=False"]),
+                        ("gsm8k", ["--greedy_decoding=False"])):
+        out = os.path.join(OUT_DIR, f"reasoning_{task}")
+        argv = [*REASONING_ARGV, "-task", task, *extra]
+        for d in (out, f"{out}_cpu"):  # the run logger appends to metrics.jsonl
+            shutil.rmtree(d, ignore_errors=True)
+        card_run = reasoning_run([*argv, f"--output_dir={out}"])
+        micro = card_run["train_forwards"]
+        require(micro == REASONING_STEPS * REASONING_GA,
+                f"reasoning {task}: {micro} training forwards")
+        expect = alpaca_expect(16, adapted, micro + card_run["eval_forwards"], micro,
+                               "monarch_add")
+        expect_only(card_run["launches"], expect, f"reasoning {task}")
+        launches.update(expect)
+        runs[task] = card_run
+        gens = _generations(os.path.join(out, task))
+        require(len(gens) > 0, f"reasoning {task}: no generations")
+        if task == "gsm8k":
+            again = [card_run["run"].evaluate(greedy=False, out=os.path.join(out, f"again{i}"))
+                     for i in range(2)]
+            draws = [_generations(os.path.join(out, f"again{i}")) for i in range(2)]
+            require(draws[0] == draws[1] == gens and again[0] == again[1]
+                    == card_run["run"].results,
+                    f"reasoning gsm8k: sampled evals under one seed differ: {again}")
+            print(f"[reasoning] {card}: smoke, gsm8k sampled (top-k 40, top-p 0.95, "
+                  f"temperature 0.8): three evals under one seed equal ({len(gens)} "
+                  f"generations, {card_run['run'].results}); launches {expect}", flush=True)
+            continue
+        cpu_run = reasoning_run([*argv, f"--output_dir={out}_cpu", "--platform=cpu"])
+        require(not any(cpu_run["launches"].values()),
+                f"reasoning {task}: the CPU run launched {cpu_run['launches']}")
+        losses = [[r["loss"] for r in _alpaca_records(d, "metrics.jsonl", task) if "loss" in r]
+                  for d in (out, f"{out}_cpu")]
+        require(len(losses[0]) == len(losses[1]) == REASONING_STEPS, f"losses {losses}")
+        err = max(abs(a - b) - tol["rtol"] * abs(b) for a, b in zip(*losses))
+        require(err <= tol["atol"], f"reasoning {task}: losses {losses[0]} card, "
+                                    f"{losses[1]} CPU")
+        cpu_gens = _generations(os.path.join(f"{out}_cpu", task))
+        same = sum(a == b for a, b in zip(gens, cpu_gens))
+        results = [r["run"].results for r in (card_run, cpu_run)]
+        require(same == len(gens) == len(cpu_gens) and results[0] == results[1],
+                f"reasoning {task}: generations equal {same}/{len(gens)}; results {results}")
+        print(f"[reasoning] {card}: smoke, {task}{' ' + extra[0] if extra else ''}: losses "
+              f"{losses[0]} card, {losses[1]} CPU (tol {tol}); results {results[0]} on both; "
+              f"generations equal {same}/{len(gens)}; {micro} training and "
+              f"{card_run['eval_forwards']} generation forwards; launches {expect}; wall "
+              f"{card_run['seconds']:.2f} s card, {cpu_run['seconds']:.2f} s CPU", flush=True)
+
+    # beam search on the math run's trained weights, on the card and a CPU copy
+    model = runs["math"]["run"].trainer.model
+    cpu_model = copy.deepcopy(model).cpu()
+    g = torch.Generator().manual_seed(SEED + 21)
+    ids = torch.randint(4, 1024, (3, 12), generator=g)
+    mask = torch.ones_like(ids)
+    mask[1, :5] = mask[2, :9] = 0
+    ids = ids * mask + runs["math"]["run"].tokenizer.pad_token_id * (1 - mask)
+    gc_beam = GenerationConfig(max_new_tokens=REASONING_BEAM_NEW, num_beams=4,
+                               eos_token_id=runs["math"]["run"].tokenizer.eos_token_id,
+                               pad_token_id=runs["math"]["run"].tokenizer.pad_token_id)
+    before = runs["math"]["forwards"]["eval"]
+    reset_counts()  # the counted main path starts here
+    got = beam_generate(model, ids.cuda(), mask.cuda(), gc_beam).cpu()
+    beam_launches = counts()  # the counted main path ends here
+    steps = runs["math"]["forwards"]["eval"] - before
+    want = beam_generate(cpu_model, ids, mask, gc_beam)
+    expect = {"monarch_add": adapted * steps}
+    expect_only(beam_launches, expect, "beam_generate, 4 beams")
+    launches.update(expect)
+    require(torch.equal(got, want), f"beam_generate: card {got.tolist()}, CPU {want.tolist()}")
+    print(f"[reasoning] {card}: smoke, beam_generate at 4 beams (3 left-padded prompts, "
+          f"{REASONING_BEAM_NEW} new tokens): card tokens equal the CPU's; {steps} forwards; "
+          f"launches {expect}", flush=True)
+    del runs, model, cpu_model
+    return dict(launches)
+
+
+def write_hf_checkpoint(path: str, config: dict, seed: int) -> dict:
+    """An HF-format Llama directory: ``config.json`` and a ``model.safetensors``
+    (an 8-byte little-endian header length, the JSON header, then the raw
+    bytes) of random bfloat16 weights drawn on the card from a generator
+    seeded ``seed`` (matrices N(0, 0.02), norms 1 + N(0, 0.02)).  Returns
+    the written tensors, on the card."""
+    import struct
+
+    h, inter, layers = config["hidden_size"], config["intermediate_size"], \
+        config["num_hidden_layers"]
+    kv = config["num_key_value_heads"] * h // config["num_attention_heads"]
+    shapes = {"model.embed_tokens.weight": (config["vocab_size"], h)}
+    for i in range(layers):
+        p = f"model.layers.{i}"
+        shapes.update({f"{p}.self_attn.q_proj.weight": (h, h),
+                       f"{p}.self_attn.k_proj.weight": (kv, h),
+                       f"{p}.self_attn.v_proj.weight": (kv, h),
+                       f"{p}.self_attn.o_proj.weight": (h, h),
+                       f"{p}.mlp.gate_proj.weight": (inter, h),
+                       f"{p}.mlp.up_proj.weight": (inter, h),
+                       f"{p}.mlp.down_proj.weight": (h, inter),
+                       f"{p}.input_layernorm.weight": (h,),
+                       f"{p}.post_attention_layernorm.weight": (h,)})
+    shapes.update({"model.norm.weight": (h,), "lm_head.weight": (config["vocab_size"], h)})
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tensors, header, offset = {}, {}, 0
+    for name, shape in shapes.items():
+        t = torch.randn(shape, generator=g, device="cuda").mul_(0.02)
+        if len(shape) == 1:
+            t += 1.0
+        tensors[name] = t.to(torch.bfloat16)
+        n = tensors[name].numel() * 2
+        header[name] = {"dtype": "BF16", "shape": list(shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    with open(os.path.join(path, "model.safetensors"), "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            t.cpu().view(torch.int16).numpy().tofile(f)
+    return tensors
+
+
+def phase_reasoning_full(card: str) -> dict:
+    """(b) The reasoning harness at TinyLlama-1.1B widths, all 22 layers,
+    from an HF-format directory that this phase writes (``TINYLLAMA_HF``,
+    random seeded bf16 weights, ``write_hf_checkpoint``) and deletes: the
+    tensors the harness's loader gives equal the written ones; ``-task
+    math`` in bf16 with the harness's defaults (remat "nothing", dropout
+    0.1, so K1 on every forward, K1 twice a training micro-batch) at batch 4
+    x ga 8 x max length 512 for ``REASONING_FULL_STEPS`` steps (step 0
+    profiled: device busy; the later steps alone: wall and peak memory),
+    then its greedy eval of one dataset; then the same eval again, timed
+    alone (its results the harness's), and a beam-4 eval (``-top_k 0 -top_p
+    1.0 -t 0.1``: beam-sample at temperature 0.1), each through
+    ``ReasoningRun.evaluate``.  Wall a decode forward for each (the
+    prefill included; a decode ends early where every row has emitted EOS),
+    and device busy a forward from the profiler over a
+    ``REASONING_PROFILE_NEW``-token eval of each.  Launches exact (K1, K3;
+    K2 none).  Returns the launches."""
+    from sparse_matrix_fine_tuning_torch.scripts import run_reasoning
+
+    ckpt = os.path.join(OUT_DIR, "reasoning_tinyllama")
+    out = os.path.join(OUT_DIR, "reasoning_full")
+    for d in (ckpt, out):
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    written = write_hf_checkpoint(ckpt, TINYLLAMA_HF, SEED + 22)
+    write_s = time.perf_counter() - t0
+    size_gb = os.path.getsize(os.path.join(ckpt, "model.safetensors")) / 1e9
+    loaded = {}
+
+    def build_checked(args, peft_config):
+        t0 = time.perf_counter()
+        model = run_reasoning.build_model(args, peft_config)
+        torch.cuda.synchronize()
+        loaded["seconds"] = time.perf_counter() - t0
+        params = dict(model.named_parameters())
+        for name, t in written.items():
+            proj = name.rsplit(".", 2)[-2]
+            key = name[:-len("weight")] + "dense" if proj.endswith("_proj") else name
+            require(params[key].dtype == torch.bfloat16 and torch.equal(params[key], t),
+                    f"reasoning full: the loaded {key} is not the written {name}")
+        loaded["tensors"] = len(written)
+        loaded["config"] = model.config
+        written.clear()
+        return model
+
+    steps = {}
+    torch.cuda.reset_peak_memory_stats()
+    full = reasoning_run([*REASONING_FULL_ARGV, "--model", ckpt, f"--output_dir={out}"],
+                         build=build_checked,
+                         step_context=harness_step_context(steps, "reasoning harness (1.1B)"))
+    cfg = loaded["config"]
+    require(loaded.get("tensors") == 3 + 9 * 22 and cfg.remat and cfg.remat_policy == "nothing",
+            f"reasoning full: loaded {loaded}")
+    micro = full["train_forwards"]
+    require(micro == REASONING_FULL_STEPS * 8, f"reasoning full: {micro} training forwards")
+    greedy_forwards = full["eval_forwards"]
+    expect = {"monarch_kernel": N_ADAPTED * (2 * micro + greedy_forwards),
+              "monarch_bwd": N_ADAPTED * micro}
+    expect_only(full["launches"], expect, "reasoning full, training and greedy eval")
+    launches = collections.Counter(expect)
+    losses = [r["loss"] for r in _alpaca_records(out, "metrics.jsonl", "math") if "loss" in r]
+    require(len(losses) == REASONING_FULL_STEPS and all(map(math.isfinite, losses)),
+            f"reasoning full: losses {losses}")
+    require(len(steps.get("wall_ms", [])) == REASONING_FULL_STEPS - 1 and "busy_ms" in steps,
+            f"reasoning full: the harness's steps seen {steps}")
+    evals = {}
+    for label, greedy in (("greedy", True), ("beam-4", False)):
+        evals[label] = counted_eval(full, label, greedy=greedy, out=os.path.join(out, label))
+        expect = {"monarch_kernel": N_ADAPTED * evals[label]["forwards"]}
+        expect_only(evals[label]["launches"], expect, f"reasoning full, {label} eval")
+        launches.update(expect)
+    require(evals["greedy"]["results"] == full["run"].results,
+            f"reasoning full: the greedy eval gave {evals['greedy']['results']}, the harness's "
+            f"{full['run'].results}")
+    busy = {}
+    for label, greedy in (("greedy", True), ("beam-4", False)):
+        before = full["forwards"]["eval"]
+        with device_busy(f"reasoning {label} eval, {REASONING_PROFILE_NEW} new tokens") as prof:
+            full["run"].evaluate(greedy=greedy, max_new=REASONING_PROFILE_NEW,
+                                 out=os.path.join(out, f"profiled_{label}"))
+        busy[label] = (prof["busy_ms"], full["forwards"]["eval"] - before)
+    data = full["run"].trainer.train_data
+    rows, width = data["input_ids"].shape
+    wall = statistics.median(steps["wall_ms"])
+    idle = f"{1 - steps['busy_ms'] / wall:.3f}" if steps["busy_ms"] else "not measured"
+    evals_line = "; ".join(
+        f"{label} eval {e['seconds']:.2f} s wall over {e['forwards']} forwards "
+        f"({e['seconds'] * 1e3 / e['forwards']:.2f} ms a forward, the prefill included), "
+        + (f"device busy {busy[label][0] / busy[label][1]:.3f} ms a forward (profiled, "
+           f"{busy[label][1]} forwards)" if busy[label][0] else "device busy not measured")
+        for label, e in evals.items())
+    RECORDS.append({"reasoning_full": "math", "steps_wall_ms": steps["wall_ms"],
+                    "step0_busy_ms": steps["busy_ms"], "harness_eval_forwards": greedy_forwards,
+                    **{f"{label}_s": e["seconds"] for label, e in evals.items()},
+                    **{f"{label}_forwards": e["forwards"] for label, e in evals.items()},
+                    "busy": busy, "card": card})
+    print(f"[reasoning-full] {card}: TinyLlama-1.1B widths from an HF-format directory, 22 "
+          f"layers, bf16, remat \"nothing\", dropout 0.1: checkpoint {size_gb:.2f} GB written in "
+          f"{write_s:.2f} s, loaded and adapted in {loaded['seconds']:.2f} s, its "
+          f"{loaded['tensors']} tensors equal the written ones; {rows} training rows of "
+          f"{width} tokens; losses {losses}; steps 1-{REASONING_FULL_STEPS - 1} wall "
+          f"{[round(w, 2) for w in steps['wall_ms']]} ms (median {wall:.2f}), step 0 device busy "
+          f"{steps['busy_ms'] if steps['busy_ms'] is None else round(steps['busy_ms'], 2)} ms "
+          f"(profiled; wall {steps['profiled_wall_ms']:.2f} ms with the profiler on), idle "
+          f"share {idle} (1 - busy / median wall), peak {steps['peak_gb']:.2f} GB over step "
+          f"{REASONING_FULL_STEPS - 1} ({steps['peak_before_gb']:.2f} GB before it); "
+          f"the harness's greedy eval {greedy_forwards} forwards; then {evals_line}; results "
+          f"greedy {full['run'].results}, beam-4 {evals['beam-4']['results']}; harness run "
+          f"{full['seconds']:.2f} s wall; launches {dict(launches)}", flush=True)
+    del full, evals
+    shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches)
 
 
 def main() -> None:
@@ -2991,6 +3356,12 @@ def main() -> None:
     print(f"[alpaca] launches of the harness's runs: smoke {alpaca}, full width {alpaca_full}",
           flush=True)
     lap("alpaca harness, full width")
+    reasoning = phase_reasoning_smoke(card)
+    lap("reasoning harness, smoke")
+    reasoning_full = phase_reasoning_full(card)
+    print(f"[reasoning] launches of the harness's runs: smoke {reasoning}, full width "
+          f"{reasoning_full}", flush=True)
+    lap("reasoning harness, full width")
     launches = {"monarch_kernel": serving["launches"]["monarch_kernel"],
                 "monarch_add": serving["launches"]["monarch_add"],
                 "monarch_bwd": training["launches"]["monarch_bwd"],

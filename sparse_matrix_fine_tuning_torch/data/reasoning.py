@@ -4,10 +4,10 @@ A copy of part of ``sparse_matrix_fine_tuning_tpu/data/reasoning.py``
 (reference pyreft/loreft/dataset.py:140-300): the task registry
 ``TASK_CONFIG``, prompt templating per task (``build_prompt``) and the raw
 items from local JSON or the crc32-seeded synthetic generator, with the HPO
-split semantics (``load_data_items``).  Tokenizing for the reasoning and
-GLUE-ReFT harnesses (``tokenize_reasoning``, ``tokenize_glue_reft``) and the
-ReFT intervention locations are not copied yet (ROADMAP.md queue A items 18
-and 20).
+split semantics (``load_data_items``), and the reasoning harness's
+tokenizing (``tokenize_reasoning``, with ``parse_positions`` and
+``get_intervention_locations``).  ``tokenize_glue_reft`` is not copied yet
+(ROADMAP.md queue A item 20).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from __future__ import annotations
 import json
 import os
 import zlib
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -25,7 +25,8 @@ from sparse_matrix_fine_tuning_torch.data.templates import (
     alpaca_prompt_template,
 )
 
-__all__ = ["IGNORE_INDEX", "TASK_CONFIG", "build_prompt", "load_data_items"]
+__all__ = ["IGNORE_INDEX", "TASK_CONFIG", "build_prompt", "get_intervention_locations",
+           "load_data_items", "parse_positions", "tokenize_reasoning"]
 
 # Task registry (values mirror reference pyreft/loreft/task_config.py:3-176).
 TASK_CONFIG = {
@@ -113,6 +114,45 @@ TASK_CONFIG["tune_commonsense"] = dict(TASK_CONFIG["commonsense"],
                                        eval_datasets=["commonsense_170k"],
                                        _tune_of="commonsense", _num_eval=10000)
 
+
+def parse_positions(positions: str):
+    """"f7+l7" -> (7, 7); "f5" -> (5, 0); "l3" -> (0, 3)
+    (reference pyreft/pyreft/dataset.py:48-59)."""
+    first_n, last_n = 0, 0
+    if "+" in positions:
+        first_n = int(positions.split("+")[0].strip("f"))
+        last_n = int(positions.split("+")[1].strip("l"))
+    elif "f" in positions:
+        first_n = int(positions.strip("f"))
+    elif "l" in positions:
+        last_n = int(positions.strip("l"))
+    return first_n, last_n
+
+
+def get_intervention_locations(*, last_position: int, first_n: int, last_n: int,
+                               num_interventions: int, share_weights: bool = False,
+                               pad_mode: str = "first"):
+    """Padded per-layer token-position lists
+    (reference pyreft/pyreft/dataset.py:62-108)."""
+    _first_n, _last_n = first_n, last_n
+    first_n = min(last_position // 2, _first_n)
+    last_n = min(last_position // 2, _last_n)
+    pad_amount = (_first_n - first_n) + (_last_n - last_n)
+    pad_position = -1 if pad_mode == "first" else last_position
+    if share_weights or (first_n == 0 or last_n == 0):
+        position_list = (list(range(first_n))
+                         + list(range(last_position - last_n, last_position))
+                         + [pad_position] * pad_amount)
+        return [position_list] * num_interventions
+    left = list(range(first_n)) + [pad_position] * (_first_n - first_n)
+    right = (list(range(last_position - last_n, last_position))
+             + [pad_position] * (_last_n - last_n))
+    if len(left) > len(right):
+        right += [pad_position] * (len(left) - len(right))
+    else:
+        left += [pad_position] * (len(right) - len(left))
+    return ([left] * (num_interventions // 2)
+            + [right] * (num_interventions // 2))
 
 
 # ----------------------------------------------------------------------
@@ -207,3 +247,67 @@ def _synthetic_items(task: str, n: int, seed: int):
                           "input": "", "output": f"token{i % 7}"})
     return items
 
+
+
+def tokenize_reasoning(task: str, items: Sequence[dict], tokenizer,
+                       max_length: int = 512, split: str = "train",
+                       position: str = "f7+l7", num_interventions: int = 1,
+                       share_weights: bool = True):
+    """Padded numpy arrays.
+
+    train: RIGHT-padded full sequences with IGNORE_INDEX labels on prompt
+    and padding.  eval: LEFT-padded prompts for generation.  Both get a
+    single leading pad "sink" token and intervention locations
+    (reference loreft/dataset.py:253-283).
+    """
+    # EOS is appended as a TOKEN ID, never as template text: the "</s>"
+    # string would be word-tokenized by the hash tokenizer
+    pad_id = tokenizer.pad_token_id
+    first_n, last_n = parse_positions(position)
+    rows_ids, rows_labels, rows_locs = [], [], []
+    for item in items:
+        prompt, full = build_prompt(task, item, "")
+        prompt_ids = tokenizer.encode_ids(prompt)[:max_length - 1]
+        if split == "train":
+            full_ids = (tokenizer.encode_ids(full)[:max_length - 1]
+                        + [tokenizer.eos_token_id])
+            labels = [IGNORE_INDEX] * min(len(prompt_ids), len(full_ids)) \
+                + full_ids[len(prompt_ids):]
+            ids = full_ids
+        else:
+            ids, labels = prompt_ids, None
+        locs = get_intervention_locations(
+            last_position=len(prompt_ids), first_n=first_n, last_n=last_n,
+            num_interventions=num_interventions, share_weights=share_weights,
+            pad_mode="first")
+        # single leading pad ("sink") token; locations shift by 1
+        ids = [pad_id] + ids
+        if labels is not None:
+            labels = [IGNORE_INDEX] + labels
+        locs = [[p + 1 for p in lay] for lay in locs]
+        rows_ids.append(ids)
+        rows_labels.append(labels)
+        rows_locs.append(locs)
+
+    maxlen = min(max(len(r) for r in rows_ids), max_length + 1)
+    n = len(rows_ids)
+    input_ids = np.full((n, maxlen), pad_id, np.int32)
+    attention_mask = np.zeros((n, maxlen), np.int32)
+    out = {"input_ids": input_ids, "attention_mask": attention_mask,
+           "intervention_locations": np.asarray(rows_locs, np.int32),
+           "id": np.arange(n, dtype=np.int32)}
+    if split == "train":
+        labels_arr = np.full((n, maxlen), IGNORE_INDEX, np.int32)
+    for i, ids in enumerate(rows_ids):
+        ids = ids[:maxlen]
+        if split == "train":
+            input_ids[i, :len(ids)] = ids           # right-pad
+            attention_mask[i, :len(ids)] = 1
+            lab = rows_labels[i][:maxlen]
+            labels_arr[i, :len(lab)] = lab
+        else:
+            input_ids[i, maxlen - len(ids):] = ids  # left-pad for generation
+            attention_mask[i, maxlen - len(ids):] = 1
+    if split == "train":
+        out["labels"] = labels_arr
+    return out

@@ -3,10 +3,10 @@
 A copy of ``SimpleTokenizer`` from ``sparse_matrix_fine_tuning_tpu/data/
 tokenizer.py``, which keeps every harness runnable end to end with no
 download.  The JAX ``get_tokenizer`` loads a local HF tokenizer through
-``transformers``, which the port may not import: here a local tokenizer
-directory is refused (ROADMAP.md queue A item 13), and any other name gives
-the hash tokenizer, as the JAX function does when no local HF tokenizer
-loads.
+``transformers``, which the port may not import: here a directory that
+holds tokenizer files is refused (ROADMAP.md queue A item 13), and any
+other name or directory gives the hash tokenizer, as the JAX function does
+when no local HF tokenizer loads.
 """
 
 from __future__ import annotations
@@ -85,11 +85,21 @@ class SimpleTokenizer:
         return "</s>"
 
 
+# the files from which HF's AutoTokenizer builds a tokenizer
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer.model", "tokenizer_config.json")
+
+
 def get_tokenizer(model_name_or_path: Optional[str] = None, vocab_size: int = 50265):
-    """``SimpleTokenizer(vocab_size)``; a local tokenizer directory is
-    refused."""
+    """``SimpleTokenizer(vocab_size)``, also for a checkpoint directory
+    without tokenizer files (where the JAX function's ``AutoTokenizer``
+    fails and falls back).  A directory with ``TOKENIZER_FILES`` is refused:
+    its text is never hashed in place of its real tokenizer."""
     if model_name_or_path and os.path.isdir(model_name_or_path):
-        raise NotImplementedError(
-            f"a local HF tokenizer ({model_name_or_path!r}) needs transformers: ROADMAP.md "
-            "queue A item 13, 'The Llama model, training part' (hf_convert)")
+        found = [f for f in TOKENIZER_FILES
+                 if os.path.exists(os.path.join(model_name_or_path, f))]
+        if found:
+            raise NotImplementedError(
+                f"the HF tokenizer in {model_name_or_path!r} ({', '.join(found)}) needs "
+                "transformers: ROADMAP.md queue A item 13, 'The Llama model, training part' "
+                "(a local tokenizer)")
     return SimpleTokenizer(vocab_size=vocab_size)

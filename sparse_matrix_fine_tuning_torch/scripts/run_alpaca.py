@@ -8,13 +8,15 @@ collated with independent source/target truncation, a held-out eval split,
 length-grouped micro-batches), Monarch adapters on every linear over a
 frozen base that ``--bits 8|4`` quantizes, training through the port's
 ``Trainer``, eval loss and k-shot MMLU scoring at the A/B/C/D logits, and
-greedy continuations of the eval split with ``--do_predict``.  It runs on
-the card; ``--platform=cpu`` runs it on the CPU, on the kernels' plain
-versions.
+continuations of the eval split with ``--do_predict`` (greedy, or with
+sampling, beams, repetition penalties and n-gram bans, as the JAX harness's
+``GenerationConfig`` takes them).  It runs on the card; ``--platform=cpu``
+runs it on the CPU, on the kernels' plain versions.
 
-Without local weights (always, until ROADMAP.md queue A item 13 ports the
-HF loaders) the model is the JAX harness's tiny random Llama.  ``main`` and
-``run`` take ``build``, a callable ``(args, peft_config) -> model`` in place
+``--model <dir>`` loads a local HF-format checkpoint in bfloat16 through
+``models/hf_convert.from_pretrained_causal_lm``, with
+``--gradient_checkpointing`` and ``--remat_policy``; otherwise the model is
+the JAX harness's tiny random Llama.  ``main`` and ``run`` take ``build``, a callable ``(args, peft_config) -> model`` in place
 of ``build_model``; tests and ``chip_smoke.py`` pass it, it is not a flag.
 ``run`` also takes ``step_context``, the ``Trainer``'s hook around each
 training step (``chip_smoke.py`` times and profiles the run's steps with it).
@@ -32,11 +34,9 @@ on from the newest checkpoint in the output directory (``Trainer``'s
 mid-epoch-exact resume).
 
 Refused with ``NotImplementedError`` before any work, each naming its
-ROADMAP.md queue A item: ``--do_tune`` (21), ``--adapter lora`` (22),
-``--optim adamw8bit`` (27), sampling, beams, penalties and n-gram bans with
-``--do_predict`` (18) and a local weights directory (13;
-``--gradient_checkpointing`` and ``--remat_policy`` reach the model only
-through it).
+ROADMAP.md queue A item: ``--do_tune`` (21), ``--adapter lora`` (22) and
+``--optim adamw8bit`` (27).  ``generate`` refuses beams with penalties or
+n-gram bans, and beam-sample with top-k or top-p, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -67,6 +67,7 @@ from sparse_matrix_fine_tuning_torch.data.reasoning import load_data_items
 from sparse_matrix_fine_tuning_torch.data.tokenizer import SimpleTokenizer, get_tokenizer
 from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig
 from sparse_matrix_fine_tuning_torch.models.generate import GenerationConfig, generate
+from sparse_matrix_fine_tuning_torch.models.hf_convert import from_pretrained_causal_lm
 from sparse_matrix_fine_tuning_torch.models.llama import LlamaForCausalLM
 from sparse_matrix_fine_tuning_torch.peft.surgery import (
     find_all_linear_names,
@@ -154,11 +155,11 @@ def parse_args(argv=None):
     p.add_argument("--resume", default=False, type=eval,
                    help="go on from the newest checkpoint in the output directory")
     p.add_argument("--gradient_checkpointing", default=True, type=eval,
-                   help="remat decoder layers of pretrained weights (reference "
-                        "qlora default); reaches only local weights")
+                   help="remat decoder layers of local weights (reference "
+                        "qlora default)")
     p.add_argument("--remat_policy", default="nothing",
                    choices=["nothing", "dots"],
-                   help="what remat saves; reaches only local weights")
+                   help="what remat saves, for local weights")
     p.add_argument("--loss_chunk", default=0, type=int,
                    help="compute the CE loss in token chunks of this size "
                         "so full (B,T,V) logits are never materialised "
@@ -192,14 +193,6 @@ def check_supported(args) -> None:
         refused.append("--adapter lora (the LoRA baseline): item 22")
     if args.optim == "adamw8bit":
         refused.append("--optim adamw8bit: item 27")
-    if args.do_predict and (args.do_sample or args.num_beams > 1 or args.temperature is not None
-                            or args.top_p is not None or args.top_k is not None
-                            or args.repetition_penalty != 1.0
-                            or args.no_repeat_ngram_size > 0):
-        refused.append("sampling, beams, penalties or n-gram bans in --do_predict "
-                       "(greedy only): item 18")
-    if not args.smoke and os.path.isdir(args.model):
-        refused.append(f"local weights ({args.model!r}; the HF loaders): item 13")
     if refused:
         raise NotImplementedError("run_alpaca: " + "; ".join(refused)
                                   + " (ROADMAP.md queue A)")
@@ -232,14 +225,22 @@ def adapt_model(model, args, peft_config: dict):
 
 
 def build_model(args, peft_config: dict):
-    """The JAX harness's tiny random Llama (there are no local weights),
-    adapted by ``adapt_model``, with the tokenizer's vocabulary: 1024 with
-    ``--smoke``, else the hash tokenizer's 32000 (the JAX harness keeps
-    1024 there, and its gather fills the larger ids silently; an embedding
-    here would fail on them).  It is drawn on the CPU from generators
-    seeded ``seed`` and ``seed + 1`` and then moved to the harness's
-    device, so that a seed gives one model on the card and on the CPU (a
-    card's generator draws other numbers)."""
+    """The checkpoint of ``--model <dir>`` in bfloat16 on the harness's
+    device, remat as ``--gradient_checkpointing`` and ``--remat_policy``
+    say, adapted by ``adapt_model`` there.  Else the JAX harness's tiny
+    random Llama, adapted by ``adapt_model``, with the tokenizer's
+    vocabulary: 1024 with ``--smoke``, else the hash tokenizer's 32000 (the
+    JAX harness keeps 1024 there, and its gather fills the larger ids
+    silently; an embedding here would fail on them).  It is drawn on the
+    CPU from generators seeded ``seed`` and ``seed + 1`` and then moved to
+    the harness's device, so that a seed gives one model on the card and on
+    the CPU (a card's generator draws other numbers)."""
+    if not args.smoke and os.path.isdir(args.model):
+        model = from_pretrained_causal_lm(args.model, dtype="bfloat16",
+                                          device=harness_device(args),
+                                          remat=args.gradient_checkpointing,
+                                          remat_policy=args.remat_policy)
+        return adapt_model(model, args, peft_config)
     if not args.smoke:
         print(f"[alpaca] no local weights at {args.model!r}; random tiny init")
     vocab = SMOKE_VOCAB if args.smoke else HASH_VOCAB
@@ -253,7 +254,9 @@ def build_model(args, peft_config: dict):
 
 
 def predict_generations(model, tokenizer, eval_items, args, out_dir, *, src_len):
-    """Greedy continuations of the eval split into ``predictions.jsonl``:
+    """Continuations of the eval split into ``predictions.jsonl``, with the
+    decoding flags (``generator=None``: sampling draws from a generator
+    seeded 0 a batch, as the JAX harness's default key):
     each row is the source example plus ``prediction_with_input`` (the full
     decoded sequence) and ``prediction`` (the continuation only), as
     reference qlora.py:844-856 writes them."""
@@ -263,6 +266,12 @@ def predict_generations(model, tokenizer, eval_items, args, out_dir, *, src_len)
     ids, mask = batch_data["input_ids"], batch_data["attention_mask"]
     gc = GenerationConfig(
         max_new_tokens=min(args.max_new_tokens, 16 if args.smoke else 10**9),
+        num_beams=args.num_beams, do_sample=args.do_sample,
+        temperature=args.temperature if args.temperature is not None else 1.0,
+        top_p=args.top_p if args.top_p is not None else 1.0,
+        top_k=args.top_k if args.top_k is not None else 0,
+        repetition_penalty=args.repetition_penalty,
+        no_repeat_ngram_size=args.no_repeat_ngram_size,
         eos_token_id=tokenizer.eos_token_id, pad_token_id=tokenizer.pad_token_id)
     device = next(model.parameters()).device
     t0 = time.perf_counter()

@@ -2,8 +2,11 @@
 logging code against the originals, on the same seeded inputs, bit for bit:
 the hash tokenizer, Alpaca formatting, collation and the eval split, the
 synthetic (and local-file) items, MMLU prompts, the config overrides and
-best-HP files, and ``RunLogger``'s JSONL.  ``get_tokenizer`` refuses a local
-tokenizer directory, which the JAX one would hand to ``transformers``."""
+best-HP files, and ``RunLogger``'s JSONL.  ``get_tokenizer`` gives the JAX
+one's hash tokenizer for a name and for a checkpoint directory without
+tokenizer files, and refuses a directory with them, which the JAX one would
+hand to ``transformers``.  ``test_torch_reasoning_data.py`` holds the
+reasoning harness's tokenizing."""
 
 import csv
 import dataclasses
@@ -62,10 +65,23 @@ def test_torch_simple_tokenizer_matches_jax(text, vocab):
         (j.bos_token_id, j.pad_token_id, j.eos_token_id, j.eos_token)
 
 
-def test_torch_get_tokenizer_refuses_a_directory(tmp_path):
-    tok = ttok.get_tokenizer("llama-2-7b", vocab_size=500)
-    assert isinstance(tok, ttok.SimpleTokenizer) and tok.vocab_size == 500
-    assert ttok.get_tokenizer(None).vocab_size == jtok.get_tokenizer(None).vocab_size
+def test_torch_get_tokenizer_matches_jax_without_tokenizer_files(tmp_path):
+    """A name, None and a checkpoint directory without tokenizer files (the
+    weights and config alone, where the JAX function's AutoTokenizer fails)
+    give the hash tokenizer at the vocabulary asked, in both packages."""
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": "llama"}))
+    (tmp_path / "model.safetensors").write_bytes(b"")
+    for name, vocab in (("llama-2-7b", 500), (None, 50265), (str(tmp_path), 32000)):
+        got, want = ttok.get_tokenizer(name, vocab_size=vocab), jtok.get_tokenizer(
+            name, vocab_size=vocab)
+        assert isinstance(got, ttok.SimpleTokenizer) and isinstance(want, jtok.SimpleTokenizer)
+        assert got.vocab_size == want.vocab_size == vocab
+        assert got.encode_ids(TEXTS[2]) == want.encode_ids(TEXTS[2])
+
+
+@pytest.mark.parametrize("fname", ttok.TOKENIZER_FILES)
+def test_torch_get_tokenizer_refuses_a_tokenizer_directory(tmp_path, fname):
+    (tmp_path / fname).write_text("{}")
     with pytest.raises(NotImplementedError, match="item 13"):
         ttok.get_tokenizer(str(tmp_path))
 

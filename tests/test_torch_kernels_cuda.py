@@ -1386,3 +1386,76 @@ def test_torch_remat_step_on_card(cuda_device, policy, dropout):
     assert sorted(got_g) == sorted(want_g) and len(want_g) == 29
     for name, g in want_g.items():
         assert float((got_g[name] - g).abs().max()) <= 1e-4 * float(g.abs().max()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [{}, {"repetition_penalty": 1.1, "no_repeat_ngram_size": 3},
+                                 {"num_beams": 4}, {"num_beams": 4, "early_stopping": False,
+                                                    "length_penalty": 0.6}],
+                         ids=["greedy", "penalty-ngram", "beams", "beams-lp"])
+def test_torch_decoding_on_card_equals_cpu(cuda_device, cfg, tmp_path):
+    """``generate`` (K2 at every prefill and step) on a 2-layer float32
+    Llama loaded by ``hf_convert`` from a directory this test writes (the
+    port's safetensors format by hand, random seeded weights): the card's
+    tokens equal a CPU copy's, K2 launched on every adapted linear each
+    forward; the loaded model on the card holds the written weights."""
+    import copy
+    import json
+    import struct
+
+    from sparse_matrix_fine_tuning_torch.models.generate import GenerationConfig, generate
+    from sparse_matrix_fine_tuning_torch.models.hf_convert import from_pretrained_llama
+    from sparse_matrix_fine_tuning_torch.peft import surgery
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = {"model_type": "llama", "vocab_size": 256, "hidden_size": 128,
+              "num_hidden_layers": 2, "num_attention_heads": 4, "num_key_value_heads": 2,
+              "intermediate_size": 256, "max_position_embeddings": 128}
+    g = torch.Generator().manual_seed(5)
+    shapes = {"model.embed_tokens.weight": (256, 128), "model.norm.weight": (128,),
+              "lm_head.weight": (256, 128)}
+    for i in range(2):
+        for name, shape in (("self_attn.q_proj", (128, 128)), ("self_attn.k_proj", (64, 128)),
+                            ("self_attn.v_proj", (64, 128)), ("self_attn.o_proj", (128, 128)),
+                            ("mlp.gate_proj", (256, 128)), ("mlp.up_proj", (256, 128)),
+                            ("mlp.down_proj", (128, 256)), ("input_layernorm", (128,)),
+                            ("post_attention_layernorm", (128,))):
+            shapes[f"model.layers.{i}.{name}.weight"] = shape
+    tensors = {k: torch.randn(s, generator=g) * (0.1 if len(s) > 1 else 1) for k, s in
+               shapes.items()}
+    header, offset = {}, 0
+    for k, t in tensors.items():
+        header[k] = {"dtype": "F32", "shape": list(t.shape),
+                     "data_offsets": [offset, offset + 4 * t.numel()]}
+        offset += 4 * t.numel()
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    (tmp_path / "config.json").write_text(json.dumps(config))
+    with open(tmp_path / "model.safetensors", "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        for t in tensors.values():
+            f.write(t.numpy().tobytes())
+    model = from_pretrained_llama(str(tmp_path), dtype="float32", device=cuda_device)
+    assert torch.equal(model.lm_head.weight.cpu(), tensors["lm_head.weight"])
+    surgery.init_monarch(model, {"monarch": True, "nblocks": 4, "blk_r": 4, "adapter": True,
+                                 "target_modules": ["q_proj", "k_proj", "v_proj", "o_proj",
+                                                    "gate_proj", "up_proj", "down_proj"]},
+                         generator=torch.Generator(device=cuda_device).manual_seed(2))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "blkdiag2" in name:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    model.eval()
+    cpu_model = copy.deepcopy(model).cpu()
+    ids = torch.randint(3, 256, (3, 10), generator=g)
+    mask = torch.ones_like(ids)
+    mask[1, :4] = mask[2, :7] = 0
+    ids = ids * mask
+    gc = GenerationConfig(max_new_tokens=12, eos_token_id=None, **cfg)
+    forwards = []
+    model.model.register_forward_pre_hook(lambda m, a: forwards.append(1))
+    before = dict(monarch_cuda.LAUNCHES)
+    got = generate(model, ids.to(cuda_device), mask.to(cuda_device), gc).cpu()
+    launches = {n: monarch_cuda.LAUNCHES[n] - before[n] for n in before}
+    assert launches == {**dict.fromkeys(before, 0), "monarch_add": 14 * len(forwards)}
+    assert torch.equal(got, generate(cpu_model, ids, mask, gc))

@@ -1,5 +1,5 @@
 """Import hygiene of the PyTorch port: importing it pulls in no JAX, Flax,
-Triton, transformers or JAX-package module and builds no kernel; its CUDA
+Triton, transformers, safetensors or JAX-package module and builds no kernel; its CUDA
 kernels refuse CPU tensors instead of computing on them; and the build key
 follows the kernel sources."""
 
@@ -38,6 +38,9 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.scripts.exp_int4_dequant_variants",
     "sparse_matrix_fine_tuning_torch.scripts.probe_profiler_window",
     "sparse_matrix_fine_tuning_torch.scripts.run_alpaca",
+    "sparse_matrix_fine_tuning_torch.scripts.run_reasoning",
+    "sparse_matrix_fine_tuning_torch.evaluation",
+    "sparse_matrix_fine_tuning_torch.evaluation.reasoning",
     "sparse_matrix_fine_tuning_torch.data",
     "sparse_matrix_fine_tuning_torch.data.templates",
     "sparse_matrix_fine_tuning_torch.data.reasoning",
@@ -48,6 +51,7 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.models.config",
     "sparse_matrix_fine_tuning_torch.models.llama",
     "sparse_matrix_fine_tuning_torch.models.generate",
+    "sparse_matrix_fine_tuning_torch.models.hf_convert",
     "sparse_matrix_fine_tuning_torch.peft.surgery",
     "sparse_matrix_fine_tuning_torch.quant",
     "sparse_matrix_fine_tuning_torch.utils.testing",
@@ -61,7 +65,8 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.training.checkpoint",
     "sparse_matrix_fine_tuning_torch.training.trainer",
 ]
-FORBIDDEN = ("jax", "flax", "triton", "transformers", "sparse_matrix_fine_tuning_tpu")
+FORBIDDEN = ("jax", "flax", "triton", "transformers", "safetensors",
+             "sparse_matrix_fine_tuning_tpu")
 
 _PROBE = """
 import importlib, json, subprocess, sys

@@ -14,7 +14,8 @@ logged losses, ``eval_loss`` and the (n, 4) MMLU choice logits 1e-4
 (``TOLERANCES["f32_logits"]``: float32 sums in another order through two
 layers and two AdamW steps); the MMLU accuracies equal; ``watch_layers``
 1e-6; the predictions token for token (equal decoded rows).  Then each
-refused option and ``--profile``'s trace.
+refused option and ``--profile``'s trace.  ``test_torch_run_alpaca_decode.py``
+holds ``--do_predict``'s decoding flags and ``..._local.py`` ``--model <dir>``.
 """
 
 import json
@@ -196,14 +197,6 @@ def test_torch_alpaca_predictions_match_jax(both):
     (["--do_tune=True"], "item 21"),
     (["--adapter=lora"], "item 22"),
     (["--optim=adamw8bit"], "item 27"),
-    (["--do_predict=True", "--do_sample=True"], "item 18"),
-    (["--do_predict=True", "--num_beams=4"], "item 18"),
-    (["--do_predict=True", "--temperature=0.7"], "item 18"),
-    (["--do_predict=True", "--top_p=0.9"], "item 18"),
-    (["--do_predict=True", "--top_k=40"], "item 18"),
-    (["--do_predict=True", "--repetition_penalty=1.1"], "item 18"),
-    (["--do_predict=True", "--no_repeat_ngram_size=5"], "item 18"),
-    (["--model", REPO], "item 13"),
 ])
 def test_torch_alpaca_refusals(tmp_path, extra, item):
     """Each refused option raises before any work: nothing is built and the
