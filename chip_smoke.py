@@ -120,14 +120,26 @@ hand-written CUDA kernels, and checks them:
      twice an adapted linear and micro-batch, K3 once), its greedy eval and
      a beam-4 eval (beam-sample at temperature 0.1), launches exact (K2
      none: with dropout every forward takes K1), each step's wall, busy,
-     idle share and peak memory, each eval's wall and busy a forward.
+     idle share and peak memory, each eval's wall and busy a forward;
+ 20. the GLUE and AG News harnesses (``scripts/run_glue.py``,
+     ``scripts/run_agnews.py``): the smoke recipes (RoBERTa CoLA, STS-B and
+     MNLI, DeBERTa MRPC, AG News monarch) in float32 with dropout off on the
+     card against the CPU (losses and eval_loss within 1e-4, metrics and
+     TSV files equal, launches exact: K2 and K3 only); then RoBERTa-large
+     and DeBERTa-v3-base from HF-format directories written here (random
+     seeded float32 weights; the loaded tensors equal the written ones;
+     deleted after), 3 bf16 steps of each's CoLA recipe through the
+     harness (launches exact, step wall, busy, idle share and peak), its
+     eval and predictions timed alone, and K2/K3 timed at the run's rows
+     beside their bound and ``addmm``.
 
 Serving (5, 6, 10 and 11) runs before the experiments (13-16).  Every
 profile is taken in ``benchlib.device_profile``'s window, padded at both
 ends so that it keeps every kernel's record (ROADMAP C.10).  Each main path (6, 8 off, 8 on, 8
 with splash, each remat run and step of 8, each configuration of 11, each step of 12, the bench of 13,
 each script of 14, 15 and 16, the attention bench of 17, each harness run
-of 18 and 19, and 19's beam search and beam-4 eval) zeroes the launch counts of every kernel
+of 18, 19 and 20, 19's beam search and beam-4 eval, and 20's timed eval
+and predictions) zeroes the launch counts of every kernel
 just before it and reads them just after.  Any failed check
 exits non-zero.  The line before the last is one JSON object on the
 kernels (K5 and K7 at decode and, as ``int4_matmul_tile`` and
@@ -401,6 +413,44 @@ REASONING_FULL_ARGV = ["-task", "math", "-batch_size", "4", "-gradient_accumulat
                        "--logging_steps=1", "-eval_dataset", "MultiArith",
                        "--max_n_eval_example=8", "-top_k", "0", "-top_p", "1.0", "-t", "0.1"]
 REASONING_PROFILE_NEW = 16
+# The GLUE and AG News harnesses (phase_glue_smoke, phase_glue_full): (a) the
+# smoke argv of each run, float32, dropout off, on the card and on the CPU,
+# cut to GLUE_STEPS steps (CoLA, MNLI and MRPC at 100x the recipe's rate, so
+# that 3 steps move the predictions); STS-B's correlations within
+# GLUE_CORRELATION_ATOL (a correlation divides the scores' float32
+# differences by their small spread; the CPU tests read 1.3e-5 and 1.1e-4);
+# (b) RoBERTa-large's and DeBERTa-v3-base's config.json for the HF-format
+# directories the phase writes (their names tell run_glue the family), and
+# the recipes' argv in bf16, cut to GLUE_STEPS steps.
+GLUE_STEPS = 3
+GLUE_FAST = ["--learning_rate=0.003"]
+GLUE_SMOKE = (("roberta cola", "monarch_roberta_glue/cola.json", GLUE_FAST),
+              ("roberta stsb", "monarch_roberta_glue/stsb.json", []),
+              ("roberta mnli", "monarch_roberta_glue/mnli.json", GLUE_FAST),
+              ("deberta mrpc", "deberta_glue/mrpc.json", GLUE_FAST))
+GLUE_CUT = [f"--max_steps={GLUE_STEPS}", "--logging_steps=1"]
+AGNEWS_STEPS = 2  # a quarter of the 256 smoke items at batch 32
+AGNEWS_SMOKE = ["--smoke=True", "--method=monarch", "-e", "0.25", "--logging_steps=1"]
+GLUE_CORRELATION_ATOL = 1e-3
+ROBERTA_LARGE_HF = {"model_type": "roberta", "architectures": ["RobertaForMaskedLM"],
+                    "vocab_size": 50265, "hidden_size": 1024, "num_hidden_layers": 24,
+                    "num_attention_heads": 16, "intermediate_size": 4096,
+                    "max_position_embeddings": 514, "type_vocab_size": 1,
+                    "layer_norm_eps": 1e-5, "pad_token_id": 1, "hidden_act": "gelu"}
+DEBERTA_V3_BASE_HF = {"model_type": "deberta-v2", "architectures": ["DebertaV2ForMaskedLM"],
+                      "vocab_size": 128100, "hidden_size": 768, "num_hidden_layers": 12,
+                      "num_attention_heads": 12, "intermediate_size": 3072,
+                      "max_position_embeddings": 512, "type_vocab_size": 0,
+                      "layer_norm_eps": 1e-7, "pad_token_id": 0, "hidden_act": "gelu",
+                      "relative_attention": True, "position_buckets": 256,
+                      "max_relative_positions": -1, "pos_att_type": ["p2c", "c2p"],
+                      "share_att_key": True, "norm_rel_ebd": "layer_norm",
+                      "position_biased_input": False}
+# (label, task config, config.json, directory under OUT_DIR)
+GLUE_FULL = (("RoBERTa-large", "monarch_roberta_glue/cola.json", ROBERTA_LARGE_HF,
+              "glue_roberta_large"),
+             ("DeBERTa-v3-base", "deberta_glue/cola.json", DEBERTA_V3_BASE_HF,
+              "glue_deberta_v3_base"))
 OUT_DIR = "chip_smoke_out"  # per-case records; .gitignore lists it
 RECORDS: list[dict] = []  # one per kernel case, written to OUT_DIR
 
@@ -1041,7 +1091,9 @@ def profile_decode(model, ids, mask, steps: int = 8, kernels: dict | None = None
 
 def phase_bf16(f32: dict, card: str) -> dict:
     """The slice in bfloat16, timed as bench.py times the JAX one: batch 4,
-    prompt 64, 128 new tokens, no EOS.  The counted main path is: unmerged
+    prompt 64, 128 new tokens, no EOS; prefill the median of 3 timed
+    1-token generates (2 merged), a step from the median of 2 timed
+    generates (the counted one among them), unmerged and merged.  The counted main path is: unmerged
     greedy generate (K2 on every adapted linear), merge of the adapters on
     the card (K1), greedy generate of the merged model."""
     from sparse_matrix_fine_tuning_torch.models.generate import GenerationConfig, generate
@@ -1073,8 +1125,8 @@ def phase_bf16(f32: dict, card: str) -> dict:
         return timed(lambda: generate(model, ids, mask, new_cfg))[1]
 
     generate(model, fresh_ids(), mask, GenerationConfig(max_new_tokens=8, eos_token_id=None))
-    prefill = [gen_s(gc1) for _ in range(5)]
-    gens = [gen_s(gc) for _ in range(3)]
+    prefill = [gen_s(gc1) for _ in range(3)]
+    gens = [gen_s(gc)]
     busy_ms = profile_decode(model, fresh_ids(), mask)
     probe = fresh_ids()
     with torch.inference_mode():
@@ -1104,8 +1156,8 @@ def phase_bf16(f32: dict, card: str) -> dict:
     merged_cos = float(torch.nn.functional.cosine_similarity(
         merged_logits.float().flatten(), unmerged_logits.float().flatten(), dim=0))
     agree = float((merged_toks[:, PROMPT:] == toks[:, PROMPT:]).float().mean())
-    merged_prefill = [gen_s(gc1) for _ in range(3)]
-    merged_gens = [merged_main_s] + [gen_s(gc) for _ in range(2)]
+    merged_prefill = [gen_s(gc1) for _ in range(2)]
+    merged_gens = [merged_main_s, gen_s(gc)]
 
     med = statistics.median
     prefill_ms = med(prefill) * 1e3
@@ -2540,7 +2592,9 @@ def phase_quant_bf16(f32: dict, card: str) -> dict:
     against the unquantized bf16 model's (cosine, ``QUANT_COS``).  The host
     clock drifts over minutes, so each configuration's timed generates
     alternate with the unquantized bf16 model's, which is timed beside it;
-    the counted generate runs alone, last.  Resident and peak memory are the
+    the counted generate runs alone, last (2 prefills and 1 generate of each
+    alternate, the counted generate a second sample of the quantized
+    model's).  Resident and peak memory are the
     configuration's own: measured from what was allocated before its model
     was built.  A counted generate launches the forward once an adapted
     linear for its prefill (BATCH x PROMPT = 256 rows: the wgmma kernel)
@@ -2602,8 +2656,8 @@ def phase_quant_bf16(f32: dict, card: str) -> dict:
 
         generate(model, fresh_ids(), mask, GenerationConfig(max_new_tokens=8, eos_token_id=None))
         generate(base, fresh_ids(), mask, GenerationConfig(max_new_tokens=8, eos_token_id=None))
-        prefill, base_prefill = alternate(gc1, 3)
-        gens, base_gens = alternate(gc, 2)
+        prefill, base_prefill = alternate(gc1, 2)
+        gens, base_gens = alternate(gc, 1)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()  # the counted main path starts here
@@ -3139,14 +3193,8 @@ def phase_reasoning_smoke(card: str) -> dict:
     return dict(launches)
 
 
-def write_hf_checkpoint(path: str, config: dict, seed: int) -> dict:
-    """An HF-format Llama directory: ``config.json`` and a ``model.safetensors``
-    (an 8-byte little-endian header length, the JSON header, then the raw
-    bytes) of random bfloat16 weights drawn on the card from a generator
-    seeded ``seed`` (matrices N(0, 0.02), norms 1 + N(0, 0.02)).  Returns
-    the written tensors, on the card."""
-    import struct
-
+def llama_shapes(config: dict) -> dict:
+    """HF tensor name -> shape of a Llama checkpoint of ``config``."""
     h, inter, layers = config["hidden_size"], config["intermediate_size"], \
         config["num_hidden_layers"]
     kv = config["num_key_value_heads"] * h // config["num_attention_heads"]
@@ -3163,15 +3211,32 @@ def write_hf_checkpoint(path: str, config: dict, seed: int) -> dict:
                        f"{p}.input_layernorm.weight": (h,),
                        f"{p}.post_attention_layernorm.weight": (h,)})
     shapes.update({"model.norm.weight": (h,), "lm_head.weight": (config["vocab_size"], h)})
+    return shapes
+
+
+_ST_NAMES = {torch.bfloat16: "BF16", torch.float32: "F32"}
+
+
+def write_hf_checkpoint(path: str, config: dict, shapes: dict, seed: int,
+                        dtype: torch.dtype = torch.bfloat16) -> dict:
+    """An HF-format directory: ``config.json`` and a ``model.safetensors`` (an
+    8-byte little-endian header length, the JSON header, then the raw bytes)
+    of the tensors ``shapes`` names, random, in ``dtype``, drawn on the card
+    from a generator seeded ``seed`` in ``shapes``' order: N(0, 0.02), and
+    1 + N(0, 0.02) for a norm's weight.  Returns the written tensors, on the
+    card."""
+    import struct
+
     g = torch.Generator(device="cuda").manual_seed(seed)
     tensors, header, offset = {}, {}, 0
     for name, shape in shapes.items():
         t = torch.randn(shape, generator=g, device="cuda").mul_(0.02)
-        if len(shape) == 1:
+        if name.lower().endswith("norm.weight"):
             t += 1.0
-        tensors[name] = t.to(torch.bfloat16)
-        n = tensors[name].numel() * 2
-        header[name] = {"dtype": "BF16", "shape": list(shape), "data_offsets": [offset, offset + n]}
+        tensors[name] = t.to(dtype)
+        n = tensors[name].numel() * dtype.itemsize
+        header[name] = {"dtype": _ST_NAMES[dtype], "shape": list(shape),
+                        "data_offsets": [offset, offset + n]}
         offset += n
     raw = json.dumps(header).encode()
     raw += b" " * (-len(raw) % 8)
@@ -3182,7 +3247,7 @@ def write_hf_checkpoint(path: str, config: dict, seed: int) -> dict:
         f.write(struct.pack("<Q", len(raw)))
         f.write(raw)
         for t in tensors.values():
-            t.cpu().view(torch.int16).numpy().tofile(f)
+            t.cpu().contiguous().view(torch.uint8).numpy().tofile(f)
     return tensors
 
 
@@ -3212,7 +3277,7 @@ def phase_reasoning_full(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    written = write_hf_checkpoint(ckpt, TINYLLAMA_HF, SEED + 22)
+    written = write_hf_checkpoint(ckpt, TINYLLAMA_HF, llama_shapes(TINYLLAMA_HF), SEED + 22)
     write_s = time.perf_counter() - t0
     size_gb = os.path.getsize(os.path.join(ckpt, "model.safetensors")) / 1e9
     loaded = {}
@@ -3304,6 +3369,383 @@ def phase_reasoning_full(card: str) -> dict:
     return dict(launches)
 
 
+def encoder_adapted_calls(model) -> int:
+    """The adapted linears' calls a forward of a GLUE encoder: query, key and
+    value a layer (RoBERTa); DeBERTa's shared position projections add
+    query_proj and key_proj on the position rows."""
+    if hasattr(model, "roberta"):
+        return 3 * model.config.num_hidden_layers
+    cfg = model.config
+    shared = 2 if cfg.relative_attention and cfg.share_att_key else 0
+    return (3 + shared) * cfg.num_hidden_layers
+
+
+def encoder_run(module, argv: list, *, dropout: bool = True, build=None,
+                step_context=None) -> dict:
+    """One ``run`` of ``scripts/run_glue`` or ``scripts/run_agnews`` with the
+    launch counts zeroed just before it and read just after; the forwards of
+    its encoder counted by mode (a hook: "train" the micro-batches, "eval"
+    the eval loss's and the predictions' batches) with the training
+    shapes, its adapted calls a forward, and the run's wall seconds.
+    ``dropout=False`` sets every ``nn.Dropout`` of the built model to 0 (the
+    card's masks are not the CPU's)."""
+    forwards, shapes, calls = collections.Counter(), collections.Counter(), {}
+
+    def hook(encoder, args):
+        forwards["train" if encoder.training else "eval"] += 1
+        if encoder.training:
+            shapes[tuple(args[0].shape)] += 1
+
+    def counted(*a):
+        model = (build or module.build_model)(*a)
+        if not dropout:
+            for m in model.modules():
+                if isinstance(m, torch.nn.Dropout):
+                    m.p = 0.0
+        encoder = model.roberta if hasattr(model, "roberta") else model.deberta
+        encoder.register_forward_pre_hook(hook)
+        calls["per_forward"] = encoder_adapted_calls(model)
+        return model
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    reset_counts()  # the counted main path starts here
+    t0 = time.perf_counter()
+    result = module.run(argv, build=counted, step_context=step_context)
+    seconds = time.perf_counter() - t0
+    launches = counts()  # the counted main path ends here
+    return {"run": result, "launches": launches, "forwards": forwards, "shapes": dict(shapes),
+            "per_forward": calls["per_forward"], "seconds": seconds}
+
+
+def encoder_expect(run: dict) -> dict:
+    """The exact launches of an encoder harness run: K2 on every adapted call
+    each forward (training, eval and predictions: the GLUE adapters carry no
+    dropout, so no forward takes K1), K3 on each a training forward."""
+    per = run["per_forward"]
+    return {"monarch_add": per * (run["forwards"]["train"] + run["forwards"]["eval"]),
+            "monarch_bwd": per * run["forwards"]["train"]}
+
+
+def _close(a: float, b: float, tol: dict) -> bool:
+    return abs(a - b) <= tol["atol"] + tol["rtol"] * abs(b)
+
+
+def phase_glue_smoke(card: str) -> dict:
+    """(a) The GLUE harness (``scripts/run_glue.py``) as users run it,
+    ``task_configs/<family>/<task>.json --smoke=True``: CoLA, STS-B
+    (regression), MNLI (matched and mismatched, two TSV files) on RoBERTa,
+    MRPC on DeBERTa, then ``run_agnews.py --smoke=True --method=monarch``;
+    float32, TF32 off, dropout off, ``GLUE_STEPS`` steps; on the card and on
+    the CPU (``--platform=cpu``, launching nothing).  The logged losses and
+    ``eval_loss`` within ``ALPACA_TOL``, the other metrics equal (STS-B's
+    correlations within ``GLUE_CORRELATION_ATOL``), the TSV files equal, the
+    card's launches exact (K2 and K3 only, ``encoder_expect``).  Returns the
+    card runs' launches."""
+    from sparse_matrix_fine_tuning_torch.scripts import run_agnews, run_glue
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tol = ALPACA_TOL
+    launches = collections.Counter()
+    runs = [(label, run_glue, [os.path.join("task_configs", config), "--smoke=True",
+                               *GLUE_CUT, *extra])
+            for label, config, extra in GLUE_SMOKE]
+    runs.append(("agnews monarch", run_agnews, AGNEWS_SMOKE))
+    for label, module, argv in runs:
+        out = os.path.join(OUT_DIR, "glue_smoke", label.replace(" ", "_"))
+        for d in (out, f"{out}_cpu"):  # the run logger appends to metrics.jsonl
+            shutil.rmtree(d, ignore_errors=True)
+        card_run = encoder_run(module, [*argv, f"--output_dir={out}"], dropout=False)
+        cpu_run = encoder_run(module, [*argv, f"--output_dir={out}_cpu", "--platform=cpu"],
+                              dropout=False)
+        require(not any(cpu_run["launches"].values()),
+                f"{label}: the CPU run launched {cpu_run['launches']}")
+        steps = GLUE_STEPS if module is run_glue else AGNEWS_STEPS
+        require(card_run["forwards"] == cpu_run["forwards"]
+                and card_run["forwards"]["train"] == steps,
+                f"{label}: forwards {card_run['forwards']} card, {cpu_run['forwards']} CPU")
+        expect = encoder_expect(card_run)
+        expect_only(card_run["launches"], expect, f"glue smoke, {label}")
+        launches.update(expect)
+        if module is run_glue:
+            sub = card_run["run"].args.config_path
+            task = next(iter(card_run["run"].results))
+            dirs = [os.path.join(d, task) for d in (out, f"{out}_cpu")]
+            results = [r["run"].results for r in (card_run, cpu_run)]
+            tsvs = [[os.path.basename(p) for p in r["run"].tsv_paths] for r in (card_run, cpu_run)]
+            require(tsvs[0] == tsvs[1] and tsvs[0], f"{label}: TSV files {tsvs}")
+            for name in tsvs[0]:
+                texts = [open(os.path.join(d, "predict", name)).read() for d in dirs]
+                require(texts[0] == texts[1], f"{label}: {name} differs between card and CPU")
+        else:
+            sub, dirs = "agnews", [os.path.join(d, "monarch") for d in (out, f"{out}_cpu")]
+            results = [{"agnews": r["run"].result} for r in (card_run, cpu_run)]
+        losses = [[r["loss"] for r in _alpaca_records(d, task="") if "loss" in r] for d in dirs]
+        require(len(losses[0]) == len(losses[1]) >= 2
+                and all(_close(a, b, tol) for a, b in zip(*losses)),
+                f"{label}: losses {losses[0]} card, {losses[1]} CPU")
+        require(results[0].keys() == results[1].keys(), f"{label}: {results}")
+        for split, metrics in results[1].items():
+            for key, value in metrics.items():
+                got = results[0][split][key]
+                ok = (_close(got, value, tol) if key == "eval_loss"
+                      else abs(got - value) <= GLUE_CORRELATION_ATOL
+                      if key in ("eval_pearson", "eval_spearmanr") else got == value)
+                require(ok, f"{label}: {split} {key} {got} card, {value} CPU")
+        print(f"[glue] {card}: smoke, {label} ({sub}): losses {losses[0]} card, {losses[1]} "
+              f"CPU; results {results[0]} card, {results[1]} CPU; forwards "
+              f"{dict(card_run['forwards'])} ({card_run['per_forward']} adapted calls a "
+              f"forward); launches {expect}; wall {card_run['seconds']:.2f} s card, "
+              f"{cpu_run['seconds']:.2f} s CPU", flush=True)
+        del card_run, cpu_run
+    return dict(launches)
+
+
+def encoder_shapes(config: dict) -> dict:
+    """HF tensor name -> shape of a RoBERTa or DeBERTa-v2 encoder checkpoint
+    of ``config`` (no head)."""
+    h, inter = config["hidden_size"], config["intermediate_size"]
+    deberta = config["model_type"].startswith("deberta")
+    top = "deberta" if deberta else "roberta"
+    shapes = {f"{top}.embeddings.word_embeddings.weight": (config["vocab_size"], h)}
+    if not deberta:
+        shapes[f"{top}.embeddings.position_embeddings.weight"] = (
+            config["max_position_embeddings"], h)
+        shapes[f"{top}.embeddings.token_type_embeddings.weight"] = (config["type_vocab_size"], h)
+    shapes.update({f"{top}.embeddings.LayerNorm.weight": (h,),
+                   f"{top}.embeddings.LayerNorm.bias": (h,)})
+    if deberta:
+        shapes.update({f"{top}.encoder.rel_embeddings.weight": (2 * config["position_buckets"], h),
+                       f"{top}.encoder.LayerNorm.weight": (h,),
+                       f"{top}.encoder.LayerNorm.bias": (h,)})
+    projections = ("query_proj", "key_proj", "value_proj") if deberta else ("query", "key",
+                                                                            "value")
+    for i in range(config["num_hidden_layers"]):
+        p = f"{top}.encoder.layer.{i}"
+        for name, shape in ([(f"attention.self.{n}", (h, h)) for n in projections]
+                            + [("attention.output.dense", (h, h)),
+                               ("intermediate.dense", (inter, h)),
+                               ("output.dense", (h, inter))]):
+            shapes[f"{p}.{name}.weight"] = shape
+            shapes[f"{p}.{name}.bias"] = (shape[0],)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            shapes.update({f"{p}.{name}.weight": (h,), f"{p}.{name}.bias": (h,)})
+    return shapes
+
+
+def encoder_port_name(hf_name: str) -> str:
+    """The adapted port model's parameter that an HF encoder tensor loads
+    into (query/key/value weights: the adapters' frozen ``dense``)."""
+    n = hf_name.replace("roberta.encoder.layer.", "roberta.layer.")
+    if n.startswith("deberta."):
+        for old, new in (("deberta.embeddings.LayerNorm", "deberta.emb_LayerNorm"),
+                         ("deberta.embeddings.", "deberta."),
+                         ("deberta.encoder.rel_embeddings", "deberta.rel_embeddings"),
+                         ("deberta.encoder.LayerNorm", "deberta.rel_LayerNorm"),
+                         ("deberta.encoder.layer.", "deberta.layer."),
+                         ("attention.self.", "attention_self."),
+                         ("attention.output.", "attention_output."),
+                         ("intermediate.dense", "intermediate"),
+                         (".output.dense", ".output_dense"),
+                         (".output.LayerNorm", ".output_LayerNorm")):
+            n = n.replace(old, new)
+    proj = n.rsplit(".", 2)[-2]
+    if proj in ("query", "key", "value", "query_proj", "key_proj", "value_proj") \
+            and n.endswith(".weight"):
+        n = n[:-len("weight")] + "dense"
+    return n
+
+
+def encoder_kernel_times(card: str, label: str, per_layer: list, dtype=torch.bfloat16) -> dict:
+    """K2 and K3 timed (``benchlib.time_ms``) at the GLUE path's own
+    projections and rows, ``per_layer`` [(proj, rows, in, out)], against
+    their plain versions, the bound and (K2) ``torch.addmm`` on the dense
+    equivalent; summed a layer.  Launches made here are not the path's."""
+    from sparse_matrix_fine_tuning_torch.ops.monarch import monarch_dense_equivalent
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    nb, r = PEFT["nblocks"], PEFT["blk_r"]
+    recs = {"monarch_add": [], "monarch_bwd": []}
+    print(_HEADER, flush=True)
+    with torch.no_grad():
+        for proj, rows, n_in, n_out in per_layer:
+            p, s = n_in // nb, n_out // nb
+            x = torch.randn(rows, n_in, generator=g, device="cuda").to(dtype)
+            w1 = (torch.randn(nb, r, p, generator=g, device="cuda") / p ** 0.5).to(dtype)
+            w2 = (torch.randn(nb, s, r, generator=g, device="cuda") / r ** 0.5).to(dtype)
+            base = torch.randn(rows, n_out, generator=g, device="cuda").to(dtype)
+            dense = monarch_dense_equivalent(w1.float(), w2.float()).to(dtype)
+            cases = {"monarch_add": (lambda: monarch_cuda.monarch_add(base, x, w1, w2),
+                                     lambda: monarch_cuda.monarch_add_reference(base, x, w1, w2),
+                                     lambda: torch.addmm(base, x, dense.t())),
+                     "monarch_bwd": (lambda: monarch_cuda.monarch_bwd(x, w1, w2, base),
+                                     lambda: monarch_cuda.monarch_bwd_reference(x, w1, w2, base),
+                                     None)}
+            for name, (kern, plain, library) in cases.items():
+                got, ref = kern(), plain()
+                torch.cuda.synchronize()
+                pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
+                err = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+                share = max(float((a.float() - b.float()).abs().max()) / tolerance(dtype, b)
+                            for a, b in pairs)
+                require(share <= 1.0, f"{name} {label} {proj} M={rows}: {share:.3f} of tol")
+                (ms, call), (plain_ms, plain_call) = time_ms(kern), time_ms(plain)
+                lib = time_ms(library)[0] if library is not None else None
+                recs[name].append(_record(name, proj, n_in, n_out, rows, dtype, err, share, ms,
+                                          plain_ms, call, plain_call, lib))
+    layer = {name: _layer_sums(v) for name, v in recs.items()}
+    print(f"[glue-full] {card}: {label}: device time a layer at the GLUE path's rows ("
+          + ", ".join(f"{proj} {rows}" for proj, rows, _, _ in per_layer) + "): "
+          + ", ".join(f"{k} {v['ms']:.5f} ms (plain {v['plain_ms']:.5f}, library "
+                      f"{v['library_ms'] if v['library_ms'] is None else round(v['library_ms'], 5)}"
+                      f", bound {v['bound_ms']:.5f} ms, {v['bound_by']})"
+                      for k, v in layer.items()), flush=True)
+    RECORDS.append({"glue_kernels_per_layer": label, **{k: v for k, v in layer.items()},
+                    "card": card})
+    return layer
+
+
+def phase_glue_full(card: str) -> dict:
+    """(b) The GLUE harness at full width in bfloat16: for RoBERTa-large (24
+    layers, hidden 1024, 16 heads, FFN 4096, vocab 50265) and DeBERTa-v3-base
+    (12 layers, hidden 768, 12 heads, vocab 128100, 256 position buckets), an
+    HF-format directory written here (``encoder_shapes``, random seeded
+    float32 weights; the tensors the harness's loader gives equal the
+    written ones; deleted after), then ``run_glue.py <family>/cola.json
+    --bf16_compute=True --max_steps=3`` on it with the recipe's batch (16;
+    32) and max_seq_length 128, length grouping in buckets of 32, dropout
+    0.1 in the encoder (the adapters' 0.0: K2, not K1): launches exact
+    (``encoder_expect``); the harness's own steps through its trainer's
+    ``step_context`` (step 0 profiled: busy; steps 1-2 alone: wall, peak);
+    then its eval and its predictions again, each counted and timed alone
+    (equal to the harness's); K2 and K3 timed at the run's own rows
+    (``encoder_kernel_times``).  Returns the launches of the runs."""
+    from sparse_matrix_fine_tuning_torch.scripts import run_glue
+
+    launches = collections.Counter()
+    layers = {}
+    for label, config, hf_config, dirname in GLUE_FULL:
+        ckpt = os.path.join(OUT_DIR, dirname)
+        out = os.path.join(OUT_DIR, dirname + "_run")
+        for d in (ckpt, out):
+            shutil.rmtree(d, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        written = write_hf_checkpoint(ckpt, hf_config, encoder_shapes(hf_config), SEED + 40,
+                                      torch.float32)
+        write_s = time.perf_counter() - t0
+        size_gb = os.path.getsize(os.path.join(ckpt, "model.safetensors")) / 1e9
+        loaded = {}
+
+        def build_checked(args, data_args, peft_config, num_labels, seed):
+            t0 = time.perf_counter()
+            model = run_glue.build_model(args, data_args, peft_config, num_labels, seed)
+            torch.cuda.synchronize()
+            loaded["seconds"] = time.perf_counter() - t0
+            params = dict(model.named_parameters())
+            for name, t in written.items():
+                key = encoder_port_name(name)
+                require(params[key].dtype == torch.float32 and torch.equal(params[key], t),
+                        f"glue full, {label}: the loaded {key} is not the written {name}")
+            loaded["tensors"] = len(written)
+            loaded["config"] = model.config
+            written.clear()
+            return model
+
+        steps = {}
+        torch.cuda.reset_peak_memory_stats()
+        full = encoder_run(run_glue, [os.path.join("task_configs", config), "--bf16_compute=True",
+                                      *GLUE_CUT, f"--model_name_or_path={ckpt}",
+                                      f"--output_dir={out}"],
+                           build=build_checked,
+                           step_context=harness_step_context(steps, f"glue {label}"))
+        cfg = loaded["config"]
+        require(loaded.get("tensors") == len(encoder_shapes(hf_config))
+                and cfg.dtype == "bfloat16" and cfg.num_hidden_layers
+                == hf_config["num_hidden_layers"], f"glue full, {label}: loaded {loaded}")
+        expect = encoder_expect(full)
+        expect_only(full["launches"], expect, f"glue full, {label}")
+        require(full["forwards"] == {"train": GLUE_STEPS, "eval": 4},
+                f"glue full, {label}: forwards {full['forwards']} (expected {GLUE_STEPS} "
+                "training, 2 eval-loss batches, 1 eval prediction and 1 test prediction)")
+        launches.update(expect)
+        run = full["run"]
+        task = next(iter(run.results))
+        metrics = run.results[task]
+        losses = [r["loss"] for r in _alpaca_records(out, task=task) if "loss" in r]
+        require(len(losses) == GLUE_STEPS and all(map(math.isfinite, losses))
+                and math.isfinite(metrics["eval_loss"]), f"glue full, {label}: {losses}, "
+                f"{metrics}")
+        require(len(steps.get("wall_ms", [])) == GLUE_STEPS - 1 and "busy_ms" in steps,
+                f"glue full, {label}: the harness's steps seen {steps}")
+        timed_evals = {}
+        for what in ("eval", "predict"):
+            before = full["forwards"]["eval"]
+            torch.cuda.synchronize()
+            reset_counts()  # the counted main path starts here
+            t0 = time.perf_counter()
+            if what == "eval":
+                got = run.trainer.evaluate()
+            else:
+                got = run_glue.predict_tsv(run.trainer.model, run.data["test"], task,
+                                           os.path.join(out, "timed_predict"))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got_launches = counts()  # the counted main path ends here
+            n = full["forwards"]["eval"] - before
+            want = {"monarch_add": full["per_forward"] * n}
+            expect_only(got_launches, want, f"glue full, {label}, timed {what}")
+            launches.update(want)
+            timed_evals[what] = (seconds, n)
+            if what == "eval":
+                require(abs(got["eval_loss"] - metrics["eval_loss"]) <= 1e-3 * abs(
+                    metrics["eval_loss"]), f"glue full, {label}: eval {got} against the "
+                    f"harness's {metrics}")
+            else:
+                harness_tsv = open(run.tsv_paths[0]).read()
+                require(open(got).read() == harness_tsv,
+                        f"glue full, {label}: the timed predictions differ from the harness's")
+        (b, t), _ = max(full["shapes"].items(), key=lambda kv: kv[1])  # the commonest
+        h = hf_config["hidden_size"]
+        per_layer = [(p, b * t, h, h) for p in ("q", "k", "v")]
+        if hf_config["model_type"].startswith("deberta"):
+            span2 = 2 * hf_config["position_buckets"]
+            per_layer += [("pos_q", span2, h, h), ("pos_k", span2, h, h)]
+        layers[label] = encoder_kernel_times(card, label, per_layer)
+        wall = statistics.median(steps["wall_ms"])
+        busy = steps["busy_ms"]
+        idle = f"{1 - busy / wall:.3f}" if busy else "not measured"
+        a = run.trainer.args
+        RECORDS.append({"glue_full": label, "steps_wall_ms": steps["wall_ms"],
+                        "step0_busy_ms": busy, "eval_s": timed_evals["eval"][0],
+                        "predict_s": timed_evals["predict"][0], "peak_gb": steps["peak_gb"],
+                        "train_shapes": {str(k): v for k, v in full["shapes"].items()},
+                        "card": card})
+        print(f"[glue-full] {card}: {label} from an HF-format directory, "
+              f"{cfg.num_hidden_layers} layers, hidden {h}, bf16 compute, float32 parameters: "
+              f"checkpoint {size_gb:.2f} GB written in {write_s:.2f} s, loaded and adapted in "
+              f"{loaded['seconds']:.2f} s, its {loaded['tensors']} tensors equal the written "
+              f"ones; cola recipe, bs {a.per_device_train_batch_size}, training shapes "
+              f"{full['shapes']}; losses {losses}; steps 1-{GLUE_STEPS - 1} wall "
+              f"{[round(w, 2) for w in steps['wall_ms']]} ms (median {wall:.2f}), step 0 device "
+              f"busy {busy if busy is None else round(busy, 2)} ms (profiled; wall "
+              f"{steps['profiled_wall_ms']:.2f} ms with the profiler on), idle share {idle} "
+              f"(1 - busy / median wall), peak {steps['peak_gb']:.2f} GB over step "
+              f"{GLUE_STEPS - 1} ({steps['peak_before_gb']:.2f} GB before it); results "
+              f"{run.results}; eval {timed_evals['eval'][0]:.3f} s over "
+              f"{timed_evals['eval'][1]} forwards, predict {timed_evals['predict'][0]:.3f} s over "
+              f"{timed_evals['predict'][1]} (each wall, alone); harness run "
+              f"{full['seconds']:.2f} s wall; {full['per_forward']} adapted calls a forward; "
+              f"launches {expect}", flush=True)
+        del full, run
+        shutil.rmtree(ckpt, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches": dict(launches), "layer": layers}
+
+
 def main() -> None:
     t0 = time.perf_counter()
 
@@ -3362,6 +3804,12 @@ def main() -> None:
     print(f"[reasoning] launches of the harness's runs: smoke {reasoning}, full width "
           f"{reasoning_full}", flush=True)
     lap("reasoning harness, full width")
+    glue = phase_glue_smoke(card)
+    lap("GLUE and AG News harnesses, smoke")
+    glue_full = phase_glue_full(card)
+    print(f"[glue] launches of the harness's runs: smoke {glue}, full width "
+          f"{glue_full['launches']}", flush=True)
+    lap("GLUE harness, full width")
     launches = {"monarch_kernel": serving["launches"]["monarch_kernel"],
                 "monarch_add": serving["launches"]["monarch_add"],
                 "monarch_bwd": training["launches"]["monarch_bwd"],

@@ -1,7 +1,11 @@
 """Evaluation of the PyTorch port: generation-based exact match for the
-reasoning harness (``evaluation/reasoning.py``).  ``evaluation/predict.py``
-(classification heads) waits for ROADMAP.md queue A item 20."""
+reasoning harness (``evaluation/reasoning.py``) and batched prediction of
+the classification heads (``evaluation/predict.py``)."""
 
+from sparse_matrix_fine_tuning_torch.evaluation.predict import (
+    predict_classes,
+    predict_logits,
+)
 from sparse_matrix_fine_tuning_torch.evaluation.reasoning import (
     compute_reasoning_metrics,
     extract_answer_letter,
@@ -15,5 +19,7 @@ __all__ = [
     "extract_answer_letter",
     "extract_answer_number",
     "extract_output",
+    "predict_classes",
+    "predict_logits",
     "score_generation",
 ]

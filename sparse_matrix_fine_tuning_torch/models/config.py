@@ -1,9 +1,10 @@
-"""Model configuration for the port: ``LlamaConfig``.
+"""Model configurations for the port: ``RobertaConfig`` and ``LlamaConfig``.
 
-Counterpart of ``LlamaConfig`` in ``sparse_matrix_fine_tuning_tpu/models/
+Counterparts of the two classes of ``sparse_matrix_fine_tuning_tpu/models/
 config.py``, with the same field names, defaults and presets, so that one
-configuration describes both models.  ``compute_dtype`` and
-``params_dtype`` return torch dtypes.
+configuration describes both models.  Parameters stay float32 unless
+``param_dtype`` says otherwise; ``compute_dtype`` and ``params_dtype``
+return torch dtypes.
 """
 
 from __future__ import annotations
@@ -21,6 +22,48 @@ ATTENTION_IMPLS = ("einsum", "dpa", "splash")
 
 def _resolve_dtype(name: Optional[str]) -> Optional[torch.dtype]:
     return None if name is None else _DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class RobertaConfig:
+    """Encoder config (RoBERTa-base defaults); ``num_labels == 1`` is
+    regression (STS-B)."""
+    vocab_size: int = 50265
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 514
+    type_vocab_size: int = 1
+    layer_norm_eps: float = 1e-5
+    pad_token_id: int = 1
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    num_labels: int = 2
+    dtype: Optional[str] = None  # compute dtype, e.g. "bfloat16"; params stay f32
+
+    @property
+    def compute_dtype(self) -> Optional[torch.dtype]:
+        return _resolve_dtype(self.dtype)
+
+    @classmethod
+    def tiny(cls, **kw):
+        d = dict(vocab_size=128, hidden_size=32, num_hidden_layers=2,
+                 num_attention_heads=4, intermediate_size=64,
+                 max_position_embeddings=66)
+        d.update(kw)
+        return cls(**d)
+
+    @classmethod
+    def base(cls, **kw):
+        return cls(**kw)
+
+    @classmethod
+    def large(cls, **kw):
+        d = dict(hidden_size=1024, num_hidden_layers=24,
+                 num_attention_heads=16, intermediate_size=4096)
+        d.update(kw)
+        return cls(**d)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,11 @@
-"""Load HF-format causal-LM checkpoints into the port's ``LlamaForCausalLM``.
+"""Load HF-format checkpoints into the port's models: ``LlamaForCausalLM``,
+``RobertaForSequenceClassification`` and ``DebertaV2ForSequenceClassification``.
 
-Counterpart of the causal-LM part of ``sparse_matrix_fine_tuning_tpu/models/
-hf_convert.py`` (``load_state_dict`` :32, ``causal_lm_config_from_hf`` :95,
-``load_llama`` :141, ``from_pretrained_llama`` :186,
+Counterpart of ``sparse_matrix_fine_tuning_tpu/models/hf_convert.py``'s
+loaders (``load_state_dict`` :32, ``load_roberta`` :70,
+``causal_lm_config_from_hf`` :95, ``load_llama`` :141,
+``from_pretrained_roberta`` :163, ``from_pretrained_llama`` :186,
+``load_deberta`` :207, ``from_pretrained_deberta`` :233,
 ``from_pretrained_causal_lm`` :394).  A checkpoint directory holds
 ``config.json`` and one ``model.safetensors`` or ``pytorch_model.bin``, as
 in the JAX package: sharded checkpoints do not load.
@@ -19,7 +22,10 @@ HF stores a linear's weight (out, in), as ``nn.Linear`` does, so nothing is
 transposed (the JAX loader transposes into flax's (in, out)).  Llama, Mistral
 (``sliding_window``) and Qwen2 (qkv biases) load; Gemma, gpt2, gpt_neo,
 gpt_neox and Backpack checkpoints are refused before any weight is read
-(ROADMAP.md queue A item 25).
+(ROADMAP.md queue A item 25).  RoBERTa and DeBERTa-v2/v3 encoders load into
+the GLUE classifiers (float32 parameters, ``dtype`` the compute dtype); a
+checkpoint without the classification head keeps the head drawn from the
+caller's generator, as the JAX loaders keep theirs.
 """
 
 from __future__ import annotations
@@ -32,8 +38,13 @@ from typing import Dict, Optional
 
 import torch
 
-from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig
+from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig, RobertaConfig
+from sparse_matrix_fine_tuning_torch.models.deberta import (
+    DebertaV2Config,
+    DebertaV2ForSequenceClassification,
+)
 from sparse_matrix_fine_tuning_torch.models.llama import LlamaForCausalLM
+from sparse_matrix_fine_tuning_torch.models.roberta import RobertaForSequenceClassification
 
 # safetensors' dtype names (safetensors/src/tensor.rs) -> torch dtypes
 _ST_DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32,
@@ -193,3 +204,128 @@ def from_pretrained_causal_lm(path: str, dtype: Optional[str] = "bfloat16", *, d
     causal_lm_config_from_hf(hf)  # an unported family raises here, before the weights
     return from_pretrained_llama(path, dtype=dtype, device=device, remat=remat,
                                  remat_policy=remat_policy, param_dtype=param_dtype)
+
+
+def _copy_linear(mod, sd: Dict[str, torch.Tensor], prefix: str) -> None:
+    """weight (out, in) and, where both have one, bias."""
+    _copy(mod.weight, sd, f"{prefix}.weight")
+    if mod.bias is not None and f"{prefix}.bias" in sd:
+        _copy(mod.bias, sd, f"{prefix}.bias")
+
+
+def _copy_norm(mod, sd: Dict[str, torch.Tensor], prefix: str) -> None:
+    _copy(mod.weight, sd, f"{prefix}.weight")
+    if f"{prefix}.bias" in sd:
+        _copy(mod.bias, sd, f"{prefix}.bias")
+
+
+def load_roberta(model, state_dict: Dict[str, torch.Tensor]) -> None:
+    """Populate a ``RobertaForSequenceClassification`` (or its ``.roberta``)
+    from an HF ``roberta-*`` state dict, with or without the "roberta."
+    prefix, in place; the classification head where the checkpoint has one."""
+    sd = {k.removeprefix("roberta."): v for k, v in state_dict.items()}
+    rob = model.roberta if hasattr(model, "roberta") else model
+    emb = rob.embeddings
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        _copy(getattr(emb, name).weight, sd, f"embeddings.{name}.weight")
+    _copy_norm(emb.LayerNorm, sd, "embeddings.LayerNorm")
+    for i, layer in enumerate(rob.layer):
+        p = f"encoder.layer.{i}"
+        attn = layer.attention
+        for name, mod in (("attention.self.query", attn.self.query),
+                          ("attention.self.key", attn.self.key),
+                          ("attention.self.value", attn.self.value),
+                          ("attention.output.dense", attn.output.dense),
+                          ("intermediate.dense", layer.intermediate.dense),
+                          ("output.dense", layer.output.dense)):
+            _copy_linear(mod, sd, f"{p}.{name}")
+        _copy_norm(attn.output.LayerNorm, sd, f"{p}.attention.output.LayerNorm")
+        _copy_norm(layer.output.LayerNorm, sd, f"{p}.output.LayerNorm")
+    if hasattr(model, "classifier") and "classifier.dense.weight" in state_dict:
+        _copy_linear(model.classifier.dense, state_dict, "classifier.dense")
+        _copy_linear(model.classifier.out_proj, state_dict, "classifier.out_proj")
+
+
+def load_deberta(model, state_dict: Dict[str, torch.Tensor]) -> None:
+    """Populate a ``DebertaV2ForSequenceClassification`` from an HF
+    ``deberta-v2/v3`` state dict, in place; the pooler and classifier where
+    the checkpoint has them."""
+    sd = state_dict
+    deb = model.deberta if hasattr(model, "deberta") else model
+    _copy(deb.word_embeddings.weight, sd, "deberta.embeddings.word_embeddings.weight")
+    _copy_norm(deb.emb_LayerNorm, sd, "deberta.embeddings.LayerNorm")
+    if deb.rel_embeddings is not None:
+        _copy(deb.rel_embeddings.weight, sd, "deberta.encoder.rel_embeddings.weight")
+    if deb.rel_LayerNorm is not None:
+        _copy_norm(deb.rel_LayerNorm, sd, "deberta.encoder.LayerNorm")
+    for i, layer in enumerate(deb.layer):
+        p = f"deberta.encoder.layer.{i}"
+        attn = layer.attention_self
+        for name, mod in (("attention.self.query_proj", attn.query_proj),
+                          ("attention.self.key_proj", attn.key_proj),
+                          ("attention.self.value_proj", attn.value_proj),
+                          ("attention.output.dense", layer.attention_output.dense),
+                          ("intermediate.dense", layer.intermediate),
+                          ("output.dense", layer.output_dense)):
+            _copy_linear(mod, sd, f"{p}.{name}")
+        _copy_norm(layer.attention_output.LayerNorm, sd, f"{p}.attention.output.LayerNorm")
+        _copy_norm(layer.output_LayerNorm, sd, f"{p}.output.LayerNorm")
+    if hasattr(model, "pooler") and "pooler.dense.weight" in sd:
+        _copy_linear(model.pooler, sd, "pooler.dense")
+        _copy_linear(model.classifier, sd, "classifier")
+
+
+def roberta_config_from_hf(hf: Dict, **overrides) -> RobertaConfig:
+    kw = dict(vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
+              num_hidden_layers=hf["num_hidden_layers"],
+              num_attention_heads=hf["num_attention_heads"],
+              intermediate_size=hf["intermediate_size"],
+              max_position_embeddings=hf["max_position_embeddings"],
+              type_vocab_size=hf.get("type_vocab_size", 1),
+              layer_norm_eps=hf.get("layer_norm_eps", 1e-5),
+              pad_token_id=hf.get("pad_token_id", 1))
+    kw.update(overrides)
+    return RobertaConfig(**kw)
+
+
+def deberta_config_from_hf(hf: Dict, **overrides) -> DebertaV2Config:
+    kw = dict(vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
+              num_hidden_layers=hf["num_hidden_layers"],
+              num_attention_heads=hf["num_attention_heads"],
+              intermediate_size=hf["intermediate_size"],
+              max_position_embeddings=hf["max_position_embeddings"],
+              type_vocab_size=hf.get("type_vocab_size", 0),
+              layer_norm_eps=hf.get("layer_norm_eps", 1e-7),
+              pad_token_id=hf.get("pad_token_id", 0),
+              relative_attention=hf.get("relative_attention", True),
+              position_buckets=hf.get("position_buckets", 256),
+              max_relative_positions=hf.get("max_relative_positions", -1),
+              pos_att_type=tuple(hf.get("pos_att_type", ["p2c", "c2p"])),
+              share_att_key=hf.get("share_att_key", True),
+              norm_rel_ebd=hf.get("norm_rel_ebd", "layer_norm"),
+              position_biased_input=hf.get("position_biased_input", False))
+    kw.update(overrides)
+    return DebertaV2Config(**kw)
+
+
+def from_pretrained_roberta(path: str, num_labels: int = 2, dtype: Optional[str] = None, *,
+                            device=None, generator: Optional[torch.Generator] = None
+                            ) -> RobertaForSequenceClassification:
+    """Build a ``RobertaForSequenceClassification`` from the local HF
+    directory ``path`` on ``device`` (the card when None) and load its
+    weights; a head the checkpoint lacks keeps its random init from
+    ``generator``.  ``dtype``: the compute dtype (parameters stay float32)."""
+    cfg = roberta_config_from_hf(_read_config(path), num_labels=num_labels, dtype=dtype)
+    model = RobertaForSequenceClassification(cfg, device=device, generator=generator)
+    load_roberta(model, load_state_dict(path))
+    return model
+
+
+def from_pretrained_deberta(path: str, num_labels: int = 2, dtype: Optional[str] = None, *,
+                            device=None, generator: Optional[torch.Generator] = None
+                            ) -> DebertaV2ForSequenceClassification:
+    """``from_pretrained_roberta`` for a DeBERTa-v2/v3 directory."""
+    cfg = deberta_config_from_hf(_read_config(path), num_labels=num_labels, dtype=dtype)
+    model = DebertaV2ForSequenceClassification(cfg, device=device, generator=generator)
+    load_deberta(model, load_state_dict(path))
+    return model

@@ -78,7 +78,7 @@ from sparse_matrix_fine_tuning_torch.quant import quantize_frozen_base, quantize
 from sparse_matrix_fine_tuning_torch.training.trainer import Trainer, TrainingArgs
 from sparse_matrix_fine_tuning_torch.utils import profiling
 from sparse_matrix_fine_tuning_torch.utils.config import load_best_hp, load_json, override_config
-from sparse_matrix_fine_tuning_torch.utils.device import resolve_device
+from sparse_matrix_fine_tuning_torch.utils.device import harness_device
 from sparse_matrix_fine_tuning_torch.utils.logging import RunLogger, get_run_group, watch_layers
 
 SMOKE_VOCAB = 1024
@@ -196,11 +196,6 @@ def check_supported(args) -> None:
     if refused:
         raise NotImplementedError("run_alpaca: " + "; ".join(refused)
                                   + " (ROADMAP.md queue A)")
-
-
-def harness_device(args) -> torch.device:
-    """The card unless ``--platform=cpu``."""
-    return resolve_device("cpu" if args.platform == "cpu" else None)
 
 
 def adapt_model(model, args, peft_config: dict):

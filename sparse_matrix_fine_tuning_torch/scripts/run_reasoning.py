@@ -63,7 +63,7 @@ from sparse_matrix_fine_tuning_torch.peft.surgery import init_monarch, param_sta
 from sparse_matrix_fine_tuning_torch.training.trainer import Trainer, TrainingArgs
 from sparse_matrix_fine_tuning_torch.utils import profiling
 from sparse_matrix_fine_tuning_torch.utils.config import load_best_hp, load_json, override_config
-from sparse_matrix_fine_tuning_torch.utils.device import resolve_device
+from sparse_matrix_fine_tuning_torch.utils.device import harness_device
 from sparse_matrix_fine_tuning_torch.utils.logging import RunLogger, get_run_group, watch_layers
 
 SMOKE_VOCAB = 1024
@@ -159,11 +159,6 @@ def check_supported(args) -> None:
         refused.append("--mesh_fsdp (a sharded base): item 28")
     if refused:
         raise NotImplementedError("run_reasoning: " + "; ".join(refused) + " (ROADMAP.md queue A)")
-
-
-def harness_device(args) -> torch.device:
-    """The card unless ``--platform=cpu``."""
-    return resolve_device("cpu" if args.platform == "cpu" else None)
 
 
 def local_weights(args) -> bool:

@@ -21,6 +21,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return torch.device("cuda") if device is None else torch.device(device)
 
 
+def harness_device(args) -> torch.device:
+    """A harness's device: the card unless its ``--platform`` is "cpu"."""
+    return resolve_device("cpu" if args.platform == "cpu" else None)
+
+
 def seeded_generator(device: torch.device, generator: Optional[torch.Generator] = None,
                      seed: int = 0) -> torch.Generator:
     """``generator``, or a fresh one on ``device`` seeded with ``seed``."""

@@ -1459,3 +1459,113 @@ def test_torch_decoding_on_card_equals_cpu(cuda_device, cfg, tmp_path):
     launches = {n: monarch_cuda.LAUNCHES[n] - before[n] for n in before}
     assert launches == {**dict.fromkeys(before, 0), "monarch_add": 14 * len(forwards)}
     assert torch.equal(got, generate(cpu_model, ids, mask, gc))
+
+
+# K2/K3 at the encoders' widths, (M, K, Q, P, L, S, R): RoBERTa-large's
+# query/key/value (1024 -> 1024) and DeBERTa-v3-base's (768 -> 768) with the
+# GLUE recipe's nblocks 4 and blk_r 4, at a micro-batch of bs 16 x t 32, a
+# ragged row count past it, and DeBERTa's 2 x 256 position rows plus a
+# ragged count.
+ENCODER_CASES = [(512, 4, 4, 256, 4, 256, 4), (2065, 4, 4, 256, 4, 256, 4),
+                 (512, 4, 4, 192, 4, 192, 4), (1031, 4, 4, 192, 4, 192, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ENCODER_CASES)
+def test_torch_encoder_width_kernels_match_plain_on_card(cuda_device, case, dtype):
+    """K2 (the forward with the base added) and K3 (its backward) against
+    their plain versions at the encoders' projection widths; one launch
+    each."""
+    x, w1, w2, base = _inputs(case, dtype, cuda_device)
+    before = dict(monarch_cuda.LAUNCHES)
+    with torch.no_grad():
+        got = monarch_cuda.monarch_add(base, x, w1, w2)
+        want = monarch_cuda.monarch_add_reference(base, x, w1, w2)
+    got_b = monarch_cuda.monarch_bwd(x, w1, w2, base)
+    want_b = monarch_cuda.monarch_bwd_reference(x, w1, w2, base)
+    torch.cuda.synchronize()
+    assert {n: monarch_cuda.LAUNCHES[n] - before[n] for n in before} == \
+        {**dict.fromkeys(before, 0), "monarch_add": 1, "monarch_bwd": 1}
+    assert got.shape == want.shape and got.dtype == want.dtype == dtype
+    assert float((got.float() - want.float()).abs().max()) <= _tol(want)
+    for g, w in zip(got_b, want_b):
+        assert g.shape == w.shape
+        assert float((g.float() - w.float()).abs().max()) <= _tol(w.to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["roberta", "deberta"])
+def test_torch_encoder_step_on_card_matches_cpu(cuda_device, family):
+    """One float32 training forward and backward of a 2-layer encoder with
+    the GLUE recipe's adapters (dropout off) on the card against the same
+    model on the CPU: the launches exact (K2 on every adapted linear a
+    forward, K3 on each in the backward: RoBERTa's query, key and value,
+    6; DeBERTa's query_proj and key_proj twice a layer, on the tokens and on
+    the position rows, and value_proj once, 10), the logits and loss within
+    1e-4, every trainable gradient within 1e-4 of its largest; then
+    ``predict_logits`` on the card (K2 only) against the CPU's."""
+    import copy
+
+    from sparse_matrix_fine_tuning_torch.evaluation import predict_logits
+    from sparse_matrix_fine_tuning_torch.models.config import RobertaConfig
+    from sparse_matrix_fine_tuning_torch.models.deberta import (
+        DebertaV2Config,
+        DebertaV2ForSequenceClassification,
+    )
+    from sparse_matrix_fine_tuning_torch.models.roberta import RobertaForSequenceClassification
+    from sparse_matrix_fine_tuning_torch.peft import surgery
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(hidden_size=64, intermediate_size=128, num_labels=3, hidden_dropout_prob=0.0,
+              attention_probs_dropout_prob=0.0)
+    g = torch.Generator().manual_seed(6)
+    if family == "roberta":
+        cpu = RobertaForSequenceClassification(RobertaConfig.tiny(**kw), device="cpu",
+                                               generator=g)
+        targets, per_pass, pad = ["query", "key", "value"], 6, 1
+    else:
+        cpu = DebertaV2ForSequenceClassification(DebertaV2Config.tiny(**kw), device="cpu",
+                                                 generator=g)
+        targets, per_pass, pad = ["query_proj", "key_proj", "value_proj"], 10, 0
+    surgery.init_monarch(cpu, {"monarch": True, "nblocks": 4, "blk_r": 4, "adapter": True,
+                               "dropout": 0.0, "target_modules": targets}, generator=g)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if "blkdiag2" in name:
+                p.normal_(0.0, 0.1, generator=g)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    ids = torch.randint(3, 128, (4, 23), generator=g)
+    mask = torch.ones_like(ids)
+    mask[1, 9:] = mask[3, 2:] = 0
+    ids = torch.where(mask > 0, ids, pad)
+    labels = torch.tensor([0, 2, 1, 2])
+    grads, logits = [], []
+    for model, dev in ((cpu, "cpu"), (card, cuda_device)):
+        model.train()
+        surgery.trainable_filter(model)
+        before = dict(monarch_cuda.LAUNCHES)
+        out = model(ids.to(dev), mask.to(dev))
+        loss = model.loss(out, labels.to(dev))
+        loss.backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        launches = {n: monarch_cuda.LAUNCHES[n] - before[n] for n in before}
+        want = {} if dev == "cpu" else {"monarch_add": per_pass, "monarch_bwd": per_pass}
+        assert launches == {**dict.fromkeys(before, 0), **want}
+        logits.append((out.detach().cpu(), float(loss)))
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters() if p.requires_grad})
+    (want_out, want_loss), (got_out, got_loss) = logits
+    torch.testing.assert_close(got_out, want_out, rtol=1e-4, atol=1e-4)
+    assert abs(got_loss - want_loss) <= 1e-4 * abs(want_loss)
+    assert sorted(grads[0]) == sorted(grads[1]) and any("blkdiag" in n for n in grads[0])
+    for name, want_g in grads[0].items():
+        tol = 1e-4 * float(want_g.abs().max())
+        assert float((grads[1][name] - want_g).abs().max()) <= tol, name
+    data = {"input_ids": ids.numpy(), "attention_mask": mask.numpy()}
+    before = dict(monarch_cuda.LAUNCHES)
+    got_p = predict_logits(card, data, batch_size=3)
+    launches = {n: monarch_cuda.LAUNCHES[n] - before[n] for n in before}
+    assert launches == {**dict.fromkeys(before, 0), "monarch_add": 2 * per_pass}
+    np.testing.assert_allclose(got_p, predict_logits(cpu, data, batch_size=3), rtol=1e-4,
+                               atol=1e-4)

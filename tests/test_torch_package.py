@@ -39,17 +39,23 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.scripts.probe_profiler_window",
     "sparse_matrix_fine_tuning_torch.scripts.run_alpaca",
     "sparse_matrix_fine_tuning_torch.scripts.run_reasoning",
+    "sparse_matrix_fine_tuning_torch.scripts.run_glue",
+    "sparse_matrix_fine_tuning_torch.scripts.run_agnews",
     "sparse_matrix_fine_tuning_torch.evaluation",
     "sparse_matrix_fine_tuning_torch.evaluation.reasoning",
+    "sparse_matrix_fine_tuning_torch.evaluation.predict",
     "sparse_matrix_fine_tuning_torch.data",
     "sparse_matrix_fine_tuning_torch.data.templates",
     "sparse_matrix_fine_tuning_torch.data.reasoning",
     "sparse_matrix_fine_tuning_torch.data.tokenizer",
     "sparse_matrix_fine_tuning_torch.data.alpaca",
     "sparse_matrix_fine_tuning_torch.data.mmlu",
+    "sparse_matrix_fine_tuning_torch.data.glue",
     "sparse_matrix_fine_tuning_torch.layers.monarch_linear",
     "sparse_matrix_fine_tuning_torch.models.config",
     "sparse_matrix_fine_tuning_torch.models.llama",
+    "sparse_matrix_fine_tuning_torch.models.roberta",
+    "sparse_matrix_fine_tuning_torch.models.deberta",
     "sparse_matrix_fine_tuning_torch.models.generate",
     "sparse_matrix_fine_tuning_torch.models.hf_convert",
     "sparse_matrix_fine_tuning_torch.peft.surgery",
@@ -59,6 +65,7 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.utils.device",
     "sparse_matrix_fine_tuning_torch.utils.benchlib",
     "sparse_matrix_fine_tuning_torch.utils.config",
+    "sparse_matrix_fine_tuning_torch.utils.metrics",
     "sparse_matrix_fine_tuning_torch.utils.logging",
     "sparse_matrix_fine_tuning_torch.utils.profiling",
     "sparse_matrix_fine_tuning_torch.training.optim",
