@@ -103,8 +103,8 @@ hand-written CUDA kernels, and checks them:
      against a straight one, the losses within 1e-4; then at
      TinyLlama-1.1B widths (22 layers, bf16, random seeded weights through
      the harness's ``build`` seam) at ``--bits`` 16 and 4 with the harness's
-     defaults, and at 16 with ``--pack=True``: launches exact (K3 4,928; K6
-     4,832), the wall and device-busy ms a step, the MMLU scoring and
+     defaults but ga 8, and at 16 with ``--pack=True``: launches exact (K3
+     2,464; K6 2,416), the wall and device-busy ms a step, the MMLU scoring and
      predict seconds, the peak memory, the packed rows and their token
      efficiency;
  19. the reasoning harness (``scripts/run_reasoning.py``): the tiny smoke
@@ -131,15 +131,33 @@ hand-written CUDA kernels, and checks them:
      deleted after), 3 bf16 steps of each's CoLA recipe through the
      harness (launches exact, step wall, busy, idle share and peak), its
      eval and predictions timed alone, and K2/K3 timed at the run's rows
-     beside their bound and ``addmm``.
+     beside their bound and ``addmm``;
+ 21. the paper's baselines, SVD projection and the search through the
+     harnesses: smoke (float32, dropout off, BOFT's too) on the card
+     against the CPU, ``run_glue`` with ``--lora`` and ``--boft`` (no kernel
+     of ours), ``--svd_init`` (K2, K3) and ``--adapter=False`` (projection:
+     K1, K3) on CoLA, STS-B and DeBERTa's MRPC, the reference orientation
+     with svd_init from a written peft config, ``--do_tune`` on STS-B (3
+     trials in two rungs: the same trials, budgets and best, every metric
+     finite, no trial failed), ``run_agnews --method lora`` and
+     ``run_alpaca --adapter=lora`` (launches exact: none under LoRA and
+     BOFT); the reference orientation's identity product (K1) on the card
+     at 1024 wide against the CPU;
+ 22. the recipes of the paper's GLUE table at RoBERTa-large width, from
+     20's HF-format directory (deleted after), bf16, 3 steps each with the
+     harness's eval and predictions: LoRA, BOFT, Monarch with svd_init (K2
+     72 times a forward, K3 72 times a step) and in projection mode (32
+     blocks of 32: K1 72 times a forward, K3 72 times a step); launches
+     exact, each run's init s (the SVD on the card), step wall, busy, idle
+     share and peak.
 
 Serving (5, 6, 10 and 11) runs before the experiments (13-16).  Every
 profile is taken in ``benchlib.device_profile``'s window, padded at both
 ends so that it keeps every kernel's record (ROADMAP C.10).  Each main path (6, 8 off, 8 on, 8
 with splash, each remat run and step of 8, each configuration of 11, each step of 12, the bench of 13,
 each script of 14, 15 and 16, the attention bench of 17, each harness run
-of 18, 19 and 20, 19's beam search and beam-4 eval, and 20's timed eval
-and predictions) zeroes the launch counts of every kernel
+of 18, 19, 20, 21 and 22, 19's beam search and beam-4 eval, 20's timed eval
+and predictions, and 21's reference-orientation layer) zeroes the launch counts of every kernel
 just before it and reads them just after.  Any failed check
 exits non-zero.  The line before the last is one JSON object on the
 kernels (K5 and K7 at decode and, as ``int4_matmul_tile`` and
@@ -213,6 +231,7 @@ F32_LOGIT_TOL = 1e-3
 # kernels' checks, one micro-batch being 4 x 512 = 2048 rows.
 BWD_ROWS = (65, 2047, 2048)
 TRAIN_BS, TRAIN_GA, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 512, 4  # 1 warm-up + 3 timed
+REMAT_STEPS = 2  # phase_train_remat's runs: 1 warm-up + 1 timed
 F32_TRAIN = dict(layers=2, bs=2, ga=2, seq=128)
 TRAIN_LR = 1e-4
 # f32 training step, card against the CPU copy (2 layers, fp32 sums in
@@ -380,13 +399,16 @@ INT4_VARIANT_SHAPE = (4, 2048, 5632)
 # The Alpaca harness (phase_alpaca): (a) the smoke argv on the card and on
 # the CPU, whose losses, eval_loss and MMLU choice logits (float32) agree
 # within ALPACA_TOL; (b) the full-width argv, the harness's defaults
-# otherwise.  Both take 2 optimizer steps of 16 micro-batches.
+# otherwise.  Both take 2 optimizer steps, of 16 micro-batches (a) and of
+# ALPACA_FULL_GA (b).
 ALPACA_STEPS, ALPACA_GA = 2, 16
 ALPACA_ARGV = ["--smoke=True", "--dropout=0.0", f"--max_steps={ALPACA_STEPS}",
                "--logging_steps=1", "--eval_dataset_size=8", "--max_mmlu_samples=16",
                "--do_predict=True", "--max_new_tokens=8"]
 ALPACA_FULL_NEW = 16
+ALPACA_FULL_GA = 8  # the harness's default is 16; 8 halves the phase's steps and profiles
 ALPACA_FULL_ARGV = [f"--max_steps={ALPACA_STEPS}", "--logging_steps=1", "--eval_dataset_size=8",
+                    f"--gradient_accumulation_steps={ALPACA_FULL_GA}",
                     "--max_mmlu_samples=32", "--do_predict=True",
                     f"--max_new_tokens={ALPACA_FULL_NEW}"]
 ALPACA_TOL = TOLERANCES["f32_logits"]
@@ -451,6 +473,46 @@ GLUE_FULL = (("RoBERTa-large", "monarch_roberta_glue/cola.json", ROBERTA_LARGE_H
               "glue_roberta_large"),
              ("DeBERTa-v3-base", "deberta_glue/cola.json", DEBERTA_V3_BASE_HF,
               "glue_deberta_v3_base"))
+# The baselines, projection and the search through the GLUE harness
+# (phase_baselines_smoke, phase_baselines_full): (a) each run's label, task
+# config, flags and the kernel of its forwards (None: LoRA and BOFT run none
+# of ours), smoke, float32, dropout off, on the card against the CPU; the
+# reference orientation with svd_init from a peft config written beside a
+# copy of the CoLA recipe; the search on STS-B (3 trials in two rungs: a
+# third of an epoch, then the best one resumed to the epoch; the lr scaled
+# 10x so that the trials' pearson values lie apart); AG News and Alpaca with
+# LoRA; the reference orientation's identity product (K1) on the card at
+# RoBERTa-large's width; (b) the recipes at RoBERTa-large width from
+# phase_glue_full's HF-format directory, bf16, GLUE_STEPS steps.
+BASELINE_SMOKE = (
+    ("roberta lora cola", "lora_roberta_glue/cola.json",
+     ["--monarch=False", "--lora=True", *GLUE_FAST], None),
+    ("roberta boft cola", "boft_roberta_glue/cola.json",
+     ["--monarch=False", "--boft=True", *GLUE_FAST], None),
+    ("roberta boft stsb", "boft_roberta_glue/stsb.json", ["--monarch=False", "--boft=True"], None),
+    ("roberta svd_init cola", "monarch_roberta_glue/cola.json",
+     ["--svd_init=True", *GLUE_FAST], "monarch_add"),
+    ("roberta svd_init stsb", "monarch_roberta_glue/stsb.json", ["--svd_init=True"],
+     "monarch_add"),
+    ("roberta projection cola", "monarch_roberta_glue/cola.json",
+     ["--adapter=False", *GLUE_FAST], "monarch_kernel"),
+    ("roberta projection stsb", "monarch_roberta_glue/stsb.json", ["--adapter=False"],
+     "monarch_kernel"),
+    ("deberta projection mrpc", "deberta_glue/mrpc.json", ["--adapter=False", *GLUE_FAST],
+     "monarch_kernel"),
+)
+BASELINE_TUNE = ["--logging_steps=1", "--num_train_epochs=1", "--do_tune=True", "--n_trials=3",
+                 "--tune_grace=0.34", "--tune_lr_scale=10"]
+BASELINE_TUNE_EPOCHS = [0.34] * 3 + [1.0]
+PROJECTION_BWD_REPS = (5, 2)  # benchlib.time_ms's reps and rounds for K3's generic kernel
+SVD_CARD_RTOL = 1e-3  # reference_orientation_on_card: the card's SVD against the CPU's
+BASELINE_FULL_MODEL = "RoBERTa-large"
+BASELINE_FULL = (("LoRA", "lora_roberta_glue/cola.json", ["--monarch=False", "--lora=True"], None),
+                 ("BOFT", "boft_roberta_glue/cola.json", ["--monarch=False", "--boft=True"], None),
+                 ("Monarch svd_init", "monarch_roberta_glue/cola.json", ["--svd_init=True"],
+                  "monarch_add"),
+                 ("Monarch projection", "monarch_roberta_glue/cola.json", ["--adapter=False"],
+                  "monarch_kernel"))
 OUT_DIR = "chip_smoke_out"  # per-case records; .gitignore lists it
 RECORDS: list[dict] = []  # one per kernel case, written to OUT_DIR
 
@@ -1265,16 +1327,17 @@ def check_step(model, data: dict, merged: str, expect: dict, tag: str) -> dict:
     return {"launches": launches, "loss": loss, "grads": {n: g for n, (g, _) in got.items()}}
 
 
-def train_timed(model, merged: str, tag: str, extra: str = "") -> dict:
+def train_timed(model, merged: str, tag: str, extra: str = "",
+                steps: int = TRAIN_STEPS) -> dict:
     """bf16 training at full size through Trainer: bs 4 x ga 8 x seq 512, 1
-    warm-up and 3 timed optimizer steps, the launch counts zeroed just
+    warm-up and ``steps`` - 1 timed optimizer steps, the launch counts zeroed just
     before the first step and read just after the last, then one step
     under the profiler.  Prints step ms, tokens/s, MFU, peak memory and the
     idle share after ``tag`` (and ``extra``); returns the losses, the
     launch counts and those numbers."""
     from sparse_matrix_fine_tuning_torch.training.trainer import Trainer
 
-    data = train_data(TRAIN_BS * TRAIN_GA * TRAIN_STEPS, TRAIN_SEQ, SEED + 10)
+    data = train_data(TRAIN_BS * TRAIN_GA * steps, TRAIN_SEQ, SEED + 10)
     cfg = model.config
     h, i, kv = cfg.hidden_size, cfg.intermediate_size, cfg.kv_heads * cfg.head_width
     p_matmul = cfg.num_hidden_layers * (2 * h * h + 2 * h * kv + 3 * h * i) + h * cfg.vocab_size
@@ -1284,7 +1347,7 @@ def train_timed(model, merged: str, tag: str, extra: str = "") -> dict:
     # adapters' own FLOPs are left out.  bench.py:460-465 counts 6P: its
     # base is frozen too, but it counts the weight gradient.
     flops_per_token = 4 * p_matmul + 12 * cfg.num_hidden_layers * h * TRAIN_SEQ
-    tr = Trainer(model, train_args(merged, TRAIN_BS, TRAIN_GA, TRAIN_STEPS), train_data=data,
+    tr = Trainer(model, train_args(merged, TRAIN_BS, TRAIN_GA, steps), train_data=data,
                  extra_trainable_paths=(), device="cuda")
     batches = [b for b, _ in tr._batches(data, TRAIN_BS, shuffle=False, accum=TRAIN_GA)]
     torch.cuda.synchronize()
@@ -1426,15 +1489,16 @@ def remat_step(model, factors: dict, merged: str, policy) -> tuple[float, dict]:
 def phase_train_remat(card: str, plain: dict) -> None:
     """Remat at full size (``train_timed``: TinyLlama-1.1B widths, all 22
     layers, bf16, bs 4 x ga 8 x seq 512, merged off) from
-    ``phase_train_bf16``'s factors on its batches, "dots" then "nothing",
-    each beside ``plain`` (that phase's merged-off run, no remat): ms a
-    step, busy, idle share, peak memory, MFU (the same FLOPs: the recompute
-    is no useful work).  Launches, derived from the code: the recompute
-    runs each adapted linear's forward again, so K2 launches twice an
-    adapted linear and micro-batch (2 x 154 x 8 x 4 = 9,856) under either
-    policy ("dots" keeps only ``aten.mm``'s outputs, and K2 adds into one
-    of them); K3 once (4,928).  The losses within
-    ``BF16_MERGED_LOSS_ATOL`` of ``plain``'s.  Then one step from the same
+    ``phase_train_bf16``'s factors on its first ``REMAT_STEPS`` batches,
+    "dots" then "nothing", each beside ``plain`` (that phase's merged-off
+    run, no remat): ms a step (the one after the warm-up), busy, idle
+    share, peak memory, MFU (the same FLOPs: the recompute is no useful
+    work).  Launches, derived from the code: the recompute runs each
+    adapted linear's forward again, so K2 launches twice an adapted linear
+    and micro-batch (2 x 154 x 8 x 2 = 4,928) under either policy ("dots"
+    keeps only ``aten.mm``'s outputs, and K2 adds into one of them); K3
+    once (2,464).  The losses within ``BF16_MERGED_LOSS_ATOL`` of
+    ``plain``'s.  Then one step from the same
     factors with merged training on, without remat and under "dots": K4
     once an adapted linear and micro-batch (1,232) in both, the merged
     product's output kept, so no kernel of ours in the recompute; the
@@ -1444,12 +1508,13 @@ def phase_train_remat(card: str, plain: dict) -> None:
     K18 and K19 once (176), K2 2,464 and K3 1,232."""
     model = train_model("bfloat16", MODEL["num_hidden_layers"])
     factors = {n: p.detach().clone() for n, p in model.named_parameters() if "blkdiag" in n}
-    want = N_ADAPTED * TRAIN_GA * TRAIN_STEPS
+    want = N_ADAPTED * TRAIN_GA * REMAT_STEPS
     rows = {"none": plain}
     for policy in ("dots", "nothing"):
         restore_factors(model, factors)
         set_remat(model, policy)
-        run = train_timed(model, "off", f"[train-remat] {card}: remat {policy}, merged off")
+        run = train_timed(model, "off", f"[train-remat] {card}: remat {policy}, merged off",
+                          steps=REMAT_STEPS)
         set_remat(model, None)
         expect = {"monarch_add": 2 * want, "monarch_bwd": want}
         launches = run["launches"]
@@ -1462,8 +1527,9 @@ def phase_train_remat(card: str, plain: dict) -> None:
     for policy, r in rows.items():
         busy = r["busy_ms"]
         idle = f"{1 - busy / r['step_ms']:.3f}" if busy is not None else "not measured"
+        timed_steps = (TRAIN_STEPS if policy == "none" else REMAT_STEPS) - 1
         print(f"[train-remat] {card}: remat {policy:7s}: step {r['step_ms']:.2f} ms (wall, "
-              f"median of {TRAIN_STEPS - 1}), device busy "
+              f"median of {timed_steps}), device busy "
               f"{busy if busy is None else round(busy, 2)} ms, idle share {idle}, peak "
               f"{r['peak_gb']:.2f} GB, MFU {100 * r['mfu']:.2f}%, largest loss difference "
               f"from no remat {r.get('loss_diff', 0.0):.5f}", flush=True)
@@ -2827,70 +2893,79 @@ def alpaca_expect(bits: int, adapted: int, forwards: int, micro: int, forward: s
     return expect
 
 
+def alpaca_pair(card: str, name: str, argv: list, out: str, expect_of) -> dict:
+    """One smoke run of the Alpaca harness on the card and on the CPU
+    (``--platform=cpu``, the plain path, launching nothing), float32: the
+    logged losses, ``eval_loss`` and the MMLU choice logits agree within
+    ``ALPACA_TOL``, ``eval_results.json`` and ``predictions.jsonl`` are
+    written, and the card's launches are ``expect_of(card run)`` exactly.
+    Returns those launches."""
+    tol = ALPACA_TOL
+    micro = ALPACA_STEPS * ALPACA_GA
+    for d in (out, f"{out}_cpu"):  # the run logger appends to metrics.jsonl
+        shutil.rmtree(d, ignore_errors=True)
+    card_run = alpaca_run([*argv, f"--output_dir={out}"])
+    cpu_run = alpaca_run([*argv, f"--output_dir={out}_cpu", "--platform=cpu"])
+    require(not any(cpu_run["launches"].values()),
+            f"alpaca {name}: the CPU run launched {cpu_run['launches']}")
+    require(card_run["forwards"] == cpu_run["forwards"] > micro,
+            f"alpaca {name}: {card_run['forwards']} forwards on the card, "
+            f"{cpu_run['forwards']} on the CPU")
+    expect = expect_of(card_run)
+    expect_only(card_run["launches"], expect, f"alpaca {name}")
+    losses = [[r["loss"] for r in _alpaca_records(d) if "loss" in r]
+              for d in (out, f"{out}_cpu")]
+    require(len(losses[0]) == len(losses[1]) == ALPACA_STEPS, f"losses {losses}")
+    err = max(abs(a - b) - tol["rtol"] * abs(b) for a, b in zip(*losses))
+    require(err <= tol["atol"], f"alpaca {name}: losses {losses[0]} card, "
+                                f"{losses[1]} CPU")
+    m_card, m_cpu = card_run["run"].metrics, cpu_run["run"].metrics
+    require(abs(m_card["eval_loss"] - m_cpu["eval_loss"])
+            <= tol["atol"] + tol["rtol"] * abs(m_cpu["eval_loss"]),
+            f"alpaca {name}: eval_loss {m_card['eval_loss']} card, {m_cpu['eval_loss']} CPU")
+    logits = [torch.from_numpy(r["run"].choice_logits()) for r in (card_run, cpu_run)]
+    gap = float(((logits[0] - logits[1]).abs() - tol["rtol"] * logits[1].abs()).max())
+    n_mmlu = len(card_run["run"].mmlu_eval)
+    require(logits[0].shape == logits[1].shape == (n_mmlu, 4) and gap <= tol["atol"],
+            f"alpaca {name}: MMLU choice logits differ by {gap} past the rtol")
+    for fname in ("eval_results.json", "predictions.jsonl"):
+        require(os.path.getsize(os.path.join(out, "alpaca", fname)) > 0, f"no {fname}")
+    preds = [[r["prediction"] for r in _alpaca_records(d, "predictions.jsonl")]
+             for d in (out, f"{out}_cpu")]
+    same = sum(a == b for a, b in zip(*preds))
+    acc = [m["eval_mmlu_eval_accuracy"] for m in (m_card, m_cpu)]
+    if "--pack=True" in argv:
+        packed = card_run["run"].trainer.train_data
+        name += (f" ({len(packed['input_ids'])} rows of {packed['input_ids'].shape[1]}, "
+                 f"{int(packed['attention_mask'].sum())} tokens)")
+    print(f"[alpaca] {card}: smoke, {name}: losses "
+          f"{losses[0]} card, {losses[1]} CPU; eval_loss {m_card['eval_loss']} / "
+          f"{m_cpu['eval_loss']}; MMLU choice logits max |card - CPU| "
+          f"{float((logits[0] - logits[1]).abs().max()):.2e} (tol {tol}); MMLU accuracy "
+          f"{acc[0]} / {acc[1]}; predictions equal {same}/{len(preds[0])}; "
+          f"{card_run['forwards']} forwards; launches {expect}; wall "
+          f"{card_run['seconds']:.2f} s "
+          f"card, {cpu_run['seconds']:.2f} s CPU", flush=True)
+    return expect
+
+
 def phase_alpaca_smoke(card: str) -> dict:
     """(a) The tiny smoke Llama (float32, TF32 off) at ``--bits`` 16, 8 and 4,
-    and at 16 with ``--pack=True``, on the card and on the CPU
-    (``--platform=cpu``, the plain path, launching nothing): the logged
-    losses, ``eval_loss`` and the MMLU choice logits agree within
-    ``ALPACA_TOL``, ``eval_results.json`` and ``predictions.jsonl`` are
-    written, and the card's launches are exact (``alpaca_expect``).  Then
+    and at 16 with ``--pack=True``, on the card against the CPU
+    (``alpaca_pair``; the launches ``alpaca_expect``'s).  Then
     ``alpaca_resume``.  Returns the launches of the card's runs."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    tol = ALPACA_TOL
     micro = ALPACA_STEPS * ALPACA_GA
     launches = {}
     for bits, extra in ((16, []), (8, []), (4, []), (16, ["--pack=True"])):
-        name = f"int{bits}" if bits < 16 else "f32" + (" packed" if extra else "")
+        name = (f"int{bits}" if bits < 16 else "f32" + (" packed" if extra else "")) + " base"
         out = os.path.join(OUT_DIR, f"alpaca_{bits}" + ("_pack" if extra else ""))
-        for d in (out, f"{out}_cpu"):  # the run logger appends to metrics.jsonl
-            shutil.rmtree(d, ignore_errors=True)
-        argv = [*ALPACA_ARGV, "--bits", str(bits), *extra]
-        card_run = alpaca_run([*argv, f"--output_dir={out}"])
-        cpu_run = alpaca_run([*argv, f"--output_dir={out}_cpu", "--platform=cpu"])
-        require(not any(cpu_run["launches"].values()),
-                f"alpaca {name}: the CPU run launched {cpu_run['launches']}")
-        require(card_run["forwards"] == cpu_run["forwards"] > micro,
-                f"alpaca {name}: {card_run['forwards']} forwards on the card, "
-                f"{cpu_run['forwards']} on the CPU")
-        expect = alpaca_expect(bits, 7 * 2, card_run["forwards"], micro, "monarch_add")
-        expect_only(card_run["launches"], expect, f"alpaca {name}")
+        expect = alpaca_pair(card, name, [*ALPACA_ARGV, "--bits", str(bits), *extra], out,
+                             lambda run, bits=bits: alpaca_expect(bits, 7 * 2, run["forwards"],
+                                                                  micro, "monarch_add"))
         for k, v in expect.items():
             launches[k] = launches.get(k, 0) + v
-        losses = [[r["loss"] for r in _alpaca_records(d) if "loss" in r]
-                  for d in (out, f"{out}_cpu")]
-        require(len(losses[0]) == len(losses[1]) == ALPACA_STEPS, f"losses {losses}")
-        err = max(abs(a - b) - tol["rtol"] * abs(b) for a, b in zip(*losses))
-        require(err <= tol["atol"], f"alpaca {name}: losses {losses[0]} card, "
-                                    f"{losses[1]} CPU")
-        m_card, m_cpu = card_run["run"].metrics, cpu_run["run"].metrics
-        require(abs(m_card["eval_loss"] - m_cpu["eval_loss"])
-                <= tol["atol"] + tol["rtol"] * abs(m_cpu["eval_loss"]),
-                f"alpaca {name}: eval_loss {m_card['eval_loss']} card, {m_cpu['eval_loss']} CPU")
-        logits = [torch.from_numpy(r["run"].choice_logits()) for r in (card_run, cpu_run)]
-        gap = float(((logits[0] - logits[1]).abs() - tol["rtol"] * logits[1].abs()).max())
-        n_mmlu = len(card_run["run"].mmlu_eval)
-        require(logits[0].shape == logits[1].shape == (n_mmlu, 4) and gap <= tol["atol"],
-                f"alpaca {name}: MMLU choice logits differ by {gap} past the rtol")
-        for fname in ("eval_results.json", "predictions.jsonl"):
-            require(os.path.getsize(os.path.join(out, "alpaca", fname)) > 0, f"no {fname}")
-        preds = [[r["prediction"] for r in _alpaca_records(d, "predictions.jsonl")]
-                 for d in (out, f"{out}_cpu")]
-        same = sum(a == b for a, b in zip(*preds))
-        acc = [m["eval_mmlu_eval_accuracy"] for m in (m_card, m_cpu)]
-        if extra:
-            packed = card_run["run"].trainer.train_data
-            name += (f" ({len(packed['input_ids'])} rows of {packed['input_ids'].shape[1]}, "
-                     f"{int(packed['attention_mask'].sum())} tokens)")
-        print(f"[alpaca] {card}: smoke, {name} base: losses "
-              f"{losses[0]} card, {losses[1]} CPU; eval_loss {m_card['eval_loss']} / "
-              f"{m_cpu['eval_loss']}; MMLU choice logits max |card - CPU| "
-              f"{float((logits[0] - logits[1]).abs().max()):.2e} (tol {tol}); MMLU accuracy "
-              f"{acc[0]} / {acc[1]}; predictions equal {same}/{len(preds[0])}; "
-              f"{card_run['forwards']} forwards; launches {expect}; wall "
-              f"{card_run['seconds']:.2f} s "
-              f"card, {cpu_run['seconds']:.2f} s CPU", flush=True)
-        del card_run, cpu_run
     for k, v in alpaca_resume(card).items():
         launches[k] = launches.get(k, 0) + v
     return launches
@@ -2959,10 +3034,11 @@ def harness_step_context(steps: dict, label: str):
 def phase_alpaca_full(card: str) -> dict:
     """(b) The harness at TinyLlama-1.1B widths (all 22 layers, bf16, random
     seeded weights through the ``build`` seam) at ``--bits`` 16 and 4 with
-    the harness's defaults (dropout 0.1, so K1 and not K2 in the forwards;
-    batch 4 x ga 16; lengths 1024/256; 5-shot MMLU at 2048 tokens) over its
-    synthetic data: the launches exact (``alpaca_expect``: K3 154 x 32 =
-    4,928, K6 151 x 32 = 4,832); the harness's own two steps, through its
+    the harness's defaults but ga (dropout 0.1, so K1 and not K2 in the
+    forwards; batch 4 x ga ``ALPACA_FULL_GA``, 8; lengths 1024/256; 5-shot
+    MMLU at 2048 tokens) over its synthetic data: the launches exact
+    (``alpaca_expect``: K3 154 x 16 = 2,464, K6 151 x 16 = 2,416); the
+    harness's own two steps, through its
     trainer's ``step_context``: step 0 under the profiler (device busy),
     step 1 alone (wall ms, the card synchronised around it, and its peak
     memory); the MMLU scoring and predict seconds the harness measured;
@@ -2974,7 +3050,7 @@ def phase_alpaca_full(card: str) -> dict:
     from sparse_matrix_fine_tuning_torch.scripts import run_alpaca
     from sparse_matrix_fine_tuning_torch.utils.profiling import device_memory_stats
 
-    micro = ALPACA_STEPS * ALPACA_GA
+    micro = ALPACA_STEPS * ALPACA_FULL_GA
     launches = {}
 
     def build_full(args, peft_config):
@@ -3387,8 +3463,10 @@ def encoder_run(module, argv: list, *, dropout: bool = True, build=None,
     its encoder counted by mode (a hook: "train" the micro-batches, "eval"
     the eval loss's and the predictions' batches) with the training
     shapes, its adapted calls a forward, and the run's wall seconds.
-    ``dropout=False`` sets every ``nn.Dropout`` of the built model to 0 (the
-    card's masks are not the CPU's)."""
+    ``dropout=False`` sets every ``nn.Dropout`` of the built model to 0, and
+    every BOFT layer's dropout (the card's masks are not the CPU's)."""
+    from sparse_matrix_fine_tuning_torch.peft.boft import BOFTLinear
+
     forwards, shapes, calls = collections.Counter(), collections.Counter(), {}
 
     def hook(encoder, args):
@@ -3402,6 +3480,8 @@ def encoder_run(module, argv: list, *, dropout: bool = True, build=None,
             for m in model.modules():
                 if isinstance(m, torch.nn.Dropout):
                     m.p = 0.0
+                elif isinstance(m, BOFTLinear):
+                    m.dropout_p = 0.0
         encoder = model.roberta if hasattr(model, "roberta") else model.deberta
         encoder.register_forward_pre_hook(hook)
         calls["per_forward"] = encoder_adapted_calls(model)
@@ -3418,12 +3498,16 @@ def encoder_run(module, argv: list, *, dropout: bool = True, build=None,
             "per_forward": calls["per_forward"], "seconds": seconds}
 
 
-def encoder_expect(run: dict) -> dict:
-    """The exact launches of an encoder harness run: K2 on every adapted call
-    each forward (training, eval and predictions: the GLUE adapters carry no
-    dropout, so no forward takes K1), K3 on each a training forward."""
+def encoder_expect(run: dict, forward: str | None = "monarch_add") -> dict:
+    """The exact launches of an encoder harness run: ``forward`` on every
+    adapted call each forward (training, eval and predictions): K2 for
+    Monarch adapters over a dense base (the GLUE adapters carry no dropout,
+    so no forward takes K1), K1 in projection mode; K3 on each a training
+    forward.  None (LoRA, BOFT): no kernel of ours."""
+    if forward is None:
+        return {}
     per = run["per_forward"]
-    return {"monarch_add": per * (run["forwards"]["train"] + run["forwards"]["eval"]),
+    return {forward: per * (run["forwards"]["train"] + run["forwards"]["eval"]),
             "monarch_bwd": per * run["forwards"]["train"]}
 
 
@@ -3431,74 +3515,85 @@ def _close(a: float, b: float, tol: dict) -> bool:
     return abs(a - b) <= tol["atol"] + tol["rtol"] * abs(b)
 
 
+def encoder_pair(card: str, label: str, module, argv: list, out: str,
+                 forward: str | None = "monarch_add", steps: int | None = None) -> dict:
+    """One harness run (``scripts/run_glue`` or ``scripts/run_agnews``) on the
+    card and on the CPU (``--platform=cpu``, launching nothing), float32,
+    dropout off, into ``out`` and ``out``_cpu: the logged losses and
+    ``eval_loss`` within ``ALPACA_TOL``, the other metrics equal (STS-B's
+    correlations within ``GLUE_CORRELATION_ATOL``), the TSV files equal, the
+    forwards equal (``steps`` training forwards, where given), the card's
+    launches exact (``encoder_expect`` with ``forward``).  Returns the card
+    run's launches and both runs."""
+    from sparse_matrix_fine_tuning_torch.scripts import run_glue
+
+    tol = ALPACA_TOL
+    for d in (out, f"{out}_cpu"):  # the run logger appends to metrics.jsonl
+        shutil.rmtree(d, ignore_errors=True)
+    card_run = encoder_run(module, [*argv, f"--output_dir={out}"], dropout=False)
+    cpu_run = encoder_run(module, [*argv, f"--output_dir={out}_cpu", "--platform=cpu"],
+                          dropout=False)
+    require(not any(cpu_run["launches"].values()),
+            f"{label}: the CPU run launched {cpu_run['launches']}")
+    require(card_run["forwards"] == cpu_run["forwards"]
+            and (steps is None or card_run["forwards"]["train"] == steps),
+            f"{label}: forwards {card_run['forwards']} card, {cpu_run['forwards']} CPU")
+    expect = encoder_expect(card_run, forward)
+    expect_only(card_run["launches"], expect, f"{label}")
+    if module is run_glue:
+        sub = card_run["run"].args.config_path
+        task = next(iter(card_run["run"].results))
+        dirs = [os.path.join(d, task) for d in (out, f"{out}_cpu")]
+        results = [r["run"].results for r in (card_run, cpu_run)]
+        tsvs = [[os.path.basename(p) for p in r["run"].tsv_paths] for r in (card_run, cpu_run)]
+        require(tsvs[0] == tsvs[1] and tsvs[0], f"{label}: TSV files {tsvs}")
+        for name in tsvs[0]:
+            texts = [open(os.path.join(d, "predict", name)).read() for d in dirs]
+            require(texts[0] == texts[1], f"{label}: {name} differs between card and CPU")
+    else:
+        method = card_run["run"].args.method
+        sub, dirs = "agnews", [os.path.join(d, method) for d in (out, f"{out}_cpu")]
+        results = [{"agnews": r["run"].result} for r in (card_run, cpu_run)]
+    losses = [[r["loss"] for r in _alpaca_records(d, task="") if "loss" in r] for d in dirs]
+    require(len(losses[0]) == len(losses[1]) >= 2
+            and all(_close(a, b, tol) for a, b in zip(*losses)),
+            f"{label}: losses {losses[0]} card, {losses[1]} CPU")
+    require(results[0].keys() == results[1].keys(), f"{label}: {results}")
+    for split, metrics in results[1].items():
+        for key, value in metrics.items():
+            got = results[0][split][key]
+            ok = (_close(got, value, tol) if key == "eval_loss"
+                  else abs(got - value) <= GLUE_CORRELATION_ATOL
+                  if key in ("eval_pearson", "eval_spearmanr") else got == value)
+            require(ok, f"{label}: {split} {key} {got} card, {value} CPU")
+    print(f"[glue] {card}: smoke, {label} ({sub}): losses {losses[0]} card, {losses[1]} "
+          f"CPU; results {results[0]} card, {results[1]} CPU; forwards "
+          f"{dict(card_run['forwards'])} ({card_run['per_forward']} adapted calls a "
+          f"forward); launches {expect}; wall {card_run['seconds']:.2f} s card, "
+          f"{cpu_run['seconds']:.2f} s CPU", flush=True)
+    return {"launches": expect, "card": card_run, "cpu": cpu_run}
+
+
 def phase_glue_smoke(card: str) -> dict:
     """(a) The GLUE harness (``scripts/run_glue.py``) as users run it,
     ``task_configs/<family>/<task>.json --smoke=True``: CoLA, STS-B
     (regression), MNLI (matched and mismatched, two TSV files) on RoBERTa,
     MRPC on DeBERTa, then ``run_agnews.py --smoke=True --method=monarch``;
-    float32, TF32 off, dropout off, ``GLUE_STEPS`` steps; on the card and on
-    the CPU (``--platform=cpu``, launching nothing).  The logged losses and
-    ``eval_loss`` within ``ALPACA_TOL``, the other metrics equal (STS-B's
-    correlations within ``GLUE_CORRELATION_ATOL``), the TSV files equal, the
-    card's launches exact (K2 and K3 only, ``encoder_expect``).  Returns the
-    card runs' launches."""
+    float32, TF32 off, dropout off, ``GLUE_STEPS`` steps; each on the card
+    against the CPU (``encoder_pair``: K2 and K3 only).  Returns the card
+    runs' launches."""
     from sparse_matrix_fine_tuning_torch.scripts import run_agnews, run_glue
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    tol = ALPACA_TOL
     launches = collections.Counter()
     runs = [(label, run_glue, [os.path.join("task_configs", config), "--smoke=True",
-                               *GLUE_CUT, *extra])
+                               *GLUE_CUT, *extra], GLUE_STEPS)
             for label, config, extra in GLUE_SMOKE]
-    runs.append(("agnews monarch", run_agnews, AGNEWS_SMOKE))
-    for label, module, argv in runs:
+    runs.append(("agnews monarch", run_agnews, AGNEWS_SMOKE, AGNEWS_STEPS))
+    for label, module, argv, steps in runs:
         out = os.path.join(OUT_DIR, "glue_smoke", label.replace(" ", "_"))
-        for d in (out, f"{out}_cpu"):  # the run logger appends to metrics.jsonl
-            shutil.rmtree(d, ignore_errors=True)
-        card_run = encoder_run(module, [*argv, f"--output_dir={out}"], dropout=False)
-        cpu_run = encoder_run(module, [*argv, f"--output_dir={out}_cpu", "--platform=cpu"],
-                              dropout=False)
-        require(not any(cpu_run["launches"].values()),
-                f"{label}: the CPU run launched {cpu_run['launches']}")
-        steps = GLUE_STEPS if module is run_glue else AGNEWS_STEPS
-        require(card_run["forwards"] == cpu_run["forwards"]
-                and card_run["forwards"]["train"] == steps,
-                f"{label}: forwards {card_run['forwards']} card, {cpu_run['forwards']} CPU")
-        expect = encoder_expect(card_run)
-        expect_only(card_run["launches"], expect, f"glue smoke, {label}")
-        launches.update(expect)
-        if module is run_glue:
-            sub = card_run["run"].args.config_path
-            task = next(iter(card_run["run"].results))
-            dirs = [os.path.join(d, task) for d in (out, f"{out}_cpu")]
-            results = [r["run"].results for r in (card_run, cpu_run)]
-            tsvs = [[os.path.basename(p) for p in r["run"].tsv_paths] for r in (card_run, cpu_run)]
-            require(tsvs[0] == tsvs[1] and tsvs[0], f"{label}: TSV files {tsvs}")
-            for name in tsvs[0]:
-                texts = [open(os.path.join(d, "predict", name)).read() for d in dirs]
-                require(texts[0] == texts[1], f"{label}: {name} differs between card and CPU")
-        else:
-            sub, dirs = "agnews", [os.path.join(d, "monarch") for d in (out, f"{out}_cpu")]
-            results = [{"agnews": r["run"].result} for r in (card_run, cpu_run)]
-        losses = [[r["loss"] for r in _alpaca_records(d, task="") if "loss" in r] for d in dirs]
-        require(len(losses[0]) == len(losses[1]) >= 2
-                and all(_close(a, b, tol) for a, b in zip(*losses)),
-                f"{label}: losses {losses[0]} card, {losses[1]} CPU")
-        require(results[0].keys() == results[1].keys(), f"{label}: {results}")
-        for split, metrics in results[1].items():
-            for key, value in metrics.items():
-                got = results[0][split][key]
-                ok = (_close(got, value, tol) if key == "eval_loss"
-                      else abs(got - value) <= GLUE_CORRELATION_ATOL
-                      if key in ("eval_pearson", "eval_spearmanr") else got == value)
-                require(ok, f"{label}: {split} {key} {got} card, {value} CPU")
-        print(f"[glue] {card}: smoke, {label} ({sub}): losses {losses[0]} card, {losses[1]} "
-              f"CPU; results {results[0]} card, {results[1]} CPU; forwards "
-              f"{dict(card_run['forwards'])} ({card_run['per_forward']} adapted calls a "
-              f"forward); launches {expect}; wall {card_run['seconds']:.2f} s card, "
-              f"{cpu_run['seconds']:.2f} s CPU", flush=True)
-        del card_run, cpu_run
+        launches.update(encoder_pair(card, label, module, argv, out, steps=steps)["launches"])
     return dict(launches)
 
 
@@ -3612,7 +3707,8 @@ def phase_glue_full(card: str) -> dict:
     (12 layers, hidden 768, 12 heads, vocab 128100, 256 position buckets), an
     HF-format directory written here (``encoder_shapes``, random seeded
     float32 weights; the tensors the harness's loader gives equal the
-    written ones; deleted after), then ``run_glue.py <family>/cola.json
+    written ones; DeBERTa's deleted after, RoBERTa-large's after
+    ``phase_baselines_full``, which reuses it), then ``run_glue.py <family>/cola.json
     --bf16_compute=True --max_steps=3`` on it with the recipe's batch (16;
     32) and max_seq_length 128, length grouping in buckets of 32, dropout
     0.1 in the encoder (the adapters' 0.0: K2, not K1): launches exact
@@ -3740,10 +3836,302 @@ def phase_glue_full(card: str) -> dict:
               f"{full['seconds']:.2f} s wall; {full['per_forward']} adapted calls a forward; "
               f"launches {expect}", flush=True)
         del full, run
-        shutil.rmtree(ckpt, ignore_errors=True)
+        if label != BASELINE_FULL_MODEL:  # phase_baselines_full reads it, then deletes it
+            shutil.rmtree(ckpt, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
-    return {"launches": dict(launches), "layer": layers}
+    return {"launches": dict(launches), "layer": layers,
+            "checkpoint": os.path.join(OUT_DIR, dict((g[0], g[3]) for g in GLUE_FULL)[
+                BASELINE_FULL_MODEL])}
+
+
+class _Tee:
+    """A stream that writes through to ``out`` and keeps what it wrote."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, text: str) -> int:
+        self.text.append(text)
+        return self.out.write(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def reference_orientation_on_card(card: str) -> dict:
+    """The reference orientation with svd_init on weights on the card, at
+    RoBERTa-large's width (1024, nblocks 4): its residual comes from the
+    identity's product, K1, one launch a layer; the residual and the layer's
+    output against the same layer built on the CPU (the SVD's signs do not
+    reach either), within ``SVD_CARD_RTOL`` of their scale: two float32
+    SVDs, cuSOLVER's and LAPACK's, agree to about 1e-4 of the weights'
+    scale (1.3e-4 in the first run).  Returns the launches."""
+    from sparse_matrix_fine_tuning_torch.layers.monarch_linear import MonarchLinear
+
+    g = torch.Generator().manual_seed(SEED + 50)
+    w = torch.randn(1024, 1024, generator=g) / 32
+    x = torch.randn(64, 1024, generator=g)
+    peft = {**PEFT, "reference_orientation": True, "svd_init": True}
+    cpu = MonarchLinear(1024, 1024, peft_config=peft, weights=w)
+    torch.cuda.synchronize()
+    reset_counts()  # the counted main path starts here
+    layer = MonarchLinear(1024, 1024, peft_config=peft, weights=w.cuda())
+    torch.cuda.synchronize()
+    launches = counts()  # ... and ends here
+    expect_only(launches, {"monarch_kernel": 1}, "reference orientation on the card, init")
+    err = float((layer.dense.cpu() - cpu.dense).abs().max())
+    with torch.no_grad():
+        out_err = float((layer(x.cuda()).cpu() - cpu(x)).abs().max())
+        scale = float(cpu(x).abs().max())
+    require(err <= SVD_CARD_RTOL * float(w.abs().max())
+            and out_err <= SVD_CARD_RTOL * scale,
+            f"reference orientation on the card: residual {err}, output {out_err} from the CPU's")
+    print(f"[baselines] {card}: reference orientation with svd_init at 1024 -> 1024 on the "
+          f"card: K1 once (the identity's product), residual max |card - CPU| {err:.2e}, "
+          f"output {out_err:.2e} (scale {scale:.3f})", flush=True)
+    return {"monarch_kernel": 1}
+
+
+def phase_baselines_smoke(card: str) -> dict:
+    """(a) The paper's baselines, SVD projection and the search through the
+    harnesses, smoke, float32, TF32 off, dropout off (BOFT's too), on the
+    card against the CPU (``encoder_pair``, ``alpaca_pair``): ``run_glue``
+    with ``--lora`` and ``--boft`` (no kernel of ours: launches none),
+    ``--svd_init=True`` (K2, K3) and ``--adapter=False`` (projection: K1,
+    K3) on CoLA and STS-B and DeBERTa's MRPC (``BASELINE_SMOKE``); the
+    reference orientation with svd_init from a peft config written beside a
+    copy of the CoLA recipe (K2, K3: the identity's product runs on the CPU,
+    where the smoke model is built); ``--do_tune`` on STS-B
+    (``BASELINE_TUNE``): the same trials, budgets and best hyperparameters,
+    the metrics within the harness's tolerances, every trial's metric finite
+    and no "[hpo] trial ... failed" printed (a failed trial scores worst
+    and the search goes on), K2/K3 exact over all its trials; ``run_agnews
+    --method lora``; ``run_alpaca --adapter=lora``; then
+    ``reference_orientation_on_card``.  Returns the card runs' launches."""
+    from sparse_matrix_fine_tuning_torch.layers.monarch_linear import MonarchLinear
+    from sparse_matrix_fine_tuning_torch.scripts import run_agnews, run_glue
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches = collections.Counter()
+    base = os.path.join(OUT_DIR, "baselines_smoke")
+    ref_cfg = os.path.join(base, "reference_orientation_recipe")
+    os.makedirs(ref_cfg, exist_ok=True)
+    shutil.copy(os.path.join("task_configs", "monarch_roberta_glue", "cola.json"), ref_cfg)
+    with open(os.path.join("task_configs", "monarch_roberta_glue", "peft_config.json")) as f:
+        peft = {**json.load(f), "reference_orientation": True, "svd_init": True}
+    with open(os.path.join(ref_cfg, "peft_config.json"), "w") as f:
+        json.dump(peft, f)
+    runs = [(label, os.path.join("task_configs", config), [*GLUE_CUT, *extra], forward,
+             GLUE_STEPS) for label, config, extra, forward in BASELINE_SMOKE]
+    runs.append(("roberta reference_orientation cola", os.path.join(ref_cfg, "cola.json"),
+                 [*GLUE_CUT, *GLUE_FAST], "monarch_add", GLUE_STEPS))
+    runs.append(("roberta do_tune stsb", os.path.join("task_configs", "monarch_roberta_glue",
+                                                      "stsb.json"),
+                 BASELINE_TUNE, "monarch_add", None))
+    for label, config, extra, forward, steps in runs:
+        out = os.path.join(base, label.replace(" ", "_"))
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            pair = encoder_pair(card, label, run_glue, [config, "--smoke=True", *extra], out,
+                                forward, steps)
+        launches.update(pair["launches"])
+        model = pair["card"]["run"].trainer.model
+        if "svd_init" in label or "reference" in label:
+            require(all(m.svd_init and m.dense is not None for m in model.modules()
+                        if isinstance(m, MonarchLinear)), f"{label}: not svd_init")
+        if "do_tune" not in label:
+            continue
+        searches = [pair[k]["run"].search for k in ("card", "cpu")]
+        failed = [line for line in "".join(tee.text).splitlines()
+                  if line.startswith("[hpo] trial") and "failed" in line]
+        trials = [[(t["id"], t["hp"], t["epochs"]) for t in s["trials"]] for s in searches]
+        metrics = [[t["eval_pearson"] for t in s["trials"]] for s in searches]
+        require(not failed and trials[0] == trials[1]
+                and [t[2] for t in trials[0]] == BASELINE_TUNE_EPOCHS
+                and all(map(math.isfinite, metrics[0] + metrics[1]))
+                and all(abs(a - b) <= GLUE_CORRELATION_ATOL for a, b in zip(*metrics))
+                and searches[0]["best_hyperparams"] == searches[1]["best_hyperparams"],
+                f"{label}: trials {trials}, metrics {metrics}, failed {failed}, best "
+                f"{[s['best_hyperparams'] for s in searches]}")
+        brief = [(t[0], t[1]["learning_rate"], t[1]["per_device_train_batch_size"], t[2])
+                 for t in trials[0]]
+        print(f"[baselines] {card}: search, STS-B: trials (id, lr, batch, epochs) {brief}; "
+              f"pearson {[round(m, 6) for m in metrics[0]]} card, "
+              f"{[round(m, 6) for m in metrics[1]]} CPU; best {searches[0]['best_hyperparams']} "
+              f"(pearson {searches[0]['best_metric']:.6f}); no trial failed", flush=True)
+    lora_news = [a for a in AGNEWS_SMOKE if not a.startswith("--method")] + ["--method=lora"]
+    launches.update(encoder_pair(card, "agnews lora", run_agnews, lora_news,
+                                 os.path.join(base, "agnews_lora"), None,
+                                 AGNEWS_STEPS)["launches"])
+    launches.update(alpaca_pair(card, "f32 base, LoRA", [*ALPACA_ARGV, "--adapter=lora"],
+                                os.path.join(base, "alpaca_lora"), lambda run: {}))
+    launches.update(reference_orientation_on_card(card))
+    return dict(launches)
+
+
+def projection_kernel_times(card: str, rows: int, dtype=torch.bfloat16) -> dict:
+    """K1 and K3 timed (``benchlib.time_ms``) at projection mode's
+    RoBERTa-large shape, w1 and w2 (32, 32, 32) on ``rows`` rows of 1024,
+    against their plain versions, the bound and (K1) ``F.linear`` on the
+    dense equivalent; a layer's three projections (query, key and value, of
+    one shape) are three times one call's.  K3 runs its generic kernel
+    here, tens of ms a call: it is timed over ``PROJECTION_BWD_REPS``.
+    Launches made here are not the path's."""
+    from sparse_matrix_fine_tuning_torch.ops.monarch import monarch_dense_equivalent
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    nb = r = 32
+    n = nb * nb
+    layer = {}
+    print(_HEADER, flush=True)
+    with torch.no_grad():
+        x = torch.randn(rows, n, generator=g, device="cuda").to(dtype)
+        w1 = (torch.randn(nb, r, nb, generator=g, device="cuda") / nb ** 0.5).to(dtype)
+        w2 = (torch.randn(nb, nb, r, generator=g, device="cuda") / r ** 0.5).to(dtype)
+        dout = torch.randn(rows, n, generator=g, device="cuda").to(dtype)
+        dense = monarch_dense_equivalent(w1.float(), w2.float()).to(dtype)
+        cases = {"monarch_kernel": (lambda: monarch_cuda.monarch_kernel(x, w1, w2),
+                                    lambda: monarch_cuda.monarch_kernel_reference(x, w1, w2),
+                                    lambda: torch.nn.functional.linear(x, dense), ()),
+                 "monarch_bwd": (lambda: monarch_cuda.monarch_bwd(x, w1, w2, dout),
+                                 lambda: monarch_cuda.monarch_bwd_reference(x, w1, w2, dout),
+                                 None, PROJECTION_BWD_REPS)}
+        for name, (kern, plain, library, reps) in cases.items():
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
+            err = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+            share = max(float((a.float() - b.float()).abs().max()) / tolerance(dtype, b)
+                        for a, b in pairs)
+            require(share <= 1.0, f"{name} projection M={rows}: {share:.3f} of tol")
+            (ms, call), (plain_ms, plain_call) = time_ms(kern, *reps), time_ms(plain, *reps)
+            lib = time_ms(library)[0] if library is not None else None
+            rec = _record(name, "qkv", n, n, rows, dtype, err, share, ms, plain_ms, call,
+                          plain_call, lib, r)
+            layer[name] = {"ms": 3 * ms, "plain_ms": 3 * plain_ms, "bound_ms": 3 * rec["bound_ms"],
+                           "bound_by": rec["bound_by"],
+                           "library_ms": None if lib is None else 3 * lib}
+    print(f"[baselines-full] {card}: projection mode, 32 blocks of 32: device time a layer (3 "
+          f"calls) at {rows} rows: "
+          + ", ".join(f"{k} {v['ms']:.5f} ms (plain {v['plain_ms']:.5f}, library "
+                      f"{v['library_ms'] if v['library_ms'] is None else round(v['library_ms'], 5)}"
+                      f", bound {v['bound_ms']:.5f} ms, {v['bound_by']})"
+                      for k, v in layer.items()), flush=True)
+    RECORDS.append({"projection_kernels_per_layer": rows, **layer, "card": card})
+    return layer
+
+
+def phase_baselines_full(card: str, checkpoint: str) -> dict:
+    """(b) The recipes of the paper's GLUE table at RoBERTa-large width (24
+    layers, hidden 1024) from ``phase_glue_full``'s HF-format directory
+    (deleted after), bf16 compute, ``GLUE_STEPS`` steps each with the
+    harness's eval and test predictions (``BASELINE_FULL``):
+    ``lora_roberta_glue/cola.json`` (bs 16, r 8, alpha 16, gaussian, q/k/v),
+    ``boft_roberta_glue/cola.json`` (bs 32, seq 64, block 8, 2 butterfly
+    factors, dropout 0.05, bias boft_only) and the Monarch CoLA recipe with
+    ``--svd_init=True`` (the residual as base: K2 72 times a forward, K3 72
+    times a step) and with ``--adapter=False`` (projection, 32 blocks of
+    32: K1 72 times a forward, K3 72 times a step, on its generic kernel).
+    Launches exact (none of ours for LoRA and BOFT); the adapters' shapes;
+    each run's init s (``adapt_model``: the SVD on the card for the
+    projections), its steps through the trainer's ``step_context`` (step 0
+    profiled: busy; steps 1-2 alone: wall, peak), idle share; K1 and K3
+    timed at projection mode's rows (``projection_kernel_times``).  Returns
+    the launches and those times."""
+    from sparse_matrix_fine_tuning_torch.layers.monarch_linear import MonarchLinear
+    from sparse_matrix_fine_tuning_torch.peft.boft import BOFTLinear
+    from sparse_matrix_fine_tuning_torch.peft.surgery import ScaledLoRA
+    from sparse_matrix_fine_tuning_torch.scripts import run_glue
+
+    launches = collections.Counter()
+    real_adapt = run_glue.adapt_model
+    init_s = []
+
+    def timed_adapt(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = real_adapt(*a, **kw)
+        torch.cuda.synchronize()
+        init_s.append(time.perf_counter() - t0)
+        return model
+
+    kinds = {"LoRA": ScaledLoRA, "BOFT": BOFTLinear}
+    layer_times = None
+    try:
+        run_glue.adapt_model = timed_adapt
+        for label, config, extra, forward in BASELINE_FULL:
+            out = os.path.join(OUT_DIR, "baselines_full_" + label.replace(" ", "_"))
+            shutil.rmtree(out, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+            init_s.clear()
+            steps = {}
+            full = encoder_run(run_glue, [os.path.join("task_configs", config),
+                                          "--bf16_compute=True", *GLUE_CUT,
+                                          f"--model_name_or_path={checkpoint}",
+                                          f"--output_dir={out}", *extra],
+                               step_context=harness_step_context(steps, f"glue {label}"))
+            expect = encoder_expect(full, forward)
+            expect_only(full["launches"], expect, f"baselines full, {label}")
+            launches.update(expect)
+            run = full["run"]
+            model = run.trainer.model
+            layers = [m for m in model.modules()
+                      if isinstance(m, kinds.get(label, MonarchLinear))]
+            require(len(layers) == full["per_forward"] == 72 and len(init_s) == 1,
+                    f"baselines full, {label}: {len(layers)} adapted layers, inits {init_s}")
+            shapes = {tuple(layers[0].blkdiag1.shape), tuple(layers[0].blkdiag2.shape)} \
+                if forward else None
+            if label == "Monarch projection":
+                require(shapes == {(32, 32, 32)} and all(m.dense is None for m in layers),
+                        f"baselines full, projection: factors {shapes}")
+            elif label == "Monarch svd_init":
+                require(shapes == {(4, 4, 256), (4, 256, 4)}
+                        and all(m.dense is not None for m in layers),
+                        f"baselines full, svd_init: factors {shapes}")
+            task = next(iter(run.results))
+            metrics = run.results[task]
+            losses = [r["loss"] for r in _alpaca_records(out, task=task) if "loss" in r]
+            require(full["forwards"]["train"] == GLUE_STEPS and len(losses) == GLUE_STEPS
+                    and all(map(math.isfinite, losses)) and math.isfinite(metrics["eval_loss"])
+                    and len(run.tsv_paths) == 1,
+                    f"baselines full, {label}: forwards {full['forwards']}, losses {losses}, "
+                    f"{metrics}")
+            require(len(steps.get("wall_ms", [])) == GLUE_STEPS - 1 and "busy_ms" in steps,
+                    f"baselines full, {label}: the harness's steps seen {steps}")
+            wall = statistics.median(steps["wall_ms"])
+            busy = steps["busy_ms"]
+            idle = f"{1 - busy / wall:.3f}" if busy else "not measured"
+            a = run.trainer.args
+            RECORDS.append({"baselines_full": label, "init_s": init_s[0],
+                            "steps_wall_ms": steps["wall_ms"], "step0_busy_ms": busy,
+                            "peak_gb": steps["peak_gb"], "launches": expect,
+                            "train_shapes": {str(k): v for k, v in full["shapes"].items()},
+                            "card": card})
+            print(f"[baselines-full] {card}: {label}, {config}, {BASELINE_FULL_MODEL} (24 "
+                  f"layers, hidden 1024) from the HF-format directory, bf16 compute: init "
+                  f"{init_s[0]:.3f} s (adapters on 72 linears"
+                  f"{', factors ' + str(shapes) if shapes else ''}); bs "
+                  f"{a.per_device_train_batch_size}, training shapes {full['shapes']}; "
+                  f"losses {losses}; steps 1-{GLUE_STEPS - 1} wall "
+                  f"{[round(w, 2) for w in steps['wall_ms']]} ms (median {wall:.2f}), step 0 "
+                  f"device busy {busy if busy is None else round(busy, 2)} ms (profiled; wall "
+                  f"{steps['profiled_wall_ms']:.2f} ms with the profiler on), idle share {idle}, "
+                  f"peak {steps['peak_gb']:.2f} GB over step {GLUE_STEPS - 1}; results "
+                  f"{run.results}; forwards {dict(full['forwards'])}; harness run "
+                  f"{full['seconds']:.2f} s wall; launches {expect}", flush=True)
+            if label == "Monarch projection":
+                (b, t), _ = max(full["shapes"].items(), key=lambda kv: kv[1])  # the commonest
+                layer_times = projection_kernel_times(card, b * t)
+            del full, run, model, layers
+    finally:
+        run_glue.adapt_model = real_adapt
+        shutil.rmtree(checkpoint, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": dict(launches), "layer": layer_times}
 
 
 def main() -> None:
@@ -3810,6 +4198,12 @@ def main() -> None:
     print(f"[glue] launches of the harness's runs: smoke {glue}, full width "
           f"{glue_full['launches']}", flush=True)
     lap("GLUE harness, full width")
+    baselines = phase_baselines_smoke(card)
+    lap("baselines, projection and search through the harnesses, smoke")
+    baselines_full = phase_baselines_full(card, glue_full["checkpoint"])
+    print(f"[baselines] launches of the harnesses' runs: smoke {baselines}, full width "
+          f"{baselines_full['launches']}", flush=True)
+    lap("baselines and projection, RoBERTa-large width")
     launches = {"monarch_kernel": serving["launches"]["monarch_kernel"],
                 "monarch_add": serving["launches"]["monarch_add"],
                 "monarch_bwd": training["launches"]["monarch_bwd"],

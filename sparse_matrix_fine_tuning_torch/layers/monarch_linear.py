@@ -1,8 +1,10 @@
 """MonarchLinear: the MoRe adapter layer, PyTorch.
 
-Counterpart of ``sparse_matrix_fine_tuning_tpu/layers/monarch_linear.py`` in
-adapter mode: ``y = x @ dense^T + monarch(x) (+ bias)`` with a frozen dense
-base.
+Counterpart of ``sparse_matrix_fine_tuning_tpu/layers/monarch_linear.py``:
+in adapter mode ``y = x @ dense^T + monarch(x) (+ bias)`` with a frozen dense
+base; in projection mode (``adapter: false`` with weights given) ``y =
+monarch(x) (+ bias)`` with the factors projected from the weights and no
+dense base.
 
   * Trainability is ``requires_grad``: the factors ``blkdiag1 (nblocks,
     blk_r, in_blksz)`` and ``blkdiag2 (nblocks, out_blksz, blk_r)`` (and the
@@ -26,6 +28,17 @@ base.
     the ``deterministic`` argument where given.
   * Built without ``weights``, the layer lives on ``device``, the card when
     None (``utils/device.py``); with ``weights``, on the weights' device.
+  * SVD projection (``ops/projection.py``): in projection mode the weights
+    w (out, in), zero-padded to the blocks, are projected onto the factors
+    at rank 1 (``PROJECT_RANK``); with ``svd_init`` (adapter mode) too, and the
+    residual ``w - monarch_dense_equivalent(w1, w2)`` becomes the frozen
+    dense.  The SVD runs in float32 on the weights' device.  The layer
+    projects ``w``, the JAX orientation (ROADMAP C.7);
+    ``reference_orientation`` projects ``w.T`` as the reference does, for
+    square unpadded layers only, and with ``svd_init`` takes the residual
+    from the identity's product, ``monarch_mm(I, w1, w2)`` (K1 on the
+    card).  Projection mode's forward is K1 plus the bias, svd_init's K2
+    over the residual; both backwards are K3.
   * Quantized base (``quant.quantize_frozen_base``): ``dense`` holds int8
     codes (in, out) or packed int4 codes (in/2, out), ``dense_scales`` their
     f32 scales (a persistent buffer that ``.to(dtype)`` keeps float32), and
@@ -35,9 +48,9 @@ base.
     on the card).  ``serve_w8a8`` (int8, serving) takes per-token int8
     activations and an int8 x int8 -> int32 product instead.
 
-Not ported yet, and refused with ``NotImplementedError``: SVD projection
-(``svd_init``, projection mode, ``reference_orientation``); it names its
-item of ROADMAP.md queue A.
+``MonarchFactor`` is one trainable block-diagonal factor (JAX
+``MonarchFactor``), whose forward is the plain ``ops/blockdiag``: the JAX
+package runs no Pallas kernel there.
 """
 
 from __future__ import annotations
@@ -53,6 +66,8 @@ from sparse_matrix_fine_tuning_torch.kernels.merged import build_merged_operands
 from sparse_matrix_fine_tuning_torch.kernels.monarch_cuda import monarch_add, monarch_mm
 from sparse_matrix_fine_tuning_torch.kernels.quant_cuda import int4_mm, int8_mm
 from sparse_matrix_fine_tuning_torch.ops.blockdiag import blockdiag_multiply
+from sparse_matrix_fine_tuning_torch.ops.monarch import monarch_dense_equivalent
+from sparse_matrix_fine_tuning_torch.ops.projection import blockdiag_butterfly_project_einsum_rank
 from sparse_matrix_fine_tuning_torch.utils.device import resolve_device, seeded_generator
 
 DEFAULT_PEFT_CONFIG: dict[str, Any] = {
@@ -71,8 +86,7 @@ DEFAULT_PEFT_CONFIG: dict[str, Any] = {
     "dropout": 0.0,
     "reference_orientation": False,
 }
-
-_PROJECTION_ITEM = "SVD projection: ROADMAP.md queue A, 'ops/projection.py'"
+PROJECT_RANK = 1  # the SVD rank of a projection (the JAX layer's default; no caller sets it)
 
 
 def _kaiming_block_uniform(shape, dtype, device, generator) -> torch.Tensor:
@@ -154,8 +168,10 @@ class MonarchLinear(nn.Module):
         """
         Args:
           peft_config: reference-format config dict; explicit kwargs win.
-          weights: dense (out_features, in_features) weight, the frozen base.
-            It is kept in its own dtype and storage.
+          weights: dense (out_features, in_features) weight.  In adapter
+            mode it is the frozen base, kept in its own dtype and storage;
+            otherwise, and with ``svd_init``, it is projected onto the
+            factors (``svd_init``: the residual is the frozen base).
           bias: optional frozen dense bias.
           use_bias: create a uniform-init frozen bias when ``bias`` is None.
           dtype: compute dtype; None computes in the input's dtype.
@@ -191,12 +207,8 @@ class MonarchLinear(nn.Module):
         self.out_blksz = int(math.ceil(self.in_blksz * out_features / in_features))
 
         self.as_adapter = cfg["adapter"] if as_adapter is None else as_adapter
-        if cfg["svd_init"]:
-            raise NotImplementedError(f"svd_init: {_PROJECTION_ITEM}")
-        if cfg.get("reference_orientation", False):
-            raise NotImplementedError(f"reference_orientation: {_PROJECTION_ITEM}")
-        if weights is not None and not self.as_adapter:
-            raise NotImplementedError(f"projection mode: {_PROJECTION_ITEM}")
+        self.svd_init = cfg["svd_init"]
+        self.reference_orientation = cfg.get("reference_orientation", False)
         self.lora_style_init = cfg["lora_style_init"]
         self.use_mult_factor = cfg["use_mult_factor"]
         use_scaler = cfg["scaler"] or self.use_mult_factor
@@ -233,15 +245,18 @@ class MonarchLinear(nn.Module):
             eye = torch.eye(self.out_blksz, self.in_blksz, dtype=param_dtype, device=device)
             self.blkdiag_mult = nn.Parameter(eye.repeat(self.nblocks, 1, 1))
 
-        self.blkdiag1 = nn.Parameter(bd1)
-        self.blkdiag2 = nn.Parameter(bd2)
+        dense = None
         if weights is not None:
             if tuple(weights.shape) != (out_features, in_features):
                 raise ValueError(f"weights must be ({out_features}, {in_features}), "
                                  f"got {tuple(weights.shape)}")
-            self.dense = nn.Parameter(weights.detach(), requires_grad=False)
-        else:
-            self.dense = None
+            if self.as_adapter and not self.svd_init:
+                dense = weights.detach()
+            else:
+                bd1, bd2, dense = self._projected_values(weights.detach().float(), PROJECT_RANK)
+        self.blkdiag1 = nn.Parameter(bd1)
+        self.blkdiag2 = nn.Parameter(bd2)
+        self.dense = nn.Parameter(dense, requires_grad=False) if dense is not None else None
 
         if bias is not None:
             self.bias = nn.Parameter(bias.detach(), requires_grad=False)
@@ -265,6 +280,52 @@ class MonarchLinear(nn.Module):
 
     def _apply(self, fn, recurse=True):
         return keep_f32_buffers(self, ("dense_scales",), fn, recurse)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _projected_values(self, w: torch.Tensor, rank: int):
+        """(bd1, bd2, residual or None): w (out, in) in float32, zero-padded
+        to the blocks, projected onto the factors; with ``svd_init`` the
+        residual ``w - monarch_dense_equivalent(bd1, bd2)`` as the frozen
+        dense, all in ``param_dtype``."""
+        if self.reference_orientation:
+            return self._projected_values_reference(w, rank)
+        pad_out = self.nblocks * self.out_blksz - self.out_features
+        pad_in = self.nblocks * self.in_blksz - self.in_features
+        bd1, bd2 = blockdiag_butterfly_project_einsum_rank(
+            F.pad(w, (0, pad_in, 0, pad_out)), self.nblocks, self.nblocks, rank)
+        bd1, bd2 = bd1.to(self.param_dtype), bd2.to(self.param_dtype)
+        dense = None
+        if self.svd_init:
+            approx = monarch_dense_equivalent(bd1, bd2)[: self.out_features, : self.in_features]
+            dense = (w - approx).to(self.param_dtype)
+        return bd1, bd2, dense
+
+    @torch.no_grad()
+    def _projected_values_reference(self, w: torch.Tensor, rank: int):
+        """The reference's projection: ``w.T`` projected, no padding, and
+        with ``svd_init`` the residual ``w - monarch_mm(I, bd1, bd2)`` in the
+        same mixed orientation (K1 on the card).  Square layers whose blocks
+        divide the features only, as the JAX layer requires."""
+        if self.in_features != self.out_features:
+            raise ValueError(
+                "reference_orientation projection requires a square layer "
+                f"(got {self.in_features} -> {self.out_features}); the "
+                "reference's own w.T projection shape-errors on rectangular "
+                "weights")
+        if (self.nblocks * self.in_blksz != self.in_features
+                or self.nblocks * self.out_blksz != self.out_features):
+            raise ValueError(
+                "reference_orientation projection requires block sizes that "
+                "divide the features exactly (the reference does not pad)")
+        bd1, bd2 = blockdiag_butterfly_project_einsum_rank(w.T, self.nblocks, self.nblocks, rank)
+        bd1, bd2 = bd1.to(self.param_dtype), bd2.to(self.param_dtype)
+        dense = None
+        if self.svd_init:
+            eye = torch.eye(self.in_features, dtype=w.dtype, device=w.device)
+            approx = monarch_mm(eye, bd1.to(w.dtype), bd2.to(w.dtype))
+            dense = (w - approx).to(self.param_dtype)
+        return bd1, bd2, dense
 
     # ------------------------------------------------------------------
     def _preprocess(self, x: torch.Tensor) -> torch.Tensor:
@@ -420,3 +481,48 @@ class MonarchLinear(nn.Module):
         wm = self.wm_cache  # already in the compute dtype (_build_merged)
         return merged_apply(x.to(wm.dtype), wm, self.wm_t_cache,
                             self.blkdiag1.to(wm.dtype), self.blkdiag2.to(wm.dtype))
+
+
+class MonarchFactor(nn.Module):
+    """One trainable block-diagonal factor, ``weight (nblocks, blk_r,
+    in_features // nblocks)``, and an optional zero-init bias: ReFT's
+    rotation and learned-source maps (JAX ``MonarchFactor``).  Init:
+    per-block Kaiming uniform, all zero, or with ``ortho`` each block
+    semi-orthogonal (orthonormal rows), drawn in float32 from ``generator``
+    (a fresh one seeded 0 on ``device`` when None).  Both parameters train
+    (``peft/surgery.trainable_filter``)."""
+
+    adapter_params = ("weight", "bias")  # trainable (peft/surgery.py)
+
+    def __init__(self, in_features: int, out_features: int, *, nblocks: int = 4,
+                 blk_r: int = 4, use_bias: bool = False, ortho: bool = False,
+                 all_zero: bool = False, param_dtype: torch.dtype = torch.float32,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if in_features % nblocks:
+            raise ValueError(f"in_features {in_features} must divide by nblocks {nblocks}")
+        device = resolve_device(device)
+        generator = seeded_generator(device, generator)
+        self.in_features = in_features
+        self.out_features = out_features
+        self.nblocks = nblocks
+        self.blk_r = blk_r
+        self.in_blk_sz = in_features // nblocks
+        shape = (nblocks, blk_r, self.in_blk_sz)
+        if all_zero:
+            w = torch.zeros(shape, dtype=param_dtype, device=device)
+        elif ortho:
+            w = torch.stack([
+                nn.init.orthogonal_(torch.empty(shape[1:], device=device), generator=generator)
+                for _ in range(nblocks)]).to(param_dtype)
+        else:
+            w = _kaiming_block_uniform(shape, param_dtype, device, generator)
+        self.weight = nn.Parameter(w)
+        self.bias = (nn.Parameter(torch.zeros(out_features, dtype=param_dtype, device=device))
+                     if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = blockdiag_multiply(x, self.weight.to(x.dtype))
+        if self.bias is not None:
+            out = out + self.bias.to(out.dtype)
+        return out

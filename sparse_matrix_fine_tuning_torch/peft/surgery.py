@@ -1,14 +1,20 @@
-"""Model surgery: put Monarch adapters on a model's linears, in place.
+"""Model surgery: put adapters on a model's linears, in place.
 
-Counterpart of ``sparse_matrix_fine_tuning_tpu/peft/surgery.py`` (the
-Monarch part): ``init_monarch`` replaces every ``nn.Linear`` child whose
-attribute name is in ``peft_config["target_modules"]`` with a
-``MonarchLinear`` built on its weights, which become the frozen base.
+Counterpart of ``sparse_matrix_fine_tuning_tpu/peft/surgery.py``:
+``init_monarch`` replaces every ``nn.Linear`` child whose attribute name is
+in ``peft_config["target_modules"]`` with a ``MonarchLinear`` built on its
+weights (the frozen base in adapter mode, projected onto the factors
+otherwise); ``init_lora`` wraps each in a ``ScaledLoRA``, the LoRA
+baseline (``peft/boft.init_boft`` is the BOFT one).
 
 Training: ``trainable_filter`` is the JAX filter as ``requires_grad``: the
 adapter parameters (a ``MonarchLinear``'s factors, multiplicative factor
-and Scaler) and every parameter under one of the extra paths train, and
-everything else is frozen.  ``enable_merged_training``, ``refresh_merged``
+and Scaler; a module's ``adapter_params``: LoRA's A and B, BOFT's rotation
+and scale, ``MonarchFactor``'s weight and bias; the bias of a module whose
+``bias_trains`` is set, BOFT's bias modes) and every parameter under one of
+the extra paths train, and everything else is frozen.  The names are the
+JAX package's, so the optimiser's groups (``training/optim.py``, by name)
+are the same.  ``enable_merged_training``, ``refresh_merged``
 and ``disable_merged_training`` act on every eligible adapter (quantized
 layers are not: their codes cannot absorb the adapter).
 
@@ -28,6 +34,7 @@ import torch
 from torch import nn
 
 from sparse_matrix_fine_tuning_torch.layers.monarch_linear import MonarchLinear
+from sparse_matrix_fine_tuning_torch.utils.device import seeded_generator
 
 # Paths that train alongside the adapters (classification and LM heads).
 DEFAULT_TRAINABLE_PATHS = ("classifier", "score", "pooler", "lm_head")
@@ -100,9 +107,13 @@ def _trainable_names(model: nn.Module, extra_paths: Iterable[str]) -> set[str]:
     names = set()
     for prefix, module in model.named_modules():
         if isinstance(module, MonarchLinear):
-            for pname, _ in module.named_parameters():
-                if pname not in _FROZEN_IN_ADAPTER:
-                    names.add(f"{prefix}.{pname}" if prefix else pname)
+            own = [n for n, _ in module.named_parameters() if n not in _FROZEN_IN_ADAPTER]
+        else:
+            own = [n for n in getattr(module, "adapter_params", ())
+                   if getattr(module, n, None) is not None]
+        if getattr(module, "bias_trains", False):
+            own.append("bias")
+        names.update(f"{prefix}.{n}" if prefix else n for n in own)
     for name in floats:
         if any(e in name.split(".") for e in extra):
             names.add(name)
@@ -167,6 +178,70 @@ def find_all_linear_names(model: nn.Module, exclude: tuple = ("lm_head",)) -> li
     ``target_modules`` to every linear."""
     names = {name for _, name, child in _iter_parents(model) if isinstance(child, nn.Linear)}
     return sorted(names - set(exclude))
+
+
+class ScaledLoRA(nn.Module):
+    """A frozen linear with peft's LoRA branch (``LoraConfig``'s semantics,
+    the JAX ``ScaledLoRA``):
+
+      y = base(x) + (dropout(x) @ A @ B) * (lora_alpha / r)
+
+    A (in, r), float32: U(+-1/sqrt(in)) (peft's kaiming_uniform(a=sqrt(5)))
+    or, for ``init_lora_weights="gaussian"``, N(0, (1/r)^2); B (r, out)
+    zeros, so the branch starts at zero.  ``lora_dropout`` drops x before A
+    only, in ``train()``.  A and B are computed in x's dtype."""
+
+    adapter_params = ("lora_a", "lora_b")  # trainable (trainable_filter)
+
+    def __init__(self, in_features: int, rank: int, out_features: int, *,
+                 base_module: nn.Module, alpha: Optional[float] = None, dropout: float = 0.0,
+                 init_lora_weights=True, param_dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = next(base_module.parameters()).device
+        generator = seeded_generator(device, generator)
+        a = torch.empty(in_features, rank, dtype=param_dtype, device=device)
+        if init_lora_weights == "gaussian":
+            a.normal_(0.0, 1.0 / rank, generator=generator)
+        else:
+            bound = 1.0 / math.sqrt(in_features)
+            a.uniform_(-bound, bound, generator=generator)
+        self.base_module = base_module
+        self.lora_a = nn.Parameter(a)
+        self.lora_b = nn.Parameter(torch.zeros(rank, out_features, dtype=param_dtype,
+                                               device=device))
+        self.scaling = float(alpha) / rank if alpha is not None else 1.0
+        self.dropout = nn.Dropout(dropout) if dropout > 0 else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xb = self.dropout(x) if self.dropout is not None else x
+        lora = xb @ self.lora_a.to(x.dtype) @ self.lora_b.to(x.dtype)
+        return self.base_module(x) + lora * self.scaling
+
+
+def init_lora(model: nn.Module, peft_config: dict, *,
+              generator: Optional[torch.Generator] = None) -> list[str]:
+    """Wrap the target linears in ``ScaledLoRA``, in place; returns their
+    names.  Reads ``r`` (or ``rank``, default 8), ``lora_alpha`` (scaling
+    alpha / r; 1 when unset), ``lora_dropout`` and ``init_lora_weights``.
+    ``generator``: on the model's device for A's init; a fresh one seeded 0
+    when None."""
+    targets = set(peft_config["target_modules"])
+    rank = peft_config.get("r", peft_config.get("rank", 8))
+    adapted = []
+    for parent, name, child in list(_iter_parents(model)):
+        if name not in targets or not isinstance(child, nn.Linear):
+            continue
+        if generator is None:
+            generator = torch.Generator(device=child.weight.device).manual_seed(0)
+        lora = ScaledLoRA(child.in_features, rank, child.out_features, base_module=child,
+                          alpha=peft_config.get("lora_alpha"),
+                          dropout=peft_config.get("lora_dropout", 0.0),
+                          init_lora_weights=peft_config.get("init_lora_weights", True),
+                          generator=generator)
+        setattr(parent, name, lora)
+        adapted.append(name)
+    return adapted
 
 
 def enable_merged_training(model: nn.Module, min_dim: int = 0) -> int:

@@ -25,8 +25,10 @@ K16's plan; once a shape: K5 (``quant_cuda.int4_matmul``, the production
 path at that M: the decode kernel at M <= 16, the wgmma tile kernel
 above), ``F.linear(x, W)`` on the dequantized bf16 weight as the library
 line, a read floor of the codes and scales (a float sum of each), and the
-device time of f32mul's (K5's) kernel from torch.profiler: one launch a
-call, ``qgemv_kernel``, with any other kernel it launched beside it.
+device time of f32mul's (K5's) kernel from torch.profiler
+(``kernel_times``): one launch a call, ``qgemv_kernel``, the mean over the
+records the profiler kept and their count, with any other kernel it
+launched beside it.
 
 The weights of set 0 are the JAX script's (numpy ``default_rng(0)``, normal
 times 0.02, quantized by the port's ``quant.quantize_int4``, which is bit
@@ -134,31 +136,27 @@ def check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float
     return err
 
 
-def kernel_times(fn, calls: int = PROFILED_CALLS, tries: int = 3) -> tuple[dict, int]:
-    """(device us a call of each kernel ``fn`` launches, by name: the decode
-    kernel ``qgemv`` and any other, from torch.profiler; the calls made).  A
-    window in which the profiler saw no ``qgemv`` is run again, up to
-    ``tries`` windows; the dict stays empty where none saw one."""
-    from torch.profiler import ProfilerActivity, profile
-
-    made = 0
-    for _ in range(tries):
+def kernel_times(fn, calls: int = PROFILED_CALLS) -> tuple[dict, int, int]:
+    """(device us of each kernel ``fn`` launches, by name: the decode kernel
+    ``qgemv`` and any other, the mean over its records; the calls made; the
+    ``qgemv`` records the profiler kept), from one
+    ``benchlib.device_profile`` session of ``calls`` calls.  The padded
+    window kept every record of an isolated run, but in ``chip_smoke.py``'s
+    full run one session kept 8 of 20 (ROADMAP C.10): the mean is over the
+    records kept, and their count goes with it.  Empty where none was kept."""
+    out, count = {}, {}
+    torch.cuda.synchronize()
+    with benchlib.device_profile() as prof:
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        made += calls
-        out = {}
-        for ev in prof.key_averages():
-            us = getattr(ev, "self_device_time_total", 0) or 0
-            if us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
-                name = "qgemv" if "qgemv" in ev.key else ev.key[:40]
-                out[name] = out.get(name, 0.0) + us / calls
-        if "qgemv" in out:
-            return out, made
-    return {}, made
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or 0
+        if us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            name = "qgemv" if "qgemv" in ev.key else ev.key[:40]
+            out[name] = out.get(name, 0.0) + us
+            count[name] = count.get(name, 0) + ev.count
+    return {k: v / count[k] for k, v in out.items()}, calls, count.get("qgemv", 0)
 
 
 def rotating(fn, items):
@@ -235,12 +233,13 @@ def run(b: int, n_in: int, n_out: int) -> dict:
                 lambda p, s: quant_cuda.finish_int4_variant(
                     quant_cuda.int4_variant_reference(x, p, s, G, name), x, s, G, name))[0]
             if name == "f32mul":  # K5's kernel under the profiler
-                out["k5_kernel_us"], made = kernel_times(rotating(
+                out["k5_kernel_us"], made, kept = kernel_times(rotating(
                     lambda p, s: quant_cuda.int4_variant_matmul(x, p, s, G, name), weights))
+                out["k5_kernel_records"] = kept
                 launches["int4_variant"] += made
                 print("  K5's kernel under the profiler, device us a call: " + (", ".join(
-                    f"{k} {v:.2f}" for k, v in out["k5_kernel_us"].items()) or "not measured"),
-                    flush=True)
+                    f"{k} {v:.2f}" for k, v in out["k5_kernel_us"].items()) or "not measured")
+                    + f" ({kept} of {made} qgemv records kept)", flush=True)
             out["variants"][name] = {
                 "ms": ms, "call_ms": call, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                 "max_abs_err": err, "oracle_err": oracle_err,

@@ -1,5 +1,5 @@
-"""AG News classification, Monarch adapters against full fine-tuning:
-``python -m sparse_matrix_fine_tuning_torch.scripts.run_agnews --method monarch|full [flags]``.
+"""AG News classification, Monarch adapters against LoRA and full fine-tuning:
+``python -m sparse_matrix_fine_tuning_torch.scripts.run_agnews --method monarch|lora|full [flags]``.
 
 Counterpart of the JAX harness ``run_agnews.py`` at the repository's root
 (the reference's agnews_train_scripts): RoBERTa-base on 4-way news topics,
@@ -7,10 +7,10 @@ with its flags and defaults.  The data come from HF ``datasets``' local
 cache only (``data/glue.load_dataset_offline``), else the synthetic topic
 items (``--smoke`` uses them, the hash tokenizer's 1024 ids and the tiny
 RoBERTa).  ``--method monarch`` puts adapters on query/key/value and trains
-them and the head; ``full`` trains every parameter.  Length grouping (bucket
-32) and a cosine schedule, as there.  It runs on the card; ``--platform=cpu``
-runs it on the CPU.  ``--method lora`` is refused (ROADMAP.md queue A item
-22) before any model is built.
+them and the head; ``lora`` LoRA of rank 8 on query and value (the JAX
+harness's ``init_lora`` config), with the head; ``full`` trains every
+parameter.  Length grouping (bucket 32) and a cosine schedule, as there.  It
+runs on the card; ``--platform=cpu`` runs it on the CPU.
 
 ``main`` and ``run`` take ``build``, a callable ``(args) -> model`` (adapted
 for the method) in place of ``build_model``; ``run`` also takes
@@ -35,7 +35,7 @@ from sparse_matrix_fine_tuning_torch.evaluation.predict import predict_classes
 from sparse_matrix_fine_tuning_torch.models.config import RobertaConfig
 from sparse_matrix_fine_tuning_torch.models.hf_convert import from_pretrained_roberta
 from sparse_matrix_fine_tuning_torch.models.roberta import RobertaForSequenceClassification
-from sparse_matrix_fine_tuning_torch.peft.surgery import init_monarch, param_stats
+from sparse_matrix_fine_tuning_torch.peft.surgery import init_lora, init_monarch, param_stats
 from sparse_matrix_fine_tuning_torch.training.trainer import Trainer, TrainingArgs
 from sparse_matrix_fine_tuning_torch.utils.device import harness_device
 from sparse_matrix_fine_tuning_torch.utils.logging import RunLogger, get_run_group, watch_layers
@@ -44,12 +44,12 @@ from sparse_matrix_fine_tuning_torch.utils.metrics import accuracy
 SMOKE_VOCAB = 1024
 MONARCH_PEFT = {"monarch": True, "nblocks": 4, "blk_r": 4, "adapter": True,
                 "target_modules": ["query", "value", "key"]}
+LORA_PEFT = {"target_modules": ["query", "value"], "r": 8}
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="AG News (MoRe, PyTorch port)")
-    p.add_argument("--method", default="monarch", choices=["monarch", "lora", "full"],
-                   help="lora is refused (ROADMAP.md queue A item 22)")
+    p.add_argument("--method", default="monarch", choices=["monarch", "lora", "full"])
     p.add_argument("--model", default="roberta-base")
     p.add_argument("--smoke", default=False, type=eval)
     p.add_argument("-e", "--epochs", default=2.0, type=float)
@@ -61,12 +61,6 @@ def parse_args(argv=None):
     p.add_argument("--platform", default=None, choices=[None, "cuda", "cpu"],
                    help="where to run: the card when unset")
     return p.parse_known_args(argv)
-
-
-def check_supported(args) -> None:
-    if args.method == "lora":
-        raise NotImplementedError("run_agnews: --method lora (the LoRA baseline): "
-                                  "ROADMAP.md queue A item 22")
 
 
 def load_agnews(tokenizer, max_seq_length: int, smoke: bool = False, smoke_n: int = 256) -> dict:
@@ -111,8 +105,8 @@ def build_model(args):
     """The tiny RoBERTa with ``--smoke``, a local HF-format ``--model``
     directory, else RoBERTa-base randomly initialised; 4 labels, drawn on
     the CPU from a generator seeded 0 (a directory loads on the device), then
-    Monarch adapters for ``--method monarch`` from a generator seeded 1, on
-    the harness's device."""
+    Monarch adapters for ``--method monarch`` or LoRA for ``lora`` from a
+    generator seeded 1 on the model's device; on the harness's device."""
     device = harness_device(args)
     if args.smoke:
         model = RobertaForSequenceClassification(
@@ -125,9 +119,11 @@ def build_model(args):
         model = RobertaForSequenceClassification(
             RobertaConfig.base(num_labels=4), device="cpu",
             generator=torch.Generator().manual_seed(0))
+    at = next(model.parameters()).device
     if args.method == "monarch":
-        at = next(model.parameters()).device
         init_monarch(model, MONARCH_PEFT, generator=torch.Generator(device=at).manual_seed(1))
+    elif args.method == "lora":
+        init_lora(model, LORA_PEFT, generator=torch.Generator(device=at).manual_seed(1))
     return model.to(device)
 
 
@@ -142,7 +138,6 @@ class AgnewsRun:
 def run(argv=None, *, build: Optional[Callable] = None,
         step_context: Optional[Callable] = None) -> AgnewsRun:
     args, _ = parse_args(argv)
-    check_supported(args)
     device = harness_device(args)
     tokenizer = (SimpleTokenizer(vocab_size=SMOKE_VOCAB) if args.smoke
                  else get_tokenizer(args.model))

@@ -6,7 +6,9 @@ Counterpart of the JAX harness ``run_alpaca.py`` at the repository's root
 flags and defaults, the same data pipeline (Alpaca items formatted,
 collated with independent source/target truncation, a held-out eval split,
 length-grouped micro-batches), Monarch adapters on every linear over a
-frozen base that ``--bits 8|4`` quantizes, training through the port's
+frozen base that ``--bits 8|4`` quantizes (or, with ``--adapter lora``, the
+qlora.py baseline: LoRA of rank 4 x blk_r on every linear, the base left
+unquantized as the JAX harness leaves it), training through the port's
 ``Trainer``, eval loss and k-shot MMLU scoring at the A/B/C/D logits, and
 continuations of the eval split with ``--do_predict`` (greedy, or with
 sampling, beams, repetition penalties and n-gram bans, as the JAX harness's
@@ -33,9 +35,12 @@ run_alpaca.py:265-275); the eval split stays unpacked.  ``--resume`` goes
 on from the newest checkpoint in the output directory (``Trainer``'s
 mid-epoch-exact resume).
 
-Refused with ``NotImplementedError`` before any work, each naming its
-ROADMAP.md queue A item: ``--do_tune`` (21), ``--adapter lora`` (22) and
-``--optim adamw8bit`` (27).  ``generate`` refuses beams with penalties or
+``--do_tune`` searches the lr (log-uniform in [5e-5, 1e-3]) and blk_r (4, 8,
+16) with ``training/hpo.py`` on the MMLU accuracy, each trial in
+``trial_<id>/``, up to ``--epochs``; the final run trains with the best.
+
+Refused with ``NotImplementedError`` before any work: ``--optim adamw8bit``
+(ROADMAP.md queue A item 27).  ``generate`` refuses beams with penalties or
 n-gram bans, and beam-sample with top-k or top-p, as the JAX package does.
 """
 
@@ -71,14 +76,25 @@ from sparse_matrix_fine_tuning_torch.models.hf_convert import from_pretrained_ca
 from sparse_matrix_fine_tuning_torch.models.llama import LlamaForCausalLM
 from sparse_matrix_fine_tuning_torch.peft.surgery import (
     find_all_linear_names,
+    init_lora,
     init_monarch,
     param_stats,
 )
 from sparse_matrix_fine_tuning_torch.quant import quantize_frozen_base, quantize_lm_head
+from sparse_matrix_fine_tuning_torch.training.hpo import (
+    choice,
+    hyperparameter_search,
+    loguniform,
+)
 from sparse_matrix_fine_tuning_torch.training.trainer import Trainer, TrainingArgs
 from sparse_matrix_fine_tuning_torch.utils import profiling
-from sparse_matrix_fine_tuning_torch.utils.config import load_best_hp, load_json, override_config
-from sparse_matrix_fine_tuning_torch.utils.device import harness_device
+from sparse_matrix_fine_tuning_torch.utils.config import (
+    load_best_hp,
+    load_json,
+    override_config,
+    save_best_hp,
+)
+from sparse_matrix_fine_tuning_torch.utils.device import harness_device, trial_devices
 from sparse_matrix_fine_tuning_torch.utils.logging import RunLogger, get_run_group, watch_layers
 
 SMOKE_VOCAB = 1024
@@ -104,8 +120,7 @@ def parse_args(argv=None):
                         "llm_int8_skip_modules=['lm_head'] that the "
                         "reference qlora flow inherits")
     p.add_argument("--adapter", default="monarch", choices=["monarch", "lora"],
-                   help="monarch (qlora_monarch.py flow); lora is refused "
-                        "(ROADMAP.md queue A item 22)")
+                   help="monarch (qlora_monarch.py flow) or lora (qlora.py baseline)")
     p.add_argument("-seed", "--seed", default=42, type=int)
     p.add_argument("-e", "--epochs", default=1.0, type=float)
     p.add_argument("-lr", "--lr", default=5.4e-4, type=float)
@@ -134,7 +149,7 @@ def parse_args(argv=None):
                         "write predictions.jsonl (reference qlora.py:848-856)")
     p.add_argument("--max_new_tokens", default=256, type=int)
     p.add_argument("--do_tune", default=False, type=eval,
-                   help="hyperparameter search; refused (ROADMAP.md queue A item 21)")
+                   help="ASHA search of lr and blk_r on the MMLU accuracy")
     p.add_argument("--parallel_trials", default=1, type=int)
     p.add_argument("--n_trials", default=4, type=int)
     p.add_argument("--mmlu_split", default="eval", choices=["eval", "test"],
@@ -187,10 +202,6 @@ def check_supported(args) -> None:
     """Raise ``NotImplementedError`` for an option the port has not yet,
     naming its ROADMAP.md queue A item."""
     refused = []
-    if args.do_tune:
-        refused.append("--do_tune (hyperparameter search): item 21")
-    if args.adapter == "lora":
-        refused.append("--adapter lora (the LoRA baseline): item 22")
     if args.optim == "adamw8bit":
         refused.append("--optim adamw8bit: item 27")
     if refused:
@@ -199,15 +210,21 @@ def check_supported(args) -> None:
 
 
 def adapt_model(model, args, peft_config: dict):
-    """Monarch adapters on every linear but the head (the reference's
-    find_all_linear_names, qlora_monarch.py:245-248), their factors from a
-    generator seeded ``seed + 1``; then ``--bits``, ``--quant_lm_head`` and
-    ``--loss_chunk``.  Returns the model."""
+    """Monarch adapters (``--adapter lora``: LoRA of rank 4 x blk_r) on every
+    linear but the head (the reference's find_all_linear_names,
+    qlora_monarch.py:245-248), their init from a generator seeded
+    ``seed + 1``; then ``--bits`` (Monarch layers' bases only, as the JAX
+    package), ``--quant_lm_head`` and ``--loss_chunk``.  Returns the model."""
     peft_config = dict(peft_config, target_modules=find_all_linear_names(model))
     device = next(model.parameters()).device
     generator = torch.Generator(device=device).manual_seed(args.seed + 1)
-    adapted = init_monarch(model, peft_config, generator=generator)
-    print(f"[alpaca] adapted {len(adapted)} layers with Monarch")
+    if args.adapter == "lora":
+        adapted = init_lora(model, dict(peft_config, r=peft_config.get("blk_r", 8) * 4),
+                            generator=generator)
+        print(f"[alpaca] adapted {len(adapted)} layers with LoRA (qlora baseline)")
+    else:
+        adapted = init_monarch(model, peft_config, generator=generator)
+        print(f"[alpaca] adapted {len(adapted)} layers with Monarch")
     if args.bits in (4, 8):
         n = quantize_frozen_base(model, bits=args.bits)
         print(f"[alpaca] quantized {n} frozen base matrices to int{args.bits}")
@@ -306,13 +323,15 @@ def mmlu_kwargs(args) -> dict:
 @dataclasses.dataclass
 class AlpacaRun:
     """What ``run`` leaves: the metrics ``main`` returns, and the trained
-    model's trainer with the data it scored, for callers that measure it."""
+    model's trainer with the data it scored, for callers that measure it;
+    with ``--do_tune`` the search's result (``training/hpo.py``)."""
     args: argparse.Namespace
     metrics: dict
     trainer: Trainer
     tokenizer: SimpleTokenizer
     mmlu_eval: Optional[list]
     mmlu_dev: Optional[list]
+    search: Optional[dict] = None
 
     def choice_logits(self) -> Optional[np.ndarray]:
         """The trained model's (n, 4) MMLU choice logits, as scored."""
@@ -398,10 +417,11 @@ def run(argv=None, *, build: Optional[Callable] = None,
         metrics["mmlu_runtime"] = round(time.perf_counter() - t0, 4)
         return metrics
 
-    def make_trainer(hp=None, logger=None):
+    def make_trainer(hp=None, epochs=None, logger=None):
         pc = dict(peft_config)
         ta = TrainingArgs(
-            output_dir=out_dir, learning_rate=args.lr, num_train_epochs=args.epochs,
+            output_dir=out_dir, learning_rate=args.lr,
+            num_train_epochs=epochs if epochs is not None else args.epochs,
             max_steps=args.max_steps, per_device_train_batch_size=args.batch_size,
             gradient_accumulation_steps=args.gradient_accumulation_steps,
             lr_scheduler_type=args.lr_scheduler_type, optim=args.optim,
@@ -427,7 +447,25 @@ def run(argv=None, *, build: Optional[Callable] = None,
             metrics.update({f"eval_{k}": v for k, v in mmlu_metrics(model, None).items()})
         return metrics
 
-    hp = load_best_hp(out_dir)
+    search = None
+    if args.do_tune:
+        space = {"learning_rate": loguniform(5e-5, 1e-3), "blk_r": choice([4, 8, 16])}
+
+        def run_trial(hp, epochs, trial_id):
+            # a trial's own directory, resumed at each rung
+            hp = dict(hp, output_dir=os.path.join(out_dir, f"trial_{trial_id}"))
+            t = make_trainer(hp, epochs)
+            return ensure_mmlu(t.train(resume=True), t.model)
+
+        search = hyperparameter_search(
+            run_trial, space, n_trials=args.n_trials, parallel_trials=args.parallel_trials,
+            devices=trial_devices(args.parallel_trials, device),
+            target_metric="eval_mmlu_eval_accuracy", mode="max", max_epochs=float(args.epochs))
+        hp = search["best_hyperparams"]
+        save_best_hp(hp, out_dir)
+        print(json.dumps({"best_hyperparams": hp, "best_metric": search["best_metric"]}))
+    else:
+        hp = load_best_hp(out_dir)
     os.makedirs(out_dir, exist_ok=True)
     logger = RunLogger(out_dir, group=get_run_group(task_name=args.dataset,
                                                     do_tune=args.do_tune),
@@ -451,7 +489,7 @@ def run(argv=None, *, build: Optional[Callable] = None,
     print(json.dumps(metrics))
     with open(os.path.join(out_dir, "eval_results.json"), "w") as f:
         json.dump(metrics, f, indent=1)
-    return AlpacaRun(args, metrics, trainer, tokenizer, mmlu_eval, mmlu_dev)
+    return AlpacaRun(args, metrics, trainer, tokenizer, mmlu_eval, mmlu_dev, search)
 
 
 def main(argv=None, *, build: Optional[Callable] = None) -> dict:

@@ -11,24 +11,42 @@ local cache only, else the learnable synthetic splits; ``--smoke`` uses
 them and the hash tokenizer's 1024 ids), builds the encoder the config's
 ``model_name_or_path`` names ("deberta" in it: DeBERTa-v2/v3, else
 RoBERTa; from a local HF-format directory through ``models/hf_convert``, or
-randomly initialised as the JAX harness does), puts Monarch adapters on the
-peft config's targets, trains through the port's ``Trainer`` (length
-grouping on, bucket 32), evaluates with the task's GLUE metrics (MNLI:
-matched and mismatched) and, with ``do_predict``, writes the GLUE server's
-TSV files (MNLI: two).  ``metrics.jsonl`` and the run group go into
-``<output_dir>/<task>``.  It runs on the card; ``--platform=cpu`` runs it on
-the CPU, on the kernels' plain versions.
+randomly initialised as the JAX harness does), adapts the peft config's
+targets, trains through the port's ``Trainer`` (length grouping on, bucket
+32), evaluates with the task's GLUE metrics (MNLI: matched and mismatched)
+and, with ``do_predict``, writes the GLUE server's TSV files (MNLI: two).
+``metrics.jsonl`` and the run group go into ``<output_dir>/<task>``.  It
+runs on the card; ``--platform=cpu`` runs it on the CPU, on the kernels'
+plain versions.
+
+Adapters: Monarch (``--monarch``, the default; the peft config's
+``adapter: false`` is projection mode and ``svd_init`` the SVD
+initialisation, ``layers/monarch_linear.py``), BOFT (``--boft``, the
+``boft_roberta_glue`` recipes; a task's ``oft_dropout`` sets the peft
+config's ``boft_dropout``) or LoRA (``--lora``, the ``lora_roberta_glue``
+recipe).  ``--boft`` and ``--lora`` win over ``--monarch``.  Here the JAX
+harness differs: its ``--lora`` builds LoRA only with ``--monarch=False``,
+and alone adapts nothing (the LoRA recipe's ``monarch: false`` makes its
+Monarch surgery a no-op; ROADMAP C.15).
+
+``--do_tune`` runs the ASHA search of ``training/hpo.py`` over the method's
+space (``build_search_space``: Monarch a quantised lr and the batch size,
+blk_r and nblocks pinned or, with ``--tune_blk_config``, searched; BOFT the
+lr; otherwise the reference's lr x batch grid) within the task's budget
+(``task_configs/hpo_budgets.json``), each trial in ``trial_<id>/`` of the
+task's directory and resumed there at each rung; the best hyperparameters
+go to ``best_hyperparams.json`` (and beside the recipe with
+``--as_base_hp``), and the final run trains with them.  ``--tune_grace``
+sets the first rung's epochs; 0 is taken as 0 (the JAX harness reads 0 as
+unset, ROADMAP C.5).  ``--parallel_trials`` > 1 runs trials on threads,
+each pinned to one of the host's cards.
 
 ``main`` and ``run`` take ``build``, a callable ``(args, data_args,
 peft_config, num_labels, seed) -> model`` in place of ``build_model``; ``run``
 also takes ``step_context``, the ``Trainer``'s hook around each step, and
-returns a ``GlueRun`` with the trained model's trainer and the tokenized
-splits.  Tests and ``chip_smoke.py`` pass them; they are not flags.
-
-Refused with ``NotImplementedError`` before any model is built, each naming
-its ROADMAP.md queue A item: ``--do_tune`` (hyperparameter search, 21; the
-search's own flags come with it), ``--lora`` and ``--boft`` (the
-baselines, 22).
+returns a ``GlueRun`` with the trained model's trainer, the tokenized
+splits and the search's result.  Tests and ``chip_smoke.py`` pass them;
+they are not flags.
 """
 
 from __future__ import annotations
@@ -55,11 +73,23 @@ from sparse_matrix_fine_tuning_torch.models.hf_convert import (
     from_pretrained_roberta,
 )
 from sparse_matrix_fine_tuning_torch.models.roberta import RobertaForSequenceClassification
-from sparse_matrix_fine_tuning_torch.peft.surgery import init_monarch, param_stats
+from sparse_matrix_fine_tuning_torch.peft.boft import init_boft
+from sparse_matrix_fine_tuning_torch.peft.surgery import init_lora, init_monarch, param_stats
+from sparse_matrix_fine_tuning_torch.training.hpo import (
+    choice,
+    grid,
+    hyperparameter_search,
+    quniform,
+)
 from sparse_matrix_fine_tuning_torch.training.trainer import Trainer, TrainingArgs
 from sparse_matrix_fine_tuning_torch.utils import profiling
-from sparse_matrix_fine_tuning_torch.utils.config import load_best_hp, load_json, override_config
-from sparse_matrix_fine_tuning_torch.utils.device import harness_device
+from sparse_matrix_fine_tuning_torch.utils.config import (
+    load_best_hp,
+    load_json,
+    override_config,
+    save_best_hp,
+)
+from sparse_matrix_fine_tuning_torch.utils.device import harness_device, trial_devices
 from sparse_matrix_fine_tuning_torch.utils.logging import (
     RunLogger,
     get_run_group,
@@ -82,14 +112,25 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Run GLUE (MoRe, PyTorch port)")
     p.add_argument("config_path", help="task config JSON path")
     p.add_argument("--monarch", default=True, type=eval)
-    p.add_argument("--lora", default=False, type=eval,
-                   help="the LoRA baseline; refused (ROADMAP.md queue A item 22)")
-    p.add_argument("--boft", default=False, type=eval,
-                   help="the BOFT baseline; refused (ROADMAP.md queue A item 22)")
-    p.add_argument("--do_tune", default=False, type=eval,
-                   help="hyperparameter search; refused (ROADMAP.md queue A item 21)")
+    p.add_argument("--lora", default=False, type=eval, help="the LoRA baseline")
+    p.add_argument("--boft", default=False, type=eval, help="the BOFT baseline")
+    p.add_argument("--do_tune", default=False, type=eval, help="ASHA hyperparameter search")
+    p.add_argument("--n_trials", default=None, type=int,
+                   help="HPO trials; default the method's budget (monarch 25, BOFT 15; "
+                        "full fine-tuning runs its fixed grid); an explicit value wins")
+    p.add_argument("--parallel_trials", default=1, type=int,
+                   help="concurrent trials a rung, each on a card of its own")
     p.add_argument("--smoke", default=False, type=eval,
                    help="synthetic data + tiny model (no pretrained weights)")
+    p.add_argument("--tune_blk_config", default=False, type=eval,
+                   help="also search blk_r and blk_sz (Monarch)")
+    p.add_argument("--tune_lr_scale", default=1.0, type=float,
+                   help="multiply the HPO lr bounds (1.0: the reference's space)")
+    p.add_argument("--tune_grace", default=None, type=float,
+                   help="the first rung's epochs in place of the task's ASHA grace "
+                        "(0 is taken as 0)")
+    p.add_argument("--as_base_hp", default=False, type=eval,
+                   help="also write the best hyperparameters beside the recipe")
     p.add_argument("--resume", default=False, type=eval,
                    help="go on from the newest checkpoint in the output directory")
     p.add_argument("--profile", action="store_true",
@@ -109,20 +150,6 @@ def parse_args(argv=None):
     p.add_argument("--platform", default=None, choices=[None, "cuda", "cpu"],
                    help="where to run: the card when unset")
     return p.parse_known_args(argv)
-
-
-def check_supported(args) -> None:
-    """Raise ``NotImplementedError`` for an option the port has not yet,
-    naming its ROADMAP.md queue A item."""
-    refused = []
-    if args.do_tune:
-        refused.append("--do_tune (hyperparameter search): item 21")
-    if args.lora:
-        refused.append("--lora (the LoRA baseline): item 22")
-    if args.boft:
-        refused.append("--boft (the BOFT baseline): item 22")
-    if refused:
-        raise NotImplementedError("run_glue: " + "; ".join(refused) + " (ROADMAP.md queue A)")
 
 
 @dataclasses.dataclass
@@ -152,15 +179,37 @@ def random_encoder(path: str, num_labels: int, dtype: Optional[str], smoke: bool
     return RobertaForSequenceClassification(cfg, device="cpu", generator=generator)
 
 
+def adapt_model(model, args, peft_config: dict, seed: int):
+    """The adapters on the peft config's targets, in place: BOFT with
+    ``--boft`` (its dropout draws seeded ``seed + 1``), else LoRA with
+    ``--lora``, else Monarch with ``--monarch``, their init from a generator
+    seeded ``seed + 1`` on the model's device (a projection runs its SVD
+    there); then ``param_stats``.  Returns the model."""
+    at = next(model.parameters()).device
+    if args.boft:
+        adapted = init_boft(model, peft_config, generator=torch.Generator().manual_seed(seed + 1))
+        print(f"[run_glue] adapted {len(adapted)} layers with BOFT")
+    elif args.lora:
+        adapted = init_lora(model, peft_config,
+                            generator=torch.Generator(device=at).manual_seed(seed + 1))
+        print(f"[run_glue] adapted {len(adapted)} layers with LoRA")
+    elif args.monarch:
+        adapted = init_monarch(model, peft_config,
+                               generator=torch.Generator(device=at).manual_seed(seed + 1))
+        for name, dense_shape, s1, s2 in adapted[:3]:
+            print(f"Adapted {name} {dense_shape} -> {s1}, {s2}")
+        print(f"[run_glue] adapted {len(adapted)} layers with Monarch")
+    param_stats(model)
+    return model
+
+
 def build_model(args, data_args: DataArgs, peft_config: dict, num_labels: int, seed: int = 0):
     """The encoder of ``data_args.model_name_or_path`` on the harness's
     device, computing in bfloat16 with ``--bf16_compute``: a local HF-format
     directory loaded there (its missing head drawn from a generator seeded
     ``seed`` on that device), or ``random_encoder`` drawn on the CPU from a
     generator seeded ``seed`` and then moved, so that a seed gives one model
-    on the card and on the CPU.  Monarch adapters go on the peft config's
-    targets with ``--monarch``, their factors from a generator seeded
-    ``seed + 1`` on the model's device."""
+    on the card and on the CPU; adapted by ``adapt_model``."""
     device = harness_device(args)
     dtype = "bfloat16" if args.bf16_compute else None
     path = data_args.model_name_or_path
@@ -173,15 +222,7 @@ def build_model(args, data_args: DataArgs, peft_config: dict, num_labels: int, s
             print(f"[run_glue] no local weights at {path!r}; using random init")
         model = random_encoder(path, num_labels, dtype, args.smoke,
                                torch.Generator().manual_seed(seed))
-    if args.monarch:
-        at = next(model.parameters()).device
-        adapted = init_monarch(model, peft_config,
-                               generator=torch.Generator(device=at).manual_seed(seed + 1))
-        for name, dense_shape, s1, s2 in adapted[:3]:
-            print(f"Adapted {name} {dense_shape} -> {s1}, {s2}")
-        print(f"[run_glue] adapted {len(adapted)} layers with Monarch")
-    param_stats(model)
-    return model.to(device)
+    return adapt_model(model, args, peft_config, seed).to(device)
 
 
 def glue_metrics_fn(task: str) -> Callable:
@@ -227,21 +268,68 @@ def predict_splits(task: str) -> list[tuple[str, str]]:
             else [("test", task)])
 
 
+def load_hpo_budget(task: str) -> dict:
+    """The task's ASHA budget, ``{"max_t", "grace"}`` in epochs
+    (``task_configs/hpo_budgets.json``: its default, then the task's)."""
+    with open(os.path.join(REPO, "task_configs", "hpo_budgets.json")) as f:
+        table = json.load(f)
+    return {**table["default"], **table.get(task, {})}
+
+
+def build_search_space(args, peft_config: dict, train_args: TrainingArgs) -> tuple[dict, int]:
+    """(space, n_trials) of the method, as the JAX harness's (the reference's
+    run_glue.py:595-636): BOFT a quantised lr, 15 trials; Monarch a quantised
+    lr and the batch size with seed, weight decay, schedule, blk_r and
+    nblocks pinned, 25 trials (``--tune_blk_config``: blk_r and blk_sz
+    searched, 10 more); otherwise the lr x batch grid.  ``--tune_lr_scale``
+    scales the lr bounds; ``--n_trials`` replaces the count."""
+    s = args.tune_lr_scale
+    if args.boft:
+        return ({"seed": train_args.seed,
+                 "learning_rate": quniform(8e-5 * s, 8e-4 * s, 4e-5 * s)},
+                args.n_trials or 15)
+    if args.monarch:
+        space = {
+            "seed": train_args.seed,
+            "learning_rate": quniform(1e-4 * s, 6.6e-4 * s, 2e-5 * s),
+            "per_device_train_batch_size": choice([16, 32]),
+            "weight_decay": train_args.weight_decay,
+            "lr_scheduler_type": "cosine",
+            "blk_r": peft_config.get("blk_r", 4),
+            "nblocks": peft_config.get("nblocks", 4),
+        }
+        n_trials = args.n_trials or 25
+        if args.tune_blk_config:
+            space["blk_r"] = choice([1, 2, 4, 8])
+            space["blk_sz"] = choice([64, 128, 512])
+            del space["nblocks"]  # blk_sz sets the block count
+            if args.n_trials is None:
+                n_trials += 10
+        return space, n_trials
+    return {
+        "learning_rate": grid([1e-5, 2e-5, 3e-5]),
+        "per_device_train_batch_size": grid([16, 32]),
+        "weight_decay": 0.1,
+        "lr_scheduler_type": grid(["cosine"]),
+    }, args.n_trials or 1
+
+
 @dataclasses.dataclass
 class GlueRun:
     """What ``run`` leaves: the results ``main`` returns, the trained model's
-    trainer, the tokenized splits and the TSV files written."""
+    trainer, the tokenized splits, the TSV files written and, with
+    ``--do_tune``, the search's result (``training/hpo.py``)."""
     args: argparse.Namespace
     results: dict
     trainer: Trainer
     data: dict
     tsv_paths: list
+    search: Optional[dict] = None
 
 
 def run(argv=None, *, build: Optional[Callable] = None,
         step_context: Optional[Callable] = None) -> GlueRun:
     args, overrides = parse_args(argv)
-    check_supported(args)
     device = harness_device(args)
     task_cfg = load_json(args.config_path)
     cfg_dir = os.path.dirname(args.config_path)
@@ -274,6 +362,10 @@ def run(argv=None, *, build: Optional[Callable] = None,
     extra = override_config([data_args, train_args, peft_config], overrides)
     if extra:
         print(f"[run_glue] unmatched overrides: {extra}")
+    if "oft_dropout" in task_cfg:
+        # a BOFT task's dropout replaces the family's peft config value
+        # (reference run_glue.py:414)
+        peft_config["boft_dropout"] = task_cfg["oft_dropout"]
     task = data_args.task_name
     train_args.output_dir = os.path.join(train_args.output_dir, task)
     train_args.metric_for_best_model = GLUE_TARGET_METRIC[task]
@@ -294,17 +386,46 @@ def run(argv=None, *, build: Optional[Callable] = None,
                       cur_time=args.time, notes=args.notes or None),
         resume=args.resume or args.load_group)
 
-    def make_trainer(hp=None, logger=None):
+    def make_trainer(hp=None, epochs=None, logger=None):
         ta = dataclasses.replace(train_args)
         pc = dict(peft_config)
         if hp:
             override_config([ta, pc], hp)
+        if epochs is not None:
+            ta.num_train_epochs = epochs
         model = (build or build_model)(args, data_args, pc, num_labels, ta.seed)
         return Trainer(model, ta, train_data=data["train"], eval_data=data[val_key],
                        compute_metrics=glue_metrics_fn(task), logger=logger, device=device,
                        step_context=step_context)
 
-    hp = load_best_hp(train_args.output_dir, cfg_dir)
+    search = None
+    if args.do_tune:
+        space, n_trials = build_search_space(args, peft_config, train_args)
+        budget = load_hpo_budget(task)
+        max_ep = min(float(budget["max_t"]), float(train_args.num_train_epochs))
+        grace = budget["grace"] if args.tune_grace is None else args.tune_grace
+        min_ep = min(float(grace), max_ep)
+
+        def run_trial(hp, epochs, trial_id):
+            # a trial's directory, resumed at each rung: a survivor's next
+            # budget goes on from its last checkpoint
+            hp = dict(hp, output_dir=os.path.join(train_args.output_dir, f"trial_{trial_id}"))
+            t = make_trainer(hp, epochs)
+            t.train(resume=True)
+            return t.evaluate()
+
+        os.makedirs(train_args.output_dir, exist_ok=True)
+        search = hyperparameter_search(
+            run_trial, space, n_trials=n_trials, target_metric=f"eval_{GLUE_TARGET_METRIC[task]}",
+            mode="max", min_epochs=min_ep, max_epochs=max_ep, parallel_trials=args.parallel_trials,
+            devices=trial_devices(args.parallel_trials, device),
+            state_path=(os.path.join(train_args.output_dir, "hpo_state.jsonl")
+                        if args.resume else None))
+        hp = search["best_hyperparams"]
+        save_best_hp(hp, train_args.output_dir, cfg_dir if args.as_base_hp else None)
+        print(json.dumps({"best_hyperparams": hp, "best_metric": search["best_metric"]}))
+    else:
+        hp = load_best_hp(train_args.output_dir, cfg_dir)
     logger = RunLogger(train_args.output_dir, group=run_group, name=f"{task}_final",
                        project=args.project, use_wandb=args.wandb,
                        config={"task": task, "peft_config": peft_config, "hp": hp or {}})
@@ -330,7 +451,7 @@ def run(argv=None, *, build: Optional[Callable] = None,
                                              os.path.join(train_args.output_dir, "predict"),
                                              submit_task=submit_task))
     print(json.dumps(results))
-    return GlueRun(args, results, trainer, data, tsv_paths)
+    return GlueRun(args, results, trainer, data, tsv_paths, search)
 
 
 def main(argv=None, *, build: Optional[Callable] = None) -> dict:

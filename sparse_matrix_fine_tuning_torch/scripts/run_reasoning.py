@@ -31,9 +31,17 @@ model`` in place of ``build_model``, and ``run`` takes ``step_context``, the
 ``run`` returns a ``ReasoningRun`` whose ``evaluate`` is the harness's own
 evaluation of the trained model.
 
+``--do_tune`` searches the lr (log-uniform in [5e-5, 1e-3]), blk_r (2, 4, 8)
+and nblocks (2, 4) with ``training/hpo.py`` on ``eval/average``, each
+trial trained in ``trial_<id>/`` and scored there by greedy generation, up
+to ``-e`` epochs; the final run trains with the best.  On an open-ended task
+(alpaca, instruct, ultrafeedback), which scores no exact match, it exits
+before any work, as the JAX harness does: tune on ``tune_math`` or
+``tune_commonsense``.
+
 Refused with ``NotImplementedError`` before any work, each naming its
 ROADMAP.md queue A item: ``--task glue`` (20, 24), an ``--intervention_type``
-other than Nothing (24), ``--do_tune`` (21) and ``--mesh_fsdp`` (28).
+other than Nothing (24) and ``--mesh_fsdp`` (28).
 """
 
 from __future__ import annotations
@@ -60,10 +68,20 @@ from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig
 from sparse_matrix_fine_tuning_torch.models.hf_convert import from_pretrained_causal_lm
 from sparse_matrix_fine_tuning_torch.models.llama import LlamaForCausalLM
 from sparse_matrix_fine_tuning_torch.peft.surgery import init_monarch, param_stats
+from sparse_matrix_fine_tuning_torch.training.hpo import (
+    choice,
+    hyperparameter_search,
+    loguniform,
+)
 from sparse_matrix_fine_tuning_torch.training.trainer import Trainer, TrainingArgs
 from sparse_matrix_fine_tuning_torch.utils import profiling
-from sparse_matrix_fine_tuning_torch.utils.config import load_best_hp, load_json, override_config
-from sparse_matrix_fine_tuning_torch.utils.device import harness_device
+from sparse_matrix_fine_tuning_torch.utils.config import (
+    load_best_hp,
+    load_json,
+    override_config,
+    save_best_hp,
+)
+from sparse_matrix_fine_tuning_torch.utils.device import harness_device, trial_devices
 from sparse_matrix_fine_tuning_torch.utils.logging import RunLogger, get_run_group, watch_layers
 
 SMOKE_VOCAB = 1024
@@ -122,7 +140,7 @@ def parse_args(argv=None):
     p.add_argument("--pack", default=False, type=eval,
                    help="sequence packing of training rows (segment-masked attention)")
     p.add_argument("--do_tune", default=False, type=eval,
-                   help="hyperparameter search; refused (ROADMAP.md queue A item 21)")
+                   help="ASHA search of lr, blk_r and nblocks on eval/average")
     p.add_argument("--parallel_trials", default=1, type=int)
     p.add_argument("--n_trials", default=6, type=int)
     p.add_argument("--gradient_checkpointing", default=True, type=eval,
@@ -145,20 +163,31 @@ def parse_args(argv=None):
     return p.parse_known_args(argv)
 
 
+# tasks scored by generation dumps, with no exact match to tune on
+OPEN_ENDED = ("alpaca", "instruct", "ultrafeedback")
+
+
 def check_supported(args) -> None:
     """Raise ``NotImplementedError`` for an option the port has not yet,
-    naming its ROADMAP.md queue A item."""
+    naming its ROADMAP.md queue A item; exit, as the JAX harness does, for
+    ``--do_tune`` on an open-ended task."""
     refused = []
     if args.task == "glue":
         refused.append("--task glue (MoReFT classification): items 20 and 24")
     if args.intervention_type not in NO_INTERVENTION:
         refused.append(f"--intervention_type {args.intervention_type} (ReFT): item 24")
-    if args.do_tune:
-        refused.append("--do_tune (hyperparameter search): item 21")
     if args.mesh_fsdp:
         refused.append("--mesh_fsdp (a sharded base): item 28")
     if refused:
         raise NotImplementedError("run_reasoning: " + "; ".join(refused) + " (ROADMAP.md queue A)")
+    if args.do_tune and args.task.replace("tune_", "") in OPEN_ENDED:
+        raise SystemExit(
+            f"--do_tune is meaningless for open-ended task {args.task!r}: it "
+            "produces alpaca_eval generation dumps, not an EM metric, so "
+            "every trial would tie at 'worst'.  Tune on tune_math / "
+            "tune_commonsense, or the alpaca flow's MMLU metric via "
+            "run_alpaca.py --do_tune (reference tunes qlora on "
+            "eval_mmlu_eval_accuracy)")
 
 
 def local_weights(args) -> bool:
@@ -204,12 +233,14 @@ class ReasoningRun:
     """What ``run`` leaves: the eval results ``main`` returns, the trained
     model's trainer, and ``evaluate(greedy=True, max_new=None, out=None)``,
     the harness's evaluation over every eval dataset, which writes
-    ``generations.json`` into ``out`` (the task's directory when None)."""
+    ``generations.json`` into ``out`` (the task's directory when None); with
+    ``--do_tune`` the search's result (``training/hpo.py``)."""
     args: argparse.Namespace
     results: dict
     trainer: Trainer
     tokenizer: SimpleTokenizer
     evaluate: Callable[..., dict]
+    search: Optional[dict] = None
 
 
 def run(argv=None, *, build: Optional[Callable] = None,
@@ -253,10 +284,11 @@ def run(argv=None, *, build: Optional[Callable] = None,
             batch["input_ids"], batch["labels"], attention_mask=batch["attention_mask"],
             segment_ids=batch.get("segment_ids"), weights=batch.get("_valid"))
 
-    def make_trainer(hp=None, logger=None):
+    def make_trainer(hp=None, epochs=None, logger=None):
         pc = dict(peft_config)
         ta = TrainingArgs(
-            output_dir=out_dir, learning_rate=args.lr, num_train_epochs=args.epochs,
+            output_dir=out_dir, learning_rate=args.lr,
+            num_train_epochs=epochs if epochs is not None else args.epochs,
             per_device_train_batch_size=args.batch_size,
             per_device_eval_batch_size=args.eval_batch_size,
             gradient_accumulation_steps=args.gradient_accumulation_steps,
@@ -294,7 +326,28 @@ def run(argv=None, *, build: Optional[Callable] = None,
         return results
 
     smoke_new = 8 if args.smoke else None
-    hp = load_best_hp(out_dir)
+    search = None
+    if args.do_tune:
+        space = {"learning_rate": loguniform(5e-5, 1e-3), "blk_r": choice([2, 4, 8]),
+                 "nblocks": choice([2, 4])}
+
+        def run_trial(hp, epochs, trial_id):
+            # a trial's own directory (checkpoints, generations), resumed at
+            # each rung
+            trial_dir = os.path.join(out_dir, f"trial_{trial_id}")
+            t = make_trainer(dict(hp, output_dir=trial_dir), epochs)
+            t.train(resume=True)
+            return eval_all(t.model, greedy=True, max_new=smoke_new, out=trial_dir)
+
+        search = hyperparameter_search(
+            run_trial, space, n_trials=args.n_trials, parallel_trials=args.parallel_trials,
+            devices=trial_devices(args.parallel_trials, device), target_metric="eval/average",
+            mode="max", max_epochs=float(args.epochs))
+        hp = search["best_hyperparams"]
+        save_best_hp(hp, out_dir)
+        print(json.dumps({"best_hyperparams": hp, "best_metric": search["best_metric"]}))
+    else:
+        hp = load_best_hp(out_dir)
     os.makedirs(out_dir, exist_ok=True)
     logger = RunLogger(out_dir, group=get_run_group(task_name=task, do_tune=args.do_tune),
                        name=f"{task}_final", config={"task": task, "hp": hp or {}})
@@ -322,7 +375,7 @@ def run(argv=None, *, build: Optional[Callable] = None,
         return eval_all(trainer.model, greedy=greedy,
                         max_new=smoke_new if max_new is None else max_new, out=out)
 
-    return ReasoningRun(args, results, trainer, tokenizer, evaluate)
+    return ReasoningRun(args, results, trainer, tokenizer, evaluate, search)
 
 
 def main(argv=None, *, build: Optional[Callable] = None) -> dict:

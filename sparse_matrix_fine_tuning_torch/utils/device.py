@@ -32,3 +32,12 @@ def seeded_generator(device: torch.device, generator: Optional[torch.Generator] 
     if generator is not None:
         return generator
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def trial_devices(parallel_trials: int, device: torch.device) -> Optional[list]:
+    """The cards that a search's concurrent trials are pinned to
+    (``training/hpo.py``): every card of the host where more than one trial
+    runs at a time on the card, else None."""
+    if parallel_trials > 1 and device.type == "cuda":
+        return list(range(torch.cuda.device_count()))
+    return None

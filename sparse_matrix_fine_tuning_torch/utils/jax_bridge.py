@@ -11,6 +11,12 @@ differ:
   norm ``scale``                    -> norm ``weight``
   ``MonarchLinear`` ``dense`` (out, in), ``blkdiag1``, ``blkdiag2``, ``bias``,
   ``blkdiag_mult``, Scaler ``scaler``  -> the same names, as they are
+  (projected factors too; svd_init's residual is the ``dense``, and
+  projection mode has none in either package)
+  ``ScaledLoRA`` ``lora_a`` (in, r), ``lora_b`` (r, out)  -> as they are;
+  its ``base_module/kernel`` -> ``base_module.weight``, transposed
+  ``BOFTLinear`` ``boft_R``, ``boft_s``, ``dense`` (out, in), ``bias``
+  ``MonarchFactor`` ``weight``, ``bias``  -> as they are
 
 A quantized base (``quant/``) loads into a port model quantized the same
 way first (``quantize_frozen_base`` with the same bits and group,

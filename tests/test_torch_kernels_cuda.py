@@ -1569,3 +1569,112 @@ def test_torch_encoder_step_on_card_matches_cpu(cuda_device, family):
     assert launches == {**dict.fromkeys(before, 0), "monarch_add": 2 * per_pass}
     np.testing.assert_allclose(got_p, predict_logits(cpu, data, batch_size=3), rtol=1e-4,
                                atol=1e-4)
+
+
+# K1/K3 at projection mode's shapes, (M, K, Q, P, L, S, R): the factors that
+# an SVD projection gives a square layer, nblocks = its largest factor below
+# sqrt(width) at rank 1 (RoBERTa-large's 1024: 32 blocks of 32; DeBERTa-v3-
+# base's 768: 24 blocks, w1 (24, 24, 32) and w2 (24, 32, 24)), at a
+# micro-batch of bs 16 x t 32 and ragged row counts past each tile.
+PROJECTION_CASES = [(512, 32, 32, 32, 32, 32, 32), (2065, 32, 32, 32, 32, 32, 32),
+                    (33, 32, 32, 32, 32, 32, 32), (512, 24, 24, 32, 24, 32, 24),
+                    (1031, 24, 24, 32, 24, 32, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PROJECTION_CASES)
+def test_torch_projection_width_kernels_match_plain_on_card(cuda_device, case, dtype):
+    """K1 (projection mode's forward) and K3 (its backward, on the generic
+    kernel: the cluster kernel takes nblocks 4 only) against their plain
+    versions; one launch each."""
+    x, w1, w2, dout = _inputs(case, dtype, cuda_device)
+    before = dict(monarch_cuda.LAUNCHES)
+    with torch.no_grad():
+        got = monarch_cuda.monarch_kernel(x, w1, w2)
+        want = monarch_cuda.monarch_kernel_reference(x, w1, w2)
+    got_b = monarch_cuda.monarch_bwd(x, w1, w2, dout)
+    want_b = monarch_cuda.monarch_bwd_reference(x, w1, w2, dout)
+    torch.cuda.synchronize()
+    assert {n: monarch_cuda.LAUNCHES[n] - before[n] for n in before} == \
+        {**dict.fromkeys(before, 0), "monarch_kernel": 1, "monarch_bwd": 1}
+    assert not monarch_cuda.monarch_bwd_plan(case[0], w1.shape, w2.shape, with_dx=True,
+                                             dtype=dtype)[0]
+    assert got.shape == want.shape and got.dtype == want.dtype == dtype
+    assert float((got.float() - want.float()).abs().max()) <= _tol(want)
+    for g, w in zip(got_b, want_b):
+        assert g.shape == w.shape
+        assert float((g.float() - w.float()).abs().max()) <= _tol(w.to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["lora", "boft", "projection", "svd_init"])
+def test_torch_baseline_encoder_step_on_card_matches_cpu(cuda_device, method):
+    """One float32 training forward and backward of a 2-layer RoBERTa with
+    the GLUE baselines' adapters on query, key and value (LoRA r 8; BOFT
+    block 8, 2 factors, dropout 0; Monarch projection mode, 8 blocks of 8;
+    svd_init, nblocks 4) on the card against the same model on the CPU: the
+    launches exact (none for LoRA and BOFT; projection mode K1 on each
+    adapted linear a forward and K3 on each in the backward, svd_init K2
+    and K3), the logits and loss within 1e-4, every trainable gradient
+    within 1e-4 of its largest."""
+    import copy
+
+    from sparse_matrix_fine_tuning_torch.models.config import RobertaConfig
+    from sparse_matrix_fine_tuning_torch.models.roberta import RobertaForSequenceClassification
+    from sparse_matrix_fine_tuning_torch.peft import boft, surgery
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(7)
+    cpu = RobertaForSequenceClassification(
+        RobertaConfig.tiny(hidden_size=64, intermediate_size=128, num_labels=3,
+                           hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0),
+        device="cpu", generator=g)
+    targets = ["query", "key", "value"]
+    if method == "lora":
+        surgery.init_lora(cpu, {"target_modules": targets, "r": 8, "lora_alpha": 16}, generator=g)
+        expect = {}
+    elif method == "boft":
+        boft.init_boft(cpu, {"target_modules": targets, "boft_block_size": 8,
+                             "boft_n_butterfly_factor": 2, "bias": "boft_only"}, generator=g)
+        expect = {}
+    else:
+        peft = {"monarch": True, "nblocks": 4, "blk_r": 4, "target_modules": targets,
+                "adapter": method == "svd_init", "svd_init": method == "svd_init"}
+        surgery.init_monarch(cpu, peft, generator=g)
+        fwd = "monarch_kernel" if method == "projection" else "monarch_add"
+        expect = {fwd: 6, "monarch_bwd": 6}
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.endswith(("lora_b", "boft_R")):
+                p.normal_(0.0, 0.1, generator=g)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    ids = torch.randint(3, 128, (4, 23), generator=g)
+    mask = torch.ones_like(ids)
+    mask[1, 9:] = mask[3, 2:] = 0
+    ids = torch.where(mask > 0, ids, 1)
+    labels = torch.tensor([0, 2, 1, 2])
+    grads, logits = [], []
+    for model, dev in ((cpu, "cpu"), (card, cuda_device)):
+        model.train()
+        surgery.trainable_filter(model)
+        before = dict(monarch_cuda.LAUNCHES)
+        out = model(ids.to(dev), mask.to(dev))
+        loss = model.loss(out, labels.to(dev))
+        loss.backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        launches = {n: monarch_cuda.LAUNCHES[n] - before[n] for n in before}
+        assert launches == {**dict.fromkeys(before, 0), **({} if dev == "cpu" else expect)}
+        logits.append((out.detach().cpu(), float(loss)))
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters() if p.requires_grad})
+    (want_out, want_loss), (got_out, got_loss) = logits
+    torch.testing.assert_close(got_out, want_out, rtol=1e-4, atol=1e-4)
+    assert abs(got_loss - want_loss) <= 1e-4 * abs(want_loss)
+    assert sorted(grads[0]) == sorted(grads[1]) and len(grads[0]) > 4
+    for name, want_g in grads[0].items():
+        # BOFT trains the key's bias, whose gradient is 0 in exact
+        # arithmetic (a row's softmax does not move when every logit of the
+        # row shifts alike): its own scale, ~1e-17, gives no tolerance
+        tol = 1e-4 * max(float(want_g.abs().max()), 1e-6)
+        assert float((grads[1][name] - want_g).abs().max()) <= tol, name

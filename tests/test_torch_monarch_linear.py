@@ -102,15 +102,6 @@ def test_torch_monarch_linear_shapes_and_init():
     assert trainable == {"blkdiag1", "blkdiag2", "scaler.scaler"}
 
 
-@pytest.mark.parametrize("peft,kw", [({"svd_init": True}, {}),
-                                     ({"reference_orientation": True}, {}),
-                                     ({}, {"as_adapter": False})])
-def test_torch_monarch_linear_refuses_unported_modes(peft, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MonarchLinear(16, 16, weights=torch.zeros(16, 16), peft_config=peft, device="cpu",
-                      **kw)
-
-
 class _FakeCudaInput:
     is_cuda = True
 

@@ -20,6 +20,7 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.ops.activations",
     "sparse_matrix_fine_tuning_torch.ops.losses",
     "sparse_matrix_fine_tuning_torch.ops.attention",
+    "sparse_matrix_fine_tuning_torch.ops.projection",
     "sparse_matrix_fine_tuning_torch.kernels.build",
     "sparse_matrix_fine_tuning_torch.kernels.monarch_cuda",
     "sparse_matrix_fine_tuning_torch.kernels.quant_cuda",
@@ -59,6 +60,7 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.models.generate",
     "sparse_matrix_fine_tuning_torch.models.hf_convert",
     "sparse_matrix_fine_tuning_torch.peft.surgery",
+    "sparse_matrix_fine_tuning_torch.peft.boft",
     "sparse_matrix_fine_tuning_torch.quant",
     "sparse_matrix_fine_tuning_torch.utils.testing",
     "sparse_matrix_fine_tuning_torch.utils.jax_bridge",
@@ -71,6 +73,7 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.training.optim",
     "sparse_matrix_fine_tuning_torch.training.checkpoint",
     "sparse_matrix_fine_tuning_torch.training.trainer",
+    "sparse_matrix_fine_tuning_torch.training.hpo",
 ]
 FORBIDDEN = ("jax", "flax", "triton", "transformers", "safetensors",
              "sparse_matrix_fine_tuning_tpu")

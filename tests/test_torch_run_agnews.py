@@ -12,8 +12,8 @@ Held: the logged losses and ``eval_loss`` within
 ``TOLERANCES["f32_logits"]``; the method, the trainable count and the
 accuracy equal; the total count equal to the JAX one less its dropouts'
 random state, which the JAX ``param_stats`` counts as parameters (ROADMAP
-C.14); the synthetic data equal bit for bit; ``--method lora``
-refused (item 22).
+C.14); the synthetic data equal bit for bit.  ``--method lora``:
+``test_torch_run_lora_harnesses.py``.
 """
 
 import json
@@ -109,11 +109,3 @@ def test_torch_agnews_synthetic_data_match_jax():
         for key, arr in want[split].items():
             assert got[split][key].dtype == arr.dtype and np.array_equal(got[split][key], arr)
 
-
-def test_torch_run_agnews_refuses_lora(tmp_path):
-    def build(_):
-        raise AssertionError("a refused method built a model")
-
-    with pytest.raises(NotImplementedError, match="item 22"):
-        port.main([*SMOKE, "--method", "lora", f"--output_dir={tmp_path}", "--platform=cpu"],
-                  build=build)

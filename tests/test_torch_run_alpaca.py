@@ -194,8 +194,6 @@ def test_torch_alpaca_predictions_match_jax(both):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--do_tune=True"], "item 21"),
-    (["--adapter=lora"], "item 22"),
     (["--optim=adamw8bit"], "item 27"),
 ])
 def test_torch_alpaca_refusals(tmp_path, extra, item):

@@ -16,7 +16,8 @@ labels, matched and mismatched evals, two TSV files) and STS-B
 
 Held: the logged losses and ``eval_loss`` within ``TOLERANCES["f32_logits"]``
 (float32 sums in another order through the steps); the classification
-metrics and the TSV files equal; the refusals of items 21 and 22.
+metrics and the TSV files equal.  The baselines and the search:
+``test_torch_run_glue_baselines.py``, ``test_torch_run_glue_tune.py``.
 """
 
 import json
@@ -167,14 +168,3 @@ def test_torch_run_glue_mnli_matches_jax(tmp_path):
     check_run(want, got, jax_dir, port_dir, ["MNLI-m.tsv", "MNLI-mm.tsv"])
     assert set(got.results) == {"mnli", "mnli-mm"}
 
-
-@pytest.mark.parametrize("flag,item", [("--do_tune=True", "item 21"), ("--lora=True", "item 22"),
-                                       ("--boft=True", "item 22")])
-def test_torch_run_glue_refuses_unported_options(tmp_path, flag, item):
-    def build(*_):
-        raise AssertionError("a refused option built a model")
-
-    with pytest.raises(NotImplementedError, match=item):
-        port.main([config("monarch_roberta_glue", "cola"), "--smoke=True", flag,
-                   f"--output_dir={tmp_path}", "--platform=cpu"], build=build)
-    assert not any(tmp_path.iterdir())

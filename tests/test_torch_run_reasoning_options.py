@@ -45,7 +45,6 @@ def test_torch_reasoning_loads_a_local_checkpoint(tmp_path, flags, remat, policy
 @pytest.mark.parametrize("extra,item", [
     (["-task", "glue"], "items 20 and 24"),
     (["--intervention_type", "LoreftIntervention"], "item 24"),
-    (["--do_tune=True"], "item 21"),
     (["--mesh_fsdp=4"], "item 28"),
 ])
 def test_torch_reasoning_refusals(tmp_path, extra, item):
