@@ -115,7 +115,7 @@ hand-written CUDA kernels, and checks them:
      seed equal) and ``beam_generate`` at 4 beams against a CPU copy of the
      trained model (equal tokens); then TinyLlama-1.1B widths from an
      HF-format directory written here (random seeded bf16 weights; the
-     loaded tensors equal the written ones; deleted after): 3 steps of
+     loaded tensors equal the written ones; kept for 23): 3 steps of
      ``-task math`` with the harness's remat "nothing" and dropout 0.1 (K1
      twice an adapted linear and micro-batch, K3 once), its greedy eval and
      a beam-4 eval (beam-sample at temperature 0.1), launches exact (K2
@@ -144,20 +144,31 @@ hand-written CUDA kernels, and checks them:
      BOFT); the reference orientation's identity product (K1) on the card
      at 1024 wide against the CPU;
  22. the recipes of the paper's GLUE table at RoBERTa-large width, from
-     20's HF-format directory (deleted after), bf16, 3 steps each with the
+     20's HF-format directory (kept for 23), bf16, 3 steps each with the
      harness's eval and predictions: LoRA, BOFT, Monarch with svd_init (K2
      72 times a forward, K3 72 times a step) and in projection mode (32
      blocks of 32: K1 72 times a forward, K3 72 times a step); launches
      exact, each run's init s (the SVD on the card), step wall, busy, idle
-     share and peak.
+     share and peak;
+ 23. ReFT through the reasoning harness: smoke (float32, dropout off) on
+     the card against the CPU with Loreft (untied f7+l7), Noreft, Consreft
+     and MoRe interventions over the Monarch adapters (losses, results,
+     generations and Loreft's beam-4 eval equal; K2 and K3 exact), the
+     Loreft model through its three checkpoint formats, MoReFT GLUE on the
+     tiny RoBERTa and DAS on the toy MLP (no kernel of ours); then the
+     LoReFT commonsense recipe (Loreft rank 8, f7+l7 tied, all 22 layers)
+     over 19's TinyLlama-1.1B-width directory and moreft_glue.sh's recipe
+     over 20's RoBERTa-large directory (both deleted after), 3 steps each:
+     launches exact, step wall, busy, idle share, peak, decode wall and
+     busy a forward.
 
 Serving (5, 6, 10 and 11) runs before the experiments (13-16).  Every
 profile is taken in ``benchlib.device_profile``'s window, padded at both
 ends so that it keeps every kernel's record (ROADMAP C.10).  Each main path (6, 8 off, 8 on, 8
 with splash, each remat run and step of 8, each configuration of 11, each step of 12, the bench of 13,
 each script of 14, 15 and 16, the attention bench of 17, each harness run
-of 18, 19, 20, 21 and 22, 19's beam search and beam-4 eval, 20's timed eval
-and predictions, and 21's reference-orientation layer) zeroes the launch counts of every kernel
+of 18, 19, 20, 21, 22 and 23, 19's beam search and beam-4 eval, 20's timed eval
+and predictions, 21's reference-orientation layer, and 23's evals and DAS runs) zeroes the launch counts of every kernel
 just before it and reads them just after.  Any failed check
 exits non-zero.  The line before the last is one JSON object on the
 kernels (K5 and K7 at decode and, as ``int4_matmul_tile`` and
@@ -513,6 +524,42 @@ BASELINE_FULL = (("LoRA", "lora_roberta_glue/cola.json", ["--monarch=False", "--
                   "monarch_add"),
                  ("Monarch projection", "monarch_roberta_glue/cola.json", ["--adapter=False"],
                   "monarch_kernel"))
+# ReFT through the reasoning harness (phase_reft_smoke, phase_reft_full):
+# (a) the reasoning smoke argv on one eval dataset with each intervention
+# (Loreft untied f7+l7: four interventions; the others tied, two), its
+# beam-4 eval at temperature 1e-6 with top-k and top-p off (equal to beam
+# search, so that card and CPU agree); MoReFT GLUE on the tiny RoBERTa
+# (moreft_glue.sh's recipe, dropout off, 100x its rate); DAS on the toy MLP
+# (scripts/das_demo.py cut to DAS_STEPS; its losses within DAS_RTOL: 80
+# Adam steps compound float32 sums in another order); (b) the LoReFT
+# paper's commonsense recipe over TinyLlama-1.1B widths (rank 8, f7+l7
+# tied, every layer, no dropout: K2 on every forward) at batch 4 x ga 4 x
+# max length 512, and moreft_glue.sh's recipe at RoBERTa-large width (no
+# kernel of ours), REFT_FULL_STEPS steps each.
+REFT_SMOKE_ARGV = [*REASONING_ARGV, "-task", "math", "-eval_dataset", "AddSub", "-p", "f7+l7",
+                   "-rank", "4", "-top_k", "0", "-top_p", "1.0", "-t", "1e-6"]
+REFT_SMOKE = (("Loreft untied f7+l7", ["--intervention_type", "LoreftIntervention"], 4),
+              ("Noreft", ["--intervention_type", "NoreftIntervention", "-sw"], 2),
+              ("Consreft", ["--intervention_type", "ConsreftIntervention", "-sw"], 2),
+              ("MoRe", ["--intervention_type", "MoReIntervention", "-sw"], 2))
+MOREFT_GLUE_SMOKE = ["-task", "glue", "-train_dataset", "cola", "-p", "f1", "-e", "1",
+                     "-lr", "3e-2", "-rank", "1", "-batch_size", "32", "-max_length", "64",
+                     "--intervention_type=MoReIntervention", "--dropout=0.0", "-allow_cls_grad",
+                     "--smoke=True", "--max_steps=3", "--logging_steps=1"]
+DAS_STEPS = (60, 20)  # das_demo's base-model and DAS steps
+DAS_RTOL = 1e-3
+REFT_FULL_STEPS = 3
+REFT_FULL_ARGV = ["-task", "commonsense", "--intervention_type", "LoreftIntervention", "-l", "all",
+                  "-rank", "8", "-p", "f7+l7", "--share_weights", "--dropout", "0.0",
+                  "-batch_size", "4", "-gradient_accumulation_steps", "4", "-max_length", "512",
+                  f"--max_steps={REFT_FULL_STEPS}", "--logging_steps=1", "-eval_dataset", "boolq",
+                  "--max_n_eval_example=8", "-top_k", "0", "-top_p", "1.0"]
+MOREFT_GLUE_FULL_ARGV = ["-task", "glue", "-train_dataset", "cola", "-p", "f1", "-l", "all",
+                         "-rank", "1", "-batch_size", "32", "-eval_batch_size", "32",
+                         "-lr", "3e-4", "-gradient_accumulation_steps", "1", "-max_length", "256",
+                         "--intervention_type=MoReIntervention", "--dropout=0.05",
+                         "-allow_cls_grad", "-test_split", "validation",
+                         f"--max_steps={REFT_FULL_STEPS}", "--logging_steps=1"]
 OUT_DIR = "chip_smoke_out"  # per-case records; .gitignore lists it
 RECORDS: list[dict] = []  # one per kernel case, written to OUT_DIR
 
@@ -3120,6 +3167,13 @@ def phase_alpaca_full(card: str) -> dict:
     return launches
 
 
+def decoder_stack(model):
+    """The ``LlamaModel`` of a harness's model (a ``ReftModel`` wraps it)."""
+    from sparse_matrix_fine_tuning_torch.models.llama import LlamaModel
+
+    return next(m for m in model.modules() if isinstance(m, LlamaModel))
+
+
 def reasoning_run(argv: list, build=None, step_context=None) -> dict:
     """One ``run_reasoning.run`` with the launch counts zeroed just before it
     and read just after, and its model's forwards counted by mode (a hook on
@@ -3135,7 +3189,7 @@ def reasoning_run(argv: list, build=None, step_context=None) -> dict:
 
     def counted(args, peft_config):
         model = (build or run_reasoning.build_model)(args, peft_config)
-        model.model.register_forward_pre_hook(hook)
+        decoder_stack(model).register_forward_pre_hook(hook)
         return model
 
     if torch.cuda.is_available():
@@ -3290,48 +3344,34 @@ def llama_shapes(config: dict) -> dict:
     return shapes
 
 
-_ST_NAMES = {torch.bfloat16: "BF16", torch.float32: "F32"}
-
-
 def write_hf_checkpoint(path: str, config: dict, shapes: dict, seed: int,
                         dtype: torch.dtype = torch.bfloat16) -> dict:
-    """An HF-format directory: ``config.json`` and a ``model.safetensors`` (an
-    8-byte little-endian header length, the JSON header, then the raw bytes)
-    of the tensors ``shapes`` names, random, in ``dtype``, drawn on the card
-    from a generator seeded ``seed`` in ``shapes``' order: N(0, 0.02), and
-    1 + N(0, 0.02) for a norm's weight.  Returns the written tensors, on the
-    card."""
-    import struct
+    """An HF-format directory: ``config.json`` and a ``model.safetensors``
+    (``models/hf_convert.write_safetensors``) of the tensors ``shapes``
+    names, random, in ``dtype``, drawn on the card from a generator seeded
+    ``seed`` in ``shapes``' order: N(0, 0.02), and 1 + N(0, 0.02) for a
+    norm's weight.  Returns the written tensors, on the card."""
+    from sparse_matrix_fine_tuning_torch.models.hf_convert import write_safetensors
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    tensors, header, offset = {}, {}, 0
+    tensors = {}
     for name, shape in shapes.items():
         t = torch.randn(shape, generator=g, device="cuda").mul_(0.02)
         if name.lower().endswith("norm.weight"):
             t += 1.0
         tensors[name] = t.to(dtype)
-        n = tensors[name].numel() * dtype.itemsize
-        header[name] = {"dtype": _ST_NAMES[dtype], "shape": list(shape),
-                        "data_offsets": [offset, offset + n]}
-        offset += n
-    raw = json.dumps(header).encode()
-    raw += b" " * (-len(raw) % 8)
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f)
-    with open(os.path.join(path, "model.safetensors"), "wb") as f:
-        f.write(struct.pack("<Q", len(raw)))
-        f.write(raw)
-        for t in tensors.values():
-            t.cpu().contiguous().view(torch.uint8).numpy().tofile(f)
+    write_safetensors(os.path.join(path, "model.safetensors"), tensors)
     return tensors
 
 
 def phase_reasoning_full(card: str) -> dict:
     """(b) The reasoning harness at TinyLlama-1.1B widths, all 22 layers,
     from an HF-format directory that this phase writes (``TINYLLAMA_HF``,
-    random seeded bf16 weights, ``write_hf_checkpoint``) and deletes: the
-    tensors the harness's loader gives equal the written ones; ``-task
+    random seeded bf16 weights, ``write_hf_checkpoint``), which
+    ``phase_reft_full`` deletes: the tensors the harness's loader gives equal the written ones; ``-task
     math`` in bf16 with the harness's defaults (remat "nothing", dropout
     0.1, so K1 on every forward, K1 twice a training micro-batch) at batch 4
     x ga 8 x max length 512 for ``REASONING_FULL_STEPS`` steps (step 0
@@ -3343,7 +3383,8 @@ def phase_reasoning_full(card: str) -> dict:
     prefill included; a decode ends early where every row has emitted EOS),
     and device busy a forward from the profiler over a
     ``REASONING_PROFILE_NEW``-token eval of each.  Launches exact (K1, K3;
-    K2 none).  Returns the launches."""
+    K2 none).  Returns the launches and the directory, which
+    ``phase_reft_full`` reads and deletes."""
     from sparse_matrix_fine_tuning_torch.scripts import run_reasoning
 
     ckpt = os.path.join(OUT_DIR, "reasoning_tinyllama")
@@ -3439,10 +3480,9 @@ def phase_reasoning_full(card: str) -> dict:
           f"greedy {full['run'].results}, beam-4 {evals['beam-4']['results']}; harness run "
           f"{full['seconds']:.2f} s wall; launches {dict(launches)}", flush=True)
     del full, evals
-    shutil.rmtree(ckpt, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(launches)
+    return {"launches": dict(launches), "checkpoint": ckpt}
 
 
 def encoder_adapted_calls(model) -> int:
@@ -3707,10 +3747,10 @@ def phase_glue_full(card: str) -> dict:
     (12 layers, hidden 768, 12 heads, vocab 128100, 256 position buckets), an
     HF-format directory written here (``encoder_shapes``, random seeded
     float32 weights; the tensors the harness's loader gives equal the
-    written ones; DeBERTa's deleted after, RoBERTa-large's after
-    ``phase_baselines_full``, which reuses it), then ``run_glue.py <family>/cola.json
-    --bf16_compute=True --max_steps=3`` on it with the recipe's batch (16;
-    32) and max_seq_length 128, length grouping in buckets of 32, dropout
+    written ones; DeBERTa's deleted after, RoBERTa-large's by
+    ``phase_reft_full``, after ``phase_baselines_full`` reuses it), then
+    ``run_glue.py <family>/cola.json --bf16_compute=True --max_steps=3`` on
+    it with the recipe's batch (16; 32) and max_seq_length 128, length grouping in buckets of 32, dropout
     0.1 in the encoder (the adapters' 0.0: K2, not K1): launches exact
     (``encoder_expect``); the harness's own steps through its trainer's
     ``step_context`` (step 0 profiled: busy; steps 1-2 alone: wall, peak);
@@ -3836,7 +3876,7 @@ def phase_glue_full(card: str) -> dict:
               f"{full['seconds']:.2f} s wall; {full['per_forward']} adapted calls a forward; "
               f"launches {expect}", flush=True)
         del full, run
-        if label != BASELINE_FULL_MODEL:  # phase_baselines_full reads it, then deletes it
+        if label != BASELINE_FULL_MODEL:  # phase_baselines_full and phase_reft_full read it
             shutil.rmtree(ckpt, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4026,8 +4066,8 @@ def projection_kernel_times(card: str, rows: int, dtype=torch.bfloat16) -> dict:
 def phase_baselines_full(card: str, checkpoint: str) -> dict:
     """(b) The recipes of the paper's GLUE table at RoBERTa-large width (24
     layers, hidden 1024) from ``phase_glue_full``'s HF-format directory
-    (deleted after), bf16 compute, ``GLUE_STEPS`` steps each with the
-    harness's eval and test predictions (``BASELINE_FULL``):
+    (``phase_reft_full`` reads it next and deletes it), bf16 compute,
+    ``GLUE_STEPS`` steps each with the harness's eval and test predictions (``BASELINE_FULL``):
     ``lora_roberta_glue/cola.json`` (bs 16, r 8, alpha 16, gaussian, q/k/v),
     ``boft_roberta_glue/cola.json`` (bs 32, seq 64, block 8, 2 butterfly
     factors, dropout 0.05, bias boft_only) and the Monarch CoLA recipe with
@@ -4128,10 +4168,347 @@ def phase_baselines_full(card: str, checkpoint: str) -> dict:
             del full, run, model, layers
     finally:
         run_glue.adapt_model = real_adapt
-        shutil.rmtree(checkpoint, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": dict(launches), "layer": layer_times}
+
+
+def _ms(value):
+    """A profiled ms rounded to 2 places, or None where nothing was measured."""
+    return None if value is None else round(value, 2)
+
+
+def _zeroed_interventions(model):
+    """A CPU copy of a ReftModel with its interventions' parameters zeroed."""
+    fresh = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        for p in fresh.interventions.parameters():
+            p.zero_()
+    return fresh
+
+
+def _same_state(got, want, what: str) -> None:
+    got, want = got.state_dict(), want.state_dict()
+    bad = [k for k in want if not torch.equal(got[k].cpu(), want[k].cpu())]
+    require(got.keys() == want.keys() and not bad, f"{what}: differs at {bad[:4]}")
+
+
+def reft_checkpoints(card: str, model) -> None:
+    """The card-trained ReftModel through the three checkpoint formats into
+    zeroed CPU copies, each equal to it bit for bit afterwards:
+    ``save_interventions``/``load_interventions`` (npz), the pyvene
+    ``intkey_*.bin`` files, and the reference-format adapter dict of its
+    base (``peft/import_reference``, ``.bin``)."""
+    from sparse_matrix_fine_tuning_torch.interventions import (
+        load_pyvene_interventions,
+        save_pyvene_interventions,
+    )
+    from sparse_matrix_fine_tuning_torch.peft.import_reference import (
+        load_reference_adapters,
+        save_reference_adapters,
+    )
+
+    base = os.path.join(OUT_DIR, "reft_checkpoints")
+    shutil.rmtree(base, ignore_errors=True)
+    fresh = _zeroed_interventions(model)
+    model.save_interventions(os.path.join(base, "npz"))
+    fresh.load_interventions(os.path.join(base, "npz"))
+    _same_state(fresh.interventions, model.interventions, "interventions.npz")
+    fresh = _zeroed_interventions(model)
+    files = save_pyvene_interventions(model, os.path.join(base, "pyvene"))
+    loaded, skipped = load_pyvene_interventions(fresh, os.path.join(base, "pyvene"))
+    require(loaded == files and not skipped, f"pyvene files {files}: loaded {loaded}")
+    _same_state(fresh.interventions, model.interventions, "pyvene files")
+    fresh = copy.deepcopy(model.model).cpu()
+    with torch.no_grad():
+        for p in fresh.parameters():
+            if p.requires_grad:
+                p.zero_()
+    save_reference_adapters(model.model, os.path.join(base, "adapters.bin"))
+    keys, skipped = load_reference_adapters(fresh, os.path.join(base, "adapters.bin"))
+    _same_state(fresh, model.model, "reference adapters")
+    print(f"[reft] {card}: checkpoints of the card-trained model: interventions.npz, "
+          f"{len(files)} pyvene files, {len(keys)} reference adapter keys ({skipped} skipped) "
+          "each loaded into a zeroed CPU copy, equal bit for bit", flush=True)
+
+
+def glue_reft_run(argv: list, *, dropout: bool = True, step_context=None) -> dict:
+    """One MoReFT GLUE ``run_reasoning.run`` with the launch counts zeroed
+    just before it and read just after, the wall seconds beside them;
+    ``dropout=False`` sets every ``nn.Dropout`` of the built model to 0 (the
+    card's masks are not the CPU's)."""
+    from sparse_matrix_fine_tuning_torch.scripts import run_reasoning
+
+    def build(*a):
+        model = run_reasoning.build_glue_model(*a)
+        if not dropout:
+            for m in model.modules():
+                if isinstance(m, torch.nn.Dropout):
+                    m.p = 0.0
+        return model
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    reset_counts()  # the counted main path starts here
+    t0 = time.perf_counter()
+    result = run_reasoning.run(argv, build=build, step_context=step_context)
+    seconds = time.perf_counter() - t0
+    launches = counts()  # the counted main path ends here
+    return {"run": result, "launches": launches, "seconds": seconds}
+
+
+def phase_reft_smoke(card: str) -> dict:
+    """(a) ReFT through the reasoning harness on the tiny smoke Llama in
+    float32, TF32 off, on the card and on the CPU: ``REFT_SMOKE``'s
+    interventions (Loreft untied f7+l7, Noreft, Consreft, MoRe) over the
+    Monarch adapters, ``-task math`` on one eval dataset: losses within
+    ``ALPACA_TOL``, results and generations equal, launches exact (K2 on
+    every adapted linear each forward, K3 each training micro-batch; none on
+    the CPU); Loreft's beam-4 eval (intervened beams) equal too, and its
+    card-trained model through the three checkpoint formats
+    (``reft_checkpoints``).  MoReFT GLUE on the tiny RoBERTa
+    (``MOREFT_GLUE_SMOKE``): losses within ``ALPACA_TOL``, metrics and
+    ``metrics.json`` equal, no launch.  DAS (``scripts/das_demo.py``, cut
+    to ``DAS_STEPS``): accuracies equal, losses within ``DAS_RTOL``, no
+    launch.  Returns the launches."""
+    from sparse_matrix_fine_tuning_torch.scripts import das_demo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tol = ALPACA_TOL
+    adapted = 7 * 2
+    launches = collections.Counter()
+    for label, extra, n_iv in REFT_SMOKE:
+        out = os.path.join(OUT_DIR, "reft_" + label.split()[0].lower())
+        for d in (out, f"{out}_cpu"):
+            shutil.rmtree(d, ignore_errors=True)
+        runs = {}
+        for where, d in (("card", out), ("cpu", f"{out}_cpu")):
+            argv = [*REFT_SMOKE_ARGV, *extra, f"--output_dir={d}"]
+            runs[where] = reasoning_run(argv + (["--platform=cpu"] if where == "cpu" else []))
+        card_run, cpu_run = runs["card"], runs["cpu"]
+        model = card_run["run"].trainer.model
+        micro = card_run["train_forwards"]
+        require(micro == REASONING_STEPS * REASONING_GA and len(model.interventions) == n_iv,
+                f"reft {label}: {micro} training forwards, {len(model.interventions)} "
+                "interventions")
+        expect = alpaca_expect(16, adapted, micro + card_run["eval_forwards"], micro,
+                               "monarch_add")
+        expect_only(card_run["launches"], expect, f"reft {label}")
+        require(not any(cpu_run["launches"].values()),
+                f"reft {label}: the CPU run launched {cpu_run['launches']}")
+        launches.update(expect)
+        losses = [[r["loss"] for r in _alpaca_records(d, "metrics.jsonl", "math") if "loss" in r]
+                  for d in (out, f"{out}_cpu")]
+        require(len(losses[0]) == len(losses[1]) == REASONING_STEPS
+                and all(_close(a, b, tol) for a, b in zip(*losses)),
+                f"reft {label}: losses {losses[0]} card, {losses[1]} CPU")
+        gens = [_generations(os.path.join(d, "math")) for d in (out, f"{out}_cpu")]
+        results = [r["run"].results for r in (card_run, cpu_run)]
+        require(gens[0] == gens[1] and len(gens[0]) > 0 and results[0] == results[1],
+                f"reft {label}: results {results}, generations equal "
+                f"{sum(a == b for a, b in zip(*gens))}/{len(gens[0])}")
+        beam = ""
+        if n_iv == 4:
+            ev = counted_eval(card_run, "beam-4", greedy=False, out=os.path.join(out, "beam"))
+            expect = {"monarch_add": adapted * ev["forwards"]}
+            expect_only(ev["launches"], expect, f"reft {label}, beam-4 eval")
+            launches.update(expect)
+            want = cpu_run["run"].evaluate(greedy=False, out=os.path.join(f"{out}_cpu", "beam"))
+            beams = [_generations(os.path.join(d, "beam")) for d in (out, f"{out}_cpu")]
+            require(beams[0] == beams[1] and ev["results"] == want,
+                    f"reft {label}, beam-4: results {ev['results']} card, {want} CPU")
+            beam = (f"; beam-4 eval equal ({ev['forwards']} forwards, {ev['seconds']:.2f} s, "
+                    f"launches {expect})")
+        print(f"[reft] {card}: smoke, {label} ({n_iv} interventions): losses {losses[0]} card, "
+              f"{losses[1]} CPU (tol {tol}); results {results[0]} on both; generations equal "
+              f"({len(gens[0])}); launches "
+              f"{ {k: v for k, v in card_run['launches'].items() if v} }{beam}; wall "
+              f"{card_run['seconds']:.2f} s card, {cpu_run['seconds']:.2f} s CPU", flush=True)
+        if n_iv == 4:
+            reft_checkpoints(card, model)
+        del runs, card_run, cpu_run, model
+
+    out = os.path.join(OUT_DIR, "reft_glue")
+    runs = {}
+    for where, d in (("card", out), ("cpu", f"{out}_cpu")):
+        shutil.rmtree(d, ignore_errors=True)
+        argv = [*MOREFT_GLUE_SMOKE, f"--output_dir={d}"]
+        runs[where] = glue_reft_run(argv + (["--platform=cpu"] if where == "cpu" else []),
+                                    dropout=False)
+    expect_only(runs["card"]["launches"], {}, "MoReFT GLUE smoke")
+    losses = [[r["loss"] for r in runs[w]["run"].trainer.log_history if "loss" in r]
+              for w in ("card", "cpu")]
+    metrics = [runs[w]["run"].results for w in ("card", "cpu")]
+    files = []
+    for d in (out, f"{out}_cpu"):
+        with open(os.path.join(d, "glue_cola", "metrics.json")) as f:
+            files.append(json.load(f))
+    require(len(losses[0]) == len(losses[1]) == 3 and all(_close(a, b, tol)
+                                                         for a, b in zip(*losses))
+            and metrics[0] == metrics[1] == files[0] == files[1] and metrics[0],
+            f"MoReFT GLUE smoke: losses {losses}, metrics {metrics}, files {files}")
+    print(f"[reft] {card}: smoke, MoReFT GLUE (tiny RoBERTa, CoLA, MoRe rank 1 f1 on "
+          f"{len(runs['card']['run'].trainer.model.interventions)} layers, --allow_cls_grad): "
+          f"losses {losses[0]} card, {losses[1]} CPU; metrics {metrics[0]} on both, "
+          f"metrics.json equal; no launch; wall {runs['card']['seconds']:.2f} s card, "
+          f"{runs['cpu']['seconds']:.2f} s CPU", flush=True)
+
+    das = {}
+    for where in ("cuda", "cpu"):
+        reset_counts()  # the counted main path starts here
+        das[where] = das_demo.main(["--platform", where], train_steps=DAS_STEPS[0],
+                                   das_steps=DAS_STEPS[1])
+        if where == "cuda":
+            expect_only(counts(), {}, "DAS")  # the counted main path ends here
+    got, want = das["cuda"], das["cpu"]
+    require([got[k] for k in ("base_accuracy", "before", "after")]
+            == [want[k] for k in ("base_accuracy", "before", "after")]
+            and all(abs(a - b) <= DAS_RTOL * abs(b) for a, b in zip(got["losses"],
+                                                                 want["losses"])),
+            f"DAS: card {got}, CPU {want}")
+    print(f"[reft] {card}: smoke, DAS (toy MLP, {DAS_STEPS[0]} training and {DAS_STEPS[1]} DAS "
+          f"steps): base accuracy {got['base_accuracy']:.3f}, interchange accuracy "
+          f"{got['before']:.3f} -> {got['after']:.3f} on both; losses "
+          f"{got['losses'][0]:.4f} -> {got['losses'][-1]:.4f} card, {want['losses'][0]:.4f} -> "
+          f"{want['losses'][-1]:.4f} CPU (rtol {DAS_RTOL}); no launch", flush=True)
+    return dict(launches)
+
+
+def phase_reft_full(card: str, llama_checkpoint: str, roberta_checkpoint: str) -> dict:
+    """(b) ReFT at full width, the two HF-format directories of
+    ``phase_reasoning_full`` and ``phase_glue_full`` read and then deleted:
+    the LoReFT paper's commonsense recipe (``REFT_FULL_ARGV``: Loreft rank 8,
+    f7+l7 tied, on all 22 layers of the TinyLlama-1.1B-wide model in bf16
+    with the harness's remat "nothing", dropout 0: K2 twice an adapted
+    linear and micro-batch, K3 once) for ``REFT_FULL_STEPS`` steps at batch
+    4 x ga 4 x max length 512 with its greedy eval, then a greedy and a
+    beam-4 eval of the trained model (wall a forward) and both again at
+    ``REASONING_PROFILE_NEW`` tokens under the profiler (busy a forward);
+    then moreft_glue.sh's recipe at RoBERTa-large width
+    (``MOREFT_GLUE_FULL_ARGV``, float32, MoRe rank 1 at every layer, dropout
+    0.05 on the interventions, the classifier trained) for
+    ``REFT_FULL_STEPS`` steps and its eval: no kernel of ours.  Each run's
+    steps through the trainer's ``step_context`` (step 0 profiled: busy;
+    the later ones alone: wall, peak).  Launches exact.  Returns the
+    launches."""
+    launches = collections.Counter()
+    try:
+        out = os.path.join(OUT_DIR, "reft_full")
+        shutil.rmtree(out, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        steps = {}
+        torch.cuda.reset_peak_memory_stats()
+        full = reasoning_run([*REFT_FULL_ARGV, "--model", llama_checkpoint,
+                              f"--output_dir={out}"],
+                             step_context=harness_step_context(steps, "ReFT (1.1B)"))
+        model = full["run"].trainer.model
+        micro = full["train_forwards"]
+        require(micro == REFT_FULL_STEPS * 4 and len(model.interventions) == 22
+                and model.config.remat, f"reft full: {micro} training forwards, "
+                f"{len(model.interventions)} interventions")
+        expect = {"monarch_add": N_ADAPTED * (2 * micro + full["eval_forwards"]),
+                  "monarch_bwd": N_ADAPTED * micro}
+        expect_only(full["launches"], expect, "reft full, training and greedy eval")
+        launches.update(expect)
+        losses = [r["loss"] for r in _alpaca_records(out, "metrics.jsonl", "commonsense")
+                  if "loss" in r]
+        require(len(losses) == REFT_FULL_STEPS and all(map(math.isfinite, losses))
+                and len(steps.get("wall_ms", [])) == REFT_FULL_STEPS - 1 and "busy_ms" in steps,
+                f"reft full: losses {losses}, steps {steps}")
+        evals, busy = {}, {}
+        for label, greedy in (("greedy", True), ("beam-4", False)):
+            evals[label] = counted_eval(full, label, greedy=greedy, out=os.path.join(out, label))
+            expect = {"monarch_add": N_ADAPTED * evals[label]["forwards"]}
+            expect_only(evals[label]["launches"], expect, f"reft full, {label} eval")
+            launches.update(expect)
+        require(evals["greedy"]["results"] == full["run"].results,
+                f"reft full: greedy eval {evals['greedy']['results']}, the harness's "
+                f"{full['run'].results}")
+        for label, greedy in (("greedy", True), ("beam-4", False)):
+            before = full["forwards"]["eval"]
+            with device_busy(f"ReFT {label} eval, {REASONING_PROFILE_NEW} new tokens") as prof:
+                full["run"].evaluate(greedy=greedy, max_new=REASONING_PROFILE_NEW,
+                                     out=os.path.join(out, f"profiled_{label}"))
+            busy[label] = (prof["busy_ms"], full["forwards"]["eval"] - before)
+        wall = statistics.median(steps["wall_ms"])
+        idle = f"{1 - steps['busy_ms'] / wall:.3f}" if steps["busy_ms"] else "not measured"
+        evals_line = "; ".join(
+            f"{label} eval {e['seconds']:.2f} s over {e['forwards']} forwards "
+            f"({e['seconds'] * 1e3 / e['forwards']:.2f} ms a forward, the prefill included), "
+            + (f"busy {busy[label][0] / busy[label][1]:.3f} ms a forward (profiled, "
+               f"{busy[label][1]} forwards)" if busy[label][0] else "busy not measured")
+            for label, e in evals.items())
+        RECORDS.append({"reft_full": "commonsense Loreft", "steps_wall_ms": steps["wall_ms"],
+                        "step0_busy_ms": steps["busy_ms"], "peak_gb": steps["peak_gb"],
+                        **{f"{label}_s": e["seconds"] for label, e in evals.items()},
+                        **{f"{label}_forwards": e["forwards"] for label, e in evals.items()},
+                        "busy": busy, "card": card})
+        print(f"[reft-full] {card}: TinyLlama-1.1B widths (22 layers, bf16, remat \"nothing\"),"
+              f" Loreft rank 8 f7+l7 tied on every layer over the Monarch adapters, dropout 0, "
+              f"commonsense, bs 4 x ga 4 x 512: losses {losses}; steps 1-{REFT_FULL_STEPS - 1} "
+              f"wall {[round(w, 2) for w in steps['wall_ms']]} ms (median {wall:.2f}), step 0 "
+              f"device busy {_ms(steps['busy_ms'])} ms (profiled; wall "
+              f"{steps['profiled_wall_ms']:.2f} ms with the profiler on), "
+              f"idle share {idle}, peak {steps['peak_gb']:.2f} GB over step "
+              f"{REFT_FULL_STEPS - 1}; the harness's greedy eval {full['eval_forwards']} "
+              f"forwards; then {evals_line}; results greedy {full['run'].results}, beam-4 "
+              f"{evals['beam-4']['results']}; harness run {full['seconds']:.2f} s wall; "
+              f"launches {dict(launches)}", flush=True)
+        del full, model, evals
+        shutil.rmtree(llama_checkpoint, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        out = os.path.join(OUT_DIR, "reft_glue_full")
+        shutil.rmtree(out, ignore_errors=True)
+        steps = {}
+        torch.cuda.reset_peak_memory_stats()
+        glue = glue_reft_run([*MOREFT_GLUE_FULL_ARGV, "--model", roberta_checkpoint,
+                              f"--output_dir={out}"],
+                             step_context=harness_step_context(steps, "MoReFT GLUE (large)"))
+        expect_only(glue["launches"], {}, "MoReFT GLUE, RoBERTa-large")
+        run = glue["run"]
+        model = run.trainer.model
+        losses = [r["loss"] for r in run.trainer.log_history if "loss" in r]
+        require(len(model.interventions) == 24 and len(losses) == REFT_FULL_STEPS
+                and all(map(math.isfinite, losses)) and run.results
+                and all(map(math.isfinite, run.results.values()))
+                and len(steps.get("wall_ms", [])) == REFT_FULL_STEPS - 1 and "busy_ms" in steps,
+                f"MoReFT GLUE large: {len(model.interventions)} interventions, losses {losses}, "
+                f"results {run.results}, steps {steps}")
+        torch.cuda.synchronize()
+        reset_counts()  # the counted main path starts here
+        t0 = time.perf_counter()
+        again = run.evaluate()
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        expect_only(counts(), {}, "MoReFT GLUE, RoBERTa-large eval")  # the path ends here
+        require(again == run.results, f"MoReFT GLUE large: eval {again}, run {run.results}")
+        wall = statistics.median(steps["wall_ms"])
+        idle = f"{1 - steps['busy_ms'] / wall:.3f}" if steps["busy_ms"] else "not measured"
+        data = run.trainer.train_data
+        RECORDS.append({"reft_full": "MoReFT GLUE cola", "steps_wall_ms": steps["wall_ms"],
+                        "step0_busy_ms": steps["busy_ms"], "peak_gb": steps["peak_gb"],
+                        "eval_s": eval_s, "card": card})
+        print(f"[reft-full] {card}: MoReFT GLUE, RoBERTa-large (24 layers, hidden 1024) from "
+              f"the HF-format directory, float32, MoRe rank 1 f1 on every layer, dropout 0.05, "
+              f"classifier trained, CoLA bs 32 x {data['input_ids'].shape[1]} tokens: losses "
+              f"{losses}; steps 1-{REFT_FULL_STEPS - 1} wall "
+              f"{[round(w, 2) for w in steps['wall_ms']]} ms (median {wall:.2f}), step 0 device "
+              f"busy {_ms(steps['busy_ms'])} ms (profiled; wall "
+              f"{steps['profiled_wall_ms']:.2f} ms with the profiler on), "
+              f"idle share {idle}, peak {steps['peak_gb']:.2f} GB over step "
+              f"{REFT_FULL_STEPS - 1}; results {run.results}; eval {eval_s:.3f} s wall; harness "
+              f"run {glue['seconds']:.2f} s wall; no kernel of ours launched", flush=True)
+        del glue, run, model
+    finally:
+        shutil.rmtree(llama_checkpoint, ignore_errors=True)
+        shutil.rmtree(roberta_checkpoint, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches)
 
 
 def main() -> None:
@@ -4190,7 +4567,7 @@ def main() -> None:
     lap("reasoning harness, smoke")
     reasoning_full = phase_reasoning_full(card)
     print(f"[reasoning] launches of the harness's runs: smoke {reasoning}, full width "
-          f"{reasoning_full}", flush=True)
+          f"{reasoning_full['launches']}", flush=True)
     lap("reasoning harness, full width")
     glue = phase_glue_smoke(card)
     lap("GLUE and AG News harnesses, smoke")
@@ -4204,6 +4581,12 @@ def main() -> None:
     print(f"[baselines] launches of the harnesses' runs: smoke {baselines}, full width "
           f"{baselines_full['launches']}", flush=True)
     lap("baselines and projection, RoBERTa-large width")
+    reft = phase_reft_smoke(card)
+    lap("ReFT, MoReFT GLUE and DAS, smoke")
+    reft_full = phase_reft_full(card, reasoning_full["checkpoint"], glue_full["checkpoint"])
+    print(f"[reft] launches of the harnesses' runs: smoke {reft}, full width {reft_full}",
+          flush=True)
+    lap("ReFT and MoReFT GLUE, full width")
     launches = {"monarch_kernel": serving["launches"]["monarch_kernel"],
                 "monarch_add": serving["launches"]["monarch_add"],
                 "monarch_bwd": training["launches"]["monarch_bwd"],

@@ -6,8 +6,7 @@ A copy of part of ``sparse_matrix_fine_tuning_tpu/data/reasoning.py``
 items from local JSON or the crc32-seeded synthetic generator, with the HPO
 split semantics (``load_data_items``), and the reasoning harness's
 tokenizing (``tokenize_reasoning``, with ``parse_positions`` and
-``get_intervention_locations``).  ``tokenize_glue_reft`` is not copied yet
-(ROADMAP.md queue A item 20).
+``get_intervention_locations``) and MoReFT GLUE's (``tokenize_glue_reft``).
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ from sparse_matrix_fine_tuning_torch.data.templates import (
 )
 
 __all__ = ["IGNORE_INDEX", "TASK_CONFIG", "build_prompt", "get_intervention_locations",
-           "load_data_items", "parse_positions", "tokenize_reasoning"]
+           "load_data_items", "parse_positions", "tokenize_glue_reft", "tokenize_reasoning"]
 
 # Task registry (values mirror reference pyreft/loreft/task_config.py:3-176).
 TASK_CONFIG = {
@@ -311,3 +310,29 @@ def tokenize_reasoning(task: str, items: Sequence[dict], tokenizer,
     if split == "train":
         out["labels"] = labels_arr
     return out
+
+
+def tokenize_glue_reft(task: str, splits: dict, tokenizer, *, position: str = "f1",
+                       num_interventions: int = 1, share_weights: bool = False,
+                       max_seq_length: int = 256):
+    """GLUE splits with each example's intervention locations, for MoReFT
+    classification (reference loreft/dataset.py LoReftGLUEDataset: the
+    sentence pair tokenized, the locations over the example's real length,
+    pad_mode "last").  Returns {split: {input_ids, attention_mask, labels,
+    intervention_locations}}."""
+    from sparse_matrix_fine_tuning_torch.data.glue import tokenize_glue
+
+    base = tokenize_glue(task, splits, tokenizer, max_seq_length)
+    first_n, last_n = parse_positions(position)
+    for data in base.values():
+        lens = data["attention_mask"].sum(-1)
+        locs = [get_intervention_locations(
+            last_position=int(L), first_n=first_n, last_n=last_n,
+            num_interventions=num_interventions, share_weights=share_weights,
+            pad_mode="last") for L in lens]
+        # pad_mode "last" fills with one past the real tokens (the
+        # reference's appended pad slot); clipped into the padded region so
+        # that gathers stay in bounds, the slot masked either way
+        data["intervention_locations"] = np.clip(
+            np.asarray(locs, np.int32), 0, max_seq_length - 1)
+    return base

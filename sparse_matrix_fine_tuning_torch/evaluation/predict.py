@@ -8,8 +8,9 @@ tail is filled by repeating its last row (always a valid example; an
 all-zero attention mask would put NaN into the softmax), and the filled
 rows' outputs are dropped.
 
-``locations`` (ReFT-intervened classification, MoReFT GLUE) is refused:
-ROADMAP.md queue A item 24.
+``locations`` (n, num_interventions, p): ReFT-intervened classification
+(MoReFT GLUE), each batch's rows passed to the model as its
+``intervention_locations``, the tail filled like the inputs.
 """
 
 from __future__ import annotations
@@ -17,32 +18,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sparse_matrix_fine_tuning_torch.models.roberta import INTERVENTIONS_ITEM
-
 
 @torch.no_grad()
 def predict_logits(model: torch.nn.Module, data, batch_size: int = 64,
                    locations=None) -> np.ndarray:
     """The classifier's (n, num_labels) float32 logits over ``data``, a dict
-    with "input_ids" and "attention_mask" (array-likes, (n, L))."""
-    if locations is not None:
-        raise NotImplementedError(f"predict with intervention locations (MoReFT GLUE): "
-                                  f"{INTERVENTIONS_ITEM}")
+    with "input_ids" and "attention_mask" (array-likes, (n, L)); with
+    ``locations``, a ReFT model's intervened forward."""
     model.eval()
     device = next(model.parameters()).device
-    ids = np.asarray(data["input_ids"])
-    mask = np.asarray(data["attention_mask"])
-    n = len(ids)
+    arrays = [np.asarray(data["input_ids"]), np.asarray(data["attention_mask"])]
+    if locations is not None:
+        arrays.append(np.asarray(locations))
+    n = len(arrays[0])
     outs = []
     for s in range(0, n, batch_size):
-        b_ids, b_mask = ids[s:s + batch_size], mask[s:s + batch_size]
-        k = len(b_ids)
+        batch = [a[s:s + batch_size] for a in arrays]
+        k = len(batch[0])
         if k < batch_size:
-            reps = batch_size - k
-            b_ids = np.concatenate([b_ids, np.repeat(b_ids[-1:], reps, 0)])
-            b_mask = np.concatenate([b_mask, np.repeat(b_mask[-1:], reps, 0)])
-        logits = model(torch.from_numpy(b_ids).long().to(device),
-                       torch.from_numpy(b_mask).long().to(device))
+            batch = [np.concatenate([a, np.repeat(a[-1:], batch_size - k, 0)]) for a in batch]
+        ids, mask, *locs = (torch.from_numpy(a).long().to(device) for a in batch)
+        kw = {"intervention_locations": locs[0]} if locs else {}
+        logits = model(ids, mask, **kw)
         outs.append(logits[:k].float().cpu().numpy())
     if outs:
         return np.concatenate(outs)

@@ -8,6 +8,12 @@ compute_metrics.py:21-98), and the exact-match loop (:199-244).  The tail
 batch is filled by repeating its last row, as the JAX package does for its
 static shapes: the batch's row count is what the kernels see, so keeping it
 keeps their plans, and a bfloat16 run's bits, those of a full batch.
+
+A ReFT model (one with ``interventions``) whose eval data carry
+``intervention_locations`` generates with them (the JAX reasoning.py:
+132-161): each row's positions, relative to its unpadded prompt, shifted by
+its left padding, -1 pads kept, the tail batch filled like the prompts, and
+repeated for each beam.
 """
 
 from __future__ import annotations
@@ -142,6 +148,8 @@ def compute_reasoning_metrics(
                            temperature=temperature, top_p=top_p, top_k=top_k,
                            max_new_tokens=max_new_tokens)
     ex_ids = eval_data.get("id", np.arange(len(ids)))
+    all_locs = eval_data.get("intervention_locations")
+    is_reft = hasattr(model, "interventions") and all_locs is not None
     device = next(model.parameters()).device
     correct, total = 0, 0
     generations = []
@@ -156,9 +164,19 @@ def compute_reasoning_metrics(
             reps = batch_size - len(batch_ids)
             batch_ids = np.concatenate([batch_ids, np.repeat(batch_ids[-1:], reps, 0)])
             batch_mask = np.concatenate([batch_mask, np.repeat(batch_mask[-1:], reps, 0)])
+        shifted = None
+        if is_reft:
+            locs = np.asarray(all_locs[s:s + batch_size])
+            if len(locs) < batch_size:
+                locs = np.concatenate([locs, np.repeat(locs[-1:], batch_size - len(locs), 0)])
+            shift = (batch_ids.shape[1] - batch_mask.sum(axis=1) - 1)[:, None, None]
+            shifted = np.where(locs >= 0, locs + shift, -1)
+            if gc.num_beams > 1:
+                shifted = np.repeat(shifted, gc.num_beams, axis=0)
+            shifted = torch.from_numpy(shifted).long().to(device)
         out = generate(model, torch.from_numpy(batch_ids).long().to(device),
                        torch.from_numpy(batch_mask).long().to(device), gc,
-                       generator=generator).cpu().numpy()
+                       generator=generator, intervention_locations=shifted).cpu().numpy()
         for j in range(min(batch_size, n - s)):
             example = data_items[int(ex_ids[s + j])]
             text = tokenizer.decode([t for t in out[j] if t != tokenizer.pad_token_id])

@@ -19,8 +19,9 @@ kernel.  LayerNorm, embeddings, the exact GELU and the loss are those of
 
 ``make_log_bucket_position`` and ``build_relative_position`` are integer
 functions of the JAX model's float32 arithmetic, equal to it bit for bit.
-``layer_hooks`` are refused (ROADMAP.md queue A item 24).  The model is
-built on the card unless ``device="cpu"`` is passed.
+``layer_hooks`` take the block-output and block-input sites of
+``models/roberta.py`` (the JAX model takes block outputs by plain int keys
+only).  The model is built on the card unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from sparse_matrix_fine_tuning_torch.models.roberta import (
     classification_loss,
     embed,
     embedding,
-    refuse_layer_hooks,
+    run_layers,
 )
 from sparse_matrix_fine_tuning_torch.utils.device import resolve_device, seeded_generator
 
@@ -257,7 +258,6 @@ class DebertaV2Model(nn.Module):
         return self.rel_LayerNorm(rel) if self.rel_LayerNorm is not None else rel
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None, layer_hooks=None):
-        refuse_layer_hooks(layer_hooks)
         cfg = self.config
         b, t = input_ids.shape
         if attention_mask is None:
@@ -277,10 +277,8 @@ class DebertaV2Model(nn.Module):
         relative_pos = (build_relative_position(t, t, cfg.position_buckets, cfg.max_relative,
                                                 device=x.device)
                         if cfg.relative_attention else None)
-        rel_embeddings = self.get_rel_embedding()
-        for layer in self.layer:
-            x = layer(x, attn_bias, rel_embeddings, relative_pos)
-        return x
+        return run_layers(self.layer, x, layer_hooks, attn_bias, self.get_rel_embedding(),
+                          relative_pos)
 
 
 class DebertaV2ForSequenceClassification(nn.Module):

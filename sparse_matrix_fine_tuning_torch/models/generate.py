@@ -31,10 +31,16 @@ go to the lower index as ``lax.top_k`` gives them (``torch.topk``'s order
 among ties is unspecified).  Beam-sample picks the 2K candidates by
 Gumbel-top-k over the temperature-scaled scores.
 
+ReFT-intervened generation (the JAX generate.py:140-160): the prefill
+runs with layer hooks, built from ``intervention_locations`` (B,
+num_interventions, p) by the model's ``_hooks`` (a ``ReftModel``), or the
+caller's ``prefill_hooks``; no decode step sees a hook, so the in-place
+cache and the beams' reorder never meet one.  Beam search takes the
+locations already expanded to B * num_beams rows (``np.repeat`` on axis 0,
+as ``evaluation/reasoning.py`` does).
+
 Refused as the JAX package refuses them: beams with a repetition penalty or
 n-gram bans, and beam-sample with top-k or top-p (ROADMAP.md C.13).
-ReFT-intervened generation (``intervention_locations``, ``prefill_hooks``)
-is not ported (ROADMAP.md queue A item 24).
 """
 
 from __future__ import annotations
@@ -154,11 +160,7 @@ def _ban_repeated_ngrams(logits: torch.Tensor, seq: torch.Tensor, n: int) -> tor
     return lf.masked_fill(hits > 0, NEG)
 
 
-def _check_supported(cfg: GenerationConfig, prefill_hooks, intervention_locations) -> None:
-    if prefill_hooks is not None or intervention_locations is not None:
-        raise NotImplementedError(
-            "ReFT-intervened generation (intervention_locations, prefill_hooks): ROADMAP.md "
-            "queue A item 24, 'Interventions'")
+def _check_supported(cfg: GenerationConfig) -> None:
     if cfg.num_beams > 1:
         if cfg.repetition_penalty != 1.0 or cfg.no_repeat_ngram_size > 0:
             raise NotImplementedError(
@@ -171,18 +173,34 @@ def _check_supported(cfg: GenerationConfig, prefill_hooks, intervention_location
                 "top-k/top-p warpers there too): ROADMAP.md C.13")
 
 
+def _prefill_kwargs(model, prefill_hooks, intervention_locations, device) -> dict:
+    """The prefill's ``layer_hooks``: the caller's, or those the model's
+    ``_hooks`` builds from the locations; none without either."""
+    if prefill_hooks is not None:
+        return {"layer_hooks": prefill_hooks}
+    if intervention_locations is None:
+        return {}
+    if not hasattr(model, "_hooks"):
+        raise ValueError("intervention_locations need a model with interventions (ReftModel)")
+    locs = torch.as_tensor(intervention_locations, device=device).long()
+    return {"layer_hooks": model._hooks(locs)}
+
+
 @torch.inference_mode()
 def generate(model, input_ids: torch.Tensor, attention_mask: torch.Tensor,
              gen_config: GenerationConfig, generator: Optional[torch.Generator] = None,
              prefill_hooks=None, intervention_locations=None) -> torch.Tensor:
     """Continuations.  input_ids/attention_mask: (B, T), LEFT-padded, on the
     model's device; ``generator`` feeds sampling (a fresh one seeded 0 when
-    None).  ``num_beams > 1`` goes to ``beam_generate``.  Returns (B, T +
+    None).  ``intervention_locations`` / ``prefill_hooks``: see the module
+    docstring.  ``num_beams > 1`` goes to ``beam_generate``.  Returns (B, T +
     max_new_tokens): the prompt and the generation, padded with
     ``pad_token_id`` after EOS."""
-    _check_supported(gen_config, prefill_hooks, intervention_locations)
+    _check_supported(gen_config)
     if gen_config.num_beams > 1:
-        return beam_generate(model, input_ids, attention_mask, gen_config, generator)
+        return beam_generate(model, input_ids, attention_mask, gen_config, generator,
+                             prefill_hooks=prefill_hooks,
+                             intervention_locations=intervention_locations)
     cfg = model.config
     b, t = input_ids.shape
     n_new = gen_config.max_new_tokens
@@ -194,7 +212,8 @@ def generate(model, input_ids: torch.Tensor, attention_mask: torch.Tensor,
     mask_full = torch.cat([attention_mask, attention_mask.new_zeros(b, n_new)], dim=-1)
     positions = _positions_from_mask(attention_mask)
     logits, caches = model(input_ids, attention_mask=mask_full, positions=positions,
-                           caches=caches, cache_index=0)
+                           caches=caches, cache_index=0,
+                           **_prefill_kwargs(model, prefill_hooks, intervention_locations, dev))
     last = logits[:, -1]
     pos = positions[:, -1] + 1
     out = torch.full((b, n_new), pad, dtype=input_ids.dtype, device=dev)
@@ -231,11 +250,13 @@ def generate(model, input_ids: torch.Tensor, attention_mask: torch.Tensor,
 
 @torch.inference_mode()
 def beam_generate(model, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                  gen_config: GenerationConfig,
-                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                  gen_config: GenerationConfig, generator: Optional[torch.Generator] = None,
+                  prefill_hooks=None, intervention_locations=None) -> torch.Tensor:
     """HF-parity beam search (see the module docstring); ``generator`` is
-    drawn from only for beam-sample.  Returns (B, T + max_new_tokens): the
-    prompt and the best finished hypothesis."""
+    drawn from only for beam-sample.  ``intervention_locations`` and
+    ``prefill_hooks`` are those of the beam-expanded batch (B * num_beams
+    rows).  Returns (B, T + max_new_tokens): the prompt and the best
+    finished hypothesis."""
     cfg = model.config
     gc = gen_config
     K = gc.num_beams
@@ -252,7 +273,8 @@ def beam_generate(model, input_ids: torch.Tensor, attention_mask: torch.Tensor,
     mask_full = torch.cat([mask_k, mask_k.new_zeros(bk, N)], dim=-1)
     positions = _positions_from_mask(mask_k)
     logits, caches = model(ids_k, attention_mask=mask_full, positions=positions,
-                           caches=caches, cache_index=0)
+                           caches=caches, cache_index=0,
+                           **_prefill_kwargs(model, prefill_hooks, intervention_locations, dev))
     last = logits[:, -1]
     pos = positions[:, -1] + 1
 

@@ -86,6 +86,25 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """One ``.safetensors`` file: an 8-byte little-endian header length, the
+    JSON header padded to 8 bytes, then each tensor's bytes in order."""
+    names = {v: k for k, v in _ST_DTYPES.items()}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tofile(f)
+
+
 def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A state dict from an HF checkpoint directory or a single
     ``.safetensors`` / ``.bin`` / ``.pt`` file, on the CPU."""

@@ -43,9 +43,16 @@ keeps the outputs of the products with no batch dimension (``aten.mm`` and
 kernels, attention's batched products, norms and activations).  On the
 card the recompute launches the layer's forward kernels again.
 
-Not ported yet: ``UnitOffsetRMSNorm`` (Gemma) and layer hooks (ROADMAP.md
-queue A: "Interventions", "Other model families"); a config or call asking
-for them is refused.
+Layer hooks (the JAX llama.py:177-227, ReFT's intervention sites):
+``layer_hooks`` maps a plain int (that layer's block output) or ``(layer,
+component)``, the component one of "block_output", "block_input",
+"attention_output" or "mlp_output", to a function of the hidden states.
+The inner components run inside the decoder layer, so under remat inside
+the checkpointed function (recomputed with it, as JAX's ``make_run``);
+block outputs run after it.  Hooks apply on a prefill over a cache as well.
+
+Not ported yet: ``UnitOffsetRMSNorm`` (Gemma, ROADMAP.md queue A item 25,
+"Other model families"); a config asking for it is refused.
 
 The model is built on the card unless ``device="cpu"`` is passed
 (``utils/device.py``).
@@ -267,11 +274,44 @@ class LlamaDecoderLayer(nn.Module):
         self.input_layernorm = _norm(cfg, device)
         self.post_attention_layernorm = _norm(cfg, device)
 
-    def forward(self, x, attn_bias, positions, cache=None):
+    def forward(self, x, attn_bias, positions, cache=None, hooks=None):
+        """hooks: optional {component: fn} of this layer's inner sites,
+        "block_input", "attention_output" and "mlp_output"; "block_output" is
+        the caller's."""
+        hooks = hooks or {}
+        if "block_input" in hooks:
+            x = hooks["block_input"](x)
         attn_out, new_cache = self.self_attn(self.input_layernorm(x), attn_bias, positions, cache)
+        if "attention_output" in hooks:
+            attn_out = hooks["attention_output"](attn_out)
         x = x + attn_out
-        x = x + self.mlp(self.post_attention_layernorm(x))
-        return x, new_cache
+        mlp_out = self.mlp(self.post_attention_layernorm(x))
+        if "mlp_output" in hooks:
+            mlp_out = hooks["mlp_output"](mlp_out)
+        return x + mlp_out, new_cache
+
+
+HOOK_COMPONENTS = ("block_output", "block_input", "attention_output", "mlp_output")
+
+
+def split_hooks(layer_hooks) -> tuple[dict, dict]:
+    """({layer: fn} block outputs, {layer: {component: fn}} inner sites) of
+    ``layer_hooks``, whose keys are a plain int (a block output) or
+    ``(layer, component)`` (the JAX ``_split_hooks``)."""
+    block, inner = {}, {}
+    for key, fn in (layer_hooks or {}).items():
+        if isinstance(key, tuple):
+            i, comp = key
+            if comp not in HOOK_COMPONENTS:
+                raise ValueError(f"unknown Llama hook component {comp!r} "
+                                 f"({' | '.join(HOOK_COMPONENTS)})")
+            if comp == "block_output":
+                block[int(i)] = fn
+            else:
+                inner.setdefault(int(i), {})[comp] = fn
+        else:
+            block[int(key)] = fn
+    return block, inner
 
 
 class LlamaModel(nn.Module):
@@ -316,10 +356,12 @@ class LlamaModel(nn.Module):
         return torch.where(ok, 0.0, -1e9).to(dtype)
 
     def forward(self, input_ids, attention_mask=None, positions=None, caches=None,
-                cache_index=None, segment_ids=None):
+                cache_index=None, segment_ids=None, layer_hooks=None):
         """segment_ids: optional (b, t) ints of a packed batch
-        (``data/alpaca.pack_causal_lm``), training path only."""
+        (``data/alpaca.pack_causal_lm``), training path only.  layer_hooks:
+        see the module docstring."""
         cfg = self.config
+        block_hooks, inner_hooks = split_hooks(layer_hooks)
         b, t = input_ids.shape
         if segment_ids is not None and caches is not None:
             raise ValueError("segment_ids (sequence packing) is for the training path; "
@@ -350,15 +392,18 @@ class LlamaModel(nn.Module):
         context_fn = remat_context(cfg.remat_policy) if remat else None
         new_caches = None if caches is None else []
         for i, layer in enumerate(self.layers):
+            hooks = inner_hooks.get(i)
             if remat:
-                x, _ = checkpoint(layer, x, bias, positions, use_reentrant=False,
+                x, _ = checkpoint(layer, x, bias, positions, None, hooks, use_reentrant=False,
                                   context_fn=context_fn)
             elif caches is None:
-                x, _ = layer(x, bias, positions)
+                x, _ = layer(x, bias, positions, hooks=hooks)
             else:
                 kc, vc = caches[i]
-                x, nc = layer(x, bias, positions, cache=(kc, vc, cache_index))
+                x, nc = layer(x, bias, positions, cache=(kc, vc, cache_index), hooks=hooks)
                 new_caches.append(nc)
+            if i in block_hooks:
+                x = block_hooks[i](x)
         return self.norm(x), new_caches
 
 
@@ -370,7 +415,7 @@ class LlamaForCausalLM(nn.Module):
         super().__init__()
         if cfg.rmsnorm_unit_offset:
             raise NotImplementedError(
-                "UnitOffsetRMSNorm (Gemma): ROADMAP.md queue A, 'Other model families'")
+                "UnitOffsetRMSNorm (Gemma): ROADMAP.md queue A item 25, 'Other model families'")
         if cfg.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"unknown attention_impl {cfg.attention_impl!r} "
                              f"({' | '.join(ATTENTION_IMPLS)})")
@@ -389,9 +434,9 @@ class LlamaForCausalLM(nn.Module):
         return self.lm_head(hidden)
 
     def forward(self, input_ids, attention_mask=None, positions=None, caches=None,
-                cache_index=None, segment_ids=None):
+                cache_index=None, segment_ids=None, layer_hooks=None):
         hidden, new_caches = self.model(input_ids, attention_mask, positions, caches,
-                                        cache_index, segment_ids)
+                                        cache_index, segment_ids, layer_hooks)
         out = self.logits(hidden)
         return (out, new_caches) if caches is not None else out
 

@@ -14,8 +14,10 @@ Pallas kernel (roberta.py:84, :88), and so does this one.
 
 Dropout (hidden and attention, ``nn.Dropout``) follows ``train()``/
 ``eval()``, as ``nnx.Module.train()/eval()`` switch the JAX model's.
-``layer_hooks`` (MoReFT's block-output interventions) are refused: ROADMAP.md
-queue A item 24.
+``layer_hooks`` (MoReFT's intervention sites, the JAX roberta.py:152-170)
+map a plain int or ``(layer, "block_output")`` to a function applied to
+that layer's output, and ``(layer, "block_input")`` to one applied to its
+input; any other component raises ``ValueError``.
 
 The model is built on the card unless ``device="cpu"`` is passed
 (``utils/device.py``).
@@ -34,14 +36,36 @@ from sparse_matrix_fine_tuning_torch.models.config import RobertaConfig
 from sparse_matrix_fine_tuning_torch.models.llama import Linear
 from sparse_matrix_fine_tuning_torch.utils.device import resolve_device, seeded_generator
 
-INTERVENTIONS_ITEM = "ROADMAP.md queue A item 24, 'Interventions'"
+ENCODER_HOOK_COMPONENTS = ("block_output", "block_input")
 
 
-def refuse_layer_hooks(layer_hooks) -> None:
-    """MoReFT's layer hooks are not ported yet."""
-    if layer_hooks:
-        raise NotImplementedError(f"layer_hooks (MoReFT block-output interventions): "
-                                  f"{INTERVENTIONS_ITEM}")
+def split_encoder_hooks(layer_hooks) -> tuple[dict, dict]:
+    """({layer: fn} block inputs, {layer: fn} block outputs) of an encoder's
+    ``layer_hooks``: plain int keys are block outputs."""
+    pre, post = {}, {}
+    for key, fn in (layer_hooks or {}).items():
+        if isinstance(key, tuple):
+            i, comp = key
+            if comp not in ENCODER_HOOK_COMPONENTS:
+                raise ValueError(f"unsupported encoder hook component {comp!r} "
+                                 f"({' | '.join(ENCODER_HOOK_COMPONENTS)})")
+            (post if comp == "block_output" else pre)[int(i)] = fn
+        else:
+            post[int(key)] = fn
+    return pre, post
+
+
+def run_layers(layers, x, layer_hooks, *args):
+    """Each encoder layer over ``x`` (``layer(x, *args)``) with the block
+    input and output hooks around it."""
+    pre, post = split_encoder_hooks(layer_hooks)
+    for i, layer in enumerate(layers):
+        if i in pre:
+            x = pre[i](x)
+        x = layer(x, *args)
+        if i in post:
+            x = post[i](x)
+    return x
 
 
 class LayerNorm(nn.Module):
@@ -224,14 +248,10 @@ class RobertaModel(nn.Module):
                                     for _ in range(cfg.num_hidden_layers)])
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None, layer_hooks=None):
-        refuse_layer_hooks(layer_hooks)
         if attention_mask is None:
             attention_mask = (input_ids != self.config.pad_token_id).long()
         x = self.embeddings(input_ids, token_type_ids)
-        bias = padding_bias(attention_mask, x.dtype)
-        for layer in self.layer:
-            x = layer(x, bias)
-        return x
+        return run_layers(self.layer, x, layer_hooks, padding_bias(attention_mask, x.dtype))
 
 
 class RobertaClassificationHead(nn.Module):

@@ -73,10 +73,9 @@ def model_training_loss(model, input_ids, labels, *, attention_mask=None, positi
     ``model.config.loss_chunk > 0``, otherwise ``model.loss`` over full
     logits.  ``segment_ids`` (a packed batch) goes to the model; the seams
     need no mask here, since each segment's first label is already
-    ``ignore_index``."""
-    if layer_hooks is not None:
-        raise NotImplementedError("layer hooks: ROADMAP.md queue A item 24, 'Interventions'")
-    hidden, _ = model.model(input_ids, attention_mask, positions, segment_ids=segment_ids)
+    ``ignore_index``.  ``layer_hooks`` go to the model (``models/llama.py``)."""
+    hidden, _ = model.model(input_ids, attention_mask, positions, segment_ids=segment_ids,
+                            layer_hooks=layer_hooks)
     chunk = getattr(model.config, "loss_chunk", 0)
     if chunk:
         return chunked_causal_lm_loss(hidden, model.logits, labels, ignore_index=ignore_index,

@@ -39,9 +39,28 @@ to ``-e`` epochs; the final run trains with the best.  On an open-ended task
 before any work, as the JAX harness does: tune on ``tune_math`` or
 ``tune_commonsense``.
 
-Refused with ``NotImplementedError`` before any work, each naming its
-ROADMAP.md queue A item: ``--task glue`` (20, 24), an ``--intervention_type``
-other than Nothing (24) and ``--mesh_fsdp`` (28).
+ReFT (``--intervention_type`` other than Nothing): the Monarch-adapted
+Llama is wrapped in ``interventions.ReftModel`` with one intervention a
+layer of ``-l`` (all, or "3;9;18"), doubled for untied ``f+l`` positions,
+of rank ``-rank`` and with ``--dropout``; each training row and eval prompt
+carries its ``intervention_locations``, the loss is the intervened
+forward's, and the eval generates with the interventions on each prompt.
+The number of interventions comes from the checkpoint's layer count.
+``--pack`` with an intervention exits before any work, as the JAX harness
+does.
+
+``--task glue`` is MoReFT classification (the reference's
+reasoning_scripts/moreft_glue.sh): a RoBERTa (``--model <dir>``, or the
+JAX harness's tiny one) wrapped in ``ReftModel`` (MoReIntervention where
+the type is Nothing; no Monarch surgery: the interventions are the
+adapter), trained on ``-train_dataset`` (cola) with the interventions' and,
+with ``--allow_cls_grad``, the classifier's parameters, then scored on the
+validation split; it writes ``metrics.json`` into
+``<output_dir>/glue_<dataset>``.  Its ``build`` seam is ``(args,
+num_labels, vocab_size) -> ReftModel``.
+
+Refused with ``NotImplementedError`` before any work: ``--mesh_fsdp``
+(ROADMAP.md queue A item 28).
 """
 
 from __future__ import annotations
@@ -57,16 +76,24 @@ import numpy as np
 import torch
 
 from sparse_matrix_fine_tuning_torch.data.alpaca import pack_tokenized
+from sparse_matrix_fine_tuning_torch.data.glue import TASK_NUM_LABELS, load_glue_raw
 from sparse_matrix_fine_tuning_torch.data.reasoning import (
     TASK_CONFIG,
     load_data_items,
+    tokenize_glue_reft,
     tokenize_reasoning,
 )
 from sparse_matrix_fine_tuning_torch.data.tokenizer import SimpleTokenizer, get_tokenizer
+from sparse_matrix_fine_tuning_torch.evaluation.predict import predict_classes
 from sparse_matrix_fine_tuning_torch.evaluation.reasoning import compute_reasoning_metrics
-from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig
-from sparse_matrix_fine_tuning_torch.models.hf_convert import from_pretrained_causal_lm
+from sparse_matrix_fine_tuning_torch.interventions.reft import ReftConfig, get_reft_model
+from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig, RobertaConfig
+from sparse_matrix_fine_tuning_torch.models.hf_convert import (
+    from_pretrained_causal_lm,
+    from_pretrained_roberta,
+)
 from sparse_matrix_fine_tuning_torch.models.llama import LlamaForCausalLM
+from sparse_matrix_fine_tuning_torch.models.roberta import RobertaForSequenceClassification
 from sparse_matrix_fine_tuning_torch.peft.surgery import init_monarch, param_stats
 from sparse_matrix_fine_tuning_torch.training.hpo import (
     choice,
@@ -83,6 +110,7 @@ from sparse_matrix_fine_tuning_torch.utils.config import (
 )
 from sparse_matrix_fine_tuning_torch.utils.device import harness_device, trial_devices
 from sparse_matrix_fine_tuning_torch.utils.logging import RunLogger, get_run_group, watch_layers
+from sparse_matrix_fine_tuning_torch.utils.metrics import GLUE_TARGET_METRIC, glue_compute
 
 SMOKE_VOCAB = 1024
 HASH_VOCAB = 32000  # the hash tokenizer's vocabulary without --smoke
@@ -117,28 +145,33 @@ def parse_args(argv=None):
     p.add_argument("--dropout", default=None, type=float)
     p.add_argument("--greedy_decoding", default=True, type=eval)
     p.add_argument("--intervention_type", default="Nothing",
-                   help="ReFT intervention; only Nothing (ROADMAP.md queue A item 24)")
+                   help="ReFT intervention: Nothing | LoreftIntervention | NoreftIntervention | "
+                        "ConsreftIntervention | MoReIntervention")
     p.add_argument("-l", "--layers", default="all",
-                   help="intervention layers (with an intervention only)")
+                   help="intervention layers: 'all' or semicolon ints, e.g. 3;9;18")
     p.add_argument("-rank", "--rank", default=4, type=int,
-                   help="intervention low-rank dimension (with an intervention only)")
+                   help="intervention low-rank dimension")
     p.add_argument("-sw", "--share_weights", nargs="?", const=True, default=False, type=eval,
-                   help="tie the first-n and last-n position interventions")
+                   help="tie the first-n and last-n position interventions (False doubles "
+                        "the intervention count for f+l)")
     p.add_argument("-train_dataset", "--train_dataset", default=None,
                    help="override the task's default train dataset")
     p.add_argument("-eval_dataset", "--eval_dataset", default=None,
                    help="restrict eval to one dataset (default: all of the task's)")
     p.add_argument("-test_split", "--test_split", default="test")
     p.add_argument("-allow_cls_grad", "--allow_cls_grad", action="store_true",
-                   help="glue task only (refused: ROADMAP.md queue A items 20, 24)")
-    p.add_argument("--metric_for_best_model", default=None, help="glue task only")
+                   help="glue task: the classification head trains too")
+    p.add_argument("--metric_for_best_model", default=None,
+                   help="glue task: the reported target metric (default: the task's GLUE "
+                        "metric)")
     p.add_argument("-t", "--temperature", default=None, type=float)
     p.add_argument("-top_p", "--top_p", default=None, type=float)
     p.add_argument("-top_k", "--top_k", default=None, type=int)
     p.add_argument("--max_steps", default=-1, type=int)
     p.add_argument("--all_linear", default=True, type=eval)
     p.add_argument("--pack", default=False, type=eval,
-                   help="sequence packing of training rows (segment-masked attention)")
+                   help="sequence packing of training rows (segment-masked attention; not "
+                        "with an intervention)")
     p.add_argument("--do_tune", default=False, type=eval,
                    help="ASHA search of lr, blk_r and nblocks on eval/average")
     p.add_argument("--parallel_trials", default=1, type=int)
@@ -167,19 +200,20 @@ def parse_args(argv=None):
 OPEN_ENDED = ("alpaca", "instruct", "ultrafeedback")
 
 
+def uses_reft(args) -> bool:
+    return args.intervention_type not in NO_INTERVENTION
+
+
 def check_supported(args) -> None:
-    """Raise ``NotImplementedError`` for an option the port has not yet,
-    naming its ROADMAP.md queue A item; exit, as the JAX harness does, for
-    ``--do_tune`` on an open-ended task."""
-    refused = []
-    if args.task == "glue":
-        refused.append("--task glue (MoReFT classification): items 20 and 24")
-    if args.intervention_type not in NO_INTERVENTION:
-        refused.append(f"--intervention_type {args.intervention_type} (ReFT): item 24")
+    """Raise ``NotImplementedError`` for ``--mesh_fsdp`` (ROADMAP.md queue A
+    item 28); exit, as the JAX harness does, for ``--pack`` with an
+    intervention and ``--do_tune`` on an open-ended task."""
     if args.mesh_fsdp:
-        refused.append("--mesh_fsdp (a sharded base): item 28")
-    if refused:
-        raise NotImplementedError("run_reasoning: " + "; ".join(refused) + " (ROADMAP.md queue A)")
+        raise NotImplementedError(
+            "run_reasoning: --mesh_fsdp (a sharded base): item 28 (ROADMAP.md queue A)")
+    if args.pack and uses_reft(args) and args.task != "glue":
+        raise SystemExit("--pack is incompatible with ReFT interventions (position "
+                         "bookkeeping assumes unpacked rows); use --intervention_type Nothing")
     if args.do_tune and args.task.replace("tune_", "") in OPEN_ENDED:
         raise SystemExit(
             f"--do_tune is meaningless for open-ended task {args.task!r}: it "
@@ -194,6 +228,40 @@ def local_weights(args) -> bool:
     return not args.smoke and os.path.isdir(args.model)
 
 
+def model_layers(args) -> int:
+    """The layer count of the model ``build_model`` gives: the checkpoint's,
+    or the tiny model's 2."""
+    if local_weights(args):
+        with open(os.path.join(args.model, "config.json")) as f:
+            return json.load(f)["num_hidden_layers"]
+    return 2
+
+
+def build_reft_reps(args, n_model_layers: int, intervention_type: str) -> tuple[list, list]:
+    """(layers, representations) of the ReFT wrapper: ``-l``'s layers,
+    doubled for untied ``f+l`` positions (reference loreft/train.py:304-305;
+    the locations list the first-n half then the last-n half), each with
+    ``-rank`` and the dropout (reference train.py:147, 166)."""
+    layers = (list(range(n_model_layers)) if args.layers == "all"
+              else [int(x) for x in str(args.layers).split(";")])
+    if "+" in args.position and not args.share_weights:
+        layers = layers + layers
+    reps = [{"layer": layer, "component": "block_output", "intervention": intervention_type,
+             "low_rank_dimension": args.rank, "dropout": args.dropout or 0.0}
+            for layer in layers]
+    return layers, reps
+
+
+def wrap_reft(model, args, intervention_type: str):
+    """``model`` in a ``ReftModel`` of ``build_reft_reps``, the
+    interventions drawn on the CPU from a generator seeded ``seed + 2``."""
+    layers, reps = build_reft_reps(args, model.config.num_hidden_layers, intervention_type)
+    model = get_reft_model(model, ReftConfig(representations=reps),
+                           generator=torch.Generator().manual_seed(args.seed + 2))
+    print(f"[reasoning] ReFT {intervention_type} on layers {layers}")
+    return model
+
+
 def build_model(args, peft_config: dict):
     """The checkpoint of ``--model <dir>`` in bfloat16 on the harness's
     device, remat as ``--gradient_checkpointing`` and ``--remat_policy``
@@ -201,7 +269,8 @@ def build_model(args, peft_config: dict):
     generator seeded ``seed`` (with ``SMOKE_VOCAB`` ids under ``--smoke``,
     else ``HASH_VOCAB``).  Monarch adapters go on the peft config's targets
     (the attention projections with ``--all_linear=False``), their factors
-    from a generator seeded ``seed + 1`` on the model's device."""
+    from a generator seeded ``seed + 1`` on the model's device; with an
+    intervention, wrapped by ``wrap_reft``."""
     device = harness_device(args)
     if local_weights(args):
         model = from_pretrained_causal_lm(args.model, dtype="bfloat16", device=device,
@@ -224,6 +293,35 @@ def build_model(args, peft_config: dict):
     print(f"[reasoning] adapted {len(adapted)} layers with Monarch")
     if args.loss_chunk:
         model.config = dataclasses.replace(model.config, loss_chunk=args.loss_chunk)
+    if uses_reft(args):
+        model = wrap_reft(model, args, args.intervention_type)
+    param_stats(model)
+    return model.to(device)
+
+
+def glue_intervention_type(args) -> str:
+    """MoReFT GLUE's intervention: MoReIntervention where the type is
+    Nothing (the interventions carry the adaptation)."""
+    return "MoReIntervention" if not uses_reft(args) else args.intervention_type
+
+
+def build_glue_model(args, num_labels: int, vocab_size: int):
+    """MoReFT GLUE's model on the harness's device: the RoBERTa of
+    ``--model <dir>`` (float32), or the JAX harness's tiny one with the
+    tokenizer's vocabulary, drawn on the CPU from a generator seeded
+    ``seed``; wrapped by ``wrap_reft``."""
+    device = harness_device(args)
+    if local_weights(args):
+        model = from_pretrained_roberta(args.model, num_labels=num_labels, device=device,
+                                        generator=torch.Generator(device=device)
+                                        .manual_seed(args.seed))
+    else:
+        if not args.smoke:
+            print(f"[moreft-glue] no local weights at {args.model!r}; random tiny init")
+        model = RobertaForSequenceClassification(
+            RobertaConfig.tiny(num_labels=num_labels, vocab_size=vocab_size), device="cpu",
+            generator=torch.Generator().manual_seed(args.seed))
+    model = wrap_reft(model, args, glue_intervention_type(args))
     param_stats(model)
     return model.to(device)
 
@@ -243,6 +341,62 @@ class ReasoningRun:
     search: Optional[dict] = None
 
 
+def moreft_glue_run(args, *, build: Optional[Callable] = None,
+                    step_context: Optional[Callable] = None) -> ReasoningRun:
+    """MoReFT GLUE (the JAX ``moreft_glue_main``): see the module docstring.
+    Its ``evaluate()`` predicts the validation split again and returns its
+    metrics."""
+    device = harness_device(args)
+    task = args.train_dataset or "cola"
+    out_dir = os.path.join(args.output_dir, f"glue_{task}")
+    num_labels = TASK_NUM_LABELS[task]
+    tokenizer = SimpleTokenizer(vocab_size=SMOKE_VOCAB) if args.smoke \
+        else get_tokenizer(args.model, vocab_size=50265)
+    model = (build or build_glue_model)(args, num_labels, tokenizer.vocab_size)
+    data = tokenize_glue_reft(task, load_glue_raw(task, smoke=args.smoke), tokenizer,
+                              position=args.position,
+                              num_interventions=len(model.interventions),
+                              share_weights=args.share_weights, max_seq_length=args.max_length)
+    # MNLI names its splits validation_matched/mismatched
+    eval_split = "validation_matched" if task == "mnli" else "validation"
+    val = data.get(eval_split if eval_split in data else args.test_split)
+
+    def cls_loss(model, batch, train):
+        logits = model(batch["input_ids"], attention_mask=batch["attention_mask"],
+                       intervention_locations=batch["intervention_locations"])
+        return model.loss(logits, batch["labels"], weights=batch.get("_valid"))
+
+    ta = TrainingArgs(
+        output_dir=out_dir, learning_rate=args.lr, num_train_epochs=args.epochs,
+        per_device_train_batch_size=args.batch_size,
+        per_device_eval_batch_size=args.eval_batch_size,
+        gradient_accumulation_steps=args.gradient_accumulation_steps,
+        weight_decay=args.weight_decay, warmup_ratio=args.warmup_ratio,
+        lr_scheduler_type=args.schedule, logging_steps=args.logging_steps,
+        max_steps=args.max_steps, log_param_steps=0, seed=args.seed)
+    trainer = Trainer(model, ta, train_data=data["train"], loss_fn=cls_loss,
+                      extra_trainable_paths=("classifier",) if args.allow_cls_grad else (),
+                      device=device, step_context=step_context)
+    trainer.train()
+
+    def evaluate(**_) -> dict:
+        if val is None:
+            return {}
+        preds = predict_classes(trainer.model, val, batch_size=args.eval_batch_size,
+                                locations=val["intervention_locations"])
+        return glue_compute(task, preds, np.asarray(val["labels"]))
+
+    metrics = evaluate()
+    if metrics:
+        target = args.metric_for_best_model or GLUE_TARGET_METRIC[task]
+        print(json.dumps({f"eval_{k}": round(float(v), 5) for k, v in metrics.items()}
+                         | {"target": target}))
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "metrics.json"), "w") as f:
+        json.dump(metrics, f)
+    return ReasoningRun(args, metrics, trainer, tokenizer, evaluate)
+
+
 def run(argv=None, *, build: Optional[Callable] = None,
         step_context: Optional[Callable] = None) -> ReasoningRun:
     args, overrides = parse_args(argv)
@@ -254,6 +408,8 @@ def run(argv=None, *, build: Optional[Callable] = None,
     extra = override_config([peft_config, args], overrides)
     if extra:
         print(f"[reasoning] unmatched overrides: {extra}")
+    if args.task == "glue":
+        return moreft_glue_run(args, build=build, step_context=step_context)
 
     task = args.task
     tcfg = TASK_CONFIG[task]
@@ -261,17 +417,22 @@ def run(argv=None, *, build: Optional[Callable] = None,
     tokenizer = SimpleTokenizer(vocab_size=SMOKE_VOCAB) if args.smoke \
         else get_tokenizer(args.model, vocab_size=HASH_VOCAB)
 
-    # one intervention's locations, as the JAX harness builds them without
-    # one; no caller reads them
+    # interventions an example: one a layer, doubled for untied f+l
+    # positions; one (unread) without an intervention, as the JAX harness
+    use_reft = uses_reft(args)
+    n_locs = model_layers(args) if args.layers == "all" else len(str(args.layers).split(";"))
+    if "+" in args.position and not args.share_weights:
+        n_locs *= 2
     tok_kw = dict(position=args.position, share_weights=args.share_weights,
-                  num_interventions=1)
+                  num_interventions=n_locs if use_reft else 1)
     train_items = load_data_items(
         task, args.train_dataset or tcfg["train_datasets"][0], args.data_dir, split="train",
         max_n_example=args.max_n_train_example, seed=args.seed, smoke=args.smoke)
     train_data = tokenize_reasoning(task, train_items, tokenizer, max_length=args.max_length,
                                     split="train", **tok_kw)
-    train_data = {k: v for k, v in train_data.items()
-                  if k in ("input_ids", "attention_mask", "labels")}
+    keep = ("input_ids", "attention_mask", "labels") + (
+        ("intervention_locations",) if use_reft else ())
+    train_data = {k: v for k, v in train_data.items() if k in keep}
     if args.pack:
         n_before = len(train_data["input_ids"])
         train_data, eff = pack_tokenized(train_data, args.max_length)
@@ -279,6 +440,11 @@ def run(argv=None, *, build: Optional[Callable] = None,
               f"{len(train_data['input_ids'])} rows ({eff:.0%} token efficiency)")
 
     def lm_loss(model, batch, train):
+        if "intervention_locations" in batch:
+            # the intervened forward and the CE over its full logits
+            logits = model(batch["input_ids"], attention_mask=batch["attention_mask"],
+                           intervention_locations=batch["intervention_locations"])
+            return model.loss(logits, batch["labels"], weights=batch.get("_valid"))
         # the fused forward and CE; chunked when --loss_chunk > 0
         return model.training_loss(
             batch["input_ids"], batch["labels"], attention_mask=batch["attention_mask"],

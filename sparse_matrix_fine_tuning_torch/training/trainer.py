@@ -6,7 +6,8 @@ What it keeps of the JAX trainer:
   * ``TrainingArgs`` with the same fields and defaults;
   * the same batch order for a seed (``_batches``: numpy's shuffle, the
     ragged tail padded with copies of the last row and masked by
-    ``_valid``, optional length grouping);
+    ``_valid``, optional length grouping, whose trimming of the time axis
+    leaves a ReFT batch's ``intervention_locations`` (b, n, p) alone);
   * gradient accumulation: each micro-batch's loss is backpropagated, the
     summed gradients divided by the number of micro-batches, and the
     merged-training operands refreshed once per optimizer step, before
@@ -14,7 +15,9 @@ What it keeps of the JAX trainer:
   * the 3-group AdamW with its schedule and global-norm clipping
     (``training/optim.py``);
   * only the trainable filter's parameters train (``peft/surgery.py``):
-    adapters and the extra paths, the LM head by default;
+    adapters (a ``ReftModel``'s interventions among them) and the extra
+    paths, the LM head by default (MoReFT GLUE passes the classifier or
+    none);
   * logging (every ``log_param_steps``, ``param_stats`` and, to the
     logger, ``utils/logging.watch_layers``), ``evaluate``, trainable-only
     checkpoints, ``load_checkpoint`` and ``load_best_model_at_end``;

@@ -17,6 +17,10 @@ differ:
   its ``base_module/kernel`` -> ``base_module.weight``, transposed
   ``BOFTLinear`` ``boft_R``, ``boft_s``, ``dense`` (out, in), ``bias``
   ``MonarchFactor`` ``weight``, ``bias``  -> as they are
+  a ``ReftModel``'s interventions (``interventions.<i>.rotate``, ``w``, ...,
+  their temperatures, PCA bases and noise as persistent buffers) and the
+  toy models (``models/toy.py``)  -> the same names and layouts; their
+  linears and embeddings as above
 
 A quantized base (``quant/``) loads into a port model quantized the same
 way first (``quantize_frozen_base`` with the same bits and group,
@@ -74,7 +78,7 @@ def load_jax_state(model: nn.Module, flat: Mapping[tuple, np.ndarray]) -> None:
         param = params[name]
         if tuple(arr.shape) != tuple(param.shape):
             raise ValueError(f"{path}: shape {arr.shape} does not fit {name} {tuple(param.shape)}")
-        value = torch.from_numpy(np.ascontiguousarray(arr))
+        value = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))  # 0-d stays 0-d
         if not (value.is_floating_point() and param.is_floating_point()) \
                 and value.dtype != param.dtype:
             raise ValueError(f"{path}: {value.dtype} codes do not fit {name} ({param.dtype}); "
@@ -147,7 +151,8 @@ def read_jax_trainable(path: str, model: nn.Module, *, strict: bool = True) -> l
             if tuple(arr.shape) != tuple(param.shape):
                 raise ValueError(f"{path}: {key!r} has shape {arr.shape}, "
                                  f"{name} {tuple(param.shape)}")
-            param.copy_(torch.from_numpy(np.ascontiguousarray(arr)).to(param.dtype))
+            value = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
+            param.copy_(value.to(param.dtype))
             loaded.append(name)
     if strict:
         missing = sorted(n for n, p in params.items() if p.requires_grad and n not in loaded)

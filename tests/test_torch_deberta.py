@@ -80,10 +80,12 @@ def test_torch_deberta_config_matches_jax():
 
 
 def test_torch_deberta_refuses_layer_hooks():
-    tm = tdeb.DebertaV2ForSequenceClassification(tdeb.DebertaV2Config.tiny(), device="cpu")
-    ids, mask = padded_batch(128, pad=0)
-    with pytest.raises(NotImplementedError, match="item 24"):
-        tm(to_torch(ids, torch.long), to_torch(mask, torch.long), layer_hooks={1: lambda h: h})
+    """``layer_hooks`` at block outputs and block inputs, under a
+    ReftModel's interventions, against the JAX model
+    (``test_torch_llama_hooks.check_encoder_hooks``)."""
+    from test_torch_llama_hooks import check_encoder_hooks
+
+    check_encoder_hooks("deberta")
 
 
 @pytest.mark.parametrize("family", ["roberta", "deberta"])

@@ -23,14 +23,16 @@ VOCAB = 256  # the pair's
 N_ITEMS, BATCH = 5, 3
 
 
-def metrics(package, model, task: str, **kw):
+def metrics(package, model, task: str, tokenize=None, **kw):
     """(generations, metrics) of ``package``'s evaluation with its own
-    tokenizer and tokenizing, as its harness runs them."""
+    tokenizer and tokenizing (``tokenize``: more of its keywords), as its
+    harness runs them."""
     data, ev, tok = ((jreasoning, jeval, JaxTokenizer(VOCAB)) if package == "jax"
                      else (treasoning, teval, SimpleTokenizer(VOCAB)))
     items = data.load_data_items(task, "MultiArith", "unused", smoke=True, smoke_n=N_ITEMS,
                                  seed=1)
-    eval_data = data.tokenize_reasoning(task, items, tok, max_length=64, split="test")
+    eval_data = data.tokenize_reasoning(task, items, tok, max_length=64, split="test",
+                                        **(tokenize or {}))
     return ev.compute_reasoning_metrics(task, "MultiArith", model, tok, eval_data, items,
                                         batch_size=BATCH, **kw)
 

@@ -153,11 +153,32 @@ def test_torch_generate_refusals_match_jax(pair, cfg):
                  GenerationConfig(**cfg))
 
 
-@pytest.mark.parametrize("kw", [{"intervention_locations": np.zeros((4, 1, 2), np.int32)},
-                                {"prefill_hooks": {0: lambda h: h}}])
+@pytest.mark.parametrize("kw", [{"intervention_locations": [[[1, 11]], [[6, 11]], [[8, -1]],
+                                                          [[11, -1]]]},
+                                {"prefill_hooks": {0: lambda h: h * 1.5}}])
 def test_torch_generate_refuses_interventions(pair, kw):
-    _, tm = pair
+    """Intervened greedy generation against the JAX package's, equal
+    tokens: a ReftModel's locations (Loreft at layer 1's block output,
+    bridged), or a caller's prefill hook (layer 0's block output scaled)."""
+    from test_torch_reft import state_of
+
+    from sparse_matrix_fine_tuning_torch.interventions import reft as treft
+    from sparse_matrix_fine_tuning_tpu.interventions import reft as jreft
+
+    jm, tm = pair
     ids, mask = prompts()
-    with pytest.raises(NotImplementedError, match="item 24"):
-        generate(tm, to_torch(ids, torch.long), to_torch(mask, torch.long),
-                 GenerationConfig(), **kw)
+    if "intervention_locations" in kw:
+        reps = [{"layer": 1, "intervention": "LoreftIntervention"}]
+        jm = jreft.get_reft_model(jm, jreft.ReftConfig(representations=reps), rngs=nnx.Rngs(2))
+        for _, v in nnx.to_flat_state(nnx.state(jm.interventions, nnx.Param)):
+            v.set_value(v[...] + 0.5)
+        tm = treft.get_reft_model(tm, treft.ReftConfig(representations=reps)).eval()
+        load_jax_state(tm, state_of(jm))
+        kw = {"intervention_locations": np.asarray(kw["intervention_locations"], np.int32)}
+    want = np.asarray(jgen.generate(jm, jnp.array(ids), jnp.array(mask),
+                                    jgen.GenerationConfig(max_new_tokens=NEW), **kw))
+    tkw = {k: (to_torch(v, torch.long) if k == "intervention_locations" else v)
+           for k, v in kw.items()}
+    got = generate(tm, to_torch(ids, torch.long), to_torch(mask, torch.long),
+                   GenerationConfig(max_new_tokens=NEW), **tkw)
+    np.testing.assert_array_equal(got.numpy(), want)

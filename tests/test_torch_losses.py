@@ -158,12 +158,20 @@ def test_torch_llama_loss_matches_jax(pair):
     np.testing.assert_allclose(float(got), float(want), **F32)
 
 
-@pytest.mark.parametrize("kw", [{"layer_hooks": {0: lambda hidden: hidden}},
+@pytest.mark.parametrize("kw", [{"layer_hooks": {0: lambda hidden: hidden * 1.25,
+                                                 (1, "mlp_output"): lambda h: h - 0.1}},
                                 {"layer_hooks": {}}])
 def test_torch_training_loss_refuses_unported_options(pair, kw):
-    """Layer hooks (ROADMAP item 24), with a hook and with none; packing's
-    ``segment_ids`` are ported (tests/test_torch_packing.py)."""
-    _, tm = pair
-    ids, _, labels, _ = _lm_batch()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.training_loss(to_torch(ids, torch.long), to_torch(labels, torch.long), **kw)
+    """``training_loss`` with layer hooks (a block output and an MLP
+    output), and with none, against the JAX model's; packing's
+    ``segment_ids`` are in tests/test_torch_packing.py."""
+    jm, tm = pair
+    ids, mask, labels, _ = _lm_batch()
+    want = jm.training_loss(jnp.array(ids), jnp.array(labels), attention_mask=jnp.array(mask),
+                            **kw)
+    got = tm.training_loss(to_torch(ids, torch.long), to_torch(labels, torch.long),
+                           attention_mask=to_torch(mask, torch.long), **kw)
+    np.testing.assert_allclose(float(got), float(want), **MODEL)
+    if kw["layer_hooks"]:
+        assert abs(float(want) - float(jm.training_loss(
+            jnp.array(ids), jnp.array(labels), attention_mask=jnp.array(mask)))) > 1e-3

@@ -61,6 +61,14 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.models.hf_convert",
     "sparse_matrix_fine_tuning_torch.peft.surgery",
     "sparse_matrix_fine_tuning_torch.peft.boft",
+    "sparse_matrix_fine_tuning_torch.peft.import_reference",
+    "sparse_matrix_fine_tuning_torch.interventions",
+    "sparse_matrix_fine_tuning_torch.interventions.reft",
+    "sparse_matrix_fine_tuning_torch.interventions.pyvene_io",
+    "sparse_matrix_fine_tuning_torch.interventions.das",
+    "sparse_matrix_fine_tuning_torch.interventions.causal_model",
+    "sparse_matrix_fine_tuning_torch.models.toy",
+    "sparse_matrix_fine_tuning_torch.scripts.das_demo",
     "sparse_matrix_fine_tuning_torch.quant",
     "sparse_matrix_fine_tuning_torch.utils.testing",
     "sparse_matrix_fine_tuning_torch.utils.jax_bridge",

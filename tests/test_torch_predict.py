@@ -2,8 +2,8 @@
 package's on a tiny RoBERTa with adapters, weights carried by
 ``utils/jax_bridge.load_jax_state``: ragged tails filled by repeating the
 last row (their outputs dropped), batch sizes above and below the split,
-an empty split, the regression head's raw scores, and the refusal of
-intervention locations (item 24).  Logits within
+an empty split, the regression head's raw scores, and intervened
+classification (a ReftModel with its locations, MoReFT GLUE).  Logits within
 ``TOLERANCES["f32_logits"]``, classes equal.
 """
 
@@ -14,6 +14,7 @@ import torch
 from sparse_matrix_fine_tuning_torch.evaluation import predict_classes, predict_logits
 from sparse_matrix_fine_tuning_torch.models.config import RobertaConfig
 from sparse_matrix_fine_tuning_torch.models.roberta import RobertaForSequenceClassification
+from sparse_matrix_fine_tuning_torch.utils.jax_bridge import load_jax_state
 from sparse_matrix_fine_tuning_torch.utils.testing import TOLERANCES, to_numpy
 from sparse_matrix_fine_tuning_tpu import models as jmodels
 from sparse_matrix_fine_tuning_tpu.evaluation import predict as jpredict
@@ -67,7 +68,25 @@ def test_torch_predict_empty_split_keeps_the_width(models):
 
 
 def test_torch_predict_refuses_intervention_locations(models):
-    _, tm = models
-    data = split(4)
-    with pytest.raises(NotImplementedError, match="item 24"):
-        predict_logits(tm, data, locations=np.zeros((4, 1, 2), np.int32))
+    """``locations``: a ReftModel's intervened forward (MoRe at both block
+    outputs, bridged), its rows filled like the inputs, against the JAX
+    package's."""
+    from flax import nnx
+    from test_torch_reft import state_of
+
+    from sparse_matrix_fine_tuning_torch.interventions import reft as treft
+    from sparse_matrix_fine_tuning_tpu.interventions import reft as jreft
+
+    jm, tm = models
+    reps = [{"layer": layer, "intervention": "MoReIntervention"} for layer in (0, 1)]
+    jr = jreft.get_reft_model(jm, jreft.ReftConfig(representations=reps), rngs=nnx.Rngs(3))
+    for _, v in nnx.to_flat_state(nnx.state(jr.interventions, nnx.Param)):
+        v.set_value(v[...] * 3.0)
+    tr = treft.get_reft_model(tm, treft.ReftConfig(representations=reps))
+    load_jax_state(tr, state_of(jr))
+    data = split(11)
+    locs = np.random.default_rng(2).integers(-1, 2, (11, 2, 3)).astype(np.int32)
+    want = jpredict.predict_logits(jr, data, 4, locations=locs)
+    got = predict_logits(tr, data, 4, locations=locs)
+    np.testing.assert_allclose(got, want, **LOGITS)
+    assert np.abs(want - jpredict.predict_logits(jm, data, 4)).max() > 1e-4

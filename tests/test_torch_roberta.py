@@ -166,11 +166,12 @@ def test_torch_roberta_large_preset_matches_jax():
 
 
 def test_torch_roberta_refuses_layer_hooks():
-    tm = RobertaForSequenceClassification(RobertaConfig.tiny(), device="cpu")
-    ids, mask = padded_batch(128)
-    with pytest.raises(NotImplementedError, match="item 24"):
-        tm(to_torch(ids, torch.long), to_torch(mask, torch.long),
-           layer_hooks={0: lambda h: h})
+    """``layer_hooks`` at block outputs and block inputs, under a
+    ReftModel's interventions, against the JAX model
+    (``test_torch_llama_hooks.check_encoder_hooks``)."""
+    from test_torch_llama_hooks import check_encoder_hooks
+
+    check_encoder_hooks("roberta")
 
 
 def test_torch_roberta_dropout_follows_train_mode():

@@ -2,8 +2,8 @@
 checkpoint and its refusals, on the CPU: ``--model <tiny HF dir>`` (written
 by ``transformers``) goes through ``models/hf_convert`` in bfloat16 with
 ``--gradient_checkpointing`` and ``--remat_policy`` in the model's config,
-its weights unchanged under the adapters; each refused option raises
-before any work, naming its ROADMAP.md queue A item."""
+its weights unchanged under the adapters; each refused option stops
+before any work."""
 
 import pytest
 import torch
@@ -42,18 +42,19 @@ def test_torch_reasoning_loads_a_local_checkpoint(tmp_path, flags, remat, policy
     assert set(results) == {"eval/boolq", "eval/average"}
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["-task", "glue"], "items 20 and 24"),
-    (["--intervention_type", "LoreftIntervention"], "item 24"),
-    (["--mesh_fsdp=4"], "item 28"),
+@pytest.mark.parametrize("extra,raised,match", [
+    (["--mesh_fsdp=4"], NotImplementedError, "item 28"),
+    (["--pack=True", "--intervention_type", "LoreftIntervention"], SystemExit,
+     "incompatible with ReFT"),
 ])
-def test_torch_reasoning_refusals(tmp_path, extra, item):
-    """Each refused option raises before any work: nothing is built and the
-    output directory is never made."""
+def test_torch_reasoning_refusals(tmp_path, extra, raised, match):
+    """Each refused option stops before any work: nothing is built and the
+    output directory is never made (``--pack`` with an intervention exits
+    as the JAX harness does)."""
     def never(args, peft_config):
         raise AssertionError("built a model")
 
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(raised, match=match):
         port.main(["--smoke=True", "--platform=cpu", f"--output_dir={out}", *extra], build=never)
     assert not out.exists()
