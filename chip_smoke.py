@@ -160,15 +160,29 @@ hand-written CUDA kernels, and checks them:
      over 19's TinyLlama-1.1B-width directory and moreft_glue.sh's recipe
      over 20's RoBERTa-large directory (both deleted after), 3 steps each:
      launches exact, step wall, busy, idle share, peak, decode wall and
-     busy a forward.
+     busy a forward;
+ 24. the other decoder families: tiny GPT-2, GPT-Neo, GPT-NeoX and
+     Backpack-GPT-2 HF-format directories through the Alpaca harness and a
+     tiny Gemma through the reasoning harness, float32, on the card against
+     the CPU (losses, eval_loss and MMLU logits within 1e-4, predictions,
+     generations and eval results equal, launches exact: K2 and K3), and a
+     LoReFT at Backpack's sense site (loss and gradients within 1e-4);
+     then GPT-2-medium and Pythia-1B through the Alpaca harness (every
+     linear adapted, Pythia's ``embed_out`` too) and Gemma-2B through the
+     reasoning harness's commonsense recipe, full width and depth, bf16,
+     from HF-format directories written here (deleted after), 2 steps and
+     a greedy eval each: launches exact (K1, K3), step wall, busy, idle
+     share, peak; K1 and K3 timed at every adapted shape, K3's plan
+     printed (its generic kernel timed where a shape takes it).
 
 Serving (5, 6, 10 and 11) runs before the experiments (13-16).  Every
 profile is taken in ``benchlib.device_profile``'s window, padded at both
 ends so that it keeps every kernel's record (ROADMAP C.10).  Each main path (6, 8 off, 8 on, 8
 with splash, each remat run and step of 8, each configuration of 11, each step of 12, the bench of 13,
 each script of 14, 15 and 16, the attention bench of 17, each harness run
-of 18, 19, 20, 21, 22 and 23, 19's beam search and beam-4 eval, 20's timed eval
-and predictions, 21's reference-orientation layer, and 23's evals and DAS runs) zeroes the launch counts of every kernel
+of 18, 19, 20, 21, 22, 23 and 24, 19's beam search and beam-4 eval, 20's timed
+eval and predictions, 21's reference-orientation layer, 23's evals and DAS
+runs, and 24's Backpack LoReFT) zeroes the launch counts of every kernel
 just before it and reads them just after.  Any failed check
 exits non-zero.  The line before the last is one JSON object on the
 kernels (K5 and K7 at decode and, as ``int4_matmul_tile`` and
@@ -560,6 +574,82 @@ MOREFT_GLUE_FULL_ARGV = ["-task", "glue", "-train_dataset", "cola", "-p", "f1", 
                          "--intervention_type=MoReIntervention", "--dropout=0.05",
                          "-allow_cls_grad", "-test_split", "validation",
                          f"--max_steps={REFT_FULL_STEPS}", "--logging_steps=1"]
+# The other decoder families (phase_families_smoke, phase_families_full):
+# (a) each family's tiny HF-format directory (FAMILY_TINY, float32 weights
+# written here with the hash tokenizer's 32000 ids and room for the MMLU
+# scoring's 2048 tokens) through the harness it names, built in float32,
+# dropout off, TF32 off, on the card against the CPU, with its adapted
+# linears (2 layers); a LoReFT at Backpack's sense site on the card against
+# the CPU; (b) GPT-2-medium (models/gpt2.py:94-98) and Pythia-1B
+# (models/gpt_neox.py:87-92) through run_alpaca, every linear adapted
+# (embed_out too), and Gemma-2B (models/config.py:165-174) through
+# run_reasoning's commonsense recipe, full width and depth, bf16, from
+# HF-format directories written here, FAMILIES_FULL_STEPS steps each.
+FAMILY_VOCAB = 32000
+_TINY_GPT2 = {"vocab_size": FAMILY_VOCAB, "n_embd": 64, "n_layer": 2, "n_head": 4,
+              "n_positions": 2048}
+FAMILY_TINY = {  # family -> (config.json, harness, extra argv, adapted linears)
+    "gpt2": ({"model_type": "gpt2", "architectures": ["GPT2LMHeadModel"], **_TINY_GPT2},
+             "alpaca", [], 2 * 4),
+    "gpt_neo": ({"model_type": "gpt_neo", "architectures": ["GPTNeoForCausalLM"],
+                 "vocab_size": FAMILY_VOCAB, "hidden_size": 64, "num_layers": 2, "num_heads": 4,
+                 "max_position_embeddings": 2048, "window_size": 16,
+                 "attention_types": [[["global", "local"], 1]]}, "alpaca", [], 2 * 6),
+    "gpt_neox": ({"model_type": "gpt_neox", "architectures": ["GPTNeoXForCausalLM"],
+                  "vocab_size": FAMILY_VOCAB, "hidden_size": 64, "num_hidden_layers": 2,
+                  "num_attention_heads": 4, "intermediate_size": 256,
+                  "max_position_embeddings": 2048, "rotary_pct": 0.25,
+                  "use_parallel_residual": True, "hidden_act": "gelu"}, "alpaca", [], 2 * 4 + 1),
+    "backpack": ({"model_type": "gpt2", "architectures": ["BackpackGPT2LMHeadModel"],
+                  **_TINY_GPT2, "num_senses": 4, "sense_intermediate_scale": 4,
+                  "scale_attn_by_inverse_layer_idx": True},
+                 "alpaca", ["--do_predict=False"], 2 * 4 + 5),
+    "gemma": ({"model_type": "gemma", "architectures": ["GemmaForCausalLM"],
+               "vocab_size": FAMILY_VOCAB, "hidden_size": 64, "num_hidden_layers": 2,
+               "num_attention_heads": 4, "num_key_value_heads": 1, "head_dim": 32,
+               "intermediate_size": 128, "max_position_embeddings": 2048, "rms_norm_eps": 1e-6,
+               "tie_word_embeddings": True}, "reasoning", [], 2 * 7),
+}
+FAMILY_ALPACA_ARGV = [a for a in ALPACA_ARGV if a != "--smoke=True"]
+FAMILY_REASONING_ARGV = [a for a in REASONING_ARGV if a != "--smoke=True"] + [
+    "-task", "commonsense", "-eval_dataset", "boolq", "-max_length", "128"]
+SENSE_LOREFT = {"layer": 0, "component": "sense_network_output",
+                "intervention": "LoreftIntervention", "low_rank_dimension": 4}
+FAMILIES_FULL_STEPS = 2
+GPT2_MEDIUM_HF = {"model_type": "gpt2", "architectures": ["GPT2LMHeadModel"],
+                  "vocab_size": 50257, "n_embd": 1024, "n_layer": 24, "n_head": 16,
+                  "n_positions": 1024, "layer_norm_epsilon": 1e-5, "bos_token_id": 50256,
+                  "eos_token_id": 50256}
+PYTHIA_1B_HF = {"model_type": "gpt_neox", "architectures": ["GPTNeoXForCausalLM"],
+                "vocab_size": 50432, "hidden_size": 2048, "num_hidden_layers": 16,
+                "num_attention_heads": 8, "intermediate_size": 8192,
+                "max_position_embeddings": 2048, "rotary_pct": 0.25, "rotary_emb_base": 10000,
+                "use_parallel_residual": True, "hidden_act": "gelu", "layer_norm_eps": 1e-5,
+                "tie_word_embeddings": False, "bos_token_id": 0, "eos_token_id": 0}
+GEMMA_2B_HF = {"model_type": "gemma", "architectures": ["GemmaForCausalLM"],
+               "vocab_size": 256000, "hidden_size": 2048, "num_hidden_layers": 18,
+               "num_attention_heads": 8, "num_key_value_heads": 1, "head_dim": 256,
+               "intermediate_size": 16384, "max_position_embeddings": 8192,
+               "rms_norm_eps": 1e-6, "rope_theta": 10000.0, "hidden_act": "gelu_pytorch_tanh",
+               "tie_word_embeddings": True, "bos_token_id": 2, "eos_token_id": 1,
+               "pad_token_id": 0}
+_FULL_CUT = [f"--max_steps={FAMILIES_FULL_STEPS}", "--logging_steps=1"]
+# (label, harness, config.json, argv, adapted linears): GPT-2-medium's 1024
+# learned positions cannot hold the MMLU scoring's 2048-token 5-shot
+# prompts, so its run scores no MMLU; the lengths are cut to fit the time.
+FAMILIES_FULL = (
+    ("GPT-2-medium", "alpaca", GPT2_MEDIUM_HF,
+     [*_FULL_CUT, "--gradient_accumulation_steps=4", "--eval_dataset_size=8",
+      "--source_max_len=512", "--target_max_len=128", "--do_mmlu_eval=False",
+      "--do_predict=True", "--max_new_tokens=16"], 4 * 24),
+    ("Pythia-1B", "alpaca", PYTHIA_1B_HF,
+     [*_FULL_CUT, "--gradient_accumulation_steps=4", "--eval_dataset_size=8",
+      "--source_max_len=512", "--target_max_len=128", "--max_mmlu_samples=16",
+      "--do_predict=True", "--max_new_tokens=16"], 4 * 16 + 1),
+    ("Gemma-2B", "reasoning", GEMMA_2B_HF,
+     [*_FULL_CUT, "-task", "commonsense", "-batch_size", "4", "-gradient_accumulation_steps",
+      "4", "-max_length", "256", "-eval_dataset", "boolq", "--max_n_eval_example=8"], 7 * 18),
+)
 OUT_DIR = "chip_smoke_out"  # per-case records; .gitignore lists it
 RECORDS: list[dict] = []  # one per kernel case, written to OUT_DIR
 
@@ -3168,10 +3258,15 @@ def phase_alpaca_full(card: str) -> dict:
 
 
 def decoder_stack(model):
-    """The ``LlamaModel`` of a harness's model (a ``ReftModel`` wraps it)."""
-    from sparse_matrix_fine_tuning_torch.models.llama import LlamaModel
+    """The decoder stack of a harness's model (a ``ReftModel`` wraps it):
+    its ``LlamaModel``, or the GPT families' body (Backpack's whole model,
+    whose contextualization ``GPT2Model`` comes after it)."""
+    from sparse_matrix_fine_tuning_torch import models
+    from sparse_matrix_fine_tuning_torch.models import backpack_gpt2, gpt2, gpt_neo, gpt_neox
 
-    return next(m for m in model.modules() if isinstance(m, LlamaModel))
+    stacks = (models.LlamaModel, backpack_gpt2.BackpackGPT2Model, gpt2.GPT2Model,
+              gpt_neo.GPTNeoModel, gpt_neox.GPTNeoXModel)
+    return next(m for m in model.modules() if isinstance(m, stacks))
 
 
 def reasoning_run(argv: list, build=None, step_context=None) -> dict:
@@ -3179,13 +3274,16 @@ def reasoning_run(argv: list, build=None, step_context=None) -> dict:
     and read just after, and its model's forwards counted by mode (a hook on
     the decoder stack: "train" the training micro-batches, "eval" the
     prefills and decode steps of generation); the wall seconds of the run
-    beside them.  ``forwards`` goes on counting the model's later calls."""
+    beside them, and the shapes of the training forwards.  ``forwards`` goes
+    on counting the model's later calls."""
     from sparse_matrix_fine_tuning_torch.scripts import run_reasoning
 
-    forwards = collections.Counter()
+    forwards, shapes = collections.Counter(), collections.Counter()
 
     def hook(module, args):
         forwards["train" if module.training else "eval"] += 1
+        if module.training:
+            shapes[tuple(args[0].shape)] += 1
 
     def counted(args, peft_config):
         model = (build or run_reasoning.build_model)(args, peft_config)
@@ -3201,7 +3299,7 @@ def reasoning_run(argv: list, build=None, step_context=None) -> dict:
     launches = counts()  # the counted main path ends here
     return {"run": result, "launches": launches, "forwards": forwards,
             "train_forwards": forwards["train"], "eval_forwards": forwards["eval"],
-            "seconds": seconds}
+            "train_shapes": dict(shapes), "seconds": seconds}
 
 
 def counted_eval(run: dict, label: str, **kw) -> dict:
@@ -3344,21 +3442,30 @@ def llama_shapes(config: dict) -> dict:
     return shapes
 
 
+def is_norm_weight(name: str) -> bool:
+    """A LayerNorm's or RMSNorm's scale in an HF checkpoint (``*norm.weight``,
+    GPT-2's ``ln_1``, ``ln_2``, ``ln_f`` and Backpack's ``ln``)."""
+    leaf = name.rsplit(".", 2)[-2:]
+    return name.lower().endswith("norm.weight") or (
+        leaf[1] == "weight" and (leaf[0] == "ln" or leaf[0].startswith("ln_")))
+
+
 def write_hf_checkpoint(path: str, config: dict, shapes: dict, seed: int,
                         dtype: torch.dtype = torch.bfloat16) -> dict:
     """An HF-format directory: ``config.json`` and a ``model.safetensors``
     (``models/hf_convert.write_safetensors``) of the tensors ``shapes``
     names, random, in ``dtype``, drawn on the card from a generator seeded
     ``seed`` in ``shapes``' order: N(0, 0.02), and 1 + N(0, 0.02) for a
-    norm's weight.  Returns the written tensors, on the card."""
+    norm's weight (``is_norm_weight``; Gemma's stored offset stays N(0,
+    0.02)).  Returns the written tensors, on the card."""
     from sparse_matrix_fine_tuning_torch.models.hf_convert import write_safetensors
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     tensors = {}
     for name, shape in shapes.items():
         t = torch.randn(shape, generator=g, device="cuda").mul_(0.02)
-        if name.lower().endswith("norm.weight"):
-            t += 1.0
+        if is_norm_weight(name) and config.get("model_type") != "gemma":
+            t += 1.0  # Gemma stores its norms' offset from 1
         tensors[name] = t.to(dtype)
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "config.json"), "w") as f:
@@ -4511,6 +4618,437 @@ def phase_reft_full(card: str, llama_checkpoint: str, roberta_checkpoint: str) -
     return dict(launches)
 
 
+# -- the other decoder families (models/gpt2, gpt_neo, gpt_neox, backpack_gpt2, Gemma) --
+
+def _gpt2_body_shapes(pfx: str, config: dict) -> dict:
+    """A GPT-2 body's tensors under ``pfx``, projections in HF's Conv1D
+    layout (in, out)."""
+    h, n = config["n_embd"], config["n_layer"]
+    shapes = {f"{pfx}wte.weight": (config["vocab_size"], h),
+              f"{pfx}wpe.weight": (config["n_positions"], h)}
+    for i in range(n):
+        p = f"{pfx}h.{i}"
+        for name, shape in (("attn.c_attn", (h, 3 * h)), ("attn.c_proj", (h, h)),
+                            ("mlp.c_fc", (h, 4 * h)), ("mlp.c_proj", (4 * h, h))):
+            shapes.update({f"{p}.{name}.weight": shape, f"{p}.{name}.bias": (shape[1],)})
+        for ln in ("ln_1", "ln_2"):
+            shapes.update({f"{p}.{ln}.weight": (h,), f"{p}.{ln}.bias": (h,)})
+    shapes.update({f"{pfx}ln_f.weight": (h,), f"{pfx}ln_f.bias": (h,)})
+    return shapes
+
+
+def family_shapes(config: dict) -> dict:
+    """HF tensor name -> shape of a checkpoint of ``config``: GPT-2,
+    Backpack-GPT-2 (the reference's layout: Conv1D but the weight network's
+    ``nn.Linear``), GPT-Neo, GPT-NeoX or Gemma (tied: no ``lm_head``)."""
+    mt, v = config["model_type"], config["vocab_size"]
+    if "BackpackGPT2LMHeadModel" in config.get("architectures", ()):
+        h, nv, k = config["n_embd"], config["num_senses"], config["sense_intermediate_scale"]
+        shapes = _gpt2_body_shapes("backpack.gpt2_model.", config)
+        sn = "backpack.sense_network"
+        for name, shape in (("block.mlp.c_fc", (h, 4 * h)), ("block.mlp.c_proj", (4 * h, h)),
+                            ("final_mlp.c_fc", (h, k * h)), ("final_mlp.c_proj", (k * h, nv * h))):
+            shapes.update({f"{sn}.{name}.weight": shape, f"{sn}.{name}.bias": (shape[1],)})
+        for ln in ("ln", "block.ln_1", "block.ln_2"):
+            shapes.update({f"{sn}.{ln}.weight": (h,), f"{sn}.{ln}.bias": (h,)})
+        shapes.update({"backpack.sense_weight_net.c_attn.weight": (2 * h, h),
+                       "backpack.sense_weight_net.c_attn.bias": (2 * h,)})
+        return shapes
+    if mt == "gpt2":
+        return _gpt2_body_shapes("transformer.", config)
+    if mt == "gemma":
+        h, inter, hd = config["hidden_size"], config["intermediate_size"], config["head_dim"]
+        q, kv = config["num_attention_heads"] * hd, config["num_key_value_heads"] * hd
+        shapes = {"model.embed_tokens.weight": (v, h)}
+        for i in range(config["num_hidden_layers"]):
+            p = f"model.layers.{i}"
+            shapes.update({f"{p}.self_attn.q_proj.weight": (q, h),
+                           f"{p}.self_attn.k_proj.weight": (kv, h),
+                           f"{p}.self_attn.v_proj.weight": (kv, h),
+                           f"{p}.self_attn.o_proj.weight": (h, q),
+                           f"{p}.mlp.gate_proj.weight": (inter, h),
+                           f"{p}.mlp.up_proj.weight": (inter, h),
+                           f"{p}.mlp.down_proj.weight": (h, inter),
+                           f"{p}.input_layernorm.weight": (h,),
+                           f"{p}.post_attention_layernorm.weight": (h,)})
+        shapes["model.norm.weight"] = (h,)
+        return shapes
+    h = config["hidden_size"]
+    if mt == "gpt_neo":
+        shapes = {"transformer.wte.weight": (v, h),
+                  "transformer.wpe.weight": (config["max_position_embeddings"], h)}
+        for i in range(config["num_layers"]):
+            p = f"transformer.h.{i}"
+            shapes.update({f"{p}.attn.attention.{n}.weight": (h, h)
+                           for n in ("q_proj", "k_proj", "v_proj", "out_proj")})
+            shapes.update({f"{p}.attn.attention.out_proj.bias": (h,),
+                           f"{p}.mlp.c_fc.weight": (4 * h, h), f"{p}.mlp.c_fc.bias": (4 * h,),
+                           f"{p}.mlp.c_proj.weight": (h, 4 * h), f"{p}.mlp.c_proj.bias": (h,)})
+            for ln in ("ln_1", "ln_2"):
+                shapes.update({f"{p}.{ln}.weight": (h,), f"{p}.{ln}.bias": (h,)})
+        shapes.update({"transformer.ln_f.weight": (h,), "transformer.ln_f.bias": (h,)})
+        return shapes
+    require(mt == "gpt_neox", f"family_shapes: model_type {mt!r}")
+    inter = config["intermediate_size"]
+    shapes = {"gpt_neox.embed_in.weight": (v, h)}
+    for i in range(config["num_hidden_layers"]):
+        p = f"gpt_neox.layers.{i}"
+        for name, shape in (("attention.query_key_value", (3 * h, h)), ("attention.dense", (h, h)),
+                            ("mlp.dense_h_to_4h", (inter, h)), ("mlp.dense_4h_to_h", (h, inter))):
+            shapes.update({f"{p}.{name}.weight": shape, f"{p}.{name}.bias": (shape[0],)})
+        for ln in ("input_layernorm", "post_attention_layernorm"):
+            shapes.update({f"{p}.{ln}.weight": (h,), f"{p}.{ln}.bias": (h,)})
+    shapes.update({"gpt_neox.final_layer_norm.weight": (h,),
+                   "gpt_neox.final_layer_norm.bias": (h,), "embed_out.weight": (v, h)})
+    return shapes
+
+
+def monarch_layers(model) -> list:
+    from sparse_matrix_fine_tuning_torch.layers.monarch_linear import MonarchLinear
+
+    return [m for m in model.modules() if isinstance(m, MonarchLinear)]
+
+
+def family_harness_run(harness: str, argv: list, *, dtype: str = "bfloat16",
+                       step_context=None) -> dict:
+    """``alpaca_run`` or ``reasoning_run`` over ``argv`` with the harness's own
+    ``build_model`` at ``dtype``; ``train`` and ``eval`` forwards beside the
+    run's."""
+    from sparse_matrix_fine_tuning_torch.scripts import run_alpaca, run_reasoning
+
+    if harness == "alpaca":
+        run = alpaca_run(argv, build=functools.partial(run_alpaca.build_model, dtype=dtype),
+                         step_context=step_context)
+        run["train_forwards"] = sum(run["train_shapes"].values())
+        run["eval_forwards"] = run["forwards"] - run["train_forwards"]
+        return run
+    return reasoning_run(argv, build=functools.partial(run_reasoning.build_model, dtype=dtype),
+                         step_context=step_context)
+
+
+def remat_factor(model) -> int:
+    """The forwards each adapted linear runs a training micro-batch: 2 under
+    the Llama's remat (the recompute), else 1 (the GPT families ignore it)."""
+    return 2 if getattr(model.config, "remat", False) else 1
+
+
+def _family_outputs(harness: str, out: str) -> dict:
+    """The files a run wrote that must be equal on the card and the CPU: the
+    predictions or the generations as they are, and the eval results less
+    the losses (held within a tolerance) and the wall seconds."""
+    task = "alpaca" if harness == "alpaca" else "commonsense"
+    got = {}
+    for name in ("predictions.jsonl", "generations.json", "eval_results.json"):
+        path = os.path.join(out, task, name)
+        if os.path.exists(path):
+            with open(path) as f:
+                got[name] = f.read()
+    if "eval_results.json" in got:
+        got["eval_results.json"] = {k: v for k, v in json.loads(got["eval_results.json"]).items()
+                                    if "loss" not in k and "runtime" not in k}
+    return got
+
+
+def backpack_sense_loreft(card: str, ckpt: str) -> dict:
+    """A LoReFT at Backpack's ``sense_network_output`` site over the tiny
+    Backpack of ``ckpt`` (float32, every linear Monarch-adapted): one
+    forward and backward on the card against a CPU copy: the loss within
+    ``ALPACA_TOL``, every trainable parameter's gradient within it of the
+    gradient's scale; launches exact (K2 on every adapted linear, K3 on
+    every one).  Returns the launches."""
+    from sparse_matrix_fine_tuning_torch.interventions import reft
+    from sparse_matrix_fine_tuning_torch.models.hf_convert import from_pretrained_causal_lm
+    from sparse_matrix_fine_tuning_torch.peft import surgery
+
+    tol = ALPACA_TOL
+    model = from_pretrained_causal_lm(ckpt, dtype="float32", device="cpu")
+    surgery.init_monarch(model, dict(PEFT, target_modules=surgery.find_all_linear_names(model)),
+                         generator=torch.Generator().manual_seed(SEED + 70))
+    cpu = reft.ReftModel(model, reft.ReftConfig(representations=[SENSE_LOREFT]),
+                         generator=torch.Generator().manual_seed(SEED + 71))
+    surgery.trainable_filter(cpu)
+    card_model = copy.deepcopy(cpu).cuda()
+    g = torch.Generator().manual_seed(SEED + 72)
+    ids = torch.randint(4, FAMILY_VOCAB, (2, 24), generator=g)
+    locs = torch.tensor([[[3, 7, 20]], [[0, 11, 23]]])
+    grads, losses = {}, {}
+    for where, m in (("cpu", cpu), ("card", card_model)):
+        dev = next(m.parameters()).device
+        reset_counts()  # the counted main path starts here
+        loss = m.loss(m(ids.to(dev), intervention_locations=locs.to(dev)), ids.to(dev))
+        loss.backward()
+        if where == "card":
+            torch.cuda.synchronize()
+            launches = counts()  # the counted main path ends here
+        losses[where] = loss.item()
+        grads[where] = {n: p.grad.detach().cpu() for n, p in m.named_parameters()
+                        if p.requires_grad}
+    adapted = len(monarch_layers(cpu))
+    expect = {"monarch_add": adapted, "monarch_bwd": adapted}
+    expect_only(launches, expect, "Backpack sense-site LoReFT")
+    require(_close(losses["card"], losses["cpu"], tol), f"Backpack LoReFT: losses {losses}")
+    worst = 0.0
+    for name, want in grads["cpu"].items():
+        got = grads["card"][name]
+        scale = float(want.abs().max())
+        gap = float((got - want).abs().max())
+        worst = max(worst, gap / max(scale, 1e-30))
+        require(gap <= tol["atol"] + tol["rtol"] * scale,
+                f"Backpack LoReFT: {name} gradient off by {gap} at scale {scale}")
+    ivs = [n for n in grads["cpu"] if n.startswith("interventions.")]
+    require(ivs and any(float(grads["card"][n].abs().max()) > 0 for n in ivs),
+            f"Backpack LoReFT: intervention gradients {ivs}")
+    print(f"[families] {card}: smoke, Backpack LoReFT rank 4 at sense_network_output over "
+          f"{adapted} Monarch-adapted linears (positions {locs.tolist()}): loss "
+          f"{losses['card']} card, {losses['cpu']} CPU; {len(grads['cpu'])} gradients, the "
+          f"worst {worst:.2e} of its scale (tol {tol}); launches {expect}", flush=True)
+    return expect
+
+
+def phase_families_smoke(card: str) -> dict:
+    """(a) Each family's tiny HF-format directory (``FAMILY_TINY``, float32
+    weights written here) through its harness, the harness's ``build_model``
+    at float32, dropout off, TF32 off, on the card and on the CPU: GPT-2,
+    GPT-Neo, GPT-NeoX and Backpack through ``run_alpaca`` (the smoke argv
+    without ``--smoke``: 2 steps of 16 micro-batches, eval loss, MMLU,
+    greedy predictions but for Backpack, which has no cache), Gemma through
+    ``run_reasoning -task commonsense``: the adapted linears the family's,
+    the logged losses and ``eval_loss`` within ``ALPACA_TOL``, the MMLU
+    choice logits within it, the predictions, generations and eval results
+    (less losses and seconds) equal, the card's launches exact (K2 on every
+    adapted linear each forward, twice a training micro-batch under Gemma's
+    remat; K3 each training micro-batch), none on the CPU.  Then
+    ``backpack_sense_loreft``.  Returns the launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tol = ALPACA_TOL
+    launches = collections.Counter()
+    for family, (config, harness, extra, n_adapted) in FAMILY_TINY.items():
+        ckpt = os.path.join(OUT_DIR, f"family_{family}")
+        out = os.path.join(OUT_DIR, f"family_{family}_run")
+        for d in (ckpt, out, f"{out}_cpu"):
+            shutil.rmtree(d, ignore_errors=True)
+        write_hf_checkpoint(ckpt, config, family_shapes(config), SEED + 80, dtype=torch.float32)
+        argv = [*(FAMILY_ALPACA_ARGV if harness == "alpaca" else FAMILY_REASONING_ARGV), *extra,
+                "--model", ckpt]
+        runs = {where: family_harness_run(harness, [*argv, f"--output_dir={d}", *flag],
+                                          dtype="float32")
+                for where, d, flag in (("card", out, []), ("cpu", f"{out}_cpu",
+                                                            ["--platform=cpu"]))}
+        card_run, cpu_run = runs["card"], runs["cpu"]
+        model = card_run["run"].trainer.model
+        adapted = len(monarch_layers(model))
+        micro, evals = card_run["train_forwards"], card_run["eval_forwards"]
+        require(adapted == n_adapted and (micro, evals) == (cpu_run["train_forwards"],
+                                                            cpu_run["eval_forwards"])
+                and micro > 0 and evals > 0,
+                f"family {family}: {adapted} adapted, forwards {micro} + {evals} card, "
+                f"{cpu_run['train_forwards']} + {cpu_run['eval_forwards']} CPU")
+        require(not any(cpu_run["launches"].values()),
+                f"family {family}: the CPU run launched {cpu_run['launches']}")
+        expect = alpaca_expect(16, adapted, remat_factor(model) * micro + evals, micro,
+                               "monarch_add")
+        expect_only(card_run["launches"], expect, f"family {family}")
+        launches.update(expect)
+        task = "alpaca" if harness == "alpaca" else "commonsense"
+        losses = [[r["loss"] for r in _alpaca_records(d, "metrics.jsonl", task) if "loss" in r]
+                  for d in (out, f"{out}_cpu")]
+        require(len(losses[0]) == len(losses[1]) > 0
+                and all(_close(a, b, tol) for a, b in zip(*losses)),
+                f"family {family}: losses {losses[0]} card, {losses[1]} CPU")
+        files = [_family_outputs(harness, d) for d in (out, f"{out}_cpu")]
+        detail = ""
+        if harness == "alpaca":
+            m = [r["run"].metrics for r in (card_run, cpu_run)]
+            require(_close(m[0]["eval_loss"], m[1]["eval_loss"], tol),
+                    f"family {family}: eval_loss {m[0]['eval_loss']} card, {m[1]['eval_loss']} CPU")
+            logits = [torch.from_numpy(r["run"].choice_logits()) for r in (card_run, cpu_run)]
+            gap = float(((logits[0] - logits[1]).abs() - tol["rtol"] * logits[1].abs()).max())
+            require(logits[0].shape == logits[1].shape and gap <= tol["atol"],
+                    f"family {family}: MMLU choice logits differ by {gap} past the rtol")
+            detail = (f"eval_loss {m[0]['eval_loss']} / {m[1]['eval_loss']}; MMLU choice logits "
+                      f"{tuple(logits[0].shape)} max |card - CPU| "
+                      f"{float((logits[0] - logits[1]).abs().max()):.2e}; ")
+        else:
+            results = [r["run"].results for r in (card_run, cpu_run)]
+            require(results[0] == results[1], f"family {family}: results {results}")
+            detail = f"results {results[0]} on both; "
+        require(files[0] == files[1] and files[0], f"family {family}: the written "
+                f"{sorted(files[0])} differ between the card and the CPU")
+        print(f"[families] {card}: smoke, {family} ({type(model).__name__}) through run_{harness}"
+              f", {adapted} adapted linears: losses {losses[0]} card, {losses[1]} CPU (tol "
+              f"{tol}); {detail}{' and '.join(sorted(files[0]))} equal; {micro} training and "
+              f"{evals} other forwards; launches {expect}; wall "
+              f"{card_run['seconds']:.2f} s card, {cpu_run['seconds']:.2f} s CPU", flush=True)
+        if family == "backpack":
+            launches.update(backpack_sense_loreft(card, ckpt))
+        del runs, card_run, cpu_run, model
+        for d in (ckpt, out, f"{out}_cpu"):
+            shutil.rmtree(d, ignore_errors=True)
+    return dict(launches)
+
+
+def family_kernel_times(card: str, label: str, layers: list, rows: int,
+                        dtype=torch.bfloat16) -> dict:
+    """K1 and K3 timed (``benchlib.time_ms``) at each distinct adapted shape of
+    ``layers`` (the run's ``MonarchLinear`` layers) on ``rows`` rows, against
+    their plain versions, the bound and (K1) ``F.linear`` on the dense
+    equivalent, K3's plan printed ("fast": the cluster kernel; else the
+    generic kernel, ROADMAP B lead 10); summed over the model's adapted
+    linears.  Launches made here are not the path's."""
+    from sparse_matrix_fine_tuning_torch.ops.monarch import monarch_dense_equivalent
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    shapes = collections.Counter((m.in_features, m.out_features, tuple(m.blkdiag1.shape),
+                                  tuple(m.blkdiag2.shape)) for m in layers)
+    totals = {"monarch_kernel": collections.Counter(), "monarch_bwd": collections.Counter()}
+    plans, generic = [], []
+    print(_HEADER, flush=True)
+    with torch.no_grad():
+        for (n_in, n_out, s1, s2), n in shapes.items():
+            fields = monarch_cuda.monarch_bwd_plan_fields(rows, s1, s2, with_dx=True, dtype=dtype)
+            plans.append(f"{n_in}->{n_out} x{n} (w1 {s1}, w2 {s2}): fast {fields['fast']}")
+            x = torch.randn(rows, n_in, generator=g, device="cuda").to(dtype)
+            w1 = (torch.randn(s1, generator=g, device="cuda") / s1[2] ** 0.5).to(dtype)
+            w2 = (torch.randn(s2, generator=g, device="cuda") / s2[2] ** 0.5).to(dtype)
+            dout = torch.randn(rows, n_out, generator=g, device="cuda").to(dtype)
+            dense = monarch_dense_equivalent(w1.float(), w2.float()).to(dtype)
+            cases = {"monarch_kernel": (lambda: monarch_cuda.monarch_kernel(x, w1, w2),
+                                        lambda: monarch_cuda.monarch_kernel_reference(x, w1, w2),
+                                        lambda: torch.nn.functional.linear(x, dense)),
+                     "monarch_bwd": (lambda: monarch_cuda.monarch_bwd(x, w1, w2, dout),
+                                     lambda: monarch_cuda.monarch_bwd_reference(x, w1, w2, dout),
+                                     None)}
+            for name, (kern, plain, library) in cases.items():
+                got, ref = kern(), plain()
+                torch.cuda.synchronize()
+                pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
+                err = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+                share = max(float((a.float() - b.float()).abs().max()) / tolerance(dtype, b)
+                            for a, b in pairs)
+                require(share <= 1.0, f"{name} {label} {n_in}->{n_out} M={rows}: "
+                                      f"{share:.3f} of tol")
+                reps = (50, 5) if fields["fast"] or name != "monarch_bwd" else PROJECTION_BWD_REPS
+                (ms, call), (plain_ms, plain_call) = time_ms(kern, *reps), time_ms(plain, *reps)
+                lib = time_ms(library)[0] if library is not None else None
+                rec = _record(name, f"x{n}", n_in, n_out, rows, dtype, err, share, ms, plain_ms,
+                              call, plain_call, lib, r=s1[1])
+                for k in ("ms", "plain_ms", "bound_ms"):
+                    totals[name][k] += n * rec[k]
+                totals[name]["library_ms"] += n * (lib or 0.0)
+                if name == "monarch_bwd" and not fields["fast"]:
+                    generic.append({"shape": [n_in, n_out], "rows": rows, "ms": ms,
+                                    "plain_ms": plain_ms, "bound_ms": rec["bound_ms"]})
+    line = ", ".join(f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, library "
+                     f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f})" if k == "monarch_kernel"
+                     else f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound "
+                     f"{v['bound_ms']:.4f})" for k, v in totals.items())
+    print(f"[families-full] {card}: {label}: K3 plans at {rows} rows: {'; '.join(plans)}; "
+          f"device time over the {len(layers)} adapted linears at {rows} rows: {line}; "
+          f"K3 on the generic kernel (ROADMAP B lead 10): {generic or 'none'}", flush=True)
+    RECORDS.append({"families_kernels": label, "rows": rows, "plans": plans,
+                    "totals": {k: dict(v) for k, v in totals.items()}, "generic_k3": generic,
+                    "card": card})
+    return {"totals": totals, "generic": generic}
+
+
+def phase_families_full(card: str) -> dict:
+    """(b) ``FAMILIES_FULL``: GPT-2-medium and Pythia-1B through
+    ``run_alpaca`` (every linear adapted, Pythia's ``embed_out`` too), Gemma-2B
+    through ``run_reasoning``'s commonsense recipe, each from an HF-format
+    directory written here (random seeded bf16 weights, deleted after), at
+    full width and depth in bf16 with the harnesses' dropout 0.1 (so K1, not
+    K2, on every forward, eval included) for ``FAMILIES_FULL_STEPS`` steps
+    and a short greedy eval: the adapted linears the predicted count,
+    launches exact (K1 on every adapted linear each forward, twice a
+    training micro-batch under the Llama's remat "nothing"; K3 once a
+    micro-batch); the harness's steps through its trainer's
+    ``step_context`` (step 0 profiled: busy; the later ones alone: wall,
+    peak); then K1 and K3 timed at the run's adapted shapes
+    (``family_kernel_times``).  Returns the launches."""
+    launches = collections.Counter()
+    for label, harness, config, argv, n_adapted in FAMILIES_FULL:
+        ckpt = os.path.join(OUT_DIR, "family_full")
+        out = os.path.join(OUT_DIR, "family_full_run")
+        for d in (ckpt, out):
+            shutil.rmtree(d, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        write_hf_checkpoint(ckpt, config, family_shapes(config), SEED + 91)
+        write_s = time.perf_counter() - t0
+        size_gb = os.path.getsize(os.path.join(ckpt, "model.safetensors")) / 1e9
+        steps = {}
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            full = family_harness_run(harness, [*argv, "--model", ckpt, f"--output_dir={out}"],
+                                      step_context=harness_step_context(steps, label))
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        model = full["run"].trainer.model
+        layers = monarch_layers(model)
+        micro, evals = full["train_forwards"], full["eval_forwards"]
+        remat = remat_factor(model)
+        ga = full["run"].trainer.args.gradient_accumulation_steps
+        require(len(layers) == n_adapted and micro == FAMILIES_FULL_STEPS * ga and evals > 0,
+                f"{label}: {len(layers)} adapted, {micro} training and {evals} other forwards")
+        expect = {"monarch_kernel": n_adapted * (remat * micro + evals),
+                  "monarch_bwd": n_adapted * micro}
+        expect_only(full["launches"], expect, f"{label} through run_{harness}")
+        launches.update(expect)
+        task = "alpaca" if harness == "alpaca" else "commonsense"
+        losses = [r["loss"] for r in _alpaca_records(out, "metrics.jsonl", task) if "loss" in r]
+        require(len(losses) == FAMILIES_FULL_STEPS and all(map(math.isfinite, losses))
+                and len(steps.get("wall_ms", [])) == FAMILIES_FULL_STEPS - 1
+                and "busy_ms" in steps, f"{label}: losses {losses}, steps {steps}")
+        if harness == "alpaca":
+            metrics = full["run"].metrics
+            require(math.isfinite(metrics["eval_loss"]) and metrics["predict_samples"] > 0,
+                    f"{label}: metrics {metrics}")
+            data = full["run"].trainer.train_data
+            result = (f"eval_loss {metrics['eval_loss']}, "
+                      + (f"MMLU accuracy {metrics['eval_mmlu_eval_accuracy']} "
+                         f"({metrics['eval_mmlu_runtime']} s), "
+                         if "eval_mmlu_eval_accuracy" in metrics else "no MMLU, ")
+                      + f"{metrics['predict_samples']} predictions ({metrics['predict_runtime']} "
+                        "s)")
+        else:
+            results = full["run"].results
+            require(results and all(map(math.isfinite, results.values())),
+                    f"{label}: results {results}")
+            data = full["run"].trainer.train_data
+            result = f"results {results}"
+        rows, width = data["input_ids"].shape
+        wall = statistics.median(steps["wall_ms"])
+        idle = f"{1 - steps['busy_ms'] / wall:.3f}" if steps["busy_ms"] else "not measured"
+        per_step = {"monarch_kernel": n_adapted * remat * ga, "monarch_bwd": n_adapted * ga}
+        RECORDS.append({"families_full": label, "losses": losses, "steps_wall_ms": steps["wall_ms"],
+                        "step0_busy_ms": steps["busy_ms"], "peak_gb": steps["peak_gb"],
+                        "peak_before_gb": steps.get("peak_before_gb"), "launches": expect,
+                        "launches_a_step": per_step, "eval_forwards": evals,
+                        "adapted": n_adapted, "card": card})
+        print(f"[families-full] {card}: {label} through run_{harness}, "
+              f"{model.config.num_hidden_layers} layers, bf16, dropout 0.1, "
+              f"{type(model).__name__}: checkpoint {size_gb:.2f} GB written in {write_s:.2f} s; "
+              f"{n_adapted} adapted linears; {rows} training rows of up to {width} tokens, ga "
+              f"{ga}; losses {losses}; steps 1-{FAMILIES_FULL_STEPS - 1} wall "
+              f"{[round(w, 2) for w in steps['wall_ms']]} ms (median {wall:.2f}), step 0 device "
+              f"busy {_ms(steps['busy_ms'])} ms (profiled; wall {steps['profiled_wall_ms']:.2f} ms "
+              f"with the profiler on), idle share {idle}, peak {steps['peak_gb']:.2f} GB over "
+              f"step {FAMILIES_FULL_STEPS - 1} ({steps['peak_before_gb']:.2f} GB before it); "
+              f"{result}; launches a step K1 {per_step['monarch_kernel']}, K3 "
+              f"{per_step['monarch_bwd']}, K1 an eval forward {n_adapted} ({evals} eval "
+              f"forwards), K2 none (dropout 0.1 sends every forward to K1); launches "
+              f"{expect}; harness run {full['seconds']:.2f} s wall", flush=True)
+        tokens = max(b * t for b, t in full["train_shapes"])
+        family_kernel_times(card, label, layers, tokens)
+        del full, model, layers
+        shutil.rmtree(out, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(launches)
+
+
 def main() -> None:
     t0 = time.perf_counter()
 
@@ -4587,6 +5125,12 @@ def main() -> None:
     print(f"[reft] launches of the harnesses' runs: smoke {reft}, full width {reft_full}",
           flush=True)
     lap("ReFT and MoReFT GLUE, full width")
+    families = phase_families_smoke(card)
+    lap("the other decoder families, smoke")
+    families_full = phase_families_full(card)
+    print(f"[families] launches of the harnesses' runs: smoke {families}, full width "
+          f"{families_full}", flush=True)
+    lap("the other decoder families, full width")
     launches = {"monarch_kernel": serving["launches"]["monarch_kernel"],
                 "monarch_add": serving["launches"]["monarch_add"],
                 "monarch_bwd": training["launches"]["monarch_bwd"],

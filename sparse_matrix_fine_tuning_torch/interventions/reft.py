@@ -32,8 +32,12 @@ Parameters are float32.  Each module's ``adapter_params`` are the ones
 that train (``peft/surgery.trainable_filter``, the JAX ``AdapterParam``);
 the fixed state (temperatures, PCA bases, noise) is in persistent buffers.
 
-Backpack's ``sense_network_output`` site needs ``models/backpack_gpt2.py``:
-refused, ROADMAP.md queue A item 25.
+Backpack's ``sense_network_output`` site (``models/backpack_gpt2.py``) is a
+model-level site keyed by its name alone; its tensor is (b, nv, s, d), and a
+token-position intervention applies to every sense's (b, s, d) slice at
+the same positions (the JAX ``_lift_over_senses``); activations collected
+there, and sources given to it, are (b, nv, p, d).  A model without a sense
+network refuses the site when the ``ReftModel`` is built.
 """
 
 from __future__ import annotations
@@ -49,9 +53,9 @@ import torch
 from torch import nn
 
 from sparse_matrix_fine_tuning_torch.layers.monarch_linear import MonarchFactor
+from sparse_matrix_fine_tuning_torch.models.backpack_gpt2 import SENSE_SITE, BackpackSenseNetwork
 from sparse_matrix_fine_tuning_torch.ops.blockdiag import blockdiag_multiply
 
-BACKPACK_ITEM = "ROADMAP.md queue A item 25, 'Other model families'"
 
 
 def _identity(x):
@@ -528,6 +532,16 @@ def _chain(prev, fn):
     return lambda x: fn(prev(x))
 
 
+def _over_senses(fn, x: torch.Tensor, locations: torch.Tensor, source=None):
+    """``fn(rows, locations, source)`` on the (b * nv, s, d) rows of a
+    (b, nv, s, d) sense tensor, each sense at its example's positions;
+    (b, nv, ...) back."""
+    b, nv = x.shape[:2]
+    rows = fn(x.reshape(b * nv, *x.shape[2:]), locations.repeat_interleave(nv, 0),
+              None if source is None else source.reshape(b * nv, *source.shape[2:]))
+    return rows.reshape(b, nv, *rows.shape[1:])
+
+
 def gather_positions(x: torch.Tensor, locations: torch.Tensor) -> torch.Tensor:
     """(b, t, d) gathered at (b, p) positions -> (b, p, d); a -1 pad reads
     position 0 (pyvene gather_neurons)."""
@@ -577,9 +591,10 @@ class ReftModel(nn.Module):
         layers, components, interventions = [], [], []
         for rep in config.representations:
             comp = rep.get("component", "block_output")
-            if comp == "sense_network_output":
-                raise NotImplementedError(f"the Backpack sense_network_output site: "
-                                          f"{BACKPACK_ITEM}")
+            if comp == SENSE_SITE and not any(isinstance(m, BackpackSenseNetwork)
+                                              for m in model.modules()):
+                raise ValueError(f"the {SENSE_SITE} site is Backpack-GPT-2's: "
+                                 f"{type(model).__name__} has no sense network")
             cls = rep.get("intervention", "NoIntervention")
             if isinstance(cls, str):
                 cls = INTERVENTION_TYPES[cls]
@@ -600,6 +615,8 @@ class ReftModel(nn.Module):
 
     def _key(self, i):
         layer, comp = self.intervention_layers[i], self.intervention_components[i]
+        if comp == SENSE_SITE:
+            return comp  # a model-level site, named alone
         return layer if comp == "block_output" else (layer, comp)
 
     @staticmethod
@@ -624,8 +641,12 @@ class ReftModel(nn.Module):
             src = (sources or {}).get(i)
             bound = _bind_subspaces(iv, sub)
 
-            def fn(x, bound=bound, locs=locs, src=src):
+            def at_positions(x, locs, src, bound=bound):
                 return apply_at_positions(x, locs, bound, source=src)
+
+            def fn(x, at=at_positions, locs=locs, src=src,
+                   senses=self.intervention_components[i] == SENSE_SITE):
+                return _over_senses(at, x, locs, src) if senses else at(x, locs, src)
             prev = hooks.get(self._key(i))
             hooks[self._key(i)] = fn if prev is None else _chain(prev, fn)
         for cap_key, capture in pending_captures:
@@ -664,11 +685,14 @@ class ReftModel(nn.Module):
 
     def collect_activations(self, input_ids, locations, attention_mask=None, **kw) -> dict:
         """A forward that gathers each intervention site's activations at
-        ``locations`` (b, num_interventions, p): {i: (b, p, d)}."""
+        ``locations`` (b, num_interventions, p): {i: (b, p, d)}, (b, nv, p, d)
+        at the sense site."""
         collected, hooks = {}, {}
         for i in range(len(self.interventions)):
-            def fn(x, i=i, locs=self._locs(locations, i)):
-                collected[i] = gather_positions(x, locs)
+            def fn(x, i=i, locs=self._locs(locations, i),
+                   senses=self.intervention_components[i] == SENSE_SITE):
+                collected[i] = (_over_senses(lambda r, l, _: gather_positions(r, l), x, locs)
+                                if senses else gather_positions(x, locs))
                 return x
             prev = hooks.get(self._key(i))
             hooks[self._key(i)] = fn if prev is None else _chain(prev, fn)

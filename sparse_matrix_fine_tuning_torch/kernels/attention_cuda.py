@@ -19,7 +19,8 @@ saves q, k, v, o and lse.
 
 Tensors are (b, t, heads, head_dim) with equal heads, q already scaled by
 ``1/sqrt(head_dim)``; the kernels take float32 or bfloat16 and a head_dim of
-64 or 128, at any t.  In bfloat16 the forward rounds P to bf16 for the
+64 or 128, at any t; ``splash_attention`` refuses a wider head (Gemma's
+256) on either device.  In bfloat16 the forward rounds P to bf16 for the
 tensor cores' P.V, where the TPU kernel keeps P in fp32.
 
 ``LAUNCHES`` counts the launches of each kernel: a wrapper adds one where it
@@ -49,6 +50,9 @@ from sparse_matrix_fine_tuning_torch.ops.attention import (
 
 LAUNCHES = {"splash_fwd": 0, "splash_dq": 0, "splash_dkv": 0}
 HEAD_DIMS = (64, 128)  # the head widths csrc/flash_attention.cu instantiates
+# A head_dim past HEAD_DIMS that the JAX config accepts for splash (a
+# multiple of 128: Gemma's 256) raises on either device, citing this entry.
+WIDE_HEAD_ITEM = "ROADMAP.md queue B, 'K17-K19 at head_dim 256 (Gemma)'"
 
 
 # The persistent bf16 K17-K19 (csrc/flash_attention.cu): rows a tile (K17's
@@ -243,7 +247,11 @@ class _SplashFn(torch.autograd.Function):
 def splash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Causal attention of pre-scaled q over k, v, all (b, t, heads,
     head_dim): the kernels on a CUDA tensor, the plain versions on a CPU
-    tensor.  Differentiable."""
+    tensor.  Differentiable.  A head_dim past ``HEAD_DIMS`` raises on the
+    CPU as on the card (``WIDE_HEAD_ITEM``)."""
+    if q.shape[-1] > max(HEAD_DIMS):
+        raise NotImplementedError(f"splash attention at head_dim {q.shape[-1]}: K17-K19 "
+                                  f"instantiate {HEAD_DIMS}; {WIDE_HEAD_ITEM}")
     if not (q.dtype == k.dtype == v.dtype and q.shape == k.shape == v.shape):
         raise ValueError(f"q, k and v must share shape and dtype, got {tuple(q.shape)} "
                          f"{q.dtype}, {tuple(k.shape)} {k.dtype}, {tuple(v.shape)} {v.dtype}")

@@ -89,11 +89,16 @@ DEFAULT_PEFT_CONFIG: dict[str, Any] = {
 PROJECT_RANK = 1  # the SVD rank of a projection (the JAX layer's default; no caller sets it)
 
 
+def _uniform(shape, bound: float, dtype, device, generator) -> torch.Tensor:
+    """Uniform(-bound, bound), drawn on the generator's device and moved to
+    ``device``: a CPU generator gives a model on the card the CPU's numbers."""
+    t = torch.empty(shape, dtype=dtype, device=generator.device)
+    return t.uniform_(-bound, bound, generator=generator).to(device)
+
+
 def _kaiming_block_uniform(shape, dtype, device, generator) -> torch.Tensor:
     """Uniform(-1/sqrt(fan_in), 1/sqrt(fan_in)) with fan_in = shape[-1]."""
-    bound = 1.0 / math.sqrt(shape[-1])
-    t = torch.empty(shape, dtype=dtype, device=device)
-    return t.uniform_(-bound, bound, generator=generator)
+    return _uniform(shape, 1.0 / math.sqrt(shape[-1]), dtype, device, generator)
 
 
 def keep_f32_buffers(module: nn.Module, names, fn, recurse: bool = True) -> nn.Module:
@@ -178,8 +183,9 @@ class MonarchLinear(nn.Module):
           param_dtype: dtype of the adapter factors.
           device: where to build when ``weights`` is None; the card when
             None.  With ``weights``, the weights' device.
-          generator: ``torch.Generator`` on ``device`` for the random init;
-            a fresh one seeded with 0 when None.
+          generator: ``torch.Generator`` for the random init, on ``device``
+            or on the CPU (the factors are drawn there and moved); a fresh
+            one on ``device`` seeded with 0 when None.
         """
         super().__init__()
         cfg = dict(DEFAULT_PEFT_CONFIG)
@@ -261,9 +267,8 @@ class MonarchLinear(nn.Module):
         if bias is not None:
             self.bias = nn.Parameter(bias.detach(), requires_grad=False)
         elif use_bias:
-            bound = 1.0 / math.sqrt(out_features)
-            b = torch.empty(out_features, dtype=param_dtype, device=device)
-            self.bias = nn.Parameter(b.uniform_(-bound, bound, generator=generator),
+            self.bias = nn.Parameter(_uniform((out_features,), 1.0 / math.sqrt(out_features),
+                                              param_dtype, device, generator),
                                      requires_grad=False)
         else:
             self.bias = None

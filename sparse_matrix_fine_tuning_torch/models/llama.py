@@ -51,8 +51,12 @@ The inner components run inside the decoder layer, so under remat inside
 the checkpointed function (recomputed with it, as JAX's ``make_run``);
 block outputs run after it.  Hooks apply on a prefill over a cache as well.
 
-Not ported yet: ``UnitOffsetRMSNorm`` (Gemma, ROADMAP.md queue A item 25,
-"Other model families"); a config asking for it is refused.
+Gemma (the JAX llama.py:28-50, :246-249): ``rmsnorm_unit_offset`` takes
+``UnitOffsetRMSNorm``, ``normalize(x) * (1 + w)`` in fp32 end to end, whose
+stored weight is the checkpoint's offset (zero at init); ``scale_embeddings``
+multiplies the embeddings by ``sqrt(hidden_size)`` rounded to the
+activation dtype first, as HF does.  "splash" at Gemma's head_dim 256 raises
+(``kernels/attention_cuda.py``: K17-K19 instantiate 64 and 128).
 
 The model is built on the card unless ``device="cpu"`` is passed
 (``utils/device.py``).
@@ -104,6 +108,26 @@ class Linear(nn.Linear):
         dtype = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
         bias = self.bias.to(dtype) if self.bias is not None else None
         return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+
+
+class UnitOffsetRMSNorm(nn.Module):
+    """Gemma's RMSNorm (the JAX ``UnitOffsetRMSNorm``): ``normalize(x) * (1 +
+    w)`` in fp32, the result in ``dtype`` (None: the input's); ``weight``
+    holds the offset ``w``, zero at init."""
+
+    def __init__(self, dim: int, *, eps: float, dtype=None, param_dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(dim, dtype=param_dtype,
+                                               device=resolve_device(device)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(var + self.eps) * (1.0 + self.weight.float())
+        return out.to(self.dtype or x.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -200,6 +224,19 @@ def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
     return idx - torch.cummax(torch.where(boundary, idx, 0), dim=1).values
 
 
+def write_cache(k, v, cache):
+    """This call's keys and values written in place into the preallocated
+    cache (the whole generation's) at its index: (k_cache, v_cache) to
+    attend over and the new cache; (k, v) and None without a cache."""
+    if cache is None:
+        return k, v, None
+    k_cache, v_cache, idx = cache
+    t = k.shape[1]
+    k_cache[:, idx:idx + t] = k
+    v_cache[:, idx:idx + t] = v
+    return k_cache, v_cache, (k_cache, v_cache)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device=None, generator=None):
         super().__init__()
@@ -221,15 +258,7 @@ class LlamaAttention(nn.Module):
         q = apply_rope(q, positions, self.cfg.rope_theta)
         k = apply_rope(k, positions, self.cfg.rope_theta)
 
-        new_cache = None
-        if cache is not None:
-            # in place: the cache is preallocated for the whole generation
-            k_cache, v_cache, idx = cache
-            k_cache[:, idx:idx + t] = k
-            v_cache[:, idx:idx + t] = v
-            k, v = k_cache, v_cache
-            new_cache = (k_cache, v_cache)
-
+        k, v, new_cache = write_cache(k, v, cache)
         groups = self.num_heads // self.num_kv
         kr = k.repeat_interleave(groups, dim=2) if groups > 1 else k
         vr = v.repeat_interleave(groups, dim=2) if groups > 1 else v
@@ -261,9 +290,27 @@ class LlamaMLP(nn.Module):
         return self.down_proj(self.act(self.gate_proj(x), self.up_proj(x)))
 
 
-def _norm(cfg: LlamaConfig, device) -> RMSNorm:
-    return RMSNorm(cfg.hidden_size, eps=cfg.rms_norm_eps, dtype=cfg.compute_dtype,
-                   param_dtype=cfg.params_dtype, device=device)
+def _norm(cfg: LlamaConfig, device) -> nn.Module:
+    cls = UnitOffsetRMSNorm if cfg.rmsnorm_unit_offset else RMSNorm
+    return cls(cfg.hidden_size, eps=cfg.rms_norm_eps, dtype=cfg.compute_dtype,
+               param_dtype=cfg.params_dtype, device=device)
+
+
+def run_block(x, hooks, attention, mlp):
+    """A pre-norm block's sequential residual with its inner hook sites:
+    ``attention(x)`` (its output and new cache) and ``mlp(x)`` take the
+    block's input and return the branch's output, the norms inside."""
+    hooks = hooks or {}
+    if "block_input" in hooks:
+        x = hooks["block_input"](x)
+    attn_out, new_cache = attention(x)
+    if "attention_output" in hooks:
+        attn_out = hooks["attention_output"](attn_out)
+    x = x + attn_out
+    mlp_out = mlp(x)
+    if "mlp_output" in hooks:
+        mlp_out = hooks["mlp_output"](mlp_out)
+    return x + mlp_out, new_cache
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -278,17 +325,10 @@ class LlamaDecoderLayer(nn.Module):
         """hooks: optional {component: fn} of this layer's inner sites,
         "block_input", "attention_output" and "mlp_output"; "block_output" is
         the caller's."""
-        hooks = hooks or {}
-        if "block_input" in hooks:
-            x = hooks["block_input"](x)
-        attn_out, new_cache = self.self_attn(self.input_layernorm(x), attn_bias, positions, cache)
-        if "attention_output" in hooks:
-            attn_out = hooks["attention_output"](attn_out)
-        x = x + attn_out
-        mlp_out = self.mlp(self.post_attention_layernorm(x))
-        if "mlp_output" in hooks:
-            mlp_out = hooks["mlp_output"](mlp_out)
-        return x + mlp_out, new_cache
+        return run_block(
+            x, hooks,
+            lambda h: self.self_attn(self.input_layernorm(h), attn_bias, positions, cache),
+            lambda h: self.mlp(self.post_attention_layernorm(h)))
 
 
 HOOK_COMPONENTS = ("block_output", "block_input", "attention_output", "mlp_output")
@@ -314,6 +354,45 @@ def split_hooks(layer_hooks) -> tuple[dict, dict]:
     return block, inner
 
 
+def attention_bias(attention_mask, t, caches, cache_index, dtype, device, segment_ids=None,
+                   window: Optional[int] = None) -> torch.Tensor:
+    """The additive attention bias of a decoder's forward (the JAX
+    models' construction): 0 where a key may be attended, -1e9 where not.
+    Without ``caches``: causal (and within ``window`` tokens, the query
+    counted), then the padding term of ``attention_mask``, then the segment
+    term, each added in ``dtype``; (b or 1, 1, t, t).  Over a fixed-size
+    cache: query row i sits at slot ``cache_index + i`` and may attend any
+    valid slot at or before it (within ``window``); (b, 1, t, cache_len)."""
+    if caches is None:
+        offs = torch.arange(t, device=device)
+        causal = offs[None, :] <= offs[:, None]
+        if window is not None:
+            causal = causal & (offs[:, None] - offs[None, :] < window)
+        bias = torch.where(causal[None, None], 0.0, -1e9).to(dtype)
+        if attention_mask is not None:
+            pad = (1.0 - attention_mask[:, None, None, :].to(dtype)) * torch.tensor(
+                -1e9, dtype=dtype, device=device)
+            bias = bias + pad
+        if segment_ids is not None:
+            same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+            bias = bias + torch.where(same, 0.0, -1e9).to(dtype)
+        return bias
+    cache_len = caches[0][0].shape[1]
+    slot_ids = torch.arange(cache_len, device=device)[None, :]
+    row_pos = cache_index + torch.arange(t, device=device)[:, None]
+    causal = slot_ids <= row_pos
+    if window is not None:
+        causal = causal & (row_pos - slot_ids < window)
+    ok = causal[None, None] & (attention_mask[:, None, None, :] > 0)
+    return torch.where(ok, 0.0, -1e9).to(dtype)
+
+
+def default_positions(b: int, t: int, segment_ids, device) -> torch.Tensor:
+    """0..t-1 a row, or each token's offset in its segment when packed."""
+    return (torch.arange(t, device=device).expand(b, t) if segment_ids is None
+            else segment_positions(segment_ids))
+
+
 class LlamaModel(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device=None, generator=None):
         super().__init__()
@@ -327,33 +406,6 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList([LlamaDecoderLayer(cfg, device=device, generator=generator)
                                      for _ in range(cfg.num_hidden_layers)])
         self.norm = _norm(cfg, device)
-
-    def _bias(self, attention_mask, t, caches, cache_index, dtype, device, segment_ids=None):
-        cfg = self.config
-        if caches is None:
-            offs = torch.arange(t, device=device)
-            causal = offs[None, :] <= offs[:, None]
-            if cfg.sliding_window is not None:
-                causal = causal & (offs[:, None] - offs[None, :] < cfg.sliding_window)
-            bias = torch.where(causal[None, None], 0.0, -1e9).to(dtype)
-            if attention_mask is not None:
-                pad = (1.0 - attention_mask[:, None, None, :].to(dtype)) * torch.tensor(
-                    -1e9, dtype=dtype, device=device)
-                bias = bias + pad
-            if segment_ids is not None:
-                same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
-                bias = bias + torch.where(same, 0.0, -1e9).to(dtype)
-            return bias
-        # over a fixed-size cache: query row i sits at slot cache_index + i
-        # and may attend any valid slot at or before it
-        cache_len = caches[0][0].shape[1]
-        slot_ids = torch.arange(cache_len, device=device)[None, :]
-        row_pos = cache_index + torch.arange(t, device=device)[:, None]
-        causal = slot_ids <= row_pos
-        if cfg.sliding_window is not None:
-            causal = causal & (row_pos - slot_ids < cfg.sliding_window)
-        ok = causal[None, None] & (attention_mask[:, None, None, :] > 0)
-        return torch.where(ok, 0.0, -1e9).to(dtype)
 
     def forward(self, input_ids, attention_mask=None, positions=None, caches=None,
                 cache_index=None, segment_ids=None, layer_hooks=None):
@@ -372,8 +424,7 @@ class LlamaModel(nn.Module):
         if cfg.scale_embeddings:
             x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype, device=x.device)
         if positions is None:
-            positions = (torch.arange(t, device=x.device).expand(b, t) if segment_ids is None
-                         else segment_positions(segment_ids))
+            positions = default_positions(b, t, segment_ids, x.device)
         if caches is None and cfg.attention_impl == "splash":
             # splash builds its own pure-causal mask and ignores the bias: it
             # would silently attend beyond the window or across segments
@@ -386,8 +437,8 @@ class LlamaModel(nn.Module):
                                  "attention_impl (einsum or dpa)")
             bias = None  # splash takes no bias
         else:
-            bias = self._bias(attention_mask, t, caches, cache_index, x.dtype, x.device,
-                              segment_ids)
+            bias = attention_bias(attention_mask, t, caches, cache_index, x.dtype, x.device,
+                                  segment_ids, window=cfg.sliding_window)
         remat = cfg.remat and caches is None and self.training and torch.is_grad_enabled()
         context_fn = remat_context(cfg.remat_policy) if remat else None
         new_caches = None if caches is None else []
@@ -413,9 +464,6 @@ class LlamaForCausalLM(nn.Module):
         ``torch.Generator`` on ``device`` for the random init; a fresh one
         seeded with 0 when None."""
         super().__init__()
-        if cfg.rmsnorm_unit_offset:
-            raise NotImplementedError(
-                "UnitOffsetRMSNorm (Gemma): ROADMAP.md queue A item 25, 'Other model families'")
         if cfg.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"unknown attention_impl {cfg.attention_impl!r} "
                              f"({' | '.join(ATTENTION_IMPLS)})")

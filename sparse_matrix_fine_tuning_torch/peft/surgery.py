@@ -60,8 +60,9 @@ def init_monarch(model: nn.Module, peft_config: dict, *,
     Args:
       peft_config: reference-format dict: ``monarch``, ``target_modules``,
         ``nblocks`` (an int or "sqrt(n)"), ``blk_r``, ``adapter``, ...
-      generator: ``torch.Generator`` on the model's device for the factors'
-        init; a fresh one seeded with 0 when None.
+      generator: ``torch.Generator`` for the factors' init, on the model's
+        device or on the CPU (drawn there and moved: a card's model then
+        gets the CPU's numbers); a fresh one seeded with 0 when None.
     Returns:
       (name, dense_shape, blkdiag1_shape, blkdiag2_shape) per adapted layer.
     """
@@ -200,14 +201,15 @@ class ScaledLoRA(nn.Module):
         super().__init__()
         device = next(base_module.parameters()).device
         generator = seeded_generator(device, generator)
-        a = torch.empty(in_features, rank, dtype=param_dtype, device=device)
+        # drawn on the generator's device (the CPU's numbers from a CPU one)
+        a = torch.empty(in_features, rank, dtype=param_dtype, device=generator.device)
         if init_lora_weights == "gaussian":
             a.normal_(0.0, 1.0 / rank, generator=generator)
         else:
             bound = 1.0 / math.sqrt(in_features)
             a.uniform_(-bound, bound, generator=generator)
         self.base_module = base_module
-        self.lora_a = nn.Parameter(a)
+        self.lora_a = nn.Parameter(a.to(device))
         self.lora_b = nn.Parameter(torch.zeros(rank, out_features, dtype=param_dtype,
                                                device=device))
         self.scaling = float(alpha) / rank if alpha is not None else 1.0

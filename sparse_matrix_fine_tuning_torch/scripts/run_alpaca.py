@@ -15,11 +15,17 @@ sampling, beams, repetition penalties and n-gram bans, as the JAX harness's
 ``GenerationConfig`` takes them).  It runs on the card; ``--platform=cpu``
 runs it on the CPU, on the kernels' plain versions.
 
-``--model <dir>`` loads a local HF-format checkpoint in bfloat16 through
+``--model <dir>`` loads a local HF-format checkpoint of any causal family
+the port has (Llama, Mistral, Qwen2, Gemma, GPT-2, GPT-Neo, GPT-NeoX,
+Backpack-GPT-2) in bfloat16 through
 ``models/hf_convert.from_pretrained_causal_lm``, with
-``--gradient_checkpointing`` and ``--remat_policy``; otherwise the model is
-the JAX harness's tiny random Llama.  ``main`` and ``run`` take ``build``, a callable ``(args, peft_config) -> model`` in place
-of ``build_model``; tests and ``chip_smoke.py`` pass it, it is not a flag.
+``--gradient_checkpointing`` and ``--remat_policy`` (ignored by the GPT
+families, as in JAX); otherwise the model is the JAX harness's tiny random
+Llama.  Every linear but one named ``lm_head`` is adapted, Pythia's
+``embed_out`` included, as JAX's ``find_all_linear_names`` picks them.
+``main`` and ``run`` take ``build``, a callable ``(args, peft_config) ->
+model`` in place of ``build_model``; tests and ``chip_smoke.py`` pass it,
+it is not a flag.
 ``run`` also takes ``step_context``, the ``Trainer``'s hook around each
 training step (``chip_smoke.py`` times and profiles the run's steps with it).
 ``adapt_model`` is the part of ``build_model`` after the base model:
@@ -212,12 +218,11 @@ def check_supported(args) -> None:
 def adapt_model(model, args, peft_config: dict):
     """Monarch adapters (``--adapter lora``: LoRA of rank 4 x blk_r) on every
     linear but the head (the reference's find_all_linear_names,
-    qlora_monarch.py:245-248), their init from a generator seeded
-    ``seed + 1``; then ``--bits`` (Monarch layers' bases only, as the JAX
+    qlora_monarch.py:245-248), their init drawn on the CPU from a generator
+    seeded ``seed + 1`` (a model on the card gets the CPU run's numbers); then ``--bits`` (Monarch layers' bases only, as the JAX
     package), ``--quant_lm_head`` and ``--loss_chunk``.  Returns the model."""
     peft_config = dict(peft_config, target_modules=find_all_linear_names(model))
-    device = next(model.parameters()).device
-    generator = torch.Generator(device=device).manual_seed(args.seed + 1)
+    generator = torch.Generator().manual_seed(args.seed + 1)  # the CPU's numbers on any device
     if args.adapter == "lora":
         adapted = init_lora(model, dict(peft_config, r=peft_config.get("blk_r", 8) * 4),
                             generator=generator)
@@ -236,9 +241,10 @@ def adapt_model(model, args, peft_config: dict):
     return model
 
 
-def build_model(args, peft_config: dict):
-    """The checkpoint of ``--model <dir>`` in bfloat16 on the harness's
-    device, remat as ``--gradient_checkpointing`` and ``--remat_policy``
+def build_model(args, peft_config: dict, dtype: str = "bfloat16"):
+    """The checkpoint of ``--model <dir>`` in ``dtype`` (the JAX harness's
+    bfloat16; ``chip_smoke.py`` passes float32 to hold the card to the CPU)
+    on the harness's device, remat as ``--gradient_checkpointing`` and ``--remat_policy``
     say, adapted by ``adapt_model`` there.  Else the JAX harness's tiny
     random Llama, adapted by ``adapt_model``, with the tokenizer's
     vocabulary: 1024 with ``--smoke``, else the hash tokenizer's 32000 (the
@@ -248,7 +254,7 @@ def build_model(args, peft_config: dict):
     the harness's device, so that a seed gives one model on the card and on
     the CPU (a card's generator draws other numbers)."""
     if not args.smoke and os.path.isdir(args.model):
-        model = from_pretrained_causal_lm(args.model, dtype="bfloat16",
+        model = from_pretrained_causal_lm(args.model, dtype=dtype,
                                           device=harness_device(args),
                                           remat=args.gradient_checkpointing,
                                           remat_policy=args.remat_policy)

@@ -5,16 +5,17 @@ instruct, ultrafeedback) with generation-based evaluation:
 Counterpart of the JAX harness ``run_reasoning.py`` at the repository's root
 (the reference's pyreft/loreft/train.py, driven by reasoning_scripts/
 {math,common_sense}_monarch.sh): the same flags and defaults.  It builds a
-Llama from a local HF-format directory (``--model <dir>``, through
-``models/hf_convert.from_pretrained_causal_lm`` in bfloat16, with
-``--gradient_checkpointing`` and ``--remat_policy``) or the JAX harness's
-tiny random Llama, puts Monarch adapters on the attention and MLP
-projections, trains with the masked causal-LM loss through the port's
-``Trainer`` (``--pack`` bin-packs the rows), then scores each eval dataset
-of the task by generation, greedy or with the task's other
-``generation_args`` (beam 4, sampling, penalties and n-gram bans).  It
-writes ``eval_results.json``, ``generations.json`` and ``metrics.jsonl``
-into ``<output_dir>/<task>``.  It runs on the card; ``--platform=cpu``
+causal LM of any family the port has (Llama, Mistral, Qwen2, Gemma, GPT-2,
+GPT-Neo, GPT-NeoX, Backpack-GPT-2) from a local HF-format directory
+(``--model <dir>``, through ``models/hf_convert.from_pretrained_causal_lm``
+in bfloat16, with ``--gradient_checkpointing`` and ``--remat_policy``, which
+the GPT families ignore) or the JAX harness's tiny random Llama, puts
+Monarch adapters on the peft config's projections, trains with the masked
+causal-LM loss through the port's ``Trainer`` (``--pack`` bin-packs the
+rows), then scores each eval dataset of the task by generation, greedy or
+with the task's other ``generation_args`` (beam 4, sampling, penalties and
+n-gram bans).  It writes ``eval_results.json``, ``generations.json`` and
+``metrics.jsonl`` into ``<output_dir>/<task>``.  It runs on the card; ``--platform=cpu``
 runs it on the CPU, on the kernels' plain versions.
 
 Without ``--smoke`` the hash tokenizer has 32000 ids and the tiny model as
@@ -88,6 +89,7 @@ from sparse_matrix_fine_tuning_torch.evaluation.predict import predict_classes
 from sparse_matrix_fine_tuning_torch.evaluation.reasoning import compute_reasoning_metrics
 from sparse_matrix_fine_tuning_torch.interventions.reft import ReftConfig, get_reft_model
 from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig, RobertaConfig
+from sparse_matrix_fine_tuning_torch.models.gpt2 import GPT2LMHeadModel
 from sparse_matrix_fine_tuning_torch.models.hf_convert import (
     from_pretrained_causal_lm,
     from_pretrained_roberta,
@@ -229,11 +231,14 @@ def local_weights(args) -> bool:
 
 
 def model_layers(args) -> int:
-    """The layer count of the model ``build_model`` gives: the checkpoint's,
-    or the tiny model's 2."""
+    """The layer count of the model ``build_model`` gives: the checkpoint's
+    (``num_hidden_layers``, GPT-2's ``n_layer`` or GPT-Neo's ``num_layers``;
+    the JAX harness reads the first alone, ROADMAP.md C.19), or the tiny
+    model's 2."""
     if local_weights(args):
         with open(os.path.join(args.model, "config.json")) as f:
-            return json.load(f)["num_hidden_layers"]
+            hf = json.load(f)
+        return next(hf[k] for k in ("num_hidden_layers", "n_layer", "num_layers") if k in hf)
     return 2
 
 
@@ -262,18 +267,21 @@ def wrap_reft(model, args, intervention_type: str):
     return model
 
 
-def build_model(args, peft_config: dict):
-    """The checkpoint of ``--model <dir>`` in bfloat16 on the harness's
-    device, remat as ``--gradient_checkpointing`` and ``--remat_policy``
+def build_model(args, peft_config: dict, dtype: str = "bfloat16"):
+    """The checkpoint of ``--model <dir>`` in ``dtype`` (the JAX harness's
+    bfloat16; ``chip_smoke.py`` passes float32 to hold the card to the CPU)
+    on the harness's device, remat as ``--gradient_checkpointing`` and ``--remat_policy``
     say; else the JAX harness's tiny random Llama, drawn on the CPU from a
     generator seeded ``seed`` (with ``SMOKE_VOCAB`` ids under ``--smoke``,
-    else ``HASH_VOCAB``).  Monarch adapters go on the peft config's targets
-    (the attention projections with ``--all_linear=False``), their factors
-    from a generator seeded ``seed + 1`` on the model's device; with an
-    intervention, wrapped by ``wrap_reft``."""
+    else ``HASH_VOCAB``).  Monarch adapters go on the peft config's targets,
+    the Llama's seven names whatever the family (with ``--all_linear=False``
+    the attention projections: GPT-2's ``c_attn``, else the Llama's four),
+    as the JAX harness chooses them (ROADMAP.md C.18), their factors drawn
+    on the CPU from a generator seeded ``seed + 1`` (a card's run gets the
+    CPU run's); with an intervention, wrapped by ``wrap_reft``."""
     device = harness_device(args)
     if local_weights(args):
-        model = from_pretrained_causal_lm(args.model, dtype="bfloat16", device=device,
+        model = from_pretrained_causal_lm(args.model, dtype=dtype, device=device,
                                           remat=args.gradient_checkpointing,
                                           remat_policy=args.remat_policy)
     else:
@@ -286,10 +294,13 @@ def build_model(args, peft_config: dict):
         model = LlamaForCausalLM(cfg, device="cpu",
                                  generator=torch.Generator().manual_seed(args.seed))
     if not args.all_linear:
-        peft_config = dict(peft_config, target_modules=ATTENTION_TARGETS)
-    at = next(model.parameters()).device
+        # GPT-2's fused c_attn; every other family, Backpack's included, is
+        # given the Llama's names, as in the JAX harness (ROADMAP.md C.18)
+        peft_config = dict(peft_config, target_modules=(
+            ["c_attn"] if isinstance(model, GPT2LMHeadModel) else ATTENTION_TARGETS))
+    # a CPU generator: a checkpoint loaded on the card gets the CPU run's factors
     adapted = init_monarch(model, peft_config,
-                           generator=torch.Generator(device=at).manual_seed(args.seed + 1))
+                           generator=torch.Generator().manual_seed(args.seed + 1))
     print(f"[reasoning] adapted {len(adapted)} layers with Monarch")
     if args.loss_chunk:
         model.config = dataclasses.replace(model.config, loss_chunk=args.loss_chunk)

@@ -8,7 +8,10 @@ differ:
 
   ``nnx.Linear.kernel`` (in, out)   -> ``nn.Linear.weight`` (out, in), transposed
   ``nnx.Embed.embedding``           -> ``nn.Embedding.weight``
-  norm ``scale``                    -> norm ``weight``
+  norm ``scale``                    -> norm ``weight`` (Gemma's
+                                       ``UnitOffsetRMSNorm`` keeps the
+                                       stored offset; the LayerNorms' ``bias``
+                                       as it is)
   ``MonarchLinear`` ``dense`` (out, in), ``blkdiag1``, ``blkdiag2``, ``bias``,
   ``blkdiag_mult``, Scaler ``scaler``  -> the same names, as they are
   (projected factors too; svd_init's residual is the ``dense``, and
@@ -17,6 +20,10 @@ differ:
   its ``base_module/kernel`` -> ``base_module.weight``, transposed
   ``BOFTLinear`` ``boft_R``, ``boft_s``, ``dense`` (out, in), ``bias``
   ``MonarchFactor`` ``weight``, ``bias``  -> as they are
+  the decoder families (Llama and Gemma, GPT-2, GPT-Neo, GPT-NeoX,
+  Backpack-GPT-2) by these rules, under the JAX models' attribute paths
+  (``transformer.h.0.attn.c_attn``, ``gpt_neox.layers.0...``,
+  ``backpack.sense_network...``)
   a ``ReftModel``'s interventions (``interventions.<i>.rotate``, ``w``, ...,
   their temperatures, PCA bases and noise as persistent buffers) and the
   toy models (``models/toy.py``)  -> the same names and layouts; their

@@ -7,8 +7,10 @@ bit; a loaded model's logits match HF's and the JAX package's loader's on
 the same directory within ``TOLERANCES["f32_logits"]`` (float32 sums in
 another order through two layers), for Llama (untied and tied), Mistral
 with a sliding window shorter than the sequence, and Qwen2 with its qkv
-biases; the families the port has not are refused before any weight is
-read.  ``write_hf_llama`` serves the harness tests too.
+biases; the other families route to their loaders
+(``test_torch_hf_convert_families.py``) and a model_type neither package
+has is refused before any weight is read.  ``write_hf_llama`` serves the
+harness tests too.
 """
 
 import dataclasses
@@ -211,9 +213,19 @@ def test_torch_config_from_hf_matches_jax(hf):
     {"model_type": "gpt2", "architectures": ["BackpackGPT2LMHeadModel"]},
 ], ids=["gemma", "gpt2", "gpt_neo", "gpt_neox", "backpack"])
 def test_torch_unported_families_refused_before_the_weights(tmp_path, config):
-    """The directory holds no weights: reading any would raise
-    FileNotFoundError, not the refusal."""
+    """These five families are ported now (tests/test_torch_hf_convert_families.py):
+    none is refused, each is routed to its loader, which builds the model
+    and then reaches for the weights (the directory holds none:
+    FileNotFoundError).  A model_type that neither package has is still
+    refused before the weights."""
+    tiny = dict(vocab_size=64, hidden_size=32, n_embd=32, num_hidden_layers=1, n_layer=1,
+                num_layers=1, num_attention_heads=2, n_head=2, num_heads=2,
+                intermediate_size=64, max_position_embeddings=16, n_positions=16)
     with open(os.path.join(tmp_path, "config.json"), "w") as f:
-        json.dump(config, f)
-    with pytest.raises(NotImplementedError, match="item 25"):
+        json.dump({**tiny, **config}, f)
+    with pytest.raises(FileNotFoundError, match="no checkpoint found"):
+        hf_convert.from_pretrained_causal_lm(str(tmp_path), device="cpu")
+    with open(os.path.join(tmp_path, "config.json"), "w") as f:
+        json.dump({**tiny, "model_type": "bert"}, f)
+    with pytest.raises(ValueError, match="unsupported causal-LM model_type 'bert'"):
         hf_convert.from_pretrained_causal_lm(str(tmp_path), device="cpu")

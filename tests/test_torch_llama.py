@@ -197,9 +197,14 @@ def test_torch_llama_config_matches_jax():
                                  "mlp_activation": "gelu_tanh"}])
 def test_torch_llama_refuses_unported_options(kw):
     """``UnitOffsetRMSNorm`` alone and with the rest of the Gemma preset's
-    knobs; remat is ported (tests/test_torch_remat.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LlamaForCausalLM(LlamaConfig.tiny(**kw), device="cpu")
+    knobs builds (tests/test_torch_gemma.py holds it to JAX); what stays
+    unported is splash attention at Gemma's head_dim 256, which K17-K19 do
+    not instantiate: refused at the forward, naming its ROADMAP entry.
+    Remat is ported (tests/test_torch_remat.py)."""
+    model = LlamaForCausalLM(LlamaConfig.tiny(head_dim=256, attention_impl="splash", **kw),
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*head_dim 256"):
+        model(torch.ones(1, 4, dtype=torch.long))
 
 
 def test_torch_bridge_refuses_mismatch(pair):

@@ -57,6 +57,11 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.models.llama",
     "sparse_matrix_fine_tuning_torch.models.roberta",
     "sparse_matrix_fine_tuning_torch.models.deberta",
+    "sparse_matrix_fine_tuning_torch.models",
+    "sparse_matrix_fine_tuning_torch.models.gpt2",
+    "sparse_matrix_fine_tuning_torch.models.gpt_neo",
+    "sparse_matrix_fine_tuning_torch.models.gpt_neox",
+    "sparse_matrix_fine_tuning_torch.models.backpack_gpt2",
     "sparse_matrix_fine_tuning_torch.models.generate",
     "sparse_matrix_fine_tuning_torch.models.hf_convert",
     "sparse_matrix_fine_tuning_torch.peft.surgery",

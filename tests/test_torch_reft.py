@@ -4,7 +4,7 @@ bfloat16, with the JAX module's weights carried by
 ``utils/jax_bridge.load_jax_state``: outputs, the gradient of every
 parameter and of the inputs (and the source).  Then ``apply_at_positions``
 with overlapping and -1 locations, dropout, the package-level names and the
-Backpack refusal.
+Backpack site's refusal on a model without a sense network.
 
 Tolerances: ``TOLERANCES["f32_op"]`` in float32; in bfloat16 ``bf16_atol``
 (two bf16 ulps of the reference's scale) on outputs and 2^-4 of the
@@ -208,10 +208,21 @@ def test_torch_reft_package_names_match_jax():
 
 
 def test_torch_reft_refuses_the_backpack_site():
+    """The Backpack ``sense_network_output`` site is ported
+    (tests/test_torch_backpack_reft.py holds it to JAX); a model without a
+    sense network refuses it when the ReftModel is built, where it would
+    otherwise fail at the first forward."""
+    from sparse_matrix_fine_tuning_torch.models.backpack_gpt2 import (
+        BackpackGPT2Config,
+        BackpackGPT2LMHeadModel,
+    )
     from sparse_matrix_fine_tuning_torch.models.toy import MLPModel, ToyConfig
 
-    base = MLPModel(ToyConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 25"):
-        treft.ReftModel(base, treft.ReftConfig(representations=[
-            {"layer": 0, "component": "sense_network_output",
-             "intervention": "LoreftIntervention"}]))
+    reps = treft.ReftConfig(representations=[
+        {"layer": 0, "component": "sense_network_output", "intervention": "LoreftIntervention"}])
+    with pytest.raises(ValueError, match="Backpack-GPT-2's: MLPModel has no sense network"):
+        treft.ReftModel(MLPModel(ToyConfig(), device="cpu"), reps)
+    rm = treft.ReftModel(BackpackGPT2LMHeadModel(BackpackGPT2Config.tiny(), device="cpu"), reps)
+    out = rm(torch.ones(2, 5, dtype=torch.long),
+             intervention_locations=torch.zeros(2, 1, 1, dtype=torch.long))
+    assert out.shape == (2, 5, 256)
