@@ -173,7 +173,27 @@ hand-written CUDA kernels, and checks them:
      from HF-format directories written here (deleted after), 2 steps and
      a greedy eval each: launches exact (K1, K3), step wall, busy, idle
      share, peak; K1 and K3 timed at every adapted shape, K3's plan
-     printed (its generic kernel timed where a shape takes it).
+     printed (its generic kernel timed where a shape takes it);
+ 25. BLIP (``models/blip.py``): the tiny VQA and ITM models (the JAX
+     ``tiny()`` shapes, every linear of the towers Monarch-adapted) in
+     float32 on the card against a CPU copy: the VQA decoder logits and
+     encoder hidden states, the ITM scores with the ITM head and
+     contrastive, two AdamW steps of the answer loss (losses and every
+     adapter gradient), a LoReFT at a text-encoder block output and a
+     cross-attention output (loss and every gradient); launches exact (K2,
+     K3); then BLIP-base (``Salesforce/blip-vqa-base``'s config) from an
+     HF-format directory written here (random seeded float32 weights, the
+     loaded tensors against the written ones; deleted after), 288 adapted
+     linears, two ``Trainer`` steps at batch 8 x ga 2 with 20-token
+     questions (step wall, busy, idle share, peak), each adapted shape's
+     rows and K3's plan, K2 and K3 timed there, a LoReFT step at four
+     text-encoder layers, the ITM model in both modes, the adapters merged
+     (K1) and a merged eval forward; launches exact.
+
+18 also runs the smoke harness over an int4 base with ``--optim adamw8bit``
+(the 8-bit codes that differ between the card and the CPU counted), and
+its int4 run at full width with it (the optimizer state's bytes printed
+beside AdamW's).
 
 Serving (5, 6, 10 and 11) runs before the experiments (13-16).  Every
 profile is taken in ``benchlib.device_profile``'s window, padded at both
@@ -182,7 +202,8 @@ with splash, each remat run and step of 8, each configuration of 11, each step o
 each script of 14, 15 and 16, the attention bench of 17, each harness run
 of 18, 19, 20, 21, 22, 23 and 24, 19's beam search and beam-4 eval, 20's timed
 eval and predictions, 21's reference-orientation layer, 23's evals and DAS
-runs, and 24's Backpack LoReFT) zeroes the launch counts of every kernel
+runs, 24's Backpack LoReFT, and each forward, training run, LoReFT step,
+merge and merged forward of 25) zeroes the launch counts of every kernel
 just before it and reads them just after.  Any failed check
 exits non-zero.  The line before the last is one JSON object on the
 kernels (K5 and K7 at decode and, as ``int4_matmul_tile`` and
@@ -210,6 +231,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -650,6 +672,29 @@ FAMILIES_FULL = (
      [*_FULL_CUT, "-task", "commonsense", "-batch_size", "4", "-gradient_accumulation_steps",
       "4", "-max_length", "256", "-eval_dataset", "boolq", "--max_n_eval_example=8"], 7 * 18),
 )
+BLIP_TARGETS = ["qkv", "projection", "fc1", "fc2", "query", "key", "value", "dense",
+                "intermediate", "output"]  # every linear of the towers; not the LM head's
+BLIP_PEFT = {**PEFT, "dropout": 0.0, "target_modules": BLIP_TARGETS}
+BLIP_SMOKE_LOREFT = [{"layer": 1, "component": "block_output",
+                      "intervention": "LoreftIntervention", "low_rank_dimension": 4},
+                     {"layer": 0, "component": "cross_attention_output",
+                      "intervention": "LoreftIntervention", "low_rank_dimension": 4}]
+# Salesforce/blip-vqa-base's published config.json (the fields the loader reads)
+BLIP_VQA_BASE_HF = {
+    "architectures": ["BlipForQuestionAnswering"], "model_type": "blip",
+    "image_text_hidden_size": 256, "projection_dim": 512,
+    "text_config": {"vocab_size": 30524, "hidden_size": 768, "intermediate_size": 3072,
+                    "num_hidden_layers": 12, "num_attention_heads": 12,
+                    "encoder_hidden_size": 768, "max_position_embeddings": 512,
+                    "layer_norm_eps": 1e-12, "pad_token_id": 0, "bos_token_id": 30522,
+                    "sep_token_id": 102},
+    "vision_config": {"hidden_size": 768, "intermediate_size": 3072, "num_hidden_layers": 12,
+                      "num_attention_heads": 12, "image_size": 384, "patch_size": 16,
+                      "layer_norm_eps": 1e-5}}
+BLIP_BATCH, BLIP_QUESTION, BLIP_GA, BLIP_STEPS = 8, 20, 2, 2
+BLIP_ADAPTED = {"qa": 12 * 4 + 2 * 12 * 10, "itm": 12 * 4 + 12 * 10,
+                "contrastive": 12 * 4 + 12 * 6}  # adapted calls a forward
+BLIP_REFT_LAYERS = (2, 5, 8, 11)
 OUT_DIR = "chip_smoke_out"  # per-case records; .gitignore lists it
 RECORDS: list[dict] = []  # one per kernel case, written to OUT_DIR
 
@@ -1291,8 +1336,9 @@ def profile_decode(model, ids, mask, steps: int = 8, kernels: dict | None = None
 def phase_bf16(f32: dict, card: str) -> dict:
     """The slice in bfloat16, timed as bench.py times the JAX one: batch 4,
     prompt 64, 128 new tokens, no EOS; prefill the median of 3 timed
-    1-token generates (2 merged), a step from the median of 2 timed
-    generates (the counted one among them), unmerged and merged.  The counted main path is: unmerged
+    1-token generates (2 merged), a step from the counted generate (one
+    sample each, unmerged and merged: the repeats were cut to pay for the
+    BLIP phases).  The counted main path is: unmerged
     greedy generate (K2 on every adapted linear), merge of the adapters on
     the card (K1), greedy generate of the merged model."""
     from sparse_matrix_fine_tuning_torch.models.generate import GenerationConfig, generate
@@ -1325,7 +1371,7 @@ def phase_bf16(f32: dict, card: str) -> dict:
 
     generate(model, fresh_ids(), mask, GenerationConfig(max_new_tokens=8, eos_token_id=None))
     prefill = [gen_s(gc1) for _ in range(3)]
-    gens = [gen_s(gc)]
+    gens = []
     busy_ms = profile_decode(model, fresh_ids(), mask)
     probe = fresh_ids()
     with torch.inference_mode():
@@ -1356,7 +1402,7 @@ def phase_bf16(f32: dict, card: str) -> dict:
         merged_logits.float().flatten(), unmerged_logits.float().flatten(), dim=0))
     agree = float((merged_toks[:, PROMPT:] == toks[:, PROMPT:]).float().mean())
     merged_prefill = [gen_s(gc1) for _ in range(2)]
-    merged_gens = [merged_main_s, gen_s(gc)]
+    merged_gens = [merged_main_s]
 
     med = statistics.median
     prefill_ms = med(prefill) * 1e3
@@ -1500,6 +1546,7 @@ def train_timed(model, merged: str, tag: str, extra: str = "",
     step_ms = statistics.median(secs[1:]) * 1e3
     busy = device_busy_ms(lambda k: tr.train_step(batches[k]), 1,
                           f"bf16 training step ({tag.split(': ', 1)[-1]})")
+    opt_bytes = tr.optimizer.state_bytes()
     tr.close()
     require(all(map(math.isfinite, losses)), f"{tag}: losses {losses}")
     tps = TRAIN_BS * TRAIN_GA * TRAIN_SEQ / (step_ms / 1e3)
@@ -1512,7 +1559,7 @@ def train_timed(model, merged: str, tag: str, extra: str = "",
           f"{busy if busy is None else round(busy, 2)} ms/step, idle share {idle}; launches "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     return {"losses": losses, "launches": launches, "step_ms": step_ms, "busy_ms": busy,
-            "peak_gb": peak_gb, "mfu": mfu}
+            "peak_gb": peak_gb, "mfu": mfu, "opt_state_bytes": opt_bytes}
 
 
 def phase_train_f32(card: str) -> None:
@@ -2964,8 +3011,11 @@ def phase_quant_train_bf16(card: str, bits: int) -> dict:
     require(quant.quantize_frozen_base(model, bits=bits) == N_ADAPTED, "quantize missed layers")
     torch.cuda.empty_cache()
     resident = f"weights and buffers resident {torch.cuda.memory_allocated() / 1e9:.3f} GB, "
-    launches = train_timed(model, "off", f"[quant-train-bf16] {card}: int{bits} base, merged off",
-                           resident)["launches"]
+    run = train_timed(model, "off", f"[quant-train-bf16] {card}: int{bits} base, merged off",
+                      resident)
+    launches = run["launches"]
+    print(f"[quant-train-bf16] {card}: int{bits} base: AdamW state "
+          f"{run['opt_state_bytes'] / 1e6:.3f} MB", flush=True)
     micro = TRAIN_GA * TRAIN_STEPS
     name = f"int{bits}_matmul"
     expect = {name: N_ADAPTED * micro, "monarch_add": N_ADAPTED * micro,
@@ -3030,12 +3080,13 @@ def alpaca_expect(bits: int, adapted: int, forwards: int, micro: int, forward: s
     return expect
 
 
-def alpaca_pair(card: str, name: str, argv: list, out: str, expect_of) -> dict:
+def alpaca_pair(card: str, name: str, argv: list, out: str, expect_of, report=None) -> dict:
     """One smoke run of the Alpaca harness on the card and on the CPU
     (``--platform=cpu``, the plain path, launching nothing), float32: the
     logged losses, ``eval_loss`` and the MMLU choice logits agree within
     ``ALPACA_TOL``, ``eval_results.json`` and ``predictions.jsonl`` are
-    written, and the card's launches are ``expect_of(card run)`` exactly.
+    written, and the card's launches are ``expect_of(card run)`` exactly;
+    ``report(card run, CPU run)``, where given, adds to the printed line.
     Returns those launches."""
     tol = ALPACA_TOL
     micro = ALPACA_STEPS * ALPACA_GA
@@ -3075,7 +3126,8 @@ def alpaca_pair(card: str, name: str, argv: list, out: str, expect_of) -> dict:
         packed = card_run["run"].trainer.train_data
         name += (f" ({len(packed['input_ids'])} rows of {packed['input_ids'].shape[1]}, "
                  f"{int(packed['attention_mask'].sum())} tokens)")
-    print(f"[alpaca] {card}: smoke, {name}: losses "
+    extra = f"; {report(card_run, cpu_run)}" if report else ""
+    print(f"[alpaca] {card}: smoke, {name}{extra}: losses "
           f"{losses[0]} card, {losses[1]} CPU; eval_loss {m_card['eval_loss']} / "
           f"{m_cpu['eval_loss']}; MMLU choice logits max |card - CPU| "
           f"{float((logits[0] - logits[1]).abs().max()):.2e} (tol {tol}); MMLU accuracy "
@@ -3095,17 +3147,40 @@ def phase_alpaca_smoke(card: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     micro = ALPACA_STEPS * ALPACA_GA
     launches = {}
-    for bits, extra in ((16, []), (8, []), (4, []), (16, ["--pack=True"])):
-        name = (f"int{bits}" if bits < 16 else "f32" + (" packed" if extra else "")) + " base"
-        out = os.path.join(OUT_DIR, f"alpaca_{bits}" + ("_pack" if extra else ""))
+    for bits, extra in ((16, []), (8, []), (4, []), (16, ["--pack=True"]),
+                        (4, ["--optim=adamw8bit"])):
+        name = (f"int{bits}" if bits < 16 else "f32") + " base" + (
+            ", packed" if "--pack=True" in extra else "") + (
+            ", 8-bit AdamW" if "--optim=adamw8bit" in extra else "")
+        out = os.path.join(OUT_DIR, f"alpaca_{bits}" + ("_pack" if "--pack=True" in extra else "")
+                           + ("_8bit" if "--optim=adamw8bit" in extra else ""))
         expect = alpaca_pair(card, name, [*ALPACA_ARGV, "--bits", str(bits), *extra], out,
                              lambda run, bits=bits: alpaca_expect(bits, 7 * 2, run["forwards"],
-                                                                  micro, "monarch_add"))
+                                                                  micro, "monarch_add"),
+                             report=optimizer_codes if "--optim=adamw8bit" in extra else None)
         for k, v in expect.items():
             launches[k] = launches.get(k, 0) + v
     for k, v in alpaca_resume(card).items():
         launches[k] = launches.get(k, 0) + v
     return launches
+
+
+def optimizer_codes(card_run: dict, cpu_run: dict) -> str:
+    """The 8-bit optimizer's state of two harness runs: its bytes and the
+    codes that differ between the card's and the CPU's (the card's gradients
+    come from the kernels, so a value near a codebook midpoint may fall on
+    the other side)."""
+    states = [r["run"].trainer.optimizer for r in (card_run, cpu_run)]
+    arrays = [{k: v.cpu() for k, v in opt.state_arrays().items()} for opt in states]
+    require(type(states[0].opt).__name__ == "AdamW8bit" and sorted(arrays[0]) == sorted(arrays[1]),
+            "alpaca 8-bit AdamW: the runs' optimizer states differ in kind")
+    codes = collections.Counter()
+    for key, got in arrays[0].items():
+        if key.endswith(("/mq", "/vq")):
+            codes[key[-2:] + " total"] += got.numel()
+            codes[key[-2:]] += int((got != arrays[1][key]).sum())
+    return (f"8-bit state {states[0].state_bytes()} bytes; codes differing card against CPU: "
+            f"m {codes['mq']} of {codes['mq total']}, v {codes['vq']} of {codes['vq total']}")
 
 
 def alpaca_resume(card: str) -> dict:
@@ -3197,14 +3272,15 @@ def phase_alpaca_full(card: str) -> dict:
         return run_alpaca.adapt_model(LlamaForCausalLM(cfg, device="cuda", generator=g), args,
                                       peft_config)
 
-    for bits, extra in ((16, []), (4, []), (16, ["--pack=True"])):
-        base = ("int4" if bits == 4 else "bf16") + (", packed" if extra else "")
+    for bits, extra in ((16, []), (4, ["--optim=adamw8bit"]), (16, ["--pack=True"])):
+        base = ("int4" if bits == 4 else "bf16") + (", packed" if "--pack=True" in extra else "")
         steps = {}
         gc.collect()  # what the last run left to the cyclic collector goes before measuring
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         before_gb = torch.cuda.memory_allocated() / 1e9
-        out = os.path.join(OUT_DIR, f"alpaca_full_{bits}" + ("_pack" if extra else ""))
+        out = os.path.join(OUT_DIR, f"alpaca_full_{bits}" + ("_pack" if "--pack=True" in extra
+                                                              else ""))
         shutil.rmtree(out, ignore_errors=True)
         full = alpaca_run([*ALPACA_FULL_ARGV, "--bits", str(bits), *extra, f"--output_dir={out}"],
                           build=build_full,
@@ -3249,7 +3325,9 @@ def phase_alpaca_full(card: str) -> dict:
               f"harness run {full['seconds']:.2f} s wall; memory: {before_gb:.2f} GB allocated "
               f"before the run, peak {run_peak_gb:.2f} GB over "
               f"the run (the build and quantization on the card included), {resident_gb:.2f} GB "
-              f"resident after it, peak {steps['peak_gb']:.2f} GB over step 1; "
+              f"resident after it, peak {steps['peak_gb']:.2f} GB over step 1; optimizer "
+              f"{type(full['run'].trainer.optimizer.opt).__name__}, state "
+              f"{full['run'].trainer.optimizer.state_bytes() / 1e6:.3f} MB; "
               f"{full['forwards']} forwards; launches {expect}", flush=True)
         del full
     gc.collect()
@@ -3444,9 +3522,10 @@ def llama_shapes(config: dict) -> dict:
 
 def is_norm_weight(name: str) -> bool:
     """A LayerNorm's or RMSNorm's scale in an HF checkpoint (``*norm.weight``,
-    GPT-2's ``ln_1``, ``ln_2``, ``ln_f`` and Backpack's ``ln``)."""
+    BLIP's ``layer_norm1``/``layer_norm2``, GPT-2's ``ln_1``, ``ln_2``, ``ln_f``
+    and Backpack's ``ln``)."""
     leaf = name.rsplit(".", 2)[-2:]
-    return name.lower().endswith("norm.weight") or (
+    return re.search(r"norm\d?\.weight$", name.lower()) is not None or (
         leaf[1] == "weight" and (leaf[0] == "ln" or leaf[0].startswith("ln_")))
 
 
@@ -4890,32 +4969,48 @@ def phase_families_smoke(card: str) -> dict:
 
 def family_kernel_times(card: str, label: str, layers: list, rows: int,
                         dtype=torch.bfloat16) -> dict:
-    """K1 and K3 timed (``benchlib.time_ms``) at each distinct adapted shape of
-    ``layers`` (the run's ``MonarchLinear`` layers) on ``rows`` rows, against
-    their plain versions, the bound and (K1) ``F.linear`` on the dense
-    equivalent, K3's plan printed ("fast": the cluster kernel; else the
-    generic kernel, ROADMAP B lead 10); summed over the model's adapted
-    linears.  Launches made here are not the path's."""
+    """K1 and K3 timed at each distinct adapted shape of ``layers`` (the
+    run's ``MonarchLinear`` layers) on ``rows`` rows (``adapter_kernel_times``)."""
+    shapes = collections.Counter((m.in_features, m.out_features, tuple(m.blkdiag1.shape),
+                                  tuple(m.blkdiag2.shape), rows) for m in layers)
+    return adapter_kernel_times(card, label, shapes, "monarch_kernel", dtype, "families-full")
+
+
+def adapter_kernel_times(card: str, label: str, shapes: collections.Counter, forward: str,
+                         dtype: torch.dtype, tag: str) -> dict:
+    """The forward kernel ``forward`` (K1, or K2 over a random base) and K3
+    timed (``benchlib.time_ms``) at each (in, out, w1 shape, w2 shape, rows)
+    of ``shapes``, against their plain versions, the bound and (the forward)
+    ``F.linear`` on the dense equivalent (K1) or ``addmm`` (K2), K3's plan
+    printed ("fast": the cluster kernel; else the generic kernel, ROADMAP B
+    lead 10); summed over the counts of ``shapes``.  Launches made here are
+    not the path's."""
     from sparse_matrix_fine_tuning_torch.ops.monarch import monarch_dense_equivalent
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 90)
-    shapes = collections.Counter((m.in_features, m.out_features, tuple(m.blkdiag1.shape),
-                                  tuple(m.blkdiag2.shape)) for m in layers)
-    totals = {"monarch_kernel": collections.Counter(), "monarch_bwd": collections.Counter()}
+    totals = {forward: collections.Counter(), "monarch_bwd": collections.Counter()}
     plans, generic = [], []
     print(_HEADER, flush=True)
     with torch.no_grad():
-        for (n_in, n_out, s1, s2), n in shapes.items():
+        for (n_in, n_out, s1, s2, rows), n in shapes.items():
             fields = monarch_cuda.monarch_bwd_plan_fields(rows, s1, s2, with_dx=True, dtype=dtype)
-            plans.append(f"{n_in}->{n_out} x{n} (w1 {s1}, w2 {s2}): fast {fields['fast']}")
+            plans.append(f"{n_in}->{n_out} at {rows} rows x{n} (w1 {s1}, w2 {s2}): fast "
+                         f"{fields['fast']}")
             x = torch.randn(rows, n_in, generator=g, device="cuda").to(dtype)
             w1 = (torch.randn(s1, generator=g, device="cuda") / s1[2] ** 0.5).to(dtype)
             w2 = (torch.randn(s2, generator=g, device="cuda") / s2[2] ** 0.5).to(dtype)
             dout = torch.randn(rows, n_out, generator=g, device="cuda").to(dtype)
             dense = monarch_dense_equivalent(w1.float(), w2.float()).to(dtype)
-            cases = {"monarch_kernel": (lambda: monarch_cuda.monarch_kernel(x, w1, w2),
-                                        lambda: monarch_cuda.monarch_kernel_reference(x, w1, w2),
-                                        lambda: torch.nn.functional.linear(x, dense)),
+            if forward == "monarch_add":
+                base = torch.randn(rows, n_out, generator=g, device="cuda").to(dtype)
+                fwd = (lambda: monarch_cuda.monarch_add(base, x, w1, w2),
+                       lambda: monarch_cuda.monarch_add_reference(base, x, w1, w2),
+                       lambda: torch.addmm(base, x, dense.T))
+            else:
+                fwd = (lambda: monarch_cuda.monarch_kernel(x, w1, w2),
+                       lambda: monarch_cuda.monarch_kernel_reference(x, w1, w2),
+                       lambda: torch.nn.functional.linear(x, dense))
+            cases = {forward: fwd,
                      "monarch_bwd": (lambda: monarch_cuda.monarch_bwd(x, w1, w2, dout),
                                      lambda: monarch_cuda.monarch_bwd_reference(x, w1, w2, dout),
                                      None)}
@@ -4940,13 +5035,13 @@ def family_kernel_times(card: str, label: str, layers: list, rows: int,
                     generic.append({"shape": [n_in, n_out], "rows": rows, "ms": ms,
                                     "plain_ms": plain_ms, "bound_ms": rec["bound_ms"]})
     line = ", ".join(f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, library "
-                     f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f})" if k == "monarch_kernel"
+                     f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f})" if k != "monarch_bwd"
                      else f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound "
                      f"{v['bound_ms']:.4f})" for k, v in totals.items())
-    print(f"[families-full] {card}: {label}: K3 plans at {rows} rows: {'; '.join(plans)}; "
-          f"device time over the {len(layers)} adapted linears at {rows} rows: {line}; "
-          f"K3 on the generic kernel (ROADMAP B lead 10): {generic or 'none'}", flush=True)
-    RECORDS.append({"families_kernels": label, "rows": rows, "plans": plans,
+    print(f"[{tag}] {card}: {label}: K3 plans: {'; '.join(plans)}; device time over the "
+          f"{sum(shapes.values())} adapted linears: {line}; K3 on the generic kernel (ROADMAP B "
+          f"lead 10): {generic or 'none'}", flush=True)
+    RECORDS.append({"adapter_kernels": label, "tag": tag, "plans": plans,
                     "totals": {k: dict(v) for k, v in totals.items()}, "generic_k3": generic,
                     "card": card})
     return {"totals": totals, "generic": generic}
@@ -5049,6 +5144,474 @@ def phase_families_full(card: str) -> dict:
     return dict(launches)
 
 
+# -- BLIP (models/blip.py) --------------------------------------------------------
+
+def blip_model(kind: str, cfg, seed: int):
+    """A BLIP VQA (``kind`` "qa") or ITM model on the CPU, float32, drawn from
+    CPU generators seeded from ``seed``: ``BLIP_PEFT``'s adapters with random
+    nonzero factors and random biases (the plain-adapter init zeroes
+    blkdiag2, which would hide a kernel that writes zeros)."""
+    from sparse_matrix_fine_tuning_torch.models import blip
+    from sparse_matrix_fine_tuning_torch.peft import surgery
+
+    cls = blip.BlipForQuestionAnswering if kind == "qa" else blip.BlipForImageTextRetrieval
+    model = cls(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+    surgery.init_monarch(model, BLIP_PEFT, generator=torch.Generator().manual_seed(seed + 1))
+    g = torch.Generator().manual_seed(seed + 2)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "blkdiag" in name:
+                p.normal_(0.0, 1.0, generator=g).div_(p.shape[-1] ** 0.5)
+            elif p.ndim == 1:
+                p.add_(torch.randn(p.shape, generator=g) * 0.05)
+    return model
+
+
+def blip_inputs(cfg, b: int, t: int, g: torch.Generator) -> tuple:
+    """(ids, mask, pixels, answers): question ids, rows after the first
+    padded by 1, 2, ... tokens (at most half), (b, 3, H, W) pixels, answer
+    tokens."""
+    tc, vc = cfg.text_config, cfg.vision_config
+    ids = torch.randint(1, tc.vocab_size, (b, t), generator=g)
+    lens = torch.tensor([t - min(i, t // 2) for i in range(b)])
+    mask = (torch.arange(t)[None] < lens[:, None]).long()
+    pixels = torch.randn(b, 3, vc.image_size, vc.image_size, generator=g)
+    answers = torch.randint(1, tc.vocab_size, (b,), generator=g)
+    return ids * mask, mask, pixels, answers
+
+
+def _worst(got: dict, want: dict, tol: dict, what: str) -> float:
+    """The largest |got - want| past ``tol``'s rtol over two dicts of
+    tensors (each in its own scale), required within its atol; returns the
+    largest |got - want| / scale."""
+    worst = 0.0
+    for key, ref in want.items():
+        ref = ref.detach().float().cpu()
+        val = got[key].detach().float().cpu()
+        require(val.shape == ref.shape and bool(torch.isfinite(val).all()),
+                f"{what} {key}: shape {tuple(val.shape)} against {tuple(ref.shape)}")
+        scale = float(ref.abs().max())
+        gap = float((val - ref).abs().max())
+        require(gap <= tol["atol"] + tol["rtol"] * scale,
+                f"{what} {key}: off by {gap} at scale {scale}")
+        worst = max(worst, gap / max(scale, 1e-30))
+    return worst
+
+
+def blip_answer_loss(out: dict, answers: torch.Tensor) -> torch.Tensor:
+    """Cross entropy of the decoder's first-position logits against the
+    answer tokens."""
+    return torch.nn.functional.cross_entropy(out["decoder_logits"][:, 0].float(), answers)
+
+
+def phase_blip_smoke(card: str) -> dict:
+    """(a) The tiny BLIP (the JAX ``tiny()`` shapes: towers of 2 layers, width
+    32) in float32, TF32 off, with ``BLIP_PEFT``'s adapters on every linear of
+    the towers, on the card against a CPU copy, within ``ALPACA_TOL``: the
+    VQA wrapper's decoder logits and every encoder hidden state, the ITM
+    wrapper's scores with the ITM head and contrastive; two AdamW steps
+    (``GroupedAdamW``) of the answer loss, each step's loss and every adapter
+    gradient; then a LoReFT at a text-encoder block output and a
+    cross-attention output over the adapted VQA wrapper, its loss and every
+    adapter and intervention gradient.  Launches exact, each counted path
+    on its own: K2 once an adapted linear a forward (48 VQA, 28 ITM head, 20
+    contrastive), K3 once a backward.  Returns the launches."""
+    from sparse_matrix_fine_tuning_torch.interventions import reft
+    from sparse_matrix_fine_tuning_torch.models import blip
+    from sparse_matrix_fine_tuning_torch.peft import surgery
+    from sparse_matrix_fine_tuning_torch.training.optim import build_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tol = ALPACA_TOL
+    cfg = blip.BlipModelConfig.tiny()
+    adapted = {"qa": 2 * 4 + 2 * 2 * 10, "itm": 2 * 4 + 2 * 10, "contrastive": 2 * 4 + 2 * 6}
+    g = torch.Generator().manual_seed(SEED + 100)
+    ids, mask, pixels, answers = blip_inputs(cfg, 3, 7, g)
+    launches = collections.Counter()
+
+    def counted(fn, expect: dict, what: str):
+        torch.cuda.synchronize()
+        reset_counts()  # the counted main path starts here
+        out = fn()
+        torch.cuda.synchronize()
+        expect_only(counts(), expect, what)  # the counted main path ends here
+        launches.update(expect)
+        return out
+
+    def on(device, *xs):
+        return [x.to(device) for x in xs]
+
+    qa_cpu = blip_model("qa", cfg, SEED + 101)
+    itm_cpu = blip_model("itm", cfg, SEED + 104)
+    qa_card, itm_card = copy.deepcopy(qa_cpu).cuda(), copy.deepcopy(itm_cpu).cuda()
+    require(len(monarch_layers(qa_cpu)) == adapted["qa"]
+            and len(monarch_layers(itm_cpu)) == adapted["itm"],
+            f"BLIP smoke: {len(monarch_layers(qa_cpu))} and {len(monarch_layers(itm_cpu))} "
+            "adapted linears")
+    worst = {}
+    with torch.no_grad():
+        want = blip.BlipWrapper(qa_cpu)(ids, pixels, attention_mask=mask)
+        got = counted(lambda: blip.BlipWrapper(qa_card)(*on("cuda", ids, pixels),
+                                                        attention_mask=mask.cuda()),
+                      {"monarch_add": adapted["qa"]}, "BLIP VQA forward")
+        worst["vqa"] = _worst(
+            {"decoder_logits": got["decoder_logits"],
+             **{f"hidden {i}": h for i, h in enumerate(got["encoder_hidden_states"])}},
+            {"decoder_logits": want["decoder_logits"],
+             **{f"hidden {i}": h for i, h in enumerate(want["encoder_hidden_states"])}},
+            tol, "BLIP VQA")
+        for mode, head in (("itm", True), ("contrastive", False)):
+            want = blip.BlipITMWrapper(itm_cpu, head)(ids, pixels, attention_mask=mask)
+            got = counted(lambda head=head: blip.BlipITMWrapper(itm_card, head)(
+                *on("cuda", ids, pixels), attention_mask=mask.cuda()),
+                {"monarch_add": adapted[mode]}, f"BLIP ITM ({mode})")
+            worst[mode] = _worst({"itm_score": got["itm_score"]},
+                                 {"itm_score": want["itm_score"]}, tol, f"BLIP ITM ({mode})")
+
+    def train_steps(model, device):
+        named = [(n, p) for n, p in model.named_parameters()
+                 if n in set(surgery.trainable_filter(model, ()))]
+        opt = build_optimizer(named, learning_rate=1e-2, total_steps=BLIP_STEPS,
+                              warmup_ratio=0.0, lr_scheduler_type="constant")
+        wrapper, steps = blip.BlipWrapper(model), []
+        for _ in range(BLIP_STEPS):
+            opt.zero_grad()
+            x, px, m, ans = on(device, ids, pixels, mask, answers)
+            loss = blip_answer_loss(wrapper(x, px, attention_mask=m), ans)
+            loss.backward()
+            steps.append({"loss": loss.detach(),
+                          **{n: p.grad.detach().clone() for n, p in named}})
+            opt.step()
+        return steps, len(named)
+
+    want, n_trainable = train_steps(qa_cpu, "cpu")
+    got, _ = counted(lambda: train_steps(qa_card, "cuda"),
+                     {"monarch_add": adapted["qa"] * BLIP_STEPS,
+                      "monarch_bwd": adapted["qa"] * BLIP_STEPS}, "BLIP VQA training")
+    require(n_trainable == 2 * adapted["qa"], f"BLIP smoke: {n_trainable} trainable")
+    worst["training"] = max(_worst(gs, ws, tol, f"BLIP training step {k}")
+                            for k, (gs, ws) in enumerate(zip(got, want)))
+    losses = [[float(st["loss"]) for st in run] for run in (got, want)]
+
+    model = blip_model("qa", cfg, SEED + 101)
+    rcfg = reft.ReftConfig(representations=BLIP_SMOKE_LOREFT)
+    reft_cpu = reft.ReftModel(blip.BlipWrapper(model), rcfg,
+                              generator=torch.Generator().manual_seed(SEED + 107))
+    reft_card = copy.deepcopy(reft_cpu).cuda()
+    locs = torch.tensor([[[0, 3], [1, 2]], [[2, 4], [0, 1]], [[1, 2], [3, 0]]])
+
+    def reft_step(m, device):
+        surgery.trainable_filter(m, ())
+        x, px, msk, ans, lc = on(device, ids, pixels, mask, answers, locs)
+        loss = blip_answer_loss(m(x, attention_mask=msk, intervention_locations=lc,
+                                  pixel_values=px), ans)
+        loss.backward()
+        return {"loss": loss.detach(), **{n: p.grad.detach() for n, p in m.named_parameters()
+                                          if p.requires_grad}}
+
+    want = reft_step(reft_cpu, "cpu")
+    got = counted(lambda: reft_step(reft_card, "cuda"),
+                  {"monarch_add": adapted["qa"], "monarch_bwd": adapted["qa"]},
+                  "BLIP LoReFT step")
+    ivs = [n for n in want if n.startswith("interventions.")]
+    require(len(ivs) == 2 * 3 and all(float(want[n].abs().max()) > 0 for n in ivs),
+            f"BLIP LoReFT: intervention gradients {ivs}")
+    worst["loreft"] = _worst(got, want, tol, "BLIP LoReFT")
+    print(f"[blip] {card}: smoke, tiny BLIP (towers of 2 layers, width 32), float32, "
+          f"{adapted['qa']} (VQA) and {adapted['itm']} (ITM) Monarch-adapted linears: card "
+          f"against CPU, the worst |card - CPU| / scale: VQA outputs and hidden states "
+          f"{worst['vqa']:.2e}, ITM head {worst['itm']:.2e}, contrastive "
+          f"{worst['contrastive']:.2e}; {BLIP_STEPS} AdamW steps: losses {losses[0]} card, "
+          f"{losses[1]} CPU, {n_trainable} adapter gradients a step {worst['training']:.2e}; "
+          f"LoReFT at {[(r['layer'], r['component']) for r in BLIP_SMOKE_LOREFT]}: loss "
+          f"{float(got['loss'])} card, {float(want['loss'])} CPU, {len(want) - 1} gradients "
+          f"{worst['loreft']:.2e} (tol {tol}); launches {dict(launches)}", flush=True)
+    return dict(launches)
+
+
+def blip_hf_shapes(config: dict) -> dict:
+    """{HF name: shape} of a ``BlipForQuestionAnswering`` checkpoint as
+    ``save_pretrained`` writes it (the LM head's decoder weight is tied to
+    the decoder's word embeddings and not written)."""
+    tc, vc = config["text_config"], config["vision_config"]
+    d, p, i_v = vc["hidden_size"], vc["patch_size"], vc["intermediate_size"]
+    h, i_t, enc = tc["hidden_size"], tc["intermediate_size"], tc["encoder_hidden_size"]
+    shapes = {"vision_model.embeddings.class_embedding": (1, 1, d),
+              "vision_model.embeddings.patch_embedding.weight": (d, 3, p, p),
+              "vision_model.embeddings.patch_embedding.bias": (d,),
+              "vision_model.embeddings.position_embedding":
+                  (1, (vc["image_size"] // p) ** 2 + 1, d)}
+
+    def linear(name, n_out, n_in):
+        shapes[f"{name}.weight"], shapes[f"{name}.bias"] = (n_out, n_in), (n_out,)
+
+    def norm(name, width):
+        shapes[f"{name}.weight"], shapes[f"{name}.bias"] = (width,), (width,)
+
+    for k in range(vc["num_hidden_layers"]):
+        pfx = f"vision_model.encoder.layers.{k}"
+        norm(f"{pfx}.layer_norm1", d)
+        linear(f"{pfx}.self_attn.qkv", 3 * d, d)
+        linear(f"{pfx}.self_attn.projection", d, d)
+        norm(f"{pfx}.layer_norm2", d)
+        linear(f"{pfx}.mlp.fc1", i_v, d)
+        linear(f"{pfx}.mlp.fc2", d, i_v)
+    norm("vision_model.post_layernorm", d)
+    for tower in ("text_encoder", "text_decoder.bert"):
+        shapes[f"{tower}.embeddings.word_embeddings.weight"] = (tc["vocab_size"], h)
+        shapes[f"{tower}.embeddings.position_embeddings.weight"] = \
+            (tc["max_position_embeddings"], h)
+        norm(f"{tower}.embeddings.LayerNorm", h)
+        for k in range(tc["num_hidden_layers"]):
+            pfx = f"{tower}.encoder.layer.{k}"
+            for block, kv in (("attention", h), ("crossattention", enc)):
+                linear(f"{pfx}.{block}.self.query", h, h)
+                linear(f"{pfx}.{block}.self.key", h, kv)
+                linear(f"{pfx}.{block}.self.value", h, kv)
+                linear(f"{pfx}.{block}.output.dense", h, h)
+                norm(f"{pfx}.{block}.output.LayerNorm", h)
+            linear(f"{pfx}.intermediate.dense", i_t, h)
+            linear(f"{pfx}.output.dense", h, i_t)
+            norm(f"{pfx}.output.LayerNorm", h)
+    linear("text_decoder.cls.predictions.transform.dense", h, h)
+    norm("text_decoder.cls.predictions.transform.LayerNorm", h)
+    shapes["text_decoder.cls.predictions.bias"] = (tc["vocab_size"],)
+    return shapes
+
+
+def adapted_rows(model, run) -> collections.Counter:
+    """{(in, out, w1 shape, w2 shape, rows): adapted linears} of ``model``'s
+    ``MonarchLinear`` layers over one call of ``run``, the rows each one's
+    input had."""
+    seen = collections.Counter()
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.update([(mod.in_features, mod.out_features,
+                                        tuple(mod.blkdiag1.shape), tuple(mod.blkdiag2.shape),
+                                        args[0].numel() // mod.in_features)]))
+        for m in monarch_layers(model)]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def phase_blip_full(card: str) -> dict:
+    """(b) BLIP at ``Salesforce/blip-vqa-base`` width (``BLIP_VQA_BASE_HF``:
+    ViT-B/16 at 384 px, 577 tokens, 12 layers of 768; text encoder and
+    decoder of 12 BERT-base layers with cross-attention, vocab 30524), from
+    an HF-format directory written here (random seeded float32 weights,
+    ``blip_hf_shapes``; deleted after) through ``from_pretrained_blip``, the
+    loaded tensors against the written ones; float32, TF32 off, as the JAX
+    model computes; ``BLIP_PEFT``'s adapters on all 288 linears of the
+    towers.  Two ``Trainer`` steps of the answer loss at batch
+    ``BLIP_BATCH``, ``BLIP_QUESTION``-token questions, ga ``BLIP_GA``
+    (step 0 profiled, step 1 timed alone: wall, busy, idle, peak), each
+    adapted linear's rows and K3's plan at every shape, K2 and K3 timed
+    there; one LoReFT step at text-encoder layers ``BLIP_REFT_LAYERS``;
+    the ITM model (its heads drawn here, ``image_text_hidden_size`` 256)
+    forward with the ITM head and contrastive; then the adapters merged
+    (K1 once each) and an eval forward of the merged model against the
+    unmerged one.  Launches exact, each path counted on its own.  Returns
+    the launches."""
+    from sparse_matrix_fine_tuning_torch.interventions import reft
+    from sparse_matrix_fine_tuning_torch.models import blip
+    from sparse_matrix_fine_tuning_torch.models.hf_convert import load_state_dict
+    from sparse_matrix_fine_tuning_torch.peft import surgery
+    from sparse_matrix_fine_tuning_torch.training.optim import build_optimizer
+    from sparse_matrix_fine_tuning_torch.training.trainer import Trainer, TrainingArgs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches = collections.Counter()
+
+    def counted(fn, expect: dict, what: str):
+        torch.cuda.synchronize()
+        reset_counts()  # the counted main path starts here
+        out = fn()
+        torch.cuda.synchronize()
+        expect_only(counts(), expect, what)  # the counted main path ends here
+        launches.update(expect)
+        return out
+
+    ckpt, out_dir = (os.path.join(OUT_DIR, name) for name in ("blip_full", "blip_full_run"))
+    for d in (ckpt, out_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    written = write_hf_checkpoint(ckpt, BLIP_VQA_BASE_HF, blip_hf_shapes(BLIP_VQA_BASE_HF),
+                                  SEED + 110, dtype=torch.float32)
+    write_s = time.perf_counter() - t0
+    size_gb = os.path.getsize(os.path.join(ckpt, "model.safetensors")) / 1e9
+    try:
+        t0 = time.perf_counter()
+        model = blip.from_pretrained_blip(ckpt, "qa", device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        state = load_state_dict(ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    cfg = model.config
+    tied = "text_decoder.bert.embeddings.word_embeddings.weight"
+    patch = written["vision_model.embeddings.patch_embedding.weight"]
+    with torch.no_grad():
+        total = sum(float(p.double().sum()) for p in model.parameters())
+        want_total = sum(float(t.double().sum()) for t in written.values()) \
+            + float(written[tied].double().sum())
+        require(torch.equal(model.vision_model.embeddings.patch_kernel,
+                            patch.reshape(patch.shape[0], -1).T)
+                and torch.equal(model.lm_head.decoder.weight, written[tied])
+                and abs(total - want_total) <= 1e-9 * max(abs(want_total), 1.0)
+                and sum(p.numel() for p in model.parameters())
+                == sum(t.numel() for t in written.values()) + written[tied].numel(),
+                f"BLIP full: the loaded model differs from the written tensors ({total} against "
+                f"{want_total})")
+    del written
+    n_params = sum(p.numel() for p in model.parameters())
+    adapted = surgery.init_monarch(model, BLIP_PEFT,
+                                   generator=torch.Generator().manual_seed(SEED + 111))
+    require(len(adapted) == BLIP_ADAPTED["qa"], f"BLIP full: {len(adapted)} adapted linears")
+    wrapper = blip.BlipWrapper(model)
+
+    g = torch.Generator().manual_seed(SEED + 112)
+    n = BLIP_BATCH * BLIP_GA * BLIP_STEPS
+    ids, mask, pixels, answers = blip_inputs(cfg, n, BLIP_QUESTION, g)
+    data = {"input_ids": ids.int().numpy(), "attention_mask": mask.int().numpy(),
+            "pixel_values": pixels.numpy(), "labels": answers.int().numpy()}
+
+    def loss_fn(m, batch, train):
+        return blip_answer_loss(m(batch["input_ids"], batch["pixel_values"],
+                                  attention_mask=batch["attention_mask"]), batch["labels"])
+
+    args = TrainingArgs(output_dir=out_dir, learning_rate=1e-4, max_steps=BLIP_STEPS,
+                        per_device_train_batch_size=BLIP_BATCH,
+                        gradient_accumulation_steps=BLIP_GA, logging_steps=1, log_param_steps=0,
+                        warmup_ratio=0.0, lr_scheduler_type="constant", merged_training="off",
+                        seed=SEED)
+    steps = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(wrapper, args, train_data=data, loss_fn=loss_fn, extra_trainable_paths=(),
+                 device="cuda", step_context=harness_step_context(steps, "BLIP"))
+    micro = BLIP_STEPS * BLIP_GA
+    t0 = time.perf_counter()
+    counted(tr.train, {"monarch_add": BLIP_ADAPTED["qa"] * micro,
+                       "monarch_bwd": BLIP_ADAPTED["qa"] * micro}, "BLIP full training")
+    train_s = time.perf_counter() - t0
+    losses = [r["loss"] for r in tr.log_history if "loss" in r]
+    require(len(losses) == BLIP_STEPS and all(map(math.isfinite, losses))
+            and len(steps.get("wall_ms", [])) == BLIP_STEPS - 1 and "busy_ms" in steps,
+            f"BLIP full: losses {losses}, steps {steps}")
+    wall, busy = steps["wall_ms"][0], steps["busy_ms"]
+    idle = f"{1 - busy / wall:.3f}" if busy else "not measured"
+    opt_bytes = tr.optimizer.state_bytes()
+    batch = {k: torch.from_numpy(v[:BLIP_BATCH]).cuda() for k, v in data.items()}
+    batch = {k: v.long() if k != "pixel_values" else v for k, v in batch.items()}
+    with torch.no_grad():
+        shapes = adapted_rows(model, lambda: wrapper(batch["input_ids"], batch["pixel_values"],
+                                                     attention_mask=batch["attention_mask"]))
+    RECORDS.append({"blip_full": "VQA training", "losses": losses, "step1_wall_ms": wall,
+                    "step0_busy_ms": busy, "peak_gb": steps["peak_gb"],
+                    "adapted": len(adapted), "card": card})
+    print(f"[blip-full] {card}: blip-vqa-base width, float32: checkpoint {size_gb:.2f} GB "
+          f"({n_params / 1e6:.1f} M parameters) written in {write_s:.2f} s, loaded in "
+          f"{load_s:.2f} s, equal to the written tensors; {len(adapted)} adapted linears; "
+          f"{BLIP_STEPS} steps at batch {BLIP_BATCH} x ga {BLIP_GA}, questions of "
+          f"{BLIP_QUESTION} tokens: losses {losses}; step 1 wall {wall:.2f} ms (alone), step 0 "
+          f"device busy {_ms(busy)} ms (profiled; wall {steps['profiled_wall_ms']:.2f} ms with "
+          f"the profiler on), idle share {idle}, peak {steps['peak_gb']:.2f} GB over step 1 "
+          f"({steps['peak_before_gb']:.2f} GB before it); AdamW state {opt_bytes / 1e6:.2f} MB; "
+          f"training {train_s:.2f} s wall; rows by adapted shape "
+          f"{ {f'{k[0]}->{k[1]}@{k[4]}': v for k, v in shapes.items()} }", flush=True)
+    adapter_kernel_times(card, "BLIP-base VQA, float32", shapes, "monarch_add", torch.float32,
+                         "blip-full")
+    tr.close()
+    del tr
+
+    rcfg = reft.ReftConfig(representations=[
+        {"layer": k, "component": "block_output", "intervention": "LoreftIntervention",
+         "low_rank_dimension": 8} for k in BLIP_REFT_LAYERS])
+    reft_model = reft.ReftModel(wrapper, rcfg, generator=torch.Generator().manual_seed(SEED + 113))
+    named = [(k, p) for k, p in reft_model.named_parameters()
+             if k in set(surgery.trainable_filter(reft_model, ()))]
+    opt = build_optimizer(named, learning_rate=1e-4, total_steps=1, warmup_ratio=0.0,
+                          lr_scheduler_type="constant")
+    locs = torch.tensor([[0, BLIP_QUESTION // 2 - 1]], device="cuda").expand(
+        BLIP_BATCH, len(BLIP_REFT_LAYERS), 2)
+
+    def reft_step():
+        opt.zero_grad()
+        loss = blip_answer_loss(reft_model(batch["input_ids"],
+                                           attention_mask=batch["attention_mask"],
+                                           intervention_locations=locs,
+                                           pixel_values=batch["pixel_values"]), batch["labels"])
+        loss.backward()
+        opt.step()
+        return float(loss.detach())
+
+    reft_loss, reft_s = timed(lambda: counted(
+        reft_step, {"monarch_add": BLIP_ADAPTED["qa"], "monarch_bwd": BLIP_ADAPTED["qa"]},
+        "BLIP full LoReFT step"))
+    reft_busy = device_busy_ms(lambda k: reft_step(), 1, "BLIP LoReFT step")
+    require(math.isfinite(reft_loss), f"BLIP LoReFT loss {reft_loss}")
+    print(f"[blip-full] {card}: LoReFT rank 8 at text-encoder layers {BLIP_REFT_LAYERS} over the "
+          f"adapted model, {len(named)} trainable tensors: one step, loss {reft_loss}, wall "
+          f"{reft_s * 1e3:.2f} ms (the card synchronised around it), device busy "
+          f"{_ms(reft_busy)} ms (a second step, profiled)", flush=True)
+    del reft_model, opt, named
+
+    itm = blip.BlipForImageTextRetrieval(cfg, device="cuda",
+                                         generator=torch.Generator(device="cuda").manual_seed(
+                                             SEED + 114))
+    heads = {f"{name}.{leaf}": getattr(getattr(itm, name), leaf).detach().cpu()
+             for name in ("vision_proj", "text_proj", "itm_head") for leaf in ("weight", "bias")}
+    blip.load_blip_itm(itm, {**state, **heads})
+    require(len(surgery.init_monarch(itm, BLIP_PEFT, generator=torch.Generator().manual_seed(
+        SEED + 115))) == BLIP_ADAPTED["itm"], "BLIP ITM: adapted linears")
+    scores = {}
+    with torch.no_grad():
+        for mode, head in (("itm", True), ("contrastive", False)):
+            scores[mode] = counted(lambda head=head: blip.BlipITMWrapper(itm, head)(
+                batch["input_ids"], batch["pixel_values"],
+                attention_mask=batch["attention_mask"])["itm_score"],
+                {"monarch_add": BLIP_ADAPTED[mode]}, f"BLIP full ITM ({mode})")
+    require(tuple(scores["itm"].shape) == (BLIP_BATCH, 2)
+            and tuple(scores["contrastive"].shape) == (BLIP_BATCH, BLIP_BATCH)
+            and all(bool(torch.isfinite(v).all()) for v in scores.values())
+            and float(scores["contrastive"].abs().max()) <= 1.0 + 1e-5,
+            f"BLIP ITM scores {[tuple(v.shape) for v in scores.values()]}")
+    del itm, state
+
+    with torch.no_grad():
+        def eval_forward():
+            return wrapper(batch["input_ids"], batch["pixel_values"],
+                           attention_mask=batch["attention_mask"])["decoder_logits"]
+        unmerged = eval_forward()
+        n_merged = counted(lambda: surgery.merge_all_adapters(model),
+                           {"monarch_kernel": BLIP_ADAPTED["qa"]}, "BLIP merge")
+        merged, merged_s = timed(lambda: counted(eval_forward, {}, "BLIP merged eval forward"))
+        merged_busy = device_busy_ms(lambda k: eval_forward(), 1, "BLIP merged eval forward")
+    gap = float((merged - unmerged).abs().max())
+    scale = float(unmerged.abs().max())
+    require(n_merged == BLIP_ADAPTED["qa"] and gap <= 1e-3 * scale,
+            f"BLIP merged: {n_merged} merged, logits off by {gap} at scale {scale}")
+    print(f"[blip-full] {card}: ITM (image_text_hidden_size {cfg.image_text_hidden_size}), "
+          f"{BLIP_ADAPTED['itm']} adapted: scores {tuple(scores['itm'].shape)} with the ITM "
+          f"head, {tuple(scores['contrastive'].shape)} contrastive; {n_merged} adapters merged "
+          f"(K1 once each); merged eval forward {merged_s * 1e3:.2f} ms wall, device busy "
+          f"{_ms(merged_busy)} ms, decoder logits within {gap:.2e} of the unmerged model's "
+          f"(scale {scale:.3e}); launches {dict(launches)}", flush=True)
+    del model, wrapper
+    shutil.rmtree(out_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
 def main() -> None:
     t0 = time.perf_counter()
 
@@ -5131,6 +5694,12 @@ def main() -> None:
     print(f"[families] launches of the harnesses' runs: smoke {families}, full width "
           f"{families_full}", flush=True)
     lap("the other decoder families, full width")
+    blip_smoke = phase_blip_smoke(card)
+    lap("BLIP, smoke")
+    blip_full = phase_blip_full(card)
+    print(f"[blip] launches of the BLIP paths: smoke {blip_smoke}, full width {blip_full}",
+          flush=True)
+    lap("BLIP, full width")
     launches = {"monarch_kernel": serving["launches"]["monarch_kernel"],
                 "monarch_add": serving["launches"]["monarch_add"],
                 "monarch_bwd": training["launches"]["monarch_bwd"],

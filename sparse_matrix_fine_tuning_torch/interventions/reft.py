@@ -2,7 +2,9 @@
 
 Counterpart of ``sparse_matrix_fine_tuning_tpu/interventions/reft.py``.  The
 models expose ``layer_hooks`` (``models/llama.py``, ``models/roberta.py``,
-``models/deberta.py``, ``models/toy.py``); ``ReftModel`` builds them from
+``models/deberta.py``, ``models/toy.py``, the GPT families, and BLIP's
+wrappers, whose sites are on the text encoder: ``pixel_values`` goes
+through the keywords); ``ReftModel`` builds them from
 the token positions of each intervention: gather the positions, apply the
 intervention, scatter the change back.  The arithmetic is plain PyTorch, as
 the JAX package computes it outside every Pallas kernel (gathers, small

@@ -1,11 +1,17 @@
 """models of the PyTorch port; see the JAX package's models/ for the reference.
 
-The exports are the JAX package's (its models/__init__.py), less BLIP
-(ROADMAP.md queue A item 25b)."""
+The exports are the JAX package's (its models/__init__.py)."""
 
 from sparse_matrix_fine_tuning_torch.models.backpack_gpt2 import (
     BackpackGPT2Config,
     BackpackGPT2LMHeadModel,
+)
+from sparse_matrix_fine_tuning_torch.models.blip import (
+    BlipForImageTextRetrieval,
+    BlipForQuestionAnswering,
+    BlipITMWrapper,
+    BlipModelConfig,
+    BlipWrapper,
 )
 from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig, RobertaConfig
 from sparse_matrix_fine_tuning_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
@@ -21,6 +27,11 @@ from sparse_matrix_fine_tuning_torch.models.toy import GRUModel, MLPModel, ToyCo
 __all__ = [
     "BackpackGPT2Config",
     "BackpackGPT2LMHeadModel",
+    "BlipForImageTextRetrieval",
+    "BlipForQuestionAnswering",
+    "BlipITMWrapper",
+    "BlipModelConfig",
+    "BlipWrapper",
     "GPT2Config",
     "GPT2LMHeadModel",
     "GPTNeoConfig",

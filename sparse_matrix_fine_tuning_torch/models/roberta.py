@@ -69,24 +69,29 @@ def run_layers(layers, x, layer_hooks, *args):
 
 
 class LayerNorm(nn.Module):
-    """``nnx.LayerNorm``: mean and variance (E[x^2] - E[x]^2, clipped at 0)
-    in fp32, ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in fp32,
-    the result in ``dtype`` (None: the promoted dtype of input and
-    weight)."""
+    """``nnx.LayerNorm``: mean and variance (E[x^2] - E[x]^2, clipped at 0;
+    with ``fast_variance=False`` the two-pass E[(x - mean)^2], flax's
+    ``use_fast_variance=False``) in fp32, ``(x - mean) * (rsqrt(var + eps)
+    * weight) + bias`` in fp32, the result in ``dtype`` (None: the promoted
+    dtype of input and weight)."""
 
     def __init__(self, dim: int, *, eps: float, dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 device=None, fast_variance: bool = True):
         super().__init__()
         device = resolve_device(device)
         self.eps = eps
         self.dtype = dtype
+        self.fast_variance = fast_variance
         self.weight = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         mean = xf.mean(-1, keepdim=True)
-        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        if self.fast_variance:
+            var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        else:
+            var = (xf - mean).square().mean(-1, keepdim=True)
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.float()) + self.bias.float()
         return y.to(self.dtype or torch.promote_types(x.dtype, self.weight.dtype))
 

@@ -45,8 +45,8 @@ mid-epoch-exact resume).
 16) with ``training/hpo.py`` on the MMLU accuracy, each trial in
 ``trial_<id>/``, up to ``--epochs``; the final run trains with the best.
 
-Refused with ``NotImplementedError`` before any work: ``--optim adamw8bit``
-(ROADMAP.md queue A item 27).  ``generate`` refuses beams with penalties or
+``--optim adamw8bit`` trains with 8-bit optimizer state
+(``training/adam8bit.py``).  ``generate`` refuses beams with penalties or
 n-gram bans, and beam-sample with top-k or top-p, as the JAX package does.
 """
 
@@ -164,7 +164,8 @@ def parse_args(argv=None):
     p.add_argument("--max_mmlu_samples", default=None, type=int)
     p.add_argument("--max_eval_samples", default=None, type=int)
     p.add_argument("--optim", default="adamw", choices=["adamw", "adamw8bit"],
-                   help="adamw8bit is refused (ROADMAP.md queue A item 27)")
+                   help="adamw8bit = int8 optimizer moments, embeddings "
+                        "fp32 (reference bitsandbytes Adam8bit + override)")
     p.add_argument("--weight_decay", default=0.0, type=float)
     p.add_argument("--warmup_ratio", default=0.03, type=float)
     p.add_argument("--lr_scheduler_type", default="constant")
@@ -202,17 +203,6 @@ def parse_args(argv=None):
     p.add_argument("--platform", default=None, choices=[None, "cuda", "cpu"],
                    help="where to run: the card when unset")
     return p.parse_known_args(argv)
-
-
-def check_supported(args) -> None:
-    """Raise ``NotImplementedError`` for an option the port has not yet,
-    naming its ROADMAP.md queue A item."""
-    refused = []
-    if args.optim == "adamw8bit":
-        refused.append("--optim adamw8bit: item 27")
-    if refused:
-        raise NotImplementedError("run_alpaca: " + "; ".join(refused)
-                                  + " (ROADMAP.md queue A)")
 
 
 def adapt_model(model, args, peft_config: dict):
@@ -350,7 +340,6 @@ class AlpacaRun:
 def run(argv=None, *, build: Optional[Callable] = None,
         step_context: Optional[Callable] = None) -> AlpacaRun:
     args, overrides = parse_args(argv)
-    check_supported(args)
     device = harness_device(args)
     peft_config = load_json(PEFT_CONFIG)
     extra = override_config([peft_config, args], overrides)

@@ -12,8 +12,8 @@ What it keeps of the JAX trainer:
     summed gradients divided by the number of micro-batches, and the
     merged-training operands refreshed once per optimizer step, before
     its first micro-batch;
-  * the 3-group AdamW with its schedule and global-norm clipping
-    (``training/optim.py``);
+  * the 3-group AdamW (or 8-bit AdamW, ``optim="adamw8bit"``) with its
+    schedule and global-norm clipping (``training/optim.py``);
   * only the trainable filter's parameters train (``peft/surgery.py``):
     adapters (a ``ReftModel``'s interventions among them) and the extra
     paths, the LM head by default (MoReFT GLUE passes the classifier or
@@ -61,6 +61,7 @@ from sparse_matrix_fine_tuning_torch.peft.surgery import (
     trainable_filter,
 )
 from sparse_matrix_fine_tuning_torch.training import checkpoint as ckpt_lib
+from sparse_matrix_fine_tuning_torch.training.adam8bit import jax_paths
 from sparse_matrix_fine_tuning_torch.training.optim import build_optimizer
 from sparse_matrix_fine_tuning_torch.utils.device import resolve_device
 from sparse_matrix_fine_tuning_torch.utils.logging import watch_layers
@@ -92,7 +93,7 @@ class TrainingArgs:
     large_lr: bool = False
     new_lr: float = 5e-3
     use_scaler: bool = False
-    optim: str = "adamw"           # "adamw8bit" raises (queue A item 27)
+    optim: str = "adamw"           # or "adamw8bit" (training/adam8bit.py)
     log_param_steps: int = 900
     bf16: bool = False
     # "on" merges every eligible adapter into its dense operand for training
@@ -191,11 +192,14 @@ class Trainer:
         # queue A item 11.
         self._n_merged = enable_merged_training(self.model) if a.merged_training == "on" else 0
         total = self.num_training_steps() if self.train_data is not None else 1
+        named = self.trainable_parameters()
         self.optimizer = build_optimizer(
-            self.trainable_parameters(), learning_rate=a.learning_rate, total_steps=total,
+            named, learning_rate=a.learning_rate, total_steps=total,
             warmup_ratio=a.warmup_ratio, lr_scheduler_type=a.lr_scheduler_type,
             weight_decay=a.weight_decay, large_lr=a.large_lr, new_lr=a.new_lr,
-            use_scaler=a.use_scaler, max_grad_norm=a.max_grad_norm, optim=a.optim)
+            use_scaler=a.use_scaler, max_grad_norm=a.max_grad_norm, optim=a.optim,
+            jax_paths=jax_paths(self.model, [n for n, _ in named]) if a.optim == "adamw8bit"
+            else None)
 
     def close(self) -> None:
         """Drop the merged-training operands (one dense-sized matrix per layer)."""

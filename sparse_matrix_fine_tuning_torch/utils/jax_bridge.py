@@ -21,9 +21,10 @@ differ:
   ``BOFTLinear`` ``boft_R``, ``boft_s``, ``dense`` (out, in), ``bias``
   ``MonarchFactor`` ``weight``, ``bias``  -> as they are
   the decoder families (Llama and Gemma, GPT-2, GPT-Neo, GPT-NeoX,
-  Backpack-GPT-2) by these rules, under the JAX models' attribute paths
-  (``transformer.h.0.attn.c_attn``, ``gpt_neox.layers.0...``,
-  ``backpack.sense_network...``)
+  Backpack-GPT-2) and BLIP by these rules, under the JAX models' attribute
+  paths (``transformer.h.0.attn.c_attn``, ``gpt_neox.layers.0...``,
+  ``backpack.sense_network...``, ``vision_model.embeddings.patch_kernel``
+  (3·p·p, d), a parameter of that name, not a kernel: as it is)
   a ``ReftModel``'s interventions (``interventions.<i>.rotate``, ``w``, ...,
   their temperatures, PCA bases and noise as persistent buffers) and the
   toy models (``models/toy.py``)  -> the same names and layouts; their

@@ -236,8 +236,7 @@ def test_torch_gpt2_config_and_exports_match_jax():
     assert tmodels.GPT2Config.gpt2_medium() == tmodels.GPT2Config(
         **{f: getattr(jmodels.GPT2Config.gpt2_medium(), f)
            for f in jmodels.GPT2Config.__dataclass_fields__})
-    assert set(tmodels.__all__) == set(jmodels.__all__) - {
-        n for n in jmodels.__all__ if n.startswith("Blip")}
+    assert set(tmodels.__all__) == set(jmodels.__all__)
 
 
 def test_torch_gpt2_refuses_positions_past_the_table():

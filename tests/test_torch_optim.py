@@ -106,9 +106,3 @@ def test_torch_optimizer_state_arrays_round_trip():
     assert fresh.count == 1
     for k, v in fresh.state_arrays().items():
         torch.testing.assert_close(v, arrays[k])
-
-
-def test_torch_adamw8bit_is_refused():
-    with pytest.raises(NotImplementedError, match="item 27"):
-        topt.build_optimizer([("w", torch.zeros(2, requires_grad=True))], learning_rate=1e-3,
-                             total_steps=1, optim="adamw8bit")

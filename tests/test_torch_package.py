@@ -61,6 +61,7 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.models.gpt2",
     "sparse_matrix_fine_tuning_torch.models.gpt_neo",
     "sparse_matrix_fine_tuning_torch.models.gpt_neox",
+    "sparse_matrix_fine_tuning_torch.models.blip",
     "sparse_matrix_fine_tuning_torch.models.backpack_gpt2",
     "sparse_matrix_fine_tuning_torch.models.generate",
     "sparse_matrix_fine_tuning_torch.models.hf_convert",
@@ -84,6 +85,7 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.utils.logging",
     "sparse_matrix_fine_tuning_torch.utils.profiling",
     "sparse_matrix_fine_tuning_torch.training.optim",
+    "sparse_matrix_fine_tuning_torch.training.adam8bit",
     "sparse_matrix_fine_tuning_torch.training.checkpoint",
     "sparse_matrix_fine_tuning_torch.training.trainer",
     "sparse_matrix_fine_tuning_torch.training.hpo",
@@ -115,6 +117,15 @@ def test_torch_package_imports_no_jax_and_builds_nothing():
     bad = [m for m in report["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert bad == []
     assert report["popen"] == 0 and report["ops"] is False
+
+
+def test_torch_models_export_the_jax_names():
+    """``models.__all__`` is the JAX package's, BLIP's five names among them."""
+    import sparse_matrix_fine_tuning_torch.models as port_models
+    import sparse_matrix_fine_tuning_tpu.models as jax_models
+
+    assert sorted(port_models.__all__) == sorted(jax_models.__all__)
+    assert all(hasattr(port_models, name) for name in port_models.__all__)
 
 
 def test_torch_cuda_kernels_refuse_cpu_tensors():

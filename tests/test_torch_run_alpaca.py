@@ -13,8 +13,8 @@ their runs and checks from here.  The JAX harness
 logged losses, ``eval_loss`` and the (n, 4) MMLU choice logits 1e-4
 (``TOLERANCES["f32_logits"]``: float32 sums in another order through two
 layers and two AdamW steps); the MMLU accuracies equal; ``watch_layers``
-1e-6; the predictions token for token (equal decoded rows).  Then each
-refused option and ``--profile``'s trace.  ``test_torch_run_alpaca_decode.py``
+1e-6; the predictions token for token (equal decoded rows).  Then
+``--profile``'s trace.  ``test_torch_run_alpaca_decode.py``
 holds ``--do_predict``'s decoding flags and ``..._local.py`` ``--model <dir>``.
 """
 
@@ -191,21 +191,6 @@ def test_torch_alpaca_watch_layers_match_jax(both):
 
 def test_torch_alpaca_predictions_match_jax(both):
     check_predictions(both)
-
-
-@pytest.mark.parametrize("extra,item", [
-    (["--optim=adamw8bit"], "item 27"),
-])
-def test_torch_alpaca_refusals(tmp_path, extra, item):
-    """Each refused option raises before any work: nothing is built and the
-    output directory is never made."""
-    def never(args, peft_config):
-        raise AssertionError("built a model")
-
-    out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match=item):
-        port.main(["--platform=cpu", f"--output_dir={out}", *extra], build=never)
-    assert not out.exists()
 
 
 def test_torch_alpaca_profile_writes_a_trace(tmp_path):

@@ -212,8 +212,7 @@ def test_torch_trainer_checkpoint_round_trip(tmp_path):
 
 @pytest.mark.parametrize("kw,item", [({"merged_training": "sometimes"}, ValueError),
                                      ({"state_split": False}, NotImplementedError),
-                                     ({"sequence_parallel": "on"}, NotImplementedError),
-                                     ({"optim": "adamw8bit"}, NotImplementedError)])
+                                     ({"sequence_parallel": "on"}, NotImplementedError)])
 def test_torch_trainer_refuses_unported_options(tmp_path, kw, item):
     tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     surgery.init_monarch(tm, PEFT)
