@@ -26,7 +26,7 @@ hand-written CUDA kernels, and checks them:
   8. training, bfloat16, all 22 layers, bs 4 x ga 8 x seq 512 through
      ``Trainer``: merged training off, then on from the same state on the
      same batches, timed and profiled; then with splash attention, merged
-     off, from the same state on the same batches (K17-K19 704 launches
+     off, from the same state on the same batches (K17-K19 528 launches
      each, the first loss against the einsum run's), timed and profiled;
      then with remat "dots" and "nothing" from the same state on the same
      batches, timed and profiled beside the run without remat (K2 twice an
@@ -103,8 +103,8 @@ hand-written CUDA kernels, and checks them:
      against a straight one, the losses within 1e-4; then at
      TinyLlama-1.1B widths (22 layers, bf16, random seeded weights through
      the harness's ``build`` seam) at ``--bits`` 16 and 4 with the harness's
-     defaults but ga 8, and at 16 with ``--pack=True``: launches exact (K3
-     2,464; K6 2,416), the wall and device-busy ms a step, the MMLU scoring and
+     defaults but ga 4, and at 16 with ``--pack=True``: launches exact (K3
+     1,232; K6 1,208), the wall and device-busy ms a step, the MMLU scoring and
      predict seconds, the peak memory, the packed rows and their token
      efficiency;
  19. the reasoning harness (``scripts/run_reasoning.py``): the tiny smoke
@@ -115,7 +115,10 @@ hand-written CUDA kernels, and checks them:
      seed equal) and ``beam_generate`` at 4 beams against a CPU copy of the
      trained model (equal tokens); then TinyLlama-1.1B widths from an
      HF-format directory written here (random seeded bf16 weights; the
-     loaded tensors equal the written ones; kept for 23): 3 steps of
+     loaded tensors equal the written ones; kept for 23) with a byte-fallback
+     BPE ``tokenizer.json`` written beside them (no tokenizer package:
+     merges learned from the phase's prompts, 32000 ids), through which the
+     harness tokenizes (each prompt decoded back from its ids): 2 steps of
      ``-task math`` with the harness's remat "nothing" and dropout 0.1 (K1
      twice an adapted linear and micro-batch, K3 once), its greedy eval and
      a beam-4 eval (beam-sample at temperature 0.1), launches exact (K2
@@ -188,7 +191,20 @@ hand-written CUDA kernels, and checks them:
      questions (step wall, busy, idle share, peak), each adapted shape's
      rows and K3's plan, K2 and K3 timed there, a LoReFT step at four
      text-encoder layers, the ITM model in both modes, the adapters merged
-     (K1) and a merged eval forward; launches exact.
+     (K1) and a merged eval forward; launches exact;
+ 26. the structured layers and ops (``layers/structured.py``,
+     ``layers/blocksparse.py``, ``layers/spectral.py``,
+     ``ops/butterfly.py``; no kernel of ours: cuBLAS products and cuFFT,
+     as XLA computes the JAX layers): BlockdiagLinear at RoBERTa-large's
+     FFN widths (1024 <-> 4096, 4 blocks, shuffle on and off, float32 and
+     bfloat16), BlockSparseLinear (a flat butterfly layout of 32-blocks,
+     1024 -> 4096 and ragged 1000 -> 4000), both at the GLUE micro-batch
+     of 3 x 512 rows, ButterflyFFT (fft and ifft at 1024 and 4096) and
+     ButterflyFFT2 (64 x 64) through the complex Monarch multiply,
+     block_butterfly_multiply (16 blocks of 64), SpectralConv1d and
+     SpectralConv2d at the FNO Burgers and Darcy (85 x 85) settings:
+     forward and backward on the card against the same module on the CPU,
+     the transforms against ``torch.fft`` at init, each timed.
 
 18 also runs the smoke harness over an int4 base with ``--optim adamw8bit``
 (the 8-bit codes that differ between the card and the CPU counted), and
@@ -248,6 +264,8 @@ try:
     from sparse_matrix_fine_tuning_torch.kernels.experimental import tiled_matmul as tm
     from sparse_matrix_fine_tuning_torch.utils import benchlib
     from sparse_matrix_fine_tuning_torch.utils.benchlib import card_line, roofline_ms, time_ms
+    from sparse_matrix_fine_tuning_torch.data.hf_tokenizer import (BPETokenizer,
+                                                                   write_byte_fallback_bpe)
     from sparse_matrix_fine_tuning_torch.ops.attention import attention_cost
     from sparse_matrix_fine_tuning_torch.utils.testing import (ATTN_BLOCK_ROWS, ATTN_BLOCK_RTOL,
                                                                TOLERANCES, attention_block_error)
@@ -267,6 +285,9 @@ PEFT = {"monarch": True, "nblocks": 4, "blk_r": 4, "adapter": True,
 PROJECTIONS = [("q", 2048, 2048), ("k", 2048, 256), ("v", 2048, 256), ("o", 2048, 2048),
                ("gate", 2048, 5632), ("up", 2048, 5632), ("down", 5632, 2048)]
 ROWS = (4, 65, 256, 2048)
+# benchlib.time_ms's reps and rounds for K1/K2 at ROWS (phase_kernels): 112
+# cases, three timings each (the other kernel phases' 20 x 3)
+KERNEL_TIMING = (20, 3)
 N_ADAPTED = 7 * MODEL["num_hidden_layers"]
 BATCH, PROMPT, NEW = 4, 64, 128  # bench.py:128
 PROMPT_LENS = (64, 48, 33, 17)
@@ -277,7 +298,7 @@ F32_LOGIT_TOL = 1e-3
 # Training (bench.py:389-418 with the 1.1B widths): rows of the backward
 # kernels' checks, one micro-batch being 4 x 512 = 2048 rows.
 BWD_ROWS = (65, 2047, 2048)
-TRAIN_BS, TRAIN_GA, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 512, 4  # 1 warm-up + 3 timed
+TRAIN_BS, TRAIN_GA, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 512, 3  # 1 warm-up + 2 timed
 REMAT_STEPS = 2  # phase_train_remat's runs: 1 warm-up + 1 timed
 F32_TRAIN = dict(layers=2, bs=2, ga=2, seq=128)
 TRAIN_LR = 1e-4
@@ -393,6 +414,10 @@ DECODE_ROTATE_BYTES = 100e6
 QUANT_COS = {8: 0.99, 4: 0.6}
 # decode steps each quantized configuration profiles (profile_decode)
 DECODE_PROFILE_STEPS = 8
+# phase_quant_bf16's generates that alternate the quantized model with the
+# unquantized one: new tokens each (the counted generate keeps NEW); a decode
+# step's ms is their wall less the prefill over their steps
+QUANT_ALT_NEW = 32
 # The fused dense + Monarch linear (K9-K11): short labels of
 # bench_more_linear.SHAPES, and the ragged f32 check (tests/kernels/
 # test_more_linear.py:17): (label, rows, n, m, nblocks, blk_r).
@@ -446,14 +471,15 @@ INT4_VARIANT_SHAPE = (4, 2048, 5632)
 # The Alpaca harness (phase_alpaca): (a) the smoke argv on the card and on
 # the CPU, whose losses, eval_loss and MMLU choice logits (float32) agree
 # within ALPACA_TOL; (b) the full-width argv, the harness's defaults
-# otherwise.  Both take 2 optimizer steps, of 16 micro-batches (a) and of
-# ALPACA_FULL_GA (b).
-ALPACA_STEPS, ALPACA_GA = 2, 16
+# otherwise.  Both take 2 optimizer steps, of ALPACA_GA micro-batches (a;
+# the harness's default is 16) and of ALPACA_FULL_GA (b).
+ALPACA_STEPS, ALPACA_GA = 2, 8
 ALPACA_ARGV = ["--smoke=True", "--dropout=0.0", f"--max_steps={ALPACA_STEPS}",
+               f"--gradient_accumulation_steps={ALPACA_GA}",
                "--logging_steps=1", "--eval_dataset_size=8", "--max_mmlu_samples=16",
                "--do_predict=True", "--max_new_tokens=8"]
 ALPACA_FULL_NEW = 16
-ALPACA_FULL_GA = 8  # the harness's default is 16; 8 halves the phase's steps and profiles
+ALPACA_FULL_GA = 4  # the harness's default is 16; 4 quarters the phase's micro-batches
 ALPACA_FULL_ARGV = [f"--max_steps={ALPACA_STEPS}", "--logging_steps=1", "--eval_dataset_size=8",
                     f"--gradient_accumulation_steps={ALPACA_FULL_GA}",
                     "--max_mmlu_samples=32", "--do_predict=True",
@@ -476,12 +502,16 @@ TINYLLAMA_HF = {"model_type": "llama", "architectures": ["LlamaForCausalLM"], **
                 "max_position_embeddings": 2048, "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
                 "hidden_act": "silu", "bos_token_id": 1, "eos_token_id": 2, "pad_token_id": None,
                 "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
-REASONING_FULL_STEPS = 3
+REASONING_FULL_STEPS = 2
 REASONING_FULL_ARGV = ["-task", "math", "-batch_size", "4", "-gradient_accumulation_steps", "8",
                        "-max_length", "512", f"--max_steps={REASONING_FULL_STEPS}",
                        "--logging_steps=1", "-eval_dataset", "MultiArith",
                        "--max_n_eval_example=8", "-top_k", "0", "-top_p", "1.0", "-t", "0.1"]
 REASONING_PROFILE_NEW = 16
+# The math task's new tokens in phase_reasoning_full's evals (the harness's
+# 512): the random model ends no row within them, and with the BPE
+# tokenizer each 512-token eval took 36-41 s on an H100 80GB HBM3 at 700 W.
+REASONING_FULL_NEW = 32
 # The GLUE and AG News harnesses (phase_glue_smoke, phase_glue_full): (a) the
 # smoke argv of each run, float32, dropout off, on the card and on the CPU,
 # cut to GLUE_STEPS steps (CoLA, MNLI and MRPC at 100x the recipe's rate, so
@@ -916,9 +946,11 @@ def phase_kernels(card: str) -> dict:
                                 f"{ref.shape}/{ref.dtype}")
                         err = float((got.float() - ref.float()).abs().max())
                         tol = tolerance(dtype, ref)
-                        (ms, call), (plain_ms, plain_call) = time_ms(kern), time_ms(plain)
+                        (ms, call), (plain_ms, plain_call) = (time_ms(kern, *KERNEL_TIMING),
+                                                              time_ms(plain, *KERNEL_TIMING))
                         rec = _record(name, proj, n_in, n_out, m_rows, dtype, err, err / tol, ms,
-                                      plain_ms, call, plain_call, time_ms(library)[0])
+                                      plain_ms, call, plain_call,
+                                      time_ms(library, *KERNEL_TIMING)[0])
                         require(err <= tol and bool(torch.isfinite(got).all()),
                                 f"{name} {proj} M={m_rows} {dtype}: max_abs_err {err} > tol {tol}")
                         worst[name] = max(worst[name], err)
@@ -2842,9 +2874,9 @@ def phase_quant_bf16(f32: dict, card: str) -> dict:
     against the unquantized bf16 model's (cosine, ``QUANT_COS``).  The host
     clock drifts over minutes, so each configuration's timed generates
     alternate with the unquantized bf16 model's, which is timed beside it;
-    the counted generate runs alone, last (2 prefills and 1 generate of each
-    alternate, the counted generate a second sample of the quantized
-    model's).  Resident and peak memory are the
+    the counted generate runs alone, last (2 prefills and 1 generate of
+    ``QUANT_ALT_NEW`` tokens of each alternate; a decode step's ms is the
+    median over those and the counted generate).  Resident and peak memory are the
     configuration's own: measured from what was allocated before its model
     was built.  A counted generate launches the forward once an adapted
     linear for its prefill (BATCH x PROMPT = 256 rows: the wgmma kernel)
@@ -2863,6 +2895,7 @@ def phase_quant_bf16(f32: dict, card: str) -> dict:
         return torch.randint(2, MODEL["vocab_size"], (BATCH, PROMPT), generator=g, device="cuda")
 
     gc = GenerationConfig(max_new_tokens=NEW, eos_token_id=None)
+    gc_alt = GenerationConfig(max_new_tokens=QUANT_ALT_NEW, eos_token_id=None)
     gc1 = GenerationConfig(max_new_tokens=1, eos_token_id=None)
     steps = NEW - 1
     med = statistics.median
@@ -2907,7 +2940,7 @@ def phase_quant_bf16(f32: dict, card: str) -> dict:
         generate(model, fresh_ids(), mask, GenerationConfig(max_new_tokens=8, eos_token_id=None))
         generate(base, fresh_ids(), mask, GenerationConfig(max_new_tokens=8, eos_token_id=None))
         prefill, base_prefill = alternate(gc1, 2)
-        gens, base_gens = alternate(gc, 1)
+        gens, base_gens = alternate(gc_alt, 1)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()  # the counted main path starts here
@@ -2945,21 +2978,24 @@ def phase_quant_bf16(f32: dict, card: str) -> dict:
         require(launches == {**dict.fromkeys(launches, 0), **expect},
                 f"{label}: launches {launches}; expected {expect}")
         prefill_ms = med(prefill) * 1e3
-        gen_med = med(gens + [main_s])
-        decode_ms = (gen_med * 1e3 - prefill_ms) / steps
+        decode_all = [(g * 1e3 - prefill_ms) / (QUANT_ALT_NEW - 1) for g in gens] + \
+            [(main_s * 1e3 - prefill_ms) / steps]
+        decode_ms = med(decode_all)
         base_prefill_ms = med(base_prefill) * 1e3
-        base_decode_ms = (med(base_gens) * 1e3 - base_prefill_ms) / steps
+        base_decode_ms = (med(base_gens) * 1e3 - base_prefill_ms) / (QUANT_ALT_NEW - 1)
         idle = f"{1 - busy_ms / decode_ms:.3f}" if busy_ms is not None else "not measured"
         print(f"[quant-bf16] {card}: {label}: prefill {prefill_ms:.3f} ms (median of "
-              f"{len(prefill)}), decode {decode_ms:.4f} ms/step, {BATCH * NEW / gen_med:.1f} "
-              f"tokens/s (generate median of {len(gens) + 1}: {gen_med:.4f} s; all "
-              f"{[round(x, 4) for x in gens + [main_s]]}); device busy "
+              f"{len(prefill)}), decode {decode_ms:.4f} ms/step (median of "
+              f"{[round(x, 4) for x in decode_all]}: the alternating {QUANT_ALT_NEW}-token "
+              f"generates {[round(x, 4) for x in gens]} s and the counted {NEW}-token one), "
+              f"{BATCH * NEW / main_s:.1f} tokens/s (the counted generate: {main_s:.4f} s); "
+              f"device busy "
               f"{busy_ms if busy_ms is None else round(busy_ms, 3)} ms/step, idle share {idle}; "
               f"weights and buffers resident {resident_gb:.3f} GB, peak {peak_gb:.3f} GB; "
               f"launches {expect}", flush=True)
         print(f"[quant-bf16] {card}: {label}: the unquantized bf16 model, timed alternately "
               f"with it: prefill {base_prefill_ms:.3f} ms, decode {base_decode_ms:.4f} ms/step "
-              f"(generates {[round(x, 4) for x in base_gens]} s against "
+              f"({QUANT_ALT_NEW}-token generates {[round(x, 4) for x in base_gens]} s against "
               f"{[round(x, 4) for x in gens]})", flush=True)
         out[label] = launches
         del model
@@ -3247,9 +3283,9 @@ def phase_alpaca_full(card: str) -> dict:
     """(b) The harness at TinyLlama-1.1B widths (all 22 layers, bf16, random
     seeded weights through the ``build`` seam) at ``--bits`` 16 and 4 with
     the harness's defaults but ga (dropout 0.1, so K1 and not K2 in the
-    forwards; batch 4 x ga ``ALPACA_FULL_GA``, 8; lengths 1024/256; 5-shot
+    forwards; batch 4 x ga ``ALPACA_FULL_GA``, 4; lengths 1024/256; 5-shot
     MMLU at 2048 tokens) over its synthetic data: the launches exact
-    (``alpaca_expect``: K3 154 x 16 = 2,464, K6 151 x 16 = 2,416); the
+    (``alpaca_expect``: K3 154 x 8 = 1,232, K6 151 x 8 = 1,208); the
     harness's own two steps, through its
     trainer's ``step_context``: step 0 under the profiler (device busy),
     step 1 alone (wall ms, the card synchronised around it, and its peak
@@ -3378,6 +3414,23 @@ def reasoning_run(argv: list, build=None, step_context=None) -> dict:
     return {"run": result, "launches": launches, "forwards": forwards,
             "train_forwards": forwards["train"], "eval_forwards": forwards["eval"],
             "train_shapes": dict(shapes), "seconds": seconds}
+
+
+@contextlib.contextmanager
+def capped_new_tokens(task: str, n: int):
+    """The reasoning task's ``generation_args`` at ``n`` new tokens while
+    the block runs (the harness's evals read them), restored after."""
+    from sparse_matrix_fine_tuning_torch.data.reasoning import TASK_CONFIG
+
+    args = TASK_CONFIG[task]["generation_args"]
+    saved = copy.deepcopy(args)
+    for gen in args.values():
+        gen["max_new_tokens"] = n
+    try:
+        yield
+    finally:
+        args.clear()
+        args.update(saved)
 
 
 def counted_eval(run: dict, label: str, **kw) -> dict:
@@ -3553,16 +3606,71 @@ def write_hf_checkpoint(path: str, config: dict, shapes: dict, seed: int,
     return tensors
 
 
+def reasoning_tokenizer(ckpt: str) -> str:
+    """Write a byte-fallback BPE ``tokenizer.json`` and its
+    ``tokenizer_config.json`` into the TinyLlama-width directory
+    (``data/hf_tokenizer.write_byte_fallback_bpe``, no tokenizer package:
+    <unk>, <s>, </s>, the 256 <0xNN> tokens, merges learned from the prompts
+    of the items ``REASONING_FULL_ARGV`` trains and evaluates on, padded to
+    the model's 32000 ids), load it through ``get_tokenizer`` as the harness
+    does, and require decode(encode(prompt)) to give each prompt back.
+    Returns the line that reports it."""
+    from sparse_matrix_fine_tuning_torch.data.reasoning import (
+        TASK_CONFIG,
+        build_prompt,
+        load_data_items,
+    )
+    from sparse_matrix_fine_tuning_torch.data.tokenizer import get_tokenizer
+    from sparse_matrix_fine_tuning_torch.scripts import run_reasoning
+
+    t0 = time.perf_counter()
+    args, _ = run_reasoning.parse_args([*REASONING_FULL_ARGV, "--model", ckpt])
+    train = load_data_items(args.task, args.train_dataset or TASK_CONFIG[args.task][
+        "train_datasets"][0], args.data_dir, split="train", max_n_example=args.max_n_train_example,
+        seed=args.seed)
+    evals = load_data_items(args.task, args.eval_dataset, args.data_dir, split=args.test_split,
+                            is_eval=True, max_n_example=args.max_n_eval_example, seed=args.seed)
+    prompts = [build_prompt(args.task, it, "")[1] for it in train] + \
+        [build_prompt(args.task, it, "")[0] for it in evals]
+    spec = write_byte_fallback_bpe(ckpt, prompts, vocab_size=TINYLLAMA_HF["vocab_size"])
+    write_s = time.perf_counter() - t0
+    tok = get_tokenizer(ckpt)
+    require(isinstance(tok, BPETokenizer) and tok.vocab_size == TINYLLAMA_HF["vocab_size"],
+            f"reasoning full: get_tokenizer gave {type(tok).__name__}")
+    t0 = time.perf_counter()
+    counts_ = []
+    for prompt in prompts:
+        ids = tok.encode_ids(prompt)
+        require(tok.decode(ids) == prompt and ids[0] == tok.bos_token_id,
+                f"reasoning full: decode(encode({prompt[:60]!r}...)) gives "
+                f"{tok.decode(ids)[:60]!r}")
+        counts_.append(len(ids))
+    encode_s = time.perf_counter() - t0
+    chars = sum(map(len, prompts))
+    merges = len(spec["model"]["merges"])
+    RECORDS.append({"reasoning_tokenizer": merges,
+                    "tokens_per_prompt": counts_, "chars": chars, "write_s": write_s,
+                    "encode_decode_s": encode_s})
+    return (f"byte-fallback BPE tokenizer.json written in {write_s:.2f} s ({merges} merges "
+            f"learned from the {len(prompts)} prompts, {tok.vocab_size} ids), every "
+            f"prompt decoded back from its ids; tokens a prompt min {min(counts_)} median "
+            f"{statistics.median(counts_)} max {max(counts_)}, {chars / sum(counts_):.2f} chars a "
+            f"token; encode and decode {encode_s * 1e3 / len(prompts):.2f} ms a prompt (host)")
+
+
 def phase_reasoning_full(card: str) -> dict:
     """(b) The reasoning harness at TinyLlama-1.1B widths, all 22 layers,
     from an HF-format directory that this phase writes (``TINYLLAMA_HF``,
-    random seeded bf16 weights, ``write_hf_checkpoint``), which
-    ``phase_reft_full`` deletes: the tensors the harness's loader gives equal the written ones; ``-task
-    math`` in bf16 with the harness's defaults (remat "nothing", dropout
+    random seeded bf16 weights, ``write_hf_checkpoint``, and the BPE
+    tokenizer of ``reasoning_tokenizer``), which ``phase_reft_full``
+    deletes: the tensors the harness's loader gives equal the written ones,
+    the harness tokenizes through the BPE tokenizer; ``-task math`` in bf16 with the harness's defaults (remat "nothing", dropout
     0.1, so K1 on every forward, K1 twice a training micro-batch) at batch 4
     x ga 8 x max length 512 for ``REASONING_FULL_STEPS`` steps (step 0
     profiled: device busy; the later steps alone: wall and peak memory),
-    then its greedy eval of one dataset; then the same eval again, timed
+    then its greedy eval of one dataset (``REASONING_FULL_NEW`` new tokens
+    for every eval of the phase, ``capped_new_tokens``); then the same eval
+    again, timed
     alone (its results the harness's), and a beam-4 eval (``-top_k 0 -top_p
     1.0 -t 0.1``: beam-sample at temperature 0.1), each through
     ``ReasoningRun.evaluate``.  Wall a decode forward for each (the
@@ -3583,6 +3691,7 @@ def phase_reasoning_full(card: str) -> dict:
     written = write_hf_checkpoint(ckpt, TINYLLAMA_HF, llama_shapes(TINYLLAMA_HF), SEED + 22)
     write_s = time.perf_counter() - t0
     size_gb = os.path.getsize(os.path.join(ckpt, "model.safetensors")) / 1e9
+    tokenizer_line = reasoning_tokenizer(ckpt)
     loaded = {}
 
     def build_checked(args, peft_config):
@@ -3601,42 +3710,45 @@ def phase_reasoning_full(card: str) -> dict:
         written.clear()
         return model
 
-    steps = {}
-    torch.cuda.reset_peak_memory_stats()
-    full = reasoning_run([*REASONING_FULL_ARGV, "--model", ckpt, f"--output_dir={out}"],
-                         build=build_checked,
-                         step_context=harness_step_context(steps, "reasoning harness (1.1B)"))
-    cfg = loaded["config"]
-    require(loaded.get("tensors") == 3 + 9 * 22 and cfg.remat and cfg.remat_policy == "nothing",
-            f"reasoning full: loaded {loaded}")
-    micro = full["train_forwards"]
-    require(micro == REASONING_FULL_STEPS * 8, f"reasoning full: {micro} training forwards")
-    greedy_forwards = full["eval_forwards"]
-    expect = {"monarch_kernel": N_ADAPTED * (2 * micro + greedy_forwards),
-              "monarch_bwd": N_ADAPTED * micro}
-    expect_only(full["launches"], expect, "reasoning full, training and greedy eval")
-    launches = collections.Counter(expect)
-    losses = [r["loss"] for r in _alpaca_records(out, "metrics.jsonl", "math") if "loss" in r]
-    require(len(losses) == REASONING_FULL_STEPS and all(map(math.isfinite, losses)),
-            f"reasoning full: losses {losses}")
-    require(len(steps.get("wall_ms", [])) == REASONING_FULL_STEPS - 1 and "busy_ms" in steps,
-            f"reasoning full: the harness's steps seen {steps}")
-    evals = {}
-    for label, greedy in (("greedy", True), ("beam-4", False)):
-        evals[label] = counted_eval(full, label, greedy=greedy, out=os.path.join(out, label))
-        expect = {"monarch_kernel": N_ADAPTED * evals[label]["forwards"]}
-        expect_only(evals[label]["launches"], expect, f"reasoning full, {label} eval")
-        launches.update(expect)
-    require(evals["greedy"]["results"] == full["run"].results,
-            f"reasoning full: the greedy eval gave {evals['greedy']['results']}, the harness's "
-            f"{full['run'].results}")
-    busy = {}
-    for label, greedy in (("greedy", True), ("beam-4", False)):
-        before = full["forwards"]["eval"]
-        with device_busy(f"reasoning {label} eval, {REASONING_PROFILE_NEW} new tokens") as prof:
-            full["run"].evaluate(greedy=greedy, max_new=REASONING_PROFILE_NEW,
-                                 out=os.path.join(out, f"profiled_{label}"))
-        busy[label] = (prof["busy_ms"], full["forwards"]["eval"] - before)
+    with capped_new_tokens("math", REASONING_FULL_NEW):
+        steps = {}
+        torch.cuda.reset_peak_memory_stats()
+        full = reasoning_run([*REASONING_FULL_ARGV, "--model", ckpt, f"--output_dir={out}"],
+                             build=build_checked,
+                             step_context=harness_step_context(steps, "reasoning harness (1.1B)"))
+        cfg = loaded["config"]
+        require(loaded.get("tensors") == 3 + 9 * 22 and cfg.remat
+                and cfg.remat_policy == "nothing", f"reasoning full: loaded {loaded}")
+        require(isinstance(full["run"].tokenizer, BPETokenizer),
+                f"reasoning full: the harness tokenized with {type(full['run'].tokenizer).__name__}")
+        micro = full["train_forwards"]
+        require(micro == REASONING_FULL_STEPS * 8, f"reasoning full: {micro} training forwards")
+        greedy_forwards = full["eval_forwards"]
+        expect = {"monarch_kernel": N_ADAPTED * (2 * micro + greedy_forwards),
+                  "monarch_bwd": N_ADAPTED * micro}
+        expect_only(full["launches"], expect, "reasoning full, training and greedy eval")
+        launches = collections.Counter(expect)
+        losses = [r["loss"] for r in _alpaca_records(out, "metrics.jsonl", "math") if "loss" in r]
+        require(len(losses) == REASONING_FULL_STEPS and all(map(math.isfinite, losses)),
+                f"reasoning full: losses {losses}")
+        require(len(steps.get("wall_ms", [])) == REASONING_FULL_STEPS - 1 and "busy_ms" in steps,
+                f"reasoning full: the harness's steps seen {steps}")
+        evals = {}
+        for label, greedy in (("greedy", True), ("beam-4", False)):
+            evals[label] = counted_eval(full, label, greedy=greedy, out=os.path.join(out, label))
+            expect = {"monarch_kernel": N_ADAPTED * evals[label]["forwards"]}
+            expect_only(evals[label]["launches"], expect, f"reasoning full, {label} eval")
+            launches.update(expect)
+        require(evals["greedy"]["results"] == full["run"].results,
+                f"reasoning full: the greedy eval gave {evals['greedy']['results']}, the harness's "
+                f"{full['run'].results}")
+        busy = {}
+        for label, greedy in (("greedy", True), ("beam-4", False)):
+            before = full["forwards"]["eval"]
+            with device_busy(f"reasoning {label} eval, {REASONING_PROFILE_NEW} new tokens") as prof:
+                full["run"].evaluate(greedy=greedy, max_new=REASONING_PROFILE_NEW,
+                                     out=os.path.join(out, f"profiled_{label}"))
+            busy[label] = (prof["busy_ms"], full["forwards"]["eval"] - before)
     data = full["run"].trainer.train_data
     rows, width = data["input_ids"].shape
     wall = statistics.median(steps["wall_ms"])
@@ -3655,7 +3767,8 @@ def phase_reasoning_full(card: str) -> dict:
     print(f"[reasoning-full] {card}: TinyLlama-1.1B widths from an HF-format directory, 22 "
           f"layers, bf16, remat \"nothing\", dropout 0.1: checkpoint {size_gb:.2f} GB written in "
           f"{write_s:.2f} s, loaded and adapted in {loaded['seconds']:.2f} s, its "
-          f"{loaded['tensors']} tensors equal the written ones; {rows} training rows of "
+          f"{loaded['tensors']} tensors equal the written ones; {tokenizer_line}; {rows} "
+          f"training rows of "
           f"{width} tokens; losses {losses}; steps 1-{REASONING_FULL_STEPS - 1} wall "
           f"{[round(w, 2) for w in steps['wall_ms']]} ms (median {wall:.2f}), step 0 device busy "
           f"{steps['busy_ms'] if steps['busy_ms'] is None else round(steps['busy_ms'], 2)} ms "
@@ -4889,7 +5002,7 @@ def phase_families_smoke(card: str) -> dict:
     weights written here) through its harness, the harness's ``build_model``
     at float32, dropout off, TF32 off, on the card and on the CPU: GPT-2,
     GPT-Neo, GPT-NeoX and Backpack through ``run_alpaca`` (the smoke argv
-    without ``--smoke``: 2 steps of 16 micro-batches, eval loss, MMLU,
+    without ``--smoke``: 2 steps of ``ALPACA_GA`` micro-batches, eval loss, MMLU,
     greedy predictions but for Backpack, which has no cache), Gemma through
     ``run_reasoning -task commonsense``: the adapted linears the family's,
     the logged losses and ``eval_loss`` within ``ALPACA_TOL``, the MMLU
@@ -5612,6 +5725,159 @@ def phase_blip_full(card: str) -> dict:
     return dict(launches)
 
 
+# The structured layers and ops (phase_structured): each case's module built
+# on the CPU from a CPU generator, copied to the card, both run forward and
+# backward on the same inputs and cotangent; every output and gradient of
+# the card within STRUCT_RTOL of the CPU's scale (float32: the two sum in
+# another order, cuFFT against pocketFFT; bfloat16: two ulps, as
+# utils/testing.bf16_atol); ButterflyFFT/FFT2 at init within STRUCT_FFT_ATOL
+# of torch.fft on the card, as JAX tests/layers/test_structured.py holds
+# them.  Timed forward + backward (benchlib.time_ms, STRUCT_TIMING reps and
+# rounds).  Widths: RoBERTa-large's FFN (1024 <-> 4096) at the GLUE
+# micro-batch, 3 x 512 rows; the FNO settings of neuraloperator's
+# fourier_1d.py (Burgers: modes 16, width 64, 8192 / 8 = 1024 points, batch
+# 20) and fourier_2d.py (Darcy: modes 12, width 32, s = 85, batch 20).
+STRUCT_ROWS = (3, 512)
+STRUCT_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+STRUCT_FFT_ATOL = 1e-3
+STRUCT_TIMING = (10, 3)
+STRUCT_SPARSITY = dict(butterfly_size=32, n_factors=2, block=32)
+
+
+class BlockButterfly(torch.nn.Module):
+    """``ops/butterfly.block_butterfly_multiply`` over x (rows, 1, n, bs)
+    with a trainable twiddle (1, log2 n, n/2, 2, 2, bs, bs)."""
+
+    def __init__(self, n: int, bs: int, g: torch.Generator):
+        super().__init__()
+        log_n = int(math.log2(n))
+        self.twiddle = torch.nn.Parameter(
+            torch.randn(1, log_n, n // 2, 2, 2, bs, bs, generator=g) / math.sqrt(2 * bs))
+
+    def forward(self, x):
+        from sparse_matrix_fine_tuning_torch.ops.butterfly import block_butterfly_multiply
+        return block_butterfly_multiply(self.twiddle, x)
+
+
+def structured_cases():
+    """(label, module factory on the CPU, input shape, dtype, complex input,
+    the torch.fft function the module equals at init or None)."""
+    from sparse_matrix_fine_tuning_torch import layers
+
+    rows = STRUCT_ROWS
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for n_in, n_out in ((1024, 4096), (4096, 1024)):
+            for shuffle in (False, True):
+                cases.append((f"BlockdiagLinear {n_in}->{n_out} nblocks 4 shuffle {shuffle} "
+                               f"{str(dtype)[6:]}",
+                               functools.partial(layers.BlockdiagLinear, n_in, n_out, nblocks=4,
+                                                 shuffle=shuffle, param_dtype=dtype, device="cpu"),
+                               (*rows, n_in), dtype, False, None))
+    for n_in, n_out in ((1024, 4096), (1000, 4000)):
+        cfg = layers.FlatBlockButterflySparsityConfig(**STRUCT_SPARSITY)
+        cases.append((f"BlockSparseLinear {n_in}->{n_out} butterfly 32, 2 factors, block 32",
+                      functools.partial(layers.BlockSparseLinear, n_in, n_out, cfg, device="cpu"),
+                      (*rows, n_in), torch.float32, False, None))
+    for n in (1024, 4096):
+        for direction in ("fft", "ifft"):
+            cases.append((f"ButterflyFFT {direction} n {n}",
+                          functools.partial(layers.ButterflyFFT, n, direction, device="cpu"),
+                          (rows[1], n), torch.complex64, True,
+                          functools.partial(getattr(torch.fft, direction), norm="ortho")))
+    cases.append(("ButterflyFFT2 64 x 64", functools.partial(layers.ButterflyFFT2, 64, 64,
+                                                             device="cpu"),
+                  (64, 64, 64), torch.complex64, True,
+                  functools.partial(torch.fft.fft2, norm="ortho")))
+    cases.append(("block_butterfly_multiply 16 blocks of 64",
+                  lambda: BlockButterfly(16, 64, torch.Generator().manual_seed(SEED + 70)),
+                  (rows[0] * rows[1], 1, 16, 64), torch.float32, False, None))
+    cases.append(("SpectralConv1d Burgers modes 16 width 64, 1024 points, batch 20",
+                  functools.partial(layers.SpectralConv1d, 64, 64, 16, device="cpu"),
+                  (20, 64, 1024), torch.float32, False, None))
+    cases.append(("SpectralConv2d Darcy modes 12 width 32, 85 x 85, batch 20",
+                  functools.partial(layers.SpectralConv2d, 32, 32, 12, 12, device="cpu"),
+                  (20, 32, 85, 85), torch.float32, False, None))
+    return cases
+
+
+def _fwd_bwd(module, x, cot):
+    """(output, [each parameter's gradient], the input's gradient) of
+    sum(Re(module(x) * conj(cot)))."""
+    x = x.detach().clone().requires_grad_()
+    for p in module.parameters():
+        p.grad = None
+    out = module(x)
+    loss = (out * cot.conj()).real.sum() if out.is_complex() else (out.float() * cot).sum()
+    loss.backward()
+    return out.detach(), [p.grad for p in module.parameters()], x.grad
+
+
+def _scaled_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.detach().cpu()
+    scale = float(want.abs().max())
+    return float((got.detach().cpu() - want).abs().max()) / (scale or 1.0)
+
+
+def phase_structured(card: str) -> dict:
+    """The structured layers and ops on the card (no kernel of ours: the
+    products are cuBLAS batched matmuls, the transforms cuFFT, as the JAX
+    package's are XLA's): ``structured_cases`` card against CPU, forward
+    and backward, each timed.  Returns {label: device ms}."""
+    times = {}
+    for i, (label, make, shape, dtype, cplx, fft) in enumerate(structured_cases()):
+        g = torch.Generator().manual_seed(SEED + 80 + i)
+        cpu = make()
+        module = copy.deepcopy(cpu).to("cuda")
+        if cplx:
+            x = torch.complex(torch.randn(shape, generator=g), torch.randn(shape, generator=g))
+        else:
+            x = torch.randn(shape, generator=g).to(dtype)
+        xc = x.cuda()
+        with torch.no_grad():
+            probe = module(xc)  # the output's shape and dtype
+        cot = torch.complex(torch.randn(probe.shape, generator=g),
+                            torch.randn(probe.shape, generator=g)) if probe.is_complex() \
+            else torch.randn(probe.shape, generator=g)
+        want = _fwd_bwd(cpu, x, cot)
+        cotc = cot.cuda()
+        got = _fwd_bwd(module, xc, cotc)
+        torch.cuda.synchronize()
+        tol = STRUCT_RTOL[torch.bfloat16 if dtype == torch.bfloat16 else torch.float32]
+        errs = [_scaled_error(got[0], want[0])] + [_scaled_error(a, b) for a, b in
+                                                    zip(got[1], want[1])] + \
+            [_scaled_error(got[2], want[2])]
+        require(got[0].dtype == want[0].dtype and got[0].shape == want[0].shape
+                and bool(torch.isfinite(got[0]).all()), f"structured {label}: output "
+                f"{got[0].dtype} {tuple(got[0].shape)} against {want[0].dtype}")
+        require(max(errs) <= tol, f"structured {label}: card against CPU {errs} (tol {tol})")
+        fft_err = None
+        if fft is not None:
+            with torch.no_grad():
+                fft_err = float((module(xc) - fft(xc)).abs().max())
+            require(fft_err <= STRUCT_FFT_ATOL, f"structured {label}: {fft_err} from torch.fft")
+
+        def step():
+            torch.autograd.backward(module(xc), cotc)
+
+        device_ms, call_ms = time_ms(step, *STRUCT_TIMING)
+        times[label] = device_ms
+        params = sum(p.numel() for p in module.parameters())
+        RECORDS.append({"structured": label, "shape": list(shape), "dtype": str(dtype),
+                        "errors": errs, "fft_err": fft_err, "ms": device_ms, "call_ms": call_ms,
+                        "params": params, "card": card})
+        print(f"[structured] {card}: {label}, x {tuple(shape)} {str(dtype)[6:]}, {params} "
+              f"parameters: card against CPU, output and {len(errs) - 1} gradients within "
+              f"{max(errs):.2e} of scale (tol {tol:g})"
+              + (f", {fft_err:.2e} from torch.fft at init" if fft_err is not None else "")
+              + f"; forward + backward {device_ms:.5f} ms device, {call_ms:.5f} ms a call",
+              flush=True)
+        del module, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return times
+
+
 def main() -> None:
     t0 = time.perf_counter()
 
@@ -5700,6 +5966,8 @@ def main() -> None:
     print(f"[blip] launches of the BLIP paths: smoke {blip_smoke}, full width {blip_full}",
           flush=True)
     lap("BLIP, full width")
+    phase_structured(card)
+    lap("structured layers")
     launches = {"monarch_kernel": serving["launches"]["monarch_kernel"],
                 "monarch_add": serving["launches"]["monarch_add"],
                 "monarch_bwd": training["launches"]["monarch_bwd"],

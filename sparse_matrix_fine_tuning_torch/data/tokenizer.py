@@ -1,12 +1,18 @@
-"""Tokenization for the port's harnesses: the deterministic hash tokenizer.
+"""Tokenization for the port's harnesses: a local BPE ``tokenizer.json`` or
+the deterministic hash tokenizer.
 
-A copy of ``SimpleTokenizer`` from ``sparse_matrix_fine_tuning_tpu/data/
-tokenizer.py``, which keeps every harness runnable end to end with no
-download.  The JAX ``get_tokenizer`` loads a local HF tokenizer through
-``transformers``, which the port may not import: here a directory that
-holds tokenizer files is refused (ROADMAP.md queue A item 13), and any
-other name or directory gives the hash tokenizer, as the JAX function does
-when no local HF tokenizer loads.
+``SimpleTokenizer`` is a copy of the JAX package's
+(``sparse_matrix_fine_tuning_tpu/data/tokenizer.py``), which keeps every
+harness runnable end to end with no download.  The JAX ``get_tokenizer``
+loads a local HF tokenizer through ``transformers``, which the port may not
+import: here a directory with a ``tokenizer.json`` whose model is BPE gives
+``data/hf_tokenizer.BPETokenizer``, pure Python with the JAX wrapper's
+interface.  Any other directory that holds tokenizer files (WordPiece,
+Unigram, a ``tokenizer.model`` or the slow tokenizers' vocabulary files
+alone) is refused with ``NotImplementedError`` (ROADMAP.md queue A item 13)
+where the JAX function would fall back to the hash tokenizer: a real
+tokenizer's text is never hashed.  Any other name or directory gives the
+hash tokenizer, as the JAX function does when no local HF tokenizer loads.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ import re
 from typing import Optional, Sequence
 
 import numpy as np
+
+from sparse_matrix_fine_tuning_torch.data.hf_tokenizer import BPETokenizer, unsupported
 
 _WORD_RE = re.compile(r"\w+|[^\w\s]")
 
@@ -86,20 +94,23 @@ class SimpleTokenizer:
 
 
 # the files from which HF's AutoTokenizer builds a tokenizer
-TOKENIZER_FILES = ("tokenizer.json", "tokenizer.model", "tokenizer_config.json")
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer.model", "tokenizer_config.json", "vocab.json",
+                   "merges.txt", "vocab.txt", "spiece.model", "sentencepiece.bpe.model")
 
 
 def get_tokenizer(model_name_or_path: Optional[str] = None, vocab_size: int = 50265):
-    """``SimpleTokenizer(vocab_size)``, also for a checkpoint directory
-    without tokenizer files (where the JAX function's ``AutoTokenizer``
-    fails and falls back).  A directory with ``TOKENIZER_FILES`` is refused:
-    its text is never hashed in place of its real tokenizer."""
+    """``BPETokenizer`` for a directory whose ``tokenizer.json`` holds a BPE
+    model; ``SimpleTokenizer(vocab_size)`` for a name, None or a checkpoint
+    directory without tokenizer files (where the JAX function's
+    ``AutoTokenizer`` fails and falls back).  Any other directory with
+    ``TOKENIZER_FILES`` is refused: its text is never hashed in place of its
+    real tokenizer."""
     if model_name_or_path and os.path.isdir(model_name_or_path):
         found = [f for f in TOKENIZER_FILES
                  if os.path.exists(os.path.join(model_name_or_path, f))]
+        if "tokenizer.json" in found:
+            return BPETokenizer(model_name_or_path)
         if found:
-            raise NotImplementedError(
-                f"the HF tokenizer in {model_name_or_path!r} ({', '.join(found)}) needs "
-                "transformers: ROADMAP.md queue A item 13, 'The Llama model, training part' "
-                "(a local tokenizer)")
+            raise unsupported(f"the HF tokenizer in {model_name_or_path!r} "
+                              f"({', '.join(found)}) has no tokenizer.json")
     return SimpleTokenizer(vocab_size=vocab_size)

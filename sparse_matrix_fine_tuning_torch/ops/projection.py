@@ -17,14 +17,16 @@ orientation-agnostic: it approximates M (``MonarchLinear`` decides which
 matrix to project).
 
 The SVD (``torch.linalg.svd``, a library call as ``jnp.linalg.svd`` is in
-JAX) runs in float32 on the input's device: the card's cuSOLVER there, the
-CPU's LAPACK here.  Each singular pair is defined up to its sign, so the
-factors can differ from JAX's by a sign per pair while their product does
-not.
+JAX) runs in float32, or complex64 for a complex M, on the input's device:
+the card's cuSOLVER there, the CPU's LAPACK here.  Each singular pair is
+defined up to its sign (a phase, for complex M), so the factors can differ
+from JAX's by a sign or phase per pair while their product does not.
 
-``blockdiag_butterfly_project`` and ``butterfly_fft_factors``, which serve
-only ``layers/structured.ButterflyFFT`` and complex inputs, are not ported
-(ROADMAP.md queue A items 26 and 8).
+``blockdiag_butterfly_project`` and ``butterfly_fft_factors`` give the
+length-n DFT as an input permutation and a rank-1 Monarch product, in
+complex64 (the JAX package runs with ``jax_enable_x64`` off, so its
+``complex128`` identity is complex64 too); ``layers/structured.ButterflyFFT``
+is their user.
 """
 
 from __future__ import annotations
@@ -42,8 +44,10 @@ def factors(n: int) -> list[tuple[int, int]]:
 def low_rank_project(M: torch.Tensor, rank: int, reverse: bool = False):
     """Batched rank-``rank`` truncation of M by SVD, sqrt(S) split into both
     factors: (U (..., l, rank), Vt (..., rank, i)); with ``reverse`` also the
-    pair built from the trailing singular vectors.  float32 throughout."""
-    U, S, Vt = torch.linalg.svd(M.float(), full_matrices=False)
+    pair built from the trailing singular vectors.  float32 throughout, or
+    complex64 for a complex M."""
+    M = M.to(torch.complex64) if M.is_complex() else M.float()
+    U, S, Vt = torch.linalg.svd(M, full_matrices=False)
     s_sqrt = S[..., :rank].sqrt()
     U_r = U[..., :rank] * s_sqrt[..., None, :]
     Vt_r = s_sqrt[..., :, None] * Vt[..., :rank, :]
@@ -103,3 +107,42 @@ def blockdiag_butterfly_multiply_einsum_rank(x: torch.Tensor, w1: torch.Tensor,
     out = torch.einsum("bki,krji,jlkr->blj", x.reshape(-1, k, i), w1.reshape(k, r, j, i),
                        w2.reshape(j, l, k, r))
     return out.reshape(*batch, l * j)
+
+
+def blockdiag_butterfly_project(M: torch.Tensor, sizes=None):
+    """Rank-1 projection of a square M (n, n) in the permuted layout of the
+    FFT factorisation: w1 (r, k, s), w2 (k, p, r) with n = r*s = p*k,
+    ``sizes`` = (r, k), by default the most balanced factor pair of n."""
+    m, n = M.shape
+    if m != n:
+        raise NotImplementedError("Only square matrices supported")
+    if sizes is None:
+        f = factors(n)[-1]
+        sizes = (f[1], f[0])
+    if n != sizes[0] * sizes[1]:
+        raise ValueError(f"sizes {sizes} do not multiply to {n}")
+    k, r = sizes[1], sizes[0]
+    p, s = n // k, n // r
+    blocks = M.reshape(p, k, r, s).permute(1, 2, 0, 3)      # (p k) (r s) -> k r p s
+    U, Vt = low_rank_project(blocks, rank=1)
+    w1 = Vt[:, :, 0, :].permute(1, 0, 2)                    # k r 1 s -> r k s
+    w2 = U[:, :, :, 0].permute(0, 2, 1)                     # k r p 1 -> k p r
+    return w1, w2
+
+
+def butterfly_fft_factors(n: int, direction: str = "fft", norm: str = "ortho", sizes=None):
+    """The length-n (i)DFT as an input permutation and a Monarch product:
+    ``(perm, w1, w2)`` with ``blockdiag_butterfly_multiply(x[..., perm], w1,
+    w2) == fft(x, norm=norm)`` up to rounding.  The DFT matrix and its SVD
+    are complex64 on the CPU; ``perm`` is int32, as the JAX package's."""
+    if direction not in ("fft", "ifft"):
+        raise ValueError(f"direction must be 'fft' or 'ifft', got {direction!r}")
+    if sizes is None:
+        f = factors(n)[-1]
+        sizes = (f[1], f[0])
+    eye = torch.eye(n, dtype=torch.complex64)
+    transform = torch.fft.fft if direction == "fft" else torch.fft.ifft
+    dft = transform(eye, dim=-1, norm=norm).T
+    perm = torch.arange(n, dtype=torch.int32).reshape(-1, sizes[0]).T.reshape(-1)  # (i j) -> (j i)
+    w1, w2 = blockdiag_butterfly_project(dft[:, perm.long()], sizes=sizes)
+    return perm, w1.contiguous(), w2.contiguous()

@@ -20,8 +20,10 @@ runs it on the CPU, on the kernels' plain versions.
 
 Without ``--smoke`` the hash tokenizer has 32000 ids and the tiny model as
 many (the JAX harness keeps 1024 in its model and feeds it the larger ids:
-ROADMAP.md C.12).  A directory that holds an HF tokenizer is refused
-(``data/tokenizer.get_tokenizer``).  The task's non-greedy math and
+ROADMAP.md C.12).  A directory whose ``tokenizer.json`` holds a BPE model
+is tokenized by it (``data/tokenizer.get_tokenizer``, pure Python); one with
+another HF tokenizer (WordPiece, Unigram, ``tokenizer.model``) is refused
+(ROADMAP.md queue A item 13).  The task's non-greedy math and
 commonsense evals (beam-sample with top-k and top-p) are refused as in the
 JAX package; ``-top_k 0 -top_p 1.0`` gives their beam-sample at the task's
 temperature (ROADMAP.md C.13).

@@ -25,6 +25,11 @@ differ:
   paths (``transformer.h.0.attn.c_attn``, ``gpt_neox.layers.0...``,
   ``backpack.sense_network...``, ``vision_model.embeddings.patch_kernel``
   (3·p·p, d), a parameter of that name, not a kernel: as it is)
+  the structured layers (``layers/structured.py``, ``blocksparse.py``,
+  ``spectral.py``): ``weight``, ``bias``, ButterflyFFT's ``w1``/``w2``
+  (..., 2) and int32 ``perm``, BlockSparseLinear's int64 ``layout`` and
+  int32 ``_flat_idx``, the FNO ``weights1``/``weights2``  -> as they are
+  (the integer ones into persistent buffers of the same dtype)
   a ``ReftModel``'s interventions (``interventions.<i>.rotate``, ``w``, ...,
   their temperatures, PCA bases and noise as persistent buffers) and the
   toy models (``models/toy.py``)  -> the same names and layouts; their

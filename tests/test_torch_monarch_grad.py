@@ -194,11 +194,72 @@ def test_torch_activation_grads_match_jax(name):
 
 
 def test_torch_monarch_refuses_complex():
-    x = torch.randn(4, 16, dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.blockdiag_butterfly_multiply(x, torch.randn(4, 2, 4, dtype=torch.complex64),
-                                        torch.randn(2, 8, 4, dtype=torch.complex64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.monarch_dw(x, torch.randn(4, 16, dtype=torch.complex64),
-                      torch.randn(4, 2, 4, dtype=torch.complex64),
-                      torch.randn(2, 8, 4, dtype=torch.complex64))
+    """Only the plain ops take complex tensors: the CUDA kernels' wrappers
+    refuse them here (a CPU tensor), and the layers' device dispatch sends a
+    complex CPU input to the plain multiply, whose output is the einsum
+    oracle's."""
+    rng = np.random.default_rng(9)
+    x, w1, w2 = (torch.from_numpy(_complex(rng, s)) for s in ((4, 16), (4, 2, 4), (2, 8, 4)))
+    before = dict(monarch_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        monarch_cuda.monarch_kernel(x, w1, w2)
+    with pytest.raises(ValueError, match="CUDA"):
+        monarch_cuda.monarch_bwd(x, w1, w2, torch.zeros(4, 16, dtype=torch.complex64))
+    got = monarch_cuda.monarch_mm(x, w1, w2)
+    assert got.dtype == torch.complex64 and monarch_cuda.LAUNCHES == before
+    np.testing.assert_allclose(got.numpy(),
+                               tm.blockdiag_butterfly_multiply_reference(x, w1, w2).numpy(), **F32)
+
+
+def _complex(rng, shape) -> np.ndarray:
+    return ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+            / np.sqrt(2)).astype(np.complex64)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "complex64"])
+@pytest.mark.parametrize("case", CASES)
+def test_torch_complex_monarch_grads_match_jax(case, dtype):
+    """JAX tests/ops/test_monarch.py:62-84 (float32 and complex64) on the
+    port: the loss sum(Re(out * conj(cot))) through the fast path, against
+    ``jax.grad`` of the JAX fast path.  For a real loss PyTorch's gradient
+    of a complex tensor is the conjugate of ``jax.grad``'s, so the complex
+    gradients are compared with ``conj`` of JAX's; real ones as they are.
+    1e-4: the sums run over the batch in another order."""
+    batch, K, Q, P, L, S, R = case
+    rng = np.random.default_rng(batch)
+    make = _complex if dtype == "complex64" else (
+        lambda r, s: r.standard_normal(s).astype(np.float32))
+    x, w1, w2, cot = (make(rng, s) for s in ((batch, K * P), (K, Q, P), (L, S, R),
+                                              (batch, S * L)))
+
+    def loss(a, b, c):
+        return jnp.sum(jnp.real(jm.blockdiag_butterfly_multiply(a, b, c) * jnp.conj(cot)))
+
+    want_out = jm.blockdiag_butterfly_multiply(jnp.array(x), jnp.array(w1), jnp.array(w2))
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.array(x), jnp.array(w1), jnp.array(w2))
+    tx, tw1, tw2 = (torch.from_numpy(a).requires_grad_() for a in (x, w1, w2))
+    out = tm.blockdiag_butterfly_multiply(tx, tw1, tw2)
+    assert out.dtype == tx.dtype
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), **F32)
+    (out * torch.from_numpy(cot).conj()).real.sum().backward()
+    for g, w in zip((tx.grad, tw1.grad, tw2.grad), want):
+        np.testing.assert_allclose(g.numpy(), np.conj(np.asarray(w)), **F32_SUMS)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_torch_complex_monarch_dw_matches_jax(case):
+    """``monarch_dw`` on complex64: the port's gradients for the conjugate
+    cotangent are the conjugates of JAX's pure-transpose ones, dout1 too;
+    ``monarch_forward_f32`` keeps complex64."""
+    batch, K, Q, P, L, S, R = case
+    rng = np.random.default_rng(batch + 1)
+    x, w1, w2, dout = (_complex(rng, s) for s in ((batch, K * P), (K, Q, P), (L, S, R),
+                                                   (batch, S * L)))
+    want = jm.monarch_dw(jnp.array(x), jnp.array(dout), jnp.array(w1), jnp.array(w2))
+    got = tm.monarch_dw(torch.from_numpy(x), torch.from_numpy(dout).conj(), torch.from_numpy(w1),
+                        torch.from_numpy(w2))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.complex64
+        np.testing.assert_allclose(g.resolve_conj().numpy(), np.conj(np.asarray(w)), **F32_SUMS)
+    f32 = tm.monarch_forward_f32(torch.from_numpy(x), torch.from_numpy(w1), torch.from_numpy(w2))
+    assert f32.dtype == torch.complex64

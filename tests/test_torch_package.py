@@ -1,5 +1,6 @@
 """Import hygiene of the PyTorch port: importing it pulls in no JAX, Flax,
-Triton, transformers, safetensors or JAX-package module and builds no kernel; its CUDA
+Triton, transformers, safetensors, tokenizers, regex, sentencepiece or
+JAX-package module and builds no kernel; its CUDA
 kernels refuse CPU tensors instead of computing on them; and the build key
 follows the kernel sources."""
 
@@ -52,7 +53,13 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.data.alpaca",
     "sparse_matrix_fine_tuning_torch.data.mmlu",
     "sparse_matrix_fine_tuning_torch.data.glue",
+    "sparse_matrix_fine_tuning_torch.layers",
     "sparse_matrix_fine_tuning_torch.layers.monarch_linear",
+    "sparse_matrix_fine_tuning_torch.layers.structured",
+    "sparse_matrix_fine_tuning_torch.layers.blocksparse",
+    "sparse_matrix_fine_tuning_torch.layers.spectral",
+    "sparse_matrix_fine_tuning_torch.ops",
+    "sparse_matrix_fine_tuning_torch.ops.butterfly",
     "sparse_matrix_fine_tuning_torch.models.config",
     "sparse_matrix_fine_tuning_torch.models.llama",
     "sparse_matrix_fine_tuning_torch.models.roberta",
@@ -90,8 +97,8 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.training.trainer",
     "sparse_matrix_fine_tuning_torch.training.hpo",
 ]
-FORBIDDEN = ("jax", "flax", "triton", "transformers", "safetensors",
-             "sparse_matrix_fine_tuning_tpu")
+FORBIDDEN = ("jax", "flax", "triton", "transformers", "safetensors", "tokenizers", "regex",
+             "sentencepiece", "sparse_matrix_fine_tuning_tpu")
 
 _PROBE = """
 import importlib, json, subprocess, sys

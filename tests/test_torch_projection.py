@@ -126,6 +126,65 @@ def test_torch_low_rank_and_factors_match_jax():
     assert tproj.factors(36) == jproj.factors(36) and tproj.factors(97) == jproj.factors(97)
 
 
+def _complex(rng, shape) -> np.ndarray:
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def test_torch_low_rank_keeps_complex():
+    """A complex M keeps complex64 through the SVD (a float32 cast would
+    drop its imaginary part): the rank-2 product is JAX's, the full-rank one
+    M itself.  Singular vectors differ by a phase, their products do not."""
+    M = _complex(np.random.default_rng(8), (3, 8, 6))
+    got = tproj.low_rank_project(torch.from_numpy(M), 2)
+    assert all(t.dtype == torch.complex64 for t in got)
+    with jax.default_matmul_precision("float32"):
+        want = jproj.low_rank_project(jnp.asarray(M), 2)
+    np.testing.assert_allclose((got[0] @ got[1]).numpy(), np.asarray(want[0] @ want[1]), **F32)
+    full = tproj.low_rank_project(torch.from_numpy(M), 6)
+    np.testing.assert_allclose((full[0] @ full[1]).numpy(), M, **LOGITS)
+
+
+@pytest.mark.parametrize("kind", ["float32", "complex64"])
+@pytest.mark.parametrize("n,sizes", [(16, (4, 4)), (16, None), (12, (3, 4)), (36, None)])
+def test_torch_square_project_matches_jax(n, sizes, kind):
+    """JAX tests/ops/test_projection.py:71-76 on the port: the factors'
+    shapes, and their rank-1 blocks' product (the dense equivalent) equal
+    to JAX's, for real and complex M."""
+    rng = np.random.default_rng(n)
+    M = _complex(rng, (n, n)) if kind == "complex64" else \
+        rng.standard_normal((n, n)).astype(np.float32)
+    w1, w2 = tproj.blockdiag_butterfly_project(torch.from_numpy(M), sizes=sizes)
+    with jax.default_matmul_precision("float32"):
+        jw1, jw2 = jproj.blockdiag_butterfly_project(jnp.asarray(M), sizes=sizes)
+    assert tuple(w1.shape) == jw1.shape and tuple(w2.shape) == jw2.shape
+    assert w1.dtype == torch.complex64 if kind == "complex64" else w1.dtype == torch.float32
+    np.testing.assert_allclose(monarch_dense_equivalent(w1, w2).numpy(),
+                               np.asarray(jml.monarch_dense_equivalent(jw1, jw2)), **F32)
+    with pytest.raises(NotImplementedError):
+        tproj.blockdiag_butterfly_project(torch.zeros(4, 6))
+
+
+@pytest.mark.parametrize("direction", ["fft", "ifft"])
+@pytest.mark.parametrize("n", [16, 64, 36])
+def test_torch_fft_factors_match_jax(n, direction):
+    """JAX tests/ops/test_projection.py:79-89 on the port: the permutation
+    (int32) equal to JAX's, the transform within 1e-3 of ``torch.fft`` as
+    JAX holds its own, and the factors' dense equivalent within 1e-5 of
+    JAX's; both compute the DFT in complex64."""
+    perm, w1, w2 = tproj.butterfly_fft_factors(n, direction=direction, norm="ortho")
+    jperm, jw1, jw2 = jproj.butterfly_fft_factors(n, direction=direction, norm="ortho")
+    assert perm.dtype == torch.int32 and np.array_equal(perm.numpy(), np.asarray(jperm))
+    assert w1.dtype == w2.dtype == torch.complex64
+    x = torch.from_numpy(_complex(np.random.default_rng(n), (4, n)))
+    got = blockdiag_butterfly_multiply(x[..., perm], w1, w2)
+    fn = torch.fft.fft if direction == "fft" else torch.fft.ifft
+    np.testing.assert_allclose(got.numpy(), fn(x, norm="ortho").numpy(), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(monarch_dense_equivalent(w1, w2).numpy(),
+                               np.asarray(jml.monarch_dense_equivalent(jw1, jw2)), **F32)
+    with pytest.raises(ValueError, match="direction"):
+        tproj.butterfly_fft_factors(n, direction="dct")
+
+
 # name: (in, out, peft_config)
 LAYERS = {
     "svd_init": (64, 48, {"svd_init": True}),
