@@ -300,6 +300,13 @@ F32_LOGIT_TOL = 1e-3
 BWD_ROWS = (65, 2047, 2048)
 TRAIN_BS, TRAIN_GA, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 512, 3  # 1 warm-up + 2 timed
 REMAT_STEPS = 2  # phase_train_remat's runs: 1 warm-up + 1 timed
+# the micro-batches of phase_train_remat's one-step checks (remat_step),
+# which compare remat against no remat on the same batch: 4 of the
+# training runs' 8, a cut that pays for phase_parallel's time
+REMAT_CHECK_GA = 4
+# the micro-batches of phase_quant_train_bf16's int8 and int4 runs: 4 of
+# the bf16 runs' 8, a cut that pays for phase_parallel's time
+QUANT_TRAIN_GA = 4
 F32_TRAIN = dict(layers=2, bs=2, ga=2, seq=128)
 TRAIN_LR = 1e-4
 # f32 training step, card against the CPU copy (2 layers, fp32 sums in
@@ -725,6 +732,13 @@ BLIP_BATCH, BLIP_QUESTION, BLIP_GA, BLIP_STEPS = 8, 20, 2, 2
 BLIP_ADAPTED = {"qa": 12 * 4 + 2 * 12 * 10, "itm": 12 * 4 + 12 * 10,
                 "contrastive": 12 * 4 + 12 * 6}  # adapted calls a forward
 BLIP_REFT_LAYERS = (2, 5, 8, 11)
+# phase_parallel: a one-rank NCCL mesh (parallel/) over the 1.1B model with
+# splash attention, bs 4 x ga 2 x seq 512, 2 steps (and a profiled third),
+# then 16 greedy tokens at batch 4; an f32 step at 2 layers within 1e-5 of
+# each quantity's largest value
+PARALLEL = dict(bs=4, ga=2, seq=512, steps=2, new=16)
+PARALLEL_F32 = dict(layers=2, bs=2, ga=2, seq=128)
+PARALLEL_F32_TOL = 1e-5
 OUT_DIR = "chip_smoke_out"  # per-case records; .gitignore lists it
 RECORDS: list[dict] = []  # one per kernel case, written to OUT_DIR
 
@@ -1163,18 +1177,21 @@ def build_model(dtype: str, state=None):
 
 
 @torch.no_grad()
-def randomize_adapters(model) -> float:
+def randomize_adapters(model, generator: torch.Generator | None = None) -> float:
     """Seeded random nonzero factors (the plain-adapter init zeroes blkdiag2,
     which would hide a kernel that writes zeros), scaled so that
     |monarch(x)| / |dense(x)| is about 0.1 for q_proj at layer 0 on the
-    prompts' real input.  Returns that ratio."""
+    prompts' real input.  Returns that ratio.  ``generator``: where the
+    factors are drawn (then copied to the card); a card generator seeded
+    ``SEED + 1`` when None."""
     from sparse_matrix_fine_tuning_torch.layers.monarch_linear import MonarchLinear
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    g = generator or torch.Generator(device="cuda").manual_seed(SEED + 1)
     layers = [m for m in model.modules() if isinstance(m, MonarchLinear)]
     for m in layers:
-        m.blkdiag1.normal_(0.0, 1.0, generator=g).div_(m.in_blksz ** 0.5)
-        m.blkdiag2.normal_(0.0, 1.0, generator=g).div_(m.blk_r ** 0.5)
+        for w, fan in ((m.blkdiag1, m.in_blksz), (m.blkdiag2, m.blk_r)):
+            w.copy_(torch.empty(w.shape, dtype=w.dtype, device=g.device)
+                    .normal_(0.0, 1.0, generator=g).div_(fan ** 0.5))
     ids, mask = prompts(torch.Generator(device="cuda").manual_seed(SEED + 2))
     layer0 = model.model.layers[0]
     x = layer0.input_layernorm(model.model.embed_tokens(ids))[mask.bool()]
@@ -1543,8 +1560,8 @@ def check_step(model, data: dict, merged: str, expect: dict, tag: str) -> dict:
 
 
 def train_timed(model, merged: str, tag: str, extra: str = "",
-                steps: int = TRAIN_STEPS) -> dict:
-    """bf16 training at full size through Trainer: bs 4 x ga 8 x seq 512, 1
+                steps: int = TRAIN_STEPS, ga: int = TRAIN_GA) -> dict:
+    """bf16 training at full size through Trainer: bs 4 x ga ``ga`` x seq 512, 1
     warm-up and ``steps`` - 1 timed optimizer steps, the launch counts zeroed just
     before the first step and read just after the last, then one step
     under the profiler.  Prints step ms, tokens/s, MFU, peak memory and the
@@ -1552,7 +1569,7 @@ def train_timed(model, merged: str, tag: str, extra: str = "",
     launch counts and those numbers."""
     from sparse_matrix_fine_tuning_torch.training.trainer import Trainer
 
-    data = train_data(TRAIN_BS * TRAIN_GA * steps, TRAIN_SEQ, SEED + 10)
+    data = train_data(TRAIN_BS * ga * steps, TRAIN_SEQ, SEED + 10)
     cfg = model.config
     h, i, kv = cfg.hidden_size, cfg.intermediate_size, cfg.kv_heads * cfg.head_width
     p_matmul = cfg.num_hidden_layers * (2 * h * h + 2 * h * kv + 3 * h * i) + h * cfg.vocab_size
@@ -1562,9 +1579,9 @@ def train_timed(model, merged: str, tag: str, extra: str = "",
     # adapters' own FLOPs are left out.  bench.py:460-465 counts 6P: its
     # base is frozen too, but it counts the weight gradient.
     flops_per_token = 4 * p_matmul + 12 * cfg.num_hidden_layers * h * TRAIN_SEQ
-    tr = Trainer(model, train_args(merged, TRAIN_BS, TRAIN_GA, steps), train_data=data,
+    tr = Trainer(model, train_args(merged, TRAIN_BS, ga, steps), train_data=data,
                  extra_trainable_paths=(), device="cuda")
-    batches = [b for b, _ in tr._batches(data, TRAIN_BS, shuffle=False, accum=TRAIN_GA)]
+    batches = [b for b, _ in tr._batches(data, TRAIN_BS, shuffle=False, accum=ga)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()  # the counted main path starts here
@@ -1581,7 +1598,7 @@ def train_timed(model, merged: str, tag: str, extra: str = "",
     opt_bytes = tr.optimizer.state_bytes()
     tr.close()
     require(all(map(math.isfinite, losses)), f"{tag}: losses {losses}")
-    tps = TRAIN_BS * TRAIN_GA * TRAIN_SEQ / (step_ms / 1e3)
+    tps = TRAIN_BS * ga * TRAIN_SEQ / (step_ms / 1e3)
     mfu = flops_per_token * tps / benchlib.PEAK_OPS[torch.bfloat16]
     idle = f"{1 - busy / step_ms:.3f}" if busy is not None else "not measured"
     print(f"{tag}: losses {[round(x, 5) for x in losses]}; step {step_ms:.2f} ms (median of "
@@ -1682,17 +1699,18 @@ def set_remat(model, policy) -> None:
 
 
 def remat_step(model, factors: dict, merged: str, policy) -> tuple[float, dict]:
-    """One optimizer step (bs 4 x ga 8 x seq 512) from ``factors`` with remat
-    ``policy`` (None: off) through a fresh Trainer on ``train_timed``'s first
-    batch; the loss and the step's launches."""
+    """One optimizer step (bs 4 x ga ``REMAT_CHECK_GA`` x seq 512) from
+    ``factors`` with remat ``policy`` (None: off) through a fresh Trainer on
+    ``train_timed``'s first micro-batches; the loss and the step's
+    launches."""
     from sparse_matrix_fine_tuning_torch.training.trainer import Trainer
 
     restore_factors(model, factors)
     set_remat(model, policy)
-    data = train_data(TRAIN_BS * TRAIN_GA, TRAIN_SEQ, SEED + 10)
-    tr = Trainer(model, train_args(merged, TRAIN_BS, TRAIN_GA, 1), train_data=data,
+    data = train_data(TRAIN_BS * REMAT_CHECK_GA, TRAIN_SEQ, SEED + 10)
+    tr = Trainer(model, train_args(merged, TRAIN_BS, REMAT_CHECK_GA, 1), train_data=data,
                  extra_trainable_paths=(), device="cuda")
-    batch, _ = next(tr._batches(data, TRAIN_BS, shuffle=False, accum=TRAIN_GA))
+    batch, _ = next(tr._batches(data, TRAIN_BS, shuffle=False, accum=REMAT_CHECK_GA))
     torch.cuda.synchronize()
     reset_counts()
     loss = float(tr.train_step(batch))
@@ -1714,14 +1732,14 @@ def phase_train_remat(card: str, plain: dict) -> None:
     and micro-batch (2 x 154 x 8 x 2 = 4,928) under either policy ("dots"
     keeps only ``aten.mm``'s outputs, and K2 adds into one of them); K3
     once (2,464).  The losses within ``BF16_MERGED_LOSS_ATOL`` of
-    ``plain``'s.  Then one step from the same
+    ``plain``'s.  Then one step (ga ``REMAT_CHECK_GA``) from the same
     factors with merged training on, without remat and under "dots": K4
-    once an adapted linear and micro-batch (1,232) in both, the merged
+    once an adapted linear and micro-batch (616) in both, the merged
     product's output kept, so no kernel of ours in the recompute; the
     losses within the same tolerance.  Then a splash model (the same
     weights, ``attention_impl="splash"``): one step without remat and one
-    under "nothing", where K17 runs twice a layer and micro-batch (352),
-    K18 and K19 once (176), K2 2,464 and K3 1,232."""
+    under "nothing", where K17 runs twice a layer and micro-batch (176),
+    K18 and K19 once (88), K2 1,232 and K3 616."""
     model = train_model("bfloat16", MODEL["num_hidden_layers"])
     factors = {n: p.detach().clone() for n, p in model.named_parameters() if "blkdiag" in n}
     want = N_ADAPTED * TRAIN_GA * REMAT_STEPS
@@ -1755,7 +1773,7 @@ def phase_train_remat(card: str, plain: dict) -> None:
     steps = {}
     for policy in (None, "dots"):
         steps[policy] = remat_step(model, factors, "on", policy)
-        expect = {"monarch_dw_fused": N_ADAPTED * TRAIN_GA}
+        expect = {"monarch_dw_fused": N_ADAPTED * REMAT_CHECK_GA}
         launches = steps[policy][1]
         require(launches == {**dict.fromkeys(launches, 0), **expect},
                 f"merged on, remat {policy}: launches {launches}; expected {expect}")
@@ -1767,12 +1785,13 @@ def phase_train_remat(card: str, plain: dict) -> None:
     del model
     torch.cuda.empty_cache()
     model = train_model("bfloat16", MODEL["num_hidden_layers"], attention_impl="splash")
-    per_layer = MODEL["num_hidden_layers"] * TRAIN_GA
+    per_layer = MODEL["num_hidden_layers"] * REMAT_CHECK_GA
     steps = {}
     for policy in (None, "nothing"):
         steps[policy] = remat_step(model, factors, "off", policy)
         twice = 2 if policy else 1
-        expect = {"monarch_add": twice * N_ADAPTED * TRAIN_GA, "monarch_bwd": N_ADAPTED * TRAIN_GA,
+        expect = {"monarch_add": twice * N_ADAPTED * REMAT_CHECK_GA,
+                  "monarch_bwd": N_ADAPTED * REMAT_CHECK_GA,
                   "splash_fwd": twice * per_layer, "splash_dq": per_layer,
                   "splash_dkv": per_layer}
         launches = steps[policy][1]
@@ -3037,8 +3056,9 @@ def phase_quant_train_f32(card: str) -> None:
 def phase_quant_train_bf16(card: str, bits: int) -> dict:
     """QLoRA-style training at full size (``run_alpaca.py --bits 8`` or
     ``--bits 4``): the 22-layer bf16 model over an int8 or int4 base, bs 4 x
-    ga 8 x seq 512, merged training off, 1 warm-up and 3 timed optimizer
-    steps through Trainer, the launch counts zeroed just before the first
+    ga ``QUANT_TRAIN_GA`` x seq 512, merged training off, 1 warm-up and
+    ``TRAIN_STEPS`` - 1 timed optimizer steps through Trainer, the launch
+    counts zeroed just before the first
     step and read just after the last (``train_timed``).  Launches, exact:
     the base's forward (K7, K5) and K2 and K3 on every adapted linear each
     micro-batch, its dx (K8, K6) on all but layer 0's q, k and v, whose
@@ -3048,11 +3068,11 @@ def phase_quant_train_bf16(card: str, bits: int) -> dict:
     torch.cuda.empty_cache()
     resident = f"weights and buffers resident {torch.cuda.memory_allocated() / 1e9:.3f} GB, "
     run = train_timed(model, "off", f"[quant-train-bf16] {card}: int{bits} base, merged off",
-                      resident)
+                      resident, ga=QUANT_TRAIN_GA)
     launches = run["launches"]
     print(f"[quant-train-bf16] {card}: int{bits} base: AdamW state "
           f"{run['opt_state_bytes'] / 1e6:.3f} MB", flush=True)
-    micro = TRAIN_GA * TRAIN_STEPS
+    micro = QUANT_TRAIN_GA * TRAIN_STEPS
     name = f"int{bits}_matmul"
     expect = {name: N_ADAPTED * micro, "monarch_add": N_ADAPTED * micro,
               "monarch_bwd": N_ADAPTED * micro, name + "_dx": (N_ADAPTED - 3) * micro}
@@ -5878,6 +5898,179 @@ def phase_structured(card: str) -> dict:
     return times
 
 
+# -- parallel/ on a one-rank NCCL mesh ---------------------------------------------
+
+def parallel_model(dtype: str, layers: int):
+    """TinyLlama-1.1B widths, ``layers`` decoder layers, blk_r 4 adapters on
+    all seven projections (``randomize_adapters``' nonzero factors), splash
+    attention; every weight drawn on the CPU from one seeded generator and
+    copied to the card.  The base's matrices are drawn N(0, 0.02) in 8
+    threads, each matrix from its own CPU generator seeded by a draw of the
+    one (a single CPU generator drew the 1.1B values in 35 s on the card's
+    host); the norms stay ones."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sparse_matrix_fine_tuning_torch.models.config import LlamaConfig
+    from sparse_matrix_fine_tuning_torch.models.llama import LlamaForCausalLM
+    from sparse_matrix_fine_tuning_torch.peft.surgery import init_monarch
+
+    cfg = LlamaConfig(**{**MODEL, "num_hidden_layers": layers}, param_dtype=dtype, dtype=dtype,
+                      max_position_embeddings=TRAIN_SEQ, attention_impl="splash")
+    g = torch.Generator().manual_seed(SEED + 30)
+    # the card's own draws fill the shapes only; every value is replaced below
+    model = LlamaForCausalLM(cfg, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(SEED))
+    base = [p for p in model.parameters() if p.ndim == 2]
+    seeds = torch.randint(2 ** 62, (len(base),), generator=g).tolist()
+
+    def draw(job):
+        p, seed = job
+        return torch.empty(p.shape, dtype=p.dtype).normal_(
+            0.0, 0.02, generator=torch.Generator().manual_seed(seed))
+
+    with torch.no_grad(), ThreadPoolExecutor(8) as pool:
+        for p, w in zip(base, pool.map(draw, zip(base, seeds))):
+            p.copy_(w)
+    require(len(init_monarch(model, PEFT, generator=g)) == 7 * layers, "adapters missing")
+    randomize_adapters(model, generator=g)
+    return model
+
+
+def parallel_run(model, mesh, c: dict, tag: str, decode: bool) -> dict:
+    """``c["steps"]`` optimizer steps through ``Trainer`` (bs x ga x seq of
+    ``c``; under ``mesh`` with ``sequence_parallel="on"``), the launch counts
+    zeroed just before the first and read just after the last; the
+    trainable factors' gradients after the last step; where ``decode``, a
+    profiled further step (busy) and ``PARALLEL["new"]`` greedy tokens at
+    batch 4."""
+    from sparse_matrix_fine_tuning_torch.models.generate import GenerationConfig, generate
+    from sparse_matrix_fine_tuning_torch.training.trainer import Trainer, TrainingArgs
+
+    data = train_data(c["bs"] * c["ga"] * c["steps"], c["seq"], SEED + 31)
+    args = TrainingArgs(output_dir=os.path.join(OUT_DIR, "parallel", tag), learning_rate=TRAIN_LR,
+                        max_steps=c["steps"], per_device_train_batch_size=c["bs"],
+                        gradient_accumulation_steps=c["ga"], warmup_ratio=0.0, logging_steps=0,
+                        log_param_steps=0, merged_training="off", sequence_parallel="on")
+    tr = Trainer(model, args, train_data=data, mesh=mesh, extra_trainable_paths=(), device="cuda")
+    batches = [b for b, _ in tr._batches(data, c["bs"], shuffle=False, accum=c["ga"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the counted main path starts here
+    losses, secs = [], []
+    for batch in batches:
+        loss, sec = timed(lambda: tr.train_step(batch))
+        losses.append(float(loss))
+        secs.append(sec)
+    launches = counts()  # the counted main path ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()
+             if p.requires_grad}
+    out = {"losses": losses, "launches": launches, "wall_ms": [x * 1e3 for x in secs],
+           "peak_gb": peak_gb, "grads": grads}
+    if decode:
+        out["busy_ms"] = device_busy_ms(lambda k: tr.train_step(batches[-1]), 1,
+                                        f"bf16 training step ({tag})")
+        ids, mask = prompts(torch.Generator(device="cuda").manual_seed(SEED + 2))
+        out["tokens"] = generate(model, ids, mask,
+                                 GenerationConfig(max_new_tokens=PARALLEL["new"],
+                                                  eos_token_id=None))
+    tr.close()
+    require(all(map(math.isfinite, losses)), f"{tag}: losses {losses}")
+    return out
+
+
+def phase_parallel(card: str) -> dict:
+    """``parallel/`` on the card: a one-rank NCCL world joined in-process
+    (127.0.0.1, a free port), ``make_mesh(1, 1, 1)`` on "cuda".  The 1.1B
+    model (all 22 layers, bf16, splash) trains ``PARALLEL``'s 2 steps
+    unsharded, then, from the same factors, placed by ``Trainer(mesh=...)``
+    (FSDP2 over the fsdp axis, ``sequence_parallel="on"``); then each
+    decodes 16 greedy tokens at batch 4.  The losses within
+    ``BF16_MERGED_LOSS_ATOL``, the tokens identical, K2/K3 and K17-K19
+    launched exactly as often in both (K1 never: dropout is off and tp is
+    1).  Then one f32 step at 2 layers, both ways: the loss and every
+    factor's gradient within ``PARALLEL_F32_TOL`` of its largest value.  A
+    one-rank world's collectives are copies; whether the two runs came out
+    bit for bit is printed.  The group is destroyed at the end."""
+    import socket
+
+    from sparse_matrix_fine_tuning_torch.parallel import make_mesh, multihost
+    from sparse_matrix_fine_tuning_torch.parallel.sharding import placement
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = make_mesh(1, 1, 1)
+        c = PARALLEL
+        t_build = time.perf_counter()
+        model = parallel_model("bfloat16", MODEL["num_hidden_layers"])
+        t_build = time.perf_counter() - t_build
+        factors = {n: p.detach().clone() for n, p in model.named_parameters() if "blkdiag" in n}
+        plain = parallel_run(model, None, c, "unsharded", decode=True)
+        restore_factors(model, factors)
+        sharded = parallel_run(model, mesh, c, "mesh 1x1x1", decode=True)
+        require(placement(model) is not None and placement(model).wrapped,
+                "the trainer did not place the model on the mesh")
+        del model, factors
+        torch.cuda.empty_cache()
+        n = N_ADAPTED * c["ga"] * c["steps"]
+        per_layer = MODEL["num_hidden_layers"] * c["ga"] * c["steps"]
+        expect = {"monarch_add": n, "monarch_bwd": n, **dict.fromkeys(ATTN_KERNELS, per_layer)}
+        for tag, run in (("unsharded", plain), ("mesh", sharded)):
+            expect_only(run["launches"], expect, f"parallel bf16 {tag}")
+        diff = max(abs(a - b) for a, b in zip(plain["losses"], sharded["losses"]))
+        same_tokens = bool(torch.equal(plain["tokens"], sharded["tokens"]))
+        print(f"[parallel] {card}: one-rank NCCL mesh (dp 1, fsdp 1, tp 1), 1.1B widths, 22 "
+              f"layers, bf16, splash, bs {c['bs']} x ga {c['ga']} x seq {c['seq']}; its weights "
+              f"drawn on the CPU and built in {t_build:.1f} s", flush=True)
+        for tag, run in (("unsharded", plain), ("mesh", sharded)):
+            busy = run["busy_ms"]
+            print(f"[parallel] {card}: {tag:9s}: losses {[round(x, 5) for x in run['losses']]}; "
+                  f"step wall ms {[round(x, 2) for x in run['wall_ms']]}, device busy "
+                  f"{busy if busy is None else round(busy, 2)} ms/step, peak "
+                  f"{run['peak_gb']:.2f} GB; launches "
+                  f"{ {k: v for k, v in run['launches'].items() if v} }", flush=True)
+        print(f"[parallel] {card}: largest loss difference {diff:.6f} (tol "
+              f"{BF16_MERGED_LOSS_ATOL}); greedy tokens ({PARALLEL['new']} new, batch 4) "
+              f"identical: {same_tokens}; launches equal: "
+              f"{plain['launches'] == sharded['launches']}", flush=True)
+        require(diff <= BF16_MERGED_LOSS_ATOL, f"mesh and unsharded losses differ by {diff}")
+        require(same_tokens, "mesh and unsharded greedy tokens differ")
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        f = dict(PARALLEL_F32, steps=1)
+        model = parallel_model("float32", f["layers"])
+        factors = {n: p.detach().clone() for n, p in model.named_parameters() if "blkdiag" in n}
+        a = parallel_run(model, None, f, "f32 unsharded", decode=False)
+        restore_factors(model, factors)
+        b = parallel_run(model, mesh, f, "f32 mesh 1x1x1", decode=False)
+        del model, factors
+        torch.cuda.empty_cache()
+        loss_err = abs(a["losses"][0] - b["losses"][0]) / abs(a["losses"][0])
+        grad_err = max(float((a["grads"][k] - b["grads"][k]).abs().max())
+                       / float(a["grads"][k].abs().max()) for k in a["grads"])
+        bitwise = a["losses"] == b["losses"] and all(torch.equal(a["grads"][k], b["grads"][k])
+                                                     for k in a["grads"])
+        expect_only(b["launches"], a["launches"], "parallel f32 mesh against unsharded")
+        print(f"[parallel] {card}: f32 step, {f['layers']} layers: loss {a['losses'][0]:.7f} / "
+              f"{b['losses'][0]:.7f} (relative {loss_err:.2e}), worst factor gradient "
+              f"{grad_err:.2e} of its largest (tol {PARALLEL_F32_TOL}), {len(a['grads'])} "
+              f"factors; bit for bit: {bitwise}", flush=True)
+        require(loss_err <= PARALLEL_F32_TOL and grad_err <= PARALLEL_F32_TOL,
+                f"f32 mesh step: loss {loss_err}, gradients {grad_err}")
+    finally:
+        multihost.shutdown()
+    RECORDS.append({"parallel": {tag: {k: v for k, v in run.items()
+                                       if k not in ("grads", "tokens")}
+                                 for tag, run in (("unsharded", plain), ("mesh", sharded))},
+                    "loss_diff": diff, "tokens_equal": same_tokens, "f32_loss_err": loss_err,
+                    "f32_grad_err": grad_err, "f32_bitwise": bitwise, "card": card})
+    return {"launches": sharded["launches"]}
+
+
 def main() -> None:
     t0 = time.perf_counter()
 
@@ -5968,6 +6161,10 @@ def main() -> None:
     lap("BLIP, full width")
     phase_structured(card)
     lap("structured layers")
+    parallel = phase_parallel(card)
+    print(f"[parallel] launches under the one-rank mesh: "
+          f"{ {k: v for k, v in parallel['launches'].items() if v} }", flush=True)
+    lap("parallel/ on a one-rank NCCL mesh")
     launches = {"monarch_kernel": serving["launches"]["monarch_kernel"],
                 "monarch_add": serving["launches"]["monarch_add"],
                 "monarch_bwd": training["launches"]["monarch_bwd"],

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-from sparse_matrix_fine_tuning_torch.kernels.monarch_cuda import load_ops
+from sparse_matrix_fine_tuning_torch.kernels.monarch_cuda import load_ops, plain_tensors
 from sparse_matrix_fine_tuning_torch.ops.attention import (
     attention_di,
     attention_dkv_reference,
@@ -179,6 +179,7 @@ def reset_launch_counts() -> None:
 
 
 def _check(*tensors: torch.Tensor) -> None:
+    plain_tensors(*tensors)
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"the attention CUDA kernels take CUDA tensors, got one on {t.device}")
@@ -252,6 +253,7 @@ def splash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     if q.shape[-1] > max(HEAD_DIMS):
         raise NotImplementedError(f"splash attention at head_dim {q.shape[-1]}: K17-K19 "
                                   f"instantiate {HEAD_DIMS}; {WIDE_HEAD_ITEM}")
+    plain_tensors(q, k, v)
     if not (q.dtype == k.dtype == v.dtype and q.shape == k.shape == v.shape):
         raise ValueError(f"q, k and v must share shape and dtype, got {tuple(q.shape)} "
                          f"{q.dtype}, {tuple(k.shape)} {k.dtype}, {tuple(v.shape)} {v.dtype}")

@@ -56,6 +56,7 @@ launches its kernel, and nowhere else.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from sparse_matrix_fine_tuning_torch.ops.monarch import (
     _monarch_dw_f32,
@@ -128,7 +129,18 @@ def monarch_dw_fused_reference(x: torch.Tensor, dout: torch.Tensor, w1: torch.Te
 
 # -- kernels -----------------------------------------------------------------
 
+def plain_tensors(*tensors: torch.Tensor) -> None:
+    """Refuse a DTensor: a kernel (or its plain version) takes the rank's
+    local tensors, which a tensor-parallel layer hands it (``to_local``);
+    ``torch.ops`` has no sharding strategy for it."""
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError("the Monarch kernels take plain tensors, got a DTensor; pass its "
+                            "local tensor (parallel.sharding.local)")
+
+
 def _check(*tensors: torch.Tensor) -> None:
+    plain_tensors(*tensors)
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"the Monarch CUDA kernels take CUDA tensors, got one on {t.device}")
@@ -301,7 +313,9 @@ def monarch_fwd_plan(rows_m: int, w1_shape, w2_shape, dtype: torch.dtype = torch
 
 
 def monarch_mm(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
-    """Device dispatch of K1: the kernel on CUDA, the plain version on the CPU."""
+    """Device dispatch of K1: the kernel on CUDA, the plain version on the CPU
+    (a DTensor goes to neither)."""
+    plain_tensors(x, w1, w2)
     if x.is_cuda:
         return monarch_kernel(x, w1, w2)
     return monarch_kernel_reference(x, w1, w2)
@@ -310,6 +324,7 @@ def monarch_mm(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Ten
 def monarch_dw_any(x: torch.Tensor, dout: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
     """Device dispatch of K4: (dw1, dw2) in fp32, the kernel on CUDA, the
     plain version on the CPU."""
+    plain_tensors(x, dout, w1, w2)
     if x.is_cuda:
         return monarch_dw_fused(x, dout, w1, w2)
     return monarch_dw_fused_reference(x, dout, w1, w2)

@@ -48,6 +48,30 @@ dense base.
     on the card).  ``serve_w8a8`` (int8, serving) takes per-token int8
     activations and an int8 x int8 -> int32 product instead.
 
+Tensor parallelism (``set_tensor_parallel``, from
+``parallel/sharding.shard_model``): the frozen ``dense`` is a DTensor sharded
+over tp and every kernel gets plain local tensors (``sharding.local``); a
+DTensor never reaches a kernel or its plain version.  The adapters stay
+replicated, as the JAX package keeps them, and their gradients are partial
+sums over tp (the Trainer sums them, ``sharding.sync_gradients``).
+  * "col" (q/k/v, gate/up) and "head" (a frozen lm_head): the base product
+    gives the rank's output features; the Monarch term comes from the
+    replicated input and the rank's features of it are added.  K2 cannot
+    add a narrowed term, so a CUDA input takes K1 then the add (backward
+    K3).  "head" also copies its input into the tp region and gathers the
+    output over the vocabulary.
+  * "row" (o, down): the input holds the rank's slice of the features and
+    the output is a partial sum over tp.  The Monarch term is the
+    adapter's on the input zero-padded to the full features, which sums
+    over the ranks to the term of the whole input (the branch is linear:
+    dropout draws the same mask on every peer), so K2 fuses it into the
+    partial base (backward K3); with a Scaler (not linear) the input is
+    all-gathered and the term divided by tp (K1, then the add).
+  At tp = 1 nothing changes: K2 and K3 once each a call, as unsharded.  At
+  tp > 1 a "col" or "head" call launches K1 and K3, a "row" call K2 and K3
+  (K1 and K3 with dropout, a Scaler or the multiplicative factor), once
+  each on every rank.
+
 ``MonarchFactor`` is one trainable block-diagonal factor (JAX
 ``MonarchFactor``), whose forward is the plain ``ops/blockdiag``: the JAX
 package runs no Pallas kernel there.
@@ -68,6 +92,8 @@ from sparse_matrix_fine_tuning_torch.kernels.quant_cuda import int4_mm, int8_mm
 from sparse_matrix_fine_tuning_torch.ops.blockdiag import blockdiag_multiply
 from sparse_matrix_fine_tuning_torch.ops.monarch import monarch_dense_equivalent
 from sparse_matrix_fine_tuning_torch.ops.projection import blockdiag_butterfly_project_einsum_rank
+from sparse_matrix_fine_tuning_torch.parallel.annotate import tp_copy, tp_gather, tp_gather_partial
+from sparse_matrix_fine_tuning_torch.parallel.sharding import ITEM_28B, full_tensor, local, local_bias
 from sparse_matrix_fine_tuning_torch.utils.device import resolve_device, seeded_generator
 
 DEFAULT_PEFT_CONFIG: dict[str, Any] = {
@@ -151,6 +177,9 @@ class Scaler(nn.Module):
 
 class MonarchLinear(nn.Module):
     """Monarch (MoRe) adapter layer."""
+
+    tp = None        # tensor parallelism: see the module docstring
+    tp_style = None
 
     def __init__(
         self,
@@ -359,9 +388,13 @@ class MonarchLinear(nn.Module):
         return out
 
     def _apply_mult(self, out: torch.Tensor) -> torch.Tensor:
-        """x @ W @ M_mult: the multiplicative block-diagonal factor."""
+        """x @ W @ M_mult: the multiplicative block-diagonal factor (on a
+        column-parallel layer's output features, their blocks of it)."""
         if self.use_mult_factor:
-            out = blockdiag_multiply(out, self.blkdiag_mult.to(out.dtype))
+            mult = self.blkdiag_mult
+            if self.tp_style in ("col", "head"):
+                mult = mult.chunk(self.tp.size)[self.tp.rank]
+            out = blockdiag_multiply(out, mult.to(out.dtype))
         return out
 
     def _dense_forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -379,7 +412,7 @@ class MonarchLinear(nn.Module):
             return self._apply_mult(out)
         if self.dtype is not None:
             x = x.to(self.dtype)
-        return self._apply_mult(F.linear(x, self.dense.to(x.dtype)))
+        return self._apply_mult(F.linear(x, local(self.dense).to(x.dtype)))
 
     def _can_fuse_add(self, x: torch.Tensor) -> bool:
         """Whether the fused base + monarch kernel applies: a CUDA input, no
@@ -401,6 +434,8 @@ class MonarchLinear(nn.Module):
                 if self.bias is not None:
                     out = out + self.bias.to(out.dtype)
                 return out
+            if self.tp_style is not None and not self.merged:
+                return self._tp_forward(x, deterministic)
             out = self._dense_forward(x)
             if not self.merged and self._can_fuse_add(x):
                 out = monarch_add(out, x.to(out.dtype), self.blkdiag1.to(out.dtype),
@@ -412,6 +447,48 @@ class MonarchLinear(nn.Module):
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out
+
+    def set_tensor_parallel(self, tp, style: str) -> None:
+        """Run as a tensor-parallel layer of ``style`` ("col", "row" or
+        "head") over ``tp`` (``annotate.TensorParallel``); its ``dense`` is
+        sharded by the caller (``sharding.shard_model``)."""
+        if self.quant_bits:
+            raise NotImplementedError(f"tensor parallelism over a quantized base: {ITEM_28B}")
+        if self.wm_cache is not None:
+            raise NotImplementedError(f"merged training under tensor parallelism: {ITEM_28B}")
+        if not self.as_adapter or self.merged:
+            raise ValueError("tensor parallelism takes an unmerged adapter over a dense base")
+        if self.use_mult_factor and style != "row" and self.nblocks % tp.size:
+            raise ValueError(f"tp {tp.size} does not divide the multiplicative factor's "
+                             f"{self.nblocks} blocks")
+        self.tp, self.tp_style = tp, style
+
+    def _tp_forward(self, x: torch.Tensor, deterministic: Optional[bool]) -> torch.Tensor:
+        """The adapter layer's tensor-parallel forward (the module docstring)."""
+        tp, style = self.tp, self.tp_style
+        if style == "head":
+            x = tp_copy(x, tp)
+        out = self._dense_forward(x)
+        if style == "row":
+            if self.scaler is None:
+                n = self.in_features // tp.size
+                xp = F.pad(x, (tp.rank * n, (tp.size - 1 - tp.rank) * n))
+                if self._can_fuse_add(xp):
+                    out = monarch_add(out, xp.to(out.dtype), self.blkdiag1.to(out.dtype),
+                                      self.blkdiag2.to(out.dtype))
+                else:
+                    out = out + self.monarch_forward(xp, deterministic=deterministic)
+            else:
+                xf = tp_gather_partial(x, tp, -1)
+                out = out + self.monarch_forward(xf, deterministic=deterministic) / tp.size
+        else:
+            m = out.shape[-1]
+            term = self.monarch_forward(x, deterministic=deterministic)
+            out = out + term.narrow(-1, tp.rank * m, m)
+        bias = local_bias(self.bias, tp, style)
+        if bias is not None:
+            out = out + bias.to(out.dtype)
+        return tp_gather(out, tp, -1) if style == "head" else out
 
     # ------------------------------------------------------------------
     def adapter_dense_equivalent(self) -> torch.Tensor:
@@ -461,11 +538,15 @@ class MonarchLinear(nn.Module):
                 and self.scaler is None and not self.use_mult_factor and not self.quant_bits)
 
     def _build_merged(self):
-        dense = self.dense if self.dtype is None else self.dense.to(self.dtype)
+        # an FSDP-sharded dense is gathered whole (tp = 1 only: set_tensor_parallel)
+        dense = full_tensor(self.dense)
+        dense = dense if self.dtype is None else dense.to(self.dtype)
         return build_merged_operands(dense, self.blkdiag1.to(dense.dtype),
                                      self.blkdiag2.to(dense.dtype))
 
     def enable_merged_training(self) -> None:
+        if self.tp_style is not None:
+            raise NotImplementedError(f"merged training under tensor parallelism: {ITEM_28B}")
         if not self.can_merge_train():
             raise ValueError("merged training needs a plain additive adapter on a float dense "
                              "base (no dropout, Scaler or multiplicative factor)")

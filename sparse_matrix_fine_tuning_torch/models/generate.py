@@ -3,9 +3,13 @@
 Counterpart of ``sparse_matrix_fine_tuning_tpu/models/generate.py``: prompts
 are LEFT-padded, positions come from the attention mask, one prefill fills
 a preallocated KV cache, then each step feeds one token per row.  The loops
-are eager PyTorch under ``torch.inference_mode()``; they skip the forward
-after the last step, whose logits nothing reads, and give the JAX loops'
-tokens.
+are eager PyTorch under ``torch.inference_mode()`` (``torch.no_grad()`` on a
+model placed on a mesh, ``parallel.shard_model``: FSDP2's gathered weights
+must stay usable by autograd after the loop); they skip the forward after
+the last step, whose logits nothing reads, and give the JAX loops' tokens.
+A sharded model decodes as the unsharded one: every rank runs the loop on
+the same prompts, and under tensor parallelism the KV cache holds the
+rank's kv heads.
 
 Greedy and sampling (``generate``): a row that emitted EOS emits
 ``pad_token_id`` from then on, and the loop stops once every row has
@@ -46,11 +50,13 @@ n-gram bans, and beam-sample with top-k or top-p (ROADMAP.md C.13).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
 from sparse_matrix_fine_tuning_torch.models.llama import init_caches
+from sparse_matrix_fine_tuning_torch.parallel.sharding import model_tp_size, placement
 from sparse_matrix_fine_tuning_torch.utils.device import seeded_generator
 
 NEG = -1e9
@@ -70,6 +76,16 @@ class GenerationConfig:
     early_stopping: bool = True
     repetition_penalty: float = 1.0
     no_repeat_ngram_size: int = 0
+
+
+def _decoding(fn):
+    """Run a decoding loop without autograd: ``inference_mode``, or
+    ``no_grad`` for a model placed on a mesh."""
+    @functools.wraps(fn)
+    def wrapper(model, *args, **kwargs):
+        with torch.no_grad() if placement(model) is not None else torch.inference_mode():
+            return fn(model, *args, **kwargs)
+    return wrapper
 
 
 def _positions_from_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -186,7 +202,7 @@ def _prefill_kwargs(model, prefill_hooks, intervention_locations, device) -> dic
     return {"layer_hooks": model._hooks(locs)}
 
 
-@torch.inference_mode()
+@_decoding
 def generate(model, input_ids: torch.Tensor, attention_mask: torch.Tensor,
              gen_config: GenerationConfig, generator: Optional[torch.Generator] = None,
              prefill_hooks=None, intervention_locations=None) -> torch.Tensor:
@@ -208,7 +224,8 @@ def generate(model, input_ids: torch.Tensor, attention_mask: torch.Tensor,
     dev = input_ids.device
     if gen_config.do_sample:
         generator = seeded_generator(dev, generator)
-    caches = init_caches(cfg, b, t + n_new, cfg.compute_dtype or torch.float32, dev)
+    caches = init_caches(cfg, b, t + n_new, cfg.compute_dtype or torch.float32, dev,
+                         model_tp_size(model))
     mask_full = torch.cat([attention_mask, attention_mask.new_zeros(b, n_new)], dim=-1)
     positions = _positions_from_mask(attention_mask)
     logits, caches = model(input_ids, attention_mask=mask_full, positions=positions,
@@ -248,7 +265,7 @@ def generate(model, input_ids: torch.Tensor, attention_mask: torch.Tensor,
     return torch.cat([input_ids, out], dim=-1)
 
 
-@torch.inference_mode()
+@_decoding
 def beam_generate(model, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                   gen_config: GenerationConfig, generator: Optional[torch.Generator] = None,
                   prefill_hooks=None, intervention_locations=None) -> torch.Tensor:
@@ -269,7 +286,8 @@ def beam_generate(model, input_ids: torch.Tensor, attention_mask: torch.Tensor,
         generator = seeded_generator(dev, generator)
     ids_k = input_ids.repeat_interleave(K, dim=0)
     mask_k = attention_mask.repeat_interleave(K, dim=0)
-    caches = init_caches(cfg, bk, t + N, cfg.compute_dtype or torch.float32, dev)
+    caches = init_caches(cfg, bk, t + N, cfg.compute_dtype or torch.float32, dev,
+                         model_tp_size(model))
     mask_full = torch.cat([mask_k, mask_k.new_zeros(bk, N)], dim=-1)
     positions = _positions_from_mask(mask_k)
     logits, caches = model(ids_k, attention_mask=mask_full, positions=positions,

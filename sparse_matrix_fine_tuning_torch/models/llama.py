@@ -58,6 +58,17 @@ multiplies the embeddings by ``sqrt(hidden_size)`` rounded to the
 activation dtype first, as HF does.  "splash" at Gemma's head_dim 256 raises
 (``kernels/attention_cuda.py``: K17-K19 instantiate 64 and 128).
 
+Parallelism (``parallel/``, the JAX llama.py's ``shard_tokens`` marks):
+under ``sharding.shard_model``'s tensor parallelism each attention runs
+the rank's heads (q/k/v column-parallel, o row-parallel; the KV cache holds
+the rank's kv heads, ``init_caches(tp_size=)``), each MLP the rank's slice
+of its width, and a frozen head gathers its logits over the vocabulary, so
+``loss`` and the chunked ``training_loss`` see whole logits.  With an
+activation mesh installed (the Trainer's ``sequence_parallel``) a training
+forward runs the residual stream and the norms on the rank's slice of the
+sequence.  Under a mesh the losses' denominator is the global batch's
+count (``multihost.loss_denominator``).
+
 The model is built on the card unless ``device="cpu"`` is passed
 (``utils/device.py``).
 """
@@ -81,13 +92,26 @@ from torch.utils.checkpoint import (
 from sparse_matrix_fine_tuning_torch.kernels.attention_cuda import splash_attention
 from sparse_matrix_fine_tuning_torch.models.config import ATTENTION_IMPLS, LlamaConfig
 from sparse_matrix_fine_tuning_torch.ops.activations import geglu, swiglu
+from sparse_matrix_fine_tuning_torch.parallel import annotate
+from sparse_matrix_fine_tuning_torch.parallel.annotate import enter_tp, exit_tp, tp_copy, tp_gather
+from sparse_matrix_fine_tuning_torch.parallel.multihost import loss_denominator
+from sparse_matrix_fine_tuning_torch.parallel.sharding import local, local_bias
 from sparse_matrix_fine_tuning_torch.utils.device import resolve_device, seeded_generator
 
 
 class Linear(nn.Linear):
     """``nn.Linear`` computing in ``dtype`` (None: the promoted dtype of
     input and weight), initialised N(0, 0.02) with a zero bias, as the JAX
-    model's ``nnx.Linear``."""
+    model's ``nnx.Linear``.
+
+    Under tensor parallelism (``set_tensor_parallel``) the weight is a
+    DTensor sharded over tp and the product takes its local rows ("col" and
+    "head": the rank's output features; "head" also copies its input into
+    the tp region and gathers the logits over the vocabulary) or columns
+    ("row": a partial sum, the bias added on tp rank 0 only)."""
+
+    tp = None
+    tp_style = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = False, *,
                  dtype: Optional[torch.dtype] = None, param_dtype=torch.float32, device=None,
@@ -104,10 +128,18 @@ class Linear(nn.Linear):
     def reset_parameters(self) -> None:
         """Init happens in ``__init__`` from an explicit generator."""
 
+    def set_tensor_parallel(self, tp, style: str) -> None:
+        self.tp, self.tp_style = tp, style
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        bias = self.bias.to(dtype) if self.bias is not None else None
-        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+        weight = local(self.weight)
+        dtype = self.compute_dtype or torch.promote_types(x.dtype, weight.dtype)
+        bias = local_bias(self.bias, self.tp, self.tp_style)
+        bias = bias.to(dtype) if bias is not None else None
+        if self.tp_style == "head":
+            x = tp_copy(x, self.tp)
+        out = F.linear(x.to(dtype), weight.to(dtype), bias)
+        return tp_gather(out, self.tp, -1) if self.tp_style == "head" else out
 
 
 class UnitOffsetRMSNorm(nn.Module):
@@ -238,6 +270,15 @@ def write_cache(k, v, cache):
 
 
 class LlamaAttention(nn.Module):
+    """GQA attention.  Under tensor parallelism (``tp``, set by
+    ``parallel/sharding.shard_model``) q/k/v are column-parallel and o
+    row-parallel: the layer runs the rank's heads (their counts follow from
+    the local shapes), its input entering the tp region and its output
+    summed over tp at the block's boundary (``annotate.enter_tp`` and
+    ``exit_tp``; ``sp``: the sequence-parallel layout)."""
+
+    tp = None
+
     def __init__(self, cfg: LlamaConfig, *, device=None, generator=None):
         super().__init__()
         self.cfg = cfg
@@ -250,16 +291,17 @@ class LlamaAttention(nn.Module):
         self.v_proj = _linear(cfg, h, self.num_kv * self.head_dim, device, generator, qkv_bias)
         self.o_proj = _linear(cfg, self.num_heads * self.head_dim, h, device, generator)
 
-    def forward(self, x, attn_bias, positions, cache=None):
+    def forward(self, x, attn_bias, positions, cache=None, sp: bool = False):
+        x = enter_tp(x, self.tp, sp)
         b, t, _ = x.shape
-        q = self.q_proj(x).reshape(b, t, self.num_heads, self.head_dim)
-        k = self.k_proj(x).reshape(b, t, self.num_kv, self.head_dim)
-        v = self.v_proj(x).reshape(b, t, self.num_kv, self.head_dim)
+        q = self.q_proj(x).reshape(b, t, -1, self.head_dim)
+        k = self.k_proj(x).reshape(b, t, -1, self.head_dim)
+        v = self.v_proj(x).reshape(b, t, -1, self.head_dim)
         q = apply_rope(q, positions, self.cfg.rope_theta)
         k = apply_rope(k, positions, self.cfg.rope_theta)
 
         k, v, new_cache = write_cache(k, v, cache)
-        groups = self.num_heads // self.num_kv
+        groups = q.shape[2] // k.shape[2]
         kr = k.repeat_interleave(groups, dim=2) if groups > 1 else k
         vr = v.repeat_interleave(groups, dim=2) if groups > 1 else v
         impl = self.cfg.attention_impl
@@ -272,10 +314,15 @@ class LlamaAttention(nn.Module):
             scores = scores + attn_bias.float()
             probs = torch.softmax(scores, dim=-1).to(x.dtype)
             ctx = torch.einsum("bhts,bshd->bthd", probs, vr)
-        return self.o_proj(ctx.reshape(b, t, -1)), new_cache
+        return exit_tp(self.o_proj(ctx.reshape(b, t, -1)), self.tp, sp), new_cache
 
 
 class LlamaMLP(nn.Module):
+    """SwiGLU (GeGLU) MLP; under tensor parallelism gate/up column-parallel
+    and down row-parallel, as ``LlamaAttention``."""
+
+    tp = None
+
     def __init__(self, cfg: LlamaConfig, *, device=None, generator=None):
         super().__init__()
         if cfg.mlp_activation not in ("silu", "gelu_tanh"):
@@ -286,8 +333,9 @@ class LlamaMLP(nn.Module):
         self.up_proj = _linear(cfg, h, i, device, generator)
         self.down_proj = _linear(cfg, i, h, device, generator)
 
-    def forward(self, x):
-        return self.down_proj(self.act(self.gate_proj(x), self.up_proj(x)))
+    def forward(self, x, sp: bool = False):
+        x = enter_tp(x, self.tp, sp)
+        return exit_tp(self.down_proj(self.act(self.gate_proj(x), self.up_proj(x))), self.tp, sp)
 
 
 def _norm(cfg: LlamaConfig, device) -> nn.Module:
@@ -321,14 +369,15 @@ class LlamaDecoderLayer(nn.Module):
         self.input_layernorm = _norm(cfg, device)
         self.post_attention_layernorm = _norm(cfg, device)
 
-    def forward(self, x, attn_bias, positions, cache=None, hooks=None):
+    def forward(self, x, attn_bias, positions, cache=None, hooks=None, sp: bool = False):
         """hooks: optional {component: fn} of this layer's inner sites,
         "block_input", "attention_output" and "mlp_output"; "block_output" is
-        the caller's."""
+        the caller's.  sp: x is this rank's slice of the sequence
+        (``parallel/annotate.py``)."""
         return run_block(
             x, hooks,
-            lambda h: self.self_attn(self.input_layernorm(h), attn_bias, positions, cache),
-            lambda h: self.mlp(self.post_attention_layernorm(h)))
+            lambda h: self.self_attn(self.input_layernorm(h), attn_bias, positions, cache, sp=sp),
+            lambda h: self.mlp(self.post_attention_layernorm(h), sp=sp))
 
 
 HOOK_COMPONENTS = ("block_output", "block_input", "attention_output", "mlp_output")
@@ -394,6 +443,14 @@ def default_positions(b: int, t: int, segment_ids, device) -> torch.Tensor:
 
 
 class LlamaModel(nn.Module):
+    """The decoder stack.  Under tensor parallelism (``tp``) with an
+    activation mesh installed, a training forward whose sequence tp divides
+    runs the residual stream and the norms on the rank's slice of the
+    sequence (``parallel/annotate.py``) and gathers it back after the final
+    norm."""
+
+    tp = None
+
     def __init__(self, cfg: LlamaConfig, *, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
@@ -439,23 +496,35 @@ class LlamaModel(nn.Module):
         else:
             bias = attention_bias(attention_mask, t, caches, cache_index, x.dtype, x.device,
                                   segment_ids, window=cfg.sliding_window)
+        sp = annotate.sequence_parallel(x) if self.tp is not None and caches is None else None
+        if sp is not None:
+            if layer_hooks:
+                raise ValueError("layer hooks see whole sequences; sequence parallelism splits "
+                                 "them (run the hooked model with sequence_parallel off)")
+            x = annotate.shard_tokens(x)  # the JAX model's boundaries (llama.py:250, ...)
         remat = cfg.remat and caches is None and self.training and torch.is_grad_enabled()
         context_fn = remat_context(cfg.remat_policy) if remat else None
         new_caches = None if caches is None else []
         for i, layer in enumerate(self.layers):
             hooks = inner_hooks.get(i)
             if remat:
-                x, _ = checkpoint(layer, x, bias, positions, None, hooks, use_reentrant=False,
-                                  context_fn=context_fn)
+                x, _ = checkpoint(layer, x, bias, positions, None, hooks, sp is not None,
+                                  use_reentrant=False, context_fn=context_fn)
             elif caches is None:
-                x, _ = layer(x, bias, positions, hooks=hooks)
+                x, _ = layer(x, bias, positions, hooks=hooks, sp=sp is not None)
             else:
                 kc, vc = caches[i]
                 x, nc = layer(x, bias, positions, cache=(kc, vc, cache_index), hooks=hooks)
                 new_caches.append(nc)
+            if sp is not None:
+                x = annotate.shard_tokens(x, t)  # (:315, :321) already in the layout
             if i in block_hooks:
                 x = block_hooks[i](x)
-        return self.norm(x), new_caches
+        x = self.norm(x)
+        if sp is not None:
+            # (:344) in the layout; the head takes the whole sequence
+            x = annotate.gather_tokens(annotate.shard_tokens(x, t), sp)
+        return x, new_caches
 
 
 class LlamaForCausalLM(nn.Module):
@@ -504,7 +573,8 @@ class LlamaForCausalLM(nn.Module):
              weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Shifted causal-LM cross-entropy, fp32, mean over the positions
         whose label is not ``ignore_index`` (and whose row has a nonzero
-        ``weights`` entry, for padded ragged-tail rows)."""
+        ``weights`` entry, for padded ragged-tail rows); under the Trainer's
+        mesh the global batch's mean (``multihost.loss_denominator``)."""
         shift_logits = logits[:, :-1].float()
         shift_labels = labels[:, 1:]
         mask = shift_labels != ignore_index
@@ -514,15 +584,18 @@ class LlamaForCausalLM(nn.Module):
         logp = torch.log_softmax(shift_logits, dim=-1)
         nll = -torch.gather(logp, -1, safe[..., None].long()).squeeze(-1)
         maskf = mask.float()
-        return (nll * maskf).sum() / maskf.sum().clamp_min(1.0)
+        return (nll * maskf).sum() / loss_denominator(maskf.sum())
 
 
 def init_caches(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-                device=None) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """Empty KV caches: one (k, v) pair of (b, max_len, kv_heads, head_dim) per
-    layer, on ``device`` (the card when None)."""
+                device=None, tp_size: int = 1) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Empty KV caches: one (k, v) pair of (b, max_len, kv_heads / tp_size,
+    head_dim) per layer, on ``device`` (the card when None): under tensor
+    parallelism (``parallel.sharding.model_tp_size``) the rank's kv heads."""
     device = resolve_device(device)
-    shape = (batch, max_len, cfg.kv_heads, cfg.head_width)
+    if cfg.kv_heads % tp_size:
+        raise ValueError(f"tp {tp_size} does not divide the {cfg.kv_heads} kv heads")
+    shape = (batch, max_len, cfg.kv_heads // tp_size, cfg.head_width)
     return [(torch.zeros(shape, dtype=dtype, device=device),
              torch.zeros(shape, dtype=dtype, device=device))
             for _ in range(cfg.num_hidden_layers)]

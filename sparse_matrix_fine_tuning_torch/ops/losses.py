@@ -10,7 +10,9 @@ the head's parameters collect their gradient over all chunks.
 
 Numerics as the full-logits loss: ``nll = logsumexp(logits_f32) -
 logits_f32[label]``, mean over the unmasked positions (labels shifted by
-one; ``ignore_index`` and zero rows of ``weights`` masked).
+one; ``ignore_index`` and zero rows of ``weights`` masked).  Under a mesh
+the Trainer's ``multihost.data_parallel_loss`` makes the mean the global
+batch's (``multihost.loss_denominator``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Callable, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from sparse_matrix_fine_tuning_torch.parallel.multihost import loss_denominator
 
 
 def _chunk_nll(x: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
@@ -62,7 +66,7 @@ def chunked_causal_lm_loss(hidden: torch.Tensor, head: Callable[[torch.Tensor], 
         stop = min(start + c, n)
         total = total + checkpoint(_chunk_nll, sh[start:stop], sl[start:stop],
                                    maskf[start:stop], head, use_reentrant=False)
-    return total / maskf.sum().clamp_min(1.0)
+    return total / loss_denominator(maskf.sum())
 
 
 def model_training_loss(model, input_ids, labels, *, attention_mask=None, positions=None,

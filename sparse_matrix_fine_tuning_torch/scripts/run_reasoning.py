@@ -62,8 +62,16 @@ validation split; it writes ``metrics.json`` into
 ``<output_dir>/glue_<dataset>``.  Its ``build`` seam is ``(args,
 num_labels, vocab_size) -> ReftModel``.
 
-Refused with ``NotImplementedError`` before any work: ``--mesh_fsdp``
-(ROADMAP.md queue A item 28).
+``--mesh_fsdp N`` trains over an fsdp mesh of the launched world's N ranks
+(``torchrun --nproc_per_node N -m
+sparse_matrix_fine_tuning_torch.scripts.run_reasoning ... --mesh_fsdp N``;
+``parallel/``): the frozen base FSDP2-sharded, each rank on its data rank's
+rows of the training split (``multihost.shard_data_for_process``), then
+evaluates by generating on the sharded model (every rank the whole eval
+set); only rank 0 writes the results, the generations, the metrics log and
+the checkpoints.  Refused before any work: an N other than the world size,
+and, under a mesh, ``--do_tune`` and ``--task glue`` (ROADMAP.md queue A
+item 28b).
 """
 
 from __future__ import annotations
@@ -98,6 +106,8 @@ from sparse_matrix_fine_tuning_torch.models.hf_convert import (
 )
 from sparse_matrix_fine_tuning_torch.models.llama import LlamaForCausalLM
 from sparse_matrix_fine_tuning_torch.models.roberta import RobertaForSequenceClassification
+from sparse_matrix_fine_tuning_torch.parallel import make_mesh, multihost
+from sparse_matrix_fine_tuning_torch.parallel.sharding import ITEM_28B
 from sparse_matrix_fine_tuning_torch.peft.surgery import init_monarch, param_stats
 from sparse_matrix_fine_tuning_torch.training.hpo import (
     choice,
@@ -196,7 +206,8 @@ def parse_args(argv=None):
     p.add_argument("--platform", default=None, choices=[None, "cuda", "cpu"],
                    help="where to run: the card when unset")
     p.add_argument("--mesh_fsdp", default=0, type=int,
-                   help="FSDP-shard the frozen base; refused (ROADMAP.md queue A item 28)")
+                   help="FSDP-shard the frozen base over the launched world's N ranks "
+                        "(torchrun --nproc_per_node N)")
     return p.parse_known_args(argv)
 
 
@@ -208,13 +219,33 @@ def uses_reft(args) -> bool:
     return args.intervention_type not in NO_INTERVENTION
 
 
+def world_size() -> int:
+    """The launched world's size: the process group's, else torchrun's
+    ``WORLD_SIZE`` (1 when unset)."""
+    if multihost.process_count() > 1:
+        return multihost.process_count()
+    return int(os.environ.get("WORLD_SIZE", 1))
+
+
 def check_supported(args) -> None:
-    """Raise ``NotImplementedError`` for ``--mesh_fsdp`` (ROADMAP.md queue A
-    item 28); exit, as the JAX harness does, for ``--pack`` with an
-    intervention and ``--do_tune`` on an open-ended task."""
+    """Refuse ``--mesh_fsdp`` other than the world size (``ValueError``), and
+    under a mesh ``--do_tune`` and ``--task glue`` (``NotImplementedError``,
+    ROADMAP.md queue A item 28b); exit, as the JAX harness does, for
+    ``--pack`` with an intervention and ``--do_tune`` on an open-ended
+    task."""
     if args.mesh_fsdp:
-        raise NotImplementedError(
-            "run_reasoning: --mesh_fsdp (a sharded base): item 28 (ROADMAP.md queue A)")
+        world = world_size()
+        if args.mesh_fsdp != world:
+            raise ValueError(
+                f"run_reasoning: --mesh_fsdp {args.mesh_fsdp} shards over that many ranks, one "
+                f"process a card, but this world has {world}: launch it with torchrun "
+                f"--nproc_per_node {args.mesh_fsdp} -m "
+                "sparse_matrix_fine_tuning_torch.scripts.run_reasoning ... "
+                f"--mesh_fsdp {args.mesh_fsdp}")
+        if args.do_tune or args.task == "glue":
+            raise NotImplementedError(
+                f"run_reasoning: --mesh_fsdp with {'--do_tune' if args.do_tune else '--task glue'}"
+                f": {ITEM_28B}")
     if args.pack and uses_reft(args) and args.task != "glue":
         raise SystemExit("--pack is incompatible with ReFT interventions (position "
                          "bookkeeping assumes unpacked rows); use --intervention_type Nothing")
@@ -451,6 +482,13 @@ def run(argv=None, *, build: Optional[Callable] = None,
         train_data, eff = pack_tokenized(train_data, args.max_length)
         print(f"[reasoning] packed {n_before} examples into "
               f"{len(train_data['input_ids'])} rows ({eff:.0%} token efficiency)")
+    mesh = None
+    if args.mesh_fsdp:
+        kind = "cpu" if device.type == "cpu" else None
+        multihost.initialize(device_type=kind)
+        mesh = make_mesh(fsdp=args.mesh_fsdp, device_type=kind)
+        train_data = multihost.shard_data_for_process(train_data, mesh=mesh)
+    primary = multihost.is_primary()
 
     def lm_loss(model, batch, train):
         if "intervention_locations" in batch:
@@ -478,7 +516,7 @@ def run(argv=None, *, build: Optional[Callable] = None,
             override_config([ta, pc], hp)
         model = (build or build_model)(args, pc)
         return Trainer(model, ta, train_data=train_data, loss_fn=lm_loss, logger=logger,
-                       device=device, step_context=step_context)
+                       mesh=mesh, device=device, step_context=step_context)
 
     def eval_all(model, greedy: bool = True, max_new: Optional[int] = None,
                  out: Optional[str] = None) -> dict:
@@ -499,9 +537,10 @@ def run(argv=None, *, build: Optional[Callable] = None,
             all_gen.extend(gens)
         if results:
             results["eval/average"] = float(np.mean(list(results.values())))
-        os.makedirs(out, exist_ok=True)
-        with open(os.path.join(out, "generations.json"), "w") as f:
-            json.dump(all_gen[:200], f, indent=1)
+        if primary:
+            os.makedirs(out, exist_ok=True)
+            with open(os.path.join(out, "generations.json"), "w") as f:
+                json.dump(all_gen[:200], f, indent=1)
         return results
 
     smoke_new = 8 if args.smoke else None
@@ -527,27 +566,32 @@ def run(argv=None, *, build: Optional[Callable] = None,
         print(json.dumps({"best_hyperparams": hp, "best_metric": search["best_metric"]}))
     else:
         hp = load_best_hp(out_dir)
-    os.makedirs(out_dir, exist_ok=True)
-    logger = RunLogger(out_dir, group=get_run_group(task_name=task, do_tune=args.do_tune),
-                       name=f"{task}_final", config={"task": task, "hp": hp or {}})
+    logger = None
+    if primary:
+        os.makedirs(out_dir, exist_ok=True)
+        logger = RunLogger(out_dir, group=get_run_group(task_name=task, do_tune=args.do_tune),
+                           name=f"{task}_final", config={"task": task, "hp": hp or {}})
     try:
         trainer = make_trainer(hp, logger=logger)
         watch_layers(trainer.model, logger)
-        profile = (profiling.trace(os.path.join(out_dir, "profile")) if args.profile
+        profile = (profiling.trace(os.path.join(out_dir, "profile")) if args.profile and primary
                    else contextlib.nullcontext())
         with profile:
             trainer.train()
         results = eval_all(trainer.model, greedy=args.greedy_decoding, max_new=smoke_new)
         # the keys are already "eval/<dataset>": logged verbatim, so that
         # metrics.jsonl matches eval_results.json
-        logger.log({"step": trainer.step, **{k: v for k, v in results.items()
-                                             if isinstance(v, (int, float))}})
+        if logger is not None:
+            logger.log({"step": trainer.step, **{k: v for k, v in results.items()
+                                                 if isinstance(v, (int, float))}})
         watch_layers(trainer.model, logger)
     finally:
-        logger.finish()
+        if logger is not None:
+            logger.finish()
     print(json.dumps(results))
-    with open(os.path.join(out_dir, "eval_results.json"), "w") as f:
-        json.dump(results, f, indent=1)
+    if primary:
+        with open(os.path.join(out_dir, "eval_results.json"), "w") as f:
+            json.dump(results, f, indent=1)
 
     def evaluate(greedy: bool = True, max_new: Optional[int] = None,
                  out: Optional[str] = None) -> dict:

@@ -15,7 +15,11 @@ with
 
 a ``log_history.json`` beside the checkpoints, a ``completed`` marker once
 the run has finished, and at most ``save_total_limit`` numbered
-checkpoints.  One process writes; there are no multihost barriers.
+checkpoints.  In a run of more than one process (``parallel/multihost.py``)
+only rank 0 writes: the trainable state is replicated, so its checkpoint is
+the run's; the others wait at a barrier until the write is done and return
+the same path, and every rank passes a barrier before it reads one (JAX
+checkpoint.py:88-96, :118-128).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from sparse_matrix_fine_tuning_torch.parallel import multihost
 from sparse_matrix_fine_tuning_torch.utils.jax_bridge import (
     read_jax_trainable,
     write_jax_trainable,
@@ -65,6 +70,9 @@ def save(output_dir: str, step: int, model: nn.Module, optimizer, *,
     its path."""
     name = f"checkpoint-{tag}" if tag else f"checkpoint-{step}"
     path = os.path.join(output_dir, name)
+    if not multihost.is_primary():
+        multihost.barrier()  # released once rank 0 has written
+        return path
     os.makedirs(path, exist_ok=True)
     write_jax_trainable(os.path.join(path, "trainable.npz"), model)
     _save_arrays(os.path.join(path, "opt_state.npz"), optimizer.state_arrays())
@@ -81,6 +89,7 @@ def save(output_dir: str, step: int, model: nn.Module, optimizer, *,
         open(os.path.join(output_dir, "completed"), "w").close()
     if save_total_limit:
         _prune(output_dir, save_total_limit)
+    multihost.barrier()
     return path
 
 
@@ -100,6 +109,7 @@ def _prune(output_dir: str, limit: int) -> None:
 def load(path: str, model: nn.Module, optimizer=None) -> dict:
     """Restore a checkpoint into ``model`` (every trainable parameter must be
     in it) and ``optimizer`` where given; returns its meta."""
+    multihost.barrier()  # no rank reads a checkpoint still being written
     read_jax_trainable(os.path.join(path, "trainable.npz"), model, strict=True)
     opt_path = os.path.join(path, "opt_state.npz")
     if optimizer is not None and os.path.exists(opt_path):

@@ -31,8 +31,25 @@ What it keeps of the JAX trainer:
     completed at this budget is loaded and not trained again; a completed
     shorter run is continued.
 
-Set aside, raising ``NotImplementedError``: a device mesh and sequence
-parallelism (ROADMAP.md queue A item 28) and ``state_split=False`` (the JAX
+A mesh (``mesh=``, a ``parallel.make_mesh`` over the ranks of the process
+group; JAX trainer.py:53-56, :224-237): the trainer places the model with
+``parallel.shard_model`` (the frozen base FSDP2-sharded over "fsdp" and
+tensor-parallel over "tp", the adapters and the optimizer's state
+replicated), after ``trainable_filter``.  Each rank gives the trainer its
+own rows (``parallel.multihost.shard_data_for_process``) and the per-rank
+batch size; the global batch is that times the data ranks.  Under the mesh
+the losses are the global batch's (``multihost.data_parallel_loss``), the
+gradients are summed over tp where partial and averaged over the data ranks
+before the clipping and the step (``sharding.sync_gradients``), every rank
+reports the global train and eval losses, ``group_by_length`` trims every
+rank's batch to the longest over the ranks, a resume checks that every rank
+found what rank 0 found (and raises where not), and only rank 0 writes
+checkpoints (``training/checkpoint.py``).  ``sequence_parallel`` "auto"
+turns Megatron SP on where the mesh has tp > 1, "on" forces it (a no-op
+without a mesh, as in JAX), "off" keeps it off; the activation mesh is
+installed around the trainer's own steps only (JAX trainer.py:329-341).
+
+Set aside, raising ``NotImplementedError``: ``state_split=False`` (the JAX
 package's split of the frozen base out of the jitted step; in eager
 PyTorch the frozen base is never copied, which is what ``True`` buys
 there).
@@ -52,6 +69,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from sparse_matrix_fine_tuning_torch.parallel import multihost, sharding
+from sparse_matrix_fine_tuning_torch.parallel.annotate import activation_mesh
 from sparse_matrix_fine_tuning_torch.peft.surgery import (
     DEFAULT_TRAINABLE_PATHS,
     disable_merged_training,
@@ -65,9 +84,6 @@ from sparse_matrix_fine_tuning_torch.training.adam8bit import jax_paths
 from sparse_matrix_fine_tuning_torch.training.optim import build_optimizer
 from sparse_matrix_fine_tuning_torch.utils.device import resolve_device
 from sparse_matrix_fine_tuning_torch.utils.logging import watch_layers
-
-_MESH_ITEM = "ROADMAP.md queue A item 28, 'parallel/'"
-
 
 @dataclasses.dataclass
 class TrainingArgs:
@@ -103,7 +119,9 @@ class TrainingArgs:
     state_split: bool = True       # False raises: see the module docstring
     group_by_length: bool = False
     length_bucket: int = 64
-    sequence_parallel: str = "auto"  # "on" raises: no mesh in the port yet
+    # Megatron sequence parallelism (parallel/annotate.py): "auto" on where
+    # the mesh has tp > 1; "on" / "off" force it (no mesh: nothing to do).
+    sequence_parallel: str = "auto"
 
 
 class Trainer:
@@ -116,7 +134,8 @@ class Trainer:
       loss_fn: (model, batch, train) -> scalar loss; the default is
         ``model.training_loss`` (``model.loss`` over the logits otherwise).
       compute_metrics: (model, eval_data) -> dict, optional.
-      mesh: refused (queue A item 28).
+      mesh: optional ("dp", "fsdp", "tp") ``DeviceMesh`` (the module
+        docstring); train_data and eval_data are then this rank's rows.
       device: where batches go; the card when None.
       step_context: step -> context manager, optional, entered around each
         optimizer step's ``train_step`` in ``train`` (a caller's timing or
@@ -129,10 +148,9 @@ class Trainer:
                  mesh=None, logger=None,
                  extra_trainable_paths: Iterable[str] = DEFAULT_TRAINABLE_PATHS,
                  device=None, step_context: Optional[Callable] = None):
-        if mesh is not None:
-            raise NotImplementedError(f"a device mesh: {_MESH_ITEM}")
-        if args.sequence_parallel == "on":
-            raise NotImplementedError(f"sequence parallelism: {_MESH_ITEM}")
+        if args.sequence_parallel not in ("auto", "on", "off"):
+            raise ValueError(f"sequence_parallel must be auto, on or off, got "
+                             f"{args.sequence_parallel!r}")
         if not args.state_split:
             raise NotImplementedError(
                 "state_split=False: the JAX package's jitted-step state split is on "
@@ -142,6 +160,10 @@ class Trainer:
                              f"{args.merged_training!r}")
         self.model = model
         self.args = args
+        self.mesh = mesh
+        tp = int(mesh.mesh.shape[-1]) if mesh is not None else 1
+        sp_on = args.sequence_parallel == "on" or (args.sequence_parallel == "auto" and tp > 1)
+        self._sp_mesh = mesh if sp_on else None
         self.device = resolve_device(device)
         self.train_data = train_data
         self.eval_data = eval_data
@@ -187,6 +209,8 @@ class Trainer:
     def _build(self) -> None:
         a = self.args
         trainable_filter(self.model, self.extra_paths)
+        if self.mesh is not None:
+            sharding.shard_model(self.model, self.mesh)
         # "auto" resolves to "off": the JAX rule (ga >= 2 and min(in, out) >=
         # 4096) rests on a TPU measurement; the H100's rule is ROADMAP.md
         # queue A item 11.
@@ -200,6 +224,16 @@ class Trainer:
             use_scaler=a.use_scaler, max_grad_norm=a.max_grad_norm, optim=a.optim,
             jax_paths=jax_paths(self.model, [n for n, _ in named]) if a.optim == "adamw8bit"
             else None)
+
+    def _scope(self):
+        """The contexts of a step or an evaluation under the mesh: the global
+        batch's loss and, where SP is on, the activation mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(multihost.data_parallel_loss(self.mesh))
+        stack.enter_context(activation_mesh(self._sp_mesh))
+        return stack
 
     def close(self) -> None:
         """Drop the merged-training operands (one dense-sized matrix per layer)."""
@@ -229,6 +263,9 @@ class Trainer:
         t = batch["attention_mask"].shape[-1]
         q = max(self.args.length_bucket, 1)
         maxlen = min(-(-int(batch["attention_mask"].sum(axis=1).max()) // q) * q, t)
+        if self.mesh is not None:
+            # every rank's batch the same length (JAX trainer.py:386-390)
+            maxlen = multihost.all_max(maxlen)
         if maxlen >= t:
             return batch
         return {k: (v[:, :maxlen] if k in self._TIME_KEYS and v.ndim >= 2 and v.shape[1] == t
@@ -279,15 +316,19 @@ class Trainer:
         self.optimizer.zero_grad()
         micro = [batch] if g == 1 else [{k: v[i] for k, v in batch.items()} for i in range(g)]
         total = None
-        for mb in micro:
-            loss = self.loss_fn(self.model, mb, True)
-            loss.backward()
-            total = loss.detach() if total is None else total + loss.detach()
+        with self._scope():
+            for mb in micro:
+                loss = self.loss_fn(self.model, mb, True)
+                loss.backward()
+                total = loss.detach() if total is None else total + loss.detach()
         if g > 1:
             with torch.no_grad():
                 for _, p in self.trainable_parameters():
                     if p.grad is not None:
                         p.grad.div_(g)
+        if self.mesh is not None:
+            sharding.sync_gradients(self.model)
+            total = sharding.all_mean(total, self.model)
         self.optimizer.step()
         return total / g
 
@@ -371,7 +412,11 @@ class Trainer:
         losses, counts = [], []
         for batch, n_valid in self._batches(data, self.args.per_device_eval_batch_size,
                                             shuffle=False):
-            losses.append(float(self.loss_fn(self.model, batch, False)))
+            with self._scope():
+                loss = self.loss_fn(self.model, batch, False)
+            if self.mesh is not None:
+                loss = sharding.all_mean(loss, self.model)  # the global batch's, every rank
+            losses.append(float(loss))
             counts.append(n_valid)
         loss = float(np.average(losses, weights=counts)) if losses else float("nan")
         metrics = {"eval_loss": round(loss, 5)}
@@ -427,15 +472,29 @@ class Trainer:
         a fresh start."""
         last, completed = ckpt_lib.get_last_checkpoint(self.args.output_dir,
                                                        even_if_completed=True)
+        step = 0
+        if last is not None and os.path.exists(os.path.join(last, "meta.json")):
+            with open(os.path.join(last, "meta.json")) as f:
+                step = json.load(f).get("step", 0)
+        if multihost.process_count() > 1:
+            # every rank must take rank 0's decision, or the ranks' collectives
+            # part ways (JAX trainer.py:629-643); every rank raises where any
+            # rank's view differs
+            local, root, differ = multihost.agree([last is not None, completed, step])
+            if differ:
+                raise RuntimeError(
+                    f"multi-process resume divergence: rank {multihost.process_index()} sees "
+                    f"(found={bool(local[0])}, completed={bool(local[1])}, step={local[2]}) in "
+                    f"{self.args.output_dir!r} but rank 0 sees (found={bool(root[0])}, "
+                    f"completed={bool(root[1])}, step={root[2]}) (some rank's view differs); "
+                    "checkpoints must live on storage visible to every process")
         if last is None:
             return
-        with open(os.path.join(last, "meta.json")) as f:
-            step = json.load(f).get("step", 0)
         if completed and step >= self.num_training_steps():
             # finished at this budget: load it, and train() takes no step
             print(f"Run already completed at {last}; loading it")
         else:
-            if completed:
+            if completed and multihost.is_primary():
                 # a longer budget: continue the finished shorter run
                 os.remove(os.path.join(self.args.output_dir, "completed"))
             print(f"Resuming from {last}")

@@ -96,6 +96,11 @@ MODULES = [
     "sparse_matrix_fine_tuning_torch.training.checkpoint",
     "sparse_matrix_fine_tuning_torch.training.trainer",
     "sparse_matrix_fine_tuning_torch.training.hpo",
+    "sparse_matrix_fine_tuning_torch.parallel",
+    "sparse_matrix_fine_tuning_torch.parallel.mesh",
+    "sparse_matrix_fine_tuning_torch.parallel.sharding",
+    "sparse_matrix_fine_tuning_torch.parallel.annotate",
+    "sparse_matrix_fine_tuning_torch.parallel.multihost",
 ]
 FORBIDDEN = ("jax", "flax", "triton", "transformers", "safetensors", "tokenizers", "regex",
              "sentencepiece", "sparse_matrix_fine_tuning_tpu")

@@ -43,7 +43,7 @@ def test_torch_reasoning_loads_a_local_checkpoint(tmp_path, flags, remat, policy
 
 
 @pytest.mark.parametrize("extra,raised,match", [
-    (["--mesh_fsdp=4"], NotImplementedError, "item 28"),
+    (["--mesh_fsdp=4"], ValueError, "torchrun --nproc_per_node 4"),
     (["--pack=True", "--intervention_type", "LoreftIntervention"], SystemExit,
      "incompatible with ReFT"),
 ])

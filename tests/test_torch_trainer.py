@@ -212,13 +212,39 @@ def test_torch_trainer_checkpoint_round_trip(tmp_path):
 
 @pytest.mark.parametrize("kw,item", [({"merged_training": "sometimes"}, ValueError),
                                      ({"state_split": False}, NotImplementedError),
-                                     ({"sequence_parallel": "on"}, NotImplementedError)])
+                                     ({"sequence_parallel": "sometimes"}, ValueError)])
 def test_torch_trainer_refuses_unported_options(tmp_path, kw, item):
     tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     surgery.init_monarch(tm, PEFT)
     args = dataclasses.replace(_args(TrainingArgs, tmp_path, "port", "off"), **kw)
     with pytest.raises(item):
         Trainer(tm, args, train_data=_data(), device="cpu")
+
+
+def test_torch_trainer_sequence_parallel_without_mesh_is_noop(tmp_path):
+    """``sequence_parallel="on"`` without a mesh does nothing, as in JAX
+    (trainer.py:329-341): no activation mesh is installed and the step's
+    loss and gradients are those with it off, bit for bit."""
+    from sparse_matrix_fine_tuning_torch.parallel import get_activation_mesh
+
+    grads = {}
+    for sp in ("off", "on"):
+        tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+        surgery.init_monarch(tm, PEFT)
+        args = dataclasses.replace(_args(TrainingArgs, tmp_path, f"sp_{sp}", "off"),
+                                   sequence_parallel=sp)
+        tr = Trainer(tm, args, train_data=_data(), device="cpu")
+        batch, _ = next(tr._batches(tr.train_data, BS, accum=GA))
+        seen = []
+        real = tr.loss_fn
+        tr.loss_fn = lambda m, b, t: (seen.append(get_activation_mesh()), real(m, b, t))[1]
+        loss = tr.train_step(batch)
+        assert seen and all(m is None for m in seen)
+        grads[sp] = (loss, {n: p.grad.clone() for n, p in tm.named_parameters()
+                            if p.grad is not None})
+    assert torch.equal(grads["on"][0], grads["off"][0])
+    for name, g in grads["off"][1].items():
+        assert torch.equal(grads["on"][1][name], g)
 
 
 def _resume_args(tmp_path, name, steps, grouped):
